@@ -1,0 +1,54 @@
+"""JAX (flax) ADM U-Net parameters -> the port's state_dict.
+
+The JAX tree is a nested mapping of arrays, `['params'][<module>][<leaf>]`
+with the flax module names (conv_in, map_layer0/1, out_norm, out_conv, and
+per block enc_{r}x{r}_block{i}, enc_{r}x{r}_down, dec_{r}x{r}_in{0,1},
+dec_{r}x{r}_up, dec_{r}x{r}_block{i} holding norm0, conv0, affine, norm1,
+conv1, skip, GroupNorm_0, qkv, proj). Layouts:
+
+  3x3 conv kernel  HWIO (3, 3, C, O)  -> weight, unchanged
+  1x1 conv kernel  (1, 1, C, O)       -> weight (C, O)
+  Dense kernel     (in, out)          -> weight (out, in)
+  norm scale/bias                     -> weight/bias
+
+This is the only bridge between the two packages; it needs numpy, not JAX.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+
+_MODULE_NAMES = {"GroupNorm_0": "attn_norm"}
+
+
+def _leaf(name: str, arr: np.ndarray):
+    if name == "scale":
+        return "weight", arr
+    if name == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 4 and arr.shape[:2] == (1, 1):
+            return "weight", arr.reshape(arr.shape[2:])
+        return "weight", arr
+    return name, arr
+
+
+def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert a flax AdmUNet parameter tree (with or without the outer
+    'params' collection) into a state_dict for m_cedm_tpu_torch's AdmUNet."""
+    tree = params["params"] if "params" in params else params
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, prefix + _MODULE_NAMES.get(key, key) + ".")
+            else:
+                leaf, arr = _leaf(key, np.asarray(val, np.float32))
+                out[prefix + leaf] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(tree, "")
+    return out

@@ -1,0 +1,52 @@
+"""Hand-written Hopper kernels of the port and the op sets the model runs.
+
+The U-Net calls its four fused operations through an `Ops` set:
+
+  DEVICE_OPS  the kernel wrappers: the CUDA kernel for CUDA tensors, the
+              plain PyTorch version for CPU tensors (the default);
+  PLAIN_OPS   the plain PyTorch versions on any device: the reference the
+              kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+from m_cedm_tpu_torch.kernels.fused_attention import attention, attention_plain
+from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, gn_silu,
+                                                 gn_silu_plain)
+from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
+                                                      gn_silu_conv_plain,
+                                                      gn_silu_up_conv,
+                                                      gn_silu_up_conv_plain)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ops:
+    gn_silu: Callable
+    gn_silu_conv: Callable
+    gn_silu_up_conv: Callable
+    attention: Callable
+
+
+DEVICE_OPS = Ops(gn_silu, gn_silu_conv, gn_silu_up_conv, attention)
+PLAIN_OPS = Ops(gn_silu_plain, gn_silu_conv_plain, gn_silu_up_conv_plain,
+                attention_plain)
+
+# every kernel wrapper, by the name chip_smoke.py reports
+WRAPPERS: Dict[str, Callable] = {
+    "K1 gn_silu": gn_silu,
+    "K1 channel_stats": channel_stats,
+    "K2 gn_silu_conv": gn_silu_conv,
+    "K3 gn_silu_up_conv": gn_silu_up_conv,
+    "K4 attention": attention,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

@@ -35,3 +35,8 @@ def _clear_jax_caches_between_modules():
     """
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips on machines without one")

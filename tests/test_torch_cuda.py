@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The file imports
+neither JAX nor tests/conftest.py's JAX set-up, so it runs on a machine that
+has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+The shapes do not fill the kernels' tiles (ragged pixel tiles, a second
+64-wide output-channel tile, a sequence length that is no multiple of the key
+tile), so the edge handling is what is tested; chip_smoke.py holds the same
+kernels to the same plain versions at the flagship shapes.
+
+Tolerances: both sides are fp32 (TF32 off) and differ only in summation
+order, plus the fp32 atomics of the emitted statistics: outputs to rtol 1e-5 /
+atol 1e-5, sums of squares to rtol 1e-5 / atol 1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from m_cedm_tpu_torch import kernels
+from m_cedm_tpu_torch.kernels import fused_attention as tfa
+from m_cedm_tpu_torch.kernels import fused_norm as tfn
+from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TOL_SQ = dict(rtol=1e-5, atol=1e-4)
+MODES = ["none", "identity", "identity_up", "proj", "linear"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from m_cedm_tpu_torch.kernels._launch import fp32_reference_math
+
+    fp32_reference_math()
+    return torch.device("cuda")
+
+
+def _leaves(t):
+    return [u for s in t for u in _leaves(s)] if isinstance(t, tuple) else [t]
+
+
+def _assert_out(got, want):
+    """out or (out, (sums, sumsq)): the first leaf is the activation."""
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(),
+                                   **(TOL if i == 0 else TOL_SQ))
+
+
+def _inputs(seed, dev, b, h, w, c, o, cr):
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, sc=1.0, sh=0.0):
+        return torch.from_numpy((rs.randn(*shape) * sc + sh).astype(np.float32)).to(dev)
+
+    x = t(b, h, w, c, sc=0.8, sh=0.3)
+    x3 = x.reshape(b, h * w, c)
+    return dict(x=x, gamma=t(b, c, sc=0.3, sh=1.0), beta=t(b, c, sc=0.3),
+                w=t(3, 3, c, o, sc=1.0 / np.sqrt(9 * c)), bias=t(o, sc=0.3),
+                res=t(b, h, w, o), res_lo=t(b, h // 2, w // 2, o),
+                res_proj=t(b, h, w, cr), skw=t(cr, o, sc=1.0 / np.sqrt(cr)),
+                skb=t(o, sc=0.3), stats=(x3.sum(1), (x3 * x3).sum(1)))
+
+
+def _block(fn, inp, mode, groups, stats=None):
+    act = mode != "linear"
+    kw = {}
+    if mode == "identity":
+        kw = dict(residual=inp["res"])
+    elif mode == "identity_up":
+        kw = dict(residual=inp["res_lo"], res_up=True)
+    elif mode == "proj":
+        kw = dict(residual=inp["res_proj"], skip_w=inp["skw"], skip_b=inp["skb"])
+    return fn(inp["x"], inp["gamma"] if act else None, inp["beta"] if act else None,
+              inp["w"], inp["bias"], groups if act else 0, 1e-5, stats=stats,
+              emit_stats=True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(2, 12, 20, 24, 40), (1, 10, 6, 8, 70)],
+                         ids=["ragged-tile", "two-out-tiles"])
+def test_k2_matches_plain(cuda, mode, shape):
+    b, h, w, c, o = shape
+    if mode == "identity_up":
+        h, w = h - h % 2, w - w % 2
+    inp = _inputs(10, cuda, b, h, w, c, o, cr=36)
+    want = _block(tfnc.gn_silu_conv_plain, inp, mode, 4)
+    for stats in (None, inp["stats"]):
+        _assert_out(_block(tfnc.gn_silu_conv, inp, mode, 4, stats=stats), want)
+
+
+@pytest.mark.cuda
+def test_k1_k3_k4_match_plain(cuda):
+    inp = _inputs(11, cuda, 2, 7, 9, 32, 40, cr=32)
+    b, h, w, c = inp["x"].shape
+    x3 = inp["x"].reshape(b, h * w, c)
+    g, bt = inp["gamma"], inp["beta"]
+    want = tfn.gn_silu_plain(x3, g, bt, 8)
+    _assert_out(tfn.gn_silu(x3, g, bt, 8), want)
+    _assert_out(tfn.gn_silu(x3, g, bt, 8, stats=inp["stats"]), want)
+    up = (inp["x"], g, bt, inp["w"], inp["bias"], 8)
+    _assert_out(tfnc.gn_silu_up_conv(*up, emit_stats=True),
+                tfnc.gn_silu_up_conv_plain(*up, emit_stats=True))
+    q, k, v = (torch.randn(3, 100, 64, device=cuda) for _ in range(3))
+    _assert_out(tfa.attention(q, k, v), tfa.attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [24, 64, 320])
+def test_channel_stats_match_plain(cuda, c):
+    """Channel counts that divide the block, do not, and exceed it."""
+    x = torch.randn(2, 300, c, device=cuda) * 0.8 + 0.3
+    for got, want in zip(tfn.channel_stats(x), tfn.channel_stats_plain(x)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL_SQ)
+
+
+@pytest.mark.cuda
+def test_wrappers_count_kernel_launches(cuda):
+    inp = _inputs(12, cuda, 1, 8, 8, 16, 16, cr=16)
+    kernels.reset_launches()
+    _block(tfnc.gn_silu_conv, inp, "identity", 4)  # channel_stats, then K2
+    _block(tfnc.gn_silu_conv_plain, inp, "identity", 4)
+    assert kernels.launches() == {"K1 gn_silu": 0, "K1 channel_stats": 1,
+                                  "K2 gn_silu_conv": 1, "K3 gn_silu_up_conv": 0,
+                                  "K4 attention": 0}
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_gradients(cuda):
+    q = torch.randn(1, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tfa.attention(q, q, q)
