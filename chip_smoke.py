@@ -12,18 +12,33 @@ Phases, each printing JSON lines:
               (CUDA events, median of 10 runs of 10 back-to-back calls)
   3. forward  one full-width U-Net forward (B = 16, res 128, ch 64, the four
               attention sites), kernel path against the plain path
+  2b. backward each backward kernel against autograd of its plain forward at
+              the flagship shapes (every K2 mode the U-Net's train step
+              uses), every gradient output's max abs and relative error
+              beside the tolerance, kernel vs plain time of the backward
+              alone, and scaled_dot_product_attention's time for K4
   4. eval     McedmTask.eval_step for mask task "u" at B = 16 with the
               flagship sampler (50 Heun steps, S_churn 15) on seeded synthetic
               shallow-water fields, on the kernel path with every launch
               counter read; then the plain path and the kernel path in turns,
               three timed evals each (median reported), and the two paths'
               metrics held to each other
+  5. train    McedmTask.train_step at B = 16, full width and depth: three
+              steps from one state on the kernel path (launch counters read)
+              and on the plain path, loss, gradient norm, params and EMA held
+              to each other; then ms per step on both paths (median of the
+              timed steps after warm-up) and one profiled kernel-path step
 
-Then the per-kernel summary line {"kernels": [...]} (launches counted in the
-kernel-path eval of phase 4), and the last line names the device. The plain
-versions run with TF32 off (kernels._launch.fp32_reference_math). Every
-failed check raises, so the exit code is non-zero; with no CUDA device the
-script exits 2 before printing any result.
+Then the per-kernel summary line {"kernels": [...]} (forward launches counted
+in the kernel-path eval of phase 4, backward launches in the kernel-path
+train steps of phase 5), the nvidia-smi line, and the last line names the
+device. `bound_ms` is the least time the card could take for a kernel's work
+at the timed shape: the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
+peak of an H100 SXM (the kernels run fp32 on CUDA cores). The plain versions
+run with TF32 off (kernels._launch.fp32_reference_math). Every failed check
+raises, so the exit code is non-zero; with no CUDA device the script exits 2
+before printing any result.
 """
 from __future__ import annotations
 
@@ -89,6 +104,24 @@ TOL_KNOWN = 1e-5
 # amplify that by more than a few times
 TOL_METRICS = 1e-4
 EVAL_RUNS = 3  # timed evals per path, taken in turns; the median is reported
+# Backward kernels against autograd of the plain forward run in float64 on the
+# same inputs, as max|err| / max(1, max|reference|) per gradient output. A
+# weight gradient sums 16 * 128 * 128 = 262,144 pixels, and dgamma / dbeta
+# 16,384, in fp32 through fp32 atomics in no fixed order; the rounding of
+# such a sum grows with its length, so the bound is 1e-4 of the gradient's
+# scale, with the JAX package's 1e-3 against the torch reference as the
+# ceiling.
+TOL_BWD = 1e-4
+# The train step, kernel path vs plain path: the loss and gradient norm of
+# each step to 1e-4 relative; after three Adam steps the parameters are held
+# to 2 * lr * steps absolute, since Adam moves an entry by about lr whatever
+# its gradient's size, and an entry whose gradient is near zero can take the
+# other sign on rounding alone; the EMA moves 0.001 of that.
+TOL_TRAIN = 1e-4
+TRAIN_STEPS = 3
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+PEAK_FLOPS = 67e12    # H100 SXM fp32, outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 KERNEL_INFO = {
     "K1 gn_silu": ("m_cedm_tpu_torch/csrc/fused_norm.cu",
@@ -101,6 +134,14 @@ KERNEL_INFO = {
                            "m_cedm_tpu/pallas/fused_norm_conv.py:1070"),
     "K4 attention": ("m_cedm_tpu_torch/csrc/fused_attention.cu",
                      "m_cedm_tpu/pallas/fused_attention.py:48"),
+    "K1 gn_silu_bwd": ("m_cedm_tpu_torch/csrc/fused_norm.cu",
+                       "m_cedm_tpu/pallas/fused_norm.py:142"),
+    "K2 gn_silu_conv_bwd": ("m_cedm_tpu_torch/csrc/fused_norm_conv_bwd.cu",
+                            "m_cedm_tpu/pallas/fused_norm_conv.py:1294"),
+    "K3 gn_silu_up_conv_bwd": ("m_cedm_tpu_torch/csrc/fused_norm_conv_bwd.cu",
+                               "m_cedm_tpu/pallas/fused_norm_conv.py:2497"),
+    "K4 attention_bwd": ("m_cedm_tpu_torch/csrc/fused_attention.cu",
+                         "m_cedm_tpu/pallas/fused_attention.py:63"),
 }
 
 
@@ -149,6 +190,23 @@ def compare(got, want, tol: float, name: str) -> dict:
     if rel > tol:
         raise AssertionError(f"{name}: error {err:.3e} (rel {rel:.3e}) beyond {tol:.1e}")
     return {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    FLOPs over the fp32 rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(4 * t.numel() for t in tensors if t is not None)
+
+
+def conv_flops(b: int, h: int, w: int, c: int, o: int) -> float:
+    return 2.0 * 9 * c * o * b * h * w
 
 
 def seeded_params(model, seed: int):
@@ -244,7 +302,9 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
     def flat(t):  # out, or (out, (sums, sumsq)), or (sums, sumsq)
         return [u for s in t for u in flat(s)] if isinstance(t, tuple) else [t]
 
-    def check(kernel, mode, got, want, k_fn, p_fn):
+    def check(kernel, mode, got, want, k_fn, p_fn, work=None):
+        """`work`: (bytes, flops) of the kernel's call, given for the mode
+        whose time the summary line reports (each kernel's first)."""
         errs = [compare(a, w, TOL_KERNEL, f"{kernel} {mode} output {i}")
                 for i, (a, w) in enumerate(zip(flat(got), flat(want), strict=True))]
         rec = {"phase": "kernel", "kernel": kernel, "mode": mode,
@@ -252,13 +312,10 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
                "outputs_checked": len(errs)}
         rec["ms"] = cuda_ms(k_fn)
         rec["plain_ms"] = cuda_ms(p_fn)
+        if work is not None:
+            rec.update(bound(*work), library_ms=None)
         emit(rec)
-        prev = results.get(kernel)
-        if prev is None or rec["max_rel_err"] > prev["max_rel_err"]:
-            keep = dict(rec)
-            if prev is not None:  # keep the timing of the kernel's first mode
-                keep["ms"], keep["plain_ms"] = prev["ms"], prev["plain_ms"]
-            results[kernel] = keep
+        keep_result(results, rec)
 
     with torch.no_grad():
         n = res * res
@@ -269,14 +326,16 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
         gr = adm_groups(c)
         stats = fn.channel_stats_plain(x)
         check("K1 channel_stats", "(B,N,C)", fn.channel_stats(x), stats,
-              lambda: fn.channel_stats(x), lambda: fn.channel_stats_plain(x))
+              lambda: fn.channel_stats(x), lambda: fn.channel_stats_plain(x),
+              work=(nbytes(x, *stats), 3.0 * x.numel()))
         want = fn.gn_silu_plain(x, gamma, beta, gr)
         # the first mode of each kernel is timed alone (chained stats): its
         # time is the one the summary line reports
         check("K1 gn_silu", "chained stats",
               fn.gn_silu(x, gamma, beta, gr, stats=stats), want,
               lambda: fn.gn_silu(x, gamma, beta, gr, stats=stats),
-              lambda: fn.gn_silu_plain(x, gamma, beta, gr))
+              lambda: fn.gn_silu_plain(x, gamma, beta, gr),
+              work=(nbytes(x, gamma, beta, *stats, want), 6.0 * x.numel()))
         check("K1 gn_silu", "own stats pass", fn.gn_silu(x, gamma, beta, gr), want,
               lambda: fn.gn_silu(x, gamma, beta, gr),
               lambda: fn.gn_silu_plain(x, gamma, beta, gr))
@@ -287,10 +346,14 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
             got = fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw)
             plain_kw = {k: v for k, v in kw.items() if k != "stats"}
             want = fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups, **plain_kw)
+            b_, h_, w_, c_ = x.shape
+            work = (nbytes(x, gamma, beta, w, bias, *(kw.get("stats") or ()),
+                           kw.get("residual"), *flat(want)),
+                    conv_flops(b_, h_, w_, c_, w.shape[-1]))
             check("K2 gn_silu_conv", mode, got, want,
                   lambda: fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw),
                   lambda: fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups,
-                                                 **plain_kw))
+                                                 **plain_kw), work=work)
 
         def conv_w(ci, co):
             return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
@@ -330,14 +393,221 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
               lambda: fnc.gn_silu_up_conv(xl, gamma, beta, w, bias, gr,
                                           stats=xl_stats, emit_stats=True),
               lambda: fnc.gn_silu_up_conv_plain(xl, gamma, beta, w, bias, gr,
-                                                emit_stats=True))
+                                                emit_stats=True),
+              work=(nbytes(xl, gamma, beta, w, bias, *xl_stats, *flat(want)),
+                    conv_flops(b, res, res, ch, ch)))
 
         # K4 at the 32x32 attention sites: (B * heads, 1024, 64)
         L = (res // 4) ** 2
         q, k, v = (rnd(b, L, 64) for _ in range(3))
-        check("K4 attention", "(N, L, D)", fa.attention(q, k, v),
-              fa.attention_plain(q, k, v), lambda: fa.attention(q, k, v),
-              lambda: fa.attention_plain(q, k, v))
+        want = fa.attention_plain(q, k, v)
+        check("K4 attention", "(N, L, D)", fa.attention(q, k, v), want,
+              lambda: fa.attention(q, k, v), lambda: fa.attention_plain(q, k, v),
+              work=(nbytes(q, k, v, want), 4.0 * b * L * L * 64))
+        lib = sdpa_forward(q, k, v, want)
+        results["K4 attention"]["library_ms"] = lib["ms"]
+        emit({"phase": "kernel", "kernel": "K4 attention", "library": lib})
+    return results
+
+
+def keep_result(results: dict, rec: dict) -> None:
+    """Per kernel: the largest error over its modes, with the time, bound and
+    library time of its first (summary) mode."""
+    prev = results.get(rec["kernel"])
+    if prev is None:
+        results[rec["kernel"]] = dict(rec)
+    elif rec["max_rel_err"] > prev["max_rel_err"]:
+        for k in ("max_abs_err", "max_rel_err", "tol"):
+            prev[k] = rec[k]
+
+
+def _sdpa():
+    """scaled_dot_product_attention pinned to its memory-efficient backend,
+    which takes fp32 at D = 64 (the flash backend takes only fp16 / bf16)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call(q, k, v):  # (N, L, D) as (N, 1, L, D)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                                  v[:, None])[:, 0]
+    return call, "EFFICIENT_ATTENTION"
+
+
+def sdpa_forward(q, k, v, want) -> dict:
+    """The library call that computes K4's function, timed as the kernels
+    are; the port never calls it."""
+    call, backend = _sdpa()
+    err = compare(call(q, k, v), want, TOL_KERNEL, "sdpa forward")
+    return {"call": "torch.nn.functional.scaled_dot_product_attention",
+            "backend": backend, "ms": cuda_ms(lambda: call(q, k, v)), **err}
+
+
+def phase_backward(device, b: int, res: int, ch: int) -> dict:
+    """Every backward kernel against autograd of its plain forward (TF32
+    off), at the shapes the flagship train step gives it; returns per-kernel
+    summaries. Times are of the backward alone: autograd.grad over a kept
+    graph, kernel path vs plain path."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import fused_attention as fa
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+
+    def rnd(*shape, scale=1.0, shift=0.0, grad=True):
+        t = torch.randn(shape, generator=g, device=device) * scale + shift
+        return t.requires_grad_(grad)
+
+    def fold(c):
+        return rnd(b, c, scale=0.3, shift=1.0), rnd(b, c, scale=0.3)
+
+    results = {}
+
+    def check(kernel, mode, kernel_fn, plain_fn, inputs, work=None):
+        """kernel_fn / plain_fn map the inputs to the output whose cotangent
+        is a seeded normal. Every input's gradient is held to autograd of the
+        plain forward in float64 on the same inputs (the fp32 plain path's
+        own error against it is reported beside the kernel's); the times are
+        of the fp32 backward on each path."""
+        inputs = list(inputs)
+        want_inputs = [t for t in inputs if t is not None and t.requires_grad]
+        k_out, p_out = kernel_fn(*inputs), plain_fn(*inputs)
+        cot = torch.randn(p_out.shape, generator=g, device=device)
+
+        def grads(out, wrt=want_inputs, c=cot):
+            return torch.autograd.grad(out, wrt, c, retain_graph=True)
+
+        in64 = [None if t is None else t.detach().double().requires_grad_(t.requires_grad)
+                for t in inputs]
+        want = grads(plain_fn(*in64), [t for t in in64 if t is not None and t.requires_grad],
+                     cot.double())
+        errs = [compare(a, w, TOL_BWD, f"{kernel} {mode} gradient {i}")
+                for i, (a, w) in enumerate(zip(grads(k_out), want, strict=True))]
+        plain_errs = [compare(a, w, 1.0, f"{kernel} {mode} plain gradient {i}")
+                      for i, (a, w) in enumerate(zip(grads(p_out), want, strict=True))]
+        rec = {"phase": "backward", "kernel": kernel, "mode": mode,
+               **max(errs, key=lambda e: e["max_rel_err"]),
+               "gradients": errs,
+               "plain_fp32_max_rel_err": max(e["max_rel_err"] for e in plain_errs),
+               "ms": cuda_ms(lambda: grads(k_out)),
+               "plain_ms": cuda_ms(lambda: grads(p_out))}
+        if work is not None:
+            rec.update(bound(*work), library_ms=None)
+        emit(rec)
+        keep_result(results, rec)
+        return rec
+
+    # K1 backward: the down-block prefix and the out-head norm, (B, N, C)
+    n = res * res
+    x = rnd(b, n, ch, scale=0.8, shift=0.2)
+    gamma, beta = fold(ch)
+    gr = adm_groups(ch)
+    with torch.no_grad():
+        stats = fn.channel_stats_plain(x)
+    check("K1 gn_silu_bwd", "chained stats",
+          lambda *a: fn.gn_silu(*a, gr, stats=stats),
+          lambda *a: fn.gn_silu_plain(*a, gr), (x, gamma, beta),
+          work=(nbytes(x, x, x, gamma, beta, *stats, gamma, beta),
+                20.0 * x.numel()))
+
+    # K2 backward, every mode of the train step at its flagship shape
+    def conv_w(ci, co):
+        return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
+
+    def k2(mode, x, gamma, beta, w, bias, stats=None, **kw):
+        act = gamma is not None
+        groups = adm_groups(x.shape[-1]) if act else 0
+        names = [k for k, v in kw.items() if torch.is_tensor(v)]
+        fixed = {k: v for k, v in kw.items() if k not in names}
+
+        def run(f, st):
+            def call(x, gamma, beta, w, bias, *rest):
+                return f(x, gamma, beta, w, bias, groups, stats=st,
+                         **dict(zip(names, rest)), **fixed)
+            return call
+
+        def drop_stats(f):
+            def plain(*a, stats=None, **k):
+                return f(*a, **k)
+            return plain
+
+        b_, h_, w_, c_ = x.shape
+        o = w.shape[-1]
+        need_da = x.requires_grad or act
+        outs = [x] if need_da else []
+        if act:
+            outs += [gamma, beta]
+        work = (nbytes(x, gamma, beta, w, *(stats or ()), *[kw[k] for k in names],
+                       torch.empty(b_, h_, w_, o, device="meta"), *outs, w, bias),
+                conv_flops(b_, h_, w_, c_, o) * (2 if need_da else 1))
+        return check("K2 gn_silu_conv_bwd", mode, run(fnc.gn_silu_conv, stats),
+                     run(drop_stats(fnc.gn_silu_conv_plain), None),
+                     [x, gamma, beta, w, bias] + [kw[k] for k in names],
+                     work=work)
+
+    h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
+    with torch.no_grad():
+        hstats = fnc._out_stats_plain(h)
+    gamma, beta = fold(ch)
+    w, bias = conv_w(ch, ch), rnd(ch, scale=0.3)
+    k2("identity (block tail), chained stats", h, gamma, beta, w, bias,
+       stats=hstats, residual=rnd(b, res, res, ch))
+    k2("identity, own stats pass", h, gamma, beta, w, bias,
+       residual=rnd(b, res, res, ch))
+    k2("identity_up", h, gamma, beta, w, bias,
+       residual=rnd(b, res // 2, res // 2, ch), res_up=True)
+    xc = rnd(b, res, res, 2 * ch, scale=0.8, shift=0.2)
+    k2("proj from 128-channel concat (conv1 + tail)", h, gamma, beta, w, bias,
+       residual=xc, skip_w=rnd(2 * ch, ch, scale=1.0 / math.sqrt(2 * ch)),
+       skip_b=rnd(ch, scale=0.3))
+    gc, bc = fold(2 * ch)
+    k2("128-channel input (decoder conv0)", xc, gc, bc, conv_w(2 * ch, ch), bias)
+    k2("act=False (conv_in, no input gradient)",
+       rnd(b, res, res, 4, grad=False), None, None, conv_w(4, ch), bias)
+    k2("act=False (down-block conv0 at res/2)",
+       rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2), None, None,
+       conv_w(ch, ch), bias)
+    k2("act=False, O=2 (out conv)", h, None, None, conv_w(ch, 2),
+       rnd(2, scale=0.3))
+
+    # K3 backward: decoder up-block conv0, (B, res/2, res/2, C) -> (B, res, res, C)
+    xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
+    with torch.no_grad():
+        xl_stats = fnc._out_stats_plain(xl)
+    w, bias = conv_w(ch, ch), rnd(ch, scale=0.3)
+    check("K3 gn_silu_up_conv_bwd", "up block conv0, chained stats",
+          lambda *a: fnc.gn_silu_up_conv(*a, gr, stats=xl_stats),
+          lambda *a: fnc.gn_silu_up_conv_plain(*a, gr),
+          (xl, gamma, beta, w, bias),
+          work=(nbytes(xl, gamma, beta, w, *xl_stats,
+                       torch.empty(b, res, res, ch, device="meta"),
+                       xl, gamma, beta, w, bias),
+                2 * conv_flops(b, res, res, ch, ch)))
+
+    # K4 backward at the 32x32 attention sites: (B * heads, 1024, 64)
+    L = (res // 4) ** 2
+    q, k, v = (rnd(b, L, 64) for _ in range(3))
+    rec = check("K4 attention_bwd", "(N, L, D)", fa.attention, fa.attention_plain,
+                (q, k, v), work=(4 * (8 * b * L * 64 + b * L), 5 * 2.0 * b * L * L * 64))
+    call, backend = _sdpa()
+    out = call(q, k, v)
+    cot = torch.randn(out.shape, generator=g, device=device)
+    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(fa.attention_plain(q64, k64, v64), (q64, k64, v64),
+                               cot.double())
+    got = torch.autograd.grad(out, (q, k, v), cot, retain_graph=True)
+    lib = {"call": "torch.nn.functional.scaled_dot_product_attention (backward)",
+           "backend": backend,
+           "ms": cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), cot,
+                                                     retain_graph=True)),
+           "max_rel_err": max(compare(a, w_, TOL_BWD, "sdpa backward")["max_rel_err"]
+                              for a, w_ in zip(got, want))}
+    results["K4 attention_bwd"]["library_ms"] = lib["ms"]
+    emit({"phase": "backward", "kernel": "K4 attention_bwd", "library": lib,
+          "kernel_ms": rec["ms"]})
     return results
 
 
@@ -417,7 +687,7 @@ def phase_eval(device, hparams, params, b: int) -> dict:
     known_err = float((hu_mean[..., 0] - gt[..., 0]).abs().max())
     if known_err > TOL_KNOWN:
         raise AssertionError(f"observed channel moved by {known_err}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items() if n == 0 and not k.endswith("_bwd")]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if launches["K4 attention"] != 4 * calls:
@@ -448,6 +718,115 @@ def phase_eval(device, hparams, params, b: int) -> dict:
     return launches
 
 
+def train_steps(task, state, batch, device, first: int, n: int):
+    """n train steps with seeded generators (step i draws from seed
+    SEED + 10 + i, so both paths see the same masks and noise); returns the
+    final state, the metrics and the host-clock seconds of each step."""
+    import torch
+
+    metrics, walls = [], []
+    for i in range(first, first + n):
+        gen = torch.Generator(device=device).manual_seed(SEED + 10 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = task.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, walls
+
+
+def profile_step(task, state, batch, device, wall_s: float) -> dict:
+    """Device time by CUDA kernel over one train step under torch.profiler;
+    the idle share is taken against the unprofiled median step wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_steps(task, state, batch, device, 100, 1)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {"device_busy_ms": busy_us / 1e3,
+            "idle_share_vs_unprofiled_wall": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+            "share_by_kernel": {name: us / busy_us for name, us in top}}
+
+
+def phase_train(device, hparams, params, b: int) -> dict:
+    """McedmTask.train_step at full width and depth: kernel path against the
+    plain path over TRAIN_STEPS steps from one state, then timing."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    r = hparams["model"]["resolution"]
+    lr = hparams["optimization"]["lr"]
+    rs = np.random.RandomState(SEED + 4)
+    h, tg, xg, u = synthetic_swe_batch(rs, b, r)
+    stats = {"input_mean": h.mean(), "input_std": h.std(),
+             "target_mean": u.mean(), "target_std": u.std()}
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (h, tg, xg, u))
+    ktask = build_task(hparams, device)
+    ptask = build_task(hparams, device, ops=kernels.PLAIN_OPS)
+    kstate = ktask.init_state(None, stats, params=params)
+    pstate = ptask.init_state(None, stats, params=params)
+
+    kernels.reset_launches()
+    kfinal, kmetrics, _ = train_steps(ktask, kstate, batch, device, 0, TRAIN_STEPS)
+    launches = kernels.launches()
+    pfinal, pmetrics, _ = train_steps(ptask, pstate, batch, device, 0, TRAIN_STEPS)
+
+    for step, (km, pm) in enumerate(zip(kmetrics, pmetrics)):
+        for key in ("train_loss", "grad_norm"):
+            if not math.isfinite(km[key]) or abs(km[key] - pm[key]) > TOL_TRAIN * abs(pm[key]):
+                raise AssertionError(f"step {step} {key}: kernel {km[key]} vs plain {pm[key]}")
+
+    def max_diff(a, b_):
+        return max(float((a[k] - b_[k]).abs().max()) for k in a)
+
+    tol_params = 2 * lr * TRAIN_STEPS
+    diffs = {"params": max_diff(kfinal.params, pfinal.params),
+             "ema_params": max_diff(kfinal.ema_params, pfinal.ema_params),
+             "adam_mu": max_diff(kfinal.opt_state["mu"], pfinal.opt_state["mu"])}
+    moved = max_diff(kfinal.params, kstate.params)
+    if not (diffs["params"] <= tol_params and diffs["ema_params"] <= tol_params):
+        raise AssertionError(f"params after {TRAIN_STEPS} steps differ: {diffs}")
+    if not moved > 0:
+        raise AssertionError("the train steps did not move the parameters")
+    bwd = [k for k in KERNEL_INFO if k.endswith("_bwd")]
+    missing = [k for k in KERNEL_INFO if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the train steps: {missing}")
+    if launches["K4 attention_bwd"] != 4 * TRAIN_STEPS:
+        raise AssertionError(f"K4 backward launched {launches['K4 attention_bwd']} "
+                             f"times in {TRAIN_STEPS} steps")
+
+    n = TRAIN_WARMUP + TRAIN_TIMED  # in turns: kernel path, then plain path
+    _, _, kwalls = train_steps(ktask, kfinal, batch, device, TRAIN_STEPS, n)
+    _, _, pwalls = train_steps(ptask, pfinal, batch, device, TRAIN_STEPS, n)
+    ms = float(np.median(kwalls[TRAIN_WARMUP:])) * 1e3
+    pms = float(np.median(pwalls[TRAIN_WARMUP:])) * 1e3
+    prof = profile_step(ktask, kfinal, batch, device, ms / 1e3)
+    emit({"phase": "train", "batch": b, "steps": TRAIN_STEPS,
+          "train_loss": [m["train_loss"] for m in kmetrics],
+          "plain_train_loss": [m["train_loss"] for m in pmetrics],
+          "grad_norm": [m["grad_norm"] for m in kmetrics],
+          "plain_grad_norm": [m["grad_norm"] for m in pmetrics],
+          "tol": TOL_TRAIN, "max_abs_diff": diffs, "tol_params": tol_params,
+          "params_moved_max": moved, "launches": launches,
+          "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in bwd},
+          "ms_per_step": ms, "plain_ms_per_step": pms,
+          "step_ms": [w * 1e3 for w in kwalls],
+          "plain_step_ms": [w * 1e3 for w in pwalls], "profile": prof})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -462,16 +841,21 @@ def main() -> int:
     m = hparams["model"]
     phase_device()
     results = phase_kernels(device, BATCH, m["resolution"], m["ch"])
+    results.update(phase_backward(device, BATCH, m["resolution"], m["ch"]))
     params = phase_forward(device, hparams, BATCH)
-    launches = phase_eval(device, hparams, params, BATCH)
+    eval_launches = phase_eval(device, hparams, params, BATCH)
+    train_launches = phase_train(device, hparams, params, BATCH)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
+        launches = (train_launches if name.endswith("_bwd") else eval_launches)[name]
         summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": rec["max_abs_err"],
                         "max_rel_err": rec["max_rel_err"], "tol": rec["tol"],
-                        "ms": rec["ms"], "plain_ms": rec["plain_ms"]})
+                        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"]})
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""JAX (flax) ADM U-Net parameters -> the port's state_dict.
+"""JAX (flax) ADM U-Net parameters and train state -> the port's.
 
 The JAX tree is a nested mapping of arrays, `['params'][<module>][<leaf>]`
 with the flax module names (conv_in, map_layer0/1, out_norm, out_conv, and
@@ -11,12 +11,16 @@ conv1, skip, GroupNorm_0, qkv, proj). Layouts:
   Dense kernel     (in, out)          -> weight (out, in)
   norm scale/bias                     -> weight/bias
 
+`jax_train_state_to_torch` carries a whole JAX TrainState across: params,
+ema_params, the optax Adam state (count, mu, nu) and step, so a JAX state
+continues in the port (McedmTask.init_state takes each piece).
+
 This is the only bridge between the two packages; it needs numpy, not JAX.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,7 +52,41 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 walk(val, prefix + _MODULE_NAMES.get(key, key) + ".")
             else:
                 leaf, arr = _leaf(key, np.asarray(val, np.float32))
-                out[prefix + leaf] = torch.from_numpy(np.ascontiguousarray(arr))
+                out[prefix + leaf] = torch.from_numpy(np.array(arr))
 
     walk(tree, "")
     return out
+
+
+def _adam_state(opt_state) -> Optional[Any]:
+    """The ScaleByAdamState inside an optax chain's state (nested tuples of
+    named tuples), found by its fields; None if there is none."""
+    if hasattr(opt_state, "_fields") and {"count", "mu", "nu"} <= set(opt_state._fields):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def jax_train_state_to_torch(state) -> Dict[str, Any]:
+    """A JAX TrainState (or anything with its attributes) -> the keyword
+    arguments of McedmTask.init_state: params, ema_params, opt_state
+    ({"count", "mu", "nu"}, for the Adam and AdamW chains) and step. The
+    normalizers are rebuilt from the data statistics, as the JAX task does."""
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise NotImplementedError("only the Adam / AdamW optimizer state is "
+                                  "carried across (see ROADMAP.md)")
+    return {
+        "params": jax_params_to_state_dict(state.params),
+        "ema_params": (None if state.ema_params is None
+                       else jax_params_to_state_dict(state.ema_params)),
+        "opt_state": {"count": torch.tensor(int(np.asarray(adam.count)),
+                                            dtype=torch.int32),
+                      "mu": jax_params_to_state_dict(adam.mu),
+                      "nu": jax_params_to_state_dict(adam.nu)},
+        "step": int(np.asarray(state.step)),
+    }

@@ -2,22 +2,28 @@
 
 The U-Net calls its four fused operations through an `Ops` set:
 
-  DEVICE_OPS  the kernel wrappers: the CUDA kernel for CUDA tensors, the
-              plain PyTorch version for CPU tensors (the default);
-  PLAIN_OPS   the plain PyTorch versions on any device: the reference the
-              kernels are held against on the card.
+  DEVICE_OPS  the kernel wrappers, each a torch.autograd.Function: the CUDA
+              kernels (forward and backward) for CUDA tensors, the plain
+              PyTorch versions for CPU tensors (the default);
+  PLAIN_OPS   the plain PyTorch forwards on any device, differentiated by
+              ordinary autograd: the reference the kernels are held against
+              on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
 
-from m_cedm_tpu_torch.kernels.fused_attention import attention, attention_plain
+from m_cedm_tpu_torch.kernels.fused_attention import (attention,
+                                                      attention_bwd,
+                                                      attention_plain)
 from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, gn_silu,
-                                                 gn_silu_plain)
+                                                 gn_silu_bwd, gn_silu_plain)
 from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
+                                                      gn_silu_conv_bwd,
                                                       gn_silu_conv_plain,
                                                       gn_silu_up_conv,
+                                                      gn_silu_up_conv_bwd,
                                                       gn_silu_up_conv_plain)
 
 
@@ -40,6 +46,10 @@ WRAPPERS: Dict[str, Callable] = {
     "K2 gn_silu_conv": gn_silu_conv,
     "K3 gn_silu_up_conv": gn_silu_up_conv,
     "K4 attention": attention,
+    "K1 gn_silu_bwd": gn_silu_bwd,
+    "K2 gn_silu_conv_bwd": gn_silu_conv_bwd,
+    "K3 gn_silu_up_conv_bwd": gn_silu_up_conv_bwd,
+    "K4 attention_bwd": attention_bwd,
 }
 
 

@@ -1,5 +1,12 @@
 """Shared checks for the kernel wrappers: what a CUDA kernel accepts, how it
-is launched on PyTorch's stream, and how its result code is read."""
+is launched on PyTorch's stream, and how its result code is read.
+
+Every differentiable wrapper is a torch.autograd.Function. For CUDA tensors
+its forward and its backward both launch hand-written kernels; for CPU
+tensors the forward is the plain PyTorch version and the backward is the
+plain version of the backward kernel (the explicit formulas the kernel
+implements, not autograd of the plain forward), so the CPU tests exercise the
+math of each backward kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -31,15 +38,6 @@ def check(t: torch.Tensor, name: str, shape: Sequence[int], device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def forward_only(*tensors: Optional[torch.Tensor]) -> None:
-    """The hand-written backward kernels come with the training slice."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            "the CUDA kernels are forward-only; gradients through them are "
-            "listed in ROADMAP.md (training slice)")
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -19,8 +19,20 @@ csrc/fused_norm_conv.cu, whose header says what bounds it on an H100 and how
 its design handles that. Layouts are NHWC; conv weights are HWIO (3, 3, C, O),
 the 1x1 skip weight (C_res, O).
 
-Each wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
-version for CPU tensors, and counts kernel launches in `.launches`.
+Backward, in every mode: `gn_silu_conv_bwd` <- `_gnsc_bwd_kernel_a` (via
+`_pallas_gnsc_bwd`, `_block_bwd`, and the paired `_pallas_gnsc_bwd_paired`,
+`_blockp_bwd`) then `_dx_from_da`; `gn_silu_up_conv_bwd` <-
+`_up_pair_bwd_kernel` (via `_pallas_up_pair_bwd`). CUDA source:
+csrc/fused_norm_conv_bwd.cu (a dgrad and a wgrad kernel). The backward uses
+the statistics its forward used (chained or from K1's pass 1); emitted
+statistics are not differentiable and chained ones take a zero cotangent,
+as in the JAX package (fused_norm_conv.py:1983-1987).
+
+Both wrappers are torch.autograd.Functions: CUDA kernels for CUDA tensors,
+forward and backward; the plain PyTorch versions for CPU tensors (the
+backward's plain version is `*_bwd_plain`). `.launches` counts the forward
+kernels, `gn_silu_conv_bwd.launches` and `gn_silu_up_conv_bwd.launches` the
+backward ones.
 """
 from __future__ import annotations
 
@@ -30,10 +42,13 @@ import torch
 import torch.nn.functional as Fn
 
 from m_cedm_tpu_torch.kernels import _build
-from m_cedm_tpu_torch.kernels._launch import (F, I, P, check, forward_only,
+from m_cedm_tpu_torch.kernels._launch import (F, I, P, check,
                                               fp32_reference_math, on_cpu, ptr,
                                               raise_on_error, stream)
-from m_cedm_tpu_torch.kernels.fused_norm import channel_stats, gn_silu_plain
+from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, dx_from_da,
+                                                 gn_silu_plain, group_mean_rstd,
+                                                 group_mean_rstd_from_sums,
+                                                 silu_grad)
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 Out = Union[torch.Tensor, Tuple[torch.Tensor, Stats]]
@@ -104,6 +119,108 @@ def gn_silu_up_conv_plain(x, gamma, beta, w, bias, num_groups: int,
 
 
 # ---------------------------------------------------------------------------
+# Plain versions of the backward kernels (the CPU backward)
+# ---------------------------------------------------------------------------
+
+def _act_grad_plain(x, gamma, beta, num_groups, eps):
+    """(silu(a), silu'(a), mean, rstd) for NHWC x, a = xhat * gamma + beta,
+    with the plain forward's statistics."""
+    b, h, w, c = x.shape
+    mean, rstd = group_mean_rstd(x.reshape(b, h * w, c), num_groups, eps)
+    a = ((x - mean[:, None, None]) * rstd[:, None, None] * gamma[:, None, None]
+         + beta[:, None, None])
+    return a * torch.sigmoid(a), silu_grad(a), mean, rstd
+
+
+def conv3x3_wgrad_plain(s: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW (3, 3, C, O) of a SAME 3x3 conv: per tap, the conv input shifted by
+    the tap contracted with g over every pixel (`dW[tap] += s^T gs`)."""
+    _, h, w, _ = s.shape
+    sp = Fn.pad(s, (0, 0, 1, 1, 1, 1))
+    return torch.stack([torch.stack([
+        torch.einsum("bhwc,bhwo->co", sp[:, dr:dr + h, dc:dc + w], g)
+        for dc in range(3)]) for dr in range(3)])
+
+
+def conv3x3_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The conv input's cotangent conv3x3^T(g): the mirrored taps of the zero
+    padded cotangent against the transposed weights (`ds += gs @ W[tap]^T`)."""
+    _, h, wd, _ = g.shape
+    gp = Fn.pad(g, (0, 0, 1, 1, 1, 1))
+    return sum(torch.einsum("bhwo,co->bhwc",
+                            gp[:, 2 - dr:2 - dr + h, 2 - dc:2 - dc + wd], w[dr, dc])
+               for dr in range(3) for dc in range(3))
+
+
+def _fold2x2(t: torch.Tensor) -> torch.Tensor:
+    """Cotangent of the nearest 2x upsample: each low-res cell gets the sum of
+    its four high-res copies."""
+    b, h, w, c = t.shape
+    return t.reshape(b, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4))
+
+
+def _residual_grad(g, residual, res_up, skip_w):
+    """dres of the block tail; plain PyTorch on either device, as in the JAX
+    package (the proj mode's g @ skip_w^T is one XLA matmul there)."""
+    if residual is None:
+        return None
+    if skip_w is not None:
+        return g @ skip_w.t()
+    return _fold2x2(g) if res_up else g
+
+
+def gn_silu_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int = 0,
+                           eps: float = 1e-5, residual=None, res_up: bool = False,
+                           skip_w=None):
+    """The K2 backward kernels' formulas (_gnsc_bwd_kernel_a, then
+    _dx_from_da) with the plain forward's statistics. Returns (dx, dgamma,
+    dbeta, dw, dbias, dres, dskip_w); None where the mode has no such input.
+    dskip_b, where there is one, equals dbias."""
+    b, h, wd, c = x.shape
+    if gamma is None:  # linear mode: the conv input is x itself
+        s, dsilu = x, None
+    else:
+        s, dsilu, mean, rstd = _act_grad_plain(x, gamma, beta, num_groups, eps)
+    dw = conv3x3_wgrad_plain(s, g)
+    dbias = g.sum(dim=(0, 1, 2))
+    ds = conv3x3_dgrad_plain(g, w)
+    dgamma = dbeta = None
+    if dsilu is None:
+        dx = ds
+    else:
+        da = ds * dsilu
+        xhat = (x - mean[:, None, None]) * rstd[:, None, None]
+        dgamma, dbeta = (da * xhat).sum(dim=(1, 2)), da.sum(dim=(1, 2))
+        dx = dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups)
+    dskip_w = (torch.einsum("bhwr,bhwo->ro", residual, g)
+               if skip_w is not None else None)
+    return (dx, dgamma, dbeta, dw, dbias,
+            _residual_grad(g, residual, res_up, skip_w), dskip_w)
+
+
+def _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups):
+    """GroupNorm / SiLU backward at low resolution from the folded conv-input
+    cotangent (`_pallas_up_pair_bwd`'s XLA tail): (dx, dgamma, dbeta)."""
+    xhat = (x - mean[:, None, None]) * rstd[:, None, None]
+    a = xhat * gamma[:, None, None] + beta[:, None, None]
+    da = ds_low * silu_grad(a)
+    dgamma, dbeta = (da * xhat).sum(dim=(1, 2)), da.sum(dim=(1, 2))
+    return dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups), dgamma, dbeta
+
+
+def gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int,
+                              eps: float = 1e-5):
+    """The K3 backward kernel's formulas (_up_pair_bwd_kernel and its XLA
+    tail) with the plain forward's statistics: (dx, dgamma, dbeta, dw, dbias).
+    x is low-res (B, h, w, C), g high-res (B, 2h, 2w, O)."""
+    s, _, mean, rstd = _act_grad_plain(x, gamma, beta, num_groups, eps)
+    dw = conv3x3_wgrad_plain(upsample2x_nearest(s), g)
+    ds_low = _fold2x2(conv3x3_dgrad_plain(g, w))
+    return _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups) + (
+        dw, g.sum(dim=(0, 1, 2)))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -128,22 +245,9 @@ def _emit_buffers(emit_stats, b, o, device):
     return sums, torch.zeros_like(sums)
 
 
-def gn_silu_conv(x, gamma, beta, w, bias, num_groups: int = 0,
-                 eps: float = 1e-5, *, stats: Optional[Stats] = None,
-                 residual=None, res_up: bool = False, skip_w=None, skip_b=None,
-                 emit_stats: bool = False) -> Out:
-    """K2: the fused norm + SiLU + conv3x3 block tail (module docstring).
-
-    x (B, H, W, C); gamma/beta (B, C) or None for the linear mode; w
-    (3, 3, C, O); bias (O,) or None. residual: (B, H, W, O) identity,
-    (B, H/2, W/2, O) with res_up, or (B, H, W, C_res) with skip_w (C_res, O)
-    and skip_b (O,) or None. Returns out, or (out, (sums, sumsq)) of out's
-    channels when emit_stats."""
-    if on_cpu(x):
-        return gn_silu_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
-                                  residual=residual, res_up=res_up,
-                                  skip_w=skip_w, skip_b=skip_b,
-                                  emit_stats=emit_stats)
+def _gn_silu_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
+                         residual, res_up, skip_w, skip_b, emit_stats):
+    """K2 forward launch; returns (out or (out, out_stats), input stats)."""
     b, h, wd, c = x.shape
     o = w.shape[-1]
     dev = x.device
@@ -153,7 +257,6 @@ def gn_silu_conv(x, gamma, beta, w, bias, num_groups: int = 0,
         check(bias, "bias", (o,), dev)
     if c > _MAX_C:
         raise ValueError(f"gn_silu_conv takes at most {_MAX_C} input channels")
-    forward_only(x, gamma, beta, w, bias, residual, skip_w, skip_b)
     act = gamma is not None
     sums = sumsq = None
     if act:
@@ -184,7 +287,243 @@ def gn_silu_conv(x, gamma, beta, w, bias, num_groups: int = 0,
             eps, int(act), res_mode, stream())
     raise_on_error(rc, "mc_gn_silu_conv")
     gn_silu_conv.launches += 1
-    return (out, (osums, osumsq)) if emit_stats else out
+    return ((out, (osums, osumsq)) if emit_stats else out), (sums, sumsq)
+
+
+def _gn_silu_up_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
+                            emit_stats):
+    """K3 forward launch; returns (out or (out, out_stats), input stats)."""
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    dev = x.device
+    check(x, "x", (b, h, wd, c), dev)
+    check(w, "w", (3, 3, c, o), dev)
+    if bias is not None:
+        check(bias, "bias", (o,), dev)
+    if c > _MAX_C:
+        raise ValueError(f"gn_silu_up_conv takes at most {_MAX_C} input channels")
+    sums, sumsq = _norm_inputs(x, gamma, beta, num_groups, stats)
+    out = torch.empty((b, 2 * h, 2 * wd, o), device=dev, dtype=torch.float32)
+    osums, osumsq = _emit_buffers(emit_stats, b, o, dev)
+    fn = _build.bind("fused_norm_conv", "mc_gn_silu_up_conv",
+                     [P] * 10 + [I] * 6 + [F, P])
+    rc = fn(ptr(x), ptr(w), ptr(bias), ptr(gamma), ptr(beta), ptr(sums),
+            ptr(sumsq), ptr(out), ptr(osums), ptr(osumsq), b, 2 * h, 2 * wd, c,
+            o, num_groups, eps, stream())
+    raise_on_error(rc, "mc_gn_silu_up_conv")
+    gn_silu_up_conv.launches += 1
+    return ((out, (osums, osumsq)) if emit_stats else out), (sums, sumsq)
+
+
+_WGRAD_BLOCKS = 4 * 132   # about four wgrad blocks per SM of an H100
+
+
+def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, dw, dbias):
+    """Launch the wgrad kernel: adds into the zeroed dw (taps, C, O) and, when
+    given, dbias (O,). x (B, Hin, Win, C), g (B, H, W, O) at the output size.
+    A block owns 16 input x 64 output channels of one image and a run of its
+    8 x 16 pixel tiles; the runs per image fill about _WGRAD_BLOCKS blocks."""
+    b, h, wd, o = g.shape
+    c = x.shape[-1]
+    tiles = -(-h // 8) * -(-wd // 16)
+    blocks = b * -(-c // 16) * -(-o // 64)
+    splits = min(tiles, max(1, -(-_WGRAD_BLOCKS // blocks)))
+    sums, sumsq = stats if stats is not None else (None, None)
+    fn = _build.bind("fused_norm_conv_bwd", "mc_conv_wgrad",
+                     [P] * 8 + [I] * 6 + [F] + [I] * 4 + [P])
+    raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(sums),
+                      ptr(sumsq), ptr(dw), ptr(dbias), b, h, wd, c, o,
+                      max(num_groups, 1), eps, int(gamma is not None), taps,
+                      int(up), splits, stream()), "mc_conv_wgrad")
+
+
+_DGRAD_LINEAR, _DGRAD_ACT, _DGRAD_UP_FOLD = 0, 1, 2
+
+
+def _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, mode, out, dgamma,
+           dbeta):
+    """Launch the dgrad kernel (modes in csrc/fused_norm_conv_bwd.cu)."""
+    b, h, wd, o = g.shape
+    c = w.shape[2]
+    sums, sumsq = stats if stats is not None else (None, None)
+    fn = _build.bind("fused_norm_conv_bwd", "mc_conv_dgrad",
+                     [P] * 10 + [I] * 6 + [F, I, P])
+    raise_on_error(fn(ptr(g), ptr(w), ptr(x), ptr(gamma), ptr(beta), ptr(sums),
+                      ptr(sumsq), ptr(out), ptr(dgamma), ptr(dbeta), b, h, wd,
+                      c, o, max(num_groups, 1), eps, mode, stream()),
+                   "mc_conv_dgrad")
+
+
+def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
+                     num_groups: int = 0, eps: float = 1e-5, residual=None,
+                     res_up: bool = False, skip_w=None, need_da: bool = True):
+    """K2 backward kernels on the card, with `stats` the (sums, sumsq) the
+    forward used (None in the linear mode). Returns what
+    `gn_silu_conv_bwd_plain` returns; dx (and dgamma, dbeta) are None when
+    `need_da` is False, which skips the dgrad kernel."""
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    dev = x.device
+    check(g, "g", (b, h, wd, o), dev)
+    check(x, "x", (b, h, wd, c), dev)
+    check(w, "w", (3, 3, c, o), dev)
+    act = gamma is not None
+    if act:
+        _norm_inputs(x, gamma, beta, num_groups, stats)
+    zeros = lambda *s: torch.zeros(s, device=dev, dtype=torch.float32)
+    dw, dbias = zeros(3, 3, c, o), zeros(o)
+    _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, False, dw, dbias)
+    dx = dgamma = dbeta = None
+    if need_da:
+        da = torch.empty_like(x)
+        if act:
+            dgamma, dbeta = zeros(b, c), zeros(b, c)
+        _dgrad(g, w, x, gamma, beta, stats, num_groups, eps,
+               _DGRAD_ACT if act else _DGRAD_LINEAR, da, dgamma, dbeta)
+        dx = da
+        if act:
+            mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
+            dx = dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups)
+    dskip_w = None
+    if skip_w is not None:
+        cr = residual.shape[-1]
+        check(residual, "residual", (b, h, wd, cr), dev)
+        dskip_w = zeros(1, cr, o)
+        _wgrad(residual, g, None, None, None, 0, eps, 1, False, dskip_w, None)
+        dskip_w = dskip_w.reshape(cr, o)
+    gn_silu_conv_bwd.launches += 1
+    return (dx, dgamma, dbeta, dw, dbias,
+            _residual_grad(g, residual, res_up, skip_w), dskip_w)
+
+
+gn_silu_conv_bwd.launches = 0
+
+
+def gn_silu_up_conv_bwd(g, x, gamma, beta, w, stats: Stats, num_groups: int,
+                        eps: float = 1e-5):
+    """K3 backward kernels on the card: (dx, dgamma, dbeta, dw, dbias). x is
+    low-res (B, h, w, C), g high-res (B, 2h, 2w, O)."""
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    dev = x.device
+    check(g, "g", (b, 2 * h, 2 * wd, o), dev)
+    check(x, "x", (b, h, wd, c), dev)
+    check(w, "w", (3, 3, c, o), dev)
+    _norm_inputs(x, gamma, beta, num_groups, stats)
+    dw = torch.zeros((3, 3, c, o), device=dev, dtype=torch.float32)
+    dbias = torch.zeros((o,), device=dev, dtype=torch.float32)
+    _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, True, dw, dbias)
+    ds = torch.empty((b, 2 * h, wd, c), device=dev, dtype=torch.float32)
+    _dgrad(g, w, None, None, None, None, num_groups, eps, _DGRAD_UP_FOLD, ds,
+           None, None)
+    # the row pair of each low-res pixel, then GroupNorm / SiLU at low res
+    ds_low = ds.reshape(b, h, 2, wd, c).sum(dim=2)
+    mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
+    gn_silu_up_conv_bwd.launches += 1
+    return _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups) + (dw, dbias)
+
+
+gn_silu_up_conv_bwd.launches = 0
+
+
+class _GnSiluConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias, sums, sumsq, residual, skip_w,
+                skip_b, num_groups, eps, res_up, emit_stats):
+        stats = None if sums is None else (sums, sumsq)
+        if on_cpu(x):
+            out = gn_silu_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
+                                     residual=residual, res_up=res_up,
+                                     skip_w=skip_w, skip_b=skip_b,
+                                     emit_stats=emit_stats)
+            used = (None, None)
+        else:
+            out, used = _gn_silu_conv_kernel(x, gamma, beta, w, bias, num_groups,
+                                             eps, stats, residual, res_up,
+                                             skip_w, skip_b, emit_stats)
+        ctx.save_for_backward(x, gamma, beta, w, residual, skip_w, *used)
+        ctx.cfg = (num_groups, eps, res_up, bias is not None, skip_b is not None)
+        if not emit_stats:
+            return out
+        out, (osums, osumsq) = out
+        ctx.mark_non_differentiable(osums, osumsq)
+        return out, osums, osumsq
+
+    @staticmethod
+    def backward(ctx, g, *unused_stats_grads):
+        num_groups, eps, res_up, has_bias, has_skip_b = ctx.cfg
+        x, gamma, beta, w, residual, skip_w, sums, sumsq = ctx.saved_tensors
+        g = g.contiguous()
+        if on_cpu(g):
+            grads = gn_silu_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps,
+                                           residual, res_up, skip_w)
+        else:
+            stats = None if sums is None else (sums, sumsq)
+            need_da = any(ctx.needs_input_grad[:3])
+            grads = gn_silu_conv_bwd(g, x, gamma, beta, w, stats, num_groups,
+                                     eps, residual, res_up, skip_w, need_da)
+        dx, dgamma, dbeta, dw, dbias, dres, dskip_w = grads
+        # chained input statistics take a zero cotangent: the dx identities
+        # already hold the statistics' dependence on x
+        return (dx, dgamma, dbeta, dw, dbias if has_bias else None, None, None,
+                dres, dskip_w, dbias if has_skip_b else None,
+                None, None, None, None)
+
+
+class _GnSiluUpConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias, sums, sumsq, num_groups, eps,
+                emit_stats):
+        stats = None if sums is None else (sums, sumsq)
+        if on_cpu(x):
+            out = gn_silu_up_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
+                                        emit_stats=emit_stats)
+            used = (None, None)
+        else:
+            out, used = _gn_silu_up_conv_kernel(x, gamma, beta, w, bias,
+                                                num_groups, eps, stats, emit_stats)
+        ctx.save_for_backward(x, gamma, beta, w, *used)
+        ctx.cfg = (num_groups, eps, bias is not None)
+        if not emit_stats:
+            return out
+        out, (osums, osumsq) = out
+        ctx.mark_non_differentiable(osums, osumsq)
+        return out, osums, osumsq
+
+    @staticmethod
+    def backward(ctx, g, *unused_stats_grads):
+        num_groups, eps, has_bias = ctx.cfg
+        x, gamma, beta, w, sums, sumsq = ctx.saved_tensors
+        g = g.contiguous()
+        if on_cpu(g):
+            grads = gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps)
+        else:
+            grads = gn_silu_up_conv_bwd(g, x, gamma, beta, w, (sums, sumsq),
+                                        num_groups, eps)
+        dx, dgamma, dbeta, dw, dbias = grads
+        return (dx, dgamma, dbeta, dw, dbias if has_bias else None, None, None,
+                None, None, None)
+
+
+def _apply_emit(out, emit_stats):
+    return (out[0], (out[1], out[2])) if emit_stats else out
+
+
+def gn_silu_conv(x, gamma, beta, w, bias, num_groups: int = 0,
+                 eps: float = 1e-5, *, stats: Optional[Stats] = None,
+                 residual=None, res_up: bool = False, skip_w=None, skip_b=None,
+                 emit_stats: bool = False) -> Out:
+    """K2: the fused norm + SiLU + conv3x3 block tail (module docstring).
+
+    x (B, H, W, C); gamma/beta (B, C) or None for the linear mode; w
+    (3, 3, C, O); bias (O,) or None. residual: (B, H, W, O) identity,
+    (B, H/2, W/2, O) with res_up, or (B, H, W, C_res) with skip_w (C_res, O)
+    and skip_b (O,) or None. Returns out, or (out, (sums, sumsq)) of out's
+    channels when emit_stats (not differentiable)."""
+    sums, sumsq = stats if stats is not None else (None, None)
+    return _apply_emit(_GnSiluConv.apply(x, gamma, beta, w, bias, sums, sumsq,
+                                         residual, skip_w, skip_b, num_groups,
+                                         eps, res_up, emit_stats), emit_stats)
 
 
 gn_silu_conv.launches = 0
@@ -197,30 +536,10 @@ def gn_silu_up_conv(x, gamma, beta, w, bias, num_groups: int,
 
     x (B, h, w, C) at LOW resolution; output (B, 2h, 2w, O). `stats` are the
     low-res x's channel sums (nearest upsampling keeps the group statistics)."""
-    if on_cpu(x):
-        return gn_silu_up_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
-                                     emit_stats=emit_stats)
-    b, h, wd, c = x.shape
-    o = w.shape[-1]
-    dev = x.device
-    check(x, "x", (b, h, wd, c), dev)
-    check(w, "w", (3, 3, c, o), dev)
-    if bias is not None:
-        check(bias, "bias", (o,), dev)
-    if c > _MAX_C:
-        raise ValueError(f"gn_silu_up_conv takes at most {_MAX_C} input channels")
-    forward_only(x, gamma, beta, w, bias)
-    sums, sumsq = _norm_inputs(x, gamma, beta, num_groups, stats)
-    out = torch.empty((b, 2 * h, 2 * wd, o), device=dev, dtype=torch.float32)
-    osums, osumsq = _emit_buffers(emit_stats, b, o, dev)
-    fn = _build.bind("fused_norm_conv", "mc_gn_silu_up_conv",
-                     [P] * 10 + [I] * 6 + [F, P])
-    rc = fn(ptr(x), ptr(w), ptr(bias), ptr(gamma), ptr(beta), ptr(sums),
-            ptr(sumsq), ptr(out), ptr(osums), ptr(osumsq), b, 2 * h, 2 * wd, c,
-            o, num_groups, eps, stream())
-    raise_on_error(rc, "mc_gn_silu_up_conv")
-    gn_silu_up_conv.launches += 1
-    return (out, (osums, osumsq)) if emit_stats else out
+    sums, sumsq = stats if stats is not None else (None, None)
+    return _apply_emit(_GnSiluUpConv.apply(x, gamma, beta, w, bias, sums, sumsq,
+                                           num_groups, eps, emit_stats),
+                       emit_stats)
 
 
 gn_silu_up_conv.launches = 0

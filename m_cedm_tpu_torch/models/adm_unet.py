@@ -13,9 +13,15 @@ Per block:
   up     K3(x; emit) -> K2(h; + upsample(x or skip(x)))
   attn   GroupNorm -> qkv matmul -> K4 -> proj matmul + x (no stats out)
 
+The same chained forward runs with gradients: every fused operation is a
+torch.autograd.Function whose backward is a kernel on the card, and the
+(B, C) gamma/beta that `GroupNormSiLU.fold` builds carry their gradients on
+to the norm weights, `affine` and the embedding MLP through autograd.
+
 The cond encoder, dx and self-conditioning inputs are not used by the
 flagship config and raise NotImplementedError (listed in ROADMAP.md).
-Dropout is the identity at inference; the training slice adds it.
+Dropout is the identity at inference; training with dropout > 0 raises
+(the flagship trains with 0.0, which the JAX paired train path asserts).
 """
 from __future__ import annotations
 
@@ -217,6 +223,9 @@ class AdmUNet(nn.Module):
     def forward(self, x: torch.Tensor, noise_labels: torch.Tensor,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, ops = self.cfg, self.ops
+        if self.training and cfg.dropout > 0:
+            raise NotImplementedError("training with dropout > 0 is not ported "
+                                      "yet (see ROADMAP.md)")
         self.calls += 1
         emb = fourier_positional_embedding(noise_labels, cfg.ch)
         emb = F.silu(self.map_layer0(emb))

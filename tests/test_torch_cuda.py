@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the forward kernels, and the backward kernels against autograd of the plain
+forwards.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor tests/conftest.py's JAX set-up, so it runs on a machine that
@@ -13,13 +15,18 @@ kernels to the same plain versions at the flagship shapes.
 
 Tolerances: both sides are fp32 (TF32 off) and differ only in summation
 order, plus the fp32 atomics of the emitted statistics: outputs to rtol 1e-5 /
-atol 1e-5, sums of squares to rtol 1e-5 / atol 1e-4.
+atol 1e-5, sums of squares to rtol 1e-5 / atol 1e-4. Gradients are held to
+1e-5 of each gradient's largest magnitude (`_assert_grads`): a weight or
+modulation gradient sums over every pixel (a few hundred here) through fp32
+atomics in no fixed order, so elementwise relative error means nothing for
+its entries near zero.
 """
 import numpy as np
 import pytest
 import torch
 
 from m_cedm_tpu_torch import kernels
+from m_cedm_tpu_torch.kernels import PLAIN_OPS
 from m_cedm_tpu_torch.kernels import fused_attention as tfa
 from m_cedm_tpu_torch.kernels import fused_norm as tfn
 from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
@@ -126,13 +133,128 @@ def test_wrappers_count_kernel_launches(cuda):
     kernels.reset_launches()
     _block(tfnc.gn_silu_conv, inp, "identity", 4)  # channel_stats, then K2
     _block(tfnc.gn_silu_conv_plain, inp, "identity", 4)
-    assert kernels.launches() == {"K1 gn_silu": 0, "K1 channel_stats": 1,
-                                  "K2 gn_silu_conv": 1, "K3 gn_silu_up_conv": 0,
-                                  "K4 attention": 0}
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update({"K1 channel_stats": 1, "K2 gn_silu_conv": 1})
+    assert kernels.launches() == want
+
+
+def _assert_grads(got, want, tol=1e-5):
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert (a is None) == (w is None), i
+        if a is None:
+            continue
+        err = float((a - w).abs().max())
+        scale = max(float(w.abs().max()), 1e-6)
+        assert err <= tol * scale, (i, err, scale)
+
+
+def _grads_of(fn, inputs, g):
+    out = fn(*inputs)
+    out = out[0] if isinstance(out, tuple) else out
+    return torch.autograd.grad(out, inputs, g, allow_unused=True)
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_()
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_gradients(cuda):
-    q = torch.randn(1, 64, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tfa.attention(q, q, q)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(2, 12, 20, 24, 40), (1, 10, 6, 8, 70)],
+                         ids=["ragged-tile", "two-out-tiles"])
+def test_k2_backward_matches_plain(cuda, mode, shape):
+    b, h, w, c, o = shape
+    if mode == "identity_up":
+        h, w = h - h % 2, w - w % 2
+    inp = _inputs(20, cuda, b, h, w, c, o, cr=36)
+    names = ["x", "w", "bias"] + ([] if mode == "linear" else ["gamma", "beta"])
+    names += {"identity": ["res"], "identity_up": ["res_lo"],
+              "proj": ["res_proj", "skw", "skb"]}.get(mode, [])
+    leaves = {n: _leaf(inp[n]) for n in names}
+    g = torch.randn(b, h, w, o, device=cuda)
+
+    def run(fn, stats=None):
+        def f(*ts):
+            d = dict(inp, **dict(zip(names, ts)))
+            return _block(fn, d, mode, 4, stats=stats)
+        return _grads_of(f, [leaves[n] for n in names], g)
+
+    want = run(tfnc.gn_silu_conv_plain)
+    kernels.reset_launches()
+    _assert_grads(run(tfnc.gn_silu_conv), want)
+    _assert_grads(run(tfnc.gn_silu_conv, stats=inp["stats"]), want)
+    assert kernels.launches()["K2 gn_silu_conv_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_k1_k3_k4_backward_match_plain(cuda):
+    inp = _inputs(21, cuda, 2, 7, 9, 32, 40, cr=32)
+    b, h, w, c = inp["x"].shape
+    x3 = _leaf(inp["x"].reshape(b, h * w, c))
+    gm, bt = _leaf(inp["gamma"]), _leaf(inp["beta"])
+    g1 = torch.randn(b, h * w, c, device=cuda)
+    want = _grads_of(lambda *a: tfn.gn_silu_plain(*a, 8), [x3, gm, bt], g1)
+    kernels.reset_launches()
+    _assert_grads(_grads_of(lambda *a: tfn.gn_silu(*a, 8), [x3, gm, bt], g1), want)
+    _assert_grads(_grads_of(lambda *a: tfn.gn_silu(*a, 8, stats=inp["stats"]),
+                            [x3, gm, bt], g1), want)
+    xl, wt, bs = _leaf(inp["x"]), _leaf(inp["w"]), _leaf(inp["bias"])
+    g3 = torch.randn(b, 2 * h, 2 * w, 40, device=cuda)
+    args = [xl, gm, bt, wt, bs]
+    want = _grads_of(lambda *a: tfnc.gn_silu_up_conv_plain(*a, 8), args, g3)
+    _assert_grads(_grads_of(lambda *a: tfnc.gn_silu_up_conv(*a, 8, emit_stats=True),
+                            args, g3), want)
+    q, k, v = (torch.randn(3, 100, 64, device=cuda, requires_grad=True)
+               for _ in range(3))
+    g4 = torch.randn(3, 100, 64, device=cuda)
+    _assert_grads(_grads_of(tfa.attention, [q, k, v], g4),
+                  _grads_of(tfa.attention_plain, [q, k, v], g4))
+    got = kernels.launches()
+    assert (got["K1 gn_silu_bwd"], got["K3 gn_silu_up_conv_bwd"],
+            got["K4 attention_bwd"]) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+def test_channel_stats_refuse_gradients(cuda):
+    """The statistics are not differentiable: no silent gradient-free path."""
+    x = torch.randn(1, 64, 8, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="not differentiable"):
+        tfn.channel_stats(x)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card(cuda):
+    """One small train step on the kernel path against the plain path: every
+    backward counter moves, and loss and updated parameters agree."""
+    from m_cedm_tpu_torch.tasks import build_task
+
+    res, b = 32, 2
+    hp = {"name": "adm_edm_mcedm",
+          "model": {"in_channels": 2, "cond_channels": 2, "cat_cond": True,
+                    "out_ch": 2, "ch": 64, "ch_mult": [1, 1, 1],
+                    "num_res_blocks": 1, "attn_resolutions": [8],
+                    "resolution": res},
+          "data": {}, "optimization": {"optimizer": "Adam", "lr": 2e-4}}
+    rs = np.random.RandomState(0)
+    batch = tuple(torch.from_numpy((rs.randn(b, res, res, 1) * 0.3 + s)
+                                   .astype(np.float32)).to(cuda)
+                  for s in (1.0, 0.0, 0.0, 0.2))
+    out = {}
+    for name, ops in (("kernel", kernels.DEVICE_OPS), ("plain", PLAIN_OPS)):
+        task = build_task(hp, cuda, ops=ops)
+        state = task.init_state(torch.Generator().manual_seed(0))
+        kernels.reset_launches()
+        new, metrics = task.train_step(state, batch,
+                                       torch.Generator(cuda).manual_seed(1))
+        out[name] = (metrics, new, kernels.launches())
+    (mk, sk, lk), (mp, sp, lp) = out["kernel"], out["plain"]
+    assert all(n > 0 for n in lk.values()), lk
+    assert not any(lp.values()), lp
+    assert lk["K4 attention_bwd"] == 4  # four attention sites at 8x8
+    np.testing.assert_allclose(float(mk["train_loss"]), float(mp["train_loss"]),
+                               rtol=1e-5)
+    for k, v in sk.params.items():
+        # one Adam step moves each parameter by about lr; a gradient entry
+        # near zero may take the other sign on rounding alone (2 * lr)
+        assert float((v - sp.params[k]).abs().max()) <= 2 * 2e-4 + 1e-6, k

@@ -1,7 +1,9 @@
 """Port parity of the four forward kernels' plain versions (K1 GroupNorm+SiLU,
 K2 norm+conv block tail, K3 norm+upsample+conv, K4 attention) against the
 JAX references and against the Pallas kernels themselves, run in interpret
-mode as tests/test_pallas.py does; plus the wrappers' dispatch rules.
+mode as tests/test_pallas.py does; plus the wrappers' dispatch rules, for
+the backward wrappers too (tests/test_torch_backward.py holds the backward
+plain versions to the JAX package).
 
 Tolerances: both sides are fp32 and differ only in summation order (convs
 sum up to 9 * C products, statistics a few thousand pixels), so outputs are
@@ -232,6 +234,9 @@ def _wrapper_calls(inp):
     b, h, w, c = inp.x.shape
     x3 = inp.t("x").reshape(b, h * w, c)
     q = torch.from_numpy(np.random.RandomState(8).randn(2, 16, 64).astype(np.float32))
+    rs = np.random.RandomState(10)
+    g2 = torch.from_numpy(rs.randn(b, h, w, inp.w.shape[-1]).astype(np.float32))
+    g3 = torch.from_numpy(rs.randn(b, 2 * h, 2 * w, inp.w.shape[-1]).astype(np.float32))
     return {
         "K1 gn_silu": (lambda: tfn.gn_silu(x3, inp.t("gamma"), inp.t("beta"), 4),
                        lambda: tfn.gn_silu_plain(x3, inp.t("gamma"), inp.t("beta"), 4)),
@@ -248,8 +253,33 @@ def _wrapper_calls(inp):
                                                inp.t("bias"), 4)),
         "K4 attention": (lambda: tfa.attention(q, q, q),
                          lambda: tfa.attention_plain(q, q, q)),
+        # backward wrappers: autograd through the CPU Function against the
+        # plain version of the backward kernel
+        "K1 gn_silu_bwd": (
+            lambda: _grads(lambda a, g_, b_: tfn.gn_silu(a, g_, b_, 4),
+                           (x3, inp.t("gamma"), inp.t("beta")), x3),
+            lambda: tfn.gn_silu_bwd_plain(x3, x3, inp.t("gamma"), inp.t("beta"), 4)),
+        "K2 gn_silu_conv_bwd": (
+            lambda: _grads(lambda a, g_, b_, w_: tfnc.gn_silu_conv(
+                a, g_, b_, w_, None, 4), (inp.t("x"), inp.t("gamma"),
+                                          inp.t("beta"), inp.t("w")), g2),
+            lambda: tfnc.gn_silu_conv_bwd_plain(g2, inp.t("x"), inp.t("gamma"),
+                                                inp.t("beta"), inp.t("w"), 4)[:4]),
+        "K3 gn_silu_up_conv_bwd": (
+            lambda: _grads(lambda a, g_, b_, w_: tfnc.gn_silu_up_conv(
+                a, g_, b_, w_, None, 4), (inp.t("x"), inp.t("gamma"),
+                                          inp.t("beta"), inp.t("w")), g3),
+            lambda: tfnc.gn_silu_up_conv_bwd_plain(g3, inp.t("x"), inp.t("gamma"),
+                                                   inp.t("beta"), inp.t("w"), 4)[:4]),
+        "K4 attention_bwd": (lambda: _grads(tfa.attention, (q, q, q), q),
+                             lambda: tfa.attention_bwd_plain(q, q, q, q)),
     }
 
+
+def _grads(fn, inputs, cot):
+    """The gradients of fn at inputs (each its own leaf) for cotangent cot."""
+    inputs = tuple(t.detach().requires_grad_() for t in inputs)
+    return tuple(torch.autograd.grad(fn(*inputs), inputs, cot))
 
 @pytest.mark.parametrize("name", sorted(kernels.WRAPPERS))
 def test_wrapper_runs_plain_on_cpu_without_counting(name):
@@ -259,8 +289,11 @@ def test_wrapper_runs_plain_on_cpu_without_counting(name):
     got, want = _leaves(wrapped()), _leaves(plain())
     assert len(got) == len(want)
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert kernels.launches()[name] == 0
+        if name.endswith("_bwd"):  # autograd may sum in its own order
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a, b)
+    assert not any(kernels.launches().values())
 
 
 def test_wrappers_refuse_other_devices():

@@ -159,8 +159,9 @@ def test_compute_dtype(dtype, ported):
 
 
 def test_port_runtime_imports_no_jax():
-    """Importing every module of the port and running a CPU forward and a
-    sampling step must leave JAX, flax, optax and m_cedm_tpu unloaded."""
+    """Importing every module of the port and running a CPU forward, a
+    sampling step and a train step must leave JAX, flax, optax and
+    m_cedm_tpu unloaded."""
     code = r"""
 import pkgutil, importlib, sys, torch
 import m_cedm_tpu_torch
@@ -170,12 +171,15 @@ from m_cedm_tpu_torch.tasks import build_task
 hp = {"name": "adm_edm_mcedm", "model": {"in_channels": 2, "cond_channels": 2,
       "cat_cond": True, "out_ch": 2, "ch": 64, "ch_mult": [1, 1],
       "num_res_blocks": 1, "attn_resolutions": [8], "resolution": 16},
-      "data": {}, "sampler": {"timesteps": 2, "S_churn": 15.0}}
+      "data": {}, "sampler": {"timesteps": 2, "S_churn": 15.0},
+      "optimization": {"optimizer": "Adam", "lr": 2e-4}}
 task = build_task(hp, "cpu")
 st = task.init_state(torch.Generator().manual_seed(0))
 x = torch.ones(1, 16, 16, 1)
 m, _ = task.eval_step(st, (x, x, x, x), torch.Generator(), torch.ones(16, 16, 2))
 assert all(torch.isfinite(v) for v in m.values())
+st, m = task.train_step(st, (x, x, x, x), torch.Generator().manual_seed(1))
+assert st.step == 1 and all(torch.isfinite(v) for v in m.values())
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                                       "optax", "m_cedm_tpu")]
 assert not bad, bad
