@@ -28,11 +28,26 @@ Phases, each printing JSON lines:
               and on the plain path, loss, gradient norm, params and EMA held
               to each other; then ms per step on both paths (median of the
               timed steps after warm-up) and one profiled kernel-path step
+  6. linear   K5 kv_dots and K6 apply_dots, the OFormer's linear attention,
+              at its two shapes (BH = 16 and 64 head-batches, N = 16,384,
+              D = E = 128) against their plain versions, and the backward of
+              each autograd Function (made of the two kernels) against
+              float64 autograd of its plain forward; kernel, plain and
+              torch.bmm times
+  7. oformer eval   OformerTask.eval_step of configs/model/oformer_t.yaml at
+              B = 16, full width and depth (16,384 tokens), on seeded
+              synthetic shallow-water fields tokenized as the OFormer
+              datamodule does, kernel path against plain path, launches read
+  8. oformer train  three OformerTask.train_steps at B = 16 on both paths
+              (the same dropout masks, the constant lr), loss, gradient norm
+              and params held to each other; ms per step on both paths, one
+              profiled kernel-path step and the peak device memory
 
-Then the per-kernel summary line {"kernels": [...]} (forward launches counted
-in the kernel-path eval of phase 4, backward launches in the kernel-path
-train steps of phase 5), the nvidia-smi line, and the last line names the
-device. `bound_ms` is the least time the card could take for a kernel's work
+Then the per-kernel summary line {"kernels": [...]} (flagship forward
+launches counted in the kernel-path eval of phase 4, backward launches in the
+kernel-path train steps of phase 5; K5 and K6 in one OFormer eval of phase 7,
+with their launches per OFormer train step beside), the nvidia-smi line, and
+the last line names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
 peak of an H100 SXM (the kernels run fp32 on CUDA cores). The plain versions
@@ -83,6 +98,30 @@ FLAGSHIP_HPARAMS = {
     },
 }
 
+# identical to the `hparams` block of configs/model/oformer_t.yaml (a test
+# holds the two equal)
+OFORMER_HPARAMS = {
+    "name": "oformer_t", "time_history": 128,
+    "encoder": {
+        "input_channels": 3, "time_window": 1, "in_emb_dim": 128,
+        "out_channels": 128, "max_node_type": 2, "heads": 1, "depth": 4,
+        "res": 128, "use_ln": True, "emb_dropout": 0.0, "relative_emb_dim": 2,
+    },
+    "decoder": {
+        "max_node_type": 2, "latent_channels": 128, "out_channels": 1,
+        "res": 128, "scale": 2, "dropout": 0.1, "relative_emb_dim": 2,
+    },
+    "norm_shape": [], "loss": "mse", "lr": 0.001, "weight_decay": 1.0e-4,
+    "curriculum_steps": 8, "curriculum_ratio": 0.2,
+}
+OFORMER_TARGET = "m_cedm_tpu.tasks.OformerTask"
+OFORMER_GRAD_CLIP = 2.0  # configs/trainer/trainer_oformer.yaml
+# linear-attention sites of one OFormer forward at depth 4: four encoder
+# layers and the decoder's mix layer (BH = B) and its cross attention
+# (4 heads, BH = 4 B); each runs K5 once and K6 once, and in the backward
+# K5's VJP makes two K6 calls, K6's one K6 and one K5 call
+OFORMER_SITES = 6
+
 BATCH = 16
 SEED = 0
 TIMING_RUNS = 10
@@ -123,6 +162,8 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 PEAK_FLOPS = 67e12    # H100 SXM fp32, outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
+# name -> (CUDA source, the TPU kernel it replaces); the flagship's nine,
+# then the OFormer's two
 KERNEL_INFO = {
     "K1 gn_silu": ("m_cedm_tpu_torch/csrc/fused_norm.cu",
                    "m_cedm_tpu/pallas/fused_norm.py:132"),
@@ -142,7 +183,13 @@ KERNEL_INFO = {
                                "m_cedm_tpu/pallas/fused_norm_conv.py:2497"),
     "K4 attention_bwd": ("m_cedm_tpu_torch/csrc/fused_attention.cu",
                          "m_cedm_tpu/pallas/fused_attention.py:63"),
+    "K5 kv_dots": ("m_cedm_tpu_torch/csrc/linear_attention.cu",
+                   "m_cedm_tpu/pallas/linear_attention.py:68"),
+    "K6 apply_dots": ("m_cedm_tpu_torch/csrc/linear_attention.cu",
+                      "m_cedm_tpu/pallas/linear_attention.py:129"),
 }
+OFORMER_KERNELS = ("K5 kv_dots", "K6 apply_dots")
+FLAGSHIP_KERNELS = tuple(k for k in KERNEL_INFO if k not in OFORMER_KERNELS)
 
 
 def emit(obj) -> None:
@@ -687,7 +734,7 @@ def phase_eval(device, hparams, params, b: int) -> dict:
     known_err = float((hu_mean[..., 0] - gt[..., 0]).abs().max())
     if known_err > TOL_KNOWN:
         raise AssertionError(f"observed channel moved by {known_err}")
-    missing = [k for k, n in launches.items() if n == 0 and not k.endswith("_bwd")]
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] == 0 and not k.endswith("_bwd")]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if launches["K4 attention"] != 4 * calls:
@@ -799,8 +846,8 @@ def phase_train(device, hparams, params, b: int) -> dict:
         raise AssertionError(f"params after {TRAIN_STEPS} steps differ: {diffs}")
     if not moved > 0:
         raise AssertionError("the train steps did not move the parameters")
-    bwd = [k for k in KERNEL_INFO if k.endswith("_bwd")]
-    missing = [k for k in KERNEL_INFO if launches[k] == 0]
+    bwd = [k for k in FLAGSHIP_KERNELS if k.endswith("_bwd")]
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the train steps: {missing}")
     if launches["K4 attention_bwd"] != 4 * TRAIN_STEPS:
@@ -826,6 +873,219 @@ def phase_train(device, hparams, params, b: int) -> dict:
           "plain_step_ms": [w * 1e3 for w in pwalls], "profile": prof})
     return launches
 
+def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
+    """K5 and K6 at the OFormer's shapes: the encoder and mix layer (BH = B)
+    and the cross attention (BH = 4 B). Each forward against its plain
+    version; each Function's backward (two kernel launches for K5's, two
+    for K6's) against float64 autograd of its plain forward. Returns the
+    summaries at BH = B, with the BH = 4 B records beside them."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import linear_attention as la
+
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    results = {}
+    for bh in (b, 4 * b):
+        q, k, v = (rnd(bh, n, width) for _ in range(3))
+        dots = la.kv_dots_plain(k, v) / n
+        cases = (
+            ("K5 kv_dots", la.kv_dots, la.kv_dots_plain, (k, v),
+             lambda: torch.bmm(k.transpose(1, 2), v), "bnd,bne->bde"),
+            ("K6 apply_dots", la.apply_dots, la.apply_dots_plain, (q, dots),
+             lambda: torch.bmm(q, dots), "bnd,bde->bne"),
+        )
+        for name, fn, plain, args, library, eq in cases:
+            with torch.no_grad():
+                want = plain(*args)
+                got = fn(*args)
+                want64 = torch.einsum(eq, *(a.double() for a in args))
+                rec = {"phase": "linear", "kernel": name, "bh": bh, "n": n,
+                       "width": width,
+                       **compare(got, want, TOL_KERNEL, f"{name} BH {bh}"),
+                       "vs_float64_max_rel_err": compare(got, want64, 1.0, "")["max_rel_err"],
+                       "plain_vs_float64_max_rel_err": compare(
+                           want, want64, 1.0, "")["max_rel_err"],
+                       "library_max_rel_err": compare(library(), want, TOL_KERNEL,
+                                                      f"torch.bmm for {name}")["max_rel_err"],
+                       "ms": cuda_ms(lambda: fn(*args)),
+                       "plain_ms": cuda_ms(lambda: plain(*args)),
+                       "library": "torch.bmm", "library_ms": cuda_ms(library),
+                       **bound(nbytes(*args, want), 2.0 * bh * n * width * width)}
+                del got, want64
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            out = fn(*leaves)
+            cot = rnd(*out.shape)
+            in64 = [a.detach().double().requires_grad_() for a in args]
+            want = torch.autograd.grad(torch.einsum(eq, *in64), in64, cot.double())
+            got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+            errs = [compare(a, w, TOL_BWD, f"{name} BH {bh} gradient {i}")
+                    for i, (a, w) in enumerate(zip(got, want, strict=True))]
+            p_out = plain(*leaves)
+            rec.update(
+                backward_max_rel_err=max(e["max_rel_err"] for e in errs),
+                backward_tol=TOL_BWD,
+                backward_ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                                                retain_graph=True)),
+                plain_backward_ms=cuda_ms(lambda: torch.autograd.grad(
+                    p_out, leaves, cot, retain_graph=True)))
+            del out, p_out, got, want, in64
+            emit(rec)
+            if bh == b:
+                results[name] = dict(rec)
+            else:
+                results[name][f"at_bh_{bh}"] = {k: rec[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_rel_err", "backward_max_rel_err")}
+            for key in ("max_abs_err", "max_rel_err"):
+                results[name][key] = max(results[name][key], rec[key])
+        del q, k, v, dots
+    torch.cuda.empty_cache()
+    return results
+
+
+def oformer_setup(device, b: int, seed: int):
+    """The OFormer's own init drawn from a seeded generator (fan-in-scaled
+    lecun-normal dense layers, the orthogonal-plus-diagonal q/k/v blocks,
+    the Fourier matrix B; no layer starts at zero, so every kernel's work
+    shows), and seeded synthetic shallow-water fields on the 128 x 128 grid,
+    tokenized as the OFormer datamodule does (h in, u out)."""
+    import torch
+
+    from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
+    from m_cedm_tpu_torch.tasks import build_task
+
+    res = OFORMER_HPARAMS["encoder"]["res"]
+    h, _, _, u = synthetic_swe_batch(np.random.RandomState(seed), b, res)
+    stats = {"input_mean": h.mean(), "input_std": h.std(),
+             "target_mean": u.mean(), "target_std": u.std()}
+    t = np.broadcast_to(np.linspace(0.0, 1.0, res, dtype=np.float32), (b, res))
+    x = np.broadcast_to(np.linspace(-2.5, 2.5, res, dtype=np.float32), (b, res))
+    tok = tokenize_grid(h, u, x, t, stats)
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(tok[k])).to(device)
+                  for k in ("x", "y", "node_type", "pos", "n_time"))
+    fresh = build_task(OFORMER_HPARAMS, "cpu", target=OFORMER_TARGET).init_state(
+        torch.Generator().manual_seed(seed))
+    return stats, batch, fresh.params, fresh.constants
+
+
+def oformer_tasks(device):
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    return [build_task(OFORMER_HPARAMS, device, target=OFORMER_TARGET, ops=ops,
+                       grad_clip=OFORMER_GRAD_CLIP)
+            for ops in (kernels.DEVICE_OPS, kernels.PLAIN_OPS)]
+
+
+def check_oformer_launches(launches: dict, k5: int, k6: int, what: str) -> None:
+    got = (launches["K5 kv_dots"], launches["K6 apply_dots"])
+    if got != (k5, k6):
+        raise AssertionError(f"{what}: K5, K6 launched {got} times, expected {(k5, k6)}")
+
+
+def phase_oformer_eval(device, b: int) -> dict:
+    """OformerTask.eval_step at full width and depth on both paths."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+
+    stats, batch, params, constants = oformer_setup(device, b, SEED + 7)
+    ktask, ptask = oformer_tasks(device)
+    kstate, pstate = (t.init_state(None, stats, params=params, constants=constants)
+                      for t in (ktask, ptask))
+
+    def run(task, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, grid = task.eval_step(state, batch, split="val")
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in metrics.items()}, grid, time.perf_counter() - t0
+
+    kernels.reset_launches()
+    metrics, grid, wall = run(ktask, kstate)
+    launches = kernels.launches()
+    check_oformer_launches(launches, OFORMER_SITES, OFORMER_SITES, "one OFormer eval")
+    res = OFORMER_HPARAMS["encoder"]["res"]
+    if tuple(grid.shape) != (b, res, res, 1) or not torch.isfinite(grid).all():
+        raise AssertionError(f"OFormer prediction {tuple(grid.shape)} not finite")
+    if len(metrics) != 7 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"OFormer metrics {metrics}")
+    walls, pwalls = [wall], []
+    for i in range(EVAL_RUNS):  # in turns: plain, kernel, plain, ...
+        pmetrics, pgrid, pwall = run(ptask, pstate)
+        pwalls.append(pwall)
+        if i + 1 < EVAL_RUNS:
+            walls.append(run(ktask, kstate)[2])
+    for k, v in metrics.items():
+        if abs(v - pmetrics[k]) > TOL_METRICS * max(1.0, abs(pmetrics[k])):
+            raise AssertionError(f"OFormer {k}: kernel path {v} vs plain path {pmetrics[k]}")
+    emit({"phase": "oformer_eval", "batch": b, "tokens": int(batch[0].shape[2]),
+          "metrics": metrics, "plain_metrics": pmetrics, "metrics_tol": TOL_METRICS,
+          "prediction": compare(grid, pgrid, TOL_FORWARD, "OFormer prediction"),
+          "launches": {k: launches[k] for k in OFORMER_KERNELS},
+          "wall_s": walls, "plain_wall_s": pwalls,
+          "ms_per_eval": float(np.median(walls)) * 1e3,
+          "plain_ms_per_eval": float(np.median(pwalls)) * 1e3})
+    return launches
+
+
+def phase_oformer_train(device, b: int) -> dict:
+    """Three OformerTask.train_steps from one state on both paths, then
+    timing, one profiled step and the peak memory of a step."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+
+    stats, batch, params, constants = oformer_setup(device, b, SEED + 8)
+    ktask, ptask = oformer_tasks(device)
+    kstate, pstate = (t.init_state(None, stats, params=params, constants=constants)
+                      for t in (ktask, ptask))
+    kernels.reset_launches()
+    kfinal, kmetrics, _ = train_steps(ktask, kstate, batch, device, 0, TRAIN_STEPS)
+    launches = kernels.launches()
+    check_oformer_launches(launches, 2 * OFORMER_SITES * TRAIN_STEPS,
+                           4 * OFORMER_SITES * TRAIN_STEPS,
+                           f"{TRAIN_STEPS} OFormer train steps")
+    pfinal, pmetrics, _ = train_steps(ptask, pstate, batch, device, 0, TRAIN_STEPS)
+    for step, (km, pm) in enumerate(zip(kmetrics, pmetrics)):
+        for key in ("train_loss", "grad_norm"):
+            if not math.isfinite(km[key]) or abs(km[key] - pm[key]) > TOL_TRAIN * abs(pm[key]):
+                raise AssertionError(f"OFormer step {step} {key}: kernel {km[key]} "
+                                     f"vs plain {pm[key]}")
+    lr = OFORMER_HPARAMS["lr"]
+    diff = max(float((kfinal.params[k] - pfinal.params[k]).abs().max()) for k in kfinal.params)
+    moved = max(float((kfinal.params[k] - kstate.params[k]).abs().max()) for k in kfinal.params)
+    if not (diff <= 2 * lr * TRAIN_STEPS and moved > 0):
+        raise AssertionError(f"OFormer params after {TRAIN_STEPS} steps: differ by "
+                             f"{diff}, moved {moved}")
+
+    n = TRAIN_WARMUP + TRAIN_TIMED  # in turns: kernel path, then plain path
+    _, _, kwalls = train_steps(ktask, kfinal, batch, device, TRAIN_STEPS, n)
+    _, _, pwalls = train_steps(ptask, pfinal, batch, device, TRAIN_STEPS, n)
+    ms = float(np.median(kwalls[TRAIN_WARMUP:])) * 1e3
+    pms = float(np.median(pwalls[TRAIN_WARMUP:])) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    train_steps(ktask, kfinal, batch, device, 50, 1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(ktask, kfinal, batch, device, ms / 1e3)
+    emit({"phase": "oformer_train", "batch": b, "steps": TRAIN_STEPS,
+          "train_loss": [m["train_loss"] for m in kmetrics],
+          "plain_train_loss": [m["train_loss"] for m in pmetrics],
+          "grad_norm": [m["grad_norm"] for m in kmetrics],
+          "plain_grad_norm": [m["grad_norm"] for m in pmetrics],
+          "tol": TOL_TRAIN, "params_max_abs_diff": diff,
+          "tol_params": 2 * lr * TRAIN_STEPS, "params_moved_max": moved,
+          "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in OFORMER_KERNELS},
+          "ms_per_step": ms, "plain_ms_per_step": pms,
+          "step_ms": [w * 1e3 for w in kwalls],
+          "plain_step_ms": [w * 1e3 for w in pwalls],
+          "peak_memory_gib": peak / 2 ** 30, "profile": prof})
+    return {k: launches[k] // TRAIN_STEPS for k in OFORMER_KERNELS}
+
 
 def main() -> int:
     import torch
@@ -845,17 +1105,26 @@ def main() -> int:
     params = phase_forward(device, hparams, BATCH)
     eval_launches = phase_eval(device, hparams, params, BATCH)
     train_launches = phase_train(device, hparams, params, BATCH)
+    enc = OFORMER_HPARAMS["encoder"]
+    results.update(phase_linear_attention(device, BATCH, enc["res"] ** 2, enc["in_emb_dim"]))
+    eval_launches.update(
+        {k: v for k, v in phase_oformer_eval(device, BATCH).items() if k in OFORMER_KERNELS})
+    oformer_step_launches = phase_oformer_train(device, BATCH)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
         launches = (train_launches if name.endswith("_bwd") else eval_launches)[name]
-        summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": rec["max_abs_err"],
-                        "max_rel_err": rec["max_rel_err"], "tol": rec["tol"],
-                        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": rec["max_abs_err"],
+               "max_rel_err": rec["max_rel_err"], "tol": rec["tol"],
+               "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+               "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+               "library_ms": rec["library_ms"]}
+        if name in OFORMER_KERNELS:
+            row.update(launches_per_train_step=oformer_step_launches[name],
+                       at_bh_64=rec["at_bh_64"])
+        summary.append(row)
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""JAX (flax) ADM U-Net parameters and train state -> the port's.
+"""JAX (flax) parameters and train states -> the port's: the ADM U-Net and
+the OFormer.
 
 The JAX tree is a nested mapping of arrays, `['params'][<module>][<leaf>]`
 with the flax module names (conv_in, map_layer0/1, out_norm, out_conv, and
@@ -11,9 +12,15 @@ conv1, skip, GroupNorm_0, qkv, proj). Layouts:
   Dense kernel     (in, out)          -> weight (out, in)
   norm scale/bias                     -> weight/bias
 
+The OFormer's modules carry the flax names (encoder.s_transformer.attn_0.
+to_qkv, decoder.prop_mlp0, ...), so the same walk converts its 'params'
+collection; its frozen 'constants' collection (decoder/fourier_features/B)
+becomes the model's buffers, unchanged.
+
 `jax_train_state_to_torch` carries a whole JAX TrainState across: params,
-ema_params, the optax Adam state (count, mu, nu) and step, so a JAX state
-continues in the port (McedmTask.init_state takes each piece).
+ema_params, constants, the optax Adam state (count, mu, nu; the entries of
+'constants' dropped) and step, so a JAX state continues in the port
+(McedmTask.init_state and OformerTask.init_state take each piece).
 
 This is the only bridge between the two packages; it needs numpy, not JAX.
 """
@@ -40,10 +47,13 @@ def _leaf(name: str, arr: np.ndarray):
     return name, arr
 
 
-def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert a flax AdmUNet parameter tree (with or without the outer
-    'params' collection) into a state_dict for m_cedm_tpu_torch's AdmUNet."""
-    tree = params["params"] if "params" in params else params
+def jax_params_to_state_dict(params: Mapping, collection: str = "params"
+                             ) -> Dict[str, torch.Tensor]:
+    """Convert a flax parameter tree (with or without its outer collections)
+    into a state_dict for the port's module of the same names; of a tree with
+    collections, `collection` is taken ('constants' for the OFormer's
+    buffers)."""
+    tree = params[collection] if collection in params else params
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -71,16 +81,32 @@ def _adam_state(opt_state) -> Optional[Any]:
     return None
 
 
+def _counts(opt_state):
+    """Every `count` in an optax chain's state (Adam's and a schedule's)."""
+    if hasattr(opt_state, "_fields") and "count" in opt_state._fields:
+        return [int(np.asarray(opt_state.count))]
+    if isinstance(opt_state, tuple):
+        return [c for sub in opt_state for c in _counts(sub)]
+    return []
+
+
 def jax_train_state_to_torch(state) -> Dict[str, Any]:
     """A JAX TrainState (or anything with its attributes) -> the keyword
-    arguments of McedmTask.init_state: params, ema_params, opt_state
-    ({"count", "mu", "nu"}, for the Adam and AdamW chains) and step. The
+    arguments of the task's init_state: params, ema_params, opt_state
+    ({"count", "mu", "nu"}, for the Adam and AdamW chains), step and, for a
+    model with frozen buffers, constants. The port keeps one count, so the
+    chain's counts (Adam's, a learning-rate schedule's) must agree. The
     normalizers are rebuilt from the data statistics, as the JAX task does."""
     adam = _adam_state(state.opt_state)
     if adam is None:
         raise NotImplementedError("only the Adam / AdamW optimizer state is "
                                   "carried across (see ROADMAP.md)")
+    if len(set(_counts(state.opt_state))) != 1:
+        raise ValueError(f"optimizer counts disagree: {_counts(state.opt_state)}")
+    extra = ({"constants": jax_params_to_state_dict(state.params, "constants")}
+             if "constants" in state.params else {})
     return {
+        **extra,
         "params": jax_params_to_state_dict(state.params),
         "ema_params": (None if state.ema_params is None
                        else jax_params_to_state_dict(state.ema_params)),

@@ -1,6 +1,7 @@
-"""Hand-written Hopper kernels of the port and the op sets the model runs.
+"""Hand-written Hopper kernels of the port and the op sets the models run.
 
-The U-Net calls its four fused operations through an `Ops` set:
+The U-Net calls its four fused operations, and the OFormer its two
+linear-attention products, through an `Ops` set:
 
   DEVICE_OPS  the kernel wrappers, each a torch.autograd.Function: the CUDA
               kernels (forward and backward) for CUDA tensors, the plain
@@ -25,6 +26,9 @@ from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
                                                       gn_silu_up_conv,
                                                       gn_silu_up_conv_bwd,
                                                       gn_silu_up_conv_plain)
+from m_cedm_tpu_torch.kernels.linear_attention import (apply_dots,
+                                                       apply_dots_plain,
+                                                       kv_dots, kv_dots_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,11 +37,14 @@ class Ops:
     gn_silu_conv: Callable
     gn_silu_up_conv: Callable
     attention: Callable
+    kv_dots: Callable
+    apply_dots: Callable
 
 
-DEVICE_OPS = Ops(gn_silu, gn_silu_conv, gn_silu_up_conv, attention)
+DEVICE_OPS = Ops(gn_silu, gn_silu_conv, gn_silu_up_conv, attention, kv_dots,
+                 apply_dots)
 PLAIN_OPS = Ops(gn_silu_plain, gn_silu_conv_plain, gn_silu_up_conv_plain,
-                attention_plain)
+                attention_plain, kv_dots_plain, apply_dots_plain)
 
 # every kernel wrapper, by the name chip_smoke.py reports
 WRAPPERS: Dict[str, Callable] = {
@@ -50,6 +57,8 @@ WRAPPERS: Dict[str, Callable] = {
     "K2 gn_silu_conv_bwd": gn_silu_conv_bwd,
     "K3 gn_silu_up_conv_bwd": gn_silu_up_conv_bwd,
     "K4 attention_bwd": attention_bwd,
+    "K5 kv_dots": kv_dots,
+    "K6 apply_dots": apply_dots,
 }
 
 

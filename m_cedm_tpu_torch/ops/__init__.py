@@ -1,6 +1,7 @@
 from m_cedm_tpu_torch.ops import losses
 from m_cedm_tpu_torch.ops.normalizer import Normalizer
 from m_cedm_tpu_torch.ops.schedules import (
+    cosine_onecycle,
     edm_loss_weight,
     edm_precond_coeffs,
     edm_train_sigma,

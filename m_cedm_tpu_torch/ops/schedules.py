@@ -102,3 +102,31 @@ def fourier_positional_embedding(x: torch.Tensor, num_channels: int,
     freqs = (1.0 / max_positions) ** freqs
     args = x[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=1)
+
+
+def cosine_onecycle(transition_steps: int, peak_value: float, pct_start: float = 0.3,
+                    div_factor: float = 25.0, final_div_factor: float = 1e4):
+    """optax.cosine_onecycle_schedule as a function of the step count (an int
+    or an integer tensor, on the card for a train step) returning an fp32
+    tensor: cosine from peak / div_factor up to peak over the first
+    int(pct_start * steps) counts, then down to peak / (div_factor *
+    final_div_factor) at `transition_steps`, constant after. Segment values
+    are float64 on the host, as optax's are, and the interpolation is fp32."""
+    if transition_steps <= 0:
+        raise ValueError("a onecycle schedule needs a positive transition_steps")
+    bounds = (0, int(pct_start * transition_steps), int(transition_steps))
+    values = np.cumprod([peak_value / div_factor, div_factor,
+                         1.0 / (div_factor * final_div_factor)])
+
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        out = torch.where(count >= bounds[-1], float(values[-1]), 0.0)
+        for i in range(2):
+            start, end = float(values[i]), float(values[i + 1])
+            pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+            interp = end + (start - end) / 2.0 * (torch.cos(math.pi * pct) + 1)
+            inside = (bounds[i] <= count) & (count < bounds[i + 1])
+            out = out + torch.where(inside, interp, 0.0)
+        return out
+
+    return schedule

@@ -9,12 +9,14 @@ correction and eps outside the square root, AdamW, RMSProp and SGD with
 momentum 0.9 at optax's defaults, and `add_decayed_weights`. Like optax they
 are pure: `update` returns new tensors and never writes its arguments. They
 run as torch._foreach_* ops over the list of parameter tensors, a few
-launches per step instead of a dozen per tensor.
+launches per step instead of a dozen per tensor. The learning rate may be a
+schedule of the Adam step count, read before the count's increment, as
+optax's scale_by_schedule reads it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,13 +31,16 @@ ADAM_B2 = 0.999  # fixed in the JAX package's make_optimizer
 @dataclasses.dataclass
 class TaskState:
     """Parameters (a state_dict), their EMA copy (a separate set of tensors),
-    the optimizer state, the step count and the two normalizers."""
+    the optimizer state, the step count, the two normalizers, and the frozen
+    buffers the model reads but never trains (the OFormer's Fourier matrix;
+    the JAX package's 'constants' collection)."""
     params: Params
     ema_params: Optional[Params]
     normalizer_input: Normalizer
     normalizer_target: Normalizer
     opt_state: Optional[Dict[str, Any]] = None
     step: int = 0
+    constants: Optional[Params] = None
 
 
 def global_norm(tree: Params) -> torch.Tensor:
@@ -57,7 +62,7 @@ class Optimizer:
     formula is optax's, in its order of operations, applied to the whole
     list of tensors at once with torch._foreach_* ops."""
     name: str
-    lr: float
+    lr: Union[float, Callable[[torch.Tensor], torch.Tensor]]
     weight_decay: float = 0.0
     b1: float = 0.9
     eps: float = 1e-8
@@ -75,6 +80,7 @@ class Optimizer:
 
     def update(self, grads: Params, state: Dict[str, Any], params: Params
                ) -> Tuple[Params, Dict[str, Any]]:
+        lr = self.lr(state["count"]) if callable(self.lr) else self.lr
         keys = list(grads)
         u = [grads[k] for k in keys]
         p = [params[k] for k in keys]
@@ -111,7 +117,7 @@ class Optimizer:
         else:  # SGD: trace(decay 0.9)
             trace = torch._foreach_add(u, torch._foreach_mul(old["trace"], 0.9))
             u, state = trace, {"trace": dict(zip(keys, trace))}
-        return dict(zip(keys, torch._foreach_mul(u, -self.lr))), state
+        return dict(zip(keys, torch._foreach_mul(u, -lr))), state
 
 
 def make_optimizer(opt_cfg, grad_clip: Optional[float] = None) -> Optimizer:
@@ -124,6 +130,16 @@ def make_optimizer(opt_cfg, grad_clip: Optional[float] = None) -> Optimizer:
                      weight_decay=opt_cfg.get("weight_decay", 0.0),
                      b1=opt_cfg.get("beta1", 0.9), eps=opt_cfg.get("eps", 1e-8),
                      grad_clip=grad_clip)
+
+
+def to_device(tree, device):
+    """A fresh fp32 copy of a (nested) dict of tensors on `device` (integer
+    tensors keep their type): a state never shares a tensor with its
+    source."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    dtype = torch.float32 if tree.is_floating_point() else tree.dtype
+    return tree.detach().to(device, dtype).clone()
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

@@ -32,7 +32,7 @@ from m_cedm_tpu_torch.samplers import edm as edm_samplers
 from m_cedm_tpu_torch.tasks.base import (DataTransform, TaskState,
                                          apply_updates, ema_update, ensemble,
                                          global_norm, make_optimizer,
-                                         normalizers_from_stats)
+                                         normalizers_from_stats, to_device)
 
 P_MEAN, P_STD, SIGMA_DATA = -1.2, 1.2, 1.0
 SIGMA_MIN, SIGMA_MAX = 0.002, 80.0
@@ -90,7 +90,7 @@ class DiffusionTaskBase:
         if params is None:
             self.model.reset_parameters(generator)
             params = self.model.state_dict()
-        params = _on(params, self.device)
+        params = to_device(params, self.device)
         if norm_stats is not None:
             n_in, n_tar = normalizers_from_stats(
                 norm_stats, self.transform.normalization, self.device)
@@ -99,9 +99,9 @@ class DiffusionTaskBase:
             n_tar = Normalizer.identity((), self.device)
         ema = None
         if self.ema_enabled:
-            ema = _on(params if ema_params is None else ema_params, self.device)
+            ema = to_device(params if ema_params is None else ema_params, self.device)
         if opt_state is not None:
-            opt_state = _on(opt_state, self.device)
+            opt_state = to_device(opt_state, self.device)
         elif self.tx is not None:
             opt_state = self.tx.init(params)
         return TaskState(params=params, ema_params=ema, normalizer_input=n_in,
@@ -136,15 +136,6 @@ class DiffusionTaskBase:
         gt = x_unnorm if x_gt_unnorm is None else x_gt_unnorm
         return self.pde_loss(x_unnorm, gt, state.normalizer_input,
                              state.normalizer_target, clamp_loss=clamp_loss)
-
-
-def _on(tree, device):
-    """A fresh copy of a (nested) dict of tensors on `device`: the state never
-    shares a tensor with its source."""
-    if isinstance(tree, dict):
-        return {k: _on(v, device) for k, v in tree.items()}
-    dtype = torch.float32 if tree.is_floating_point() else tree.dtype
-    return tree.detach().to(device, dtype).clone()
 
 
 class McedmTask(DiffusionTaskBase):

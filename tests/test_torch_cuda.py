@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the forward kernels, and the backward kernels against autograd of the plain
-forwards.
+the forward kernels, the backward kernels against autograd of the plain
+forwards, and the OFormer's two linear-attention kernels (K5, K6) with the
+backward made of them.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor tests/conftest.py's JAX set-up, so it runs on a machine that
@@ -249,7 +250,9 @@ def test_train_step_on_the_card(cuda):
                                        torch.Generator(cuda).manual_seed(1))
         out[name] = (metrics, new, kernels.launches())
     (mk, sk, lk), (mp, sp, lp) = out["kernel"], out["plain"]
-    assert all(n > 0 for n in lk.values()), lk
+    oformer = ("K5 kv_dots", "K6 apply_dots")  # the OFormer's, not the U-Net's
+    assert all(n > 0 for k, n in lk.items() if k not in oformer), lk
+    assert not any(lk[k] for k in oformer), lk
     assert not any(lp.values()), lp
     assert lk["K4 attention_bwd"] == 4  # four attention sites at 8x8
     np.testing.assert_allclose(float(mk["train_loss"]), float(mp["train_loss"]),
@@ -258,3 +261,115 @@ def test_train_step_on_the_card(cuda):
         # one Adam step moves each parameter by about lr; a gradient entry
         # near zero may take the other sign on rounding alone (2 * lr)
         assert float((v - sp.params[k]).abs().max()) <= 2 * 2e-4 + 1e-6, k
+
+
+# --- K5 kv_dots / K6 apply_dots (the OFormer's linear attention) ------------
+
+LA_SHAPES = [(3, 1000, 12, 20), (2, 2500, 128, 128), (5, 77, 128, 64), (1, 33, 7, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k5_k6_match_plain(cuda, shape):
+    """Ragged N (not a multiple of a row stage or tile), widths under 128 and
+    not multiples of 4, one and several kv splits."""
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    bh, n, d, e = shape
+    k, q = (torch.randn(bh, n, d, device=cuda) for _ in range(2))
+    v = torch.randn(bh, n, e, device=cuda)
+    kernels.reset_launches()
+    dots = tla.kv_dots(k, v)
+    want = tla.kv_dots_plain(k, v)
+    np.testing.assert_allclose(dots.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    out = tla.apply_dots(q, want / n)
+    ref = tla.apply_dots_plain(q, want / n)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert (kernels.launches()["K5 kv_dots"], kernels.launches()["K6 apply_dots"]) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LA_SHAPES[:2], ids=lambda s: "x".join(map(str, s)))
+def test_k5_k6_backward_match_float64(cuda, shape):
+    """Each Function's backward (made of the two kernels) against float64
+    autograd of the plain forward."""
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    bh, n, d, e = shape
+    q, k = (_leaf(torch.randn(bh, n, d, device=cuda)) for _ in range(2))
+    v = _leaf(torch.randn(bh, n, e, device=cuda))
+    dots = _leaf(torch.randn(bh, d, e, device=cuda) / n)
+    kernels.reset_launches()
+    for fn, plain, args in ((tla.kv_dots, tla.kv_dots_plain, [k, v]),
+                            (tla.apply_dots, tla.apply_dots_plain, [q, dots])):
+        out = fn(*args)
+        g = torch.randn(out.shape, device=cuda)
+        a64 = [_leaf(a.double()) for a in args]
+        want = torch.autograd.grad(torch.einsum(
+            "bnd,bne->bde" if fn is tla.kv_dots else "bnd,bde->bne", *a64), a64, g.double())
+        _assert_grads(torch.autograd.grad(out, args, g), want)
+    # forward 1 + 1; kv_dots' backward two apply_dots, apply_dots' one of each
+    assert (kernels.launches()["K5 kv_dots"], kernels.launches()["K6 apply_dots"]) == (2, 4)
+
+
+@pytest.mark.cuda
+def test_k5_k6_refuse_what_they_do_not_take(cuda):
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    k = torch.randn(2, 16, 130, device=cuda)
+    with pytest.raises(ValueError, match="widths"):
+        tla.kv_dots(k, k)
+    q = torch.randn(2, 16, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tla.apply_dots(q.transpose(0, 1).contiguous().transpose(0, 1),
+                       torch.randn(2, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        tla.kv_dots(q.double(), q.double())
+
+
+def _oformer_case(cuda):
+    from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
+
+    hp = {"encoder": {"input_channels": 3, "in_emb_dim": 32, "out_channels": 32,
+                      "depth": 2, "res": 16},
+          "decoder": {"latent_channels": 32, "res": 16}, "lr": 1e-3}
+    rs = np.random.RandomState(0)
+    g = np.linspace(0, 1, 16, dtype=np.float32)[None].repeat(2, 0)
+    tok = tokenize_grid(rs.rand(2, 16, 16, 1) + 1, rs.rand(2, 16, 16, 1), g, g,
+                        {"input_mean": 1.5, "input_std": 0.3, "target_mean": 0.5,
+                         "target_std": 0.3})
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(tok[k])).to(cuda)
+                  for k in ("x", "y", "node_type", "pos", "n_time"))
+    keep = torch.from_numpy(rs.rand(2, 256, 32) < 0.9).to(cuda)
+    return hp, batch, keep
+
+
+@pytest.mark.cuda
+def test_oformer_eval_and_train_step_on_the_card(cuda):
+    """A small OformerTask (depth 2: four attention sites) on the kernel path
+    against the plain path: eval metrics, one train step, launch counts."""
+    from m_cedm_tpu_torch.tasks import OFORMER_TARGET, build_task
+
+    hp, batch, keep = _oformer_case(cuda)
+    out = {}
+    for name, ops in (("kernel", kernels.DEVICE_OPS), ("plain", PLAIN_OPS)):
+        task = build_task(hp, cuda, target=OFORMER_TARGET, ops=ops)
+        state = task.init_state(torch.Generator().manual_seed(0))
+        kernels.reset_launches()
+        metrics, grid = task.eval_step(state, batch)
+        eval_launches = kernels.launches()
+        kernels.reset_launches()
+        new, tm = task.train_step(state, batch, dropout_keep=keep)
+        out[name] = (metrics, grid, eval_launches, tm, new, kernels.launches())
+    (mk, gk, ek, tk, sk, lk), (mp, gp, ep, tp, sp, lp) = out["kernel"], out["plain"]
+    assert (ek["K5 kv_dots"], ek["K6 apply_dots"]) == (4, 4)
+    assert (lk["K5 kv_dots"], lk["K6 apply_dots"]) == (8, 16)
+    assert not any(ep.values()) and not any(lp.values())
+    for k in mp:
+        assert abs(float(mk[k]) - float(mp[k])) <= 1e-4 * max(1.0, abs(float(mp[k]))), k
+    np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(tk["train_loss"]), float(tp["train_loss"]), rtol=1e-5)
+    for k, v in sk.params.items():
+        assert float((v - sp.params[k]).abs().max()) <= 2 * 1e-3 + 1e-6, k

@@ -26,6 +26,7 @@ from m_cedm_tpu_torch.kernels import _build
 from m_cedm_tpu_torch.kernels import fused_attention as tfa
 from m_cedm_tpu_torch.kernels import fused_norm as tfn
 from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
+from m_cedm_tpu_torch.kernels import linear_attention as tla
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_SQ = dict(rtol=1e-5, atol=1e-4)
@@ -237,6 +238,7 @@ def _wrapper_calls(inp):
     rs = np.random.RandomState(10)
     g2 = torch.from_numpy(rs.randn(b, h, w, inp.w.shape[-1]).astype(np.float32))
     g3 = torch.from_numpy(rs.randn(b, 2 * h, 2 * w, inp.w.shape[-1]).astype(np.float32))
+    dots = torch.from_numpy(rs.randn(2, 64, 24).astype(np.float32))
     return {
         "K1 gn_silu": (lambda: tfn.gn_silu(x3, inp.t("gamma"), inp.t("beta"), 4),
                        lambda: tfn.gn_silu_plain(x3, inp.t("gamma"), inp.t("beta"), 4)),
@@ -273,6 +275,9 @@ def _wrapper_calls(inp):
                                                    inp.t("beta"), inp.t("w"), 4)[:4]),
         "K4 attention_bwd": (lambda: _grads(tfa.attention, (q, q, q), q),
                              lambda: tfa.attention_bwd_plain(q, q, q, q)),
+        # the linear-attention pair (forward only: each backward is the pair)
+        "K5 kv_dots": (lambda: tla.kv_dots(x3, x3), lambda: tla.kv_dots_plain(x3, x3)),
+        "K6 apply_dots": (lambda: tla.apply_dots(q, dots), lambda: tla.apply_dots_plain(q, dots)),
     }
 
 

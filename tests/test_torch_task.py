@@ -160,8 +160,9 @@ def test_compute_dtype(dtype, ported):
 
 def test_port_runtime_imports_no_jax():
     """Importing every module of the port and running a CPU forward, a
-    sampling step and a train step must leave JAX, flax, optax and
-    m_cedm_tpu unloaded."""
+    sampling step and a train step of the flagship and an eval and a train
+    step of the OFormer must leave JAX, flax, optax and m_cedm_tpu
+    unloaded."""
     code = r"""
 import pkgutil, importlib, sys, torch
 import m_cedm_tpu_torch
@@ -180,6 +181,22 @@ m, _ = task.eval_step(st, (x, x, x, x), torch.Generator(), torch.ones(16, 16, 2)
 assert all(torch.isfinite(v) for v in m.values())
 st, m = task.train_step(st, (x, x, x, x), torch.Generator().manual_seed(1))
 assert st.step == 1 and all(torch.isfinite(v) for v in m.values())
+import numpy as np
+from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
+enc = {"input_channels": 3, "in_emb_dim": 16, "out_channels": 16, "depth": 2, "res": 4}
+ohp = {"encoder": enc, "decoder": {"latent_channels": 16, "res": 4}, "lr": 1e-3}
+otask = build_task(ohp, "cpu", target="m_cedm_tpu.tasks.OformerTask")
+ost = otask.init_state(torch.Generator().manual_seed(0))
+g = np.linspace(0, 1, 4, dtype=np.float32)[None].repeat(2, 0)
+f = np.random.RandomState(0).rand(2, 2, 4, 4, 1)
+tok = tokenize_grid(f[0] + 1, f[1], g, g,
+                    {"input_mean": 0, "input_std": 1, "target_mean": 0, "target_std": 1})
+ob = tuple(torch.from_numpy(np.ascontiguousarray(tok[k]))
+           for k in ("x", "y", "node_type", "pos", "n_time"))
+m, grid = otask.eval_step(ost, ob)
+assert grid.shape == (2, 4, 4, 1) and all(torch.isfinite(v) for v in m.values())
+ost, m = otask.train_step(ost, ob, torch.Generator().manual_seed(1))
+assert ost.step == 1 and all(torch.isfinite(v) for v in m.values())
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                                       "optax", "m_cedm_tpu")]
 assert not bad, bad
