@@ -42,12 +42,28 @@ Phases, each printing JSON lines:
               (the same dropout masks, the constant lr), loss, gradient norm
               and params held to each other; ms per step on both paths, one
               profiled kernel-path step and the peak device memory
+  9. mega kernel  K7, the whole ADM block in one cooperative launch, against
+              its plain version at the flagship's shapes (identity with
+              chained stats, the decoder's dual input with a projection, the
+              up block) and one ragged case, output and emitted stats within
+              4e-5 of scale; kernel, plain and two-kernel-path (K2 + K2, or
+              K3 + K2) times; its recompute backward against float64
+              autograd of the plain composition
+  10. mega eval   phase 4's eval (same state and noise) with mega=True:
+              metrics within 1e-4 of the per-conv kernel path, the observed
+              channel held, launches asserted (13 K7, 6 K2, 0 K3 and 4 K4 per
+              forward), samples/s of both paths in turns
+  11. cond edm    CondEdmTask of configs/model/adm_edm_cond_h_res32.yaml at B =
+              16, full width and depth, 50 Heun steps with S_churn 15, on the
+              kernel path with mega=True and on the plain path: metrics
+              within 1e-4, launches asserted, samples/s of both
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
 kernel-path train steps of phase 5; K5 and K6 in one OFormer eval of phase 7,
-with their launches per OFormer train step beside), the nvidia-smi line, and
-the last line names the device. `bound_ms` is the least time the card could take for a kernel's work
+with their launches per OFormer train step beside; K7 in the mega eval of
+phase 10, with phase 11's beside), the nvidia-smi line, and the last line
+names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
 peak of an H100 SXM (the kernels run fp32 on CUDA cores). The plain versions
@@ -97,6 +113,46 @@ FLAGSHIP_HPARAMS = {
         "plot_scaled": False,
     },
 }
+
+# identical to the `hparams` block of configs/model/adm_edm_cond_h_res32.yaml,
+# the conditional EDM baseline served by CondEdmTask (a test holds the two
+# equal)
+COND_EDM_HPARAMS = {
+    "name": "adm_edm_cond_h",
+    "model": {
+        "in_channels": 1, "cond_channels": 1, "cat_cond": True, "out_ch": 1,
+        "ch": 64, "ch_mult": [1, 1, 1], "num_res_blocks": 1,
+        "attn_resolutions": [32], "dropout": 0.0, "label_dim": 0,
+        "augment_dim": 0, "label_dropout": 0, "ema_rate": 0.999, "ema": True,
+        "resamp_with_conv": True, "resolution": 128, "self_cond": False,
+        "cond_p": 1.0, "dx_cond": False, "cat_dx": False, "dx_norm": "l2",
+        "dx_detach": False, "add_cond_mask": False, "add_xt": False,
+        "type": "simple", "var_type": "fixedsmall", "node_type": False,
+    },
+    "data": {
+        "normalization": "gauss", "uniform_dequantization": False,
+        "gaussian_dequantization": False, "rescaled": False,
+    },
+    "optimization": {
+        "optimizer": "Adam", "lr": 0.0002, "weight_decay": 0.0, "beta1": 0.9,
+        "amsgrad": False, "eps": 1.0e-08, "grad_clip": 1.0, "loss": "l2",
+        "pde_loss_lambda": 0.0, "pde_loss_prop_t": False, "use_gt_pde": False,
+        "factor": 0.3, "step_size": 50,
+    },
+    "sampler": {
+        "name": "edm", "type": "edm", "timesteps": 50, "sigma_min": 0.002,
+        "sigma_max": 80, "rho": 7, "S_churn": 15.0, "S_min": 0, "S_max": "inf",
+        "S_noise": 1, "n_samples": 1, "n_repeat": 2, "n_time_h": 128,
+        "n_time_u": 0, "return_last": True, "select_by_pde": False,
+        "use_gt_pde_select": True, "guide_dx": False, "w": 0.0,
+        "plot_scaled": False,
+    },
+    "diffusion": {
+        "beta_schedule": "linear", "beta_start": 0.0001, "beta_end": 0.02,
+        "num_diffusion_timesteps": 1000,
+    },
+}
+COND_EDM_TARGET = "m_cedm_tpu.tasks.CondEdmTask"
 
 # identical to the `hparams` block of configs/model/oformer_t.yaml (a test
 # holds the two equal)
@@ -187,9 +243,24 @@ KERNEL_INFO = {
                    "m_cedm_tpu/pallas/linear_attention.py:68"),
     "K6 apply_dots": ("m_cedm_tpu_torch/csrc/linear_attention.cu",
                       "m_cedm_tpu/pallas/linear_attention.py:129"),
+    "K7 unet_block": ("m_cedm_tpu_torch/csrc/fused_block.cu",
+                      "m_cedm_tpu/pallas/fused_block.py:122"),
 }
 OFORMER_KERNELS = ("K5 kv_dots", "K6 apply_dots")
-FLAGSHIP_KERNELS = tuple(k for k in KERNEL_INFO if k not in OFORMER_KERNELS)
+MEGA_KERNELS = ("K7 unet_block",)  # the U-Net's sampling path with mega=True
+FLAGSHIP_KERNELS = tuple(k for k in KERNEL_INFO
+                         if k not in OFORMER_KERNELS + MEGA_KERNELS)
+# Per U-Net forward with mega=True at the flagship's and adm_edm_cond_h's
+# shapes: K7 runs the 13 blocks that are not down blocks (three encoder
+# blocks, the two middle blocks, six decoder blocks, two up blocks); K2 runs
+# conv_in, the two down blocks' two convs and out_conv; K4 the four
+# attention sites; no K3 (the up blocks are K7's)
+MEGA_LAUNCHES = {"K7 unet_block": 13, "K2 gn_silu_conv": 6,
+                 "K3 gn_silu_up_conv": 0, "K4 attention": 4}
+# K7 against its plain version: two chained convs of up to 9 * 128 products
+# each and a norm over the first one's output, in another summation order
+TOL_MEGA = 4e-5
+MEGA_RUNS = 2  # timed evals per path in phases 10 and 11, taken in turns
 
 
 def emit(obj) -> None:
@@ -702,12 +773,11 @@ def run_eval(task, state, batch, mask, device):
     return {k: float(v) for k, v in metrics.items()}, hu_mean, time.perf_counter() - t0
 
 
-def phase_eval(device, hparams, params, b: int) -> dict:
+def flagship_eval_data(device, hparams, b: int):
+    """The flagship eval's seeded batch, its mask "u" and its norm stats."""
     import torch
 
-    from m_cedm_tpu_torch import kernels
     from m_cedm_tpu_torch.data.masks import eval_masks_var
-    from m_cedm_tpu_torch.tasks import build_task
 
     r = hparams["model"]["resolution"]
     rs = np.random.RandomState(SEED + 3)
@@ -717,7 +787,18 @@ def phase_eval(device, hparams, params, b: int) -> dict:
     batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                   for a in (h, tg, xg, u))
     mask = torch.from_numpy(eval_masks_var(r, r)["u"]).to(device)
+    return batch, mask, stats
 
+
+def phase_eval(device, hparams, params, b: int):
+    """Returns the launches and the kernel path's metrics."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    r = hparams["model"]["resolution"]
+    batch, mask, stats = flagship_eval_data(device, hparams, b)
     task = build_task(hparams, device)
     state = task.init_state(None, stats, params=params)
     task.model.calls = 0
@@ -762,7 +843,7 @@ def phase_eval(device, hparams, params, b: int) -> dict:
           "launches": launches, "wall_s": walls, "plain_wall_s": pwalls,
           "samples_per_s": b * n_samples / wall,
           "plain_samples_per_s": b * n_samples / pwall})
-    return launches
+    return launches, metrics
 
 
 def train_steps(task, state, batch, device, first: int, n: int):
@@ -1087,6 +1168,277 @@ def phase_oformer_train(device, b: int) -> dict:
     return {k: launches[k] // TRAIN_STEPS for k in OFORMER_KERNELS}
 
 
+def two_kernel_block(x, g0, b0, w0, bias0, g1, b1, w1, bias1, groups0, groups1,
+                     eps, *, x2=None, skip_w=None, skip_b=None, stats=None,
+                     emit_stats=False, up=False):
+    """The U-Net's per-conv path for one block (mega=False): K2 conv0 (or K3
+    for an up block) emitting its statistics, then the K2 tail; a decoder's
+    concat is made first. The yardstick K7 replaces."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+
+    xin = torch.cat([x, x2], dim=-1) if x2 is not None else x
+    if up:
+        h, hs = fnc.gn_silu_up_conv(xin, g0, b0, w0, bias0, groups0, eps,
+                                    stats=stats, emit_stats=True)
+        tail = dict(residual=xin, res_up=True)
+    else:
+        h, hs = fnc.gn_silu_conv(xin, g0, b0, w0, bias0, groups0, eps, stats=stats,
+                                 emit_stats=True)
+        tail = dict(residual=xin, skip_w=skip_w, skip_b=skip_b)
+    return fnc.gn_silu_conv(h, g1, b1, w1, bias1, groups1, eps, stats=hs,
+                            emit_stats=emit_stats, **tail)
+
+
+def phase_mega_kernel(device, b: int, res: int, ch: int) -> dict:
+    """K7 against its plain version, one case per variant the U-Net runs at
+    the flagship's shapes and the ragged case of the CUDA tests; kernel,
+    plain and two-kernel-path times; the recompute backward against float64
+    autograd of the plain composition. Returns the identity case's summary."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import fused_block as fb
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device=device) * scale + shift
+
+    def block(bb, h, w, c1, c2, o, up=False, proj=False, chained=False, emit=False):
+        c = c1 + c2
+        args = [rnd(bb, h, w, c1, scale=0.8, shift=0.2), rnd(bb, c, scale=0.3, shift=1.0),
+                rnd(bb, c, scale=0.3), rnd(3, 3, c, o, scale=1.0 / math.sqrt(9 * c)),
+                rnd(o, scale=0.3), rnd(bb, o, scale=0.3, shift=1.0), rnd(bb, o, scale=0.3),
+                rnd(3, 3, o, o, scale=1.0 / math.sqrt(9 * o)), rnd(o, scale=0.3),
+                adm_groups(c), adm_groups(o), 1e-5]
+        kw = dict(emit_stats=emit, up=up)
+        if c2:
+            kw["x2"] = rnd(bb, h, w, c2, scale=0.8, shift=0.2)
+        if proj:
+            kw["skip_w"] = rnd(c, o, scale=1.0 / math.sqrt(c))
+            kw["skip_b"] = rnd(o, scale=0.3)
+        if chained:
+            xin = torch.cat([args[0]] + ([kw["x2"]] if c2 else []), -1)
+            kw["stats"] = (xin.sum(dim=(1, 2)), (xin * xin).sum(dim=(1, 2)))
+        return args, kw
+
+    lo = res // 2
+    cases = (
+        (f"identity, res {res}, chained stats, emit",
+         block(b, res, res, ch, 0, ch, chained=True, emit=True)),
+        (f"dual + 1x1 projection ({ch} + {ch} -> {ch}), res {res}, own stats pass",
+         block(b, res, res, ch, ch, ch, proj=True)),
+        (f"up, identity ({lo}x{lo} -> {res}x{res}), chained stats, emit",
+         block(b, lo, lo, ch, 0, ch, up=True, chained=True, emit=True)),
+        # tests/test_torch_cuda.py K7_CASES["wide-two-out-tiles"]
+        ("ragged: (1, 7, 19), 128 + 128 -> 128, projection, chained, emit",
+         block(1, 7, 19, 128, 128, 128, proj=True, chained=True, emit=True)),
+    )
+    first = None
+    for mode, (args, kw) in cases:
+        with torch.no_grad():
+            want = fb.fused_unet_block_plain(*args, **{k: v for k, v in kw.items()
+                                                       if k != "stats"})
+            got = fb.fused_unet_block(*args, **kw)
+            flat_got = [got] if not kw["emit_stats"] else [got[0], *got[1]]
+            flat_want = [want] if not kw["emit_stats"] else [want[0], *want[1]]
+            errs = [compare(a, w, TOL_MEGA, f"K7 {mode} output {i}")
+                    for i, (a, w) in enumerate(zip(flat_got, flat_want, strict=True))]
+            two = two_kernel_block(*args, **kw)
+            flat_two = [two] if not kw["emit_stats"] else [two[0], *two[1]]
+            two_err = max(compare(a, w, TOL_MEGA, f"two-kernel path {mode} output {i}")
+                          ["max_rel_err"]
+                          for i, (a, w) in enumerate(zip(flat_two, flat_want, strict=True)))
+            bb, hh, ww, c1 = args[0].shape
+            hh, ww = (2 * hh, 2 * ww) if kw["up"] else (hh, ww)
+            c, o = args[3].shape[2], args[3].shape[3]
+            flops = (conv_flops(bb, hh, ww, c, o) + conv_flops(bb, hh, ww, o, o)
+                     + (2.0 * bb * hh * ww * c * o if "skip_w" in kw else 0.0))
+            tensors = [a for a in args if torch.is_tensor(a)] + [
+                kw.get(k) for k in ("x2", "skip_w", "skip_b")] + list(
+                kw.get("stats") or ()) + flat_want
+            plain_kw = {k: v for k, v in kw.items() if k != "stats"}
+            rec = {"phase": "mega_kernel", "kernel": "K7 unet_block", "mode": mode,
+                   **max(errs, key=lambda e: e["max_rel_err"]),
+                   "outputs_checked": len(errs),
+                   "two_kernel_path_max_rel_err": two_err,
+                   "ms": cuda_ms(lambda: fb.fused_unet_block(*args, **kw)),
+                   "plain_ms": cuda_ms(lambda: fb.fused_unet_block_plain(*args, **plain_kw)),
+                   "two_kernel_ms": cuda_ms(lambda: two_kernel_block(*args, **kw)),
+                   **bound(nbytes(*tensors), flops), "library_ms": None,
+                   "library": "none: no PyTorch call computes a whole ADM block"}
+        if first is None:
+            rec["occupancy_blocks_per_sm_x_sms"] = fb.occupancy(False)
+            first = rec
+        emit(rec)
+        for k in ("max_abs_err", "max_rel_err"):
+            first[k] = max(first[k], rec[k])
+        if mode.startswith("dual"):
+            rec_bwd = mega_backward(device, g, args, kw)
+            emit(rec_bwd)
+            first["backward_max_rel_err"] = rec_bwd["max_rel_err"]
+        del want, got, two
+    torch.cuda.empty_cache()
+    return {"K7 unet_block": first}
+
+
+def mega_backward(device, g, args, kw) -> dict:
+    """K7 called under grad mode: its Function's recompute backward (K2's
+    backward kernels) against float64 autograd of the plain composition, on
+    the first two samples of the case."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.kernels import fused_block as fb
+
+    names = [k for k in ("x2", "skip_w", "skip_b") if k in kw]
+    # x, g0, b0, g1 and b1 are per sample
+    cut = [a[:2] if i in (0, 1, 2, 5, 6) else a for i, a in enumerate(args)]
+    kw = dict(kw, **{k: kw[k][:2] for k in ("x2",) if k in kw})
+    kw.pop("stats", None)
+    tensors = [a for a in cut if torch.is_tensor(a)] + [kw[k] for k in names]
+    leaves = [t.detach().clone().requires_grad_() for t in tensors]
+
+    def call(fn, ts):
+        it = iter(ts)
+        a = [next(it) if torch.is_tensor(x) else x for x in cut]
+        out = fn(*a, **dict(kw, **dict(zip(names, it))))
+        return out[0] if kw["emit_stats"] else out
+
+    kernels.reset_launches()
+    out = call(fb.fused_unet_block, leaves)
+    cot = torch.randn(out.shape, generator=g, device=device)
+    got = torch.autograd.grad(out, leaves, cot)
+    launches = kernels.launches()
+    l64 = [t.detach().double().requires_grad_() for t in tensors]
+    want = torch.autograd.grad(call(fb.fused_unet_block_plain, l64), l64, cot.double())
+    errs = [compare(a, w, TOL_BWD, f"K7 recompute backward gradient {i}")
+            for i, (a, w) in enumerate(zip(got, want, strict=True))]
+    if launches["K7 unet_block"] != 1 or launches["K2 gn_silu_conv_bwd"] < 1:
+        raise AssertionError(f"K7 under grad mode launched {launches}")
+    return {"phase": "mega_kernel", "kernel": "K7 unet_block (recompute backward)",
+            "batch": int(out.shape[0]), **max(errs, key=lambda e: e["max_rel_err"]),
+            "gradients": errs,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def check_mega_launches(launches: dict, forwards: int, what: str) -> None:
+    want = {k: n * forwards for k, n in MEGA_LAUNCHES.items()}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, expected {want}")
+
+
+def phase_mega_eval(device, hparams, params, b: int, eval_metrics: dict) -> dict:
+    """The flagship eval of phase 4 (same state, same noise) with mega=True:
+    metrics against the per-conv kernel path of phase 4, the launch counts,
+    and samples/s of both paths taken in turns."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    batch, mask, stats = flagship_eval_data(device, hparams, b)
+    task = build_task(hparams, device, mega=True)
+    state = task.init_state(None, stats, params=params)
+    task.model.calls = 0
+    kernels.reset_launches()
+    metrics, hu_mean, wall = run_eval(task, state, batch, mask, device)
+    launches = kernels.launches()
+    calls = task.model.calls
+    check_mega_launches(launches, calls, f"mega flagship eval ({calls} forwards)")
+    gt = task.transform.forward(state, batch[0], batch[3])
+    known_err = float((hu_mean[..., 0] - gt[..., 0]).abs().max())
+    if known_err > TOL_KNOWN or not torch.isfinite(hu_mean).all():
+        raise AssertionError(f"mega eval: observed channel moved by {known_err}")
+    for k, v in metrics.items():
+        if not math.isfinite(v) or abs(v - eval_metrics[k]) > TOL_METRICS * max(
+                1.0, abs(eval_metrics[k])):
+            raise AssertionError(f"mega eval {k}: {v} vs per-conv path {eval_metrics[k]}")
+    ptask = build_task(hparams, device)
+    pstate = ptask.init_state(None, stats, params=params)
+    walls, pwalls = [wall], []
+    for _ in range(MEGA_RUNS):  # in turns: per-conv, mega, per-conv, mega
+        pwalls.append(run_eval(ptask, pstate, batch, mask, device)[2])
+        walls.append(run_eval(task, state, batch, mask, device)[2])
+    n = b * hparams["sampler"]["n_samples"]
+    wall, pwall = float(np.median(walls[1:])), float(np.median(pwalls))
+    emit({"phase": "mega_eval", "batch": b, "unet_forwards": calls,
+          "metrics": metrics, "per_conv_metrics": eval_metrics,
+          "metrics_tol": TOL_METRICS, "known_channel_max_err": known_err,
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_per_forward": {k: launches[k] / calls for k in MEGA_LAUNCHES},
+          "wall_s": walls, "per_conv_wall_s": pwalls,
+          "samples_per_s": n / wall, "per_conv_samples_per_s": n / pwall})
+    return launches
+
+
+def phase_cond_edm(device, b: int) -> dict:
+    """CondEdmTask (configs/model/adm_edm_cond_h_res32.yaml) at full width
+    and depth: one eval_step on the kernel path with mega=True and one on the
+    plain path, the same seeded weights and noise; metrics, launches and
+    samples/s of both, taken in turns."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp = COND_EDM_HPARAMS
+    r = hp["model"]["resolution"]
+    h, tg, xg, u = synthetic_swe_batch(np.random.RandomState(SEED + 11), b, r)
+    stats = {"input_mean": h.mean(), "input_std": h.std(),
+             "target_mean": u.mean(), "target_std": u.std()}
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (h, tg, xg, u))
+    tasks = [build_task(hp, device, target=COND_EDM_TARGET, ops=ops, mega=True)
+             for ops in (kernels.DEVICE_OPS, kernels.PLAIN_OPS)]
+    params = seeded_params(tasks[0].model, SEED + 12)
+    states = [t.init_state(None, stats, params=params) for t in tasks]
+
+    def run(i):
+        gen = torch.Generator(device=device).manual_seed(SEED + 13)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, u_mean = tasks[i].eval_step(states[i], batch, gen, split="test")
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()}, u_mean,
+                time.perf_counter() - t0)
+
+    tasks[0].model.calls = 0
+    kernels.reset_launches()
+    metrics, u_mean, wall = run(0)
+    launches = kernels.launches()
+    calls = tasks[0].model.calls
+    check_mega_launches(launches, calls, f"CondEdmTask eval ({calls} forwards)")
+    if tuple(u_mean.shape) != (b, r, r, 1) or not torch.isfinite(u_mean).all():
+        raise AssertionError(f"CondEdmTask sample {tuple(u_mean.shape)} not finite")
+    want = {"test_mae_u", "test_mae_u_un", "test_mae_u_scaled", "test_corr_u",
+            "test_pde_loss", "test_pde_loss_gt"}
+    if set(metrics) != want or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"CondEdmTask metrics {metrics}")
+    walls, pwalls = [wall], []
+    for _ in range(MEGA_RUNS):  # in turns: plain, kernel, plain, kernel
+        pmetrics, pu_mean, pwall = run(1)
+        pwalls.append(pwall)
+        walls.append(run(0)[2])
+    for k, v in metrics.items():
+        if abs(v - pmetrics[k]) > TOL_METRICS * max(1.0, abs(pmetrics[k])):
+            raise AssertionError(f"CondEdmTask {k}: kernel path {v} vs plain {pmetrics[k]}")
+    n = b * hp["sampler"]["n_samples"]
+    wall, pwall = float(np.median(walls[1:])), float(np.median(pwalls))
+    emit({"phase": "cond_edm_eval", "config": "adm_edm_cond_h", "batch": b,
+          "steps": hp["sampler"]["timesteps"], "S_churn": hp["sampler"]["S_churn"],
+          "unet_forwards": calls, "metrics": metrics, "plain_metrics": pmetrics,
+          "metrics_tol": TOL_METRICS,
+          "sample": compare(u_mean, pu_mean, 1.0, "CondEdmTask sample"),
+          "launches": {k: v for k, v in launches.items() if v},
+          "wall_s": walls, "plain_wall_s": pwalls,
+          "samples_per_s": n / wall, "plain_samples_per_s": n / pwall})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1103,13 +1455,17 @@ def main() -> int:
     results = phase_kernels(device, BATCH, m["resolution"], m["ch"])
     results.update(phase_backward(device, BATCH, m["resolution"], m["ch"]))
     params = phase_forward(device, hparams, BATCH)
-    eval_launches = phase_eval(device, hparams, params, BATCH)
+    eval_launches, eval_metrics = phase_eval(device, hparams, params, BATCH)
     train_launches = phase_train(device, hparams, params, BATCH)
     enc = OFORMER_HPARAMS["encoder"]
     results.update(phase_linear_attention(device, BATCH, enc["res"] ** 2, enc["in_emb_dim"]))
     eval_launches.update(
         {k: v for k, v in phase_oformer_eval(device, BATCH).items() if k in OFORMER_KERNELS})
     oformer_step_launches = phase_oformer_train(device, BATCH)
+    results.update(phase_mega_kernel(device, BATCH, m["resolution"], m["ch"]))
+    mega_launches = phase_mega_eval(device, hparams, params, BATCH, eval_metrics)
+    eval_launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
+    cond_launches = phase_cond_edm(device, BATCH)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -1124,6 +1480,10 @@ def main() -> int:
         if name in OFORMER_KERNELS:
             row.update(launches_per_train_step=oformer_step_launches[name],
                        at_bh_64=rec["at_bh_64"])
+        if name in MEGA_KERNELS:
+            row.update(two_kernel_ms=rec["two_kernel_ms"],
+                       backward_max_rel_err=rec["backward_max_rel_err"],
+                       launches_cond_edm_eval=cond_launches[name])
         summary.append(row)
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and the op sets the models run.
 
-The U-Net calls its four fused operations, and the OFormer its two
-linear-attention products, through an `Ops` set:
+The U-Net calls its fused operations (the whole-block K7 on its sampling
+path with `mega=True`), and the OFormer its two linear-attention products,
+through an `Ops` set:
 
   DEVICE_OPS  the kernel wrappers, each a torch.autograd.Function: the CUDA
               kernels (forward and backward) for CUDA tensors, the plain
@@ -18,6 +19,8 @@ from typing import Callable, Dict
 from m_cedm_tpu_torch.kernels.fused_attention import (attention,
                                                       attention_bwd,
                                                       attention_plain)
+from m_cedm_tpu_torch.kernels.fused_block import (fused_unet_block,
+                                                  fused_unet_block_plain)
 from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, gn_silu,
                                                  gn_silu_bwd, gn_silu_plain)
 from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
@@ -39,12 +42,14 @@ class Ops:
     attention: Callable
     kv_dots: Callable
     apply_dots: Callable
+    unet_block: Callable
 
 
 DEVICE_OPS = Ops(gn_silu, gn_silu_conv, gn_silu_up_conv, attention, kv_dots,
-                 apply_dots)
+                 apply_dots, fused_unet_block)
 PLAIN_OPS = Ops(gn_silu_plain, gn_silu_conv_plain, gn_silu_up_conv_plain,
-                attention_plain, kv_dots_plain, apply_dots_plain)
+                attention_plain, kv_dots_plain, apply_dots_plain,
+                fused_unet_block_plain)
 
 # every kernel wrapper, by the name chip_smoke.py reports
 WRAPPERS: Dict[str, Callable] = {
@@ -59,6 +64,7 @@ WRAPPERS: Dict[str, Callable] = {
     "K4 attention_bwd": attention_bwd,
     "K5 kv_dots": kv_dots,
     "K6 apply_dots": apply_dots,
+    "K7 unet_block": fused_unet_block,
 }
 
 

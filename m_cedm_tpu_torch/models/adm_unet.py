@@ -13,6 +13,14 @@ Per block:
   up     K3(x; emit) -> K2(h; + upsample(x or skip(x)))
   attn   GroupNorm -> qkv matmul -> K4 -> proj matmul + x (no stats out)
 
+Megakernel mode (`mega=True`, the counterpart of the JAX package's
+MCEDM_MEGA=1, adm_unet.py:198-242 and :571-616): with grad mode off, every
+block but the down blocks runs as one K7 call (`ops.unet_block`: both convs,
+the skip and the residual add; the up-block's upsample inside), a decoder
+block takes its encoder skip as a separate input with the halves' chained
+statistics, so the concat is never made, and the attention runs after the
+kernel. With gradients on, the model takes the per-conv path above.
+
 The same chained forward runs with gradients: every fused operation is a
 torch.autograd.Function whose backward is a kernel on the card, and the
 (B, C) gamma/beta that `GroupNormSiLU.fold` builds carry their gradients on
@@ -110,14 +118,41 @@ class UNetBlock(nn.Module):
             self.proj = Conv2d(c, c, 1, **INIT_ZERO)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, in_stats: Optional[Stats],
-                ops: Ops) -> Tuple[torch.Tensor, Optional[Stats]]:
+                ops: Ops, x2: Optional[torch.Tensor] = None, mega: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Stats]]:
+        """x2: a decoder block's encoder skip, taken unconcatenated (mega
+        only); in_stats: the chained channel sums of x (or of the concat)."""
         b, c_in = x.shape[0], x.shape[-1]
-        g_in = adm_groups(c_in)
         c = self.conv1.weight.shape[-1]
         g0, b0 = self.norm0.fold(b)
         conv0, conv1 = self.conv0, self.conv1
         skw = self.skip.weight if self.skip is not None else None
         skb = self.skip.bias if self.skip is not None else None
+        scale, shift = self.affine(emb).chunk(2, dim=-1)
+        g1, b1 = self.norm1.fold(b, scale, shift)
+        # emitted stats are only valid when nothing transforms the output
+        emit = not self.num_heads
+        if mega and not self.down:
+            c_in += x2.shape[-1] if x2 is not None else 0
+            out = ops.unet_block(x, g0, b0, conv0.weight, conv0.bias, g1, b1,
+                                 conv1.weight, conv1.bias, adm_groups(c_in),
+                                 adm_groups(c), self.eps, x2=x2, skip_w=skw,
+                                 skip_b=skb, stats=in_stats, emit_stats=emit,
+                                 up=self.up)
+        else:
+            if x2 is not None:
+                raise ValueError("a separate skip input needs the megakernel path")
+            out = self._two_kernels(x, in_stats, ops, g0, b0, g1, b1, skw, skb,
+                                    emit)
+        if emit:
+            return out
+        return self._attention(out, ops), None
+
+    def _two_kernels(self, x, in_stats, ops, g0, b0, g1, b1, skw, skb, emit):
+        """conv0 with norm0 in its prologue, then conv1 with the block tail."""
+        g_in = adm_groups(x.shape[-1])
+        c = self.conv1.weight.shape[-1]
+        conv0, conv1 = self.conv0, self.conv1
         if self.down:
             y = self.norm0(x, ops, stats=in_stats)
             h, h_stats = ops.gn_silu_conv(downsample2x_mean(y), None, None,
@@ -136,15 +171,8 @@ class UNetBlock(nn.Module):
                                           g_in, self.eps, stats=in_stats,
                                           emit_stats=True)
             tail = dict(residual=x, skip_w=skw, skip_b=skb)
-        scale, shift = self.affine(emb).chunk(2, dim=-1)
-        g1, b1 = self.norm1.fold(b, scale, shift)
-        # emitted stats are only valid when nothing transforms the output
-        emit = not self.num_heads
-        out = ops.gn_silu_conv(h, g1, b1, conv1.weight, conv1.bias, adm_groups(c),
-                               self.eps, stats=h_stats, emit_stats=emit, **tail)
-        if emit:
-            return out
-        return self._attention(out, ops), None
+        return ops.gn_silu_conv(h, g1, b1, conv1.weight, conv1.bias, adm_groups(c),
+                                self.eps, stats=h_stats, emit_stats=emit, **tail)
 
     def _attention(self, x: torch.Tensor, ops: Ops) -> torch.Tensor:
         b, hh, ww, c = x.shape
@@ -167,16 +195,18 @@ class AdmUNet(nn.Module):
 
     `ops` selects the fused operations: DEVICE_OPS (kernels on the card,
     plain versions on the CPU) or PLAIN_OPS (plain everywhere: the reference
-    the kernel path is held against on the card). `calls` counts forwards."""
+    the kernel path is held against on the card). `mega` runs every block
+    but the down blocks as one `ops.unet_block` call while grad mode is off
+    (module docstring). `calls` counts forwards."""
 
-    def __init__(self, cfg: AdmUNetConfig, ops: Ops = DEVICE_OPS):
+    def __init__(self, cfg: AdmUNetConfig, ops: Ops = DEVICE_OPS, mega: bool = False):
         super().__init__()
         if cfg.self_cond or cfg.dx_cond or cfg.label_dim or cfg.augment_dim or (
                 cfg.cond_channels > 0 and not cfg.cat_cond):
             raise NotImplementedError(
                 "self-cond, dx, label, augment and cond-encoder inputs of the "
                 "ADM U-Net are not ported yet (see ROADMAP.md)")
-        self.cfg, self.ops, self.calls = cfg, ops, 0
+        self.cfg, self.ops, self.mega, self.calls = cfg, ops, mega, 0
         ch = cfg.ch
         self.map_layer0 = Linear(ch, ch, **INIT)
         self.map_layer1 = Linear(ch, ch, **INIT)
@@ -238,16 +268,21 @@ class AdmUNet(nn.Module):
                                     self.conv_in.weight, self.conv_in.bias,
                                     emit_stats=True)
         skips = [(x, stats)]
+        mega = self.mega and not torch.is_grad_enabled()
         for name in self.order:
             blk = getattr(self, name)
+            x2 = None
             if blk.concat_skip:
                 skip, skip_stats = skips.pop()
-                x = torch.cat([x, skip], dim=-1)
+                if mega:  # the megakernel reads the two halves unconcatenated
+                    x2 = skip
+                else:
+                    x = torch.cat([x, skip], dim=-1)
                 # channel stats of a concat are the concat of the halves'
                 stats = (None if stats is None or skip_stats is None else
                          (torch.cat([stats[0], skip_stats[0]], -1),
                           torch.cat([stats[1], skip_stats[1]], -1)))
-            x, stats = blk(x, emb, stats, ops)
+            x, stats = blk(x, emb, stats, ops, x2=x2, mega=mega)
             if name.startswith("enc_"):
                 skips.append((x, stats))
         y = self.out_norm(x, ops, stats=stats)

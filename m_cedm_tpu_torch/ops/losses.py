@@ -76,7 +76,9 @@ def correlation(pred, target, reduction: str = "none"):
     return corr
 
 
-def _scale_min_max(state):
+def scale_each_min_max(state):
+    """Rescale each (sample, channel) field to [0, 1] over its (H, W) extent
+    (tasks/base.py:123-133 of the JAX package)."""
     b, c = state.shape[0], state.shape[-1]
     flat = state.reshape(b, -1, c)
     mn = torch.amin(flat, dim=1, keepdim=True)
@@ -86,7 +88,7 @@ def _scale_min_max(state):
 
 def scaled_mae_loss(pred, target, keep_channels: bool = False):
     """L1 between per-sample min-max-rescaled fields."""
-    err = torch.abs(_scale_min_max(pred) - _scale_min_max(target))
+    err = torch.abs(scale_each_min_max(pred) - scale_each_min_max(target))
     if keep_channels:
         return torch.mean(err, dim=(0, 1, 2))
     return torch.mean(err)

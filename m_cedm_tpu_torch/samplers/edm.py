@@ -1,5 +1,6 @@
-"""Heun (EDM) sampler with known-part clamping (port of the masked sampler of
-m_cedm_tpu/samplers/edm.py).
+"""Heun (EDM) samplers (port of m_cedm_tpu/samplers/edm.py): the masked
+sampler with known-part clamping (McedmTask) and the plain conditional one
+(CondEdmTask), whose conditioning lives in the denoiser.
 
 The schedule constants are computed on the host in float64 numpy and stored
 as float32, exactly as in the JAX package (`make_edm_schedule` is a copy, so
@@ -136,13 +137,24 @@ def heun_sample_masked(denoise_fn: Callable, known: torch.Tensor,
     noise = init_noise if init_noise is not None else normal()
     x = noise * float(schedule.t_cur[0])
     x = known * (1.0 - mask) + x * mask
+    return _heun_loop(denoise_fn, x, schedule, normal, churn_noise, mask,
+                      return_last)
+
+
+def _heun_loop(denoise_fn: Callable, x: torch.Tensor, schedule: EdmSchedule,
+               normal: Callable[[], torch.Tensor],
+               churn_noise: Optional[torch.Tensor],
+               mask: Optional[torch.Tensor], return_last: bool) -> torch.Tensor:
+    """The steps both samplers share from their initial state x: churn noise
+    (where mask == 1, or everywhere without a mask), then `_heun_step`."""
     states = []
     for i in range(schedule.num_steps):
         t_cur, t_hat = schedule.t_cur[i], schedule.t_hat[i]
         churn = float(np.sqrt(np.maximum(t_hat * t_hat - t_cur * t_cur,
                                          np.float32(0.0))))
         eps = churn_noise[i] if churn_noise is not None else normal()
-        x_hat = x + churn * schedule.S_noise * eps * mask
+        step_noise = churn * schedule.S_noise * eps
+        x_hat = x + (step_noise if mask is None else step_noise * mask)
         x, _ = _heun_step(denoise_fn, x_hat, t_hat, schedule.t_next[i],
                           bool(schedule.is_last[i]), update_mask=mask)
         if not return_last:
@@ -150,3 +162,35 @@ def heun_sample_masked(denoise_fn: Callable, known: torch.Tensor,
     if return_last:
         return x[:, None]
     return torch.stack(states, dim=1)
+
+
+def heun_sample_cond(denoise_fn: Callable, shape, schedule: EdmSchedule,
+                     generator: Optional[torch.Generator] = None,
+                     guidance_fn: Optional[Callable] = None,
+                     return_last: bool = True,
+                     init_noise: Optional[torch.Tensor] = None,
+                     churn_noise: Optional[torch.Tensor] = None,
+                     guidance_div_t: bool = True, self_condition: bool = False,
+                     device="cpu") -> torch.Tensor:
+    """Plain conditional Heun sampler: the state of `shape` (B, H, W, C) is
+    drawn and updated everywhere; denoise_fn(x, sigma) -> D(x) holds the
+    conditioning. init_noise (B, H, W, C) and churn_noise (N, B, H, W, C)
+    replace the generator's draws. Returns (B, 1, H, W, C), or every step's
+    state (B, N, H, W, C) when return_last is False.
+
+    guidance_div_t divides a PDE-guidance term by t_hat (ddim.py:1578,1590);
+    PDE guidance and the self-conditioning carry are not ported yet."""
+    if guidance_fn is not None:
+        raise NotImplementedError("PDE guidance is not ported yet (see ROADMAP.md)")
+    if self_condition:
+        raise NotImplementedError("self-conditioning is not ported yet "
+                                  "(see ROADMAP.md)")
+    del guidance_div_t  # it scales only the guidance term
+
+    def normal():
+        return torch.randn(tuple(shape), generator=generator, device=device,
+                           dtype=torch.float32)
+
+    x = (init_noise if init_noise is not None else normal()) * float(schedule.t_cur[0])
+    return _heun_loop(denoise_fn, x, schedule, normal, churn_noise, None,
+                      return_last)

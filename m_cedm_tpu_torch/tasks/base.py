@@ -212,3 +212,7 @@ def ensemble(draw: Callable[[int], torch.Tensor], n: int) -> torch.Tensor:
     """Stack `draw(i)` for i < n: the plain loop that replaces the JAX
     package's chunked, vmapped `chunked_ensemble`."""
     return torch.stack([draw(i) for i in range(n)], dim=0)
+
+
+def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))

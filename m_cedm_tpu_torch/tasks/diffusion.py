@@ -1,22 +1,29 @@
-"""Mixed-conditional EDM training and serving (port of
-m_cedm_tpu/tasks/diffusion.py: DiffusionTaskBase and McedmTask).
+"""Diffusion tasks (port of m_cedm_tpu/tasks/diffusion.py):
+DiffusionTaskBase, McedmTask (the paper's mixed-conditional EDM: training
+and serving), and the serving path of the single-task conditional EDM
+baseline CondEdmTask with the pieces of DdimTask / CondDdimTask it inherits.
 
     task = build_task(hparams, device)
     state = task.init_state(generator, norm_stats)
     state, metrics = task.train_step(state, batch, generator)
     metrics, hu_mean = task.eval_step(state, batch, generator, mask,
                                       split="test", mask_name="u")
+    ctask = build_task(cond_hparams, device, target=COND_EDM_TARGET, mega=True)
+    metrics, u_mean = ctask.eval_step(cstate, batch, generator, split="test")
 
+`mega=True` runs the U-Net's sampling forwards through the whole-block K7.
 The state is functional, as in the JAX package: `train_step` returns a new
-TaskState and leaves its argument as it was. The DDIM/RePaint samplers and
-the other task classes come in later slices (ROADMAP.md).
+TaskState and leaves its argument as it was. The DDIM/RePaint samplers, the
+conditional tasks' training and the other task classes come in later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -24,14 +31,16 @@ from m_cedm_tpu_torch.data.masks import TRAIN_MASK_SAMPLERS
 from m_cedm_tpu_torch.kernels import DEVICE_OPS, Ops
 from m_cedm_tpu_torch.models import build_backbone
 from m_cedm_tpu_torch.ops import losses
+from m_cedm_tpu_torch.ops.losses import scale_each_min_max
 from m_cedm_tpu_torch.ops.normalizer import Normalizer
-from m_cedm_tpu_torch.ops.schedules import (edm_loss_weight, edm_precond_coeffs,
-                                            edm_train_sigma)
+from m_cedm_tpu_torch.ops.schedules import (alphas_cumprod_from_betas,
+                                            edm_loss_weight, edm_precond_coeffs,
+                                            edm_train_sigma, get_beta_schedule)
 from m_cedm_tpu_torch.physics.pde_loss import get_pde_loss_function
 from m_cedm_tpu_torch.samplers import edm as edm_samplers
 from m_cedm_tpu_torch.tasks.base import (DataTransform, TaskState,
                                          apply_updates, ema_update, ensemble,
-                                         global_norm, make_optimizer,
+                                         global_norm, mae, make_optimizer,
                                          normalizers_from_stats, to_device)
 
 P_MEAN, P_STD, SIGMA_DATA = -1.2, 1.2, 1.0
@@ -44,19 +53,36 @@ DEFAULT_EDM_SAMPLER = dict(
     select_by_pde=False, use_gt_pde_select=True, guide_dx=False, w=0.0,
     plot_scaled=False)
 
+DEFAULT_DDIM_SAMPLER = dict(
+    name="ddim", type="ddim", timesteps=50, skip_type="uniform", eta=0.0,
+    n_samples=1, n_repeat=5, n_time_h=128, n_time_u=0, return_last=True,
+    select_by_pde=False, use_gt_pde_select=True, guide_dx=False, w=0.0,
+    plot_scaled=False)
+
+
+def _edm_precond(task, params, x_noise, sigma, cond):
+    """D(x) = c_skip x + c_out F(c_in x, c_noise; cond): the EDM denoiser."""
+    sigma = sigma.to(torch.float32).reshape(-1, 1, 1, 1)
+    c_skip, c_out, c_in, c_noise = edm_precond_coeffs(sigma, SIGMA_DATA)
+    f_x = task.net_apply(params, c_in * x_noise, c_noise.reshape(-1), cond)
+    return c_skip * x_noise + c_out * f_x
+
 
 class DiffusionTaskBase:
-    """Shared machinery: backbone, transforms, optimizer, EMA, PDE loss."""
+    """Shared machinery: backbone, transforms, optimizer, EMA, PDE loss.
+    `mega` selects the U-Net's megakernel mode for the sampling forwards."""
 
     default_cond_p = 0.0
 
     def __init__(self, hparams, device, ops: Ops = DEVICE_OPS,
-                 grad_clip: Optional[float] = 1.0):
+                 grad_clip: Optional[float] = 1.0, mega: bool = False):
         hparams = copy.deepcopy(hparams)
         self.hparams = hparams
         self.device = torch.device(device)
         m = hparams["model"]
-        self.h_ch = self.u_ch = max(m["out_ch"] // 2, 1)
+        self.h_ch, self.u_ch = self._channel_split(hparams)
+        self.self_condition = m.get("self_cond", False)
+        self.node_type = m.get("node_type", False)
         self.dx_cond = m.get("dx_cond", False)
         self.add_cond_mask = m.get("add_cond_mask", False)
         self.add_xt = m.get("add_xt", False)
@@ -66,14 +92,25 @@ class DiffusionTaskBase:
         if m.get("dtype", "float32") in ("bfloat16", "bf16"):
             raise NotImplementedError("bf16 compute is not ported yet (see ROADMAP.md)")
         self._adjust_cond_channels(hparams)
-        self.model, self.model_cfg = build_backbone(hparams, ops)
+        self.model, self.model_cfg = build_backbone(hparams, ops, mega=mega)
         self.model.to(self.device).eval()
         self.transform = DataTransform(hparams["data"])
         opt_cfg = hparams.get("optimization")
         # a serving-only config may leave the optimizer out
         self.tx = make_optimizer(opt_cfg, grad_clip) if opt_cfg else None
         self.pde_loss, _ = get_pde_loss_function("swe", flip_xy=False)
-        self.test_sparams = hparams.get("sampler") or dict(DEFAULT_EDM_SAMPLER)
+        self.sparams = hparams.get("sampler") or self.default_sampler_params()
+        self.test_sparams = self.sparams
+
+    def set_test_sampler_params(self, sparams):
+        self.test_sparams = sparams
+
+    def default_sampler_params(self):
+        return dict(DEFAULT_DDIM_SAMPLER)
+
+    def _channel_split(self, hparams) -> Tuple[int, int]:
+        ch = max(hparams["model"]["out_ch"] // 2, 1)
+        return ch, ch
 
     def _adjust_cond_channels(self, hparams):
         pass
@@ -144,6 +181,9 @@ class McedmTask(DiffusionTaskBase):
     default_cond_p = 1.0
     train_mask_kind = "var"
 
+    def default_sampler_params(self):
+        return dict(DEFAULT_EDM_SAMPLER)
+
     def _adjust_cond_channels(self, hparams):
         m = hparams["model"]
         if m.get("add_cond_mask", False):
@@ -163,10 +203,7 @@ class McedmTask(DiffusionTaskBase):
         return cond_in
 
     def model_precond(self, params, x_noise, sigma, cond=None):
-        sigma = sigma.to(torch.float32).reshape(-1, 1, 1, 1)
-        c_skip, c_out, c_in, c_noise = edm_precond_coeffs(sigma, SIGMA_DATA)
-        f_x = self.net_apply(params, c_in * x_noise, c_noise.reshape(-1), cond)
-        return c_skip * x_noise + c_out * f_x
+        return _edm_precond(self, params, x_noise, sigma, cond)
 
     def loss_and_grads(self, state: TaskState, batch,
                        generator: Optional[torch.Generator] = None, *,
@@ -321,3 +358,217 @@ class McedmTask(DiffusionTaskBase):
             f"{split}_pde_loss_gt": pde_gt,
         }
         return metrics, hu_mean
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+
+
+class DdimTask(DiffusionTaskBase):
+    """The DDPM schedule the conditional baselines share (the JAX DdimTask's
+    constructor and cond-channel rule); its joint sampling, training and
+    evaluation are not ported yet."""
+
+    default_cond_p = 0.0
+
+    def __init__(self, hparams, device, ops: Ops = DEVICE_OPS,
+                 grad_clip: Optional[float] = 1.0, mega: bool = False):
+        d = hparams["diffusion"]
+        self.betas = get_beta_schedule(
+            d["beta_schedule"], beta_start=d["beta_start"], beta_end=d["beta_end"],
+            num_diffusion_timesteps=d["num_diffusion_timesteps"])
+        self.alphas_cumprod = alphas_cumprod_from_betas(self.betas)
+        self.num_timesteps = len(self.betas)
+        # DDPM-as-EDM sigma table (ddim.py:131-137), reversed to EDM order
+        self.edm_steps = np.sqrt(
+            (1.0 - self.alphas_cumprod) / self.alphas_cumprod)[::-1].copy()
+        self.sigma_min = float(self.edm_steps[-1])
+        self.sigma_max = float(self.edm_steps[0])
+        super().__init__(hparams, device, ops, grad_clip, mega=mega)
+
+    def _adjust_cond_channels(self, hparams):
+        m = hparams["model"]
+        if m.get("node_type", False):
+            m["cond_channels"] = m["cond_channels"] + 1
+
+    def train_step(self, *args, **kwargs):
+        raise _not_ported(f"{type(self).__name__}.train_step")
+
+    def eval_step(self, *args, **kwargs):
+        raise _not_ported("the joint DDPM evaluation")
+
+    def sample(self, *args, **kwargs):
+        raise _not_ported("the DDIM sampler")
+
+    def sample_edm(self, *args, **kwargs):
+        raise _not_ported("DDPM-as-EDM sampling")
+
+
+class CondDdimTask(DdimTask):
+    """Conditional DDPM: h observed -> denoise u. Ported: the conditioning,
+    the physics on the known state and the evaluation around a sampler."""
+
+    default_cond_p = 0.8
+
+    def _channel_split(self, hparams) -> Tuple[int, int]:
+        return hparams["model"]["in_channels"], hparams["model"]["out_ch"]
+
+    def get_cond_in(self, h, u, t_grid, x_grid):
+        """The conditioning channels by configured width (ddim.py:1081-1116):
+        h; h and u's initial condition; h and the grids; all three. Plus the
+        boundary-node channel with node_type."""
+        cond_ch = self.model_cfg.cond_channels - (1 if self.node_type else 0)
+        h_ch, u_ch = self.h_ch, self.u_ch
+
+        def u_ic():
+            return u[:, 0:1].expand(-1, u.shape[1], -1, -1)
+
+        if cond_ch == h_ch:
+            cond_in = h
+        elif cond_ch == h_ch + u_ch:
+            cond_in = torch.cat([h, u_ic()], dim=-1)
+        elif cond_ch == h_ch + 2:
+            cond_in = torch.cat([h, t_grid, x_grid], dim=-1)
+        elif cond_ch == h_ch + u_ch + 2:
+            cond_in = torch.cat([h, u_ic(), t_grid, x_grid], dim=-1)
+        else:
+            raise ValueError(f"cond_channels {cond_ch} incompatible with h_ch {h_ch}")
+        if self.node_type:
+            b, t_dim, x_dim = h.shape[:3]
+            nt = np.zeros((1, t_dim, x_dim, 1), np.float32)
+            nt[:, 0] = nt[:, -1] = nt[:, :, 0] = nt[:, :, -1] = 1.0
+            nt = torch.from_numpy(nt).to(h.device).expand(b, -1, -1, -1)
+            cond_in = torch.cat([cond_in, nt], dim=-1)
+        return cond_in
+
+    def _pde_matrix_cond(self, state: TaskState, h_norm, u_denoised,
+                         x_gt_unnorm=None, clamp_loss=True):
+        """PDE residual with the conditioning as the known state, summed over
+        the channels."""
+        h = h_norm[..., :self.h_ch].float()
+        h_un, u_un = self.transform.inverse(state, h, u_denoised.float())
+        x_unnorm = torch.cat([h_un, u_un], dim=-1)
+        gt = x_unnorm if x_gt_unnorm is None else x_gt_unnorm
+        m = self.pde_loss(x_unnorm, gt, state.normalizer_input,
+                          state.normalizer_target, clamp_loss=clamp_loss)
+        return m.sum(dim=-1) if m.dim() > 3 else m
+
+    def _inverse_u(self, state: TaskState, u):
+        if self.transform.rescaled:
+            u = (u + 1.0) / 2.0
+        if self.transform.normalization == "min_max":
+            u = torch.clamp(u, 0.0, 1.0)
+        return state.normalizer_target(u, inverse=True)
+
+    @torch.no_grad()
+    def eval_step(self, state: TaskState, batch, generator: Optional[torch.Generator],
+                  split: str = "val", n_samples: int = 1, *, init_noise=None,
+                  churn_noise=None):
+        """Sample u given h and score it (`_eval_impl`, diffusion.py:1080-1140);
+        returns (metrics, u_mean) with the reference metric keys. batch =
+        (h, t_grid, x_grid, u), each (B, T, X, 1). init_noise (n_samples, B,
+        T, X, u_ch) and churn_noise (n_samples, N, B, T, X, u_ch) replace the
+        generator's draws."""
+        h_un, dxc, dtc, u_un = batch
+        h_ch, u_ch = self.h_ch, self.u_ch
+        sp = self.test_sparams
+        if split == "test" and sp.get("select_by_pde", False):
+            raise _not_ported("select_by_pde")
+        self.model.eval()
+
+        state_gt = self.transform.forward(state, h_un, u_un)
+        h = state_gt[..., :h_ch]
+        u = state_gt[..., h_ch:h_ch + u_ch]
+        cond_in = self.get_cond_in(h, u, dxc, dtc)
+
+        def draw(i):
+            pick = lambda t: None if t is None else t[i]
+            if sp.get("type", "ddim") == "edm":
+                xs = self.sample_edm(state, cond_in, generator, sp,
+                                     guide_dx=bool(sp.get("guide_dx", False)),
+                                     init_noise=pick(init_noise),
+                                     churn_noise=pick(churn_noise))
+            else:
+                xs = self.sample(state, cond_in, generator, sp)
+            return xs[:, -1]
+
+        samples = ensemble(draw, n_samples)
+        u_mean = torch.mean(samples, dim=0)
+
+        u_last = u_mean[..., :u_ch]
+        loss_u = mae(u_last, u)
+        loss_u_un = mae(self._inverse_u(state, u_last), u_un)
+        gt_scaled = scale_each_min_max(state_gt)
+        xs_scaled = scale_each_min_max(samples.flatten(0, 1)).reshape(samples.shape)
+        loss_u_scaled = mae(torch.mean(xs_scaled, dim=0),
+                            gt_scaled[..., h_ch:h_ch + u_ch])
+        corr_u = torch.mean(losses.correlation(u_mean, u))
+
+        n_batch = h_un.shape[0]
+        flat_h = h[None].expand((n_samples,) + h.shape).flatten(0, 1)
+        pde_loss = torch.sum(self._pde_matrix_cond(
+            state, flat_h, samples.flatten(0, 1), clamp_loss=False)) / n_samples / n_batch
+        metrics = {
+            f"{split}_mae_u": loss_u, f"{split}_mae_u_un": loss_u_un,
+            f"{split}_mae_u_scaled": loss_u_scaled, f"{split}_corr_u": corr_u,
+            f"{split}_pde_loss": pde_loss,
+        }
+        if split == "test":
+            metrics["test_pde_loss_gt"] = torch.sum(self._pde_matrix_cond(
+                state, h, u, clamp_loss=False)) / n_batch
+        return metrics, u_mean
+
+
+class CondEdmTask(CondDdimTask):
+    """Conditional model trained with true EDM preconditioning; only the EDM
+    sampler is supported (ddim.py:1647-1652). Ported: its serving path."""
+
+    def default_sampler_params(self):
+        return dict(DEFAULT_EDM_SAMPLER)
+
+    def set_test_sampler_params(self, sparams):
+        if sparams.get("type") != "edm":
+            sparams = dict(DEFAULT_EDM_SAMPLER, n_samples=5)
+        super().set_test_sampler_params(sparams)
+
+    def model_precond(self, params, x_noise, sigma, cond=None):
+        return _edm_precond(self, params, x_noise, sigma, cond)
+
+    def _cond_denoise_fn(self, params, cond, w: float):
+        """True EDM preconditioning (no c_in cond scaling, no sigma table)."""
+        if w is not None and abs(w) >= 1e-3:
+            raise _not_ported("classifier-free guidance (w != 0)")
+
+        def denoise(x, sigma: float):
+            sig = torch.full((x.shape[0],), sigma, device=x.device,
+                             dtype=torch.float32)
+            return self.model_precond(params, x, sig, cond)
+
+        return denoise
+
+    def sample_edm(self, state: TaskState, cond_in,
+                   generator: Optional[torch.Generator] = None, sparams=None,
+                   guide_dx: bool = False, return_last: bool = True,
+                   init_noise=None, churn_noise=None):
+        """Heun EDM sampling of u given the conditioning (ddim.py:1740-1768)."""
+        if guide_dx:
+            raise _not_ported("PDE guidance")
+        sp = sparams or self.test_sparams
+        schedule = edm_samplers.make_edm_schedule(
+            num_steps=sp.get("timesteps", 50),
+            sigma_min=max(sp.get("sigma_min", 0.002), SIGMA_MIN),
+            sigma_max=min(sp.get("sigma_max", 80), SIGMA_MAX),
+            rho=sp.get("rho", 7.0), S_churn=sp.get("S_churn", 0.0),
+            S_min=sp.get("S_min", 0.0), S_max=float(sp.get("S_max", "inf")),
+            S_noise=sp.get("S_noise", 1.0))
+        denoise = self._cond_denoise_fn(self._sample_params(state), cond_in,
+                                        sp.get("w", 0.0))
+        return edm_samplers.heun_sample_cond(
+            denoise, cond_in.shape[:3] + (self.u_ch,), schedule, generator,
+            return_last=return_last, init_noise=init_noise,
+            churn_noise=churn_noise, guidance_div_t=True,
+            self_condition=self.self_condition, device=cond_in.device)
+
+    def sample(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Only EDM sampler is supported for the model with EDM pre-conditioning")

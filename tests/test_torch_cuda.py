@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forward kernels, the backward kernels against autograd of the plain
-forwards, and the OFormer's two linear-attention kernels (K5, K6) with the
-backward made of them.
+forwards, the OFormer's two linear-attention kernels (K5, K6) with the
+backward made of them, and the whole-block K7 with the U-Net's megakernel
+mode and the conditional EDM task served through it.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor tests/conftest.py's JAX set-up, so it runs on a machine that
@@ -250,9 +251,10 @@ def test_train_step_on_the_card(cuda):
                                        torch.Generator(cuda).manual_seed(1))
         out[name] = (metrics, new, kernels.launches())
     (mk, sk, lk), (mp, sp, lp) = out["kernel"], out["plain"]
-    oformer = ("K5 kv_dots", "K6 apply_dots")  # the OFormer's, not the U-Net's
-    assert all(n > 0 for k, n in lk.items() if k not in oformer), lk
-    assert not any(lk[k] for k in oformer), lk
+    # the OFormer's kernels, and K7, which runs only on the sampling path
+    idle = ("K5 kv_dots", "K6 apply_dots", "K7 unet_block")
+    assert all(n > 0 for k, n in lk.items() if k not in idle), lk
+    assert not any(lk[k] for k in idle), lk
     assert not any(lp.values()), lp
     assert lk["K4 attention_bwd"] == 4  # four attention sites at 8x8
     np.testing.assert_allclose(float(mk["train_loss"]), float(mp["train_loss"]),
@@ -373,3 +375,223 @@ def test_oformer_eval_and_train_step_on_the_card(cuda):
     np.testing.assert_allclose(float(tk["train_loss"]), float(tp["train_loss"]), rtol=1e-5)
     for k, v in sk.params.items():
         assert float((v - sp.params[k]).abs().max()) <= 2 * 1e-3 + 1e-6, k
+
+
+# --- K7 unet_block (the whole ADM block, the U-Net's sampling path) ---------
+
+# (B, H, W, C1, C2, O, up, proj, chained stats, emit); H, W are the input's.
+# Ragged row and column tiles, widths 8-128, a second 64-wide output tile,
+# both inputs at 128 (the kernel's limit), every variant the U-Net runs.
+K7_CASES = {
+    "identity-chained-emit": (2, 12, 20, 24, 0, 24, False, False, True, True),
+    "dual-proj": (2, 10, 18, 16, 8, 40, False, True, False, True),
+    "dual-identity": (1, 9, 17, 32, 32, 64, False, False, True, False),
+    "up-identity-chained-emit": (2, 5, 7, 16, 0, 16, True, False, True, True),
+    "up-proj-emit": (1, 6, 9, 8, 0, 24, True, True, False, True),
+    "wide-two-out-tiles": (1, 7, 19, 128, 128, 128, False, True, True, True),
+    "narrow": (3, 3, 5, 8, 0, 8, False, False, False, False),
+    "o-70": (1, 10, 6, 64, 64, 70, False, True, False, True),
+}
+
+
+def _k7_inputs(case, dev, seed=30):
+    b, h, w, c1, c2, o, up, proj, chained, emit = K7_CASES[case]
+    rs = np.random.RandomState(seed)
+    c = c1 + c2
+
+    def t(*shape, sc=1.0, sh=0.0):
+        return torch.from_numpy((rs.randn(*shape) * sc + sh).astype(np.float32)).to(dev)
+
+    args = [t(b, h, w, c1, sc=0.8, sh=0.3), t(b, c, sc=0.3, sh=1.0), t(b, c, sc=0.3),
+            t(3, 3, c, o, sc=1.0 / np.sqrt(9 * c)), t(o, sc=0.3),
+            t(b, o, sc=0.3, sh=1.0), t(b, o, sc=0.3),
+            t(3, 3, o, o, sc=1.0 / np.sqrt(9 * o)), t(o, sc=0.3)]
+    kw = dict(emit_stats=emit, up=up)
+    if c2:
+        kw["x2"] = t(b, h, w, c2, sc=0.8, sh=0.3)
+    if proj:
+        kw["skip_w"], kw["skip_b"] = t(c, o, sc=1.0 / np.sqrt(c)), t(o, sc=0.3)
+    if chained:
+        xin = torch.cat([args[0]] + ([kw["x2"]] if c2 else []), -1).reshape(b, h * w, c)
+        kw["stats"] = (xin.sum(1), (xin * xin).sum(1))
+    # groups dividing the widths, as ADM's do (70 = 2 x 35)
+    groups = (4 if c % 4 == 0 else 1, 2 if o == 70 else 4)
+    return args, groups, kw
+
+
+def _assert_scaled(got, want, tol):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.shape == w.shape, i
+        assert torch.isfinite(a).all(), i
+        err = float((a.double() - w.double()).abs().max())
+        assert err <= tol * max(1.0, float(w.abs().max())), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_matches_plain(cuda, case):
+    """Two chained convs of up to 9 * 256 products and a norm over the first
+    one's output, in another summation order: 4e-5 of scale."""
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    args, groups, kw = _k7_inputs(case, cuda)
+    want = tfb.fused_unet_block_plain(*args, *groups, 1e-5, **kw)
+    kernels.reset_launches()
+    got = tfb.fused_unet_block(*args, *groups, 1e-5, **kw)
+    _assert_scaled(got, want, 4e-5)
+    launched = kernels.launches()
+    assert launched["K7 unet_block"] == 1
+    # without chained statistics K1's pass runs first, once per input
+    n_stats = 0 if "stats" in kw else (2 if "x2" in kw else 1)
+    assert launched["K1 channel_stats"] == n_stats
+    # deterministic: no atomics anywhere in K7
+    again = tfb.fused_unet_block(*args, *groups, 1e-5, **kw)
+    for a, b_ in zip(_leaves(got), _leaves(again)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dual-proj", "up-proj-emit", "identity-chained-emit"])
+def test_k7_recompute_backward(cuda, case):
+    """Under grad mode K7's Function recomputes the block through K2 / K3
+    (whose backwards are kernels): its gradients against float64 autograd of
+    the plain composition, 1e-4 of each gradient's scale."""
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    args, groups, kw = _k7_inputs(case, cuda, seed=31)
+    names = [k for k in ("x2", "skip_w", "skip_b") if k in kw]
+    leaves = [_leaf(a) for a in args] + [_leaf(kw[k]) for k in names]
+
+    def run(fn, ts, stats=True):
+        k = dict(kw, **dict(zip(names, ts[9:])))
+        if not stats:
+            k.pop("stats", None)
+        out = fn(*ts[:9], *groups, 1e-5, **k)
+        return out[0] if kw["emit_stats"] else out
+
+    kernels.reset_launches()
+    out = run(tfb.fused_unet_block, leaves)
+    g = torch.randn(out.shape, device=cuda)
+    got = torch.autograd.grad(out, leaves, g)
+    launched = kernels.launches()
+    l64 = [_leaf(a.double()) for a in leaves]
+    want = torch.autograd.grad(run(tfb.fused_unet_block_plain, l64, stats=False), l64,
+                               g.double())
+    _assert_grads(got, want, tol=1e-4)
+    assert launched["K7 unet_block"] == 1
+    assert launched["K2 gn_silu_conv_bwd"] >= 1
+    assert launched["K3 gn_silu_up_conv_bwd"] == (1 if kw["up"] else 0)
+
+
+@pytest.mark.cuda
+def test_k7_refuses_what_it_does_not_take(cuda):
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    args, groups, kw = _k7_inputs("dual-proj", cuda)
+    with pytest.raises(ValueError, match="up with x2"):
+        tfb.fused_unet_block(*args, *groups, 1e-5, **dict(kw, up=True))
+    wide = [torch.zeros(2, 10, 18, 130, device=cuda)] + args[1:]
+    with pytest.raises(ValueError, match="widths"):
+        tfb.fused_unet_block(*wide, *groups, 1e-5, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        tfb.fused_unet_block(*([args[0].double()] + args[1:]), *groups, 1e-5, **kw)
+    strided = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.fused_unet_block(*([strided] + args[1:]), *groups, 1e-5, **kw)
+    with pytest.raises(ValueError, match="groups"):
+        tfb.fused_unet_block(*args, 5, groups[1], 1e-5, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        tfb.fused_unet_block(*args, *groups, 1e-5, **dict(kw, x2=kw["x2"].cpu()))
+
+
+def _seeded_state(model, seed):
+    """Non-zero fan-in-scaled parameters (ADM's init zeroes conv1 and
+    out_conv, which would hide the kernels)."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        if v.dim() > 1:
+            val = rs.randn(*v.shape) / np.sqrt(np.prod(v.shape[:-1]))
+        else:
+            is_scale = "norm" in k and k.endswith(".weight")  # norm scales near 1
+            val = float(is_scale) + 0.3 * rs.randn(*v.shape)
+        out[k] = torch.from_numpy(val.astype(np.float32))
+    return out
+
+
+@pytest.mark.cuda
+def test_mega_unet_on_the_card(cuda):
+    """A small U-Net (res 32, ch_mult (1, 1), attention at 16 with ADM's one
+    64-wide head): the mega path (nine K7 launches, no K3) against the
+    per-conv kernel path and the plain path, under no_grad."""
+    from m_cedm_tpu_torch.models.adm_unet import AdmUNet, AdmUNetConfig
+
+    cfg = AdmUNetConfig(in_channels=1, out_ch=1, ch=64, ch_mult=(1, 1),
+                        num_res_blocks=1, attn_resolutions=(16,), resolution=32,
+                        cond_channels=1, cat_cond=True)
+    models = [AdmUNet(cfg, ops, mega=mega) for ops, mega in
+              ((kernels.DEVICE_OPS, True), (kernels.DEVICE_OPS, False), (PLAIN_OPS, False))]
+    sd = _seeded_state(models[0], 3)
+    for m in models:
+        m.load_state_dict(sd)
+        m.to(cuda).eval()
+    rs = np.random.RandomState(4)
+    x, cond = (torch.from_numpy(rs.randn(2, 32, 32, 1).astype(np.float32)).to(cuda)
+               for _ in range(2))
+    sigma = torch.tensor([-1.0, 0.5], device=cuda)
+    outs, launched = [], []
+    with torch.no_grad():
+        for m in models:
+            kernels.reset_launches()
+            outs.append(m(x, sigma, cond))
+            launched.append(kernels.launches())
+    scale = float(outs[2].abs().max())
+    for o in outs[:2]:
+        assert float((o - outs[2]).abs().max()) <= 1e-4 * max(1.0, scale)
+    mega, per_conv, plain = launched
+    assert (mega["K7 unet_block"], mega["K2 gn_silu_conv"], mega["K3 gn_silu_up_conv"],
+            mega["K4 attention"]) == (9, 4, 0, 4)
+    assert (per_conv["K7 unet_block"], per_conv["K3 gn_silu_up_conv"]) == (0, 1)
+    assert not any(plain.values())
+
+
+@pytest.mark.cuda
+def test_cond_edm_eval_on_the_card(cuda):
+    """CondEdmTask.eval_step (res 32, 3 Heun steps) served through K7 with
+    mega=True, against the plain path on the same noise."""
+    from m_cedm_tpu_torch.tasks import COND_EDM_TARGET, build_task
+
+    res, b, steps = 32, 2, 3
+    hp = {"name": "adm_edm_cond_h",
+          "model": {"in_channels": 1, "cond_channels": 1, "cat_cond": True,
+                    "out_ch": 1, "ch": 64, "ch_mult": [1, 1], "num_res_blocks": 1,
+                    "attn_resolutions": [16], "resolution": res},
+          "data": {"normalization": "gauss"},
+          "sampler": {"type": "edm", "timesteps": steps, "S_churn": 15.0},
+          "diffusion": {"beta_schedule": "linear", "beta_start": 1e-4,
+                        "beta_end": 0.02, "num_diffusion_timesteps": 1000}}
+    rs = np.random.RandomState(5)
+    h = torch.from_numpy((rs.randn(b, res, res, 1) * 0.1 + 4.0).astype(np.float32))
+    u = torch.from_numpy((rs.randn(b, res, res, 1) * 0.2).astype(np.float32))
+    grid = torch.linspace(0, 1, res).reshape(1, res, 1, 1).expand(b, res, res, 1)
+    batch = tuple(t.contiguous().to(cuda) for t in (h, grid, grid.transpose(1, 2), u))
+    stats = {"input_mean": 4.0, "input_std": 0.1, "target_mean": 0.0, "target_std": 0.2}
+    init = torch.from_numpy(rs.randn(1, b, res, res, 1).astype(np.float32)).to(cuda)
+    churn = torch.from_numpy(rs.randn(1, steps, b, res, res, 1).astype(np.float32)).to(cuda)
+    out = {}
+    for name, ops in (("kernel", kernels.DEVICE_OPS), ("plain", PLAIN_OPS)):
+        task = build_task(hp, cuda, target=COND_EDM_TARGET, ops=ops, mega=True)
+        state = task.init_state(None, stats, params=_seeded_state(task.model, 6))
+        kernels.reset_launches()
+        metrics, u_mean = task.eval_step(state, batch, None, split="test",
+                                         init_noise=init, churn_noise=churn)
+        out[name] = (metrics, u_mean, kernels.launches())
+    (mk, uk, lk), (mp, up, lp) = out["kernel"], out["plain"]
+    assert lk["K7 unet_block"] == 9 * (2 * steps - 1) and not any(lp.values())
+    assert set(mk) == {"test_mae_u", "test_mae_u_un", "test_mae_u_scaled",
+                       "test_corr_u", "test_pde_loss", "test_pde_loss_gt"}
+    for k in mp:
+        assert abs(float(mk[k]) - float(mp[k])) <= 1e-4 * max(1.0, abs(float(mp[k]))), k
+    _assert_scaled(uk, up, 1e-4)

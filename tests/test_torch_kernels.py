@@ -24,6 +24,7 @@ import m_cedm_tpu.pallas.fused_norm_conv as jfnc
 from m_cedm_tpu_torch import kernels
 from m_cedm_tpu_torch.kernels import _build
 from m_cedm_tpu_torch.kernels import fused_attention as tfa
+from m_cedm_tpu_torch.kernels import fused_block as tfb
 from m_cedm_tpu_torch.kernels import fused_norm as tfn
 from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
 from m_cedm_tpu_torch.kernels import linear_attention as tla
@@ -239,6 +240,13 @@ def _wrapper_calls(inp):
     g2 = torch.from_numpy(rs.randn(b, h, w, inp.w.shape[-1]).astype(np.float32))
     g3 = torch.from_numpy(rs.randn(b, 2 * h, 2 * w, inp.w.shape[-1]).astype(np.float32))
     dots = torch.from_numpy(rs.randn(2, 64, 24).astype(np.float32))
+    o = inp.w.shape[-1]
+    g1, b1, w1, skw = (torch.from_numpy(a.astype(np.float32)) for a in (
+        1.0 + 0.3 * rs.randn(b, o), 0.3 * rs.randn(b, o),
+        rs.randn(3, 3, o, o) / np.sqrt(9 * o), rs.randn(c, o) / np.sqrt(c)))
+    k7 = (inp.t("x"), inp.t("gamma"), inp.t("beta"), inp.t("w"), inp.t("bias"),
+          g1, b1, w1, inp.t("bias"), 4, 4, 1e-5)
+    k7_kw = dict(skip_w=skw, skip_b=inp.t("skb"), emit_stats=True)
     return {
         "K1 gn_silu": (lambda: tfn.gn_silu(x3, inp.t("gamma"), inp.t("beta"), 4),
                        lambda: tfn.gn_silu_plain(x3, inp.t("gamma"), inp.t("beta"), 4)),
@@ -278,6 +286,9 @@ def _wrapper_calls(inp):
         # the linear-attention pair (forward only: each backward is the pair)
         "K5 kv_dots": (lambda: tla.kv_dots(x3, x3), lambda: tla.kv_dots_plain(x3, x3)),
         "K6 apply_dots": (lambda: tla.apply_dots(q, dots), lambda: tla.apply_dots_plain(q, dots)),
+        # the whole block (its backward is a recompute through K2/K3)
+        "K7 unet_block": (lambda: tfb.fused_unet_block(*k7, **k7_kw),
+                          lambda: tfb.fused_unet_block_plain(*k7, **k7_kw)),
     }
 
 

@@ -160,7 +160,8 @@ def test_compute_dtype(dtype, ported):
 
 def test_port_runtime_imports_no_jax():
     """Importing every module of the port and running a CPU forward, a
-    sampling step and a train step of the flagship and an eval and a train
+    sampling step and a train step of the flagship, an eval of the
+    conditional EDM baseline on the megakernel path, and an eval and a train
     step of the OFormer must leave JAX, flax, optax and m_cedm_tpu
     unloaded."""
     code = r"""
@@ -181,6 +182,19 @@ m, _ = task.eval_step(st, (x, x, x, x), torch.Generator(), torch.ones(16, 16, 2)
 assert all(torch.isfinite(v) for v in m.values())
 st, m = task.train_step(st, (x, x, x, x), torch.Generator().manual_seed(1))
 assert st.step == 1 and all(torch.isfinite(v) for v in m.values())
+from m_cedm_tpu_torch.kernels.fused_block import fused_unet_block, fused_unet_block_plain
+from m_cedm_tpu_torch.tasks import COND_EDM_TARGET, CondEdmTask
+from m_cedm_tpu_torch.tasks.diffusion import CondDdimTask, DdimTask
+chp = dict(hp, name="adm_edm_cond_h", model=dict(hp["model"], in_channels=1,
+           cond_channels=1, out_ch=1), sampler=dict(hp["sampler"], type="edm"),
+           diffusion={"beta_schedule": "linear",
+           "beta_start": 1e-4, "beta_end": 0.02, "num_diffusion_timesteps": 1000})
+ctask = build_task(chp, "cpu", target=COND_EDM_TARGET, mega=True)
+assert isinstance(ctask, CondEdmTask) and ctask.model.mega
+cst = ctask.init_state(torch.Generator().manual_seed(0))
+r = torch.rand(1, 16, 16, 1, generator=torch.Generator().manual_seed(2))
+m, u = ctask.eval_step(cst, (x + r, x, x, r), torch.Generator(), split="test")
+assert u.shape == (1, 16, 16, 1) and all(torch.isfinite(v) for v in m.values())
 import numpy as np
 from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
 enc = {"input_channels": 3, "in_emb_dim": 16, "out_channels": 16, "depth": 2, "res": 4}
