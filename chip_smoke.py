@@ -9,14 +9,18 @@ Phases, each printing JSON lines:
   2. kernel   each CUDA kernel against its plain PyTorch version at the
               flagship shapes (every K2 mode the U-Net uses), with max abs and
               relative error beside the tolerance, and kernel vs plain time
-              (CUDA events, median of 10 runs of 10 back-to-back calls)
+              (CUDA events, median of 10 runs of 10 back-to-back calls); K2's
+              linear modes (act=False) also against
+              torch.nn.functional.conv2d, and K4 against
+              scaled_dot_product_attention
   3. forward  one full-width U-Net forward (B = 16, res 128, ch 64, the four
               attention sites), kernel path against the plain path
   2b. backward each backward kernel against autograd of its plain forward at
               the flagship shapes (every K2 mode the U-Net's train step
               uses), every gradient output's max abs and relative error
               beside the tolerance, kernel vs plain time of the backward
-              alone, and scaled_dot_product_attention's time for K4
+              alone, and scaled_dot_product_attention's time for K4 and
+              conv2d's autograd backward for K2's linear modes
   4. eval     McedmTask.eval_step for mask task "u" at B = 16 with the
               flagship sampler (50 Heun steps, S_churn 15) on seeded synthetic
               shallow-water fields, on the kernel path with every launch
@@ -56,7 +60,8 @@ Phases, each printing JSON lines:
   11. cond edm    CondEdmTask of configs/model/adm_edm_cond_h_res32.yaml at B =
               16, full width and depth, 50 Heun steps with S_churn 15, on the
               kernel path with mega=True and on the plain path: metrics
-              within 1e-4, launches asserted, samples/s of both
+              within 1e-4, the sample of both paths within 1e-4 of scale,
+              launches asserted, samples/s of both
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
@@ -66,7 +71,11 @@ phase 10, with phase 11's beside), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
-peak of an H100 SXM (the kernels run fp32 on CUDA cores). The plain versions
+peak of an H100 SXM (the kernels run fp32 on CUDA cores), except K4's, whose
+products run as 3xTF32 on the tensor cores: three TF32 FLOPs per fp32 FLOP
+over the 495 TFLOP/s TF32 peak (its CUDA-core bound beside, as
+`bound_fp32_ms`). K2's linear modes are listed in its row under
+`act_false_modes`, each with its time, bound and conv2d time. The plain versions
 run with TF32 off (kernels._launch.fp32_reference_math). Every failed check
 raises, so the exit code is non-zero; with no CUDA device the script exits 2
 before printing any result.
@@ -216,6 +225,7 @@ TOL_TRAIN = 1e-4
 TRAIN_STEPS = 3
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 PEAK_FLOPS = 67e12    # H100 SXM fp32, outside the tensor cores
+PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 # name -> (CUDA source, the TPU kernel it replaces); the flagship's nine,
@@ -310,13 +320,34 @@ def compare(got, want, tol: float, name: str) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, tf32_products: int = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    FLOPs over the fp32 rate, whichever is longer."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    FLOPs over the fp32 rate, whichever is longer. A kernel whose fp32
+    products run as `tf32_products` TF32 products on the tensor cores (3 for
+    3xTF32) does that many TF32 FLOPs per fp32 FLOP over the TF32 rate; its
+    fp32 CUDA-core bound is kept beside as `bound_fp32_ms`."""
+    t_bytes, t_fp32 = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    t_ops = tf32_products * flops / PEAK_TF32 * 1e3 if tf32_products else t_fp32
+    rec = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops}
+    if tf32_products:
+        rec.update(bound_fp32_ms=max(t_bytes, t_fp32), tf32_products=tf32_products)
+    return rec
+
+
+def conv2d_library(x, w, bias):
+    """torch.nn.functional.conv2d (cuDNN, TF32 off) computing K2's linear
+    mode on the NHWC operands through channels-last views: the output in
+    NHWC, as a view. The port never calls it."""
+    import torch.nn.functional as F
+
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+ACT_FALSE_KEYS = ("mode", "ms", "plain_ms", "library_ms", "library_max_rel_err",
+                  "bound_ms", "bound_by", "max_rel_err")
 
 
 def nbytes(*tensors) -> int:
@@ -420,9 +451,11 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
     def flat(t):  # out, or (out, (sums, sumsq)), or (sums, sumsq)
         return [u for s in t for u in flat(s)] if isinstance(t, tuple) else [t]
 
-    def check(kernel, mode, got, want, k_fn, p_fn, work=None):
-        """`work`: (bytes, flops) of the kernel's call, given for the mode
-        whose time the summary line reports (each kernel's first)."""
+    def check(kernel, mode, got, want, k_fn, p_fn, work=None, lib_fn=None):
+        """`work`: (bytes, flops[, tf32 products]) of the kernel's call, given
+        for the mode whose time the summary line reports (each kernel's
+        first). `lib_fn`: the PyTorch call computing the same function, timed
+        beside (its error against the plain version recorded, not held)."""
         errs = [compare(a, w, TOL_KERNEL, f"{kernel} {mode} output {i}")
                 for i, (a, w) in enumerate(zip(flat(got), flat(want), strict=True))]
         rec = {"phase": "kernel", "kernel": kernel, "mode": mode,
@@ -432,8 +465,15 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
         rec["plain_ms"] = cuda_ms(p_fn)
         if work is not None:
             rec.update(bound(*work), library_ms=None)
+        if lib_fn is not None:
+            rec["library_ms"] = cuda_ms(lib_fn)
+            rec["library_max_rel_err"] = compare(
+                lib_fn(), flat(want)[0], 1.0, f"{kernel} {mode} library")["max_rel_err"]
         emit(rec)
         keep_result(results, rec)
+        if lib_fn is not None:
+            results[kernel].setdefault("act_false_modes", []).append(
+                {k: rec[k] for k in ACT_FALSE_KEYS})
 
     with torch.no_grad():
         n = res * res
@@ -471,7 +511,8 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
             check("K2 gn_silu_conv", mode, got, want,
                   lambda: fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw),
                   lambda: fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups,
-                                                 **plain_kw), work=work)
+                                                 **plain_kw), work=work,
+                  lib_fn=None if gamma is not None else lambda: conv2d_library(x, w, bias))
 
         def conv_w(ci, co):
             return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
@@ -521,7 +562,11 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
         want = fa.attention_plain(q, k, v)
         check("K4 attention", "(N, L, D)", fa.attention(q, k, v), want,
               lambda: fa.attention(q, k, v), lambda: fa.attention_plain(q, k, v),
-              work=(nbytes(q, k, v, want), 4.0 * b * L * L * 64))
+              work=(nbytes(q, k, v, want), 4.0 * b * L * L * 64, 3))
+        # the kernel called directly, without the autograd Function around it
+        lse = torch.empty(b, L, device=device)
+        results["K4 attention"]["kernel_call_ms"] = cuda_ms(
+            lambda: fa.attention_fwd(q, k, v, lse))
         lib = sdpa_forward(q, k, v, want)
         results["K4 attention"]["library_ms"] = lib["ms"]
         emit({"phase": "kernel", "kernel": "K4 attention", "library": lib})
@@ -584,12 +629,14 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
 
     results = {}
 
-    def check(kernel, mode, kernel_fn, plain_fn, inputs, work=None):
+    def check(kernel, mode, kernel_fn, plain_fn, inputs, work=None, lib_fn=None):
         """kernel_fn / plain_fn map the inputs to the output whose cotangent
         is a seeded normal. Every input's gradient is held to autograd of the
         plain forward in float64 on the same inputs (the fp32 plain path's
         own error against it is reported beside the kernel's); the times are
-        of the fp32 backward on each path."""
+        of the fp32 backward on each path. `lib_fn`, a PyTorch call computing
+        the same forward, has its backward timed beside (its error recorded,
+        not held)."""
         inputs = list(inputs)
         want_inputs = [t for t in inputs if t is not None and t.requires_grad]
         k_out, p_out = kernel_fn(*inputs), plain_fn(*inputs)
@@ -614,8 +661,17 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
                "plain_ms": cuda_ms(lambda: grads(p_out))}
         if work is not None:
             rec.update(bound(*work), library_ms=None)
+        if lib_fn is not None:
+            l_out = lib_fn(*inputs)
+            rec["library_ms"] = cuda_ms(lambda: grads(l_out))
+            rec["library_max_rel_err"] = max(
+                compare(a, w, 1.0, f"{kernel} {mode} library gradient {i}")["max_rel_err"]
+                for i, (a, w) in enumerate(zip(grads(l_out), want, strict=True)))
         emit(rec)
         keep_result(results, rec)
+        if lib_fn is not None:
+            results[kernel].setdefault("act_false_modes", []).append(
+                {k: rec[k] for k in ACT_FALSE_KEYS})
         return rec
 
     # K1 backward: the down-block prefix and the out-head norm, (B, N, C)
@@ -664,7 +720,8 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
         return check("K2 gn_silu_conv_bwd", mode, run(fnc.gn_silu_conv, stats),
                      run(drop_stats(fnc.gn_silu_conv_plain), None),
                      [x, gamma, beta, w, bias] + [kw[k] for k in names],
-                     work=work)
+                     work=work, lib_fn=None if act else (
+                         lambda x, gamma, beta, w, bias: conv2d_library(x, w, bias)))
 
     h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
     with torch.no_grad():
@@ -709,7 +766,7 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
     L = (res // 4) ** 2
     q, k, v = (rnd(b, L, 64) for _ in range(3))
     rec = check("K4 attention_bwd", "(N, L, D)", fa.attention, fa.attention_plain,
-                (q, k, v), work=(4 * (8 * b * L * 64 + b * L), 5 * 2.0 * b * L * L * 64))
+                (q, k, v), work=(4 * (8 * b * L * 64 + b * L), 5 * 2.0 * b * L * L * 64, 3))
     call, backend = _sdpa()
     out = call(q, k, v)
     cot = torch.randn(out.shape, generator=g, device=device)
@@ -724,8 +781,15 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
            "max_rel_err": max(compare(a, w_, TOL_BWD, "sdpa backward")["max_rel_err"]
                               for a, w_ in zip(got, want))}
     results["K4 attention_bwd"]["library_ms"] = lib["ms"]
+    # the two kernels called directly, without autograd around them
+    with torch.no_grad():
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        lse = torch.empty(b, L, device=device)
+        o = fa.attention_fwd(qd, kd, vd, lse)
+        call_ms = cuda_ms(lambda: fa.attention_bwd(cot, qd, kd, vd, o, lse))
+    results["K4 attention_bwd"]["kernel_call_ms"] = call_ms
     emit({"phase": "backward", "kernel": "K4 attention_bwd", "library": lib,
-          "kernel_ms": rec["ms"]})
+          "kernel_ms": rec["ms"], "kernel_call_ms": call_ms})
     return results
 
 
@@ -1432,7 +1496,7 @@ def phase_cond_edm(device, b: int) -> dict:
           "steps": hp["sampler"]["timesteps"], "S_churn": hp["sampler"]["S_churn"],
           "unet_forwards": calls, "metrics": metrics, "plain_metrics": pmetrics,
           "metrics_tol": TOL_METRICS,
-          "sample": compare(u_mean, pu_mean, 1.0, "CondEdmTask sample"),
+          "sample": compare(u_mean, pu_mean, TOL_METRICS, "CondEdmTask sample"),
           "launches": {k: v for k, v in launches.items() if v},
           "wall_s": walls, "plain_wall_s": pwalls,
           "samples_per_s": n / wall, "plain_samples_per_s": n / pwall})
@@ -1477,6 +1541,9 @@ def main() -> int:
                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                "library_ms": rec["library_ms"]}
+        for key in ("kernel_call_ms", "bound_fp32_ms", "act_false_modes"):
+            if key in rec:
+                row[key] = rec[key]
         if name in OFORMER_KERNELS:
             row.update(launches_per_train_step=oformer_step_launches[name],
                        at_bh_64=rec["at_bh_64"])

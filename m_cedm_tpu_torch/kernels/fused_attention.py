@@ -2,9 +2,13 @@
 
 Port of m_cedm_tpu/pallas/fused_attention.py::_fwd_kernel (via `_pallas_fwd`)
 and ::_bwd_kernel (via `_pallas_bwd`). CUDA source: csrc/fused_attention.cu,
-whose header says what bounds it on an H100 and how its design handles that.
-q, k, v are (N, L, D) with N = batch * heads; the kernels take D = 64, the ADM
-U-Net's head width.
+whose header says what bounds it on an H100 and how its design handles that:
+flash-attention tiling on the tensor cores, every product a 3xTF32
+mma.sync (each fp32 operand split into two TF32 parts, three TF32 products
+summed in fp32, which keeps fp32 accuracy), keys and values (or queries and
+cotangents) streamed through shared memory by cp.async. q, k, v are
+(N, L, D) with N = batch * heads and any L >= 1; the kernels take D = 64, the
+ADM U-Net's head width.
 
 `attention` is a torch.autograd.Function: the CUDA kernels for CUDA tensors,
 the plain PyTorch versions for CPU tensors. `attention.launches` counts
@@ -59,8 +63,12 @@ def _check_qkv(*tensors):
     return n, l, d
 
 
-def _attention_kernel(q, k, v, lse: Optional[torch.Tensor]) -> torch.Tensor:
+def attention_fwd(q, k, v, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4 forward kernel on the card; when `lse` (N, L) is given it receives
+    each row's log-sum-exp of the scaled logits, which the backward needs."""
     n, l, d = _check_qkv(q, k, v)
+    if lse is not None:
+        check(lse, "lse", (n, l), q.device)
     out = torch.empty_like(q)
     fn = _build.bind("fused_attention", "mc_attention_fwd",
                      [P, P, P, P, P, I, I, I, F, P])
@@ -97,7 +105,7 @@ class _Attention(torch.autograd.Function):
             out, lse = attention_plain(q, k, v), None
         else:
             lse = q.new_empty(q.shape[:2]) if any(ctx.needs_input_grad) else None
-            out = _attention_kernel(q, k, v, lse)
+            out = attention_fwd(q, k, v, lse)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 

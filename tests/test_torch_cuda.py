@@ -11,8 +11,8 @@ has only PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The shapes do not fill the kernels' tiles (ragged pixel tiles, a second
-64-wide output-channel tile, a sequence length that is no multiple of the key
-tile), so the edge handling is what is tested; chip_smoke.py holds the same
+64-wide output-channel tile, sequence lengths that are no multiple of K4's
+64-row tiles), so the edge handling is what is tested; chip_smoke.py holds the same
 kernels to the same plain versions at the flagship shapes.
 
 Tolerances: both sides are fp32 (TF32 off) and differ only in summation
@@ -118,6 +118,46 @@ def test_k1_k3_k4_match_plain(cuda):
                 tfnc.gn_silu_up_conv_plain(*up, emit_stats=True))
     q, k, v = (torch.randn(3, 100, 64, device=cuda) for _ in range(3))
     _assert_out(tfa.attention(q, k, v), tfa.attention_plain(q, k, v))
+
+
+def _rel(got, want):
+    """max |got - want| / max(1, max |want|), chip_smoke.py's measure."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peak", [1.0, 6.0], ids=["normal", "peaked"])
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("length", [1, 37, 100, 1000, 1024])
+def test_k4_tensor_core_kernels(cuda, length, n, peak):
+    """K4's 3xTF32 kernels at one key, ragged tails and whole 64-row tiles:
+    the forward within 2e-5 of scale of the plain version, lse within 2e-5 of
+    torch.logsumexp of the scaled logits, every gradient within 1e-4 of scale
+    of float64 autograd of the plain forward (chip_smoke.py's tolerances),
+    two backward calls bit-for-bit equal, one launch of each per call. With
+    peak 6 the logits have std 6, so a row's max moves between key tiles and
+    between the fragments of a tile: the online rescale is what is held."""
+    rs = np.random.RandomState(1000 * n + length)
+    q, k, v, g = (torch.from_numpy(rs.randn(n, length, 64).astype(np.float32)).to(cuda)
+                  for _ in range(4))
+    q = q * peak
+    leaves = [_leaf(t) for t in (q, k, v)]
+    kernels.reset_launches()
+    out = tfa.attention(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    assert (tfa.attention.launches, tfa.attention_bwd.launches) == (1, 1)
+    assert _rel(out, tfa.attention_plain(q, k, v)) <= 2e-5
+    lse = torch.empty(n, length, device=cuda)
+    assert torch.equal(tfa.attention_fwd(q, k, v, lse), out.detach())
+    logits = torch.einsum("nqd,nkd->nqk", q, k) / 8
+    assert _rel(lse, torch.logsumexp(logits, dim=-1)) <= 2e-5
+    in64 = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tfa.attention_plain(*in64), in64, g.double())
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert _rel(a, w) <= 1e-4, i
+    again = tfa.attention_bwd(g, q, k, v, out.detach(), lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
