@@ -12,7 +12,11 @@ Phases, each printing JSON lines:
               (CUDA events, median of 10 runs of 10 back-to-back calls); K2's
               linear modes (act=False) also against
               torch.nn.functional.conv2d, and K4 against
-              scaled_dot_product_attention
+              scaled_dot_product_attention. The narrow-channel kernel (K2's
+              linear mode at C <= 8 or O <= 8) in each of its modes: the
+              flagship's conv_in (C 4) and out conv (O 2), adm_edm_cond_h's
+              (C 2, O 1), beside conv2d and the old route (gnsc_kernel on
+              the same operands)
   3. forward  one full-width U-Net forward (B = 16, res 128, ch 64, the four
               attention sites), kernel path against the plain path
   2b. backward each backward kernel against autograd of its plain forward at
@@ -20,24 +24,29 @@ Phases, each printing JSON lines:
               uses), every gradient output's max abs and relative error
               beside the tolerance, kernel vs plain time of the backward
               alone, and scaled_dot_product_attention's time for K4 and
-              conv2d's autograd backward for K2's linear modes
+              conv2d's autograd backward for K2's linear modes; the narrow
+              backward (the out conv) also called directly beside the old
+              route's kernels (K2's dgrad and wgrad) on the same operands
   4. eval     McedmTask.eval_step for mask task "u" at B = 16 with the
               flagship sampler (50 Heun steps, S_churn 15) on seeded synthetic
               shallow-water fields, on the kernel path with every launch
-              counter read; then the plain path and the kernel path in turns,
+              counter read (per U-Net forward: 2 narrow launches, 28 of
+              gnsc_kernel, asserted); then the plain path and the kernel path in turns,
               three timed evals each (median reported), and the two paths'
               metrics held to each other
   5. train    McedmTask.train_step at B = 16, full width and depth: three
               steps from one state on the kernel path (launch counters read)
               and on the plain path, loss, gradient norm, params and EMA held
-              to each other; then ms per step on both paths (median of the
+              to each other, K2's launches per step asserted; then ms per step on both paths (median of the
               timed steps after warm-up) and one profiled kernel-path step
   6. linear   K5 kv_dots and K6 apply_dots, the OFormer's linear attention,
               at its two shapes (BH = 16 and 64 head-batches, N = 16,384,
               D = E = 128) against their plain versions, and the backward of
               each autograd Function (made of the two kernels) against
               float64 autograd of its plain forward; kernel, plain and
-              torch.bmm times
+              torch.bmm times, K6's bound in 3xTF32 beside its fp32 one; the
+              backward's products through torch.bmm timed beside it, with
+              its bound
   7. oformer eval   OformerTask.eval_step of configs/model/oformer_t.yaml at
               B = 16, full width and depth (16,384 tokens), on seeded
               synthetic shallow-water fields tokenized as the OFormer
@@ -55,8 +64,8 @@ Phases, each printing JSON lines:
               autograd of the plain composition
   10. mega eval   phase 4's eval (same state and noise) with mega=True:
               metrics within 1e-4 of the per-conv kernel path, the observed
-              channel held, launches asserted (13 K7, 6 K2, 0 K3 and 4 K4 per
-              forward), samples/s of both paths in turns
+              channel held, launches asserted (13 K7, 4 K2, 2 narrow, 0 K3 and
+              4 K4 per forward), samples/s of both paths in turns
   11. cond edm    CondEdmTask of configs/model/adm_edm_cond_h_res32.yaml at B =
               16, full width and depth, 50 Heun steps with S_churn 15, on the
               kernel path with mega=True and on the plain path: metrics
@@ -74,8 +83,9 @@ output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
 peak of an H100 SXM (the kernels run fp32 on CUDA cores), except K4's, whose
 products run as 3xTF32 on the tensor cores: three TF32 FLOPs per fp32 FLOP
 over the 495 TFLOP/s TF32 peak (its CUDA-core bound beside, as
-`bound_fp32_ms`). K2's linear modes are listed in its row under
-`act_false_modes`, each with its time, bound and conv2d time. The plain versions
+`bound_fp32_ms`); K6's likewise. K2's linear modes are listed in its rows
+and in the narrow kernel's under `act_false_modes`, each with its time,
+bound and conv2d time (the narrow kernel's with the old route's time). The plain versions
 run with TF32 off (kernels._launch.fp32_reference_math). Every failed check
 raises, so the exit code is non-zero; with no CUDA device the script exits 2
 before printing any result.
@@ -237,6 +247,8 @@ KERNEL_INFO = {
                          "m_cedm_tpu/pallas/fused_norm.py:119"),
     "K2 gn_silu_conv": ("m_cedm_tpu_torch/csrc/fused_norm_conv.cu",
                         "m_cedm_tpu/pallas/fused_norm_conv.py:182"),
+    "K2 narrow_conv": ("m_cedm_tpu_torch/csrc/narrow_conv.cu",
+                       "m_cedm_tpu/pallas/fused_norm_conv.py:182"),
     "K3 gn_silu_up_conv": ("m_cedm_tpu_torch/csrc/fused_norm_conv.cu",
                            "m_cedm_tpu/pallas/fused_norm_conv.py:1070"),
     "K4 attention": ("m_cedm_tpu_torch/csrc/fused_attention.cu",
@@ -245,6 +257,8 @@ KERNEL_INFO = {
                        "m_cedm_tpu/pallas/fused_norm.py:142"),
     "K2 gn_silu_conv_bwd": ("m_cedm_tpu_torch/csrc/fused_norm_conv_bwd.cu",
                             "m_cedm_tpu/pallas/fused_norm_conv.py:1294"),
+    "K2 narrow_conv_bwd": ("m_cedm_tpu_torch/csrc/narrow_conv.cu",
+                           "m_cedm_tpu/pallas/fused_norm_conv.py:1294"),
     "K3 gn_silu_up_conv_bwd": ("m_cedm_tpu_torch/csrc/fused_norm_conv_bwd.cu",
                                "m_cedm_tpu/pallas/fused_norm_conv.py:2497"),
     "K4 attention_bwd": ("m_cedm_tpu_torch/csrc/fused_attention.cu",
@@ -260,12 +274,20 @@ OFORMER_KERNELS = ("K5 kv_dots", "K6 apply_dots")
 MEGA_KERNELS = ("K7 unet_block",)  # the U-Net's sampling path with mega=True
 FLAGSHIP_KERNELS = tuple(k for k in KERNEL_INFO
                          if k not in OFORMER_KERNELS + MEGA_KERNELS)
-# Per U-Net forward with mega=True at the flagship's and adm_edm_cond_h's
-# shapes: K7 runs the 13 blocks that are not down blocks (three encoder
-# blocks, the two middle blocks, six decoder blocks, two up blocks); K2 runs
-# conv_in, the two down blocks' two convs and out_conv; K4 the four
-# attention sites; no K3 (the up blocks are K7's)
-MEGA_LAUNCHES = {"K7 unet_block": 13, "K2 gn_silu_conv": 6,
+# Per U-Net forward at the flagship's and adm_edm_cond_h's shapes, K2's 30
+# calls: conv_in, the three encoder blocks' two convs, the two down blocks'
+# two, the two middle blocks' two, the six decoder blocks' two, the two up
+# blocks' tail conv and the out conv. conv_in (C 4 or 2) and the out conv
+# (O 2 or 1) take the narrow kernel, the other 28 gnsc_kernel. A train step
+# runs one forward; its backward runs the narrow backward for the out conv
+# and K2's backward kernels for the other 29 (conv_in among them).
+NARROW_PER_FORWARD, K2_PER_FORWARD = 2, 28
+K2_BWD_PER_STEP, NARROW_BWD_PER_STEP = 29, 1
+# With mega=True: K7 runs the 13 blocks that are not down blocks (three
+# encoder blocks, the two middle blocks, six decoder blocks, two up blocks);
+# K2 the two down blocks' two convs, the narrow kernel conv_in and out_conv;
+# K4 the four attention sites; no K3 (the up blocks are K7's)
+MEGA_LAUNCHES = {"K7 unet_block": 13, "K2 gn_silu_conv": 4, "K2 narrow_conv": 2,
                  "K3 gn_silu_up_conv": 0, "K4 attention": 4}
 # K7 against its plain version: two chained convs of up to 9 * 128 products
 # each and a norm over the first one's output, in another summation order
@@ -347,7 +369,8 @@ def conv2d_library(x, w, bias):
 
 
 ACT_FALSE_KEYS = ("mode", "ms", "plain_ms", "library_ms", "library_max_rel_err",
-                  "bound_ms", "bound_by", "max_rel_err")
+                  "bound_ms", "bound_by", "max_rel_err", "old_route_ms",
+                  "kernel_call_ms", "old_route_call_ms")
 
 
 def nbytes(*tensors) -> int:
@@ -451,11 +474,14 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
     def flat(t):  # out, or (out, (sums, sumsq)), or (sums, sumsq)
         return [u for s in t for u in flat(s)] if isinstance(t, tuple) else [t]
 
-    def check(kernel, mode, got, want, k_fn, p_fn, work=None, lib_fn=None):
+    def check(kernel, mode, got, want, k_fn, p_fn, work=None, lib_fn=None,
+              old_fn=None):
         """`work`: (bytes, flops[, tf32 products]) of the kernel's call, given
         for the mode whose time the summary line reports (each kernel's
         first). `lib_fn`: the PyTorch call computing the same function, timed
-        beside (its error against the plain version recorded, not held)."""
+        beside (its error against the plain version recorded, not held).
+        `old_fn`: the route the kernel replaced, held to the plain version
+        and timed beside."""
         errs = [compare(a, w, TOL_KERNEL, f"{kernel} {mode} output {i}")
                 for i, (a, w) in enumerate(zip(flat(got), flat(want), strict=True))]
         rec = {"phase": "kernel", "kernel": kernel, "mode": mode,
@@ -469,11 +495,15 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
             rec["library_ms"] = cuda_ms(lib_fn)
             rec["library_max_rel_err"] = compare(
                 lib_fn(), flat(want)[0], 1.0, f"{kernel} {mode} library")["max_rel_err"]
+        if old_fn is not None:
+            for i, (a, w) in enumerate(zip(flat(old_fn()), flat(want), strict=True)):
+                compare(a, w, TOL_KERNEL, f"{kernel} {mode} old route output {i}")
+            rec["old_route_ms"] = cuda_ms(old_fn)
         emit(rec)
         keep_result(results, rec)
         if lib_fn is not None:
             results[kernel].setdefault("act_false_modes", []).append(
-                {k: rec[k] for k in ACT_FALSE_KEYS})
+                {k: rec[k] for k in ACT_FALSE_KEYS if k in rec})
 
     with torch.no_grad():
         n = res * res
@@ -535,10 +565,33 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
            skip_b=rnd(ch, scale=0.3), emit_stats=True)
         k2("128-channel input, emit_stats (decoder conv0)", xc, gc, bc,
            conv_w(2 * ch, ch), bias, emit_stats=True)
-        k2("act=False (conv_in)", rnd(b, res, res, 4), None, None, conv_w(4, ch),
-           bias, emit_stats=True)
-        k2("act=False, O=2 (out conv)", h, None, None, conv_w(ch, 2),
-           rnd(2, scale=0.3))
+        k2("act=False (down-block conv0 at res/2)",
+           rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2), None, None,
+           conv_w(ch, ch), bias)
+
+        # the narrow kernel: K2's linear mode at C <= 8 or O <= 8, beside the
+        # route it replaced (gnsc_kernel) and conv2d on the same operands
+        def narrow(mode, x, w, bias, emit_stats=False):
+            got = fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats)
+            want = fnc.narrow_conv_plain(x, w, bias, emit_stats)
+            b_, h_, w_, c_ = x.shape
+            check("K2 narrow_conv", mode, got, want,
+                  lambda: fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats),
+                  lambda: fnc.narrow_conv_plain(x, w, bias, emit_stats),
+                  work=(nbytes(x, w, bias, *flat(want)),
+                        conv_flops(b_, h_, w_, c_, w.shape[-1])),
+                  lib_fn=lambda: conv2d_library(x, w, bias),
+                  old_fn=lambda: fnc._gn_silu_conv_kernel(
+                      x, None, None, w, bias, 0, 1e-5, None, None, False, None,
+                      None, emit_stats)[0])
+
+        narrow("out conv, C 64 -> O 2", h, conv_w(ch, 2), rnd(2, scale=0.3))
+        narrow("conv_in, C 4 -> O 64, emit_stats", rnd(b, res, res, 4),
+               conv_w(4, ch), bias, emit_stats=True)
+        narrow("conv_in, C 2 -> O 64, emit_stats (adm_edm_cond_h)",
+               rnd(b, res, res, 2), conv_w(2, ch), bias, emit_stats=True)
+        narrow("out conv, C 64 -> O 1 (adm_edm_cond_h)", h, conv_w(ch, 1),
+               rnd(1, scale=0.3))
 
         # K3: decoder up-block conv0, (B, res/2, res/2, C) -> (B, res, res, C)
         xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
@@ -671,7 +724,7 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
         keep_result(results, rec)
         if lib_fn is not None:
             results[kernel].setdefault("act_false_modes", []).append(
-                {k: rec[k] for k in ACT_FALSE_KEYS})
+                {k: rec[k] for k in ACT_FALSE_KEYS if k in rec})
         return rec
 
     # K1 backward: the down-block prefix and the out-head norm, (B, N, C)
@@ -691,7 +744,8 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
     def conv_w(ci, co):
         return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
 
-    def k2(mode, x, gamma, beta, w, bias, stats=None, **kw):
+    def k2(mode, x, gamma, beta, w, bias, stats=None, kernel="K2 gn_silu_conv_bwd",
+           **kw):
         act = gamma is not None
         groups = adm_groups(x.shape[-1]) if act else 0
         names = [k for k, v in kw.items() if torch.is_tensor(v)]
@@ -717,7 +771,7 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
         work = (nbytes(x, gamma, beta, w, *(stats or ()), *[kw[k] for k in names],
                        torch.empty(b_, h_, w_, o, device="meta"), *outs, w, bias),
                 conv_flops(b_, h_, w_, c_, o) * (2 if need_da else 1))
-        return check("K2 gn_silu_conv_bwd", mode, run(fnc.gn_silu_conv, stats),
+        return check(kernel, mode, run(fnc.gn_silu_conv, stats),
                      run(drop_stats(fnc.gn_silu_conv_plain), None),
                      [x, gamma, beta, w, bias] + [kw[k] for k in names],
                      work=work, lib_fn=None if act else (
@@ -745,8 +799,24 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
     k2("act=False (down-block conv0 at res/2)",
        rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2), None, None,
        conv_w(ch, ch), bias)
-    k2("act=False, O=2 (out conv)", h, None, None, conv_w(ch, 2),
-       rnd(2, scale=0.3))
+    # the narrow backward (the out conv); then called directly beside the
+    # route it replaced, K2's dgrad and wgrad kernels, on the same operands
+    w_out = conv_w(ch, 2)
+    k2("out conv, C 64 -> O 2", h, None, None, w_out, rnd(2, scale=0.3),
+       kernel="K2 narrow_conv_bwd")
+    with torch.no_grad():
+        hd, wd = h.detach(), w_out.detach()
+        cot = torch.randn(b, res, res, 2, generator=g, device=device)
+        old = fnc.gn_silu_conv_bwd(cot, hd, None, None, wd, None)
+        for i, (a, w_) in enumerate(zip(fnc.narrow_conv_bwd(cot, hd, wd),
+                                        (old[0], old[3], old[4]), strict=True)):
+            compare(a, w_, TOL_BWD, f"narrow backward against the old route, output {i}")
+        calls = {"kernel_call_ms": cuda_ms(lambda: fnc.narrow_conv_bwd(cot, hd, wd)),
+                 "old_route_call_ms": cuda_ms(
+                     lambda: fnc.gn_silu_conv_bwd(cot, hd, None, None, wd, None))}
+    results["K2 narrow_conv_bwd"].update(calls)
+    results["K2 narrow_conv_bwd"]["act_false_modes"][-1].update(calls)
+    emit({"phase": "backward", "kernel": "K2 narrow_conv_bwd", **calls})
 
     # K3 backward: decoder up-block conv0, (B, res/2, res/2, C) -> (B, res, res, C)
     xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
@@ -885,6 +955,13 @@ def phase_eval(device, hparams, params, b: int):
     if launches["K4 attention"] != 4 * calls:
         raise AssertionError(f"K4 launched {launches['K4 attention']} times for "
                              f"{calls} U-Net forwards")
+    # conv_in and the out conv on the narrow kernel; gnsc_kernel never at
+    # C <= 8 or O <= 8 (it would take one of the narrow launches)
+    want = {"K2 narrow_conv": NARROW_PER_FORWARD * calls,
+            "K2 gn_silu_conv": K2_PER_FORWARD * calls}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"eval of {calls} forwards: K2 launches "
+                             f"{ {k: launches[k] for k in want} }, expected {want}")
 
     ptask = build_task(hparams, device, ops=kernels.PLAIN_OPS)
     pstate = ptask.init_state(None, stats, params=params)
@@ -998,6 +1075,13 @@ def phase_train(device, hparams, params, b: int) -> dict:
     if launches["K4 attention_bwd"] != 4 * TRAIN_STEPS:
         raise AssertionError(f"K4 backward launched {launches['K4 attention_bwd']} "
                              f"times in {TRAIN_STEPS} steps")
+    want = {"K2 narrow_conv": NARROW_PER_FORWARD * TRAIN_STEPS,
+            "K2 gn_silu_conv": K2_PER_FORWARD * TRAIN_STEPS,
+            "K2 narrow_conv_bwd": NARROW_BWD_PER_STEP * TRAIN_STEPS,
+            "K2 gn_silu_conv_bwd": K2_BWD_PER_STEP * TRAIN_STEPS}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{TRAIN_STEPS} train steps: K2 launches "
+                             f"{ {k: launches[k] for k in want} }, expected {want}")
 
     n = TRAIN_WARMUP + TRAIN_TIMED  # in turns: kernel path, then plain path
     _, _, kwalls = train_steps(ktask, kfinal, batch, device, TRAIN_STEPS, n)
@@ -1012,11 +1096,18 @@ def phase_train(device, hparams, params, b: int) -> dict:
           "plain_grad_norm": [m["grad_norm"] for m in pmetrics],
           "tol": TOL_TRAIN, "max_abs_diff": diffs, "tol_params": tol_params,
           "params_moved_max": moved, "launches": launches,
-          "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in bwd},
+          "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in bwd + [
+              "K2 gn_silu_conv", "K2 narrow_conv"]},
           "ms_per_step": ms, "plain_ms_per_step": pms,
           "step_ms": [w * 1e3 for w in kwalls],
           "plain_step_ms": [w * 1e3 for w in pwalls], "profile": prof})
     return launches
+
+LINEAR_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_fp32_ms",
+               "max_rel_err", "vs_float64_max_rel_err", "backward_max_rel_err",
+               "backward_ms", "plain_backward_ms", "backward_library_ms",
+               "backward_bound_ms")
+
 
 def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
     """K5 and K6 at the OFormer's shapes: the encoder and mix layer (BH = B)
@@ -1033,17 +1124,37 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=device) * scale
 
+    def bwd_library(name, args, cot):
+        """The backward's two products through torch.bmm: kv_dots' dk = v
+        g^T and dv = k g, apply_dots' dq = g dots^T and ddots = q^T g."""
+        a, b_ = args
+        if name == "K5 kv_dots":
+            return (torch.bmm(b_, cot.transpose(1, 2)), torch.bmm(a, cot))
+        return (torch.bmm(cot, b_.transpose(1, 2)), torch.bmm(a.transpose(1, 2), cot))
+
+    def bwd_bound(name, args, cot, flops) -> float:
+        """Bytes (the inputs and the cotangent read once, the two gradients
+        written once) against the two products' operations, each at its
+        route's rate: K6 in 3xTF32 (three TF32 FLOPs per FLOP), K5 in fp32
+        on the CUDA cores. K5's backward is two K6 calls, K6's one K6 and
+        one K5."""
+        t_bytes = nbytes(*args, *args, cot) / PEAK_BYTES * 1e3
+        k6_calls = 2 if name == "K5 kv_dots" else 1
+        t_ops = (k6_calls * 3 * flops / PEAK_TF32
+                 + (2 - k6_calls) * flops / PEAK_FLOPS) * 1e3
+        return max(t_bytes, t_ops)
+
     results = {}
     for bh in (b, 4 * b):
         q, k, v = (rnd(bh, n, width) for _ in range(3))
         dots = la.kv_dots_plain(k, v) / n
         cases = (
             ("K5 kv_dots", la.kv_dots, la.kv_dots_plain, (k, v),
-             lambda: torch.bmm(k.transpose(1, 2), v), "bnd,bne->bde"),
+             lambda: torch.bmm(k.transpose(1, 2), v), "bnd,bne->bde", 0),
             ("K6 apply_dots", la.apply_dots, la.apply_dots_plain, (q, dots),
-             lambda: torch.bmm(q, dots), "bnd,bde->bne"),
+             lambda: torch.bmm(q, dots), "bnd,bde->bne", 3),
         )
-        for name, fn, plain, args, library, eq in cases:
+        for name, fn, plain, args, library, eq, tf32 in cases:
             with torch.no_grad():
                 want = plain(*args)
                 got = fn(*args)
@@ -1059,7 +1170,8 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
                        "ms": cuda_ms(lambda: fn(*args)),
                        "plain_ms": cuda_ms(lambda: plain(*args)),
                        "library": "torch.bmm", "library_ms": cuda_ms(library),
-                       **bound(nbytes(*args, want), 2.0 * bh * n * width * width)}
+                       **bound(nbytes(*args, want), 2.0 * bh * n * width * width,
+                               tf32)}
                 del got, want64
             leaves = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*leaves)
@@ -1070,21 +1182,29 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
             errs = [compare(a, w, TOL_BWD, f"{name} BH {bh} gradient {i}")
                     for i, (a, w) in enumerate(zip(got, want, strict=True))]
             p_out = plain(*leaves)
+            with torch.no_grad():
+                lib_err = max(compare(a, w, TOL_BWD, f"torch.bmm backward for {name}")
+                              ["max_rel_err"] for a, w in zip(
+                                  bwd_library(name, args, cot), want, strict=True))
             rec.update(
                 backward_max_rel_err=max(e["max_rel_err"] for e in errs),
                 backward_tol=TOL_BWD,
                 backward_ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, cot,
                                                                 retain_graph=True)),
                 plain_backward_ms=cuda_ms(lambda: torch.autograd.grad(
-                    p_out, leaves, cot, retain_graph=True)))
+                    p_out, leaves, cot, retain_graph=True)),
+                backward_library="torch.bmm (the two products)",
+                backward_library_ms=cuda_ms(lambda: bwd_library(name, args, cot)),
+                backward_library_max_rel_err=lib_err,
+                backward_bound_ms=bwd_bound(name, args, cot,
+                                            2.0 * bh * n * width * width))
             del out, p_out, got, want, in64
             emit(rec)
             if bh == b:
                 results[name] = dict(rec)
             else:
-                results[name][f"at_bh_{bh}"] = {k: rec[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "max_rel_err", "backward_max_rel_err")}
+                results[name][f"at_bh_{bh}"] = {k: rec[k] for k in LINEAR_KEYS
+                                                 if k in rec}
             for key in ("max_abs_err", "max_rel_err"):
                 results[name][key] = max(results[name][key], rec[key])
         del q, k, v, dots
@@ -1541,7 +1661,9 @@ def main() -> int:
                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                "library_ms": rec["library_ms"]}
-        for key in ("kernel_call_ms", "bound_fp32_ms", "act_false_modes"):
+        for key in ("kernel_call_ms", "old_route_ms", "old_route_call_ms",
+                    "bound_fp32_ms", "act_false_modes", "backward_ms",
+                    "backward_library_ms", "backward_bound_ms"):
             if key in rec:
                 row[key] = rec[key]
         if name in OFORMER_KERNELS:

@@ -28,7 +28,9 @@ from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
                                                       gn_silu_conv_plain,
                                                       gn_silu_up_conv,
                                                       gn_silu_up_conv_bwd,
-                                                      gn_silu_up_conv_plain)
+                                                      gn_silu_up_conv_plain,
+                                                      narrow_conv,
+                                                      narrow_conv_bwd)
 from m_cedm_tpu_torch.kernels.linear_attention import (apply_dots,
                                                        apply_dots_plain,
                                                        kv_dots, kv_dots_plain)
@@ -56,10 +58,12 @@ WRAPPERS: Dict[str, Callable] = {
     "K1 gn_silu": gn_silu,
     "K1 channel_stats": channel_stats,
     "K2 gn_silu_conv": gn_silu_conv,
+    "K2 narrow_conv": narrow_conv,
     "K3 gn_silu_up_conv": gn_silu_up_conv,
     "K4 attention": attention,
     "K1 gn_silu_bwd": gn_silu_bwd,
     "K2 gn_silu_conv_bwd": gn_silu_conv_bwd,
+    "K2 narrow_conv_bwd": narrow_conv_bwd,
     "K3 gn_silu_up_conv_bwd": gn_silu_up_conv_bwd,
     "K4 attention_bwd": attention_bwd,
     "K5 kv_dots": kv_dots,

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_norm", "fused_norm_conv", "fused_norm_conv_bwd",
+SOURCES = ("fused_norm", "fused_norm_conv", "fused_norm_conv_bwd", "narrow_conv",
            "fused_attention", "linear_attention", "fused_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

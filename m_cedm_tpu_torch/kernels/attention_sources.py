@@ -1,21 +1,25 @@
-"""Time K4 built from other CUDA sources beside the package's own, on one card.
+"""Time K4 or K6 built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--variant NAME ...] [--sass DIR]
+        [--kernel k4|k6] [--variant NAME ...] [--sass DIR]
 
-Every source exports K4's C entry points `mc_attention_fwd` and
-`mc_attention_bwd` with the signatures of csrc/fused_attention.cu: the
-package's own source, the files given (say, a parent commit's
-csrc/fused_attention.cu unpacked with `git archive`), and each `--variant`,
-the package's source with one named change (VARIANTS). All are built at
-once with the package's nvcc flags, checked against float64 at the
-flagship's attention shape (N = 16, L = 1024, D = 64; forward output and the
-three gradients, as max |err| / max(1, max |float64|)), and timed there with
-CUDA events: the kernels called directly (no autograd), the median of 10
-runs of 10 back-to-back calls, every source in turn, in two rounds of
-opposite order. One JSON line per source and round, after the card's
-nvidia-smi name and power limit. `--sass DIR` writes each library's SASS
-(cuobjdump) to DIR.
+K4 (the default): every source exports K4's C entry points
+`mc_attention_fwd` and `mc_attention_bwd` with the signatures of
+csrc/fused_attention.cu: the package's own source, the files given (say, a
+parent commit's csrc/fused_attention.cu unpacked with `git archive`), and
+each `--variant`, the package's source with one named change (VARIANTS,
+K4's and K6's).
+They are checked against float64 at the flagship's attention shape (N = 16,
+L = 1024, D = 64; forward output and the three gradients). K6: every source
+exports `mc_apply_dots` with the signature of csrc/linear_attention.cu (the
+package's, and say a parent commit's), checked against float64 at the
+OFormer's two shapes (BH = 16 and 64, N = 16,384, D = E = 128) and timed at
+both. Errors are max |err| / max(1, max |float64|). All sources are built at
+once with the package's nvcc flags and timed with CUDA events: the kernels
+called directly (no autograd), the median of 10 runs of 10 back-to-back
+calls, every source in turn, in two rounds of opposite order. One JSON line
+per source and round, after the card's nvidia-smi name and power limit.
+`--sass DIR` writes each library's SASS (cuobjdump) to DIR.
 """
 from __future__ import annotations
 
@@ -31,22 +35,35 @@ import torch
 
 from m_cedm_tpu_torch.kernels import _build
 
-# name -> (text in csrc/fused_attention.cu, its replacement)
+# name -> (kernel, text in its package source, the replacement)
 VARIANTS = {
     # the split rounded with cvt.rna (ties away), which ptxas expands on sm_90
-    "cvt_rna": ('asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;',
+    "cvt_rna": ("k4", 'asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;',
                 'asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n'
                 '  return r & 0xffffe000u;'),
     # lo left as the exact fp32 difference x - hi, which the tensor core reads
     # as TF32 (truncating it): one conversion a split instead of two
-    "lo_unrounded": ("  lo = to_tf32(x - __uint_as_float(hi));",
+    "lo_unrounded": ("k4", "  lo = to_tf32(x - __uint_as_float(hi));",
                      "  lo = __float_as_uint(x - __uint_as_float(hi));"),
     # one TF32 product (hi * hi) instead of three; the lo halves go unused
-    "one_product": ("  mma_tf32(c, a.lo, bh0, bh1);\n  mma_tf32(c, a.hi, bl0, bl1);\n",
+    "one_product": ("k4", "  mma_tf32(c, a.lo, bh0, bh1);\n  mma_tf32(c, a.hi, bl0, bl1);\n",
                     ""),
+    # K6's tensor-core partial sums added into the fp32 accumulator after four
+    # k-steps, or once (the products accumulated on the tensor cores alone)
+    "temp_steps_4": ("k6", "constexpr int kTempSteps = 1;", "constexpr int kTempSteps = 4;"),
+    "temp_steps_16": ("k6", "constexpr int kTempSteps = 1;", "constexpr int kTempSteps = 16;"),
+    # K6 with one m16 tile a warp: 16 warps a block instead of 8
+    "m_tiles_1": ("k6", "constexpr int kMTiles = 2;", "constexpr int kMTiles = 1;"),
 }
 N, L, D = 16, 1024, 64
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the kernel -> its package source and the argument types of its entry points
+KERNELS = {
+    "k4": ("fused_attention.cu", {"mc_attention_fwd": [P] * 5 + [I, I, I, F, P],
+                                  "mc_attention_bwd": [P] * 10 + [I, I, I, F, P]}),
+    "k6": ("linear_attention.cu", {"mc_apply_dots": [P] * 3 + [I] * 4 + [P]}),
+}
+K6_BH, K6_N, K6_W = (16, 64), 16384, 128
 
 
 def _cuda_ms(fn, runs: int = 10, per_run: int = 10) -> float:
@@ -65,14 +82,14 @@ def _cuda_ms(fn, runs: int = 10, per_run: int = 10) -> float:
     return float(np.median(times))
 
 
-def _sources(files, variants, out_dir: Path):
-    own = _build.CSRC / "fused_attention.cu"
+def _sources(kernel, files, variants, out_dir: Path):
+    own = _build.CSRC / KERNELS[kernel][0]
     srcs = {"package": own}
     for i, f in enumerate(files):
         srcs[f"file{i}:{f}"] = Path(f)
     text = own.read_text()
     for name in variants:
-        old, new = VARIANTS[name]
+        _, old, new = VARIANTS[name]
         if text.count(old) != 1:
             raise ValueError(f"variant {name}: its text is not in {own}")
         path = out_dir / f"variant_{name}.cu"
@@ -81,10 +98,10 @@ def _sources(files, variants, out_dir: Path):
     return srcs
 
 
-def _build_libs(srcs, out_dir: Path):
+def _build_libs(kernel, srcs, out_dir: Path):
     procs = {}
     for i, (name, src) in enumerate(srcs.items()):
-        so = out_dir / f"k4_{i}.so"
+        so = out_dir / f"{kernel}_{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
@@ -96,8 +113,8 @@ def _build_libs(srcs, out_dir: Path):
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
         lib = ctypes.CDLL(str(so))
-        lib.mc_attention_fwd.argtypes = [P] * 5 + [I, I, I, F, P]
-        lib.mc_attention_bwd.argtypes = [P] * 10 + [I, I, I, F, P]
+        for fn, argtypes in KERNELS[kernel][1].items():
+            getattr(lib, fn).argtypes = argtypes
         libs[name] = (lib, so)
     return libs, ptxas
 
@@ -105,9 +122,12 @@ def _build_libs(srcs, out_dir: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("files", nargs="*")
+    ap.add_argument("--kernel", default="k4", choices=sorted(KERNELS))
     ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS))
     ap.add_argument("--sass", default=None)
     args = ap.parse_args(argv)
+    if any(VARIANTS[v][0] != args.kernel for v in args.variant):
+        ap.error(f"a --variant of another kernel than {args.kernel}")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -117,13 +137,16 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     out_dir = _build.BUILD_DIR / "attention_sources"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs, ptxas = _build_libs(_sources(args.files, args.variant, out_dir), out_dir)
+    libs, ptxas = _build_libs(args.kernel, _sources(args.kernel, args.files, args.variant,
+                                                    out_dir), out_dir)
     if args.sass:
         Path(args.sass).mkdir(parents=True, exist_ok=True)
         for i, (name, (_, so)) in enumerate(libs.items()):
-            with open(Path(args.sass) / f"k4_{i}.sass", "w") as f:
+            with open(Path(args.sass) / f"{args.kernel}_{i}.sass", "w") as f:
                 subprocess.run(["cuobjdump", "-sass", str(so)], stdout=f,
                                stderr=subprocess.STDOUT, check=False)
+    if args.kernel == "k6":
+        return _time_k6(libs, ptxas)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -168,6 +191,42 @@ def main(argv=None) -> int:
             print(json.dumps({"source": name, "round": rnd, "fwd_ms": _cuda_ms(fwd),
                               "bwd_ms": _cuda_ms(bwd), **errs[name],
                               "ptxas": ptxas[name]}), flush=True)
+    return 0
+
+
+def _time_k6(libs, ptxas) -> int:
+    """mc_apply_dots of every source at BH 16 and 64, checked, then timed."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for bh in K6_BH:
+        q = torch.from_numpy(rs.randn(bh, K6_N, K6_W).astype(np.float32)).to(dev)
+        dots = torch.from_numpy((rs.randn(bh, K6_W, K6_W) / 8).astype(np.float32)).to(dev)
+        cases[bh] = (q, dots, torch.empty_like(q), q.double() @ dots.double())
+
+    def call(lib, bh):
+        q, dots, out, _ = cases[bh]
+        return lambda: lib.mc_apply_dots(q.data_ptr(), dots.data_ptr(), out.data_ptr(),
+                                         bh, K6_N, K6_W, K6_W, stream)
+
+    errs = {}
+    for name, (lib, _) in libs.items():
+        errs[name] = {}
+        for bh in K6_BH:
+            if call(lib, bh)():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            out, want = cases[bh][2], cases[bh][3]
+            errs[name][f"err_bh_{bh}"] = (float((out.double() - want).abs().max())
+                                          / max(1.0, float(want.abs().max())))
+    names = list(libs)
+    for rnd, order in enumerate((names, names[::-1])):
+        for name in order:
+            lib = libs[name][0]
+            print(json.dumps({"source": name, "round": rnd,
+                              **{f"ms_bh_{bh}": _cuda_ms(call(lib, bh)) for bh in K6_BH},
+                              **errs[name], "ptxas": ptxas[name]}), flush=True)
     return 0
 
 

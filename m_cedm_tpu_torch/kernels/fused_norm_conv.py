@@ -28,11 +28,18 @@ the statistics its forward used (chained or from K1's pass 1); emitted
 statistics are not differentiable and chained ones take a zero cotangent,
 as in the JAX package (fused_norm_conv.py:1983-1987).
 
+K2's linear mode with no residual and few channels (C <= 8 or O <= 8: the
+U-Net's conv_in and out conv) goes to the narrow-channel kernel instead
+(`narrow_route`; csrc/narrow_conv.cu), and its backward, at O <= 8, to the
+narrow backward kernels (`narrow_bwd_route`); conv_in's backward (no input
+gradient) stays on K2's wgrad kernel.
+
 Both wrappers are torch.autograd.Functions: CUDA kernels for CUDA tensors,
 forward and backward; the plain PyTorch versions for CPU tensors (the
 backward's plain version is `*_bwd_plain`). `.launches` counts the forward
 kernels, `gn_silu_conv_bwd.launches` and `gn_silu_up_conv_bwd.launches` the
-backward ones.
+backward ones; `narrow_conv.launches` and `narrow_conv_bwd.launches` those of
+the narrow route (`gn_silu_conv.launches` counts gnsc_kernel only).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, dx_from_da,
 Stats = Tuple[torch.Tensor, torch.Tensor]
 Out = Union[torch.Tensor, Tuple[torch.Tensor, Stats]]
 _MAX_C = 512
+NARROW = 8  # csrc/narrow_conv.cu takes C <= 8 (narrow C) or O <= 8 (narrow O)
 _RES_NONE, _RES_IDENTITY, _RES_IDENTITY_UP, _RES_PROJ = 0, 1, 2, 3
 
 
@@ -220,9 +228,94 @@ def gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int,
         dw, g.sum(dim=(0, 1, 2)))
 
 
+def narrow_conv_plain(x: torch.Tensor, w: torch.Tensor,
+                      bias: Optional[torch.Tensor], emit_stats: bool = False) -> Out:
+    """Reference of the narrow-channel kernel: conv3x3_same(x) + bias, and
+    with emit_stats the output's per-(B, O) sums and sums of squares."""
+    out = conv3x3_plain(x, w, bias)
+    return (out, _out_stats_plain(out)) if emit_stats else out
+
+
+def narrow_conv_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                          need_dx: bool = True):
+    """The narrow backward kernels' formulas: (dx or None, dw, dbias)."""
+    dx = conv3x3_dgrad_plain(g, w) if need_dx else None
+    return dx, conv3x3_wgrad_plain(x, g), g.sum(dim=(0, 1, 2))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+def narrow_route(c: int, o: int, act: bool, residual: bool) -> bool:
+    """Whether K2 sends a call to the narrow-channel kernel: the linear mode
+    (no norm) with no residual tail and C <= 8 or O <= 8, i.e. the U-Net's
+    conv_in and out conv. The down blocks' conv0 (64 -> 64) and every
+    activated or residual call stay on gnsc_kernel."""
+    return not act and not residual and (c <= NARROW or o <= NARROW)
+
+
+def narrow_bwd_route(c: int, o: int, act: bool, residual: bool) -> bool:
+    """Whether the backward of a K2 call goes to the narrow backward
+    kernels: the narrow route at O <= 8 (the out conv). conv_in's backward
+    (C <= 8, O = 64, no input gradient) stays on K2's wgrad kernel."""
+    return narrow_route(c, o, act, residual) and o <= NARROW
+
+
+def _check_narrow(x, w, bias):
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    check(x, "x", (b, h, wd, c), x.device)
+    check(w, "w", (3, 3, c, o), x.device)
+    if bias is not None:
+        check(bias, "bias", (o,), x.device)
+    if not narrow_route(c, o, False, False) or max(c, o) > _MAX_C:
+        raise ValueError(f"the narrow conv takes C <= {NARROW} or O <= {NARROW} "
+                         f"(the other at most {_MAX_C}), got C {c}, O {o}")
+    return b, h, wd, c, o
+
+
+def _narrow_conv_kernel(x, w, bias, emit_stats):
+    """Narrow-channel conv launch: out, or (out, (sums, sumsq))."""
+    b, h, wd, c, o = _check_narrow(x, w, bias)
+    out = torch.empty((b, h, wd, o), device=x.device, dtype=torch.float32)
+    ostats = part = None
+    if emit_stats:  # the output's channel sums, then its sums of squares
+        ostats = torch.empty((2, b, o), device=x.device, dtype=torch.float32)
+        tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(
+            h, wd, 0 if o <= NARROW else 1)
+        part = torch.empty((2, b, tiles, o), device=x.device, dtype=torch.float32)
+    fn = _build.bind("narrow_conv", "mc_narrow_conv", [P] * 6 + [I] * 5 + [P])
+    raise_on_error(fn(ptr(x), ptr(w), ptr(bias), ptr(out), ptr(ostats), ptr(part),
+                      b, h, wd, c, o, stream()), "mc_narrow_conv")
+    narrow_conv.launches += 1
+    return (out, (ostats[0], ostats[1])) if emit_stats else out
+
+
+def narrow_conv_bwd(g, x, w, need_dx: bool = True):
+    """The narrow backward kernels on the card (O <= 8): (dx or None, dw,
+    dbias). dgrad and wgrad write every entry once and wgrad's per-run
+    partials are added in a fixed order, so the result repeats bit for bit."""
+    b, h, wd, c, o = _check_narrow(x, w, None)
+    check(g, "g", (b, h, wd, o), x.device)
+    if o > NARROW:
+        raise ValueError(f"the narrow backward takes O <= {NARROW}, got {o}")
+    dev = x.device
+    dx = torch.empty_like(x) if need_dx else None
+    nw = 9 * c * o
+    dwb = torch.empty((nw + o,), device=dev, dtype=torch.float32)  # dW, then dbias
+    tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(h, wd, 2)
+    runs = min(tiles, -(-_WGRAD_BLOCKS // b))
+    part = torch.empty((b * runs, nw + o), device=dev, dtype=torch.float32)
+    fn = _build.bind("narrow_conv", "mc_narrow_conv_bwd", [P] * 6 + [I] * 6 + [P])
+    raise_on_error(fn(ptr(g), ptr(x), ptr(w), ptr(dx), ptr(dwb), ptr(part),
+                      b, h, wd, c, o, runs, stream()), "mc_narrow_conv_bwd")
+    narrow_conv_bwd.launches += 1
+    return dx, dwb[:nw].view(3, 3, c, o), dwb[nw:]
+
+
+narrow_conv_bwd.launches = 0
+
 
 def _norm_inputs(x, gamma, beta, num_groups, stats):
     """Folded modulation and input statistics for an activated input."""
@@ -431,18 +524,23 @@ class _GnSiluConv(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, w, bias, sums, sumsq, residual, skip_w,
                 skip_b, num_groups, eps, res_up, emit_stats):
         stats = None if sums is None else (sums, sumsq)
-        if on_cpu(x):
+        route = (x.shape[-1], w.shape[-1], gamma is not None, residual is not None)
+        used = (None, None)
+        if narrow_route(*route):
+            out = (narrow_conv_plain if on_cpu(x) else _narrow_conv_kernel)(
+                x, w, bias, emit_stats)
+        elif on_cpu(x):
             out = gn_silu_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
                                      residual=residual, res_up=res_up,
                                      skip_w=skip_w, skip_b=skip_b,
                                      emit_stats=emit_stats)
-            used = (None, None)
         else:
             out, used = _gn_silu_conv_kernel(x, gamma, beta, w, bias, num_groups,
                                              eps, stats, residual, res_up,
                                              skip_w, skip_b, emit_stats)
         ctx.save_for_backward(x, gamma, beta, w, residual, skip_w, *used)
-        ctx.cfg = (num_groups, eps, res_up, bias is not None, skip_b is not None)
+        ctx.cfg = (num_groups, eps, res_up, bias is not None, skip_b is not None,
+                   narrow_bwd_route(*route))
         if not emit_stats:
             return out
         out, (osums, osumsq) = out
@@ -451,10 +549,14 @@ class _GnSiluConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *unused_stats_grads):
-        num_groups, eps, res_up, has_bias, has_skip_b = ctx.cfg
+        num_groups, eps, res_up, has_bias, has_skip_b, narrow = ctx.cfg
         x, gamma, beta, w, residual, skip_w, sums, sumsq = ctx.saved_tensors
         g = g.contiguous()
-        if on_cpu(g):
+        if narrow:
+            dx, dw, dbias = (narrow_conv_bwd_plain if on_cpu(g) else narrow_conv_bwd)(
+                g, x, w, ctx.needs_input_grad[0])
+            grads = (dx, None, None, dw, dbias, None, None)
+        elif on_cpu(g):
             grads = gn_silu_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps,
                                            residual, res_up, skip_w)
         else:
@@ -527,6 +629,20 @@ def gn_silu_conv(x, gamma, beta, w, bias, num_groups: int = 0,
 
 
 gn_silu_conv.launches = 0
+
+
+def narrow_conv(x, w, bias, emit_stats: bool = False) -> Out:
+    """K2's linear mode at C <= 8 or O <= 8 (conv_in, the out conv):
+    conv3x3_same(x) + bias through the narrow-channel kernel, as
+    `gn_silu_conv(x, None, None, w, bias)` routes it; raises on other
+    widths."""
+    if not narrow_route(x.shape[-1], w.shape[-1], False, False):
+        raise ValueError(f"the narrow conv takes C <= {NARROW} or O <= {NARROW}, "
+                         f"got C {x.shape[-1]}, O {w.shape[-1]}")
+    return gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats)
+
+
+narrow_conv.launches = 0
 
 
 def gn_silu_up_conv(x, gamma, beta, w, bias, num_groups: int,

@@ -305,6 +305,103 @@ def test_train_step_on_the_card(cuda):
         assert float((v - sp.params[k]).abs().max()) <= 2 * 2e-4 + 1e-6, k
 
 
+# --- K2's narrow-channel conv (conv_in, the out conv) ----------------------
+
+TOL_KERNEL = 2e-5  # of max(1, the output's largest magnitude), as chip_smoke.py
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+NARROW_CASES = [(c, o) for c in (1, 2, 4, 8) for o in (1, 2, 8)] + [
+    (4, 64), (2, 64), (64, 2), (64, 1), (3, 70), (13, 3)]
+
+
+def _narrow_inputs(seed, dev, b, h, w, c, o):
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, sc=1.0):
+        return torch.from_numpy((rs.randn(*shape) * sc).astype(np.float32)).to(dev)
+
+    return t(b, h, w, c), t(3, 3, c, o, sc=1.0 / np.sqrt(9 * c)), t(o, sc=0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", NARROW_CASES, ids=lambda v: str(v))
+def test_narrow_conv_matches_plain(cuda, c, o):
+    """C <= 8 or O <= 8 at odd H and W (ragged tiles of both kernels), B 1
+    and 3, with and without the emitted statistics; the narrow kernel runs,
+    gnsc_kernel does not."""
+    for b in (1, 3):
+        x, w, bias = _narrow_inputs(c * 100 + o + b, cuda, b, 13, 37, c, o)
+        want, (ws, wss) = tfnc.narrow_conv_plain(x, w, bias, emit_stats=True)
+        kernels.reset_launches()
+        got, (gs, gss) = tfnc.gn_silu_conv(x, None, None, w, bias, emit_stats=True)
+        assert max(_rel(got, want), _rel(gs, ws), _rel(gss, wss)) <= TOL_KERNEL
+        assert _rel(tfnc.narrow_conv(x, w, None), want - bias) <= TOL_KERNEL
+        launched = kernels.launches()
+        assert (launched["K2 narrow_conv"], launched["K2 gn_silu_conv"]) == (2, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(64, 2), (64, 1), (8, 8), (1, 1), (13, 2), (4, 3),
+                                 (130, 5)], ids=lambda v: str(v))
+def test_narrow_conv_backward_matches_float64(cuda, c, o):
+    """dx, dW and db of the narrow route (O <= 8) against float64 autograd of
+    the plain forward, 1e-4 of each one's scale; dW and db repeat bit for
+    bit; one narrow backward launch a call."""
+    for b in (1, 3):
+        x, w, bias = _narrow_inputs(c * 10 + o + b, cuda, b, 13, 37, c, o)
+        g = torch.randn(b, 13, 37, o, device=cuda)
+        leaves = [_leaf(t) for t in (x, w, bias)]
+        a64 = [_leaf(t.double()) for t in (x, w, bias)]
+        want = torch.autograd.grad(tfnc.narrow_conv_plain(*a64), a64, g.double())
+        kernels.reset_launches()
+        got = torch.autograd.grad(tfnc.narrow_conv(*leaves), leaves, g)
+        for a, w64 in zip(got, want):
+            err = float((a.double() - w64).abs().max())
+            assert err <= 1e-4 * max(1.0, float(w64.abs().max()))
+        again = tfnc.narrow_conv_bwd(g, x, w)
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+        assert torch.equal(tfnc.narrow_conv_bwd(g, x, w)[1], again[1])
+        assert tfnc.narrow_conv_bwd(g, x, w, need_dx=False)[0] is None
+        launched = kernels.launches()
+        assert (launched["K2 narrow_conv_bwd"], launched["K2 gn_silu_conv_bwd"]) == (4, 0)
+
+
+@pytest.mark.cuda
+def test_conv_in_backward_stays_on_the_wgrad_kernel(cuda):
+    """conv_in (C 4 -> O 64, no input gradient): the narrow forward, K2's
+    backward kernels."""
+    x, w, bias = _narrow_inputs(7, cuda, 2, 13, 37, 4, 64)
+    leaves = [_leaf(w), _leaf(bias)]
+    g = torch.randn(2, 13, 37, 64, device=cuda)
+    want = torch.autograd.grad(tfnc.narrow_conv_plain(x, *leaves), leaves, g)
+    kernels.reset_launches()
+    _assert_grads(torch.autograd.grad(tfnc.narrow_conv(x, *leaves), leaves, g), want)
+    launched = kernels.launches()
+    assert (launched["K2 narrow_conv"], launched["K2 narrow_conv_bwd"],
+            launched["K2 gn_silu_conv_bwd"]) == (1, 0, 1)
+
+
+@pytest.mark.cuda
+def test_narrow_conv_refuses_what_it_does_not_take(cuda):
+    x, w, bias = _narrow_inputs(8, cuda, 1, 5, 5, 16, 16)
+    with pytest.raises(ValueError, match="narrow"):
+        tfnc.narrow_conv(x, w, bias)
+    x, w, bias = _narrow_inputs(8, cuda, 1, 5, 5, 4, 64)
+    with pytest.raises(ValueError, match="narrow backward"):
+        tfnc.narrow_conv_bwd(torch.zeros(1, 5, 5, 64, device=cuda), x, w)
+    with pytest.raises(ValueError, match="float32"):
+        tfnc.narrow_conv(x.double(), w.double(), None)
+    with pytest.raises(ValueError, match="shape"):
+        tfnc.narrow_conv(x, w[:, :, :3], bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfnc.narrow_conv(x.transpose(1, 2), w, bias)
+
+
 # --- K5 kv_dots / K6 apply_dots (the OFormer's linear attention) ------------
 
 LA_SHAPES = [(3, 1000, 12, 20), (2, 2500, 128, 128), (5, 77, 128, 64), (1, 33, 7, 128)]
@@ -369,6 +466,29 @@ def test_k5_k6_refuse_what_they_do_not_take(cuda):
                        torch.randn(2, 8, 8, device=cuda))
     with pytest.raises(ValueError, match="float32"):
         tla.kv_dots(q.double(), q.double())
+
+
+K6_WIDTHS = (1, 7, 8, 64, 100, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 16384])
+@pytest.mark.parametrize("d", K6_WIDTHS)
+def test_k6_tensor_core_kernel(cuda, n, d):
+    """The 3xTF32 apply_dots at every E of K6_WIDTHS: within 2e-5 of scale
+    of its plain version and of float64, bit for bit the same on a second
+    call, one launch a call."""
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    for e in K6_WIDTHS:
+        q = torch.randn(2, n, d, device=cuda)
+        dots = torch.randn(2, d, e, device=cuda) / 8
+        kernels.reset_launches()
+        got = tla.apply_dots(q, dots)
+        assert _rel(got, tla.apply_dots_plain(q, dots)) <= TOL_KERNEL, e
+        assert _rel(got, q.double() @ dots.double()) <= TOL_KERNEL, e
+        assert torch.equal(tla.apply_dots(q, dots), got), e
+        assert kernels.launches()["K6 apply_dots"] == 2
 
 
 def _oformer_case(cuda):
@@ -591,8 +711,10 @@ def test_mega_unet_on_the_card(cuda):
     for o in outs[:2]:
         assert float((o - outs[2]).abs().max()) <= 1e-4 * max(1.0, scale)
     mega, per_conv, plain = launched
-    assert (mega["K7 unet_block"], mega["K2 gn_silu_conv"], mega["K3 gn_silu_up_conv"],
-            mega["K4 attention"]) == (9, 4, 0, 4)
+    # K2: the down block's two convs; conv_in and the out conv take the
+    # narrow kernel
+    assert (mega["K7 unet_block"], mega["K2 gn_silu_conv"], mega["K2 narrow_conv"],
+            mega["K3 gn_silu_up_conv"], mega["K4 attention"]) == (9, 2, 2, 0, 4)
     assert (per_conv["K7 unet_block"], per_conv["K3 gn_silu_up_conv"]) == (0, 1)
     assert not any(plain.values())
 

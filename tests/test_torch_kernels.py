@@ -247,6 +247,9 @@ def _wrapper_calls(inp):
     k7 = (inp.t("x"), inp.t("gamma"), inp.t("beta"), inp.t("w"), inp.t("bias"),
           g1, b1, w1, inp.t("bias"), 4, 4, 1e-5)
     k7_kw = dict(skip_w=skw, skip_b=inp.t("skb"), emit_stats=True)
+    # the narrow route: C 4 -> O 24 (narrow C), and C 16 -> O 2 (narrow O)
+    x4, w4 = inp.t("x")[..., :4].contiguous(), inp.t("w")[:, :, :4].contiguous()
+    w2, b2, g2n = (t[..., :2].contiguous() for t in (inp.t("w"), inp.t("bias"), g2))
     return {
         "K1 gn_silu": (lambda: tfn.gn_silu(x3, inp.t("gamma"), inp.t("beta"), 4),
                        lambda: tfn.gn_silu_plain(x3, inp.t("gamma"), inp.t("beta"), 4)),
@@ -255,6 +258,9 @@ def _wrapper_calls(inp):
         "K2 gn_silu_conv": (
             lambda: _port_block(tfnc.gn_silu_conv, inp, "proj", 4, True),
             lambda: _port_block(tfnc.gn_silu_conv_plain, inp, "proj", 4, True)),
+        "K2 narrow_conv": (
+            lambda: tfnc.narrow_conv(x4, w4, inp.t("bias"), emit_stats=True),
+            lambda: tfnc.narrow_conv_plain(x4, w4, inp.t("bias"), emit_stats=True)),
         "K3 gn_silu_up_conv": (
             lambda: tfnc.gn_silu_up_conv(inp.t("x"), inp.t("gamma"), inp.t("beta"),
                                          inp.t("w"), inp.t("bias"), 4),
@@ -275,6 +281,10 @@ def _wrapper_calls(inp):
                                           inp.t("beta"), inp.t("w")), g2),
             lambda: tfnc.gn_silu_conv_bwd_plain(g2, inp.t("x"), inp.t("gamma"),
                                                 inp.t("beta"), inp.t("w"), 4)[:4]),
+        "K2 narrow_conv_bwd": (
+            lambda: _grads(lambda a, w_, b_: tfnc.gn_silu_conv(a, None, None, w_, b_),
+                           (inp.t("x"), w2, b2), g2n),
+            lambda: tfnc.narrow_conv_bwd_plain(g2n, inp.t("x"), w2)),
         "K3 gn_silu_up_conv_bwd": (
             lambda: _grads(lambda a, g_, b_, w_: tfnc.gn_silu_up_conv(
                 a, g_, b_, w_, None, 4), (inp.t("x"), inp.t("gamma"),

@@ -12,7 +12,10 @@ tensor core's terms; only the order of the fp32 sums differs.
 Held here: attention at the flagship's (L, D) = (1024, 64) computed that way
 stays within 2e-5 of scale of float64, the bound chip_smoke.py holds the
 forward kernel to. Recorded, not asserted: the error of one TF32 pass.
-JAX-free; well under a second a case.
+K6 (csrc/linear_attention.cu::apply_dots_kernel) runs q @ dots the same
+way: at (N, D, E) = (256, 128, 128) and at ragged widths it stays within
+1e-6 of scale of float64, and one TF32 pass is shown to exceed the 2e-5
+bound. JAX-free; well under a second a case.
 """
 import math
 
@@ -90,3 +93,29 @@ def test_3xtf32_attention_keeps_fp32_accuracy(ties, record_property):
     print(f"attention vs float64, of scale, ties {ties}: 3xTF32 {err_3x:.2e}, "
           f"1xTF32 {err_1x:.2e}, fp32 {err_fp32:.2e}")
     assert err_3x <= TOL_KERNEL
+
+
+def mm_3xtf32(a, b, ties="even"):
+    """a @ b as the kernels sum it: lo*hi + hi*lo + hi*hi, small terms first."""
+    (ah, al), (bh, bl) = split(a, ties), split(b, ties)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("d,e", [(128, 128), (100, 7), (7, 100), (1, 64)])
+def test_3xtf32_apply_dots_keeps_fp32_accuracy(d, e, record_property):
+    """K6's product q @ (k^T v / n) on the OFormer's operands (normal q, k,
+    v; the factor as the attention forms it), cvt.rn rounding."""
+    rs = np.random.RandomState(d * 1000 + e)
+    n = 256
+    q, k = (torch.from_numpy(rs.randn(2, n, d).astype(np.float32)) for _ in range(2))
+    v = torch.from_numpy(rs.randn(2, n, e).astype(np.float32))
+    dots = (k.transpose(1, 2) @ v) / n
+    want = q.double() @ dots.double()
+    err_3x = rel_err(mm_3xtf32(q, dots), want)
+    err_1x = rel_err(tf32_round(q, "even") @ tf32_round(dots, "even"), want)
+    record_property("err_3xtf32", err_3x)
+    record_property("err_1xtf32", err_1x)
+    print(f"apply_dots ({d}, {e}) vs float64, of scale: 3xTF32 {err_3x:.2e}, "
+          f"1xTF32 {err_1x:.2e}")
+    assert err_3x <= 1e-6
+    assert err_1x > TOL_KERNEL
