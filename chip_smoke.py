@@ -44,7 +44,7 @@ Phases, each printing JSON lines:
               D = E = 128) against their plain versions, and the backward of
               each autograd Function (made of the two kernels) against
               float64 autograd of its plain forward; kernel, plain and
-              torch.bmm times, K6's bound in 3xTF32 beside its fp32 one; the
+              torch.bmm times, their bounds in 3xTF32 beside the fp32 ones; the
               backward's products through torch.bmm timed beside it, with
               its bound
   7. oformer eval   OformerTask.eval_step of configs/model/oformer_t.yaml at
@@ -53,7 +53,9 @@ Phases, each printing JSON lines:
               datamodule does, kernel path against plain path, launches read
   8. oformer train  three OformerTask.train_steps at B = 16 on both paths
               (the same dropout masks, the constant lr), loss, gradient norm
-              and params held to each other; ms per step on both paths, one
+              and params held to each other; then one kernel-path step from
+              each of the plain path's three states, its loss and gradient
+              norm held to the plain step's; ms per step on both paths, one
               profiled kernel-path step and the peak device memory
   9. mega kernel  K7, the whole ADM block in one cooperative launch, against
               its plain version at the flagship's shapes (identity with
@@ -80,10 +82,10 @@ phase 10, with phase 11's beside), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
-peak of an H100 SXM (the kernels run fp32 on CUDA cores), except K4's, whose
-products run as 3xTF32 on the tensor cores: three TF32 FLOPs per fp32 FLOP
-over the 495 TFLOP/s TF32 peak (its CUDA-core bound beside, as
-`bound_fp32_ms`); K6's likewise. K2's linear modes are listed in its rows
+peak of an H100 SXM for the kernels that run fp32 on the CUDA cores; K2/K3
+(gnsc_kernel), K4, K5 and K6 run their products as 3xTF32 on the tensor
+cores: three TF32 FLOPs per fp32 FLOP over the 495 TFLOP/s TF32 peak (their
+CUDA-core bound beside, as `bound_fp32_ms`). K2's linear modes are listed in its rows
 and in the narrow kernel's under `act_false_modes`, each with its time,
 bound and conv2d time (the narrow kernel's with the old route's time). The plain versions
 run with TF32 off (kernels._launch.fp32_reference_math). Every failed check
@@ -535,9 +537,12 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
             plain_kw = {k: v for k, v in kw.items() if k != "stats"}
             want = fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups, **plain_kw)
             b_, h_, w_, c_ = x.shape
+            cr = kw["residual"].shape[-1] if kw.get("skip_w") is not None else 0
             work = (nbytes(x, gamma, beta, w, bias, *(kw.get("stats") or ()),
-                           kw.get("residual"), *flat(want)),
-                    conv_flops(b_, h_, w_, c_, w.shape[-1]))
+                           kw.get("residual"), kw.get("skip_w"), kw.get("skip_b"),
+                           *flat(want)),
+                    conv_flops(b_, h_, w_, c_, w.shape[-1])
+                    + 2.0 * b_ * h_ * w_ * cr * w.shape[-1], 3)
             check("K2 gn_silu_conv", mode, got, want,
                   lambda: fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw),
                   lambda: fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups,
@@ -607,7 +612,7 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
               lambda: fnc.gn_silu_up_conv_plain(xl, gamma, beta, w, bias, gr,
                                                 emit_stats=True),
               work=(nbytes(xl, gamma, beta, w, bias, *xl_stats, *flat(want)),
-                    conv_flops(b, res, res, ch, ch)))
+                    conv_flops(b, res, res, ch, ch), 3))
 
         # K4 at the 32x32 attention sites: (B * heads, 1024, 64)
         L = (res // 4) ** 2
@@ -1134,14 +1139,11 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
 
     def bwd_bound(name, args, cot, flops) -> float:
         """Bytes (the inputs and the cotangent read once, the two gradients
-        written once) against the two products' operations, each at its
-        route's rate: K6 in 3xTF32 (three TF32 FLOPs per FLOP), K5 in fp32
-        on the CUDA cores. K5's backward is two K6 calls, K6's one K6 and
-        one K5."""
+        written once) against the two products' operations in 3xTF32 (three
+        TF32 FLOPs per FLOP): K5's backward is two K6 calls, K6's one K6 and
+        one K5, all on the tensor cores."""
         t_bytes = nbytes(*args, *args, cot) / PEAK_BYTES * 1e3
-        k6_calls = 2 if name == "K5 kv_dots" else 1
-        t_ops = (k6_calls * 3 * flops / PEAK_TF32
-                 + (2 - k6_calls) * flops / PEAK_FLOPS) * 1e3
+        t_ops = 2 * 3 * flops / PEAK_TF32 * 1e3
         return max(t_bytes, t_ops)
 
     results = {}
@@ -1150,7 +1152,7 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
         dots = la.kv_dots_plain(k, v) / n
         cases = (
             ("K5 kv_dots", la.kv_dots, la.kv_dots_plain, (k, v),
-             lambda: torch.bmm(k.transpose(1, 2), v), "bnd,bne->bde", 0),
+             lambda: torch.bmm(k.transpose(1, 2), v), "bnd,bne->bde", 3),
             ("K6 apply_dots", la.apply_dots, la.apply_dots_plain, (q, dots),
              lambda: torch.bmm(q, dots), "bnd,bde->bne", 3),
         )
@@ -1315,12 +1317,28 @@ def phase_oformer_train(device, b: int) -> dict:
     check_oformer_launches(launches, 2 * OFORMER_SITES * TRAIN_STEPS,
                            4 * OFORMER_SITES * TRAIN_STEPS,
                            f"{TRAIN_STEPS} OFormer train steps")
-    pfinal, pmetrics, _ = train_steps(ptask, pstate, batch, device, 0, TRAIN_STEPS)
-    for step, (km, pm) in enumerate(zip(kmetrics, pmetrics)):
-        for key in ("train_loss", "grad_norm"):
-            if not math.isfinite(km[key]) or abs(km[key] - pm[key]) > TOL_TRAIN * abs(pm[key]):
-                raise AssertionError(f"OFormer step {step} {key}: kernel {km[key]} "
-                                     f"vs plain {pm[key]}")
+    pstates, pmetrics = [pstate], []
+    for i in range(TRAIN_STEPS):  # the plain path step by step, keeping its states
+        st, m, _ = train_steps(ptask, pstates[-1], batch, device, i, 1)
+        pstates.append(st)
+        pmetrics += m
+    pfinal = pstates[-1]
+
+    def hold(metrics, what):
+        for step, (km, pm) in enumerate(zip(metrics, pmetrics, strict=True)):
+            for key in ("train_loss", "grad_norm"):
+                if (not math.isfinite(km[key])
+                        or abs(km[key] - pm[key]) > TOL_TRAIN * abs(pm[key])):
+                    raise AssertionError(f"OFormer {what} step {step} {key}: kernel "
+                                         f"{km[key]} vs plain {pm[key]}")
+
+    # one kernel-path step from each of the plain path's states: the step
+    # itself, without the growth of a rounding difference along the
+    # trajectory (the gradient norm grows about sevenfold a step)
+    step_metrics = [train_steps(ktask, pstates[i], batch, device, i, 1)[1][0]
+                    for i in range(TRAIN_STEPS)]
+    hold(step_metrics, "per-step")
+    hold(kmetrics, "trajectory")
     lr = OFORMER_HPARAMS["lr"]
     diff = max(float((kfinal.params[k] - pfinal.params[k]).abs().max()) for k in kfinal.params)
     moved = max(float((kfinal.params[k] - kstate.params[k]).abs().max()) for k in kfinal.params)
@@ -1342,6 +1360,8 @@ def phase_oformer_train(device, b: int) -> dict:
           "plain_train_loss": [m["train_loss"] for m in pmetrics],
           "grad_norm": [m["grad_norm"] for m in kmetrics],
           "plain_grad_norm": [m["grad_norm"] for m in pmetrics],
+          "per_step_train_loss": [m["train_loss"] for m in step_metrics],
+          "per_step_grad_norm": [m["grad_norm"] for m in step_metrics],
           "tol": TOL_TRAIN, "params_max_abs_diff": diff,
           "tol_params": 2 * lr * TRAIN_STEPS, "params_moved_max": moved,
           "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in OFORMER_KERNELS},

@@ -10,21 +10,42 @@
 // The backward of each is made of the two (kernels/linear_attention.py), so
 // an OFormer train step runs no other attention kernel.
 //
-// K5. Bound: at the OFormer's shapes (N = 16,384, D = E = 128, BH = 16 or 64)
-// a call does 2 N D E = 537 MFLOP per head-batch on 16 MB of operands, about
-// 32 FLOP per byte, above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s =
-// 20): fp32 multiply-adds on the CUDA cores set the time. A register-blocked
-// product: 256 threads as a 16 x 16 grid, each thread owning an 8 x 8 tile
-// of the (D, E) output whose columns are the two float4 groups 4t.. and
-// 64 + 4t.., so that a warp's shared-memory reads are broadcasts or
-// contiguous 256-byte runs; operands are staged zero-padded to 128 columns.
-// The TPU kernel runs N as a sequential grid axis that accumulates into one
-// resident (D, E) block. Hopper's blocks run in no order, and there are only
-// BH = 16 output tiles of 128 x 128 at the encoder's shape against 132 SMs,
-// so N is split across `splits` blocks per head-batch: each stages 32 rows
-// of k and v at a time; the partial tiles go to a (BH, splits, D, E)
-// workspace and a second kernel sums them in a fixed order. No atomics, so
-// the result does not change from run to run.
+// K5, on the tensor cores in 3xTF32 (as K6, below). Bound: at the OFormer's
+// shapes (N = 16,384, D = E = 128, BH = 16 or 64) a call does 2 N D E = 537
+// MFLOP per head-batch on 16 MB of operands. In fp32 on the CUDA cores
+// (67 TFLOP/s) the operations set the bound (0.128 ms at BH 16, 0.513 at
+// BH 64); in 3xTF32 (three TF32 products at 495 TFLOP/s, 0.052 / 0.208 ms)
+// the bytes do: 0.080 / 0.322 ms at 3.35 TB/s.
+// The GEMM: M = D (A = k^T, rows d, columns n), N = E (B = v, rows n,
+// columns e), K = the N tokens. The TPU kernel runs N as a sequential grid
+// axis that accumulates into one resident (D, E) block; Hopper's blocks run
+// in no order and BH = 16 output tiles of 128 x 128 would leave most of the
+// 132 SMs idle, so N is split across `splits` blocks per head-batch (the
+// wrapper asks for about one block per SM in all); the partial tiles go to a
+// (BH, splits, D, E) workspace and a second kernel sums them in a fixed
+// order. No atomics, so the result does not change from run to run.
+// A block of 16 warps owns the whole (D, E) tile: a warp owns 32 rows d
+// (two m16 tiles) and 32 columns e (four n8 tiles), so each split A
+// fragment feeds four n-tiles and each split B fragment two m-tiles. k and v
+// stream through a two-stage cp.async ring of 64-row stages, the next stage
+// arriving while this one is multiplied; rows are 136 floats (8 mod 32), so
+// the A reads of k^T, (row d = g, column n = t) from a [n][d] stage at bank
+// 8t + g, and the B reads of v, (row n = t, column e = g), fall on 32
+// distinct banks. Each operand element is split in registers as it is read,
+// once per warp that reads it (four for each). Rows past the split's end
+// are zero-filled (no bytes read), and so are the columns past D and E up
+// to the warp's tiles; D and E past the tiles the warps cover are not
+// stored. Measured against this (kernels/attention_sources.py on sources
+// this file no longer holds; PERF.md section 6): 8 warps a block
+// of 32 x 64 tiles 1.2 times slower; the operands split once a block into
+// fragment-order planes 20 % slower (the staging pass overlaps nothing at
+// one block an SM); two blocks an SM of 8 warps, each owning half of E,
+// 6-11 % slower; a third stage in the ring no faster (K5 does not wait on memory).
+// kKvTempSteps = 8 (a stage's eight k-steps on the tensor cores per fp32
+// add): 4.7-6.9e-7 of scale from float64 at the OFormer's shapes on the
+// H100, against 2.2-10.6e-7 a k-step a partial, which was 15-17 % slower,
+// and 5.5e-7 to 3.0e-6 for the fp32 CUDA-core kernel it replaced.
+// Shared memory: 2 x 2 x 64 x 136 floats = 139 KB, one block per SM.
 //
 // K6, on the tensor cores in 3xTF32. Every product runs on
 // mma.sync.m16n8k8 in TF32 with fp32 accumulation, each fp32 operand split
@@ -63,8 +84,13 @@
 namespace {
 
 constexpr int kW = 128;        // widest D and E; shared rows are this wide
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kChunk = 32;     // k, v rows per shared-memory stage (K5)
+
+// K5
+constexpr int kKvRows = 64;                 // k, v rows per stage (8 k-steps)
+constexpr int kKvS = kW + 8;                // stage row stride (floats), 8 mod 32
+constexpr int kKvThreads = 512;             // 16 warps: 4 along D x 4 along E
+constexpr int kKvStage = 2 * kKvRows * kKvS;  // floats of one stage: k, then v
+constexpr int kKvTempSteps = 8;             // k-steps summed on the tensor cores per fp32 add
 
 // K6
 constexpr int kRowsQ = 64;              // q rows per tile
@@ -75,94 +101,6 @@ constexpr int kRowGroups = kRowsQ / (16 * kMTiles);  // warps along a tile's row
 constexpr int kApplyThreads = 32 * kRowGroups * 4;   // times four column quarters of 32
 constexpr int kQStage = kRowsQ * kQS;   // floats of one q stage
 constexpr int kTempSteps = 1;           // k-steps summed on the tensor cores per fp32 add
-
-// column (or row) i of the thread's eight: 4t..4t+3, then 64+4t..64+4t+3
-__device__ __forceinline__ int frag(int t, int i) {
-  return i < 4 ? 4 * t + i : 64 + 4 * t + (i - 4);
-}
-
-__device__ __forceinline__ void load8(const float* row, int t, float* r) {
-  const float4 a = *reinterpret_cast<const float4*>(row + 4 * t);
-  const float4 b = *reinterpret_cast<const float4*>(row + 64 + 4 * t);
-  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
-}
-
-// eight values of row `dst` from the thread's columns, written inside [0, E)
-__device__ __forceinline__ void store8(float* dst, int t, const float* r, int E) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = h * 64 + 4 * t;
-    if (E % 4 == 0) {
-      if (c < E)
-        *reinterpret_cast<float4*>(dst + c) =
-            make_float4(r[4 * h], r[4 * h + 1], r[4 * h + 2], r[4 * h + 3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < E) dst[c + j] = r[4 * h + j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-kv_dots_partial_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                       float* __restrict__ part, int N, int D, int E,
-                       int rows_per_split) {
-  __shared__ __align__(16) float sk[kChunk][kW];
-  __shared__ __align__(16) float sv[kChunk][kW];
-  const int bh = blockIdx.y, s = blockIdx.x;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* kb = k + (size_t)bh * N * D;
-  const float* vb = v + (size_t)bh * N * E;
-  const int n0 = s * rows_per_split, n1 = min(N, n0 + rows_per_split);
-  // loader: thread -> one column, every second row of the stage
-  const int col = threadIdx.x % kW, row0 = threadIdx.x / kW;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = n0; c0 < n1; c0 += kChunk) {
-    __syncthreads();
-    for (int r = row0; r < kChunk; r += kThreads / kW) {
-      const int n = c0 + r;
-      sk[r][col] = (n < n1 && col < D) ? kb[(size_t)n * D + col] : 0.f;
-      sv[r][col] = (n < n1 && col < E) ? vb[(size_t)n * E + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kChunk; ++r) {
-      float a[8], b[8];
-      load8(sk[r], ty, a);
-      load8(sv[r], tx, b);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  float* out = part + ((size_t)bh * gridDim.x + s) * D * E;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int d = frag(ty, i);
-    if (d < D) store8(out + (size_t)d * E, tx, acc[i], E);
-  }
-}
-
-// out[bh] = sum over s of part[bh, s], in the order s = 0, 1, ...
-__global__ void kv_dots_reduce_kernel(const float* __restrict__ part,
-                                      float* __restrict__ out, int splits, int de) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= de) return;
-  const float* p = part + (size_t)blockIdx.y * splits * de + idx;
-  float s = 0.f;
-  for (int i = 0; i < splits; ++i) s += p[(size_t)i * de];
-  out[(size_t)blockIdx.y * de + idx] = s;
-}
 
 // ---------------------------------------------------------------------------
 // 3xTF32 on mma.sync and cp.async (as in csrc/fused_attention.cu)
@@ -223,6 +161,180 @@ template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
+
+// rows c0 .. c0 + kKvRows - 1 of one head-batch's k (N, D) and v (N, E) into
+// a stage, k's columns up to dq and v's up to eq; zero past n1 and past D, E
+// (no bytes read there)
+__device__ __forceinline__ void load_kv(float* dst, const float* kb, const float* vb,
+                                        int c0, int n1, int D, int E, int dq, int eq,
+                                        bool vec_k, bool vec_v) {
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const float* src = which ? vb : kb;
+    const int width = which ? E : D, cols = which ? eq : dq;
+    float* out = dst + which * kKvRows * kKvS;
+    if (which ? vec_v : vec_k) {
+      const int c4 = cols / 4;
+      for (int idx = threadIdx.x; idx < kKvRows * c4; idx += kKvThreads) {
+        const int r = idx / c4, c = 4 * (idx % c4);
+        const bool valid = c0 + r < n1 && c < width;
+        cp_async16(out + r * kKvS + c, valid ? src + (size_t)(c0 + r) * width + c : src,
+                   valid);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kKvRows * cols; idx += kKvThreads) {
+        const int r = idx / cols, c = idx % cols;
+        const bool valid = c0 + r < n1 && c < width;
+        cp_async4(out + r * kKvS + c, valid ? src + (size_t)(c0 + r) * width + c : src,
+                  valid);
+      }
+    }
+  }
+}
+
+// One block sums k_n^T v_n over rows [s * rows_per_split, ...) of head-batch
+// blockIdx.y into part[bh, s] (or out, with one split).
+__global__ void __launch_bounds__(kKvThreads, 1)
+kv_dots_partial_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                       float* __restrict__ part, int N, int D, int E,
+                       int rows_per_split, int vec_k, int vec_v) {
+  extern __shared__ __align__(16) float smem[];
+  const int bh = blockIdx.y, s = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wd = warp & 3, we = warp >> 2;  // rows 32 wd .., columns 32 we ..
+  const float* kb = k + (size_t)bh * N * D;
+  const float* vb = v + (size_t)bh * N * E;
+  const int n0 = s * rows_per_split, n1 = min(N, n0 + rows_per_split);
+  const int dq = (D + 15) & ~15, eq = (E + 7) & ~7;
+  // the warp's m16 tiles that start below D and n8 tiles below E (warp-uniform)
+  const int mts = min(2, max(0, (D - 32 * wd + 15) / 16));
+  const int nts = min(4, max(0, eq / 8 - 4 * we));
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  if (n0 < n1) load_kv(smem, kb, vb, n0, n1, D, E, dq, eq, vec_k, vec_v);
+  cp_commit();
+  for (int c0 = n0, it = 0; c0 < n1; c0 += kKvRows, ++it) {
+    const int st = it & 1;
+    if (c0 + kKvRows < n1)
+      load_kv(smem + (st ^ 1) * kKvStage, kb, vb, c0 + kKvRows, n1, D, E, dq, eq,
+              vec_k, vec_v);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (mts > 0 && nts > 0) {  // warp-uniform
+      const float* sk = smem + st * kKvStage + t * kKvS + 32 * wd + g;
+      const float* sv = smem + st * kKvStage + kKvRows * kKvS + t * kKvS + 32 * we + g;
+      const int ksteps = (min(kKvRows, n1 - c0) + 7) / 8;
+      for (int k0 = 0; k0 < ksteps; k0 += kKvTempSteps) {
+        // kKvTempSteps k-steps into a zeroed partial, then one fp32 add
+        float pt[2][4][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pt[m][j][e] = 0.f;
+#pragma unroll
+        for (int ss = 0; ss < kKvTempSteps; ++ss) {
+          if (k0 + ss >= ksteps) break;
+          const int r = 8 * (k0 + ss) * kKvS;  // the k-step's first row
+          // A = k^T: a0 (d = g, n = t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+          AFrag a[2];
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const float* pa = sk + r + 16 * m;
+            split_a(a[m], pa[0], pa[8], pa[4 * kKvS], pa[4 * kKvS + 8]);
+          }
+          // B = v: b0 (n = t, e = g), b1 (t + 4, g)
+          uint32_t bh_[4][2], bl_[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j < nts) {  // warp-uniform
+              const float* pb = sv + r + 8 * j;
+              split(pb[0], bh_[j][0], bl_[j][0]);
+              split(pb[4 * kKvS], bh_[j][1], bl_[j][1]);
+            }
+          }
+          // the three products, each over all the warp's tiles in turn
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (j < nts && m < mts) mma_tf32(pt[m][j], a[m].lo, bh_[j][0], bh_[j][1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (j < nts && m < mts) mma_tf32(pt[m][j], a[m].hi, bl_[j][0], bl_[j][1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (j < nts && m < mts) mma_tf32(pt[m][j], a[m].hi, bh_[j][0], bh_[j][1]);
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][j][e] += pt[m][j][e];
+      }
+    }
+    __syncthreads();  // the stage is read: the next copy may overwrite it
+  }
+  cp_wait<0>();
+
+  // C fragment: (d = g, e = 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+  float* out = part + ((size_t)bh * gridDim.x + s) * D * E;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = 32 * wd + 16 * m + 8 * h + g;
+      if (m >= mts || d >= D) continue;
+      float* row = out + (size_t)d * E;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * we + 8 * j + 2 * t;
+        if (j >= nts || c >= E) continue;
+        const float v0 = acc[m][j][2 * h], v1 = acc[m][j][2 * h + 1];
+        if (E % 2 == 0) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+        } else {
+          row[c] = v0;
+          if (c + 1 < E) row[c + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// out[bh] = sum over s of part[bh, s], in the order s = 0, 1, ...
+__global__ void kv_dots_reduce_kernel(const float* __restrict__ part,
+                                      float* __restrict__ out, int splits, int de) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= de) return;
+  const float* p = part + (size_t)blockIdx.y * splits * de + idx;
+  float s = 0.f;
+  for (int i = 0; i < splits; ++i) s += p[(size_t)i * de];
+  out[(size_t)blockIdx.y * de + idx] = s;
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
 
 // rows r0 .. r0 + 63 of one head-batch's (N, D) q into a stage, columns up
 // to dp (D rounded up to 8); zero past N and past D (no bytes read)
@@ -398,10 +510,15 @@ int mc_kv_dots(const float* k, const float* v, float* out, float* part, int bh,
   if (!widths_ok(d, e) || splits < 1 || (splits > 1 && !part) ||
       (long long)rows_per_split * splits < n)
     return (int)cudaErrorInvalidValue;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kv_dots_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(2 * kKvStage * sizeof(float)));
+  if (attr != cudaSuccess) return (int)attr;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(splits, bh);
-  kv_dots_partial_kernel<<<grid, kThreads, 0, st>>>(k, v, splits == 1 ? out : part,
-                                                    n, d, e, rows_per_split);
+  const int vec_k = d % 4 == 0 && (uintptr_t)k % 16 == 0;
+  const int vec_v = e % 4 == 0 && (uintptr_t)v % 16 == 0;
+  kv_dots_partial_kernel<<<dim3(splits, bh), kKvThreads, 2 * kKvStage * sizeof(float), st>>>(
+      k, v, splits == 1 ? out : part, n, d, e, rows_per_split, vec_k, vec_v);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int de = d * e;

@@ -33,7 +33,7 @@ from m_cedm_tpu_torch.kernels._launch import (I, P, check, fp32_reference_math,
                                               stream)
 
 MAX_WIDTH = 128
-_CHUNK = 32  # rows per shared-memory stage of the kv_dots kernel
+_CHUNK = 64  # rows per shared-memory stage of the kv_dots kernel
 
 
 def kv_dots_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -65,10 +65,10 @@ def _check(a, a_name, b, b_name, b_shape):
 
 
 def _splits(bh: int, n: int, device) -> int:
-    """Blocks per head-batch for kv_dots: about two per SM in all, and at
-    least 128 rows each."""
+    """Blocks per head-batch for kv_dots: about one per SM in all (a block
+    takes an SM's shared memory), and at least 128 rows each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(2 * sms // bh, math.ceil(n / 128)))
+    return max(1, min(sms // bh, math.ceil(n / 128)))
 
 
 def _kv_dots_kernel(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -491,6 +491,94 @@ def test_k6_tensor_core_kernel(cuda, n, d):
         assert kernels.launches()["K6 apply_dots"] == 2
 
 
+# --- K2 / K3 and K5 on the tensor cores (3xTF32 mma.sync) ------------------
+
+def _double(inp):
+    return {k: tuple(t.double() for t in v) if isinstance(v, tuple) else v.double()
+            for k, v in inp.items()}
+
+
+# (B, H, W, C, O, Cr): H and W no multiple of the 8 x 16 pixel tile; 128
+# input channels (sixteen 8-channel chunks) and a projection over Cr = 128;
+# O = 70 (a second 64-wide output tile) over C and Cr no multiple of 8
+K2_TC_SHAPES = [(2, 19, 37, 128, 64, 128), (3, 10, 22, 20, 70, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", K2_TC_SHAPES, ids=["c128-cr128", "o70-ragged-c"])
+def test_k2_tensor_core_conv(cuda, mode, shape):
+    """Every residual mode and the linear mode, with emit_stats, own and
+    chained statistics: within 2e-5 of scale of the plain version and of
+    float64; the output repeats bit for bit from the same statistics; one
+    gnsc_kernel launch a call."""
+    b, h, w, c, o, cr = shape
+    if mode == "identity_up":
+        h, w = h - h % 2, w - w % 2
+    inp = _inputs(40, cuda, b, h, w, c, o, cr)
+    groups = 4
+    want = _leaves(_block(tfnc.gn_silu_conv_plain, inp, mode, groups))
+    want64 = _leaves(_block(tfnc.gn_silu_conv_plain, _double(inp), mode, groups))
+    kernels.reset_launches()
+    for stats in (None, inp["stats"]):
+        got = _leaves(_block(tfnc.gn_silu_conv, inp, mode, groups, stats=stats))
+        for i, (a, w32, w64) in enumerate(zip(got, want, want64, strict=True)):
+            assert _rel(a, w32) <= TOL_KERNEL, i
+            assert _rel(a, w64) <= TOL_KERNEL, i
+    again = _leaves(_block(tfnc.gn_silu_conv, inp, mode, groups, stats=inp["stats"]))
+    assert torch.equal(again[0], got[0])
+    assert kernels.launches()["K2 gn_silu_conv"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 19, 128, 64), (1, 12, 9, 20, 70)],
+                         ids=["c128", "o70-ragged-c"])
+def test_k3_tensor_core_conv(cuda, shape):
+    """K3 at a low-res H, W whose doubles are no multiple of the tile, with
+    emit_stats, own and chained statistics, against plain and float64."""
+    b, h, w, c, o = shape
+    inp = _inputs(41, cuda, b, h, w, c, o, cr=8)
+    args = ("x", "gamma", "beta", "w", "bias")
+    want = _leaves(tfnc.gn_silu_up_conv_plain(*(inp[k] for k in args), 4,
+                                              emit_stats=True))
+    want64 = _leaves(tfnc.gn_silu_up_conv_plain(*(inp[k].double() for k in args), 4,
+                                                emit_stats=True))
+    kernels.reset_launches()
+    for stats in (None, inp["stats"]):
+        got = _leaves(tfnc.gn_silu_up_conv(*(inp[k] for k in args), 4, stats=stats,
+                                           emit_stats=True))
+        for i, (a, w32, w64) in enumerate(zip(got, want, want64, strict=True)):
+            assert _rel(a, w32) <= TOL_KERNEL, i
+            assert _rel(a, w64) <= TOL_KERNEL, i
+    assert kernels.launches()["K3 gn_silu_up_conv"] == 2
+
+
+# (BH, N, D, E): N no multiple of the 64-row stage; D and E under 128 and no
+# multiples of 8; one split a head-batch (BH 70 on 132 SMs, or N <= 128)
+# and many (up to 129)
+KV_CASES = [(3, 1000, 12, 20), (70, 1000, 12, 20), (2, 2500, 128, 128),
+            (4, 77, 100, 7), (1, 16389, 128, 128), (2, 300, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_k5_tensor_core_kernel(cuda, case):
+    """The 3xTF32 kv_dots: within 2e-5 of scale of its plain version and of
+    float64, bit for bit the same on a second call (the split-N partials
+    are summed in a fixed order), one launch a call."""
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    bh, n, d, e = case
+    k = torch.randn(bh, n, d, device=cuda)
+    v = torch.randn(bh, n, e, device=cuda)
+    kernels.reset_launches()
+    got = tla.kv_dots(k, v)
+    assert _rel(got, tla.kv_dots_plain(k, v)) <= TOL_KERNEL
+    assert _rel(got, k.double().transpose(1, 2) @ v.double()) <= TOL_KERNEL
+    assert torch.equal(tla.kv_dots(k, v), got)
+    assert kernels.launches()["K5 kv_dots"] == 2
+
+
 def _oformer_case(cuda):
     from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
 

@@ -15,9 +15,19 @@ forward kernel to. Recorded, not asserted: the error of one TF32 pass.
 K6 (csrc/linear_attention.cu::apply_dots_kernel) runs q @ dots the same
 way: at (N, D, E) = (256, 128, 128) and at ragged widths it stays within
 1e-6 of scale of float64, and one TF32 pass is shown to exceed the 2e-5
-bound. JAX-free; well under a second a case.
+bound. K2/K3's conv core (csrc/fused_norm_conv.cu::gnsc_kernel) and K5
+(kv_dots_partial_kernel) are emulated in their own order: the conv in
+8-channel chunks of nine taps each, then the 1x1 projection's chunks, and
+kv_dots in split-N blocks of row stages of 8-row k-steps whose partials
+are summed in a fixed order; each sums kTempSteps (kKvTempSteps) k-steps of
+the three products into a zeroed partial before one fp32 add, as the
+constants in the CUDA sources say. Both are held within 2e-5 of scale of
+float64; the error of one TF32 pass is recorded. JAX-free; well under a
+second a case.
 """
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -119,3 +129,134 @@ def test_3xtf32_apply_dots_keeps_fp32_accuracy(d, e, record_property):
           f"1xTF32 {err_1x:.2e}")
     assert err_3x <= 1e-6
     assert err_1x > TOL_KERNEL
+
+
+CSRC = Path(__file__).resolve().parents[1] / "m_cedm_tpu_torch" / "csrc"
+
+
+def _constant(source: str, name: str) -> int:
+    """An integer constexpr of a CUDA source, as the kernel is built."""
+    found = re.findall(rf"constexpr int {name} = (\d+);", (CSRC / source).read_text())
+    assert len(found) == 1, (source, name)
+    return int(found[0])
+
+
+def _mma_steps(pairs, acc, temp_steps, mm):
+    """acc + the k-steps of `pairs` ((a, b) operand pairs, one a k-step),
+    temp_steps of them summed into a zeroed partial through `mm` before one
+    fp32 add, as the kernels' accumulation does."""
+    for k0 in range(0, len(pairs), temp_steps):
+        part = torch.zeros_like(acc)
+        for a, b in pairs[k0:k0 + temp_steps]:
+            part = mm(part, a, b)
+        acc = acc + part
+    return acc
+
+
+def _mm_3x(part, a, b):
+    """The three tensor-core products of a k-step, small terms first."""
+    (ah, al), (bh, bl) = split(a, "even"), split(b, "even")
+    return part + al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1x(part, a, b):
+    return part + tf32_round(a, "even") @ tf32_round(b, "even")
+
+
+def conv_emulated(act, w, res, skip_w, mm):
+    """gnsc_kernel's products on an activated NHWC input: 8-channel chunks,
+    each the nine taps in order (k-steps of eight channels), then the 1x1
+    projection's 8-channel chunks (one k-step each) into the same
+    accumulator; bias and residual adds left out (exact fp32 adds on both
+    sides)."""
+    temp = _constant("fused_norm_conv.cu", "kTempSteps")
+    b, h, wd, c = act.shape
+    o = w.shape[-1]
+    pad = torch.nn.functional.pad(act, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(b * h * wd, o)
+    for c0 in range(0, c, 8):
+        pairs = [(pad[:, dy:dy + h, dx:dx + wd, c0:c0 + 8].reshape(-1, min(8, c - c0)),
+                  w[dy, dx, c0:c0 + 8]) for dy in range(3) for dx in range(3)]
+        acc = _mma_steps(pairs, acc, temp, mm)
+    if res is not None:
+        flat = res.reshape(-1, res.shape[-1])
+        for c0 in range(0, flat.shape[1], 8):
+            acc = _mma_steps([(flat[:, c0:c0 + 8], skip_w[c0:c0 + 8])], acc, temp, mm)
+    return acc.reshape(b, h, wd, o)
+
+
+# (B, H, W, C, O, Cr): a block tail over 64 channels, the decoder's conv0
+# over the 128-channel concat with its 1x1 projection over Cr = 128, and
+# ragged channel counts
+K2_CASES = [(2, 12, 20, 64, 64, 0), (1, 10, 14, 128, 64, 128), (2, 7, 9, 20, 40, 12)]
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_3xtf32_conv_core_keeps_fp32_accuracy(case, record_property):
+    """K2/K3's conv core, emulated in the kernel's order and accumulation,
+    against float64: within 2e-5 of scale (activations as a SiLU leaves
+    them, fan-in-scaled weights); one TF32 pass recorded."""
+    b, h, wd, c, o, cr = case
+    rs = np.random.RandomState(sum(case))
+    act = torch.from_numpy((rs.randn(b, h, wd, c) * 0.8 + 0.3).astype(np.float32))
+    w = torch.from_numpy((rs.randn(3, 3, c, o) / math.sqrt(9 * c)).astype(np.float32))
+    res = skip_w = None
+    if cr:
+        res = torch.from_numpy(rs.randn(b, h, wd, cr).astype(np.float32))
+        skip_w = torch.from_numpy((rs.randn(cr, o) / math.sqrt(cr)).astype(np.float32))
+    want = torch.nn.functional.conv2d(act.double().permute(0, 3, 1, 2),
+                                      w.double().permute(3, 2, 0, 1),
+                                      padding=1).permute(0, 2, 3, 1)
+    if cr:
+        want = want + res.double() @ skip_w.double()
+    err_3x = rel_err(conv_emulated(act, w, res, skip_w, _mm_3x), want)
+    err_1x = rel_err(conv_emulated(act, w, res, skip_w, _mm_1x), want)
+    record_property("err_3xtf32", err_3x)
+    record_property("err_1xtf32", err_1x)
+    print(f"conv core {case} vs float64, of scale: 3xTF32 {err_3x:.2e}, "
+          f"1xTF32 {err_1x:.2e}")
+    assert err_3x <= TOL_KERNEL
+
+
+def kv_dots_emulated(k, v, splits, mm):
+    """kv_dots_partial_kernel's products for one head-batch: k, v (N, D / E)
+    split into `splits` row ranges (rounded up to the kKvRows-row stage, as
+    the wrapper asks), each walked in stages of 8-row k-steps, the partial
+    tiles then summed in the order s = 0, 1, ..."""
+    temp = _constant("linear_attention.cu", "kKvTempSteps")
+    stage = _constant("linear_attention.cu", "kKvRows")
+    n = k.shape[0]
+    rows = math.ceil(math.ceil(n / splits) / stage) * stage
+    out = torch.zeros(k.shape[1], v.shape[1])
+    for s0 in range(0, splits * rows, rows):
+        acc = torch.zeros_like(out)
+        for c0 in range(s0, min(n, s0 + rows), stage):
+            c1 = min(n, s0 + rows, c0 + stage)
+            pairs = [(k[r:min(r + 8, c1)].T, v[r:min(r + 8, c1)]) for r in range(c0, c1, 8)]
+            acc = _mma_steps(pairs, acc, temp, mm)
+        out = out + acc
+    return out
+
+
+# (N, D, E, splits): N no multiple of the stage, D and E under 128 and no
+# multiples of 8, one split and several (the last one empty: 77 rows in
+# three splits of 64)
+KV_CASES = [(1000, 12, 20, 3), (77, 100, 7, 3), (4096, 128, 128, 8), (300, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("case", KV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_3xtf32_kv_dots_keeps_fp32_accuracy(case, record_property):
+    """K5's k^T v, emulated in the kernel's order and accumulation, on
+    normal operands against float64: within 2e-5 of scale; one TF32 pass
+    recorded."""
+    n, d, e, splits = case
+    rs = np.random.RandomState(n + d + e)
+    k = torch.from_numpy(rs.randn(n, d).astype(np.float32))
+    v = torch.from_numpy(rs.randn(n, e).astype(np.float32))
+    want = k.double().T @ v.double()
+    err_3x = rel_err(kv_dots_emulated(k, v, splits, _mm_3x), want)
+    err_1x = rel_err(kv_dots_emulated(k, v, splits, _mm_1x), want)
+    record_property("err_3xtf32", err_3x)
+    record_property("err_1xtf32", err_1x)
+    print(f"kv_dots {case} vs float64, of scale: 3xTF32 {err_3x:.2e}, 1xTF32 {err_1x:.2e}")
+    assert err_3x <= TOL_KERNEL
