@@ -24,9 +24,13 @@ Phases, each printing JSON lines:
               uses), every gradient output's max abs and relative error
               beside the tolerance, kernel vs plain time of the backward
               alone, and scaled_dot_product_attention's time for K4 and
-              conv2d's autograd backward for K2's linear modes; the narrow
-              backward (the out conv) also called directly beside the old
-              route's kernels (K2's dgrad and wgrad) on the same operands
+              conv2d's autograd backward for K2's linear modes; K2's and
+              K3's wgrad and dgrad kernels also called directly (each with
+              the reduce of its partials), their 3xTF32 bound beside the
+              fp32 one, and for the activated modes conv2d's backward of
+              the conv alone as labelled context (not the same function);
+              the narrow backward (the out conv) also called directly
+              beside K2's dgrad and wgrad on the same operands
   4. eval     McedmTask.eval_step for mask task "u" at B = 16 with the
               flagship sampler (50 Heun steps, S_churn 15) on seeded synthetic
               shallow-water fields, on the kernel path with every launch
@@ -84,8 +88,9 @@ at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
 peak of an H100 SXM for the kernels that run fp32 on the CUDA cores; K2/K3
 (gnsc_kernel), K4, K5 and K6 run their products as 3xTF32 on the tensor
-cores: three TF32 FLOPs per fp32 FLOP over the 495 TFLOP/s TF32 peak (their
-CUDA-core bound beside, as `bound_fp32_ms`). K2's linear modes are listed in its rows
+cores, and so does the K2/K3 backward (wgrad, dgrad): three TF32 FLOPs per
+fp32 FLOP over the 495 TFLOP/s TF32 peak (their CUDA-core bound beside, as
+`bound_fp32_ms`). K2's linear modes are listed in its rows
 and in the narrow kernel's under `act_false_modes`, each with its time,
 bound and conv2d time (the narrow kernel's with the old route's time). The plain versions
 run with TF32 off (kernels._launch.fp32_reference_math). Every failed check
@@ -223,10 +228,10 @@ EVAL_RUNS = 3  # timed evals per path, taken in turns; the median is reported
 # Backward kernels against autograd of the plain forward run in float64 on the
 # same inputs, as max|err| / max(1, max|reference|) per gradient output. A
 # weight gradient sums 16 * 128 * 128 = 262,144 pixels, and dgamma / dbeta
-# 16,384, in fp32 through fp32 atomics in no fixed order; the rounding of
-# such a sum grows with its length, so the bound is 1e-4 of the gradient's
-# scale, with the JAX package's 1e-3 against the torch reference as the
-# ceiling.
+# 16,384, in fp32 (per-block partials added in a fixed order, or fp32
+# atomics); the rounding of such a sum grows with its length, so the bound
+# is 1e-4 of the gradient's scale, with the JAX package's 1e-3 against the
+# torch reference as the ceiling.
 TOL_BWD = 1e-4
 # The train step, kernel path vs plain path: the loss and gradient norm of
 # each step to 1e-4 relative; after three Adam steps the parameters are held
@@ -371,8 +376,9 @@ def conv2d_library(x, w, bias):
 
 
 ACT_FALSE_KEYS = ("mode", "ms", "plain_ms", "library_ms", "library_max_rel_err",
-                  "bound_ms", "bound_by", "max_rel_err", "old_route_ms",
-                  "kernel_call_ms", "old_route_call_ms")
+                  "bound_ms", "bound_by", "bound_fp32_ms", "max_rel_err", "old_route_ms",
+                  "kernel_call_ms", "old_route_call_ms", "wgrad_call_ms",
+                  "dgrad_call_ms")
 
 
 def nbytes(*tensors) -> int:
@@ -687,14 +693,15 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
 
     results = {}
 
-    def check(kernel, mode, kernel_fn, plain_fn, inputs, work=None, lib_fn=None):
+    def check(kernel, mode, kernel_fn, plain_fn, inputs, work=None, lib_fn=None,
+              extra=None):
         """kernel_fn / plain_fn map the inputs to the output whose cotangent
         is a seeded normal. Every input's gradient is held to autograd of the
         plain forward in float64 on the same inputs (the fp32 plain path's
         own error against it is reported beside the kernel's); the times are
         of the fp32 backward on each path. `lib_fn`, a PyTorch call computing
         the same forward, has its backward timed beside (its error recorded,
-        not held)."""
+        not held). `extra()` returns more timings for the record."""
         inputs = list(inputs)
         want_inputs = [t for t in inputs if t is not None and t.requires_grad]
         k_out, p_out = kernel_fn(*inputs), plain_fn(*inputs)
@@ -725,6 +732,8 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
             rec["library_max_rel_err"] = max(
                 compare(a, w, 1.0, f"{kernel} {mode} library gradient {i}")["max_rel_err"]
                 for i, (a, w) in enumerate(zip(grads(l_out), want, strict=True)))
+        if extra is not None:
+            rec.update(extra())
         emit(rec)
         keep_result(results, rec)
         if lib_fn is not None:
@@ -773,14 +782,58 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
         outs = [x] if need_da else []
         if act:
             outs += [gamma, beta]
+        tc = kernel == "K2 gn_silu_conv_bwd"  # 3xTF32; the narrow backward is fp32
         work = (nbytes(x, gamma, beta, w, *(stats or ()), *[kw[k] for k in names],
                        torch.empty(b_, h_, w_, o, device="meta"), *outs, w, bias),
-                conv_flops(b_, h_, w_, c_, o) * (2 if need_da else 1))
+                conv_flops(b_, h_, w_, c_, o) * (2 if need_da else 1), 3 if tc else 0)
         return check(kernel, mode, run(fnc.gn_silu_conv, stats),
                      run(drop_stats(fnc.gn_silu_conv_plain), None),
                      [x, gamma, beta, w, bias] + [kw[k] for k in names],
                      work=work, lib_fn=None if act else (
-                         lambda x, gamma, beta, w, bias: conv2d_library(x, w, bias)))
+                         lambda x, gamma, beta, w, bias: conv2d_library(x, w, bias)),
+                     extra=(lambda: bwd_calls(x, gamma, beta, w, bias, stats, groups,
+                                              need_da, kw)) if tc else None)
+
+    def conv2d_context(shape, w, bias):
+        """conv2d's autograd backward of the conv alone (no norm, SiLU or
+        tail) on an input of `shape`: labelled context for the activated
+        modes, not the same function."""
+        s_ = rnd(*shape)
+        out = conv2d_library(s_, w, bias)
+        cot = torch.randn(out.shape, generator=g, device=device)
+        return cuda_ms(lambda: torch.autograd.grad(out, (s_, w, bias), cot,
+                                                   retain_graph=True))
+
+    def bwd_calls(x, gamma, beta, w, bias, stats, groups, need_da, kw, up=False):
+        """The backward kernels called directly (no autograd, no dx pass):
+        wgrad (and the projection's one-tap wgrad) and dgrad, each with the
+        reduce of its partials; for the activated modes conv2d's backward of
+        the conv alone beside them."""
+        with torch.no_grad():
+            xd, wd_ = x.detach(), w.detach()
+            act = gamma is not None
+            gd, bd = (gamma.detach(), beta.detach()) if act else (None, None)
+            st = (stats or fnc._out_stats_plain(xd)) if act else None
+            hh, ww = (2 * xd.shape[1], 2 * xd.shape[2]) if up else xd.shape[1:3]
+            cot = torch.randn(xd.shape[0], hh, ww, wd_.shape[-1], generator=g,
+                              device=device)
+            rec = {"wgrad_call_ms": cuda_ms(lambda: fnc._wgrad(
+                xd, cot, gd, bd, st, groups, 1e-5, 9, up, True))}
+            if need_da:
+                mode = (fnc._DGRAD_UP_FOLD if up else
+                        fnc._DGRAD_ACT if act else fnc._DGRAD_LINEAR)
+                out = cot.new_empty(xd.shape[0], hh, ww // 2 if up else ww, xd.shape[-1])
+                rec["dgrad_call_ms"] = cuda_ms(lambda: fnc._dgrad(
+                    cot, wd_, None if up else xd, gd, bd, None if up else st, groups,
+                    1e-5, mode, out))
+            if kw.get("skip_w") is not None:
+                res = kw["residual"].detach()
+                rec["proj_wgrad_call_ms"] = cuda_ms(lambda: fnc._wgrad(
+                    res, cot, None, None, None, 0, 1e-5, 1, False, False))
+        if act:
+            rec["conv2d_conv_only_bwd_ms"] = conv2d_context(
+                (xd.shape[0], hh, ww, xd.shape[-1]), w, bias)
+        return rec
 
     h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
     with torch.no_grad():
@@ -835,7 +888,9 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
           work=(nbytes(xl, gamma, beta, w, *xl_stats,
                        torch.empty(b, res, res, ch, device="meta"),
                        xl, gamma, beta, w, bias),
-                2 * conv_flops(b, res, res, ch, ch)))
+                2 * conv_flops(b, res, res, ch, ch), 3),
+          extra=lambda: bwd_calls(xl, gamma, beta, w, bias, xl_stats, gr, True, {},
+                                  up=True))
 
     # K4 backward at the 32x32 attention sites: (B * heads, 1024, 64)
     L = (res // 4) ** 2
@@ -1683,7 +1738,8 @@ def main() -> int:
                "library_ms": rec["library_ms"]}
         for key in ("kernel_call_ms", "old_route_ms", "old_route_call_ms",
                     "bound_fp32_ms", "act_false_modes", "backward_ms",
-                    "backward_library_ms", "backward_bound_ms"):
+                    "backward_library_ms", "backward_bound_ms", "wgrad_call_ms",
+                    "dgrad_call_ms", "conv2d_conv_only_bwd_ms"):
             if key in rec:
                 row[key] = rec[key]
         if name in OFORMER_KERNELS:

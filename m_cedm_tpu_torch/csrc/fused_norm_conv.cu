@@ -101,9 +101,9 @@
 // Next: wgmma and TMA. TF32 wgmma wants both operands K-major in shared
 // memory in its swizzled layout, and the tap shifts of an implicit conv move
 // the A rows by one pixel per tap, so each tap would need its own swizzled
-// copy of the tile, or an im2col stage; the backward kernels
-// (csrc/fused_norm_conv_bwd.cu) and K7 (csrc/fused_block.cu) still run on the
-// CUDA cores.
+// copy of the tile, or an im2col stage. The backward kernels
+// (csrc/fused_norm_conv_bwd.cu) run their products on the same 3xTF32
+// mma.sync core; K7 (csrc/fused_block.cu) still runs on the CUDA cores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

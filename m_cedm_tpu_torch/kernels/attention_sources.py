@@ -1,7 +1,7 @@
-"""Time K4, K6, K2/K3 or K5 built from other CUDA sources beside the package's own, on one card.
+"""Time K4, K6, K2/K3, their backward or K5 built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k6|k2|k5] [--variant NAME ...] [--sass DIR]
+        [--kernel k4|k6|k2|k2bwd|k5] [--variant NAME ...] [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
 
 Every source exports the C entry points of the kernel's package source with
@@ -20,6 +20,18 @@ parent commit's csrc file unpacked with `git archive`), and each
       statistics, with emitted statistics, identity_up, the projection from
       the 128-channel concat, the 128-channel decoder conv0, the linear down
       conv0 at res 64), the identity tail at res 64 and 32, and K3 to res 128.
+  k2bwd  `mc_conv_wgrad` and `mc_conv_dgrad` (csrc/fused_norm_conv_bwd.cu)
+      at the flagship train step's shapes (B = 16, ch 64): the res-128
+      identity tail (wgrad and dgrad with the activation), the decoder's
+      128-channel conv0, the 1x1 projection from the 128-channel concat
+      (one-tap wgrad), the down blocks' linear conv0 at res 64, conv_in
+      (C = 4, wgrad only) and K3 from res 64 to 128 (wgrad and the
+      up-fold dgrad); each kernel called alone, with the reduce of its
+      partials. A source that exports `mc_conv_bwd_tiles` takes the
+      scratch arguments of this package's (fixed-order partials); one
+      without it is called as the earlier CUDA-core kernels were (zeroed
+      outputs that it adds into with atomics, 16-channel wgrad slices), so
+      an older commit's source is timed through its own interface.
   k5  `mc_kv_dots` (csrc/linear_attention.cu), at BH = 16 and 64 (N =
       16,384, D = E = 128), with the wrapper's split rule (about one block
       per SM) and with two blocks per SM (the rule of the CUDA-core kernel
@@ -82,6 +94,23 @@ VARIANTS = {
     # staging pass (results wrong; the time of the rest)
     "diag_k2_no_mma": ("k2", "      mma_chunk<9>(sa, sb, acc, rg, cq, lane);", "      ;"),
     "diag_k2_no_split": ("k2", "      split_x<kUp>(p, rx + st * kRawX, sa, q * kCK, ty0, tx0, s_a, s_b, tid);\n      split_w<9>(rw + st * kRawW, sb, tid);", "      ;"),
+    # the K2 / K3 backward: dgrad's partial sums added after each tap instead
+    # of after a chunk's nine; wgrad's after each k-step instead of a tile's
+    # eight
+    "k2bwd_temp_steps_1": ("k2bwd", "constexpr int kTempSteps = 9;",
+                           "constexpr int kTempSteps = 1;"),
+    "k2bwd_wtemp_steps_1": ("k2bwd", "constexpr int kWTempSteps = 8;",
+                            "constexpr int kWTempSteps = 1;"),
+    # diagnostics, not kernels: the backward with its products left out, or
+    # its split passes (results wrong; the time of the rest)
+    "diag_k2bwd_no_mma": ("k2bwd", "        wg_mma_step(pa, pb, part, s, dy, dx, lane);\n", ""),
+    "diag_k2bwd_no_split": ("k2bwd", "    wg_split<kUp>(p, rx, rgt, pa, pb, s_a, s_b, ty0, tx0, c0, tid, gsum);\n",
+                            ""),
+    "diag_k2bwd_dgrad_no_mma": ("k2bwd", "    dg_mma_chunk(sa, sb, acc, rg_, cq, lane);\n", ""),
+    # wgrad without waiting for its copies (a race; the time without the
+    # exposed copy latency)
+    "diag_k2bwd_no_copy_wait": ("k2bwd", "    cp_wait<0>();\n    __syncthreads();  // the tile has landed",
+                                "    __syncthreads();  // the tile has landed"),
     # K5's partial sums added after each k-step instead of after a 64-row stage
     "k5_temp_steps_1": ("k5", "constexpr int kKvTempSteps = 8;",
                         "constexpr int kKvTempSteps = 1;"),
@@ -96,6 +125,8 @@ KERNELS = {
     "k2": ("fused_norm_conv.cu", {"mc_gn_silu_conv": [P] * 13 + [I] * 7 + [F, I, I, P],
                                   "mc_gn_silu_up_conv": [P] * 10 + [I] * 6 + [F, P]}),
     "k5": ("linear_attention.cu", {"mc_kv_dots": [P] * 4 + [I] * 6 + [P]}),
+    # two interfaces (see _time_k2bwd): argument types are set per library
+    "k2bwd": ("fused_norm_conv_bwd.cu", {}),
     "mma": (None, {}),
 }
 K6_BH, K6_N, K6_W = (16, 64), 16384, 128
@@ -184,7 +215,8 @@ def main(argv=None) -> int:
                 subprocess.run(["cuobjdump", "-sass", str(so)], stdout=f,
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
-        return {"k6": _time_k6, "k2": _time_k2, "k5": _time_k5}[args.kernel](libs, ptxas)
+        return {"k6": _time_k6, "k2": _time_k2, "k2bwd": _time_k2bwd,
+                "k5": _time_k5}[args.kernel](libs, ptxas)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -474,6 +506,177 @@ def _time_k2(libs, ptxas) -> int:
                 [_rel(c["out"], out)] + ([_rel(c["osums"], ws), _rel(c["osumsq"], wss)]
                                          if ws is not None else []))
     _report(libs, ptxas, calls, errs)
+    return 0
+
+
+# the CUDA-core backward's wgrad blocks (16 input x 64 output channels) and
+# split rule, for a source without mc_conv_bwd_tiles
+_OLD_WGRAD_BLOCKS = 4 * 132
+
+
+def _time_k2bwd(libs, ptxas) -> int:
+    """mc_conv_wgrad / mc_conv_dgrad of every source at the flagship train
+    step's K2 / K3 backward shapes, each kernel checked against float64 and
+    then timed alone (its reduce included)."""
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.kernels.fused_norm import (group_mean_rstd_from_sums,
+                                                     silu_grad)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    b, res, ch, groups, eps = K2_B, K2_RES, K2_CH, 32, 1e-5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    new_if = {name: hasattr(lib, "mc_conv_bwd_tiles") for name, (lib, _) in libs.items()}
+    for name, (lib, _) in libs.items():
+        lib.mc_conv_dgrad.argtypes = [P] * 10 + [I] * 6 + [F, I, P]
+        lib.mc_conv_wgrad.argtypes = ([P] * 8 + [I] * 6 + [F] + [I] * 5 + [P] if new_if[name]
+                                      else [P] * 8 + [I] * 6 + [F] + [I] * 4 + [P])
+        if new_if[name]:
+            lib.mc_conv_bwd_tiles.argtypes = [I] * 3
+            lib.mc_conv_wgrad_runs.argtypes = [I] * 8
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    cases = {}
+
+    def case(name, x, o, act, up=False, taps=9, dgrad=True):
+        """x the conv input (K3: low-res), o output channels."""
+        bb, hin, win, c = x.shape
+        h, wd = (2 * hin, 2 * win) if up else (hin, win)
+        g = rnd(bb, h, wd, o)
+        w = rnd(3, 3, c, o, scale=(9 * c) ** -0.5)
+        gamma = beta = sums = sumsq = None
+        x64 = s64 = x.double()
+        if act:
+            gamma, beta = rnd(bb, c, scale=0.3, shift=1.0), rnd(bb, c, scale=0.3)
+            sums, sumsq = fnc._out_stats_plain(x)
+            mean, rstd = group_mean_rstd_from_sums(sums.double(), sumsq.double(),
+                                                   hin * win, groups, eps)
+            xhat = (x64 - mean[:, None, None]) * rstd[:, None, None]
+            a = xhat * gamma.double()[:, None, None] + beta.double()[:, None, None]
+            s64 = a * torch.sigmoid(a)
+        g64 = g.double()
+        if taps == 1:
+            dw64 = torch.einsum("bhwc,bhwo->co", s64, g64)
+        else:
+            dw64 = fnc.conv3x3_wgrad_plain(fnc.upsample2x_nearest(s64) if up else s64, g64)
+        want_w = [dw64.reshape(-1)] + ([g64.sum(dim=(0, 1, 2))] if taps == 9 else [])
+        want_d = None
+        if dgrad:
+            ds = fnc.conv3x3_dgrad_plain(g64, w.double())
+            if up:
+                want_d = [ds.reshape(bb, h, wd // 2, 2, c).sum(dim=3)]
+            elif act:
+                da = ds * silu_grad(a)
+                want_d = [da, (da * xhat).sum(dim=(1, 2)), da.sum(dim=(1, 2))]
+            else:
+                want_d = [ds]
+        cases[name] = dict(x=x, g=g, w=w, gamma=gamma, beta=beta, sums=sums,
+                           sumsq=sumsq, act=act, up=up, taps=taps, h=h, wd=wd, c=c,
+                           o=o, want_w=want_w, want_d=want_d)
+
+    h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
+    xc = rnd(b, res, res, 2 * ch, scale=0.8, shift=0.2)
+    case("res-128 identity tail", h, ch, True)
+    case("decoder 128-channel conv0, res 128", xc, ch, True)
+    case("1x1 projection from the 128-channel concat, res 128", xc, ch, False,
+         taps=1, dgrad=False)
+    case("linear down conv0, res 64", rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2),
+         ch, False)
+    case("conv_in (C 4), res 128", rnd(b, res, res, 4), ch, False, dgrad=False)
+    case("K3 up conv0, res 64 -> 128", rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2),
+         ch, True, up=True)
+
+    def calls(name, lib, cs):
+        """(wgrad call, dgrad call or None, outputs) of one source."""
+        new = new_if[name]
+        x, g, c, o, taps = cs["x"], cs["g"], cs["c"], cs["o"], cs["taps"]
+        bb, hh, ww = g.shape[:3]
+        pp = [None if t is None else t.data_ptr()
+              for t in (cs["gamma"], cs["beta"], cs["sums"], cs["sumsq"])]
+        gr, act, up = groups if cs["act"] else 1, int(cs["act"]), int(cs["up"])
+        bias = taps == 9
+        if new:
+            runs = lib.mc_conv_wgrad_runs(bb, hh, ww, c, o, taps, up, fnc._BLOCKS_PER_SM * sms)
+            k = taps * c * o + (o if bias else 0)
+            dwb, part = g.new_empty(k), g.new_empty(bb * runs, k)
+
+            def wgrad():
+                return lib.mc_conv_wgrad(x.data_ptr(), g.data_ptr(), *pp, dwb.data_ptr(),
+                                         part.data_ptr(), bb, hh, ww, c, o, gr, eps, act,
+                                         taps, up, int(bias), runs, stream)
+            w_out = [dwb]
+        else:
+            tiles = -(-hh // 8) * -(-ww // 16)
+            splits = min(tiles, max(1, -(-_OLD_WGRAD_BLOCKS // (bb * -(-c // 16) * -(-o // 64)))))
+            dw, db = g.new_empty(taps * c * o), g.new_empty(o)
+
+            def wgrad():
+                dw.zero_()
+                db.zero_()
+                return lib.mc_conv_wgrad(x.data_ptr(), g.data_ptr(), *pp, dw.data_ptr(),
+                                         db.data_ptr() if bias else None, bb, hh, ww, c, o,
+                                         gr, eps, act, taps, up, splits, stream)
+            w_out = [dw, db] if bias else [dw]
+        dgrad, d_out = None, []
+        if cs["want_d"] is not None:
+            mode = 2 if up else act
+            out = g.new_empty(bb, hh, ww // 2 if up else ww, c)
+            d_out = [out]
+            xp = None if up else x.data_ptr()
+            pd = [None] * 4 if up else pp
+            if new:
+                dt = lib.mc_conv_bwd_tiles(hh, ww, 0)
+                dstats, dpart = g.new_empty(2, bb, c), g.new_empty(2, bb, dt, c)
+                if mode == 1:
+                    d_out += [dstats[0], dstats[1]]
+
+                def dgrad():
+                    return lib.mc_conv_dgrad(g.data_ptr(), cs["w"].data_ptr(), xp, *pd,
+                                             out.data_ptr(), dstats.data_ptr(),
+                                             dpart.data_ptr(), bb, hh, ww, c, o, gr, eps,
+                                             mode, stream)
+            else:
+                dgam, dbet = g.new_empty(bb, c), g.new_empty(bb, c)
+                if mode == 1:
+                    d_out += [dgam, dbet]
+
+                def dgrad():
+                    dgam.zero_()
+                    dbet.zero_()
+                    return lib.mc_conv_dgrad(g.data_ptr(), cs["w"].data_ptr(), xp, *pd,
+                                             out.data_ptr(), dgam.data_ptr(),
+                                             dbet.data_ptr(), bb, hh, ww, c, o, gr, eps,
+                                             mode, stream)
+        return wgrad, dgrad, w_out, d_out
+
+    def checked(fn):
+        def call():
+            rc = fn()
+            if rc:
+                raise RuntimeError(f"launch failed with cudaError {rc}")
+        return call
+
+    timed, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        timed[name], errs[name] = {}, {}
+        for cname, cs in cases.items():
+            wgrad, dgrad, w_out, d_out = calls(name, lib, cs)
+            checked(wgrad)()
+            timed[name][f"wgrad {cname}"] = checked(wgrad)
+            if dgrad is not None:
+                checked(dgrad)()
+                timed[name][f"dgrad {cname}"] = checked(dgrad)
+            torch.cuda.synchronize()
+            got_w = [torch.cat([t.reshape(-1) for t in w_out])]
+            want_w = [torch.cat(cs["want_w"])]
+            errs[name][f"err wgrad {cname}"] = max(map(_rel, got_w, want_w))
+            if dgrad is not None:
+                errs[name][f"err dgrad {cname}"] = max(
+                    _rel(a, w_) for a, w_ in zip(d_out, cs["want_d"], strict=True))
+    _report(libs, ptxas, timed, errs)
     return 0
 
 

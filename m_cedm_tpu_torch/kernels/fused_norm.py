@@ -98,8 +98,11 @@ def dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups: int):
     m1, m2 = gmean(gamma * dbeta), gmean(gamma * dgamma)
     shape = (b,) + (1,) * (x.dim() - 2) + (c,)
     r, g = rstd.reshape(shape), gamma.reshape(shape)
-    xhat = (x - mean.reshape(shape)) * r
-    return r * (da * g - m1.reshape(shape) - xhat * m2.reshape(shape))
+    # as (r g) da - r m1 - (r^2 m2)(x - mean), the (B, C) factors formed
+    # first: three passes over the full tensors
+    t = x - mean.reshape(shape)
+    u = torch.addcmul(-r * m1.reshape(shape), t, -(r * r) * m2.reshape(shape))
+    return torch.addcmul(u, da, r * g)
 
 
 def silu_grad(y: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,10 @@ Backward, in every mode: `gn_silu_conv_bwd` <- `_gnsc_bwd_kernel_a` (via
 `_pallas_gnsc_bwd`, `_block_bwd`, and the paired `_pallas_gnsc_bwd_paired`,
 `_blockp_bwd`) then `_dx_from_da`; `gn_silu_up_conv_bwd` <-
 `_up_pair_bwd_kernel` (via `_pallas_up_pair_bwd`). CUDA source:
-csrc/fused_norm_conv_bwd.cu (a dgrad and a wgrad kernel). The backward uses
+csrc/fused_norm_conv_bwd.cu: a dgrad and a wgrad kernel, both in 3xTF32 on
+the tensor cores like the forward, whose per-block partials of dW, dbias,
+dgamma and dbeta are added in a fixed order (the backward repeats bit for
+bit). The backward uses
 the statistics its forward used (chained or from K1's pass 1); emitted
 statistics are not differentiable and chained ones take a zero cotangent,
 as in the JAX package (fused_norm_conv.py:1983-1987).
@@ -43,6 +46,7 @@ the narrow route (`gn_silu_conv.launches` counts gnsc_kernel only).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -292,6 +296,9 @@ def _narrow_conv_kernel(x, w, bias, emit_stats):
     return (out, (ostats[0], ostats[1])) if emit_stats else out
 
 
+_NARROW_WGRAD_BLOCKS = 4 * 132  # about four narrow wgrad blocks per SM of an H100
+
+
 def narrow_conv_bwd(g, x, w, need_dx: bool = True):
     """The narrow backward kernels on the card (O <= 8): (dx or None, dw,
     dbias). dgrad and wgrad write every entry once and wgrad's per-run
@@ -305,7 +312,7 @@ def narrow_conv_bwd(g, x, w, need_dx: bool = True):
     nw = 9 * c * o
     dwb = torch.empty((nw + o,), device=dev, dtype=torch.float32)  # dW, then dbias
     tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(h, wd, 2)
-    runs = min(tiles, -(-_WGRAD_BLOCKS // b))
+    runs = min(tiles, -(-_NARROW_WGRAD_BLOCKS // b))
     part = torch.empty((b * runs, nw + o), device=dev, dtype=torch.float32)
     fn = _build.bind("narrow_conv", "mc_narrow_conv_bwd", [P] * 6 + [I] * 6 + [P])
     raise_on_error(fn(ptr(g), ptr(x), ptr(w), ptr(dx), ptr(dwb), ptr(part),
@@ -408,43 +415,69 @@ def _gn_silu_up_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
     return ((out, (osums, osumsq)) if emit_stats else out), (sums, sumsq)
 
 
-_WGRAD_BLOCKS = 4 * 132   # about four wgrad blocks per SM of an H100
+_BLOCKS_PER_SM = 2  # the wgrad kernel's occupancy (csrc/fused_norm_conv_bwd.cu)
 
 
-def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, dw, dbias):
-    """Launch the wgrad kernel: adds into the zeroed dw (taps, C, O) and, when
-    given, dbias (O,). x (B, Hin, Win, C), g (B, H, W, O) at the output size.
-    A block owns 16 input x 64 output channels of one image and a run of its
-    8 x 16 pixel tiles; the runs per image fill about _WGRAD_BLOCKS blocks."""
+@functools.lru_cache(maxsize=None)
+def _dgrad_tiles(h: int, wd: int) -> int:
+    """Pixel tiles per image of the dgrad kernel (its scratch's rows)."""
+    return _build.bind("fused_norm_conv_bwd", "mc_conv_bwd_tiles", [I] * 3)(h, wd, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_runs(b, h, wd, c, o, taps, up, device) -> int:
+    """Pixel-tile runs per image of the wgrad kernel: about one wave of
+    blocks at two an SM, at most one tile a run (the kernel's own rule)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _build.bind("fused_norm_conv_bwd", "mc_conv_wgrad_runs", [I] * 8)(
+        b, h, wd, c, o, taps, int(up), _BLOCKS_PER_SM * sms)
+
+
+def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, with_bias):
+    """Launch the wgrad kernel and its fixed-order reduce: (dw (3, 3, C, O),
+    or (C, O) for one tap, and dbias (O,) or None). x (B, Hin, Win, C), g
+    (B, H, W, O) at the output size. Per-run partials go to a scratch that
+    the reduce adds in a fixed order, so the result repeats bit for bit."""
     b, h, wd, o = g.shape
     c = x.shape[-1]
-    tiles = -(-h // 8) * -(-wd // 16)
-    blocks = b * -(-c // 16) * -(-o // 64)
-    splits = min(tiles, max(1, -(-_WGRAD_BLOCKS // blocks)))
+    runs = _wgrad_runs(b, h, wd, c, o, taps, up, x.device)
+    nw = taps * c * o
+    k = nw + (o if with_bias else 0)
+    dwb = torch.empty((k,), device=x.device, dtype=torch.float32)
+    part = torch.empty((b * runs, k), device=x.device, dtype=torch.float32)
     sums, sumsq = stats if stats is not None else (None, None)
     fn = _build.bind("fused_norm_conv_bwd", "mc_conv_wgrad",
-                     [P] * 8 + [I] * 6 + [F] + [I] * 4 + [P])
+                     [P] * 8 + [I] * 6 + [F] + [I] * 5 + [P])
     raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(sums),
-                      ptr(sumsq), ptr(dw), ptr(dbias), b, h, wd, c, o,
+                      ptr(sumsq), ptr(dwb), ptr(part), b, h, wd, c, o,
                       max(num_groups, 1), eps, int(gamma is not None), taps,
-                      int(up), splits, stream()), "mc_conv_wgrad")
+                      int(up), int(with_bias), runs, stream()), "mc_conv_wgrad")
+    dw = dwb[:nw].view((3, 3, c, o) if taps == 9 else (c, o))
+    return dw, (dwb[nw:] if with_bias else None)
 
 
 _DGRAD_LINEAR, _DGRAD_ACT, _DGRAD_UP_FOLD = 0, 1, 2
 
 
-def _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, mode, out, dgamma,
-           dbeta):
-    """Launch the dgrad kernel (modes in csrc/fused_norm_conv_bwd.cu)."""
+def _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, mode, out):
+    """Launch the dgrad kernel (modes in csrc/fused_norm_conv_bwd.cu) into
+    `out`; in the act mode also the fixed-order reduce of its per-tile
+    partials, returning (dgamma, dbeta), each (B, C)."""
     b, h, wd, o = g.shape
     c = w.shape[2]
     sums, sumsq = stats if stats is not None else (None, None)
+    dstats = part = None
+    if mode == _DGRAD_ACT:
+        dstats = torch.empty((2, b, c), device=g.device, dtype=torch.float32)
+        part = torch.empty((2, b, _dgrad_tiles(h, wd), c), device=g.device,
+                           dtype=torch.float32)
     fn = _build.bind("fused_norm_conv_bwd", "mc_conv_dgrad",
                      [P] * 10 + [I] * 6 + [F, I, P])
     raise_on_error(fn(ptr(g), ptr(w), ptr(x), ptr(gamma), ptr(beta), ptr(sums),
-                      ptr(sumsq), ptr(out), ptr(dgamma), ptr(dbeta), b, h, wd,
+                      ptr(sumsq), ptr(out), ptr(dstats), ptr(part), b, h, wd,
                       c, o, max(num_groups, 1), eps, mode, stream()),
                    "mc_conv_dgrad")
+    return (dstats[0], dstats[1]) if dstats is not None else (None, None)
 
 
 def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
@@ -463,16 +496,12 @@ def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
     act = gamma is not None
     if act:
         _norm_inputs(x, gamma, beta, num_groups, stats)
-    zeros = lambda *s: torch.zeros(s, device=dev, dtype=torch.float32)
-    dw, dbias = zeros(3, 3, c, o), zeros(o)
-    _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, False, dw, dbias)
+    dw, dbias = _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, False, True)
     dx = dgamma = dbeta = None
     if need_da:
         da = torch.empty_like(x)
-        if act:
-            dgamma, dbeta = zeros(b, c), zeros(b, c)
-        _dgrad(g, w, x, gamma, beta, stats, num_groups, eps,
-               _DGRAD_ACT if act else _DGRAD_LINEAR, da, dgamma, dbeta)
+        dgamma, dbeta = _dgrad(g, w, x, gamma, beta, stats, num_groups, eps,
+                               _DGRAD_ACT if act else _DGRAD_LINEAR, da)
         dx = da
         if act:
             mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
@@ -481,9 +510,7 @@ def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
     if skip_w is not None:
         cr = residual.shape[-1]
         check(residual, "residual", (b, h, wd, cr), dev)
-        dskip_w = zeros(1, cr, o)
-        _wgrad(residual, g, None, None, None, 0, eps, 1, False, dskip_w, None)
-        dskip_w = dskip_w.reshape(cr, o)
+        dskip_w = _wgrad(residual, g, None, None, None, 0, eps, 1, False, False)[0]
     gn_silu_conv_bwd.launches += 1
     return (dx, dgamma, dbeta, dw, dbias,
             _residual_grad(g, residual, res_up, skip_w), dskip_w)
@@ -503,12 +530,9 @@ def gn_silu_up_conv_bwd(g, x, gamma, beta, w, stats: Stats, num_groups: int,
     check(x, "x", (b, h, wd, c), dev)
     check(w, "w", (3, 3, c, o), dev)
     _norm_inputs(x, gamma, beta, num_groups, stats)
-    dw = torch.zeros((3, 3, c, o), device=dev, dtype=torch.float32)
-    dbias = torch.zeros((o,), device=dev, dtype=torch.float32)
-    _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, True, dw, dbias)
+    dw, dbias = _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, True, True)
     ds = torch.empty((b, 2 * h, wd, c), device=dev, dtype=torch.float32)
-    _dgrad(g, w, None, None, None, None, num_groups, eps, _DGRAD_UP_FOLD, ds,
-           None, None)
+    _dgrad(g, w, None, None, None, None, num_groups, eps, _DGRAD_UP_FOLD, ds)
     # the row pair of each low-res pixel, then GroupNorm / SiLU at low res
     ds_low = ds.reshape(b, h, 2, wd, c).sum(dim=2)
     mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)

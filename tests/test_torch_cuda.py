@@ -19,9 +19,9 @@ Tolerances: both sides are fp32 (TF32 off) and differ only in summation
 order, plus the fp32 atomics of the emitted statistics: outputs to rtol 1e-5 /
 atol 1e-5, sums of squares to rtol 1e-5 / atol 1e-4. Gradients are held to
 1e-5 of each gradient's largest magnitude (`_assert_grads`): a weight or
-modulation gradient sums over every pixel (a few hundred here) through fp32
-atomics in no fixed order, so elementwise relative error means nothing for
-its entries near zero.
+modulation gradient sums over every pixel (a few hundred here) in another
+order than the plain version, so elementwise relative error means nothing
+for its entries near zero.
 """
 import numpy as np
 import pytest
@@ -551,6 +551,89 @@ def test_k3_tensor_core_conv(cuda, shape):
             assert _rel(a, w32) <= TOL_KERNEL, i
             assert _rel(a, w64) <= TOL_KERNEL, i
     assert kernels.launches()["K3 gn_silu_up_conv"] == 2
+
+
+# (B, H, W, C, O, Cr) of the backward kernels: H and W no multiple of
+# dgrad's 8 x 16 or wgrad's 4 x 16 (narrow C: 8 x 32) pixel tile, B 3, 1 and
+# 2; 128 input channels and a projection over Cr = 128; O = 70 (a ragged
+# third 32-wide output slice of wgrad, a second 64-wide tile of the forward)
+# over C and Cr no multiple of 8; C = 12 (a block's 32 channels mostly
+# padding); C = 4, conv_in's width (the narrow-C wgrad)
+K2_BWD_SHAPES = [(3, 19, 37, 128, 64, 128), (1, 10, 22, 20, 70, 12),
+                 (2, 11, 18, 12, 40, 8), (3, 13, 37, 4, 64, 8)]
+TOL_BWD64 = 1e-5  # of each gradient's largest magnitude, against float64
+
+
+def _same(once, again):
+    """Two calls' outputs equal bit for bit (None where both are None)."""
+    for i, (a, a2) in enumerate(zip(once, again, strict=True)):
+        assert (a is None) == (a2 is None), i
+        if a is not None:
+            assert torch.equal(a, a2), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", K2_BWD_SHAPES, ids=["c128-cr128", "o70-ragged-c", "c12",
+                                                     "c4"])
+def test_k2_tensor_core_backward(cuda, mode, shape):
+    """Every mode of test_k2_backward_matches_plain on the 3xTF32 backward
+    kernels, with own and chained statistics: each gradient within 1e-5 of
+    its scale of float64 autograd of the plain forward. The backward called
+    twice on the same operands repeats bit for bit: dW, dbias, dgamma and
+    dbeta are per-block partials summed in a fixed order."""
+    b, h, w, c, o, cr = shape
+    if mode == "identity_up":
+        h, w = h - h % 2, w - w % 2
+    inp = _inputs(42, cuda, b, h, w, c, o, cr)
+    act = mode != "linear"
+    names = ["x", "w", "bias"] + (["gamma", "beta"] if act else [])
+    names += {"identity": ["res"], "identity_up": ["res_lo"],
+              "proj": ["res_proj", "skw", "skb"]}.get(mode, [])
+    g = torch.randn(b, h, w, o, device=cuda)
+
+    def run(fn, src, stats=None):
+        def f(*ts):
+            return _block(fn, dict(src, **dict(zip(names, ts))), mode, 4, stats=stats)
+        return _grads_of(f, [_leaf(src[n]) for n in names], g.to(src["x"].dtype))
+
+    want = run(tfnc.gn_silu_conv_plain, _double(inp))
+    kernels.reset_launches()
+    for stats in (None, inp["stats"]):
+        _assert_grads(run(tfnc.gn_silu_conv, inp, stats), want, tol=TOL_BWD64)
+    assert kernels.launches()["K2 gn_silu_conv_bwd"] == 2
+    tail = {"identity": dict(residual=inp["res"]),
+            "identity_up": dict(residual=inp["res_lo"], res_up=True),
+            "proj": dict(residual=inp["res_proj"], skip_w=inp["skw"])}.get(mode, {})
+    _same(*(tfnc.gn_silu_conv_bwd(g, inp["x"], inp["gamma"] if act else None,
+                                  inp["beta"] if act else None, inp["w"],
+                                  inp["stats"] if act else None, 4 if act else 0,
+                                  1e-5, **tail) for _ in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 7, 11, 64, 64), (1, 5, 9, 128, 70),
+                                   (2, 5, 7, 12, 24)], ids=["c64", "c128-o70", "c12"])
+def test_k3_tensor_core_backward(cuda, shape):
+    """K3's backward at odd low-res sizes (the up-fold's column pairs at
+    ragged tile edges), own and chained statistics, against float64; bit
+    for bit on a repeat."""
+    b, h, w, c, o = shape
+    inp = _inputs(43, cuda, b, h, w, c, o, cr=8)
+    args = ("x", "gamma", "beta", "w", "bias")
+    g = torch.randn(b, 2 * h, 2 * w, o, device=cuda)
+
+    def run(fn, src, **kw):
+        return _grads_of(lambda *ts: fn(*ts, 4, **kw), [_leaf(src[k]) for k in args],
+                         g.to(src["x"].dtype))
+
+    want = run(tfnc.gn_silu_up_conv_plain, _double(inp))
+    kernels.reset_launches()
+    for stats in (None, inp["stats"]):
+        _assert_grads(run(tfnc.gn_silu_up_conv, inp, stats=stats), want, tol=TOL_BWD64)
+    assert kernels.launches()["K3 gn_silu_up_conv_bwd"] == 2
+    _same(*(tfnc.gn_silu_up_conv_bwd(g, *(inp[k] for k in args[:4]), inp["stats"], 4)
+            for _ in range(2)))
 
 
 # (BH, N, D, E): N no multiple of the 64-row stage; D and E under 128 and no

@@ -22,8 +22,17 @@ kv_dots in split-N blocks of row stages of 8-row k-steps whose partials
 are summed in a fixed order; each sums kTempSteps (kKvTempSteps) k-steps of
 the three products into a zeroed partial before one fp32 add, as the
 constants in the CUDA sources say. Both are held within 2e-5 of scale of
-float64; the error of one TF32 pass is recorded. JAX-free; well under a
-second a case.
+float64; the error of one TF32 pass is recorded. The K2/K3 backward
+(csrc/fused_norm_conv_bwd.cu) is emulated the same way, each in its own
+order: dgrad as the forward's loop on the cotangent with the mirrored,
+transposed weight, then silu'(a) and dgamma / dbeta as per-tile partials
+summed in colsum_kernel's fixed order; wgrad as 8-pixel k-steps of each
+image's tile runs (nine taps, or one spread over the nine warps), a
+zeroed partial per kWTempSteps k-steps, and the runs' partials summed in
+the fixed order (at C <= 8 its fp32 narrow-C kernel, pixel by pixel). They are held within 1e-4 of scale of float64 (the
+bound chip_smoke.py holds the backward to). Beside them, each named
+variant of kernels/attention_sources.py is held to apply to its source.
+JAX-free; well under a second a case.
 """
 import math
 import re
@@ -32,6 +41,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from m_cedm_tpu_torch.kernels.attention_sources import KERNELS, VARIANTS
 
 TOL_KERNEL = 2e-5  # chip_smoke.py's forward-kernel tolerance, of max(1, scale)
 
@@ -163,13 +174,14 @@ def _mm_1x(part, a, b):
     return part + tf32_round(a, "even") @ tf32_round(b, "even")
 
 
-def conv_emulated(act, w, res, skip_w, mm):
+def conv_emulated(act, w, res, skip_w, mm, source="fused_norm_conv.cu"):
     """gnsc_kernel's products on an activated NHWC input: 8-channel chunks,
     each the nine taps in order (k-steps of eight channels), then the 1x1
     projection's 8-channel chunks (one k-step each) into the same
     accumulator; bias and residual adds left out (exact fp32 adds on both
-    sides)."""
-    temp = _constant("fused_norm_conv.cu", "kTempSteps")
+    sides). dgrad_kernel runs the same loop on the cotangent (`source` names
+    the kTempSteps to read)."""
+    temp = _constant(source, "kTempSteps")
     b, h, wd, c = act.shape
     o = w.shape[-1]
     pad = torch.nn.functional.pad(act, (0, 0, 1, 1, 1, 1))
@@ -260,3 +272,238 @@ def test_3xtf32_kv_dots_keeps_fp32_accuracy(case, record_property):
     record_property("err_1xtf32", err_1x)
     print(f"kv_dots {case} vs float64, of scale: 3xTF32 {err_3x:.2e}, 1xTF32 {err_1x:.2e}")
     assert err_3x <= TOL_KERNEL
+
+
+# ---------------------------------------------------------------------------
+# the K2 / K3 backward (csrc/fused_norm_conv_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD = "fused_norm_conv_bwd.cu"
+TOL_BWD = 1e-4  # chip_smoke.py's backward tolerance, of max(1, scale)
+
+
+def colsum_emulated(parts):
+    """colsum_kernel on (n, K) partials: group i of kSumGroups adds rows i,
+    i + groups, ... in order, then the groups' sums are added in order."""
+    groups = _constant(BWD, "kSumGroups")
+    sums = [torch.zeros(parts.shape[1:])] * groups
+    for i in range(parts.shape[0]):
+        sums[i % groups] = sums[i % groups] + parts[i]
+    total = sums[0]
+    for t in sums[1:]:
+        total = total + t
+    return total
+
+
+def wgrad_emulated(act, g, runs, taps, mm):
+    """wgrad_kernel on the activated conv input `act` (K3: already
+    upsampled) and the cotangent g, both (B, H, W, *): each image's
+    kWTH x kWTW pixel tiles in raster order, cut into `runs` runs; per run
+    the 8-pixel k-steps (half a tile row; none past the last image row) in
+    order, each tap's product into a zeroed partial that is added to the
+    fp32 sum after every kWTempSteps k-steps of a tile and at its end. One
+    tap: the k-steps go round the kWWarps warps, whose sums are added in
+    warp order. Then the (B * runs) partials in colsum's order. Returns
+    (dw (taps, C, O), dbias (O,))."""
+    th, tw = _constant(BWD, "kWTH"), _constant(BWD, "kWTW")
+    temp, warps = _constant(BWD, "kWTempSteps"), _constant(BWD, "kWWarps")
+    b, h, wd, c = act.shape
+    o = g.shape[-1]
+    tiles_w, tiles = math.ceil(wd / tw), math.ceil(h / th) * math.ceil(wd / tw)
+    per = math.ceil(tiles / runs)
+    pad = torch.nn.functional.pad(act, (0, 0, 1, tw + 1, 1, th + 1))
+    gp = torch.nn.functional.pad(g, (0, 0, 0, tw, 0, th))
+    slots = warps if taps == 1 else 1
+    shifts = [(dy, dx) for dy in range(3) for dx in range(3)] if taps == 9 else [(1, 1)]
+    parts = []
+    for bi in range(b):
+        for r in range(runs):
+            acc = torch.zeros(slots, taps, c, o)
+            kstep, gsum = 0, torch.zeros(o)
+            for tile in range(r * per, min(tiles, (r + 1) * per)):
+                ty0, tx0 = (tile // tiles_w) * th, (tile % tiles_w) * tw
+                nsteps = 2 * min(th, h - ty0)
+                for s0 in range(0, nsteps, temp):
+                    part = torch.zeros_like(acc)
+                    for s in range(s0, min(s0 + temp, nsteps)):
+                        y, x0 = ty0 + s // 2, tx0 + 8 * (s % 2)
+                        gk = gp[bi, y, x0:x0 + 8]
+                        gsum = gsum + gk.sum(0)
+                        ak = torch.stack([pad[bi, y + dy, x0 + dx:x0 + dx + 8].T
+                                          for dy, dx in shifts])
+                        w = (kstep + s) % slots
+                        part[w] = mm(part[w], ak, gk)
+                    acc = acc + part
+                kstep += nsteps
+            total = acc[0]
+            for w in range(1, slots):
+                total = total + acc[w]
+            parts.append(torch.cat([total.reshape(-1), gsum]))
+    out = colsum_emulated(torch.stack(parts))
+    return out[:-o].reshape(taps, c, o), out[-o:]
+
+
+def wgrad_narrow_emulated(act, g, runs):
+    """wgrad_narrow_kernel (C <= kNC, 3 x 3) in fp32 on the CUDA cores: each
+    image's kNTH x kNTW tiles in raster order cut into `runs` runs; per run a
+    thread for each output channel and pair of tile rows adds act x g with
+    one fmaf a weight, pixel by pixel along its rows; then the row pairs'
+    sums in order, and the runs' partials in colsum's order."""
+    th, tw = _constant(BWD, "kNTH"), _constant(BWD, "kNTW")
+    b, h, wd, c = act.shape
+    o = g.shape[-1]
+    tiles_w, tiles = math.ceil(wd / tw), math.ceil(h / th) * math.ceil(wd / tw)
+    per = math.ceil(tiles / runs)
+    pad = torch.nn.functional.pad(act, (0, 0, 1, 1, 1, 1)).double()
+    parts = []
+    for bi in range(b):
+        for r in range(runs):
+            accs, gs = torch.zeros(th // 2, 9, c, o), torch.zeros(th // 2, o)
+            for tile in range(r * per, min(tiles, (r + 1) * per)):
+                ty0, tx0 = (tile // tiles_w) * th, (tile % tiles_w) * tw
+                for y in range(ty0, min(h, ty0 + th)):
+                    pg = (y - ty0) // 2
+                    for x in range(tx0, min(wd, tx0 + tw)):
+                        win = pad[bi, y:y + 3, x:x + 3].reshape(9, c)
+                        gv = g[bi, y, x]
+                        # fmaf: the product exact, one rounding of the sum
+                        accs[pg] = (accs[pg].double() + win[:, :, None] * gv.double()).float()
+                        gs[pg] = gs[pg] + gv
+            total, gsum = accs[0], gs[0]
+            for q in range(1, th // 2):
+                total, gsum = total + accs[q], gsum + gs[q]
+            parts.append(torch.cat([total.reshape(-1), gsum]))
+    out = colsum_emulated(torch.stack(parts))
+    return out[:-o].reshape(9, c, o), out[-o:]
+
+
+def _bwd_operands(seed, b, h, wd, c, o):
+    rs = np.random.RandomState(seed)
+    act = torch.from_numpy((rs.randn(b, h, wd, c) * 0.8 + 0.3).astype(np.float32))
+    g = torch.from_numpy(rs.randn(b, h, wd, o).astype(np.float32))
+    w = torch.from_numpy((rs.randn(3, 3, c, o) / math.sqrt(9 * c)).astype(np.float32))
+    return act, g, w
+
+
+# (B, H, W, C, O, taps, runs, up): C 64 and 128, ragged C and O, K3 (the
+# activation upsampled from a low-res 5 x 7), the 1x1 projection over
+# Cr = 128, C = 12 (a block's 32 channels mostly padding), conv_in's C = 4
+# (the narrow-C kernel, fp32); H and W no multiple of the 4 x 16 or 8 x 32
+# tile
+WGRAD_CASES = [(2, 9, 20, 64, 64, 9, 3, False), (1, 6, 18, 128, 64, 9, 2, False),
+               (2, 7, 9, 20, 70, 9, 2, False), (2, 10, 14, 64, 40, 9, 2, True),
+               (2, 9, 20, 128, 64, 1, 2, False), (2, 9, 20, 12, 64, 9, 3, False),
+               (2, 12, 40, 4, 64, 9, 3, False)]
+
+
+@pytest.mark.parametrize("case", WGRAD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_3xtf32_conv_wgrad_keeps_fp32_accuracy(case, record_property):
+    """mc_conv_wgrad's dW and dbias, emulated in the order and accumulation
+    of the kernel it launches, against float64: within 1e-4 of scale. The
+    tensor-core kernel's one TF32 pass is recorded; at C <= kNC (3 x 3, not
+    K3) the narrow-C kernel's fp32 sums are emulated instead."""
+    from m_cedm_tpu_torch.kernels.fused_norm_conv import (conv3x3_wgrad_plain,
+                                                          upsample2x_nearest)
+
+    b, h, wd, c, o, taps, runs, up = case
+    act, g, _ = _bwd_operands(sum(case[:6]), b, h, wd, c, o)
+    if up:
+        act = upsample2x_nearest(act[:, :h // 2, :wd // 2])
+    if taps == 9:
+        want = conv3x3_wgrad_plain(act.double(), g.double())
+    else:
+        want = torch.einsum("bhwc,bhwo->co", act.double(), g.double())[None]
+    want_b = g.double().sum(dim=(0, 1, 2))
+    if c <= _constant(BWD, "kNC") and taps == 9 and not up:
+        dw, db = wgrad_narrow_emulated(act, g, runs)
+        err = max(rel_err(dw.reshape(want.shape), want), rel_err(db, want_b))
+        record_property("err_fp32", err)
+        print(f"wgrad {case} (narrow C, fp32) vs float64, of scale: {err:.2e}")
+        assert err <= TOL_BWD
+        return
+    errs = {}
+    for name, mm in (("3x", _mm_3x), ("1x", _mm_1x)):
+        dw, db = wgrad_emulated(act, g, runs, taps, mm)
+        errs[name] = max(rel_err(dw.reshape(want.shape), want), rel_err(db, want_b))
+    record_property("err_3xtf32", errs["3x"])
+    record_property("err_1xtf32", errs["1x"])
+    print(f"wgrad {case} vs float64, of scale: 3xTF32 {errs['3x']:.2e}, "
+          f"1xTF32 {errs['1x']:.2e}")
+    assert errs["3x"] <= TOL_BWD
+
+
+def dgrad_emulated(g, w, mm):
+    """dgrad_kernel's products: the forward's loop on the cotangent with the
+    mirrored, transposed weight W'[dy, dx] = w[2 - dy, 2 - dx]^T."""
+    return conv_emulated(g, w.flip(0, 1).transpose(2, 3), None, None, mm, source=BWD)
+
+
+def tile_partials(t, th, tw):
+    """(B, H, W, C) -> (B, tiles, C): per-pixel-tile sums in raster order."""
+    b, h, wd, c = t.shape
+    tp = torch.nn.functional.pad(t, (0, 0, 0, -wd % tw, 0, -h % th))
+    tp = tp.reshape(b, tp.shape[1] // th, th, tp.shape[2] // tw, tw, c)
+    return tp.sum(dim=(2, 4)).reshape(b, -1, c)
+
+
+# (B, H, W, C, O, mode): C 64 and 128 (the decoder conv0's dgrad), ragged C
+# and O, the linear mode, and K3's up-fold at high resolution 8 x 12
+DGRAD_CASES = [(2, 9, 20, 64, 64, "act"), (1, 10, 14, 128, 64, "act"),
+               (2, 7, 9, 20, 70, "act"), (2, 9, 20, 64, 64, "linear"),
+               (2, 8, 12, 64, 64, "up")]
+
+
+@pytest.mark.parametrize("case", DGRAD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_3xtf32_conv_dgrad_keeps_fp32_accuracy(case, record_property):
+    """dgrad_kernel's da (and in the act mode dgamma, dbeta from per-tile
+    partials in colsum's order; in the up-fold the column pairs, then the
+    row pairs), emulated in its own order, against float64: within 1e-4 of
+    scale; one TF32 pass recorded."""
+    from m_cedm_tpu_torch.kernels.fused_norm import group_mean_rstd_from_sums
+    from m_cedm_tpu_torch.kernels.fused_norm_conv import (_fold2x2,
+                                                          conv3x3_dgrad_plain)
+
+    b, h, wd, c, o, mode = case
+    x, g, w = _bwd_operands(sum(case[:5]), b, h, wd, c, o)
+    rs = np.random.RandomState(b + c)
+    gamma = torch.from_numpy((rs.randn(b, c) * 0.3 + 1.0).astype(np.float32))
+    beta = torch.from_numpy((rs.randn(b, c) * 0.3).astype(np.float32))
+    th, tw = _constant(BWD, "kTH"), _constant(BWD, "kTW")
+
+    def epilogue(ds, t):  # t: float32 or float64, as the kernel or the reference
+        if mode == "up":
+            return (_fold2x2(ds),)
+        if mode == "linear":
+            return (ds,)
+        xs = x.to(t)
+        sums, sumsq = xs.sum(dim=(1, 2)), (xs * xs).sum(dim=(1, 2))
+        mean, rstd = group_mean_rstd_from_sums(sums, sumsq, h * wd, 4, 1e-5)
+        xhat = (xs - mean[:, None, None]) * rstd[:, None, None]
+        a = xhat * gamma.to(t)[:, None, None] + beta.to(t)[:, None, None]
+        sig = torch.sigmoid(a)
+        da = ds * sig * (1 + a * (1 - sig))
+        if t == torch.float64:
+            return da, (da * xhat).sum(dim=(1, 2)), da.sum(dim=(1, 2))
+        parts = torch.stack([tile_partials(da * xhat, th, tw), tile_partials(da, th, tw)])
+        dstats = colsum_emulated(parts.permute(2, 0, 1, 3))  # tiles first
+        return da, dstats[0], dstats[1]
+
+    want = epilogue(conv3x3_dgrad_plain(g.double(), w.double()), torch.float64)
+    errs = {}
+    for name, mm in (("3x", _mm_3x), ("1x", _mm_1x)):
+        got = epilogue(dgrad_emulated(g, w, mm), torch.float32)
+        errs[name] = max(rel_err(a, w_) for a, w_ in zip(got, want, strict=True))
+    record_property("err_3xtf32", errs["3x"])
+    record_property("err_1xtf32", errs["1x"])
+    print(f"dgrad {case} vs float64, of scale: 3xTF32 {errs['3x']:.2e}, "
+          f"1xTF32 {errs['1x']:.2e}")
+    assert errs["3x"] <= TOL_BWD
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_measurement_variants_apply_to_their_sources(name):
+    """Each named variant of kernels/attention_sources.py (the rivals and
+    diagnostics the records cite) replaces exactly one passage of its
+    kernel's package source; the tool refuses it on the card otherwise."""
+    kernel, old, _ = VARIANTS[name]
+    assert (CSRC / KERNELS[kernel][0]).read_text().count(old) == 1
