@@ -66,12 +66,16 @@ Phases, each printing JSON lines:
               chained stats, the decoder's dual input with a projection, the
               up block) and one ragged case, output and emitted stats within
               4e-5 of scale; kernel, plain and two-kernel-path (K2 + K2, or
-              K3 + K2) times; its recompute backward against float64
-              autograd of the plain composition
+              K3 + K2) times, the 3xTF32 bound beside the fp32 one, the
+              occupancy, items and grid of each launch and the ptxas
+              register and spill counts of both kernel instances; its
+              recompute backward against float64 autograd of the plain
+              composition
   10. mega eval   phase 4's eval (same state and noise) with mega=True:
               metrics within 1e-4 of the per-conv kernel path, the observed
-              channel held, launches asserted (13 K7, 4 K2, 2 narrow, 0 K3 and
-              4 K4 per forward), samples/s of both paths in turns
+              channel held, launches asserted (13 K7, 4 K2, 2 narrow, 0 K3,
+              4 K4 and 5 K1 channel_stats per forward), samples/s of both
+              paths in turns
   11. cond edm    CondEdmTask of configs/model/adm_edm_cond_h_res32.yaml at B =
               16, full width and depth, 50 Heun steps with S_churn 15, on the
               kernel path with mega=True and on the plain path: metrics
@@ -87,7 +91,7 @@ names the device. `bound_ms` is the least time the card could take for a kernel'
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
 peak of an H100 SXM for the kernels that run fp32 on the CUDA cores; K2/K3
-(gnsc_kernel), K4, K5 and K6 run their products as 3xTF32 on the tensor
+(gnsc_kernel), K4, K5, K6 and K7 run their products as 3xTF32 on the tensor
 cores, and so does the K2/K3 backward (wgrad, dgrad): three TF32 FLOPs per
 fp32 FLOP over the 495 TFLOP/s TF32 peak (their CUDA-core bound beside, as
 `bound_fp32_ms`). K2's linear modes are listed in its rows
@@ -293,9 +297,13 @@ K2_BWD_PER_STEP, NARROW_BWD_PER_STEP = 29, 1
 # With mega=True: K7 runs the 13 blocks that are not down blocks (three
 # encoder blocks, the two middle blocks, six decoder blocks, two up blocks);
 # K2 the two down blocks' two convs, the narrow kernel conv_in and out_conv;
-# K4 the four attention sites; no K3 (the up blocks are K7's)
+# K4 the four attention sites; no K3 (the up blocks are K7's). K1's
+# statistics pass runs where a block's input comes without statistics (after
+# an attention site), as on the per-conv path: the two middle blocks, the
+# res-64 up block, and the two res-32 decoder blocks over their one half
+# without statistics
 MEGA_LAUNCHES = {"K7 unet_block": 13, "K2 gn_silu_conv": 4, "K2 narrow_conv": 2,
-                 "K3 gn_silu_up_conv": 0, "K4 attention": 4}
+                 "K3 gn_silu_up_conv": 0, "K4 attention": 4, "K1 channel_stats": 5}
 # K7 against its plain version: two chained convs of up to 9 * 128 products
 # each and a norm over the first one's output, in another summation order
 TOL_MEGA = 4e-5
@@ -1457,6 +1465,7 @@ def phase_mega_kernel(device, b: int, res: int, ch: int) -> dict:
     autograd of the plain composition. Returns the identity case's summary."""
     import torch
 
+    from m_cedm_tpu_torch.kernels import _build
     from m_cedm_tpu_torch.kernels import fused_block as fb
     from m_cedm_tpu_torch.models.layers import adm_groups
 
@@ -1526,10 +1535,16 @@ def phase_mega_kernel(device, b: int, res: int, ch: int) -> dict:
                    "ms": cuda_ms(lambda: fb.fused_unet_block(*args, **kw)),
                    "plain_ms": cuda_ms(lambda: fb.fused_unet_block_plain(*args, **plain_kw)),
                    "two_kernel_ms": cuda_ms(lambda: two_kernel_block(*args, **kw)),
-                   **bound(nbytes(*tensors), flops), "library_ms": None,
+                   **bound(nbytes(*tensors), flops, tf32_products=3), "library_ms": None,
                    "library": "none: no PyTorch call computes a whole ADM block"}
+            items, blocks = fb.grid(bb, hh, ww, o, kw["up"])
+            rec.update(occupancy_blocks_per_sm_x_sms=fb.occupancy(kw["up"]),
+                       items=items, grid=blocks)
         if first is None:
-            rec["occupancy_blocks_per_sm_x_sms"] = fb.occupancy(False)
+            # ptxas's registers and spills of unet_block_kernel<false> and <true>
+            rec["ptxas"] = [ln.strip() for ln in _build.build_log("fused_block").splitlines()
+                            if any(k in ln for k in ("unet_block_kernel", "registers",
+                                                     "spill"))]
             first = rec
         emit(rec)
         for k in ("max_abs_err", "max_rel_err"):

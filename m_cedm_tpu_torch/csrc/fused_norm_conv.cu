@@ -103,7 +103,8 @@
 // the A rows by one pixel per tap, so each tap would need its own swizzled
 // copy of the tile, or an im2col stage. The backward kernels
 // (csrc/fused_norm_conv_bwd.cu) run their products on the same 3xTF32
-// mma.sync core; K7 (csrc/fused_block.cu) still runs on the CUDA cores.
+// mma.sync core, and so do both convs and the projection of K7
+// (csrc/fused_block.cu, which carries its own copy of this core's helpers).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -21,7 +21,8 @@ from m_cedm_tpu_torch.kernels.fused_attention import (attention,
                                                       attention_plain)
 from m_cedm_tpu_torch.kernels.fused_block import (fused_unet_block,
                                                   fused_unet_block_plain)
-from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, gn_silu,
+from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats,
+                                                 channel_stats_plain, gn_silu,
                                                  gn_silu_bwd, gn_silu_plain)
 from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
                                                       gn_silu_conv_bwd,
@@ -45,13 +46,14 @@ class Ops:
     kv_dots: Callable
     apply_dots: Callable
     unet_block: Callable
+    channel_stats: Callable
 
 
 DEVICE_OPS = Ops(gn_silu, gn_silu_conv, gn_silu_up_conv, attention, kv_dots,
-                 apply_dots, fused_unet_block)
+                 apply_dots, fused_unet_block, channel_stats)
 PLAIN_OPS = Ops(gn_silu_plain, gn_silu_conv_plain, gn_silu_up_conv_plain,
                 attention_plain, kv_dots_plain, apply_dots_plain,
-                fused_unet_block_plain)
+                fused_unet_block_plain, channel_stats_plain)
 
 # every kernel wrapper, by the name chip_smoke.py reports
 WRAPPERS: Dict[str, Callable] = {

@@ -1,7 +1,7 @@
-"""Time K4, K6, K2/K3, their backward or K5 built from other CUDA sources beside the package's own, on one card.
+"""Time K4, K6, K2/K3, their backward, K5 or K7 built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k6|k2|k2bwd|k5] [--variant NAME ...] [--sass DIR]
+        [--kernel k4|k6|k2|k2bwd|k5|k7] [--variant NAME ...] [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
 
 Every source exports the C entry points of the kernel's package source with
@@ -36,6 +36,15 @@ parent commit's csrc file unpacked with `git archive`), and each
       16,384, D = E = 128), with the wrapper's split rule (about one block
       per SM) and with two blocks per SM (the rule of the CUDA-core kernel
       it replaced).
+  k7  `mc_unet_block` (csrc/fused_block.cu), the whole ADM block, at every
+      mode of chip_smoke.py's phase 9 at the flagship's shapes (B = 16, ch
+      64: the identity block at res 128 with chained and emitted
+      statistics, the decoder's 64 + 64 -> 64 block with its 1x1 projection,
+      the up block from res 64 to 128, and the ragged 128 + 128 -> 128 case)
+      and the identity block at res 64 and 32, with the input statistics
+      given; beside it, once, the two-kernel path (K2 conv0 emitting its
+      statistics, then the K2 tail; K3 then K2 for the up block) through the
+      package's wrappers on the same inputs, and each case's items and grid.
 
   mma  no source: the rate of TF32 mma.sync.m16n8k8 with fp32 accumulation
       on this card, from a kernel that issues nothing else (eight
@@ -114,6 +123,12 @@ VARIANTS = {
     # K5's partial sums added after each k-step instead of after a 64-row stage
     "k5_temp_steps_1": ("k5", "constexpr int kKvTempSteps = 8;",
                         "constexpr int kKvTempSteps = 1;"),
+    # K7's partial sums added into the fp32 accumulator after each tap
+    "k7_temp_steps_1": ("k7", "constexpr int kTempSteps = 9;", "constexpr int kTempSteps = 1;"),
+    # diagnostics, not kernels: K7 with the 3x3 products of both phases left
+    # out, or their staging pass (results wrong; the time of the rest)
+    "diag_k7_no_mma": ("k7", "      mma_chunk<9>(sa, sb, acc, rg, cq, lane);", "      ;"),
+    "diag_k7_no_split": ("k7", "      split_x<kPhase == 0 && kUp>(rx + st * kRawX, sa, q * kCK, C, H, W, it, s_a, s_b, tid);\n      split_w<9>(rw + st * kRawW, sb, tid);", "      ;"),
 }
 N, L, D = 16, 1024, 64
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -125,6 +140,7 @@ KERNELS = {
     "k2": ("fused_norm_conv.cu", {"mc_gn_silu_conv": [P] * 13 + [I] * 7 + [F, I, I, P],
                                   "mc_gn_silu_up_conv": [P] * 10 + [I] * 6 + [F, P]}),
     "k5": ("linear_attention.cu", {"mc_kv_dots": [P] * 4 + [I] * 6 + [P]}),
+    "k7": ("fused_block.cu", {"mc_unet_block": [P] * 22 + [I] * 8 + [F, I, P]}),
     # two interfaces (see _time_k2bwd): argument types are set per library
     "k2bwd": ("fused_norm_conv_bwd.cu", {}),
     "mma": (None, {}),
@@ -216,7 +232,7 @@ def main(argv=None) -> int:
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
         return {"k6": _time_k6, "k2": _time_k2, "k2bwd": _time_k2bwd,
-                "k5": _time_k5}[args.kernel](libs, ptxas)
+                "k5": _time_k5, "k7": _time_k7}[args.kernel](libs, ptxas)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -720,6 +736,122 @@ def _time_k5(libs, ptxas) -> int:
             errs[name][f"err {case}"] = _rel(c[2], c[7])
     _report(libs, ptxas, calls, errs)
     return 0
+
+
+def _time_k7(libs, ptxas) -> int:
+    """mc_unet_block of every source at phase 9's modes (and the identity
+    block at res 64 and 32), checked against the plain block in float64,
+    then timed; the two-kernel path's time on the same inputs beside."""
+    import math
+
+    from m_cedm_tpu_torch.kernels import fused_block as fb
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    b, res, ch = K2_B, K2_RES, K2_CH
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev)
+
+    def two_kernel(args, groups, kw, t):
+        """K2 conv0 (K3 for an up block) emitting its statistics, then the K2
+        tail, as the U-Net's per-conv path runs the block."""
+        x, g0, b0, w0, bias0, g1, b1, w1, bias1 = args
+        xin = torch.cat([x, kw["x2"]], -1) if kw["x2"] is not None else x
+        stats = (t["sums0"], t["sumsq0"])
+        if kw["up"]:
+            h, hs = fnc.gn_silu_up_conv(xin, g0, b0, w0, bias0, groups[0], 1e-5,
+                                        stats=stats, emit_stats=True)
+            tail = dict(residual=xin, res_up=True)
+        else:
+            h, hs = fnc.gn_silu_conv(xin, g0, b0, w0, bias0, groups[0], 1e-5,
+                                     stats=stats, emit_stats=True)
+            tail = dict(residual=xin, skip_w=kw["skip_w"], skip_b=kw["skip_b"])
+        return fnc.gn_silu_conv(h, g1, b1, w1, bias1, groups[1], 1e-5, stats=hs,
+                                emit_stats=kw["emit_stats"], **tail)
+
+    cases = {}
+
+    def k7(name, bb, hin, win, c1, c2, o, up=False, proj=False, emit=False):
+        c = c1 + c2
+        h, w = (2 * hin, 2 * win) if up else (hin, win)
+        t = dict(x=rnd(bb, hin, win, c1, scale=0.8, shift=0.2),
+                 x2=rnd(bb, hin, win, c2, scale=0.8, shift=0.2) if c2 else None,
+                 g0=rnd(bb, c, scale=0.3, shift=1.0), b0=rnd(bb, c, scale=0.3),
+                 w0=rnd(3, 3, c, o, scale=1.0 / math.sqrt(9 * c)), bias0=rnd(o, scale=0.3),
+                 g1=rnd(bb, o, scale=0.3, shift=1.0), b1=rnd(bb, o, scale=0.3),
+                 w1=rnd(3, 3, o, o, scale=1.0 / math.sqrt(9 * o)), bias1=rnd(o, scale=0.3),
+                 skip_w=rnd(c, o, scale=1.0 / math.sqrt(c)) if proj else None,
+                 skip_b=rnd(o, scale=0.3) if proj else None)
+        xin = torch.cat([t["x"]] + ([t["x2"]] if c2 else []), -1)
+        t["sums0"], t["sumsq0"] = xin.sum(dim=(1, 2)), (xin * xin).sum(dim=(1, 2))
+        tiles = math.ceil(h / fb._TH) * math.ceil(w / fb._TW)
+        t.update(ws=empty(bb, h, w, o), part_s=empty(bb, tiles, o),
+                 part_ss=empty(bb, tiles, o), sums1=empty(bb, o), sumsq1=empty(bb, o),
+                 out=empty(bb, h, w, o), osums=empty(bb, o) if emit else None,
+                 osumsq=empty(bb, o) if emit else None)
+        args = [t[k] for k in ("x", "g0", "b0", "w0", "bias0", "g1", "b1", "w1", "bias1")]
+        groups = (32 if c % 32 == 0 else 1, 32 if o % 32 == 0 else 1)
+        kw = dict(x2=t["x2"], skip_w=t["skip_w"], skip_b=t["skip_b"], emit_stats=emit,
+                  up=up)
+        want = fb.fused_unet_block_plain(
+            *[a.double() for a in args], *groups, 1e-5,
+            **{k: (v.double() if torch.is_tensor(v) else v) for k, v in kw.items()})
+        cases[name] = dict(t=t, dims=(bb, h, w, c1, c2, o, *groups), up=up,
+                           want=_leaves(want),
+                           two=lambda: two_kernel(args, groups, kw, t))
+
+    k7(f"identity, res {res}, chained stats, emit", b, res, res, ch, 0, ch, emit=True)
+    k7(f"dual + 1x1 projection ({ch} + {ch} -> {ch}), res {res}", b, res, res, ch, ch,
+       ch, proj=True)
+    k7(f"up, identity ({res // 2} -> {res}), chained stats, emit", b, res // 2, res // 2,
+       ch, 0, ch, up=True, emit=True)
+    k7("ragged: (1, 7, 19), 128 + 128 -> 128, projection, emit", 1, 7, 19, 128, 128, 128,
+       proj=True, emit=True)
+    for r in (res // 2, res // 4):
+        k7(f"identity, res {r}, chained stats, emit", b, r, r, ch, 0, ch, emit=True)
+
+    def call(lib, c):
+        t = c["t"]
+        p = [None if t[k] is None else t[k].data_ptr() for k in (
+            "x", "x2", "g0", "b0", "sums0", "sumsq0", "w0", "bias0", "g1", "b1", "w1",
+            "bias1", "skip_w", "skip_b", "ws", "part_s", "part_ss", "sums1", "sumsq1",
+            "out", "osums", "osumsq")]
+
+        def fn():
+            rc = lib.mc_unet_block(*p, *c["dims"], 1e-5, int(c["up"]), stream)
+            if rc:
+                raise RuntimeError(f"launch failed with cudaError {rc}")
+        return fn
+
+    print(json.dumps({"two_kernel_path": {f"ms {case}": _cuda_ms(c["two"])
+                                          for case, c in cases.items()},
+                      "items_grid": {case: fb.grid(c["dims"][0], c["dims"][1],
+                                                   c["dims"][2], c["dims"][5], c["up"])
+                                     for case, c in cases.items()}}), flush=True)
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name] = {case: call(lib, c) for case, c in cases.items()}
+        errs[name] = {}
+        for case, c in cases.items():
+            calls[name][case]()
+            torch.cuda.synchronize()
+            t = c["t"]
+            got = [t["out"]] + ([t["osums"], t["osumsq"]] if t["osums"] is not None else [])
+            errs[name][f"err {case}"] = max(_rel(a, w) for a, w in zip(got, c["want"],
+                                                                     strict=True))
+    _report(libs, ptxas, calls, errs)
+    return 0
+
+
+def _leaves(out):
+    """out or (out, (sums, sumsq)) as a flat list."""
+    return [out[0], *out[1]] if isinstance(out, tuple) else [out]
 
 
 if __name__ == "__main__":

@@ -14,8 +14,11 @@ g0/b0 are the (B, C) folded norm0 modulation, g1/b1 the (B, O) folded norm1
 + FiLM. `stats` are xin's chained channel sums (of the low-res input with
 `up`); without them K1's statistics pass runs first. `emit_stats` also
 returns the output's per-(B, O) sums. CUDA source: csrc/fused_block.cu, one
-cooperative launch whose header says what bounds it on an H100 and how its
-design handles that. Layouts are NHWC; conv weights HWIO, skip_w (C, O).
+cooperative launch of a persistent grid whose two conv phases run K2's
+3xTF32 tensor-core conv core; its header says what bounds it on an H100 and
+how its design handles that. K7 is deterministic: its statistics are summed
+from per-tile partials in a fixed order, with no atomics. Layouts are NHWC;
+conv weights HWIO, skip_w (C, O).
 
 `fused_unet_block` is a torch.autograd.Function: K7 for CUDA tensors, the
 plain version (`fused_unet_block_plain`, the two-stage composition of
@@ -46,7 +49,9 @@ from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
 Stats = Tuple[torch.Tensor, torch.Tensor]
 Out = Union[torch.Tensor, Tuple[torch.Tensor, Stats]]
 MAX_WIDTH = 128  # each of C1, C2 and O
-_TH, _TW = 8, 16  # the kernel's output tile: the partials buffer has one slot per tile
+# the kernel's work item: an output tile of 8 x 16 pixels and 64 channels
+# (the partials buffer has one slot per pixel tile)
+_TH, _TW, _BO = 8, 16, 64
 
 
 def _check_structure(x, x2, skip_w, w1, up):
@@ -105,6 +110,15 @@ def occupancy(up: bool = False) -> Tuple[int, int]:
     raise_on_error(fn(int(up), ctypes.addressof(per_sm), ctypes.addressof(sms)),
                    "mc_unet_block_occupancy")
     return per_sm.value, sms.value
+
+
+def grid(batch: int, h: int, w: int, o: int, up: bool = False) -> Tuple[int, int]:
+    """(items, blocks) of K7's launch for an output (batch, h, w, o): the
+    work items, and the persistent grid that walks them (at most the
+    co-resident blocks)."""
+    items = batch * -(-h // _TH) * -(-w // _TW) * -(-o // _BO)
+    per_sm, sms = occupancy(up)
+    return items, min(items, per_sm * sms)
 
 
 def _unet_block_kernel(x, g0, b0, w0, bias0, g1, b1, w1, bias1, groups0,

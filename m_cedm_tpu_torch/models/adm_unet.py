@@ -18,8 +18,10 @@ MCEDM_MEGA=1, adm_unet.py:198-242 and :571-616): with grad mode off, every
 block but the down blocks runs as one K7 call (`ops.unet_block`: both convs,
 the skip and the residual add; the up-block's upsample inside), a decoder
 block takes its encoder skip as a separate input with the halves' chained
-statistics, so the concat is never made, and the attention runs after the
-kernel. With gradients on, the model takes the per-conv path above.
+statistics (K1's statistics pass runs over a half whose producer emitted
+none, so the count is the per-conv path's), so the concat is never made, and
+the attention runs after the kernel. With gradients on, the model takes the
+per-conv path above.
 
 The same chained forward runs with gradients: every fused operation is a
 torch.autograd.Function whose backward is a kernel on the card, and the
@@ -91,6 +93,11 @@ class AdmUNetConfig:
         if self.dx_cond and self.cat_dx:
             c += self.in_channels
         return c
+
+
+def _channel_stats(ops: Ops, x: torch.Tensor) -> Stats:
+    """Per-(B, C) sums of an NHWC activation."""
+    return ops.channel_stats(x.reshape(x.shape[0], -1, x.shape[-1]))
 
 
 class UNetBlock(nn.Module):
@@ -276,6 +283,11 @@ class AdmUNet(nn.Module):
                 skip, skip_stats = skips.pop()
                 if mega:  # the megakernel reads the two halves unconcatenated
                     x2 = skip
+                    # where one half's statistics are known, K1's pass runs
+                    # over the other half alone, not over both
+                    if stats is not None or skip_stats is not None:
+                        stats = stats or _channel_stats(ops, x)
+                        skip_stats = skip_stats or _channel_stats(ops, skip)
                 else:
                     x = torch.cat([x, skip], dim=-1)
                 # channel stats of a concat are the concat of the halves'

@@ -712,8 +712,13 @@ def test_oformer_eval_and_train_step_on_the_card(cuda):
 
 # (B, H, W, C1, C2, O, up, proj, chained stats, emit); H, W are the input's.
 # Ragged row and column tiles, widths 8-128, a second 64-wide output tile,
-# both inputs at 128 (the kernel's limit), every variant the U-Net runs.
+# both inputs at 128 (the kernel's limit), every variant the U-Net runs; more
+# items (8 x 16 pixels x 64 channels) than the co-resident grid's 264
+# blocks, so each phase's persistent walk takes two rounds; an up-block with
+# a projection at an even size that no tile divides.
 K7_CASES = {
+    "multi-round": (6, 64, 128, 64, 0, 64, False, False, True, True),
+    "up-proj-chained-even": (2, 5, 9, 16, 0, 24, True, True, True, True),
     "identity-chained-emit": (2, 12, 20, 24, 0, 24, False, False, True, True),
     "dual-proj": (2, 10, 18, 16, 8, 40, False, True, False, True),
     "dual-identity": (1, 9, 17, 32, 32, 64, False, False, True, False),
@@ -780,6 +785,29 @@ def test_k7_matches_plain(cuda, case):
     # deterministic: no atomics anywhere in K7
     again = tfb.fused_unet_block(*args, *groups, 1e-5, **kw)
     for a, b_ in zip(_leaves(got), _leaves(again)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["multi-round", "up-proj-chained-even", "dual-proj"])
+def test_k7_repeats_bit_for_bit(cuda, case):
+    """K7 sums its statistics from per-tile partials in a fixed order, with
+    no atomics, so two calls give the same bits, outputs and emitted
+    statistics alike, also where the persistent grid walks its items in
+    more than one round."""
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    args, groups, kw = _k7_inputs(case, cuda, seed=32)
+    b, h, w = args[0].shape[:3]
+    items, blocks = tfb.grid(b, 2 * h if kw["up"] else h, 2 * w if kw["up"] else w,
+                             args[7].shape[-1], kw["up"])
+    if case == "multi-round":
+        assert items > blocks
+    first = tfb.fused_unet_block(*args, *groups, 1e-5, **kw)
+    again = tfb.fused_unet_block(*args, *groups, 1e-5, **kw)
+    got, want = _leaves(first), _leaves(again)
+    assert len(got) == (3 if kw["emit_stats"] else 1)
+    for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
 
 
@@ -887,6 +915,9 @@ def test_mega_unet_on_the_card(cuda):
     assert (mega["K7 unet_block"], mega["K2 gn_silu_conv"], mega["K2 narrow_conv"],
             mega["K3 gn_silu_up_conv"], mega["K4 attention"]) == (9, 2, 2, 0, 4)
     assert (per_conv["K7 unet_block"], per_conv["K3 gn_silu_up_conv"]) == (0, 1)
+    # K1's statistics pass where an input comes without statistics (after
+    # the attention sites): five on both paths
+    assert mega["K1 channel_stats"] == per_conv["K1 channel_stats"] == 5
     assert not any(plain.values())
 
 

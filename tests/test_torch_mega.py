@@ -201,15 +201,25 @@ def unets():
     return jm, params, mega, plain, (x, sigma, cond)
 
 
-def test_mega_unet_matches_jax_mega(unets, monkeypatch):
-    jm, params, mega, plain, (x, sigma, cond) = unets
-    monkeypatch.setenv("MCEDM_MEGA", "1")
-    traced = []  # the JAX U-Net's blocks that take its megakernel path
+@pytest.fixture(scope="module")
+def jax_mega(unets):
+    """The JAX U-Net's output with MCEDM_MEGA=1, and the `up` flag of each
+    of its blocks that took the megakernel path."""
+    jm, params, _, _, (x, sigma, cond) = unets
+    traced = []
     orig = jfb.fused_unet_block
-    monkeypatch.setattr(jfb, "fused_unet_block",
-                        lambda *a, **k: traced.append(k["up"]) or orig(*a, **k))
-    want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(sigma),
-                                        jnp.asarray(cond)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MCEDM_MEGA", "1")
+        mp.setattr(jfb, "fused_unet_block",
+                   lambda *a, **k: traced.append(k["up"]) or orig(*a, **k))
+        want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(sigma),
+                                            jnp.asarray(cond)))
+    return want, traced
+
+
+def test_mega_unet_matches_jax_mega(unets, jax_mega):
+    _, _, mega, plain, (x, sigma, cond) = unets
+    want, traced = jax_mega
     assert len(traced) == 9 and sum(traced) == 1  # every non-down block, one up
     with torch.no_grad():
         args = tuple(map(torch.from_numpy, (x, sigma, cond)))
@@ -247,6 +257,56 @@ def test_mega_routes_every_non_down_block_through_unet_block(unets):
         assert counts == {"unet_block": 0, "gn_silu_conv": 21, "gn_silu_up_conv": 1}
     finally:
         mega.ops = DEVICE_OPS
+
+
+def _stats_passes(name, args, kw):
+    """The K1 statistics passes an op runs on the card: channel_stats is
+    one; a kernel wrapper given no chained statistics runs one per input of
+    its norm (K7 with x2: two; K2's linear mode has no norm)."""
+    if name == "channel_stats":
+        return 1
+    if kw.get("stats") is not None:
+        return 0
+    if name == "unet_block":
+        return 2 if kw.get("x2") is not None else 1
+    if name == "gn_silu_conv":
+        return int(args[1] is not None)
+    return 1
+
+
+def test_mega_unet_runs_the_per_conv_paths_stats_passes(unets, jax_mega):
+    """A decoder block whose trunk or encoder skip comes with statistics
+    runs K1 over the other half alone, as the per-conv path runs it over
+    the concat once: five passes a forward on both paths (seven before,
+    when the known half's were dropped). The mega output still matches the
+    JAX U-Net with MCEDM_MEGA=1."""
+    _, _, mega, plain, (x, sigma, cond) = unets
+    names = ("channel_stats", "unet_block", "gn_silu_conv", "gn_silu_up_conv", "gn_silu")
+    passes = {}
+
+    def spy(model, path):
+        def wrap(name):
+            fn = getattr(DEVICE_OPS, name)
+
+            def call(*a, **k):
+                passes[path] += _stats_passes(name, a, k)
+                return fn(*a, **k)
+            return call
+        model.ops = dataclasses.replace(DEVICE_OPS, **{n: wrap(n) for n in names})
+
+    args = tuple(map(torch.from_numpy, (x, sigma, cond)))
+    outs = {}
+    try:
+        with torch.no_grad():
+            for path, model in (("mega", mega), ("per_conv", plain)):
+                passes[path] = 0
+                spy(model, path)
+                outs[path] = model(*args).numpy()
+    finally:
+        mega.ops = plain.ops = DEVICE_OPS
+    assert passes == {"mega": 5, "per_conv": 5}
+    want, _ = jax_mega
+    assert np.abs(outs["mega"] - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_build_backbone_takes_mega():

@@ -507,3 +507,135 @@ def test_measurement_variants_apply_to_their_sources(name):
     kernel's package source; the tool refuses it on the card otherwise."""
     kernel, old, _ = VARIANTS[name]
     assert (CSRC / KERNELS[kernel][0]).read_text().count(old) == 1
+
+
+# ---------------------------------------------------------------------------
+# K7, the whole block (csrc/fused_block.cu)
+# ---------------------------------------------------------------------------
+
+K7 = "fused_block.cu"
+TOL_MEGA = 4e-5  # chip_smoke.py's K7 tolerance, of max(1, scale)
+
+
+def k7_tile_partials(v):
+    """unet_block_kernel's per-item statistics of v (B, H, W, O): each
+    thread of a kTH x kTW tile adds its four pixels (row 2 rg + m, column
+    g + 8 h; m, then h), a butterfly over g (xor 1, 2, 4) adds the
+    threads of a row pair, then the four row pairs are added in order.
+    Returns (B, tiles, O), tiles in raster order."""
+    th, tw = _constant(K7, "kTH"), _constant(K7, "kTW")
+    b, h, wd, o = v.shape
+    vp = torch.nn.functional.pad(v, (0, 0, 0, -wd % tw, 0, -h % th))
+    ty, tx = vp.shape[1] // th, vp.shape[2] // tw
+    v8 = vp.reshape(b, ty, th // 2, 2, tx, 2, tw // 2, o).permute(0, 1, 4, 2, 3, 5, 6, 7)
+    s = torch.zeros(b, ty, tx, th // 2, tw // 2, o)
+    for m in range(2):
+        for hh in range(2):
+            s = s + v8[:, :, :, :, m, hh]
+    lanes = torch.arange(tw // 2)
+    for k in (1, 2, 4):
+        s = s + s[:, :, :, :, lanes ^ k]
+    total = torch.zeros(b, ty, tx, o)
+    for rg in range(th // 2):
+        total = total + s[:, :, :, rg, 0]
+    return total.reshape(b, ty * tx, o)
+
+
+def k7_reduce_partials(part):
+    """reduce_partials on (B, tiles, O): lane l of a warp adds tiles l,
+    l + 32, ... in order, then a butterfly (xor 16, 8, 4, 2, 1)."""
+    b, tiles, o = part.shape
+    lanes = torch.zeros(32, b, o)
+    for t in range(tiles):
+        lanes[t % 32] = lanes[t % 32] + part[:, t]
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[idx ^ off]
+    return lanes[0]
+
+
+def k7_act(x, sums, sumsq, gamma, beta, groups, cnt_pix, eps=1e-5):
+    """The staging pass's norm + SiLU: the group statistics folded with
+    gamma / beta into one fp32 scale and shift per channel."""
+    b, c = sums.shape
+    per = c // groups
+    gs, gss = (t.reshape(b, groups, per).sum(-1).repeat_interleave(per, -1)
+               for t in (sums, sumsq))
+    mean = gs / (cnt_pix * per)
+    var = torch.clamp(gss / (cnt_pix * per) - mean * mean, min=0.0)
+    a = gamma * torch.rsqrt(var + eps)
+    y = x * a[:, None, None] + (beta - a * mean)[:, None, None]
+    return y / (1 + torch.exp(-y))
+
+
+def k7_emulated(t, groups, up, mm):
+    """unet_block_kernel's arithmetic on the block's fp32 inputs `t`: conv0
+    of the activated xin on the conv core (fused_block.cu's kTempSteps),
+    norm1 folded from the per-item partials of h summed in the fixed order,
+    conv1 of the activated h with the 1x1 projection of xin in the same
+    accumulators, the biases and the skip added after; and the emitted
+    statistics of out, summed the same way."""
+    xin = torch.cat([t["x"]] + ([t["x2"]] if "x2" in t else []), -1)
+    b, hin, win, _ = xin.shape
+    act0 = k7_act(xin, xin.sum(dim=(1, 2)), (xin * xin).sum(dim=(1, 2)), t["g0"], t["b0"],
+                  groups[0], hin * win)
+    if up:
+        act0 = act0.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        xin = xin.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    h = conv_emulated(act0, t["w0"], None, None, mm, source=K7) + t["bias0"]
+    sums1 = k7_reduce_partials(k7_tile_partials(h))
+    sumsq1 = k7_reduce_partials(k7_tile_partials(h * h))
+    act1 = k7_act(h, sums1, sumsq1, t["g1"], t["b1"], groups[1], h.shape[1] * h.shape[2])
+    proj = "skip_w" in t
+    out = conv_emulated(act1, t["w1"], xin if proj else None, t.get("skip_w"), mm,
+                        source=K7) + t["bias1"]
+    out = out + t["skip_b"] if proj else out + xin
+    return [out, k7_reduce_partials(k7_tile_partials(out)),
+            k7_reduce_partials(k7_tile_partials(out * out))]
+
+
+# (B, H, W, C1, C2, O, up, proj), H and W the input's: the identity block,
+# the decoder's dual input with a projection, the up block with a
+# projection; no H or W a multiple of the 8 x 16 tile
+K7_EMU_CASES = [(2, 12, 20, 32, 0, 32, False, False), (2, 10, 18, 16, 8, 24, False, True),
+                (2, 5, 9, 16, 0, 24, True, True)]
+
+
+@pytest.mark.parametrize("case", K7_EMU_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_3xtf32_k7_keeps_fp32_accuracy(case, record_property):
+    """K7's two chained conv cores, emulated in the kernel's order and
+    accumulation with norm1 folded from fixed-order partials between them,
+    against the plain block in float64: output and emitted statistics
+    within K7's 4e-5 of scale; one TF32 pass recorded."""
+    from m_cedm_tpu_torch.kernels.fused_block import fused_unet_block_plain
+
+    b, h, wd, c1, c2, o, up, proj = case
+    c = c1 + c2
+    rs = np.random.RandomState(sum(case[:6]))
+
+    def rnd(*shape, sc=1.0, sh=0.0):
+        return torch.from_numpy((rs.randn(*shape) * sc + sh).astype(np.float32))
+
+    t = dict(x=rnd(b, h, wd, c1, sc=0.8, sh=0.3), g0=rnd(b, c, sc=0.3, sh=1.0),
+             b0=rnd(b, c, sc=0.3), w0=rnd(3, 3, c, o, sc=1.0 / math.sqrt(9 * c)),
+             bias0=rnd(o, sc=0.3), g1=rnd(b, o, sc=0.3, sh=1.0), b1=rnd(b, o, sc=0.3),
+             w1=rnd(3, 3, o, o, sc=1.0 / math.sqrt(9 * o)), bias1=rnd(o, sc=0.3))
+    if c2:
+        t["x2"] = rnd(b, h, wd, c2, sc=0.8, sh=0.3)
+    if proj:
+        t["skip_w"], t["skip_b"] = rnd(c, o, sc=1.0 / math.sqrt(c)), rnd(o, sc=0.3)
+    groups = (4, 4)
+    args = [t[k].double() for k in ("x", "g0", "b0", "w0", "bias0", "g1", "b1", "w1",
+                                    "bias1")]
+    out, stats = fused_unet_block_plain(
+        *args, *groups, 1e-5, emit_stats=True, up=up,
+        **{k: t[k].double() for k in ("x2", "skip_w", "skip_b") if k in t})
+    want = [out, *stats]
+    errs = {name: max(rel_err(a, w) for a, w in zip(k7_emulated(t, groups, up, mm), want,
+                                                    strict=True))
+            for name, mm in (("3x", _mm_3x), ("1x", _mm_1x))}
+    record_property("err_3xtf32", errs["3x"])
+    record_property("err_1xtf32", errs["1x"])
+    print(f"K7 {case} vs float64, of scale: 3xTF32 {errs['3x']:.2e}, "
+          f"1xTF32 {errs['1x']:.2e}")
+    assert errs["3x"] <= TOL_MEGA
