@@ -30,7 +30,11 @@ Phases, each printing JSON lines:
               fp32 one, and for the activated modes conv2d's backward of
               the conv alone as labelled context (not the same function);
               the narrow backward (the out conv) also called directly
-              beside K2's dgrad and wgrad on the same operands
+              beside K2's dgrad and wgrad on the same operands; K1's
+              backward at res 128 and 64, also called directly, two calls
+              asserted to give the same bits, with ATen's
+              native_group_norm_backward on the precomputed dy * gamma as
+              labelled context (no SiLU derivative: not the same function)
   4. eval     McedmTask.eval_step for mask task "u" at B = 16 with the
               flagship sampler (50 Heun steps, S_churn 15) on seeded synthetic
               shallow-water fields, on the kernel path with every launch
@@ -41,7 +45,8 @@ Phases, each printing JSON lines:
   5. train    McedmTask.train_step at B = 16, full width and depth: three
               steps from one state on the kernel path (launch counters read)
               and on the plain path, loss, gradient norm, params and EMA held
-              to each other, K2's launches per step asserted; then ms per step on both paths (median of the
+              to each other, K1's backward and K2's launches per step
+              asserted; then ms per step on both paths (median of the
               timed steps after warm-up) and one profiled kernel-path step
   6. linear   K5 kv_dots and K6 apply_dots, the OFormer's linear attention,
               at its two shapes (BH = 16 and 64 head-batches, N = 16,384,
@@ -294,6 +299,9 @@ FLAGSHIP_KERNELS = tuple(k for k in KERNEL_INFO
 # and K2's backward kernels for the other 29 (conv_in among them).
 NARROW_PER_FORWARD, K2_PER_FORWARD = 2, 28
 K2_BWD_PER_STEP, NARROW_BWD_PER_STEP = 29, 1
+# K1's backward: norm0 of the two down blocks (res 128 and 64) and the out
+# head's norm (res 128)
+K1_BWD_PER_STEP = 3
 # With mega=True: K7 runs the 13 blocks that are not down blocks (three
 # encoder blocks, the two middle blocks, six decoder blocks, two up blocks);
 # K2 the two down blocks' two convs, the narrow kernel conv_in and out_conv;
@@ -749,18 +757,60 @@ def phase_backward(device, b: int, res: int, ch: int) -> dict:
                 {k: rec[k] for k in ACT_FALSE_KEYS if k in rec})
         return rec
 
-    # K1 backward: the down-block prefix and the out-head norm, (B, N, C)
-    n = res * res
-    x = rnd(b, n, ch, scale=0.8, shift=0.2)
-    gamma, beta = fold(ch)
+    def k1_bwd_calls(x, gamma, beta, stats):
+        """K1's backward kernel called directly (no autograd), twice for the
+        same bits; and, as labelled context (not the same function: it has
+        no SiLU derivative and one gamma for the batch), ATen's GroupNorm
+        backward on the precomputed cotangent of the affine output, dy *
+        gamma, in NCHW, with its dx held to the kernel's."""
+        with torch.no_grad():
+            xd, gd, bd = x.detach(), gamma.detach(), beta.detach()
+            bb, n, c = xd.shape
+            cot = torch.randn(xd.shape, generator=g, device=device)
+            once = fn.gn_silu_bwd(cot, xd, gd, bd, stats, gr)
+            again = fn.gn_silu_bwd(cot, xd, gd, bd, stats, gr)
+            if not all(torch.equal(a, a2) for a, a2 in zip(once, again, strict=True)):
+                raise AssertionError("K1 backward: two calls gave different bits")
+            rec = {"kernel_call_ms": cuda_ms(
+                lambda: fn.gn_silu_bwd(cot, xd, gd, bd, stats, gr)), "same_bits": True}
+            mean, rstd = fn.group_mean_rstd(xd, gr, 1e-5)
+            xhat = (xd - mean[:, None]) * rstd[:, None]
+            da = cot * fn.silu_grad(xhat * gd[:, None] + bd[:, None]) * gd[:, None]
+            da_t, x_t = (t.transpose(1, 2).contiguous() for t in (da, xd))
+            mean_g = mean.reshape(bb, gr, -1)[..., 0].contiguous()
+            rstd_g = rstd.reshape(bb, gr, -1)[..., 0].contiguous()
+            ones = torch.ones(c, device=device)
+
+            def context():
+                return torch.ops.aten.native_group_norm_backward(
+                    da_t, x_t, mean_g, rstd_g, ones, bb, c, n, gr, [True, True, True])
+            rec["context_ms"] = cuda_ms(context)
+            rec["context"] = ("torch.ops.aten.native_group_norm_backward on dy * gamma "
+                              "(NCHW; no SiLU derivative, one gamma for the batch)")
+            rec["context_dx_max_rel_err"] = compare(
+                context()[0].transpose(1, 2), once[0], 1.0, "K1 backward context dx")[
+                    "max_rel_err"]
+        return rec
+
+    # K1 backward: the down blocks' norm0 at res and res/2, the out-head
+    # norm at res; (B, N, C)
     gr = adm_groups(ch)
-    with torch.no_grad():
-        stats = fn.channel_stats_plain(x)
-    check("K1 gn_silu_bwd", "chained stats",
-          lambda *a: fn.gn_silu(*a, gr, stats=stats),
-          lambda *a: fn.gn_silu_plain(*a, gr), (x, gamma, beta),
-          work=(nbytes(x, x, x, gamma, beta, *stats, gamma, beta),
-                20.0 * x.numel()))
+    for r in (res, res // 2):
+        x = rnd(b, r * r, ch, scale=0.8, shift=0.2)
+        gamma, beta = fold(ch)
+        with torch.no_grad():
+            stats = fn.channel_stats_plain(x)
+        rec = check("K1 gn_silu_bwd", f"chained stats, res {r}",
+                    lambda *a, st=stats: fn.gn_silu(*a, gr, stats=st),
+                    lambda *a: fn.gn_silu_plain(*a, gr), (x, gamma, beta),
+                    work=(nbytes(x, x, x, gamma, beta, *stats, gamma, beta),
+                          20.0 * x.numel()),
+                    extra=lambda x=x, gamma=gamma, beta=beta, st=stats: k1_bwd_calls(
+                        x, gamma, beta, st))
+        if r != res:
+            results["K1 gn_silu_bwd"]["at_res_64"] = {
+                k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "max_rel_err",
+                                    "kernel_call_ms", "context_ms")}
 
     # K2 backward, every mode of the train step at its flagship shape
     def conv_w(ci, co):
@@ -1146,9 +1196,10 @@ def phase_train(device, hparams, params, b: int) -> dict:
     want = {"K2 narrow_conv": NARROW_PER_FORWARD * TRAIN_STEPS,
             "K2 gn_silu_conv": K2_PER_FORWARD * TRAIN_STEPS,
             "K2 narrow_conv_bwd": NARROW_BWD_PER_STEP * TRAIN_STEPS,
-            "K2 gn_silu_conv_bwd": K2_BWD_PER_STEP * TRAIN_STEPS}
+            "K2 gn_silu_conv_bwd": K2_BWD_PER_STEP * TRAIN_STEPS,
+            "K1 gn_silu_bwd": K1_BWD_PER_STEP * TRAIN_STEPS}
     if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"{TRAIN_STEPS} train steps: K2 launches "
+        raise AssertionError(f"{TRAIN_STEPS} train steps: K1 / K2 launches "
                              f"{ {k: launches[k] for k in want} }, expected {want}")
 
     n = TRAIN_WARMUP + TRAIN_TIMED  # in turns: kernel path, then plain path
@@ -1754,7 +1805,8 @@ def main() -> int:
         for key in ("kernel_call_ms", "old_route_ms", "old_route_call_ms",
                     "bound_fp32_ms", "act_false_modes", "backward_ms",
                     "backward_library_ms", "backward_bound_ms", "wgrad_call_ms",
-                    "dgrad_call_ms", "conv2d_conv_only_bwd_ms"):
+                    "dgrad_call_ms", "conv2d_conv_only_bwd_ms", "context_ms",
+                    "at_res_64"):
             if key in rec:
                 row[key] = rec[key]
         if name in OFORMER_KERNELS:

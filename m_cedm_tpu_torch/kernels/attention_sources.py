@@ -1,7 +1,7 @@
-"""Time K4, K6, K2/K3, their backward, K5 or K7 built from other CUDA sources beside the package's own, on one card.
+"""Time K4, K6, K2/K3, their backward, K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k6|k2|k2bwd|k5|k7] [--variant NAME ...] [--sass DIR]
+        [--kernel k4|k6|k2|k2bwd|k5|k7|k1bwd] [--variant NAME ...] [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
 
 Every source exports the C entry points of the kernel's package source with
@@ -45,6 +45,17 @@ parent commit's csrc file unpacked with `git archive`), and each
       given; beside it, once, the two-kernel path (K2 conv0 emitting its
       statistics, then the K2 tail; K3 then K2 for the up block) through the
       package's wrappers on the same inputs, and each case's items and grid.
+
+  k1bwd  `mc_gn_silu_bwd` (csrc/fused_norm.cu), K1's backward, at the
+      flagship train step's shapes (B = 16, C = 64, 16 groups, N = 128^2
+      and 64^2), each output against float64 and for the same bits on a
+      repeat; the bound and the slab plan of each case, and for a source of
+      this package's interface (it exports `mc_gn_silu_bwd_occupancy`) its
+      ring stages, shared memory and co-resident blocks. A source without
+      it, such as the parent's two-pass kernels, is called through its own
+      interface (zeroed dgamma / dbeta it adds into with atomics).
+      csrc/variants/k1_bwd_l2_chunks.cu, given as a file, is the two-pass
+      alternative launched per chunk of samples that fits in L2.
 
   mma  no source: the rate of TF32 mma.sync.m16n8k8 with fp32 accumulation
       on this card, from a kernel that issues nothing else (eight
@@ -123,6 +134,23 @@ VARIANTS = {
     # K5's partial sums added after each k-step instead of after a 64-row stage
     "k5_temp_steps_1": ("k5", "constexpr int kKvTempSteps = 8;",
                         "constexpr int kKvTempSteps = 1;"),
+    # K1's backward with one stage kept free for the copies ahead, not two
+    # (pass B trailing by two samples where the ring holds three, at res 128)
+    "k1bwd_min_lead_1": ("k1bwd", "constexpr int kBwdMinLead = 2;",
+                         "constexpr int kBwdMinLead = 1;"),
+    # ... with three, five or six stages at least, not four (at res 128 three
+    # hold whole slabs; with more, a slab's last rows come from device
+    # memory in both passes)
+    "k1bwd_min_stages_3": ("k1bwd", "constexpr int kBwdMinStages = 4;",
+                           "constexpr int kBwdMinStages = 3;"),
+    "k1bwd_min_stages_5": ("k1bwd", "constexpr int kBwdMinStages = 4;",
+                           "constexpr int kBwdMinStages = 5;"),
+    "k1bwd_min_stages_6": ("k1bwd", "constexpr int kBwdMinStages = 4;",
+                           "constexpr int kBwdMinStages = 6;"),
+    # ... with a group's finish keeping 16 loads of 16 bytes in flight a lane,
+    # not 8
+    "k1bwd_finish_batch_16": ("k1bwd", "constexpr int kBatch = U == 4 ? 8 : 16;",
+                              "constexpr int kBatch = 16;"),
     # K7's partial sums added into the fp32 accumulator after each tap
     "k7_temp_steps_1": ("k7", "constexpr int kTempSteps = 9;", "constexpr int kTempSteps = 1;"),
     # diagnostics, not kernels: K7 with the 3x3 products of both phases left
@@ -141,8 +169,10 @@ KERNELS = {
                                   "mc_gn_silu_up_conv": [P] * 10 + [I] * 6 + [F, P]}),
     "k5": ("linear_attention.cu", {"mc_kv_dots": [P] * 4 + [I] * 6 + [P]}),
     "k7": ("fused_block.cu", {"mc_unet_block": [P] * 22 + [I] * 8 + [F, I, P]}),
-    # two interfaces (see _time_k2bwd): argument types are set per library
+    # two interfaces (see _time_k2bwd, _time_k1bwd): argument types are set
+    # per library
     "k2bwd": ("fused_norm_conv_bwd.cu", {}),
+    "k1bwd": ("fused_norm.cu", {}),
     "mma": (None, {}),
 }
 K6_BH, K6_N, K6_W = (16, 64), 16384, 128
@@ -232,7 +262,8 @@ def main(argv=None) -> int:
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
         return {"k6": _time_k6, "k2": _time_k2, "k2bwd": _time_k2bwd,
-                "k5": _time_k5, "k7": _time_k7}[args.kernel](libs, ptxas)
+                "k5": _time_k5, "k7": _time_k7,
+                "k1bwd": _time_k1bwd}[args.kernel](libs, ptxas)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -845,6 +876,109 @@ def _time_k7(libs, ptxas) -> int:
             got = [t["out"]] + ([t["osums"], t["osumsq"]] if t["osums"] is not None else [])
             errs[name][f"err {case}"] = max(_rel(a, w) for a, w in zip(got, c["want"],
                                                                      strict=True))
+    _report(libs, ptxas, calls, errs)
+    return 0
+
+
+K1_BWD_RES = (128, 64)
+
+
+def _time_k1bwd(libs, ptxas) -> int:
+    """mc_gn_silu_bwd of every source at the train step's shapes (B 16, C 64,
+    16 groups, N = 128^2 and 64^2), checked against float64 and for the same
+    bits on a repeat, then timed (the zeroing of its counters, or of the
+    parent's atomic outputs, inside the timed call, as the wrapper allocates
+    them); each case's bound and, for this package's interface, its plan."""
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, c, groups, eps = K2_B, K2_CH, 16, 1e-5
+    # this package's interface: scratch, counters and the slab plan; the
+    # parent's: zeroed dgamma / dbeta that it adds into with atomics
+    new_if = {name: hasattr(lib, "mc_gn_silu_bwd_occupancy") for name, (lib, _) in libs.items()}
+    for name, (lib, _) in libs.items():
+        lib.mc_gn_silu_bwd.argtypes = ([P] * 11 + [I] * 4 + [F, I, I, P] if new_if[name]
+                                       else [P] * 9 + [I] * 4 + [F, P])
+        if new_if[name]:
+            lib.mc_gn_silu_bwd_occupancy.argtypes = [I, I, I] + [P] * 6
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    cases, info = {}, {}
+    for res in K1_BWD_RES:
+        n = res * res
+        x, g = rnd(b, n, c, scale=0.8, shift=0.2), rnd(b, n, c)
+        gamma, beta = rnd(b, c, scale=0.3, shift=1.0), rnd(b, c, scale=0.3)
+        sums, sumsq = fn.channel_stats_plain(x)
+        mean, rstd = fn.group_mean_rstd_from_sums(sums.double(), sumsq.double(), n,
+                                                  groups, eps)
+        x64, gm64 = x.double(), gamma.double()
+        xhat = (x64 - mean[:, None]) * rstd[:, None]
+        dy = g.double() * fn.silu_grad(xhat * gm64[:, None] + beta.double()[:, None])
+        dgamma, dbeta = (dy * xhat).sum(dim=1), dy.sum(dim=1)
+        want = [fn.dx_from_da(x64, dy, gm64, dgamma, dbeta, mean, rstd, groups),
+                dgamma, dbeta]
+        case = f"res {res}"
+        cases[case] = dict(args=(x, g, gamma, beta, sums, sumsq), n=n, want=want)
+        slabs, rows = fn.bwd_plan(n, c, sms)
+        info[case] = {"bound_ms": 3 * x.numel() * 4 / 3.35e12 * 1e3,
+                      "slabs": slabs, "rows": rows}
+
+    def call(name, lib, cs):
+        x, g, gamma, beta, sums, sumsq = cs["args"]
+        n = cs["n"]
+        dx, dgam, dbet = torch.empty_like(x), x.new_empty(b, c), x.new_empty(b, c)
+        ptrs = [t.data_ptr() for t in (x, g, gamma, beta, sums, sumsq, dgam, dbet, dx)]
+        if new_if[name]:
+            slabs, rows = fn.bwd_plan(n, c, sms)
+            scratch = x.new_empty(b * slabs * -(-2 * c // 4) * 4)
+            sync = torch.zeros(-(-b // 2) * 2 + 4 * b * groups, device=dev, dtype=torch.int32)
+
+            def run():
+                sync.zero_()
+                return lib.mc_gn_silu_bwd(*ptrs, scratch.data_ptr(), sync.data_ptr(), b, n,
+                                          c, groups, eps, slabs, rows, stream)
+        else:
+            def run():
+                dgam.zero_()
+                dbet.zero_()
+                return lib.mc_gn_silu_bwd(*ptrs, b, n, c, groups, eps, stream)
+
+        def checked():
+            rc = run()
+            if rc:
+                raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+        return checked, (dx, dgam, dbet)
+
+    for name, (lib, _) in libs.items():
+        if new_if[name]:
+            for case, cs in cases.items():
+                vals = [ctypes.c_int(0) for _ in range(6)]
+                rc = lib.mc_gn_silu_bwd_occupancy(
+                    c, groups, info[case]["rows"], *[ctypes.addressof(v) for v in vals])
+                if rc:
+                    raise RuntimeError(f"{name}: occupancy query failed with cudaError {rc}")
+                info[case][name] = dict(zip(("stages", "lag", "smem_rows", "smem_bytes",
+                                             "per_sm", "sms"), (v.value for v in vals)))
+    print(json.dumps({"k1bwd_cases": info}), flush=True)
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for case, cs in cases.items():
+            fn_, outs = call(name, lib, cs)
+            fn_()
+            torch.cuda.synchronize()
+            first = [t.clone() for t in outs]
+            fn_()
+            torch.cuda.synchronize()
+            errs[name][f"err {case}"] = max(_rel(a, w) for a, w in zip(outs, cs["want"]))
+            errs[name][f"same bits {case}"] = all(torch.equal(a, a2)
+                                                  for a, a2 in zip(first, outs))
+            calls[name][case] = fn_
     _report(libs, ptxas, calls, errs)
     return 0
 

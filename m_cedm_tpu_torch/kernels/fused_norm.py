@@ -163,23 +163,63 @@ def _gn_silu_kernel(x, gamma, beta, sums, sumsq, num_groups, eps):
     return out
 
 
+# K1's backward: one cooperative launch of two blocks an SM (one above
+# BWD_WIDE_CHANNELS channels, whose blocks take twice the shared memory),
+# each sample's rows cut into one slab per block (csrc/fused_norm.cu)
+BWD_WIDE_CHANNELS = 1024
+BWD_MAX_CHANNELS = 2048
+
+
+def bwd_plan(n: int, c: int, sms: int) -> Tuple[int, int]:
+    """(slabs, rows) of the backward's launch: each sample's n rows cut into
+    `slabs` runs of `rows` rows (the last ragged, none empty), one per block
+    of a grid of at most two blocks (one above BWD_WIDE_CHANNELS channels) on
+    each of `sms` SMs."""
+    per_sm = 1 if c > BWD_WIDE_CHANNELS else 2
+    rows = -(-n // min(per_sm * sms, n))
+    return -(-n // rows), rows
+
+
+_PLANS = {}
+
+
+def _plan(n: int, c: int, device: torch.device) -> Tuple[int, int]:
+    """bwd_plan for the card of `device`, kept per shape."""
+    key = (n, c, device.index)
+    if key not in _PLANS:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _PLANS[key] = bwd_plan(n, c, sms)
+    return _PLANS[key]
+
+
 def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
                 eps: float = 1e-5):
-    """K1 backward kernels on the card (grad-stats, then grad-apply): (dx,
-    dgamma, dbeta), with `stats` the (sums, sumsq) the forward used."""
+    """K1's backward kernel on the card: (dx, dgamma, dbeta), with `stats`
+    the (sums, sumsq) the forward used. x and g are read once and dx written
+    once; dgamma and dbeta are summed in a fixed order (bit for bit on a
+    repeat)."""
     b, n, c = x.shape
     dev = x.device
     for name, t, shape in (("g", g, (b, n, c)), ("x", x, (b, n, c)),
                            ("gamma", gamma, (b, c)), ("beta", beta, (b, c)),
                            ("sums", stats[0], (b, c)), ("sumsq", stats[1], (b, c))):
         check(t, name, shape, dev)
-    dgamma = torch.zeros((b, c), device=dev, dtype=torch.float32)
-    dbeta = torch.zeros_like(dgamma)
+    if c % num_groups or c > BWD_MAX_CHANNELS:
+        raise ValueError(f"K1's backward takes up to {BWD_MAX_CHANNELS} channels "
+                         f"in whole groups; got {c} in {num_groups}")
+    slabs, rows = _plan(n, c, dev)
+    # per-slab partials; the arrival counters, then each group's m1 and m2 as
+    # tagged words
+    scratch = torch.empty(b * slabs * -(-2 * c // 4) * 4, device=dev, dtype=torch.float32)
+    sync = torch.zeros(-(-b // 2) * 2 + 4 * b * num_groups, device=dev, dtype=torch.int32)
+    dgamma = torch.empty((b, c), device=dev, dtype=torch.float32)
+    dbeta = torch.empty_like(dgamma)
     dx = torch.empty_like(x)
-    fn = _build.bind("fused_norm", "mc_gn_silu_bwd", [P] * 9 + [I] * 4 + [F, P])
+    fn = _build.bind("fused_norm", "mc_gn_silu_bwd", [P] * 11 + [I] * 4 + [F, I, I, P])
     raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(stats[0]),
-                      ptr(stats[1]), ptr(dgamma), ptr(dbeta), ptr(dx), b, n, c,
-                      num_groups, eps, stream()), "mc_gn_silu_bwd")
+                      ptr(stats[1]), ptr(dgamma), ptr(dbeta), ptr(dx), ptr(scratch),
+                      ptr(sync), b, n, c, num_groups, eps, slabs, rows, stream()),
+                   "mc_gn_silu_bwd")
     gn_silu_bwd.launches += 1
     return dx, dgamma, dbeta
 

@@ -636,6 +636,74 @@ def test_k3_tensor_core_backward(cuda, shape):
             for _ in range(2)))
 
 
+# K1's backward (B, N, C, groups): ragged N (no multiple of the slabs), C 8 to
+# 128 with 2 to 32 groups, B 1 to 16; C 6 takes 4-byte copies (C % 4 != 0);
+# C 2048 (wider than a block's lanes) holds no slab row in shared memory; N
+# 512 * 512 at B 1 is a slab beyond the shared-memory ring (its rest read
+# twice from device memory); N 100 fewer rows than blocks
+K1_BWD_CASES = [(3, 1000, 8, 2), (1, 4099, 32, 8), (16, 4096, 64, 16),
+                (3, 5001, 128, 32), (16, 100, 64, 32), (2, 777, 6, 3),
+                (2, 300, 2048, 32), (1, 512 * 512, 64, 16)]
+
+
+def _k1_bwd_inputs(case, dev, seed):
+    b, n, c, groups = case
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, sc=1.0, sh=0.0):
+        return torch.from_numpy((rs.randn(*shape) * sc + sh).astype(np.float32)).to(dev)
+
+    x, g = t(b, n, c, sc=0.8, sh=0.3), t(b, n, c)
+    return x, g, t(b, c, sc=0.3, sh=1.0), t(b, c, sc=0.3), groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_k1_backward_matches_float64(cuda, case):
+    """K1's one-pass backward against its plain version in float64: dx,
+    dgamma and dbeta each within 1e-5 of its scale; a second call gives the
+    same bits (the sums are per-slab partials added in a fixed order); each
+    call counts one launch."""
+    x, g, gamma, beta, groups = _k1_bwd_inputs(case, cuda, seed=50)
+    stats = (x.sum(1), (x * x).sum(1))
+    want = tfn.gn_silu_bwd_plain(*(t.double() for t in (g, x, gamma, beta)), groups)
+    kernels.reset_launches()
+    got = tfn.gn_silu_bwd(g, x, gamma, beta, stats, groups)
+    _assert_grads(got, want, tol=TOL_BWD64)
+    _same(got, tfn.gn_silu_bwd(g, x, gamma, beta, stats, groups))
+    assert kernels.launches()["K1 gn_silu_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_k1_backward_refuses_what_it_does_not_take(cuda):
+    """Channels that do not split into the groups, or too many, raise; so
+    does a grid of more slabs than the card keeps co-resident (the
+    cooperative launch is never shrunk)."""
+    from m_cedm_tpu_torch.kernels import _build
+    from m_cedm_tpu_torch.kernels._launch import F, I, P
+
+    x, g, gamma, beta, _ = _k1_bwd_inputs((2, 300, 12, 3), cuda, seed=51)
+    stats = (x.sum(1), (x * x).sum(1))
+    with pytest.raises(ValueError, match="whole groups"):
+        tfn.gn_silu_bwd(g, x, gamma, beta, stats, 5)
+    wide = torch.zeros(1, 4, 4096, device=cuda)
+    with pytest.raises(ValueError, match="2048 channels"):
+        tfn.gn_silu_bwd(wide, wide, wide[:, 0], wide[:, 0], (wide[:, 0], wide[:, 0]), 32)
+    n, rows = 100_000, 2
+    slabs = n // rows
+    b, c = 1, 12
+    x, g = torch.randn(b, n, c, device=cuda), torch.randn(b, n, c, device=cuda)
+    vec = torch.zeros(b, c, device=cuda)
+    outs = [torch.empty(b, c, device=cuda), torch.empty(b, c, device=cuda), torch.empty_like(x)]
+    scratch = torch.empty(b * slabs * 24, device=cuda)
+    sync = torch.zeros(2 + 4 * b * 3, device=cuda, dtype=torch.int32)
+    fn = _build.bind("fused_norm", "mc_gn_silu_bwd", [P] * 11 + [I] * 4 + [F, I, I, P])
+    rc = fn(x.data_ptr(), g.data_ptr(), *[vec.data_ptr()] * 4, *[t.data_ptr() for t in outs],
+            scratch.data_ptr(), sync.data_ptr(), b, n, c, 3, 1e-5, slabs, rows,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 720  # cudaErrorCooperativeLaunchTooLarge
+
+
 # (BH, N, D, E): N no multiple of the 64-row stage; D and E under 128 and no
 # multiples of 8; one split a head-batch (BH 70 on 132 SMs, or N <= 128)
 # and many (up to 129)

@@ -343,3 +343,21 @@ def test_kernel_modules_build_lazily(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("c", [64, 2048])
+def test_k1_backward_plan_covers_every_row_once(sms, c):
+    """K1's backward cuts each sample's rows into one slab per block: the
+    slabs cover every row once, none is empty, and the grid stays within the
+    blocks the card keeps co-resident (two an SM, one above
+    BWD_WIDE_CHANNELS channels)."""
+    per_sm = 1 if c > tfn.BWD_WIDE_CHANNELS else 2
+    for n in (1, 7, 263, 264, 265, 4096, 16384, 100_003, 512 * 512):
+        slabs, rows = tfn.bwd_plan(n, c, sms)
+        assert 1 <= slabs <= per_sm * sms
+        starts = [s * rows for s in range(slabs)]
+        ends = [min(n, st + rows) for st in starts]
+        assert starts[0] == 0 and ends[-1] == n
+        assert all(e > s for s, e in zip(starts, ends))
+        assert all(e == s2 for e, s2 in zip(ends, starts[1:]))
