@@ -86,12 +86,35 @@ Phases, each printing JSON lines:
               kernel path with mega=True and on the plain path: metrics
               within 1e-4, the sample of both paths within 1e-4 of scale,
               launches asserted, samples/s of both
+  12. cli     the flagship through the port's entry points at full width and
+              depth: m_cedm_tpu_torch.run on
+              configs/config_adm_edm_mcedm_res32.yaml with system=swe_per on
+              seeded shallow-water fields at res 128 (64 train and 16 test
+              trajectories, written as h5 where h5py is installed, else
+              served to the datamodule as in-memory stores), one epoch of 2
+              steps at batch 32, validation, the test (50 Heun steps,
+              S_churn 15, n_samples 5 folded into one sampler call); a
+              resume to epoch 2; m_cedm_tpu_torch.eval_model on the resumed
+              run. Every logged metric finite, the metric keys the JAX
+              package's, the resumed run trains epoch 1 only, eval_model's
+              test metrics within 1e-4 of the run's, launches per train step
+              and per U-Net forward as in phases 4 and 5; seconds of the
+              three, ms per train step, the test's samples/s, the
+              checkpoint's MB. Then every flagship kernel against its
+              plain version at the CLI's shapes: the fit's checkpoint
+              restored into the kernel path and the plain path, one train
+              step on the CLI's B = 32 batch (loss and gradient norm within
+              1e-4, params within 2 lr) and the test eval at batch 80
+              (metrics and mean sample within 1e-4); and the folding
+              itself: phase 4's eval with 5 members and fixed noise, its
+              mean sample within 1e-4 of scale of 5 single-member evals
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
 kernel-path train steps of phase 5; K5 and K6 in one OFormer eval of phase 7,
 with their launches per OFormer train step beside; K7 in the mega eval of
-phase 10, with phase 11's beside), the nvidia-smi line, and the last line
+phase 10, with phase 11's beside; every flagship kernel's launches in phase
+12 as `launches_cli`), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
@@ -1764,6 +1787,343 @@ def phase_cond_edm(device, b: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the CLI
+# ---------------------------------------------------------------------------
+
+CLI_CONFIG = "config_adm_edm_mcedm_res32.yaml"
+CLI_TRAIN, CLI_TEST = 64, 16  # trajectories at res 128 (T = X = 128)
+# The metric keys of the flagship's metrics.jsonl, as the JAX package's
+# run.main writes them, written down from one JAX run with
+# trainer.max_epochs=1 on tests/test_cli.py's fixtures (about 70 s on the CPU);
+# tests/test_torch_cli.py holds the port's CLI on the CPU to this set
+FLAGSHIP_METRIC_KEYS = frozenset({
+    "epoch", "time", "epoch_time_s", "train_loss",
+    "val_mae_u", "val_mae_u_un", "val_pde_loss_u", "val_pde_loss_gt",
+    "val_mae_h", "val_mae_h_un", "val_pde_loss_h",
+    "test_mae_u", "test_mae_u_un", "test_pde_loss_u", "test_pde_loss_gt",
+    "test_mae_h", "test_mae_h_un", "test_pde_loss_h",
+})
+# eval_model against the resumed run's own test: the same checkpoint and
+# seeds; K1's statistics sum through fp32 atomics in another order each run
+TOL_CLI = 1e-4
+
+
+def cli_stores(res: int):
+    """The phase's seeded shallow-water fields as train and test trajectory
+    stores, on the swe_per grid (x in [-0.5, 0.5], t in [0, 0.128])."""
+    from m_cedm_tpu_torch.data.h5_io import TrajectoryStore, store_stats
+
+    rs = np.random.RandomState(SEED + 20)
+    x = np.linspace(-0.5, 0.5, res, dtype=np.float32)
+    t = np.linspace(0.0, 0.128, res, dtype=np.float32)
+    stores = {}
+    for split, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+        h, _, _, u = synthetic_swe_batch(rs, n, res)
+        attrs = {k: np.asarray(v, np.float32) for k, v in store_stats(h, u).items()}
+        stores[split] = TrajectoryStore(inputs=h, targets=u, x=np.tile(x, (n, 1)),
+                                        t=np.tile(t, (n, 1)), consts={}, attrs=attrs)
+    return stores
+
+
+class CliProbe:
+    """For the phase, McedmTask.train_step and eval_step record each call:
+    host-clock seconds between torch.cuda.synchronize() calls, the kernel
+    launches it made, and (eval) its U-Net forwards and samples."""
+
+    def __init__(self):
+        from m_cedm_tpu_torch.tasks.diffusion import McedmTask
+
+        self.cls = McedmTask
+        self.steps, self.evals = [], []
+
+    def _wrap(self, fn, records, is_eval):
+        import torch
+
+        from m_cedm_tpu_torch import kernels
+
+        def wrapped(task, *args, **kw):
+            torch.cuda.synchronize()
+            before, calls = kernels.launches(), task.model.calls
+            t0 = time.perf_counter()
+            out = fn(task, *args, **kw)
+            torch.cuda.synchronize()
+            rec = {"s": time.perf_counter() - t0,
+                   "launches": {k: v - before[k] for k, v in kernels.launches().items()}}
+            if is_eval:
+                rec.update(split=kw.get("split"), forwards=task.model.calls - calls,
+                           samples=int(args[1][0].shape[0]) * kw.get("n_samples", 1))
+            records.append(rec)
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        self.saved = self.cls.train_step, self.cls.eval_step
+        self.cls.train_step = self._wrap(self.saved[0], self.steps, False)
+        self.cls.eval_step = self._wrap(self.saved[1], self.evals, True)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step, self.cls.eval_step = self.saved
+
+
+def read_metrics(run_dir: str) -> list:
+    import os
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [(r["epoch"], k) for r in recs for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{run_dir}: non-finite metrics {bad}")
+    return recs
+
+
+def folded_ensemble_check(device, hparams, params, n: int) -> dict:
+    """The test ensemble folded into the batch against its members sampled
+    one by one, on the card: McedmTask.eval_step at B = 16 with n members and
+    the same explicit noise, its mean sample against the mean of n
+    single-member evals (each kernel computes per sample, K1's statistics
+    per sample and group, so only the summation order may differ)."""
+    import torch
+
+    from m_cedm_tpu_torch.tasks import build_task
+
+    batch, mask, stats = flagship_eval_data(device, hparams, BATCH)
+    task = build_task(hparams, device)
+    state = task.init_state(None, stats, params=params)
+    steps = hparams["sampler"]["timesteps"]
+    shape = (BATCH,) + tuple(mask.shape)
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    cond = torch.randn(shape, generator=gen, device=device)
+    init = torch.randn((n,) + shape, generator=gen, device=device)
+    churn = torch.randn((n, steps) + shape, generator=gen, device=device)
+
+    def run_eval(members):
+        return task.eval_step(state, batch, None, mask, split="test", mask_name="u",
+                              n_samples=len(members), cond_noise=cond,
+                              init_noise=init[members.start:members.stop],
+                              churn_noise=churn[members.start:members.stop])
+
+    task.model.calls = 0
+    metrics, folded = run_eval(range(n))
+    calls = task.model.calls
+    members = torch.stack([run_eval(range(i, i + 1))[1] for i in range(n)]).mean(0)
+    rec = compare(folded, members, TOL_METRICS, "folded ensemble vs member by member")
+    if calls != 2 * steps - 1:
+        raise AssertionError(f"the folded ensemble took {calls} U-Net calls")
+    return {"n_samples": n, "unet_forwards_folded": calls, **rec,
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def cli_kernel_vs_plain(device, overrides, run_dir: str) -> dict:
+    """Every flagship kernel against its plain version at the shapes the CLI
+    gives it. The CLI's own config and datamodule (composed from the same
+    overrides), the fit's checkpoint restored into a kernel-path task and a
+    plain-path one (PLAIN_OPS), set up as run.main and the Trainer set them
+    up; then on both, from the same generator seeds: one train step on the
+    datamodule's first train batch (B = 32), its loss and gradient norm
+    within TOL_TRAIN and its params within 2 lr; and the test eval of mask
+    "u" on the first test batch with the configured n_samples folded into
+    one sampler call (B = 80), its metrics within TOL_METRICS and its mean
+    sample within TOL_METRICS of scale."""
+    import os
+
+    import torch
+
+    from m_cedm_tpu_torch import config, kernels, run
+    from m_cedm_tpu_torch.train.checkpoint import CheckpointManager
+    from m_cedm_tpu_torch.train.loop import batch_to_device
+
+    cfg = config.compose(run.CONFIG_DIR, CLI_CONFIG, overrides)
+    run.route_data(cfg)
+    dm = config.instantiate(cfg.datamodule)
+    seed = cfg.get("seed", 0)
+    n_samples = cfg.diff_sampler.n_samples
+    train_batch = batch_to_device(next(dm.iter_split("train", np.random.default_rng(seed))),
+                                  device)
+    test_batch = batch_to_device(next(dm.iter_split("test")), device)
+    mask = torch.from_numpy(dm.eval_masks("test")["u"]).to(device)
+    out = {}
+    for path, ops in (("kernel", kernels.DEVICE_OPS), ("plain", kernels.PLAIN_OPS)):
+        task = config.instantiate(cfg.model, device=device, ops=ops,
+                                  grad_clip=cfg.trainer.get("gradient_clip_val"))
+        task.set_test_sampler_params(cfg.diff_sampler)
+        task.set_pde_loss_function(cfg.system, dm.flip_xy)
+        task.set_train_mask_kind(dm.train_mask_kind)
+        state = task.init_state(torch.Generator().manual_seed(seed), dm.get_norm_stats())
+        state = CheckpointManager(os.path.join(run_dir, "checkpoints")).restore(state)
+        before = kernels.launches()
+        gen = torch.Generator(device=device).manual_seed(SEED + 30)
+        new_state, step = task.train_step(state, train_batch, gen)
+        gen = torch.Generator(device=device).manual_seed(SEED + 31)
+        metrics, sample = task.eval_step(new_state, test_batch, gen, mask, split="test",
+                                         n_samples=n_samples, mask_name="u")
+        out[path] = {"step": {k: float(v) for k, v in step.items()},
+                     "metrics": {k: float(v) for k, v in metrics.items()},
+                     "sample": sample, "params": new_state.params, "start": state.params,
+                     "launches": {k: v - before[k] for k, v in kernels.launches().items()}}
+    k, p = out["kernel"], out["plain"]
+    if not k["launches"]["K1 gn_silu_bwd"] or not k["launches"]["K2 gn_silu_conv"]:
+        raise AssertionError(f"the kernel path launched {k['launches']}")
+    if any(p["launches"].values()):
+        raise AssertionError(f"the plain path launched {p['launches']}")
+    for key in ("train_loss", "grad_norm"):
+        a, b_ = k["step"][key], p["step"][key]
+        if not math.isfinite(a) or abs(a - b_) > TOL_TRAIN * abs(b_):
+            raise AssertionError(f"CLI train step {key}: kernel {a} vs plain {b_}")
+    lr = cfg.model.hparams.optimization.lr
+    params_diff = max(float((k["params"][n] - p["params"][n]).abs().max()) for n in p["params"])
+    moved = max(float((p["params"][n] - p["start"][n]).abs().max()) for n in p["params"])
+    if not (params_diff <= 2 * lr and moved > 0):
+        raise AssertionError(f"CLI train step params: {params_diff} apart, moved {moved}")
+    for key, b_ in p["metrics"].items():
+        a = k["metrics"][key]
+        if not math.isfinite(a) or abs(a - b_) > TOL_METRICS * max(1.0, abs(b_)):
+            raise AssertionError(f"CLI test {key}: kernel {a} vs plain {b_}")
+    sample = compare(k["sample"], p["sample"], TOL_METRICS, "CLI test sample")
+    return {"train_batch": int(train_batch[0].shape[0]),
+            "test_batch_folded": int(test_batch[0].shape[0]) * n_samples,
+            "train_step": {"kernel": k["step"], "plain": p["step"], "tol": TOL_TRAIN,
+                           "params_max_abs_diff": params_diff, "tol_params": 2 * lr},
+            "test": {"kernel": k["metrics"], "plain": p["metrics"], "tol": TOL_METRICS,
+                     "sample": sample}}
+
+
+def phase_cli(device, params) -> dict:
+    """The flagship through the port's CLI at full width and depth:
+    m_cedm_tpu_torch.run on configs/config_adm_edm_mcedm_res32.yaml (one
+    epoch of 2 steps at batch 32, validation at epoch 0, the test with 50
+    Heun steps, S_churn 15 and n_samples 5), then a resume to epoch 2, then
+    m_cedm_tpu_torch.eval_model on the resumed run; then
+    folded_ensemble_check on phase 3's weights. Returns the launches of the
+    three CLI runs (the check after them is not counted)."""
+    import importlib.util
+    import os
+    import shutil
+
+    from m_cedm_tpu_torch import eval_model, kernels, run
+    from m_cedm_tpu_torch.data import datamodule as dm_module
+    from m_cedm_tpu_torch.data.h5_io import write_store
+
+    # the machine's optional packages decide the data and callbacks, once
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("h5py", "matplotlib", "wandb")}
+    res = FLAGSHIP_HPARAMS["model"]["resolution"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    sub = os.path.join(root, "1D_swp_128_per")
+    os.makedirs(sub)
+    stores = cli_stores(res)
+    paths = {split: os.path.join(sub, f"1D_swp_128_per_{split}.h5") for split in stores}
+    saved_read, saved_wandb = dm_module.read_store, sys.modules.get("wandb")
+    if have["h5py"]:
+        for split, s in stores.items():
+            write_store(paths[split], s.inputs, s.targets, s.x, s.t)
+    else:  # the same stores, served to the datamodule by path
+        by_path = {paths[split]: s for split, s in stores.items()}
+        dm_module.read_store = by_path.__getitem__
+    # no wandb run (offline, it would start a service process of its own)
+    sys.modules["wandb"] = None
+    job = ["system=swe_per", f"dataroot={root}"]
+    if not have["matplotlib"]:
+        job.append("callbacks=callbacks_save_model")
+    base = ["--config-name", CLI_CONFIG] + job
+    run_dir, run2_dir, eval_dir = (os.path.join(root, d) for d in ("run", "run2", "eval"))
+    secs = {}
+    kernels.reset_launches()
+    try:
+        with CliProbe() as probe:
+            for name, fn, extra in (
+                    ("fit", run.main, ["trainer.max_epochs=1", f"hydra.run.dir={run_dir}"]),
+                    ("resume", run.main, [f"ckpt_path={run_dir}", "trainer.max_epochs=2",
+                                          "override_epochs=true",
+                                          f"hydra.run.dir={run2_dir}"]),
+                    ("eval_model", eval_model.main, [f"ckpt_path={run2_dir}",
+                                                     f"hydra.run.dir={eval_dir}"])):
+                t0 = time.perf_counter()
+                fn(base + extra)
+                secs[name] = time.perf_counter() - t0
+        launches = kernels.launches()
+        vs_plain = cli_kernel_vs_plain(device, job + ["trainer.max_epochs=1"], run_dir)
+    finally:
+        dm_module.read_store = saved_read
+        if saved_wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+
+    recs = {d: read_metrics(p) for d, p in (("run", run_dir), ("run2", run2_dir),
+                                              ("eval", eval_dir))}
+    for d in ("run", "run2"):
+        keys = set().union(*map(set, recs[d]))
+        if keys != FLAGSHIP_METRIC_KEYS:
+            raise AssertionError(f"{d} metric keys {sorted(keys ^ FLAGSHIP_METRIC_KEYS)} "
+                                 f"differ from the JAX package's")
+    trained = sorted(r["epoch"] for r in recs["run2"] if "train_loss" in r)
+    if trained != [1]:
+        raise AssertionError(f"the resumed run trained epochs {trained}, expected [1]")
+    run2_test = [r for r in recs["run2"] if "test_mae_u" in r][-1]
+    (eval_test,) = recs["eval"]
+    test_keys = {k for k in run2_test if k.startswith("test_")}
+    if test_keys != {k for k in eval_test if k.startswith("test_")}:
+        raise AssertionError(f"eval_model keys {sorted(eval_test)}")
+    eval_err = {k: abs(eval_test[k] - run2_test[k]) / max(abs(run2_test[k]), 1e-30)
+                for k in test_keys}
+    if max(eval_err.values()) > TOL_CLI:
+        raise AssertionError(f"eval_model vs the resumed run's test: {eval_err}")
+
+    # every train step and every U-Net forward of the CLI launched what
+    # phases 4 and 5 launch
+    want_step = {"K2 gn_silu_conv": K2_PER_FORWARD, "K2 narrow_conv": NARROW_PER_FORWARD,
+                 "K2 gn_silu_conv_bwd": K2_BWD_PER_STEP,
+                 "K2 narrow_conv_bwd": NARROW_BWD_PER_STEP,
+                 "K1 gn_silu_bwd": K1_BWD_PER_STEP, "K4 attention": 4,
+                 "K4 attention_bwd": 4}
+    for i, rec in enumerate(probe.steps):
+        got = {k: rec["launches"][k] for k in want_step}
+        if got != want_step:
+            raise AssertionError(f"CLI train step {i}: launches {got}, expected {want_step}")
+    want_fwd = {"K2 gn_silu_conv": K2_PER_FORWARD, "K2 narrow_conv": NARROW_PER_FORWARD,
+                "K4 attention": 4}
+    for i, rec in enumerate(probe.evals):
+        got = {k: rec["launches"][k] for k in want_fwd}
+        want = {k: v * rec["forwards"] for k, v in want_fwd.items()}
+        if got != want or rec["launches"]["K2 gn_silu_conv_bwd"]:
+            raise AssertionError(f"CLI eval {i} ({rec['forwards']} forwards): "
+                                 f"launches {got}, expected {want}")
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the CLI: {missing}")
+    if len(probe.steps) != 4:
+        raise AssertionError(f"{len(probe.steps)} train steps, expected 2 + 2")
+
+    tests = [r for r in probe.evals if r["split"] == "test"]
+    ckpt_dir = os.path.join(run2_dir, "checkpoints")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(ckpt_dir) for f in files)
+    ckpts = sorted(os.listdir(ckpt_dir))
+    step_ms = [r["s"] * 1e3 for r in probe.steps]
+    folded = folded_ensemble_check(device, FLAGSHIP_HPARAMS, params, 5)
+    emit({"phase": "cli", "config": CLI_CONFIG, "nvidia_smi": nvidia_smi_line(),
+          "data": "h5" if have["h5py"] else "in_memory",
+          "callbacks": "configured" if have["matplotlib"] else "callbacks_save_model",
+          "wandb": "not imported", "packages": have,
+          "trajectories": {"train": CLI_TRAIN, "test": CLI_TEST}, "res": res,
+          "seconds": secs, "train_step_ms": step_ms,
+          "train_step_ms_median": float(np.median(step_ms)),
+          "test_samples_per_s": [r["samples"] / r["s"] for r in tests],
+          "test_unet_forwards": [r["forwards"] for r in tests],
+          "test_batch": [r["samples"] for r in tests],
+          "checkpoint_mb": ckpt_bytes / 1e6, "checkpoints_kept": ckpts,
+          "eval_model_max_rel_err": max(eval_err.values()), "tol": TOL_CLI,
+          "test_metrics": {k: run2_test[k] for k in sorted(test_keys)},
+          "folded_ensemble": folded, "kernel_vs_plain": vs_plain,
+          "launches": {k: v for k, v in launches.items() if v}})
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1791,6 +2151,7 @@ def main() -> int:
     mega_launches = phase_mega_eval(device, hparams, params, BATCH, eval_metrics)
     eval_launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
     cond_launches = phase_cond_edm(device, BATCH)
+    cli_launches = phase_cli(device, params)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -1812,6 +2173,8 @@ def main() -> int:
         if name in OFORMER_KERNELS:
             row.update(launches_per_train_step=oformer_step_launches[name],
                        at_bh_64=rec["at_bh_64"])
+        if name in FLAGSHIP_KERNELS:
+            row.update(launches_cli=cli_launches[name])
         if name in MEGA_KERNELS:
             row.update(two_kernel_ms=rec["two_kernel_ms"],
                        backward_max_rel_err=rec["backward_max_rel_err"],

@@ -1,17 +1,57 @@
-"""Tokenize (t, x) grids for the OFormer (numpy copy of
-m_cedm_tpu/data/oformer_data.py::PlOformerSwpDatamodule `_materialize` and
-`_tokenize`, at down_factor 1; the HDF5 datamodule itself comes with the
-data slice, ROADMAP.md)."""
+"""OFormer token datamodule: (t, x) grids flattened into coordinate clouds
+(port of m_cedm_tpu/data/oformer_data.py, numpy only).
+
+tokens = the flattened (t, x) grid; channels = [state, (t), x] with the
+coordinates min-max normalized; node type 1 on the grid's boundary; offset
+positions (t - t_min, x - x_min). The time-prediction datamodule is a later
+slice (ROADMAP.md).
+"""
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
 import numpy as np
 
+from m_cedm_tpu_torch.config import register
+from m_cedm_tpu_torch.data.datamodule import HDF5Datamodule, _bilinear_resize
+
+TOKEN_KEYS = ("x", "y", "node_type", "pos", "n_time")
+
 
 def _min_max(a: np.ndarray) -> np.ndarray:
     lo, hi = a.min(1, keepdims=True), a.max(1, keepdims=True)
     return (a - lo) / (hi - lo)
+
+
+def _with_coords(inp: np.ndarray, x: np.ndarray, t: np.ndarray, *, norm_x: bool,
+                 norm_t: bool, add_t: bool) -> np.ndarray:
+    """inp (n, T, X, C) with the (normalized) t (when add_t) and x channels
+    appended."""
+    x_norm = _min_max(x) if norm_x else x
+    t_norm = _min_max(t) if norm_t else t
+    n, T, X = inp.shape[:3]
+    coords = [np.broadcast_to(x_norm[:, None, :, None], (n, T, X, 1))]
+    if add_t:
+        coords.insert(0, np.broadcast_to(t_norm[:, :, None, None], (n, T, X, 1)))
+    return np.concatenate([inp] + coords, axis=-1)
+
+
+def _tokens(inp: np.ndarray, target: np.ndarray, x: np.ndarray, t: np.ndarray
+            ) -> Dict[str, np.ndarray]:
+    n, T, X = inp.shape[:3]
+    tg, xg = np.meshgrid(t[0] - t[0].min(), x[0] - x[0].min(), indexing="ij")
+    pos = np.stack([tg, xg], axis=-1).reshape(-1, 2).astype(np.float32)
+    node_type = np.zeros((T, X), np.int32)
+    node_type[[0, -1]] = 1
+    node_type[:, [0, -1]] = 1
+    node_type = node_type.reshape(-1, 1)
+    return {
+        "x": inp.reshape(n, 1, T * X, inp.shape[-1]).astype(np.float32),
+        "y": target.reshape(n, 1, T * X, target.shape[-1]).astype(np.float32),
+        "node_type": np.broadcast_to(node_type[None], (n,) + node_type.shape),
+        "pos": np.broadcast_to(pos[None], (n,) + pos.shape),
+        "n_time": np.full((n,), T, np.int32),
+    }
 
 
 def tokenize_grid(inputs: np.ndarray, targets: np.ndarray, x: np.ndarray,
@@ -33,24 +73,54 @@ def tokenize_grid(inputs: np.ndarray, targets: np.ndarray, x: np.ndarray,
         target = (target - stats["target_mean"]) / stats["target_std"]
     if flip_xy:
         inp, target = target, inp
-    x_norm = _min_max(x) if norm_x else x
-    t_norm = _min_max(t) if norm_t else t
-    n, T, X = inp.shape[:3]
-    coords = [np.broadcast_to(x_norm[:, None, :, None], (n, T, X, 1))]
-    if add_t:
-        coords.insert(0, np.broadcast_to(t_norm[:, :, None, None], (n, T, X, 1)))
-    inp = np.concatenate([inp] + coords, axis=-1)
+    inp = _with_coords(inp, x, t, norm_x=norm_x, norm_t=norm_t, add_t=add_t)
+    return _tokens(inp, target, x, t)
 
-    tg, xg = np.meshgrid(t[0] - t[0].min(), x[0] - x[0].min(), indexing="ij")
-    pos = np.stack([tg, xg], axis=-1).reshape(-1, 2).astype(np.float32)
-    node_type = np.zeros((T, X), np.int32)
-    node_type[[0, -1]] = 1
-    node_type[:, [0, -1]] = 1
-    node_type = node_type.reshape(-1, 1)
-    return {
-        "x": inp.reshape(n, 1, T * X, inp.shape[-1]).astype(np.float32),
-        "y": target.reshape(n, 1, T * X, target.shape[-1]).astype(np.float32),
-        "node_type": np.broadcast_to(node_type[None], (n,) + node_type.shape),
-        "pos": np.broadcast_to(pos[None], (n,) + pos.shape),
-        "n_time": np.full((n,), T, np.int32),
-    }
+
+class PlOformerSwpDatamodule(HDF5Datamodule):
+    """Tokenized space-time datamodule for the OFormer reconstruction task.
+
+    Batch: (x, y, node_type, pos, n_time) as `tokenize_grid` gives them."""
+
+    def __init__(self, *args, add_t: bool = False, train_2d: bool = True, **kw):
+        self.add_t = add_t or train_2d
+        self.train_2d = train_2d
+        super().__init__(*args, **kw)
+
+    def _materialize(self, store, down_factor):
+        inp, target, x, t = self._normalized(store)
+        inp = _with_coords(inp, x, t, norm_x=self.norm_x, norm_t=self.norm_t,
+                           add_t=self.add_t)
+        if down_factor > 1:
+            each = 2 ** (down_factor - 1)
+            T, X = inp.shape[1], inp.shape[2]
+            inp = _bilinear_resize(inp[:, ::each, ::each], T, X)
+            target = _bilinear_resize(target[:, ::each, ::each], T, X)
+        return _tokens(inp, target, x, t)
+
+    def _split_len(self, split):
+        return self._prepare(split)["x"].shape[0]
+
+    def _take(self, split, idx):
+        arrays = self._prepare(split)
+        return tuple(arrays[k][idx] for k in TOKEN_KEYS)
+
+    def field_shape(self, split="train"):
+        arrays = self._prepare(split)
+        T = int(arrays["n_time"][0])
+        ntok = arrays["x"].shape[2]
+        return ((T, ntok // T, arrays["x"].shape[-1]),
+                (T, ntok // T, arrays["y"].shape[-1]))
+
+
+@register("datamodules.pl_oformer_datamodule.PlOformerSwpDatamodule",
+          "m_cedm_tpu.data.PlOformerSwpDatamodule")
+def _build_oformer_dm(**kw):
+    return PlOformerSwpDatamodule(**kw)
+
+
+@register("datamodules.pl_oformer_datamodule.PlOformerSwpTimePredDatamodule",
+          "m_cedm_tpu.data.PlOformerSwpTimePredDatamodule")
+def _build_oformer_timepred_dm(**kw):
+    raise NotImplementedError("the OFormer's time-prediction datamodule is not "
+                              "ported yet (see ROADMAP.md)")

@@ -208,10 +208,44 @@ class DataTransform:
                 state.normalizer_target(u, inverse=True))
 
 
-def ensemble(draw: Callable[[int], torch.Tensor], n: int) -> torch.Tensor:
-    """Stack `draw(i)` for i < n: the plain loop that replaces the JAX
-    package's chunked, vmapped `chunked_ensemble`."""
-    return torch.stack([draw(i) for i in range(n)], dim=0)
+ENSEMBLE_CHUNK = 4  # members folded into one sampler call (chunked_ensemble)
+
+
+def ensemble_chunks(n: int, chunk: int = ENSEMBLE_CHUNK) -> List[range]:
+    """The members of each sampler call, split as the JAX package's
+    `chunked_ensemble` splits its keys: all n at once when n <= chunk or n is
+    not a multiple of chunk, else runs of `chunk`."""
+    if n <= chunk or n % chunk:
+        return [range(n)]
+    return [range(s, s + chunk) for s in range(0, n, chunk)]
+
+
+def ensemble(draw: Callable[[range], torch.Tensor], n: int,
+             chunk: int = ENSEMBLE_CHUNK) -> torch.Tensor:
+    """The (n, B, ...) ensemble from `draw(members) -> (len(members), B,
+    ...)`, one call per chunk of `ensemble_chunks`; `draw` folds its members
+    into the batch of one sampler call (`fold_members`)."""
+    return torch.cat([draw(members) for members in ensemble_chunks(n, chunk)], dim=0)
+
+
+def fold_members(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, ...) -> (k B, ...): k copies along the batch, member-major (row
+    m B + b is member m of item b)."""
+    return x.repeat((k,) + (1,) * (x.dim() - 1))
+
+
+def fold_noise(noise: Optional[torch.Tensor], members: range, per_step: bool = False
+               ) -> Optional[torch.Tensor]:
+    """The caller's draws for `members`, in the folded batch's order:
+    init noise (n, B, ...) -> (k B, ...); churn noise (n, N, B, ...) ->
+    (N, k B, ...) with `per_step`."""
+    if noise is None:
+        return None
+    sel = noise[members.start:members.stop]
+    if per_step:
+        sel = sel.transpose(0, 1)
+        return sel.reshape((sel.shape[0], -1) + tuple(sel.shape[3:]))
+    return sel.reshape((-1,) + tuple(sel.shape[2:]))
 
 
 def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

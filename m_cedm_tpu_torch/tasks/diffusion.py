@@ -40,7 +40,8 @@ from m_cedm_tpu_torch.physics.pde_loss import get_pde_loss_function
 from m_cedm_tpu_torch.samplers import edm as edm_samplers
 from m_cedm_tpu_torch.tasks.base import (DataTransform, TaskState,
                                          apply_updates, ema_update, ensemble,
-                                         global_norm, mae, make_optimizer,
+                                         fold_members, fold_noise, global_norm,
+                                         mae, make_optimizer,
                                          normalizers_from_stats, to_device)
 
 P_MEAN, P_STD, SIGMA_DATA = -1.2, 1.2, 1.0
@@ -73,6 +74,8 @@ class DiffusionTaskBase:
     `mega` selects the U-Net's megakernel mode for the sampling forwards."""
 
     default_cond_p = 0.0
+    # sampling-based validation runs every 100 epochs (mcedm.py:284)
+    val_every = 100
 
     def __init__(self, hparams, device, ops: Ops = DEVICE_OPS,
                  grad_clip: Optional[float] = 1.0, mega: bool = False):
@@ -101,6 +104,14 @@ class DiffusionTaskBase:
         self.pde_loss, _ = get_pde_loss_function("swe", flip_xy=False)
         self.sparams = hparams.get("sampler") or self.default_sampler_params()
         self.test_sparams = self.sparams
+        # val/test subsampling factor; the training loop sets it from the
+        # datamodule and builds the test's down mask from it
+        self.down_factor = 1
+
+    def set_pde_loss_function(self, system: str, flip_xy: bool):
+        """The PDE residual of the metrics for the data's `system` (e.g.
+        swe_per: Tn 0.128 on [-0.5, 0.5]) and its variable order."""
+        self.pde_loss, _ = get_pde_loss_function(system, flip_xy)
 
     def set_test_sampler_params(self, sparams):
         self.test_sparams = sparams
@@ -183,6 +194,12 @@ class McedmTask(DiffusionTaskBase):
 
     def default_sampler_params(self):
         return dict(DEFAULT_EDM_SAMPLER)
+
+    def set_train_mask_kind(self, kind: Optional[str]):
+        """The training masks' family ("var", "time" or "sparse"), from the
+        datamodule's train_mask_kind; None keeps the current one."""
+        if kind:
+            self.train_mask_kind = kind
 
     def _adjust_cond_channels(self, hparams):
         m = hparams["model"]
@@ -309,7 +326,9 @@ class McedmTask(DiffusionTaskBase):
         reference metric keys. batch = (h, t_grid, x_grid, u), each
         (B, T, X, 1); mask (T, X, C) or (B, T, X, C), 1 = to recover.
         cond_noise (B, T, X, C), init_noise (n_samples, B, T, X, C) and
-        churn_noise (n_samples, N, B, T, X, C) replace the generator's draws."""
+        churn_noise (n_samples, N, B, T, X, C) replace the generator's draws.
+        The members of the ensemble are sampled in chunks folded into the
+        batch (`ensemble`); each member keeps its own draws."""
         h_un, t_grid, x_grid, u_un = batch
         h_ch, u_ch = self.h_ch, self.u_ch
         sp = self.test_sparams
@@ -322,12 +341,14 @@ class McedmTask(DiffusionTaskBase):
                                      device=state_gt.device)
         cond_in = self.get_cond_in(state_gt, mask_b, t_grid, x_grid, cond_noise)
 
-        def draw(i):
+        def draw(members):
+            k = len(members)
             xs = self.sample_edm(
-                state, cond_in, mask_b, generator, sp, return_last=True,
-                init_noise=None if init_noise is None else init_noise[i],
-                churn_noise=None if churn_noise is None else churn_noise[i])
-            return xs[:, -1]
+                state, fold_members(cond_in, k), fold_members(mask_b, k),
+                generator, sp, return_last=True,
+                init_noise=fold_noise(init_noise, members),
+                churn_noise=fold_noise(churn_noise, members, per_step=True))
+            return xs[:, -1].reshape((k,) + tuple(state_gt.shape))
 
         samples = ensemble(draw, n_samples)
         hu_mean = torch.mean(samples, dim=0)
@@ -481,16 +502,18 @@ class CondDdimTask(DdimTask):
         u = state_gt[..., h_ch:h_ch + u_ch]
         cond_in = self.get_cond_in(h, u, dxc, dtc)
 
-        def draw(i):
-            pick = lambda t: None if t is None else t[i]
+        def draw(members):
+            k = len(members)
+            cond_k = fold_members(cond_in, k)
             if sp.get("type", "ddim") == "edm":
-                xs = self.sample_edm(state, cond_in, generator, sp,
+                xs = self.sample_edm(state, cond_k, generator, sp,
                                      guide_dx=bool(sp.get("guide_dx", False)),
-                                     init_noise=pick(init_noise),
-                                     churn_noise=pick(churn_noise))
+                                     init_noise=fold_noise(init_noise, members),
+                                     churn_noise=fold_noise(churn_noise, members,
+                                                            per_step=True))
             else:
-                xs = self.sample(state, cond_in, generator, sp)
-            return xs[:, -1]
+                xs = self.sample(state, cond_k, generator, sp)
+            return xs[:, -1].reshape((k,) + tuple(u.shape))
 
         samples = ensemble(draw, n_samples)
         u_mean = torch.mean(samples, dim=0)

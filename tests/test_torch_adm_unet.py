@@ -22,6 +22,7 @@ from m_cedm_tpu.models.adm_unet import AdmUNetConfig as JaxConfig
 from m_cedm_tpu_torch.convert import jax_params_to_state_dict
 from m_cedm_tpu_torch.models import build_backbone
 from m_cedm_tpu_torch.models.adm_unet import AdmUNet, AdmUNetConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B = 2
 CONFIGS = {"res32-attn8": (32, 8), "res64-attn16-paired": (64, 16)}

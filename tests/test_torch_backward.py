@@ -24,6 +24,7 @@ import m_cedm_tpu.pallas.fused_norm_conv as jfnc
 from m_cedm_tpu_torch.kernels import fused_attention as tfa
 from m_cedm_tpu_torch.kernels import fused_norm as tfn
 from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 EPS = 1e-5

@@ -34,6 +34,7 @@ from m_cedm_tpu.tasks.base import TrainState, normalizers_from_stats
 from m_cedm_tpu_torch.convert import jax_params_to_state_dict
 from m_cedm_tpu_torch.samplers import edm as tedm
 from m_cedm_tpu_torch.tasks import COND_EDM_TARGET, CondEdmTask, build_task
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES, B, STEPS = 32, 2, 3

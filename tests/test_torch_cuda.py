@@ -161,6 +161,14 @@ def test_k4_tensor_core_kernels(cuda, length, n, peak):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("peak", [1.0, 6.0], ids=["normal", "peaked"])
+def test_k4_at_the_folded_ensemble_batch(cuda, peak):
+    """test_k4_tensor_core_kernels at 80 head-batches of 1024 tokens: the
+    CLI's test ensemble (5 members of a 16-item batch in one sampler call)."""
+    test_k4_tensor_core_kernels(cuda, 1024, 80, peak)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [24, 64, 320])
 def test_channel_stats_match_plain(cuda, c):
     """Channel counts that divide the block, do not, and exceed it."""
@@ -500,13 +508,17 @@ def _double(inp):
 
 # (B, H, W, C, O, Cr): H and W no multiple of the 8 x 16 pixel tile; 128
 # input channels (sixteen 8-channel chunks) and a projection over Cr = 128;
-# O = 70 (a second 64-wide output tile) over C and Cr no multiple of 8
-K2_TC_SHAPES = [(2, 19, 37, 128, 64, 128), (3, 10, 22, 20, 70, 12)]
+# O = 70 (a second 64-wide output tile) over C and Cr no multiple of 8; B 80,
+# the batch of the CLI's test ensemble (5 members of a 16-item test batch
+# folded into one sampler call)
+K2_TC_SHAPES = [(2, 19, 37, 128, 64, 128), (3, 10, 22, 20, 70, 12),
+                (80, 16, 16, 64, 64, 128)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("shape", K2_TC_SHAPES, ids=["c128-cr128", "o70-ragged-c"])
+@pytest.mark.parametrize("shape", K2_TC_SHAPES, ids=["c128-cr128", "o70-ragged-c",
+                                                     "b80"])
 def test_k2_tensor_core_conv(cuda, mode, shape):
     """Every residual mode and the linear mode, with emit_stats, own and
     chained statistics: within 2e-5 of scale of the plain version and of
@@ -558,9 +570,11 @@ def test_k3_tensor_core_conv(cuda, shape):
 # 2; 128 input channels and a projection over Cr = 128; O = 70 (a ragged
 # third 32-wide output slice of wgrad, a second 64-wide tile of the forward)
 # over C and Cr no multiple of 8; C = 12 (a block's 32 channels mostly
-# padding); C = 4, conv_in's width (the narrow-C wgrad)
+# padding); C = 4, conv_in's width (the narrow-C wgrad); B 32, the config's
+# train batch (per-block partial buffers sized by the batch)
 K2_BWD_SHAPES = [(3, 19, 37, 128, 64, 128), (1, 10, 22, 20, 70, 12),
-                 (2, 11, 18, 12, 40, 8), (3, 13, 37, 4, 64, 8)]
+                 (2, 11, 18, 12, 40, 8), (3, 13, 37, 4, 64, 8),
+                 (32, 32, 32, 64, 64, 64)]
 TOL_BWD64 = 1e-5  # of each gradient's largest magnitude, against float64
 
 
@@ -575,7 +589,7 @@ def _same(once, again):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("shape", K2_BWD_SHAPES, ids=["c128-cr128", "o70-ragged-c", "c12",
-                                                     "c4"])
+                                                     "c4", "b32"])
 def test_k2_tensor_core_backward(cuda, mode, shape):
     """Every mode of test_k2_backward_matches_plain on the 3xTF32 backward
     kernels, with own and chained statistics: each gradient within 1e-5 of
@@ -613,7 +627,8 @@ def test_k2_tensor_core_backward(cuda, mode, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 7, 11, 64, 64), (1, 5, 9, 128, 70),
-                                   (2, 5, 7, 12, 24)], ids=["c64", "c128-o70", "c12"])
+                                   (2, 5, 7, 12, 24), (32, 16, 16, 64, 64)],
+                         ids=["c64", "c128-o70", "c12", "b32"])
 def test_k3_tensor_core_backward(cuda, shape):
     """K3's backward at odd low-res sizes (the up-fold's column pairs at
     ragged tile edges), own and chained statistics, against float64; bit
@@ -640,10 +655,13 @@ def test_k3_tensor_core_backward(cuda, shape):
 # 128 with 2 to 32 groups, B 1 to 16; C 6 takes 4-byte copies (C % 4 != 0);
 # C 2048 (wider than a block's lanes) holds no slab row in shared memory; N
 # 512 * 512 at B 1 is a slab beyond the shared-memory ring (its rest read
-# twice from device memory); N 100 fewer rows than blocks
+# twice from device memory); N 100 fewer rows than blocks; B 32 at the
+# flagship's res 128 and 64 (the config's train batch: 32 per-sample
+# hand-offs in one cooperative launch)
 K1_BWD_CASES = [(3, 1000, 8, 2), (1, 4099, 32, 8), (16, 4096, 64, 16),
                 (3, 5001, 128, 32), (16, 100, 64, 32), (2, 777, 6, 3),
-                (2, 300, 2048, 32), (1, 512 * 512, 64, 16)]
+                (2, 300, 2048, 32), (1, 512 * 512, 64, 16),
+                (32, 128 * 128, 64, 16), (32, 64 * 64, 64, 16)]
 
 
 def _k1_bwd_inputs(case, dev, seed):

@@ -28,6 +28,7 @@ from m_cedm_tpu_torch.kernels import fused_block as tfb
 from m_cedm_tpu_torch.kernels import fused_norm as tfn
 from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
 from m_cedm_tpu_torch.kernels import linear_attention as tla
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_SQ = dict(rtol=1e-5, atol=1e-4)

@@ -32,6 +32,7 @@ from m_cedm_tpu_torch.kernels import DEVICE_OPS
 from m_cedm_tpu_torch.kernels import fused_block as tfb
 from m_cedm_tpu_torch.models import build_backbone
 from m_cedm_tpu_torch.models.adm_unet import AdmUNet, AdmUNetConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = ("x", "g0", "b0", "w0", "bias0", "g1", "b1", "w1", "bias1")
 # (B, H, W, C1, C2, O, up, proj, chained stats, emit): test_pallas.py:839-972

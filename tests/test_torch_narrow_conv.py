@@ -28,6 +28,7 @@ import m_cedm_tpu.pallas.fused_norm as jfn
 import m_cedm_tpu.pallas.fused_norm_conv as jfnc
 from m_cedm_tpu_torch.kernels import fused_norm_conv as tfnc
 from m_cedm_tpu_torch.models.adm_unet import AdmUNet, AdmUNetConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RES, B = 16, 2
 TOL = dict(rtol=1e-5, atol=1e-5)

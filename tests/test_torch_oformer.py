@@ -30,6 +30,7 @@ from m_cedm_tpu_torch.kernels import PLAIN_OPS
 from m_cedm_tpu_torch.kernels import linear_attention as tla
 from m_cedm_tpu_torch.models import encoding as tenc
 from m_cedm_tpu_torch.models import oformer as to
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, T, X = 2, 8, 8
 N = T * X

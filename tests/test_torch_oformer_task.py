@@ -34,6 +34,7 @@ from m_cedm_tpu_torch.convert import jax_train_state_to_torch
 from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
 from m_cedm_tpu_torch.ops.schedules import cosine_onecycle
 from m_cedm_tpu_torch.tasks import OFORMER_TARGET, OformerTask, build_task
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, X, STEPS = 2, 8, 8, 3

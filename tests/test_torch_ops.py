@@ -23,6 +23,7 @@ from m_cedm_tpu_torch.ops import schedules as tsched
 from m_cedm_tpu_torch.ops.normalizer import Normalizer as TNormalizer
 from m_cedm_tpu_torch.physics import pde_loss as tpde
 from m_cedm_tpu_torch.samplers import edm as tedm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ELEM = dict(rtol=1e-6, atol=1e-6)
 RED = dict(rtol=1e-5, atol=1e-6)

@@ -15,6 +15,7 @@ import torch
 
 from m_cedm_tpu.samplers import edm as jedm
 from m_cedm_tpu_torch.samplers import edm as tedm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE = (2, 8, 6, 2)
 SCHED = dict(num_steps=5, sigma_min=0.002, sigma_max=80.0, rho=7.0, S_churn=15.0)

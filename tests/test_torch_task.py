@@ -24,6 +24,7 @@ from m_cedm_tpu.tasks import McedmTask as JaxMcedmTask
 from m_cedm_tpu_torch.convert import jax_params_to_state_dict
 from m_cedm_tpu_torch.data.masks import eval_masks_var
 from m_cedm_tpu_torch.tasks import MCEDM_TARGET, McedmTask, build_task
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES, B, STEPS = 32, 2, 5
@@ -161,9 +162,10 @@ def test_compute_dtype(dtype, ported):
 def test_port_runtime_imports_no_jax():
     """Importing every module of the port and running a CPU forward, a
     sampling step and a train step of the flagship, an eval of the
-    conditional EDM baseline on the megakernel path, and an eval and a train
-    step of the OFormer must leave JAX, flax, optax and m_cedm_tpu
-    unloaded."""
+    conditional EDM baseline on the megakernel path, an eval and a train
+    step of the OFormer, and the CLI (run.main, then eval_model.main, with
+    --device cpu on h5 data the port writes itself) must leave JAX, flax,
+    optax, orbax and m_cedm_tpu unloaded."""
     code = r"""
 import pkgutil, importlib, sys, torch
 import m_cedm_tpu_torch
@@ -211,12 +213,36 @@ m, grid = otask.eval_step(ost, ob)
 assert grid.shape == (2, 4, 4, 1) and all(torch.isfinite(v) for v in m.values())
 ost, m = otask.train_step(ost, ob, torch.Generator().manual_seed(1))
 assert ost.step == 1 and all(torch.isfinite(v) for v in m.values())
+import json, os, shutil, tempfile
+from m_cedm_tpu_torch import eval_model, run
+from m_cedm_tpu_torch.data.h5_io import write_store
+tmp = tempfile.mkdtemp()
+try:
+    rs = np.random.RandomState(0)
+    os.makedirs(os.path.join(tmp, "1D_swp_128_per"))
+    for split, n in (("train", 4), ("test", 2)):
+        write_store(os.path.join(tmp, "1D_swp_128_per", f"1D_swp_128_per_{split}.h5"),
+                    1.0 + 0.1 * rs.rand(n, 16, 16, 1), 0.1 * rs.randn(n, 16, 16, 1),
+                    np.linspace(-0.5, 0.5, 16), np.linspace(0, 0.128, 16))
+    tiny = ["system=swe_per", "trainer.max_epochs=1", "datamodule.batch_size=2",
+            "model.hparams.model.resolution=16", "model.hparams.model.ch=16",
+            "model.hparams.model.attn_resolutions=[8]",
+            "model.hparams.model.ch_mult=[1,1]", "diff_sampler.timesteps=2",
+            "callbacks=callbacks_save_model", f"dataroot={tmp}"]
+    cfg = ["--device", "cpu", "--config-name=config_adm_edm_mcedm_res32.yaml"]
+    run.main(cfg + tiny + [f"hydra.run.dir={tmp}/run"])
+    eval_model.main(cfg + tiny + [f"ckpt_path={tmp}/run", f"hydra.run.dir={tmp}/ev"])
+    recs = [json.loads(l) for l in open(os.path.join(tmp, "ev", "metrics.jsonl"))]
+    assert "test_mae_u" in recs[-1]
+finally:
+    shutil.rmtree(tmp)
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax",
-                                                      "optax", "m_cedm_tpu")]
+                                                      "optax", "orbax", "m_cedm_tpu")]
 assert not bad, bad
 print("ok")
 """
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread, as torch_threads gives the in-process tests
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from m_cedm_tpu_torch.kernels.attention_sources import KERNELS, VARIANTS
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_KERNEL = 2e-5  # chip_smoke.py's forward-kernel tolerance, of max(1, scale)
 

@@ -35,6 +35,7 @@ from m_cedm_tpu_torch.convert import (jax_params_to_state_dict,
 from m_cedm_tpu_torch.data import masks as tmasks
 from m_cedm_tpu_torch.tasks import build_task
 from m_cedm_tpu_torch.tasks.base import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RES, B, STEPS, LR = 32, 2, 3, 2e-4
 STATS = {"input_mean": 4.0, "input_std": 0.1, "target_mean": 0.1,
