@@ -108,13 +108,42 @@ Phases, each printing JSON lines:
               (metrics and mean sample within 1e-4); and the folding
               itself: phase 4's eval with 5 members and fixed noise, its
               mean sample within 1e-4 of scale of 5 single-member evals
+  13. baselines   the paper's diffusion baselines at full width and depth,
+              B = 16: K2 (identity 64 -> 64 and the projection over the
+              128-channel concat, res 128, 64, 32, chained statistics) and
+              K1's apply (C 64, 128) at the DDPM U-Net's 32 groups and eps
+              1e-6 against their plain versions, forward and backward,
+              with times; DdimTask (configs/model/ddim_res32.yaml: the DDPM
+              U-Net) with its RePaint Heun sampler and with RePaint DDIM
+              (ddim_sampler.yaml), kernel path against plain path (metrics
+              within 1e-4 but UNHELD_METRICS, sample within 1e-4 of scale,
+              the known channel within 1e-5 of the ground truth; beside
+              each test_pde_loss gap its spread under the kernel path's
+              sample difference with random signs, and the clamped
+              residual held within 1e-4), three
+              train steps on both paths (the self-conditioning branch
+              injected), temb_proj's gradient; CondDdimTask on the DDPM
+              and on the ADM U-Net (also mega=True) and CondEdmTask on the
+              DDPM U-Net, one eval and three train steps each on both
+              paths; CondEdmTask on the ADM U-Net, three train steps; the
+              launches per U-Net forward and per train step asserted; then
+              configs/config_ddim_res32.yaml through m_cedm_tpu_torch.run
+              (one epoch of 2 steps at batch 32, validation, the test at
+              batch 80), its metric keys the JAX package's, with seconds,
+              ms per step and the test's samples/s; then every DDPM kernel
+              against its plain version at the CLI's shapes, as in phase
+              12 (a train step at B = 32, the folded test at B = 80;
+              test_pde_loss reported)
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
 kernel-path train steps of phase 5; K5 and K6 in one OFormer eval of phase 7,
 with their launches per OFormer train step beside; K7 in the mega eval of
 phase 10, with phase 11's beside; every flagship kernel's launches in phase
-12 as `launches_cli`), the nvidia-smi line, and the last line
+12 as `launches_cli`; the DDPM U-Net's kernels' launches in phase 13's
+RePaint Heun eval and first train step as `launches_ddim_eval` and
+`launches_ddim_step`, and K1's and K2's times at its 32 groups as
+`at_32_groups`), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
@@ -1806,6 +1835,21 @@ FLAGSHIP_METRIC_KEYS = frozenset({
 })
 # eval_model against the resumed run's own test: the same checkpoint and
 # seeds; K1's statistics sum through fp32 atomics in another order each run
+# The metric keys the JAX package's run.main writes for the diffusion
+# baselines with one epoch (train, validation at epoch 0, the test with
+# edm_sampler, whose n_time_h 128 leaves no known-region keys), written
+# down from one JAX run of config_ddim_res32.yaml and
+# config_adm_res32_cond_h.yaml on tests/test_torch_cli.py's fixtures;
+# tests/test_torch_cli.py holds the port's CLI on the CPU to them
+DDIM_METRIC_KEYS = frozenset({"epoch", "epoch_time_s", "time", "train_loss"} | {
+    f"{s}_{k}" for s in ("val", "test")
+    for k in ("mae_h", "mae_u", "mae_h_un", "mae_u_un", "mae_h_scaled",
+              "mae_u_scaled", "corr_h", "corr_u", "pde_loss")} | {
+    "test_mae_hu_un", "test_pde_loss_gt"})
+COND_METRIC_KEYS = frozenset({"epoch", "epoch_time_s", "time", "train_loss"} | {
+    f"{s}_{k}" for s in ("val", "test")
+    for k in ("mae_u", "mae_u_un", "mae_u_scaled", "corr_u", "pde_loss")} | {
+    "test_pde_loss_gt"})
 TOL_CLI = 1e-4
 
 
@@ -1827,14 +1871,15 @@ def cli_stores(res: int):
 
 
 class CliProbe:
-    """For the phase, McedmTask.train_step and eval_step record each call:
+    """For the phase, the task class's (McedmTask's unless another is given)
+    train_step and eval_step record each call:
     host-clock seconds between torch.cuda.synchronize() calls, the kernel
     launches it made, and (eval) its U-Net forwards and samples."""
 
-    def __init__(self):
+    def __init__(self, cls=None):
         from m_cedm_tpu_torch.tasks.diffusion import McedmTask
 
-        self.cls = McedmTask
+        self.cls = cls or McedmTask
         self.steps, self.evals = [], []
 
     def _wrap(self, fn, records, is_eval):
@@ -1916,17 +1961,21 @@ def folded_ensemble_check(device, hparams, params, n: int) -> dict:
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def cli_kernel_vs_plain(device, overrides, run_dir: str) -> dict:
-    """Every flagship kernel against its plain version at the shapes the CLI
-    gives it. The CLI's own config and datamodule (composed from the same
-    overrides), the fit's checkpoint restored into a kernel-path task and a
-    plain-path one (PLAIN_OPS), set up as run.main and the Trainer set them
-    up; then on both, from the same generator seeds: one train step on the
-    datamodule's first train batch (B = 32), its loss and gradient norm
-    within TOL_TRAIN and its params within 2 lr; and the test eval of mask
-    "u" on the first test batch with the configured n_samples folded into
-    one sampler call (B = 80), its metrics within TOL_METRICS and its mean
-    sample within TOL_METRICS of scale."""
+def cli_kernel_vs_plain(device, config_name: str, overrides, run_dir: str,
+                        masked: bool = True, need=("K1 gn_silu_bwd", "K2 gn_silu_conv"),
+                        unheld=()) -> dict:
+    """Every kernel of a config's path against its plain version at the
+    shapes the CLI gives it. The CLI's own config and datamodule (composed
+    from the same overrides), the fit's checkpoint restored into a
+    kernel-path task and a plain-path one (PLAIN_OPS), set up as run.main and
+    the Trainer set them up; then on both, from the same generator seeds: one
+    train step on the datamodule's first train batch (B = 32), its loss and
+    gradient norm within TOL_TRAIN and its params within 2 lr; and the test
+    eval (of mask "u" where `masked`) on the first test batch with the
+    configured n_samples folded into one sampler call (B = 80), its metrics
+    but `unheld` within TOL_METRICS and its mean sample within TOL_METRICS of
+    scale. The kernel path must launch every kernel in `need`, the plain path
+    none."""
     import os
 
     import torch
@@ -1935,7 +1984,7 @@ def cli_kernel_vs_plain(device, overrides, run_dir: str) -> dict:
     from m_cedm_tpu_torch.train.checkpoint import CheckpointManager
     from m_cedm_tpu_torch.train.loop import batch_to_device
 
-    cfg = config.compose(run.CONFIG_DIR, CLI_CONFIG, overrides)
+    cfg = config.compose(run.CONFIG_DIR, config_name, overrides)
     run.route_data(cfg)
     dm = config.instantiate(cfg.datamodule)
     seed = cfg.get("seed", 0)
@@ -1943,29 +1992,31 @@ def cli_kernel_vs_plain(device, overrides, run_dir: str) -> dict:
     train_batch = batch_to_device(next(dm.iter_split("train", np.random.default_rng(seed))),
                                   device)
     test_batch = batch_to_device(next(dm.iter_split("test")), device)
-    mask = torch.from_numpy(dm.eval_masks("test")["u"]).to(device)
+    eval_kw = ({"mask": torch.from_numpy(dm.eval_masks("test")["u"]).to(device),
+                "mask_name": "u"} if masked else {})
     out = {}
     for path, ops in (("kernel", kernels.DEVICE_OPS), ("plain", kernels.PLAIN_OPS)):
         task = config.instantiate(cfg.model, device=device, ops=ops,
                                   grad_clip=cfg.trainer.get("gradient_clip_val"))
         task.set_test_sampler_params(cfg.diff_sampler)
         task.set_pde_loss_function(cfg.system, dm.flip_xy)
-        task.set_train_mask_kind(dm.train_mask_kind)
+        if hasattr(task, "set_train_mask_kind"):
+            task.set_train_mask_kind(getattr(dm, "train_mask_kind", None))
         state = task.init_state(torch.Generator().manual_seed(seed), dm.get_norm_stats())
         state = CheckpointManager(os.path.join(run_dir, "checkpoints")).restore(state)
         before = kernels.launches()
         gen = torch.Generator(device=device).manual_seed(SEED + 30)
         new_state, step = task.train_step(state, train_batch, gen)
         gen = torch.Generator(device=device).manual_seed(SEED + 31)
-        metrics, sample = task.eval_step(new_state, test_batch, gen, mask, split="test",
-                                         n_samples=n_samples, mask_name="u")
+        metrics, sample = task.eval_step(new_state, test_batch, gen, split="test",
+                                         n_samples=n_samples, **eval_kw)
         out[path] = {"step": {k: float(v) for k, v in step.items()},
                      "metrics": {k: float(v) for k, v in metrics.items()},
                      "sample": sample, "params": new_state.params, "start": state.params,
                      "launches": {k: v - before[k] for k, v in kernels.launches().items()}}
     k, p = out["kernel"], out["plain"]
-    if not k["launches"]["K1 gn_silu_bwd"] or not k["launches"]["K2 gn_silu_conv"]:
-        raise AssertionError(f"the kernel path launched {k['launches']}")
+    if not all(k["launches"][name] for name in need):
+        raise AssertionError(f"the kernel path launched {k['launches']}, needs {need}")
     if any(p["launches"].values()):
         raise AssertionError(f"the plain path launched {p['launches']}")
     for key in ("train_loss", "grad_norm"):
@@ -1979,7 +2030,8 @@ def cli_kernel_vs_plain(device, overrides, run_dir: str) -> dict:
         raise AssertionError(f"CLI train step params: {params_diff} apart, moved {moved}")
     for key, b_ in p["metrics"].items():
         a = k["metrics"][key]
-        if not math.isfinite(a) or abs(a - b_) > TOL_METRICS * max(1.0, abs(b_)):
+        if not math.isfinite(a) or (abs(a - b_) > TOL_METRICS * max(1.0, abs(b_))
+                                    and key not in unheld):
             raise AssertionError(f"CLI test {key}: kernel {a} vs plain {b_}")
     sample = compare(k["sample"], p["sample"], TOL_METRICS, "CLI test sample")
     return {"train_batch": int(train_batch[0].shape[0]),
@@ -1987,7 +2039,9 @@ def cli_kernel_vs_plain(device, overrides, run_dir: str) -> dict:
             "train_step": {"kernel": k["step"], "plain": p["step"], "tol": TOL_TRAIN,
                            "params_max_abs_diff": params_diff, "tol_params": 2 * lr},
             "test": {"kernel": k["metrics"], "plain": p["metrics"], "tol": TOL_METRICS,
-                     "sample": sample}}
+                     "unheld": list(unheld), "sample": sample},
+            "launches": {path: {n: v for n, v in out[path]["launches"].items() if v}
+                         for path in out}}
 
 
 def phase_cli(device, params) -> dict:
@@ -2045,7 +2099,8 @@ def phase_cli(device, params) -> dict:
                 fn(base + extra)
                 secs[name] = time.perf_counter() - t0
         launches = kernels.launches()
-        vs_plain = cli_kernel_vs_plain(device, job + ["trainer.max_epochs=1"], run_dir)
+        vs_plain = cli_kernel_vs_plain(device, CLI_CONFIG, job + ["trainer.max_epochs=1"],
+                                       run_dir)
     finally:
         dm_module.read_store = saved_read
         if saved_wandb is None:
@@ -2124,6 +2179,583 @@ def phase_cli(device, params) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the diffusion baselines (the DDPM U-Net, DdimTask, CondDdimTask,
+# CondEdmTask training)
+# ---------------------------------------------------------------------------
+
+def _variant(base: dict, name: str, drop=(), **model) -> dict:
+    """A copy of a config's hparams with another name and model keys."""
+    hp = json.loads(json.dumps(base))
+    hp["name"] = name
+    hp["model"].update(model)
+    for k in drop:
+        del hp["model"][k]
+    return hp
+
+
+# the `hparams` blocks of configs/model/{adm_cond_h_res32, ddim_cond_h_res32,
+# edm_cond_h_res32, ddim_res32}.yaml: adm_edm_cond_h's but for these keys (a
+# test holds each equal to its file)
+ADM_COND_HPARAMS = _variant(COND_EDM_HPARAMS, "adm_cond_h")
+DDIM_COND_HPARAMS = _variant(COND_EDM_HPARAMS, "ddim_cond_h", self_cond=True)
+EDM_COND_HPARAMS = _variant(COND_EDM_HPARAMS, "edm_cond_h")
+DDIM_HPARAMS = _variant(COND_EDM_HPARAMS, "ddim",
+                        drop=("cond_p", "add_cond_mask", "add_xt", "node_type"),
+                        in_channels=2, cond_channels=0, cat_cond=False, out_ch=2,
+                        self_cond=True)
+DDIM_TARGET = "m_cedm_tpu.tasks.DdimTask"
+COND_DDIM_TARGET = "m_cedm_tpu.tasks.CondDdimTask"
+# configs/diff_sampler/ddim_sampler.yaml: RePaint DDIM, 5 rounds a step
+DDIM_SAMPLER = {"name": "ddim", "type": "ddim", "timesteps": 50,
+                "skip_type": "uniform", "eta": 0.0, "n_samples": 5, "n_repeat": 5,
+                "n_time_h": 128, "n_time_u": 0, "return_last": True,
+                "select_by_pde": False, "use_gt_pde_select": True, "guide_dx": False,
+                "w": 0.0, "plot_scaled": False}
+# Per DDPM U-Net forward at full width and depth (res 128, 64, 32; attention
+# at 32): 22 K2 calls in the 11 ResnetBlocks and 2 in the Upsamples' convs;
+# conv_in and conv_out on the narrow kernel; K4 at the four attention
+# sites; K1's apply in the out head and its statistics pass where a block's
+# input comes without statistics (after the two Downsamples and the two
+# middle attention sites, and for five decoder concats: over the half
+# without statistics, or over both halves where neither has them).
+# tests/test_torch_ddpm_unet.py holds these to the calls of one forward.
+DDPM_PER_FORWARD = {"K2 gn_silu_conv": 24, "K2 narrow_conv": 2, "K4 attention": 4,
+                    "K1 gn_silu": 1, "K1 channel_stats": 9}
+# Per train step's backward: K2's backward for the 24 K2 calls and conv_in
+# (its wgrad), the narrow backward for conv_out, K1's for the out head, K4's
+# at the four attention sites
+DDPM_BWD_PER_STEP = {"K2 gn_silu_conv_bwd": 25, "K2 narrow_conv_bwd": 1,
+                     "K1 gn_silu_bwd": 1, "K4 attention_bwd": 4}
+DDPM_KERNELS = tuple(DDPM_PER_FORWARD) + tuple(DDPM_BWD_PER_STEP)
+# the ADM U-Net's per train step (phase 5's)
+ADM_STEP = {"K2 gn_silu_conv": K2_PER_FORWARD, "K2 narrow_conv": NARROW_PER_FORWARD,
+            "K2 gn_silu_conv_bwd": K2_BWD_PER_STEP,
+            "K2 narrow_conv_bwd": NARROW_BWD_PER_STEP,
+            "K1 gn_silu_bwd": K1_BWD_PER_STEP, "K4 attention": 4, "K4 attention_bwd": 4}
+ADM_FORWARD = {"K2 gn_silu_conv": K2_PER_FORWARD, "K2 narrow_conv": NARROW_PER_FORWARD,
+               "K4 attention": 4}
+# the self-conditioning branch of the three train steps, injected: taken,
+# not taken, taken
+SC_BRANCHES = (True, False, True)
+# test_pde_loss, the PDE residual of the samples, is reported on both paths
+# and not held: at an untrained net's sample amplitudes (hundreds to
+# thousands of the data's scale; the DDPM-as-EDM denoiser is x - sigma F)
+# the finite-volume step divides by depths near zero and amplifies the
+# samples' rounding differences by orders of magnitude. pde_conditioning
+# shows this on the card beside every gap, and holds the clamped residual
+# (clamp_loss=True, each element at most 1), which bounds what one element
+# can add; tests/test_torch_ddim_eval.py holds the residual to the JAX
+# package's on identical fields.
+UNHELD_METRICS = ("test_pde_loss",)
+DDPM_RUNS = 3  # timed calls per case of the kernel phase
+PDE_DRAWS = 4  # sign draws of pde_conditioning
+
+
+def phase_ddpm_kernels(device, b: int) -> dict:
+    """K2 and K1 at the DDPM U-Net's shapes (32 groups, eps 1e-6: 2 channels
+    a group at 64, 4 at the decoder's 128-channel concat), each against its
+    plain version: K2's identity block tail (64 -> 64) and its projection over
+    the concat (128 -> 64) at res 128, 64 and 32, fed chained statistics,
+    and K1's apply at C 64 and 128 (res 128); forward within TOL_KERNEL,
+    backward (every input's gradient, against the plain path's autograd)
+    within TOL_BWD; kernel and plain times of the forward and the backward."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.models.layers import DDPM_EPS, DDPM_GROUPS
+
+    g = torch.Generator(device=device).manual_seed(SEED + 40)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=device) * scale + shift
+                ).requires_grad_()
+
+    def timed(fwd, leaves, cot):
+        """(forward ms, backward ms) of one path."""
+        out = fwd()
+        ms = cuda_ms(lambda: fwd(), DDPM_RUNS, CALLS_PER_RUN)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True),
+                         DDPM_RUNS, CALLS_PER_RUN)
+        return ms, bwd_ms
+
+    recs = []
+
+    def check(name, k_fwd, p_fwd, leaves, work):
+        k_out, p_out = k_fwd(), p_fwd()
+        k_main = k_out[0] if isinstance(k_out, tuple) else k_out
+        p_main = p_out[0] if isinstance(p_out, tuple) else p_out
+        errs = [compare(k_main, p_main, TOL_KERNEL, f"{name} output")]
+        if isinstance(k_out, tuple):
+            errs += [compare(a, w, TOL_KERNEL, f"{name} emitted stats {i}")
+                     for i, (a, w) in enumerate(zip(k_out[1], p_out[1]))]
+        cot = torch.randn(p_main.shape, generator=g, device=device)
+        k_g = torch.autograd.grad(k_main, leaves, cot, retain_graph=True)
+        p_g = torch.autograd.grad(p_main, leaves, cot, retain_graph=True)
+        g_errs = [compare(a, w, TOL_BWD, f"{name} gradient {i}")
+                  for i, (a, w) in enumerate(zip(k_g, p_g))]
+        ms, bwd_ms = timed(lambda: (k_fwd()[0] if isinstance(k_out, tuple) else k_fwd()),
+                           leaves, cot)
+        pms, pbwd_ms = timed(lambda: (p_fwd()[0] if isinstance(p_out, tuple) else p_fwd()),
+                             leaves, cot)
+        rec = {"phase": "ddpm_kernel", "case": name,
+               "max_rel_err": max(e["max_rel_err"] for e in errs),
+               "max_abs_err": max(e["max_abs_err"] for e in errs), "tol": TOL_KERNEL,
+               "bwd_max_rel_err": max(e["max_rel_err"] for e in g_errs),
+               "bwd_tol": TOL_BWD, "ms": ms, "plain_ms": pms, "backward_ms": bwd_ms,
+               "plain_backward_ms": pbwd_ms, **bound(*work)}
+        emit(rec)
+        recs.append(rec)
+
+    for c_in in (64, 128):
+        o = 64
+        for r in (128, 64, 32):
+            x = rnd(b, r, r, c_in, scale=0.8, shift=0.2)
+            gamma, beta = rnd(b, c_in, scale=0.3, shift=1.0), rnd(b, c_in, scale=0.3)
+            w = rnd(3, 3, c_in, o, scale=1.0 / math.sqrt(9 * c_in))
+            bias = rnd(o, scale=0.3)
+            with torch.no_grad():
+                stats = fn.channel_stats_plain(x.reshape(b, -1, c_in))
+            kw, leaves = {"residual": x}, [x, gamma, beta, w, bias]
+            if c_in != o:
+                skw, skb = rnd(c_in, o, scale=1.0 / math.sqrt(c_in)), rnd(o, scale=0.3)
+                kw.update(skip_w=skw, skip_b=skb)
+                leaves += [skw, skb]
+
+            def k_fwd(x=x, gamma=gamma, beta=beta, w=w, bias=bias, kw=kw, stats=stats):
+                return fnc.gn_silu_conv(x, gamma, beta, w, bias, DDPM_GROUPS, DDPM_EPS,
+                                        stats=stats, emit_stats=True, **kw)
+
+            def p_fwd(x=x, gamma=gamma, beta=beta, w=w, bias=bias, kw=kw):
+                return fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, DDPM_GROUPS,
+                                              DDPM_EPS, emit_stats=True, **kw)
+
+            mode = "identity" if c_in == o else "projection"
+            work = (nbytes(x, gamma, beta, w, bias, *stats, kw.get("skip_w"),
+                           kw.get("skip_b")) + 4 * (b * r * r * o + 2 * b * o),
+                    conv_flops(b, r, r, c_in, o)
+                    + (2.0 * b * r * r * c_in * o if c_in != o else 0.0), 3)
+            check(f"K2 {mode} {c_in}->{o} res {r}", k_fwd, p_fwd, leaves, work)
+        # K1's apply at 32 groups (the out head is C 64 at res 128)
+        r = 128
+        x = rnd(b, r * r, c_in, scale=0.8, shift=0.2)
+        gamma, beta = rnd(b, c_in, scale=0.3, shift=1.0), rnd(b, c_in, scale=0.3)
+        with torch.no_grad():
+            stats = fn.channel_stats_plain(x)
+        check(f"K1 gn_silu C {c_in} res {r}",
+              lambda x=x, gamma=gamma, beta=beta, stats=stats: fn.gn_silu(
+                  x, gamma, beta, DDPM_GROUPS, DDPM_EPS, stats=stats),
+              lambda x=x, gamma=gamma, beta=beta: fn.gn_silu_plain(
+                  x, gamma, beta, DDPM_GROUPS, DDPM_EPS),
+              [x, gamma, beta],
+              (nbytes(x, gamma, beta, *stats) + 4 * x.numel(), 6.0 * x.numel()))
+    return {rec["case"]: {k: rec[k] for k in ("ms", "plain_ms", "backward_ms",
+                                               "plain_backward_ms", "bound_ms",
+                                               "bound_by", "max_rel_err",
+                                               "bwd_max_rel_err")}
+            for rec in recs}
+
+
+def baseline_data(device, hparams, b: int, seed: int):
+    import torch
+
+    r = hparams["model"]["resolution"]
+    h, tg, xg, u = synthetic_swe_batch(np.random.RandomState(seed), b, r)
+    stats = {"input_mean": h.mean(), "input_std": h.std(),
+             "target_mean": u.mean(), "target_std": u.std()}
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (h, tg, xg, u)), stats
+
+
+def expect_launches(got: dict, want: dict, n: int, what: str) -> None:
+    want = {k: v * n for k, v in want.items()}
+    got = {k: got[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, expected {want}")
+
+
+def pde_residual(task, state, batch, pred, clamp: bool) -> float:
+    """test_pde_loss of a one-member eval's sample, as eval_step computes it
+    (the member's mean is the member)."""
+    import torch
+
+    from m_cedm_tpu_torch.tasks import CondDdimTask
+
+    if isinstance(task, CondDdimTask):
+        h = task.transform.forward(state, batch[0], batch[3])[..., :task.h_ch]
+        m = task._pde_matrix_cond(state, h, pred, clamp_loss=clamp)
+    else:
+        m = task._pde_matrix_joint(state, pred, clamp_loss=clamp)
+    return float(torch.sum(m)) / batch[0].shape[0]
+
+
+def pde_conditioning(task, state, batch, pred, plain_pred, plain_pde: float,
+                     seed: int, what: str) -> dict:
+    """How far the PDE residual of a sample moves under a perturbation the
+    size of the kernel path's difference from the plain path, d = pred -
+    plain_pred: the gap (the residual of pred against plain_pred's, relative)
+    beside the spread of PDE_DRAWS residuals of plain_pred + s * d, s a
+    seeded random sign per element (the same magnitudes at the same places).
+    The clamped residual (each element at most 1) of pred is held within
+    TOL_METRICS of plain_pred's; its mean per element (1 where every
+    element is clamped) is reported."""
+    import torch
+
+    base = pde_residual(task, state, batch, plain_pred, False)
+    if abs(base - plain_pde) > 1e-5 * abs(plain_pde):
+        raise AssertionError(f"{what}: residual {base} recomputed, eval gave {plain_pde}")
+    d = pred - plain_pred
+    g = torch.Generator(device=pred.device).manual_seed(seed)
+    spread = []
+    for _ in range(PDE_DRAWS):
+        sign = torch.randint(0, 2, d.shape, generator=g, device=d.device) * 2 - 1
+        r = pde_residual(task, state, batch, plain_pred + sign * d, False)
+        spread.append(abs(r - base) / abs(base))
+    clamped = {name: pde_residual(task, state, batch, x, True)
+               for name, x in (("kernel", pred), ("plain", plain_pred))}
+    clamped_rel = (abs(clamped["kernel"] - clamped["plain"])
+                   / max(1.0, abs(clamped["plain"])))
+    if not clamped_rel <= TOL_METRICS:
+        raise AssertionError(f"{what} clamped PDE residual (kernel, plain): {clamped}")
+    n_el = pred.numel() if pred.shape[-1] == 2 else 2 * pred.numel()  # (h, u)
+    return {"gap": abs(pde_residual(task, state, batch, pred, False) - base) / abs(base),
+            "spread": spread, "sample_max_abs_diff": float(d.abs().max()),
+            "sample_max_abs": float(plain_pred.abs().max()),
+            "clamped": clamped, "clamped_rel_diff": clamped_rel, "tol": TOL_METRICS,
+            "clamped_mean_per_element": clamped["plain"] * batch[0].shape[0] / n_el}
+
+
+def baseline_eval(device, target, hparams, params, sparams, b: int, seed: int,
+                  paths=(("kernel", False), ("plain", False))) -> dict:
+    """One eval_step (n_samples 1) of a baseline on each path, the same
+    weights and generator seed; metrics and the sample of every path within
+    TOL_METRICS of the plain path's, the launches and the U-Net forwards of
+    each kernel path, wall seconds. UNHELD_METRICS are reported, not held;
+    pde_conditioning beside them."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    batch, stats = baseline_data(device, hparams, b, seed)
+    out = {}
+    for name, mega in paths:
+        ops = kernels.PLAIN_OPS if name == "plain" else kernels.DEVICE_OPS
+        task = build_task(hparams, device, target=target, ops=ops, mega=mega)
+        task.set_test_sampler_params(sparams)
+        state = task.init_state(None, stats, params=params)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        task.model.calls = 0
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, pred = task.eval_step(state, batch, gen, split="test")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gt = task.transform.forward(state, batch[0], batch[3])
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()}, "pred": pred,
+                     "gt": gt, "launches": kernels.launches(), "wall_s": wall,
+                     "forwards": task.model.calls, "task": task, "state": state,
+                     "batch": batch}
+    plain = out["plain"]
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain path launched {plain['launches']}")
+    rec = {"plain_metrics": plain["metrics"], "plain_wall_s": plain["wall_s"],
+           "samples_per_s_plain": b / plain["wall_s"], "unet_forwards": plain["forwards"]}
+    for name, _ in paths[:-1]:
+        k = out[name]
+        if not all(math.isfinite(v) for v in k["metrics"].values()):
+            raise AssertionError(f"{name} metrics {k['metrics']}")
+        rel = {key: abs(v - plain["metrics"][key]) / max(1.0, abs(plain["metrics"][key]))
+               for key, v in k["metrics"].items()}
+        bad = {key: (k["metrics"][key], plain["metrics"][key]) for key, e in rel.items()
+               if e > TOL_METRICS and key not in UNHELD_METRICS}
+        if bad:
+            raise AssertionError(f"{hparams['name']} {name} metrics (kernel, plain): {bad}")
+        rec[name] = {"metrics": k["metrics"], "metrics_max_rel_diff": rel,
+                     "wall_s": k["wall_s"], "samples_per_s": b / k["wall_s"],
+                     "sample": compare(k["pred"], plain["pred"], TOL_METRICS,
+                                       f"{hparams['name']} {name} sample"),
+                     "pde_conditioning": pde_conditioning(
+                         plain["task"], plain["state"], plain["batch"], k["pred"],
+                         plain["pred"], plain["metrics"]["test_pde_loss"], seed + 2,
+                         f"{hparams['name']} {name}"),
+                     "launches": {kk: v for kk, v in k["launches"].items() if v}}
+        out[name]["rec"] = rec[name]
+    return rec, out
+
+
+def baseline_train(device, target, hparams, params, b: int, seed: int,
+                   self_cond: bool) -> dict:
+    """Three train steps of a baseline from one state on the kernel path and
+    the plain path, the same generator seeds (and the self-conditioning
+    branch injected where the model has it: SC_BRANCHES); loss and gradient
+    norm of each step within TOL_TRAIN, params and EMA within 2 lr steps;
+    the launches of each kernel-path step and ms per step on both paths."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    batch, stats = baseline_data(device, hparams, b, seed)
+    lr = hparams["optimization"]["lr"]
+    out = {}
+    for name, ops in (("kernel", kernels.DEVICE_OPS), ("plain", kernels.PLAIN_OPS)):
+        task = build_task(hparams, device, target=target, ops=ops)
+        state = task.init_state(None, stats, params=params)
+        start = state
+        metrics, walls, launches = [], [], []
+        for i in range(TRAIN_STEPS):
+            gen = torch.Generator(device=device).manual_seed(seed + 10 + i)
+            draws = {"use_sc": SC_BRANCHES[i]} if self_cond else {}
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = task.train_step(state, batch, gen, **draws)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(kernels.launches())
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[name] = {"metrics": metrics, "state": state, "start": start,
+                     "walls": walls, "launches": launches, "task": task}
+    k, p = out["kernel"], out["plain"]
+    for step, (km, pm) in enumerate(zip(k["metrics"], p["metrics"])):
+        for key in ("train_loss", "grad_norm"):
+            if not math.isfinite(km[key]) or abs(km[key] - pm[key]) > TOL_TRAIN * abs(pm[key]):
+                raise AssertionError(f"{hparams['name']} step {step} {key}: kernel "
+                                     f"{km[key]} vs plain {pm[key]}")
+    if any(v for lp in p["launches"] for v in lp.values()):
+        raise AssertionError("the plain path launched kernels")
+
+    def max_diff(a, b_):
+        return max(float((a[n] - b_[n]).abs().max()) for n in a)
+
+    diffs = {"params": max_diff(k["state"].params, p["state"].params),
+             "ema_params": max_diff(k["state"].ema_params, p["state"].ema_params)}
+    tol_params = 2 * lr * TRAIN_STEPS
+    if not (diffs["params"] <= tol_params and diffs["ema_params"] <= tol_params
+            and max_diff(k["state"].params, k["start"].params) > 0):
+        raise AssertionError(f"{hparams['name']} params after {TRAIN_STEPS} steps: {diffs}")
+    rec = {"train_loss": [m["train_loss"] for m in k["metrics"]],
+           "plain_train_loss": [m["train_loss"] for m in p["metrics"]],
+           "grad_norm": [m["grad_norm"] for m in k["metrics"]],
+           "plain_grad_norm": [m["grad_norm"] for m in p["metrics"]],
+           "tol": TOL_TRAIN, "max_abs_diff": diffs, "tol_params": tol_params,
+           # the first step compiles nothing but warms the allocator: the
+           # later steps' median
+           "ms_per_step": float(np.median(k["walls"][1:])) * 1e3,
+           "plain_ms_per_step": float(np.median(p["walls"][1:])) * 1e3,
+           "self_cond_branches": list(SC_BRANCHES) if self_cond else None}
+    return rec, out
+
+
+def temb_proj_grads(device, hparams, params, b: int, seed: int) -> dict:
+    """The gradient of every ResnetBlock's temb_proj (its only path is h + t,
+    whose statistics the second K2 takes chained) on the kernel path against
+    the plain path, from one state and the same draws, each within TOL_BWD of
+    its scale."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    batch, stats = baseline_data(device, hparams, b, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    n = batch[0].shape[0]
+    draws = {"t_half": torch.randint(0, 1000, (n // 2 + 1,), generator=gen, device=device),
+             "noise": torch.randn((n,) + tuple(batch[0].shape[1:3]) + (2,),
+                                  generator=gen, device=device), "use_sc": False}
+    grads = {}
+    for name, ops in (("kernel", kernels.DEVICE_OPS), ("plain", kernels.PLAIN_OPS)):
+        task = build_task(hparams, device, target=DDIM_TARGET, ops=ops)
+        state = task.init_state(None, stats, params=params)
+        _, g = task.loss_and_grads(state, batch, None, **draws)
+        grads[name] = {k: v for k, v in g.items() if ".temb_proj." in k}
+    errs = {k: compare(grads["kernel"][k], v, TOL_BWD, f"gradient of {k}")["max_rel_err"]
+            for k, v in grads["plain"].items()}
+    return {"tensors": len(errs), "max_rel_err": max(errs.values()), "tol": TOL_BWD}
+
+
+def phase_ddim(device, b: int) -> dict:
+    """DdimTask (configs/model/ddim_res32.yaml) at full width and depth on
+    the DDPM U-Net: one eval with the model's sampler (RePaint DDPM-as-EDM
+    Heun: 50 steps, S_churn 15, n_repeat 2, n_time_h 128) and one with
+    ddim_sampler.yaml (RePaint DDIM, n_repeat 5), each on the kernel path and
+    the plain path (metrics and sample within TOL_METRICS, the known channel
+    within TOL_KNOWN of the ground truth on both); three train steps on both
+    paths; temb_proj's gradient; the launches per forward and per step
+    asserted. Returns the launches of the Heun eval and of the first train
+    step (which takes the self-conditioning branch)."""
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp = DDIM_HPARAMS
+    params = seeded_params(build_task(hp, "cpu", target=DDIM_TARGET).model, SEED + 50)
+    evals = {}
+    eval_launches = None
+    for sname, sp in (("edm_repaint", hp["sampler"]), ("ddim_repaint", DDIM_SAMPLER)):
+        rec, out = baseline_eval(device, DDIM_TARGET, hp, params, sp, b, SEED + 51)
+        k = out["kernel"]
+        expect_launches(k["launches"], DDPM_PER_FORWARD, k["forwards"],
+                        f"DdimTask {sname} eval ({k['forwards']} forwards)")
+        for path in ("kernel", "plain"):
+            rec[f"known_h_{path}"] = compare(out[path]["pred"][..., :1],
+                                             out[path]["gt"][..., :1], TOL_KNOWN,
+                                             f"DdimTask {sname} {path} known channel")
+        evals[sname] = rec
+        if sname == "edm_repaint":
+            eval_launches = k["launches"]
+    train, out = baseline_train(device, DDIM_TARGET, hp, params, b, SEED + 52, True)
+    for i, (sc, got) in enumerate(zip(SC_BRANCHES, out["kernel"]["launches"])):
+        expect_launches(got, DDPM_PER_FORWARD, 1 + sc, f"DdimTask train step {i} forward")
+        expect_launches(got, DDPM_BWD_PER_STEP, 1, f"DdimTask train step {i} backward")
+    temb = temb_proj_grads(device, hp, params, b, SEED + 53)
+    emit({"phase": "ddim", "config": "ddim_res32", "batch": b, "eval": evals,
+          "train": train, "temb_proj_grad": temb,
+          "launches_per_forward": DDPM_PER_FORWARD,
+          "launches_per_step_backward": DDPM_BWD_PER_STEP})
+    return {"eval": eval_launches, "step": out["kernel"]["launches"][0]}
+
+
+def phase_cond_baselines(device, b: int) -> dict:
+    """The conditional baselines at full width and depth, kernel path against
+    the plain path: CondDdimTask on the DDPM U-Net (ddim_cond_h) and on the
+    ADM U-Net (adm_cond_h, also with mega=True), and CondEdmTask on the DDPM
+    U-Net (edm_cond_h), one eval each with the config's sampler (50 steps,
+    DDPM-as-EDM Heun or EDM Heun) and three train steps each; CondEdmTask on
+    the ADM U-Net (adm_edm_cond_h, whose serving phase 11 measures): three
+    train steps. Launches per forward and per step asserted."""
+    from m_cedm_tpu_torch.tasks import COND_EDM_TARGET as EDM_T
+    from m_cedm_tpu_torch.tasks import build_task
+
+    recs = {}
+    cases = (("ddim_cond_h", DDIM_COND_HPARAMS, COND_DDIM_TARGET, True),
+             ("edm_cond_h", EDM_COND_HPARAMS, EDM_T, True),
+             ("adm_cond_h", ADM_COND_HPARAMS, COND_DDIM_TARGET, True),
+             ("adm_edm_cond_h", COND_EDM_HPARAMS, EDM_T, False))
+    for i, (name, hp, target, serve) in enumerate(cases):
+        adm = name.startswith("adm")
+        params = seeded_params(build_task(hp, "cpu", target=target).model, SEED + 60 + i)
+        rec = {}
+        if serve:
+            paths = ((("kernel", False), ("mega", True), ("plain", False)) if adm
+                     else (("kernel", False), ("plain", False)))
+            rec["eval"], out = baseline_eval(device, target, hp, params, hp["sampler"],
+                                             b, SEED + 70 + i, paths)
+            k = out["kernel"]
+            expect_launches(k["launches"], ADM_FORWARD if adm else DDPM_PER_FORWARD,
+                            k["forwards"], f"{name} eval ({k['forwards']} forwards)")
+            if adm:
+                check_mega_launches(out["mega"]["launches"], out["mega"]["forwards"],
+                                    f"{name} mega eval")
+        sc = hp["model"]["self_cond"]
+        rec["train"], out = baseline_train(device, target, hp, params, b, SEED + 80 + i, sc)
+        for j, got in enumerate(out["kernel"]["launches"]):
+            fwd = 1 + (sc and SC_BRANCHES[j])
+            if adm:
+                expect_launches(got, ADM_STEP, 1, f"{name} train step {j}")
+            else:
+                expect_launches(got, DDPM_PER_FORWARD, fwd, f"{name} train step {j} forward")
+                expect_launches(got, DDPM_BWD_PER_STEP, 1, f"{name} train step {j} backward")
+        recs[name] = rec
+    emit({"phase": "cond_baselines", "batch": b, **recs})
+    return recs
+
+
+DDIM_CLI_CONFIG = "config_ddim_res32.yaml"
+
+
+def phase_ddim_cli(device) -> dict:
+    """config_ddim_res32.yaml through m_cedm_tpu_torch.run at full width and
+    depth on phase 12's seeded fields (served as in-memory stores where h5py
+    is missing): one epoch of 2 steps at batch 32, validation (the model's
+    RePaint Heun sampler, batch 16), the test (edm_sampler: 50 Heun steps,
+    n_repeat 2, n_samples 5 folded into batch 80). Every logged metric
+    finite, the keys the JAX package's (DDIM_METRIC_KEYS), the launches of
+    each train step and eval as phase 13's; seconds, ms per step and the
+    test's samples/s. Then, the CLI's launches read, cli_kernel_vs_plain on
+    the fit's checkpoint: one train step at B = 32 and the folded test eval
+    at B = 80 on both paths (test_pde_loss reported, UNHELD_METRICS)."""
+    import importlib.util
+    import os
+    import shutil
+
+    from m_cedm_tpu_torch import kernels, run
+    from m_cedm_tpu_torch.data import datamodule as dm_module
+    from m_cedm_tpu_torch.data.h5_io import write_store
+    from m_cedm_tpu_torch.tasks.diffusion import DdimTask
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("h5py", "matplotlib", "wandb")}
+    res = DDIM_HPARAMS["model"]["resolution"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ddim_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    sub = os.path.join(root, "1D_swp_128_per")
+    os.makedirs(sub)
+    stores = cli_stores(res)
+    paths = {split: os.path.join(sub, f"1D_swp_128_per_{split}.h5") for split in stores}
+    saved_read, saved_wandb = dm_module.read_store, sys.modules.get("wandb")
+    if have["h5py"]:
+        for split, s in stores.items():
+            write_store(paths[split], s.inputs, s.targets, s.x, s.t)
+    else:
+        dm_module.read_store = {paths[split]: s for split, s in stores.items()}.__getitem__
+    sys.modules["wandb"] = None
+    job = ["system=swe_per", f"dataroot={root}", "trainer.max_epochs=1"]
+    if not have["matplotlib"]:
+        job.append("callbacks=callbacks_save_model")
+    run_dir = os.path.join(root, "run")
+    kernels.reset_launches()
+    try:
+        with CliProbe(DdimTask) as probe:
+            t0 = time.perf_counter()
+            run.main(["--config-name", DDIM_CLI_CONFIG] + job + [f"hydra.run.dir={run_dir}"])
+            seconds = time.perf_counter() - t0
+        launches = kernels.launches()
+        vs_plain = cli_kernel_vs_plain(
+            device, DDIM_CLI_CONFIG, job, run_dir, masked=False, need=DDPM_KERNELS,
+            unheld=UNHELD_METRICS)
+    finally:
+        dm_module.read_store = saved_read
+        if saved_wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    recs = read_metrics(run_dir)
+    keys = set().union(*map(set, recs))
+    if keys != DDIM_METRIC_KEYS:
+        raise AssertionError(f"metric keys {sorted(keys ^ DDIM_METRIC_KEYS)} differ "
+                             f"from the JAX package's")
+    for i, rec in enumerate(probe.steps):
+        got = rec["launches"]
+        fwd = got["K2 gn_silu_conv"] // DDPM_PER_FORWARD["K2 gn_silu_conv"]
+        if fwd not in (1, 2):  # with or without the self-conditioning forward
+            raise AssertionError(f"CLI train step {i}: launches {got}")
+        expect_launches(got, DDPM_PER_FORWARD, fwd, f"CLI train step {i} forward")
+        expect_launches(got, DDPM_BWD_PER_STEP, 1, f"CLI train step {i} backward")
+    for i, rec in enumerate(probe.evals):
+        expect_launches(rec["launches"], DDPM_PER_FORWARD, rec["forwards"],
+                        f"CLI eval {i} ({rec['forwards']} forwards)")
+    if len(probe.steps) != 2:
+        raise AssertionError(f"{len(probe.steps)} train steps, expected 2")
+    tests = [r for r in probe.evals if r["split"] == "test"]
+    step_ms = [r["s"] * 1e3 for r in probe.steps]
+    rec = {"phase": "ddim_cli", "config": DDIM_CLI_CONFIG, "nvidia_smi": nvidia_smi_line(),
+           "data": "h5" if have["h5py"] else "in_memory",
+           "callbacks": "configured" if have["matplotlib"] else "callbacks_save_model",
+           "seconds": seconds, "train_step_ms": step_ms,
+           "val_s": [r["s"] for r in probe.evals if r["split"] == "val"],
+           "test_s": [r["s"] for r in tests],
+           "test_samples_per_s": [r["samples"] / r["s"] for r in tests],
+           "test_unet_forwards": [r["forwards"] for r in tests],
+           "test_batch": [r["samples"] for r in tests],
+           "test_metrics": {k: v for k, v in recs[-1].items() if k.startswith("test_")},
+           "kernel_vs_plain": vs_plain, "launches": {k: v for k, v in launches.items() if v}}
+    emit(rec)
+    shutil.rmtree(root)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2784,10 @@ def main() -> int:
     eval_launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
     cond_launches = phase_cond_edm(device, BATCH)
     cli_launches = phase_cli(device, params)
+    at_32_groups = phase_ddpm_kernels(device, BATCH)
+    ddim_launches = phase_ddim(device, BATCH)
+    phase_cond_baselines(device, BATCH)
+    phase_ddim_cli(device)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -2175,6 +2811,13 @@ def main() -> int:
                        at_bh_64=rec["at_bh_64"])
         if name in FLAGSHIP_KERNELS:
             row.update(launches_cli=cli_launches[name])
+        if name in DDPM_KERNELS:
+            row.update(launches_ddim_eval=ddim_launches["eval"][name],
+                       launches_ddim_step=ddim_launches["step"][name])
+        prefix = {"K2 gn_silu_conv": "K2 ", "K1 gn_silu": "K1 "}.get(name)
+        if prefix:
+            row["at_32_groups"] = {case: rec for case, rec in at_32_groups.items()
+                                   if case.startswith(prefix)}
         if name in MEGA_KERNELS:
             row.update(two_kernel_ms=rec["two_kernel_ms"],
                        backward_max_rel_err=rec["backward_max_rel_err"],

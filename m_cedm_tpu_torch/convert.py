@@ -1,11 +1,16 @@
-"""JAX (flax) parameters and train states -> the port's: the ADM U-Net and
-the OFormer.
+"""JAX (flax) parameters and train states -> the port's: the ADM U-Net, the
+DDPM U-Net and the OFormer.
 
 The JAX tree is a nested mapping of arrays, `['params'][<module>][<leaf>]`
 with the flax module names (conv_in, map_layer0/1, out_norm, out_conv, and
 per block enc_{r}x{r}_block{i}, enc_{r}x{r}_down, dec_{r}x{r}_in{0,1},
 dec_{r}x{r}_up, dec_{r}x{r}_block{i} holding norm0, conv0, affine, norm1,
-conv1, skip, GroupNorm_0, qkv, proj). Layouts:
+conv1, skip, GroupNorm_0, qkv, proj). The DDPM U-Net's tree maps the same
+way: temb_dense0/1, conv_in, norm_out, conv_out, down_{l}_block_{i},
+down_{l}_attn_{i}, down_{l}_downsample/conv, mid_block_{1,2}, mid_attn_1,
+up_{l}_block_{i}, up_{l}_attn_{i}, up_{l}_upsample/conv, holding norm1,
+conv1, temb_proj, norm2, conv2, nin_shortcut, q, k, v, proj_out and
+GroupNorm_0. Layouts:
 
   3x3 conv kernel  HWIO (3, 3, C, O)  -> weight, unchanged
   1x1 conv kernel  (1, 1, C, O)       -> weight (C, O)

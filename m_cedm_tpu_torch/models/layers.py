@@ -1,10 +1,16 @@
-"""Shared layers of the ADM U-Net (port of m_cedm_tpu/models/layers.py).
+"""Shared layers of the ADM and DDPM U-Nets (port of
+m_cedm_tpu/models/layers.py).
 
 NHWC activations throughout. Conv weights are stored HWIO (k, k, C, O), the
 layout the conv kernels read and the JAX checkpoint uses; a 1x1 conv stores
 its weight as a (C, O) matrix. Linear stores PyTorch's (out, in). The
 counterpart of `fp32_softmax_attention` is the K4 wrapper,
 m_cedm_tpu_torch.kernels.fused_attention.attention.
+
+The DDPM U-Net's layers (the JAX package's TorchConv2d / TorchLinear) are
+Conv2d and Linear with `init_mode="torch_default"`: torch's default init,
+kaiming_uniform(a=sqrt(5)) on the weight, whose bound sqrt(6 / ((1 + 5)
+fan_in)) is 1 / sqrt(fan_in), and the same bound on the bias.
 """
 from __future__ import annotations
 
@@ -21,11 +27,13 @@ from m_cedm_tpu_torch.kernels.fused_norm_conv import (conv3x3_plain,
 
 __all__ = ["make_initializer", "Linear", "Conv2d", "upsample2x_nearest",
            "downsample2x_mean", "GroupNormSiLU", "GroupNorm", "adm_groups",
-           "adm_group_norm"]
+           "adm_group_norm", "ddpm_group_norm", "DDPM_GROUPS", "DDPM_EPS"]
 
 
 def make_initializer(mode: str, scale: float, fan_in: int, fan_out: int):
-    """ADM weight-init family; returns init(shape, generator) -> tensor."""
+    """ADM weight-init family and torch's default ("torch_default", the
+    DDPM U-Net's); returns init(shape, generator) -> tensor, drawn on the
+    host."""
 
     def uniform(shape, generator, bound):
         return torch.empty(shape).uniform_(-bound, bound, generator=generator)
@@ -38,6 +46,8 @@ def make_initializer(mode: str, scale: float, fan_in: int, fan_out: int):
             return torch.randn(shape, generator=generator) * std * scale
         if mode == "kaiming_uniform":
             return uniform(shape, generator, math.sqrt(3 / fan_in)) * scale
+        if mode == "torch_default":
+            return uniform(shape, generator, 1.0 / math.sqrt(fan_in)) * scale
         if mode == "kaiming_normal":
             return torch.randn(shape, generator=generator) * math.sqrt(1 / fan_in) * scale
         raise ValueError(f"invalid init mode {mode!r}")
@@ -186,3 +196,11 @@ class GroupNorm(nn.Module):
 
 def adm_group_norm(num_channels: int, eps: float = 1e-5) -> GroupNorm:
     return GroupNorm(num_channels, adm_groups(num_channels), eps)
+
+
+DDPM_GROUPS, DDPM_EPS = 32, 1e-6  # the DDPM U-Net's norms
+
+
+def ddpm_group_norm(num_channels: int) -> GroupNorm:
+    """DDPM convention: 32 groups, eps 1e-6."""
+    return GroupNorm(num_channels, DDPM_GROUPS, DDPM_EPS)

@@ -76,14 +76,16 @@ def correlation(pred, target, reduction: str = "none"):
     return corr
 
 
-def scale_each_min_max(state):
+def scale_each_min_max(state, return_min_max: bool = False):
     """Rescale each (sample, channel) field to [0, 1] over its (H, W) extent
-    (tasks/base.py:123-133 of the JAX package)."""
+    (tasks/base.py:123-133 of the JAX package); with return_min_max also
+    the (B, 1, C) minima and maxima."""
     b, c = state.shape[0], state.shape[-1]
     flat = state.reshape(b, -1, c)
     mn = torch.amin(flat, dim=1, keepdim=True)
     mx = torch.amax(flat, dim=1, keepdim=True)
-    return ((flat - mn) / (mx - mn)).reshape(state.shape)
+    scaled = ((flat - mn) / (mx - mn)).reshape(state.shape)
+    return (scaled, mn, mx) if return_min_max else scaled
 
 
 def scaled_mae_loss(pred, target, keep_channels: bool = False):

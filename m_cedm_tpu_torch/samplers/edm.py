@@ -1,13 +1,15 @@
 """Heun (EDM) samplers (port of m_cedm_tpu/samplers/edm.py): the masked
-sampler with known-part clamping (McedmTask) and the plain conditional one
-(CondEdmTask), whose conditioning lives in the denoiser.
+sampler with known-part clamping (McedmTask), the plain conditional one
+(CondEdmTask, CondDdimTask), whose conditioning lives in the denoiser, with
+its self-conditioning carry, and the joint model's RePaint loop (DdimTask).
 
 The schedule constants are computed on the host in float64 numpy and stored
 as float32, exactly as in the JAX package (`make_edm_schedule` is a copy, so
 the two schedules are identical). The loop is a Python loop over the steps;
 scalar step arithmetic is done in float32 like the JAX graph. Random draws
 come from a `torch.Generator`, or are injected (`init_noise`, `churn_noise`)
-so tests can replay the JAX package's draws.
+so tests can replay the JAX package's draws. Draws are taken step by step,
+never all ahead of the loop.
 """
 from __future__ import annotations
 
@@ -144,10 +146,14 @@ def heun_sample_masked(denoise_fn: Callable, known: torch.Tensor,
 def _heun_loop(denoise_fn: Callable, x: torch.Tensor, schedule: EdmSchedule,
                normal: Callable[[], torch.Tensor],
                churn_noise: Optional[torch.Tensor],
-               mask: Optional[torch.Tensor], return_last: bool) -> torch.Tensor:
+               mask: Optional[torch.Tensor], return_last: bool,
+               self_condition: bool = False) -> torch.Tensor:
     """The steps both samplers share from their initial state x: churn noise
-    (where mask == 1, or everywhere without a mask), then `_heun_step`."""
+    (where mask == 1, or everywhere without a mask), then `_heun_step`. With
+    `self_condition`, denoise_fn(x, sigma, x_sc) gets the previous step's
+    Euler-step estimate (zeros at the first step)."""
     states = []
+    x_sc = torch.zeros_like(x) if self_condition else None
     for i in range(schedule.num_steps):
         t_cur, t_hat = schedule.t_cur[i], schedule.t_hat[i]
         churn = float(np.sqrt(np.maximum(t_hat * t_hat - t_cur * t_cur,
@@ -155,8 +161,12 @@ def _heun_loop(denoise_fn: Callable, x: torch.Tensor, schedule: EdmSchedule,
         eps = churn_noise[i] if churn_noise is not None else normal()
         step_noise = churn * schedule.S_noise * eps
         x_hat = x + (step_noise if mask is None else step_noise * mask)
-        x, _ = _heun_step(denoise_fn, x_hat, t_hat, schedule.t_next[i],
-                          bool(schedule.is_last[i]), update_mask=mask)
+        fn = (denoise_fn if x_sc is None
+              else (lambda xx, tt, sc=x_sc: denoise_fn(xx, tt, sc)))
+        x, denoised = _heun_step(fn, x_hat, t_hat, schedule.t_next[i],
+                                 bool(schedule.is_last[i]), update_mask=mask)
+        if self_condition:
+            x_sc = denoised
         if not return_last:
             states.append(x)
     if return_last:
@@ -174,17 +184,16 @@ def heun_sample_cond(denoise_fn: Callable, shape, schedule: EdmSchedule,
                      device="cpu") -> torch.Tensor:
     """Plain conditional Heun sampler: the state of `shape` (B, H, W, C) is
     drawn and updated everywhere; denoise_fn(x, sigma) -> D(x) holds the
-    conditioning. init_noise (B, H, W, C) and churn_noise (N, B, H, W, C)
-    replace the generator's draws. Returns (B, 1, H, W, C), or every step's
-    state (B, N, H, W, C) when return_last is False.
+    conditioning. With `self_condition` it is denoise_fn(x, sigma, x_sc), the
+    previous step's estimate carried as in the JAX scan (edm.py:191-235).
+    init_noise (B, H, W, C) and churn_noise (N, B, H, W, C) replace the
+    generator's draws. Returns (B, 1, H, W, C), or every step's state
+    (B, N, H, W, C) when return_last is False.
 
     guidance_div_t divides a PDE-guidance term by t_hat (ddim.py:1578,1590);
-    PDE guidance and the self-conditioning carry are not ported yet."""
+    PDE guidance is not ported yet."""
     if guidance_fn is not None:
         raise NotImplementedError("PDE guidance is not ported yet (see ROADMAP.md)")
-    if self_condition:
-        raise NotImplementedError("self-conditioning is not ported yet "
-                                  "(see ROADMAP.md)")
     del guidance_div_t  # it scales only the guidance term
 
     def normal():
@@ -193,4 +202,69 @@ def heun_sample_cond(denoise_fn: Callable, shape, schedule: EdmSchedule,
 
     x = (init_noise if init_noise is not None else normal()) * float(schedule.t_cur[0])
     return _heun_loop(denoise_fn, x, schedule, normal, churn_noise, None,
-                      return_last)
+                      return_last, self_condition)
+
+
+def heun_sample_repaint(denoise_fn: Callable, known: torch.Tensor,
+                        mask: torch.Tensor, schedule: EdmSchedule,
+                        n_repeat: int = 1,
+                        generator: Optional[torch.Generator] = None,
+                        guidance_fn: Optional[Callable] = None,
+                        return_last: bool = True,
+                        init_noise: Optional[torch.Tensor] = None,
+                        churn_noise: Optional[torch.Tensor] = None,
+                        repeat_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Joint-model Heun loop with RePaint harmonization (edm.py:238-298):
+    after each Heun step the known region (mask == 1: observed, the opposite
+    of the mcedm masks) is re-inserted at the DDPM noise level alpha_next of
+    the step, and the n_repeat rounds re-noise back up to repeat_t_hat in
+    between; on the last step the clean known part is inserted. Needs a
+    schedule built with alphas_cumprod.
+
+    known: clean (B, H, W, C); denoise_fn(x, sigma) -> D(x). init_noise
+    (B, H, W, C, the one known-part noise), churn_noise (N, B, H, W, C) and
+    repeat_noise (N * n_repeat, B, H, W, C; entry i * n_repeat + r re-noises
+    after round r of step i, and the last round's is not used) replace the
+    generator's draws."""
+    if schedule.alpha_next is None:
+        raise ValueError("repaint needs a schedule built with alphas_cumprod")
+    if guidance_fn is not None:
+        raise NotImplementedError("PDE guidance is not ported yet (see ROADMAP.md)")
+
+    def normal():
+        return torch.randn(known.shape, generator=generator, device=known.device,
+                           dtype=torch.float32)
+
+    one = np.float32(1.0)
+    hu_noise = init_noise if init_noise is not None else normal()
+    a0 = np.float32(schedule.alpha_t0)
+    known_t0 = known * float(np.sqrt(a0)) + hu_noise * float(np.sqrt(one - a0))
+    x = (known_t0 * mask + hu_noise * (1.0 - mask)) * float(schedule.t_cur[0])
+    free = 1.0 - mask
+    states = []
+    for i in range(schedule.num_steps):
+        t_cur, t_hat = schedule.t_cur[i], schedule.t_hat[i]
+        t_next, is_last = schedule.t_next[i], bool(schedule.is_last[i])
+        churn = float(np.sqrt(np.maximum(t_hat * t_hat - t_cur * t_cur, np.float32(0))))
+        eps = churn_noise[i] if churn_noise is not None else normal()
+        x_hat = x + churn * schedule.S_noise * eps
+        a_next, rep = schedule.alpha_next[i], schedule.repeat_t_hat[i]
+        known_t = (float(np.sqrt(a_next)) * known
+                   + float(np.sqrt(one - a_next)) * hu_noise)
+        churn_re = float(np.sqrt(np.maximum(rep * rep - t_next * t_next, np.float32(0))))
+        for r in range(n_repeat):
+            x_next, _ = _heun_step(denoise_fn, x_hat, t_hat, t_next, is_last)
+            x_next = known_t * mask + x_next * free
+            if r < n_repeat - 1:
+                eps = (repeat_noise[i * n_repeat + r] if repeat_noise is not None
+                       else normal())
+                x_hat = x_next + churn_re * schedule.S_noise * eps
+                t_hat = rep
+        if is_last:
+            x_next = known * mask + x_next * free
+        x = x_next
+        if not return_last:
+            states.append(x)
+    if return_last:
+        return x[:, None]
+    return torch.stack(states, dim=1)

@@ -12,12 +12,15 @@ from typing import Callable, Dict
 from m_cedm_tpu_torch.config import register
 from m_cedm_tpu_torch.kernels import DEVICE_OPS, Ops
 from m_cedm_tpu_torch.tasks.base import TaskState
-from m_cedm_tpu_torch.tasks.diffusion import CondEdmTask, McedmTask
+from m_cedm_tpu_torch.tasks.diffusion import (CondDdimTask, CondEdmTask,
+                                              DdimTask, McedmTask)
 from m_cedm_tpu_torch.tasks.oformer import OformerTask
 
 MCEDM_TARGET = "m_cedm_tpu.tasks.McedmTask"
 OFORMER_TARGET = "m_cedm_tpu.tasks.OformerTask"
 COND_EDM_TARGET = "m_cedm_tpu.tasks.CondEdmTask"
+DDIM_TARGET = "m_cedm_tpu.tasks.DdimTask"
+COND_DDIM_TARGET = "m_cedm_tpu.tasks.CondDdimTask"
 
 _REGISTRY: Dict[str, Callable] = {
     MCEDM_TARGET: McedmTask,
@@ -26,6 +29,10 @@ _REGISTRY: Dict[str, Callable] = {
     "models.oformer.PlOformer": OformerTask,
     COND_EDM_TARGET: CondEdmTask,
     "models.ddim.PlCondEdm": CondEdmTask,
+    DDIM_TARGET: DdimTask,
+    "models.ddim.PlDdim": DdimTask,
+    COND_DDIM_TARGET: CondDdimTask,
+    "models.ddim.PlCondDdim": CondDdimTask,
 }
 
 
@@ -49,18 +56,19 @@ def _config_factory(target: str):
 
 
 # the model targets named under configs/, with their reference aliases; the
-# DDPM and FNO families are not ported yet, so build_task raises for them
+# FNO family is not ported yet, so build_task raises for it
 _CONFIG_TARGETS = {
     MCEDM_TARGET: "models.mcedm.PlMcedm",
     OFORMER_TARGET: "models.oformer.PlOformer",
     COND_EDM_TARGET: "models.ddim.PlCondEdm",
-    "m_cedm_tpu.tasks.DdimTask": "models.ddim.PlDdim",
-    "m_cedm_tpu.tasks.CondDdimTask": "models.ddim.PlCondDdim",
+    DDIM_TARGET: "models.ddim.PlDdim",
+    COND_DDIM_TARGET: "models.ddim.PlCondDdim",
     "m_cedm_tpu.tasks.FnoStateReconstrTask": "models.fno_state_2d.PlFnoStateReconstr2d",
 }
 for _target, _alias in _CONFIG_TARGETS.items():
     register(_target, _alias)(_config_factory(_target))
 
 
-__all__ = ["build_task", "McedmTask", "OformerTask", "CondEdmTask", "TaskState",
-           "MCEDM_TARGET", "OFORMER_TARGET", "COND_EDM_TARGET"]
+__all__ = ["build_task", "McedmTask", "OformerTask", "CondEdmTask", "DdimTask",
+           "CondDdimTask", "TaskState", "MCEDM_TARGET", "OFORMER_TARGET",
+           "COND_EDM_TARGET", "DDIM_TARGET", "COND_DDIM_TARGET"]

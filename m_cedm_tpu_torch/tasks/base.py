@@ -248,5 +248,13 @@ def fold_noise(noise: Optional[torch.Tensor], members: range, per_step: bool = F
     return sel.reshape((-1,) + tuple(sel.shape[2:]))
 
 
+def scale_back_min_max(scaled: torch.Tensor, mn: torch.Tensor,
+                       mx: torch.Tensor) -> torch.Tensor:
+    """The inverse of `scale_each_min_max` with its (B, 1, C) minima and
+    maxima (tasks/base.py:135-138 of the JAX package)."""
+    b, c = scaled.shape[0], scaled.shape[-1]
+    return (scaled.reshape(b, -1, c) * (mx - mn) + mn).reshape(scaled.shape)
+
+
 def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))

@@ -1,7 +1,10 @@
-"""Diffusion tasks (port of m_cedm_tpu/tasks/diffusion.py):
-DiffusionTaskBase, McedmTask (the paper's mixed-conditional EDM: training
-and serving), and the serving path of the single-task conditional EDM
-baseline CondEdmTask with the pieces of DdimTask / CondDdimTask it inherits.
+"""Diffusion tasks (port of m_cedm_tpu/tasks/diffusion.py), each trained and
+served: DiffusionTaskBase; McedmTask, the paper's mixed-conditional EDM; and
+the paper's diffusion baselines: DdimTask, the unconditional joint DDPM over
+(h, u) with self-conditioning and RePaint inpainting (DDPM-as-EDM Heun or
+DDIM); CondDdimTask, single-task conditional DDPM (h observed, u sampled)
+with classifier-free cond dropout, sampled by DDIM or DDPM-as-EDM Heun; and
+CondEdmTask, the same with true EDM preconditioning.
 
     task = build_task(hparams, device)
     state = task.init_state(generator, norm_stats)
@@ -11,11 +14,12 @@ baseline CondEdmTask with the pieces of DdimTask / CondDdimTask it inherits.
     ctask = build_task(cond_hparams, device, target=COND_EDM_TARGET, mega=True)
     metrics, u_mean = ctask.eval_step(cstate, batch, generator, split="test")
 
-`mega=True` runs the U-Net's sampling forwards through the whole-block K7.
-The state is functional, as in the JAX package: `train_step` returns a new
-TaskState and leaves its argument as it was. The DDIM/RePaint samplers, the
-conditional tasks' training and the other task classes come in later slices
-(ROADMAP.md).
+`mega=True` runs the ADM U-Net's sampling forwards through the whole-block
+K7. The state is functional, as in the JAX package: `train_step` returns a
+new TaskState and leaves its argument as it was. Every random draw of a
+train or eval step can be injected by keyword (the JAX draws in the tests);
+otherwise it comes from the generator, step by step. PDE guidance, dx
+conditioning and `DdimTask.unroll_metrics` are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from m_cedm_tpu_torch.kernels import DEVICE_OPS, Ops
 from m_cedm_tpu_torch.models import build_backbone
 from m_cedm_tpu_torch.ops import losses
 from m_cedm_tpu_torch.ops.losses import scale_each_min_max
+from m_cedm_tpu_torch.samplers import ddim as ddim_samplers
 from m_cedm_tpu_torch.ops.normalizer import Normalizer
 from m_cedm_tpu_torch.ops.schedules import (alphas_cumprod_from_betas,
                                             edm_loss_weight, edm_precond_coeffs,
@@ -42,7 +47,8 @@ from m_cedm_tpu_torch.tasks.base import (DataTransform, TaskState,
                                          apply_updates, ema_update, ensemble,
                                          fold_members, fold_noise, global_norm,
                                          mae, make_optimizer,
-                                         normalizers_from_stats, to_device)
+                                         normalizers_from_stats,
+                                         scale_back_min_max, to_device)
 
 P_MEAN, P_STD, SIGMA_DATA = -1.2, 1.2, 1.0
 SIGMA_MIN, SIGMA_MAX = 0.002, 80.0
@@ -61,11 +67,12 @@ DEFAULT_DDIM_SAMPLER = dict(
     plot_scaled=False)
 
 
-def _edm_precond(task, params, x_noise, sigma, cond):
+def _edm_precond(task, params, x_noise, sigma, cond, x_self_cond=None):
     """D(x) = c_skip x + c_out F(c_in x, c_noise; cond): the EDM denoiser."""
     sigma = sigma.to(torch.float32).reshape(-1, 1, 1, 1)
     c_skip, c_out, c_in, c_noise = edm_precond_coeffs(sigma, SIGMA_DATA)
-    f_x = task.net_apply(params, c_in * x_noise, c_noise.reshape(-1), cond)
+    f_x = task.net_apply(params, c_in * x_noise, c_noise.reshape(-1), cond,
+                         x_self_cond)
     return c_skip * x_noise + c_out * f_x
 
 
@@ -101,6 +108,10 @@ class DiffusionTaskBase:
         opt_cfg = hparams.get("optimization")
         # a serving-only config may leave the optimizer out
         self.tx = make_optimizer(opt_cfg, grad_clip) if opt_cfg else None
+        opt_cfg = opt_cfg or {}
+        self.pde_loss_lambda = opt_cfg.get("pde_loss_lambda", 0.0)
+        self.pde_loss_prop_t = opt_cfg.get("pde_loss_prop_t", False)
+        self.use_gt_pde = opt_cfg.get("use_gt_pde", False)
         self.pde_loss, _ = get_pde_loss_function("swe", flip_xy=False)
         self.sparams = hparams.get("sampler") or self.default_sampler_params()
         self.test_sparams = self.sparams
@@ -159,9 +170,10 @@ class DiffusionTaskBase:
     def _sample_params(self, state: TaskState):
         return state.ema_params if self.ema_enabled else state.params
 
-    def net_apply(self, params, x, t, cond=None) -> torch.Tensor:
+    def net_apply(self, params, x, t, cond=None, x_self_cond=None) -> torch.Tensor:
         """The backbone with `params` swapped in; fp32 in and out."""
-        return functional_call(self.model, params, (x, t, cond)).float()
+        kw = {} if x_self_cond is None else {"x_self_cond": x_self_cond}
+        return functional_call(self.model, params, (x, t, cond), kw).float()
 
     def finish_step(self, state: TaskState, grads, metrics):
         """Optimizer update, then the EMA of the new params (`_finish_step`)."""
@@ -386,9 +398,10 @@ def _not_ported(what: str):
 
 
 class DdimTask(DiffusionTaskBase):
-    """The DDPM schedule the conditional baselines share (the JAX DdimTask's
-    constructor and cond-channel rule); its joint sampling, training and
-    evaluation are not ported yet."""
+    """Unconditional joint DDPM over (h, u) (diffusion.py:494-857): antithetic
+    timesteps, self-conditioning and the optional PDE loss in training; the
+    evaluation inpaints u from h by RePaint, with the DDPM-as-EDM Heun sampler
+    (`type: edm`) or DDIM."""
 
     default_cond_p = 0.0
 
@@ -403,31 +416,340 @@ class DdimTask(DiffusionTaskBase):
         # DDPM-as-EDM sigma table (ddim.py:131-137), reversed to EDM order
         self.edm_steps = np.sqrt(
             (1.0 - self.alphas_cumprod) / self.alphas_cumprod)[::-1].copy()
+        # the table as the JAX graph holds it, for the nearest-sigma lookup
+        self._edm_steps32 = self.edm_steps.astype(np.float32)
         self.sigma_min = float(self.edm_steps[-1])
         self.sigma_max = float(self.edm_steps[0])
         super().__init__(hparams, device, ops, grad_clip, mega=mega)
+        self._abar_table = torch.as_tensor(self.alphas_cumprod, dtype=torch.float32,
+                                           device=self.device)
 
     def _adjust_cond_channels(self, hparams):
         m = hparams["model"]
         if m.get("node_type", False):
             m["cond_channels"] = m["cond_channels"] + 1
 
-    def train_step(self, *args, **kwargs):
-        raise _not_ported(f"{type(self).__name__}.train_step")
+    # --- training ------------------------------------------------------------
 
-    def eval_step(self, *args, **kwargs):
-        raise _not_ported("the joint DDPM evaluation")
+    def _timesteps(self, n: int, generator, t_half=None) -> torch.Tensor:
+        """Antithetic timesteps: n // 2 + 1 draws, then their mirrors
+        T - t - 1, the first n of both (diffusion.py:920-921)."""
+        if t_half is None:
+            t_half = torch.randint(0, self.num_timesteps, (n // 2 + 1,),
+                                   generator=generator, device=self.device)
+        t_half = t_half.to(self.device, torch.int64)
+        return torch.cat([t_half, self.num_timesteps - t_half - 1])[:n]
 
-    def sample(self, *args, **kwargs):
-        raise _not_ported("the DDIM sampler")
+    def _self_cond(self, like: torch.Tensor, use_sc, generator, estimate):
+        """The self-conditioning input of a train step: with probability 1/2
+        (one uniform a step, or `use_sc`) `estimate()` run without gradients,
+        else zeros; None when the model is not self-conditioned."""
+        if not self.self_condition:
+            return None
+        if use_sc is None:
+            use_sc = torch.rand((), generator=generator, device=like.device) < 0.5
+        if bool(use_sc):
+            with torch.no_grad():
+                return estimate()
+        return torch.zeros_like(like)
 
-    def sample_edm(self, *args, **kwargs):
-        raise _not_ported("DDPM-as-EDM sampling")
+    def _grads(self, state: TaskState, loss_fn):
+        """(metrics, gradients) of loss_fn(params) -> (loss, metrics) at
+        state.params; the metrics are detached."""
+        params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+        self.model.train()
+        with torch.enable_grad():
+            loss, metrics = loss_fn(params)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        return ({k: v.detach() for k, v in metrics.items()},
+                dict(zip(params, grads)))
+
+    def _add_pde_loss(self, loss, metrics, m, divisor):
+        """loss + pde_loss_lambda * sum(m [/ divisor]), the PDE term of the
+        train steps; `train_pde_loss` joins the metrics."""
+        if self.pde_loss_prop_t:
+            m = m / divisor
+        pde = torch.sum(m)
+        metrics["train_pde_loss"] = pde
+        return loss + self.pde_loss_lambda * pde
+
+    def _gt_un(self, batch):
+        return torch.cat([batch[0], batch[3]], dim=-1) if self.use_gt_pde else None
+
+    def loss_and_grads(self, state: TaskState, batch,
+                       generator: Optional[torch.Generator] = None, *,
+                       t_half=None, noise=None, use_sc=None):
+        """The train step's loss and gradients (diffusion.py:521-569):
+        (metrics {"train_loss"[, "train_pde_loss"]}, gradients). t_half
+        (n // 2 + 1,) integers, noise (x's shape) and use_sc (a bool: the
+        self-conditioning branch taken) replace the generator's draws."""
+        h_un, _, _, u_un = batch
+        x = self.transform.forward(state, h_un, u_un, generator)
+        noise = (torch.randn(x.shape, generator=generator, device=x.device)
+                 if noise is None else noise)
+        t = self._timesteps(x.shape[0], generator, t_half)
+        abar = self._abar_table[t].reshape(-1, 1, 1, 1)
+        sa, sb = torch.sqrt(abar), torch.sqrt(1.0 - abar)
+        x_noise = x * sa + noise * sb
+        tf = t.float()
+
+        def loss_fn(params):
+            x_sc = self._self_cond(x_noise, use_sc, generator, lambda: (
+                x_noise - self.net_apply(params, x_noise, tf) * sb) / sa)
+            output = self.net_apply(params, x_noise, tf, None, x_sc)
+            loss = losses.noise_estimation_loss(output, noise)
+            metrics = {"train_loss": loss}
+            if self.pde_loss_lambda > 0.0:
+                x0_t = (x_noise - output * sb) / sa
+                m = self._pde_matrix_joint(state, x0_t, self._gt_un(batch),
+                                           clamp_loss=True)
+                loss = self._add_pde_loss(loss, metrics, m,
+                                          t.reshape(-1, 1, 1, 1).to(m.dtype) + 1.0)
+            return loss, metrics
+
+        return self._grads(state, loss_fn)
+
+    def train_step(self, state: TaskState, batch,
+                   generator: Optional[torch.Generator] = None, **draws):
+        """One optimizer step: the loss of `loss_and_grads`, its gradients,
+        the global-norm clip, the optimizer and the EMA. Returns (new state,
+        metrics) with the gradient norm (before clipping) as `grad_norm`."""
+        metrics, grads = self.loss_and_grads(state, batch, generator, **draws)
+        metrics["grad_norm"] = global_norm(grads)
+        return self.finish_step(state, grads, metrics)
+
+    # --- samplers --------------------------------------------------------------
+
+    def _eps_fn(self, params, w: float, cond=None):
+        """eps(x, t, x_self_cond), blended with the unconditional prediction
+        when |w| >= 1e-3 (classifier-free guidance)."""
+
+        def eps(x, t: float, x_self_cond):
+            t_b = torch.full((x.shape[0],), t, device=x.device, dtype=torch.float32)
+            e_c = self.net_apply(params, x, t_b, cond, x_self_cond)
+            if w is None or abs(w) < 1e-3:
+                return e_c
+            e_u = self.net_apply(params, x, t_b, None, x_self_cond)
+            return (w + 1) * e_c - w * e_u
+
+        return eps
+
+    def _c_noise(self, sigma) -> Tuple[np.float32, float]:
+        """(c_in, c_noise) of the eps net driven as an EDM denoiser:
+        c_in = 1 / sqrt(sigma^2 + 1) and T - 1 - the index of the nearest
+        table sigma, in float32 as the JAX graph computes them."""
+        sigma = np.float32(sigma)
+        c_in = np.float32(1) / np.sqrt(sigma * sigma + np.float32(1))
+        idx = int(np.argmin(np.abs(self._edm_steps32 - sigma)))
+        return c_in, float(self.num_timesteps - 1 - idx)
+
+    def _ddpm_as_edm_denoise_fn(self, params, w: float):
+        """The eps net as an EDM denoiser: c_skip 1, c_out -sigma
+        (ddim.py:915-957). Like the JAX package's, it takes no guidance."""
+        del w
+
+        def denoise(x, sigma: float):
+            c_in, c_noise = self._c_noise(sigma)
+            t_b = torch.full((x.shape[0],), c_noise, device=x.device,
+                             dtype=torch.float32)
+            f_x = self.net_apply(params, float(c_in) * x, t_b, None)
+            return x - float(np.float32(sigma)) * f_x
+
+        return denoise
+
+    def _time_mask(self, shape, n_time_h: int, n_time_u: int) -> torch.Tensor:
+        """(1, T, X, C): 1 = known for the first n_time rows of each variable
+        block (the opposite of the mcedm masks' convention)."""
+        mask = np.zeros(tuple(shape[1:]), np.float32)
+        mask[:n_time_h, :, :self.h_ch] = 1.0
+        mask[:n_time_u, :, self.h_ch:self.h_ch + self.u_ch] = 1.0
+        return torch.from_numpy(mask)[None].to(self.device)
+
+    def _known_mask(self, hu, sp):
+        return torch.broadcast_to(
+            self._time_mask(hu.shape, sp.get("n_time_h", 128), sp.get("n_time_u", 0)),
+            hu.shape)
+
+    def _ddim_schedule(self, sp):
+        return ddim_samplers.make_ddim_schedule(
+            self.alphas_cumprod, sp.get("timesteps", 50),
+            sp.get("skip_type", "uniform"), sp.get("eta", 0.0))
+
+    def _table_edm_schedule(self, sp, **kw):
+        """The Heun schedule rounded onto the DDPM sigma table."""
+        return edm_samplers.make_edm_schedule(
+            num_steps=sp.get("timesteps", 50),
+            sigma_min=max(sp.get("sigma_min", 0.002), self.sigma_min),
+            sigma_max=min(sp.get("sigma_max", 80), self.sigma_max),
+            rho=sp.get("rho", 7.0), S_churn=sp.get("S_churn", 0.0),
+            S_min=sp.get("S_min", 0.0), S_max=float(sp.get("S_max", "inf")),
+            S_noise=sp.get("S_noise", 1.0), sigma_table=self.edm_steps, **kw)
+
+    @staticmethod
+    def _no_guide(sp, guide_dx=False):
+        if guide_dx or sp.get("guide_dx", False):
+            raise _not_ported("PDE guidance")
+
+    def sample_edm(self, state: TaskState, hu, generator=None, sparams=None,
+                   return_last: bool = True, init_noise=None, churn_noise=None,
+                   repeat_noise=None):
+        """Joint DDPM-as-EDM Heun sampling with RePaint harmonization
+        (ddim.py:959-1051); hu clean normalized (B, T, X, C). Draws as in
+        `heun_sample_repaint`."""
+        sp = sparams or self.test_sparams
+        self._no_guide(sp)
+        schedule = self._table_edm_schedule(sp, alphas_cumprod=self.alphas_cumprod)
+        denoise = self._ddpm_as_edm_denoise_fn(self._sample_params(state),
+                                               sp.get("w", 0.0))
+        return edm_samplers.heun_sample_repaint(
+            denoise, hu, self._known_mask(hu, sp), schedule,
+            n_repeat=sp.get("n_repeat", 1), generator=generator,
+            return_last=return_last, init_noise=init_noise,
+            churn_noise=churn_noise, repeat_noise=repeat_noise)
+
+    def sample(self, state: TaskState, h, generator=None, sparams=None,
+               return_last: bool = True, h_noise=None, u_noise=None, eta_noise=None):
+        """Joint-model DDIM where the h block rides the known field's noisy
+        trajectory and u is denoised (ddim.py:706-806); h clean normalized
+        (B, T, X, h_ch)."""
+        sp = sparams or self.test_sparams
+        self._no_guide(sp)
+        eps = self._eps_fn(self._sample_params(state), sp.get("w", 0.0))
+        return ddim_samplers.ddim_sample_joint_h(
+            eps, h, self._ddim_schedule(sp), h_ch=self.h_ch, generator=generator,
+            self_condition=self.self_condition, return_last=return_last,
+            h_noise=h_noise, u_noise=u_noise, eta_noise=eta_noise)
+
+    def sample_with_repeat(self, state: TaskState, hu, generator=None, sparams=None,
+                           return_last: bool = True, init_noise=None, eta_noise=None):
+        """RePaint DDIM sampling (ddim.py:808-913); hu clean normalized."""
+        sp = sparams or self.test_sparams
+        self._no_guide(sp)
+        eps = self._eps_fn(self._sample_params(state), sp.get("w", 0.0))
+        return ddim_samplers.ddim_sample_repaint(
+            eps, hu, self._known_mask(hu, sp), self._ddim_schedule(sp),
+            n_repeat=sp.get("n_repeat", 1), generator=generator,
+            self_condition=self.self_condition, return_last=return_last,
+            init_noise=init_noise, eta_noise=eta_noise)
+
+    def _select_best_by_pde(self, state: TaskState, samples, gt_unnorm,
+                            use_gt: bool = True):
+        """Per batch element, the sample with the smallest PDE residual
+        (diffusion.py:676-696): each sample min-max rescaled to the ground
+        truth's range, scored against the ground truth (use_gt) or itself.
+        samples (S, B, T, X, C) -> (B, T, X, C)."""
+        _, mn, mx = scale_each_min_max(gt_unnorm, return_min_max=True)
+        errs = []
+        for sample in samples:
+            s_gt = scale_back_min_max(scale_each_min_max(sample), mn, mx)
+            m = self.pde_loss(s_gt, gt_unnorm if use_gt else s_gt,
+                              state.normalizer_input, state.normalizer_target,
+                              clamp_loss=False)
+            errs.append(torch.mean(m.reshape(m.shape[0], -1), dim=1))
+        idx = torch.argmin(torch.stack(errs), dim=0)
+        return samples[idx, torch.arange(samples.shape[1], device=samples.device)]
+
+    def _draw_members(self, sample, like, init_noise, per_step: dict):
+        """`ensemble`'s draw: k members folded into one sampler call on
+        fold_members(like, k), each member with its own injected draws
+        (init_noise (n, B, ...), per_step {name: (n, N, B, ...)})."""
+
+        def draw(members):
+            k = len(members)
+            xs = sample(fold_members(like, k),
+                        init_noise=fold_noise(init_noise, members),
+                        **{name: fold_noise(v, members, per_step=True)
+                           for name, v in per_step.items()})
+            return xs[:, -1].reshape((k, like.shape[0]) + tuple(xs.shape[2:]))
+
+        return draw
+
+    @torch.no_grad()
+    def eval_step(self, state: TaskState, batch, generator: Optional[torch.Generator],
+                  split: str = "val", n_samples: int = 1, *, init_noise=None,
+                  churn_noise=None, repeat_noise=None, eta_noise=None):
+        """Inpaint (h, u) from the known region and score it (`_eval_impl`,
+        diffusion.py:756-857); returns (metrics, hu_mean) with the JAX metric
+        keys. batch = (h, t_grid, x_grid, u), each (B, T, X, 1). init_noise
+        (n_samples, B, T, X, C), churn_noise (n_samples, N, B, ...),
+        repeat_noise (n_samples, N * n_repeat, B, ...) and eta_noise
+        (n_samples, N, B, ...) replace the generator's draws; the members are
+        sampled in chunks folded into the batch (`ensemble`)."""
+        h_un, _, _, u_un = batch
+        h_ch, u_ch = self.h_ch, self.u_ch
+        sp = self.test_sparams
+        self.model.eval()
+
+        state_gt = self.transform.forward(state, h_un, u_un)
+        h = state_gt[..., :h_ch]
+        u = state_gt[..., h_ch:h_ch + u_ch]
+        if sp.get("type", "ddim") == "edm":
+            draw = self._draw_members(
+                lambda hu, **kw: self.sample_edm(state, hu, generator, sp, **kw),
+                state_gt, init_noise, {"churn_noise": churn_noise,
+                                       "repeat_noise": repeat_noise})
+        else:
+            draw = self._draw_members(
+                lambda hu, **kw: self.sample_with_repeat(state, hu, generator, sp, **kw),
+                state_gt, init_noise, {"eta_noise": eta_noise})
+        samples = ensemble(draw, n_samples)
+        gt_un = torch.cat([h_un, u_un], dim=-1)
+        if split == "test" and sp.get("select_by_pde", False):
+            hu_mean = self._select_best_by_pde(
+                state, samples, gt_un, use_gt=bool(sp.get("use_gt_pde_select", True)))
+        else:
+            hu_mean = torch.mean(samples, dim=0)
+
+        h_last, u_last = hu_mean[..., :h_ch], hu_mean[..., h_ch:h_ch + u_ch]
+        h_last_un, u_last_un = self.transform.inverse(state, h_last, u_last)
+        gt_scaled = scale_each_min_max(state_gt)
+        xs_scaled_mean = torch.mean(
+            scale_each_min_max(samples.flatten(0, 1)).reshape(samples.shape), dim=0)
+        corr = losses.correlation(hu_mean, state_gt)
+        n_batch = h_un.shape[0]
+        pde_loss = torch.sum(self._pde_matrix_joint(
+            state, samples.flatten(0, 1), clamp_loss=False)) / n_samples / n_batch
+        p = split
+        metrics = {
+            f"{p}_mae_h": mae(h_last, h), f"{p}_mae_u": mae(u_last, u),
+            f"{p}_mae_h_un": mae(h_last_un, h_un), f"{p}_mae_u_un": mae(u_last_un, u_un),
+            f"{p}_mae_h_scaled": mae(xs_scaled_mean[..., :h_ch], gt_scaled[..., :h_ch]),
+            f"{p}_mae_u_scaled": mae(xs_scaled_mean[..., h_ch:h_ch + u_ch],
+                                     gt_scaled[..., h_ch:h_ch + u_ch]),
+            f"{p}_corr_h": torch.mean(corr[:h_ch]),
+            f"{p}_corr_u": torch.mean(corr[h_ch:h_ch + u_ch]),
+            f"{p}_pde_loss": pde_loss,
+        }
+        if split != "test":
+            return metrics, hu_mean
+        # the unnormalized loss over the recovered region only
+        n_time_h, n_time_u = int(sp.get("n_time_h", 128)), int(sp.get("n_time_u", 0))
+        eval_mask = np.ones(tuple(gt_un.shape[1:]), np.float32)
+        eval_mask[:n_time_h, :, :h_ch] = 0.0
+        eval_mask[:n_time_u, :, h_ch:h_ch + u_ch] = 0.0
+        eval_mask = torch.broadcast_to(torch.from_numpy(eval_mask).to(gt_un.device),
+                                       gt_un.shape)
+        metrics["test_mae_hu_un"] = losses.masked_loss(
+            torch.cat([h_last_un, u_last_un], dim=-1), gt_un, eval_mask)
+        metrics["test_pde_loss_gt"] = torch.sum(self._pde_matrix_joint(
+            state, state_gt, clamp_loss=False)) / n_batch
+        # known-region consistency checks when the time mask is partial
+        t_all = state_gt.shape[1]
+        for name, n_time, lo, hi in (("h", n_time_h, 0, h_ch),
+                                     ("u", n_time_u, h_ch, h_ch + u_ch)):
+            if 0 < n_time < t_all:
+                last = hu_mean[..., lo:hi]
+                metrics[f"test_{name}_known"] = mae(last[:, :n_time],
+                                                    state_gt[:, :n_time, :, lo:hi])
+                metrics[f"test_{name}_kn_scaled"] = mae(
+                    xs_scaled_mean[:, :n_time, :, lo:hi], gt_scaled[:, :n_time, :, lo:hi])
+                metrics[f"test_{name}_unkn_scaled"] = mae(
+                    xs_scaled_mean[:, n_time:, :, lo:hi], gt_scaled[:, n_time:, :, lo:hi])
+        return metrics, hu_mean
 
 
 class CondDdimTask(DdimTask):
-    """Conditional DDPM: h observed -> denoise u. Ported: the conditioning,
-    the physics on the known state and the evaluation around a sampler."""
+    """Conditional DDPM: h observed -> denoise u (diffusion.py:859-1150)."""
 
     default_cond_p = 0.8
 
@@ -462,6 +784,48 @@ class CondDdimTask(DdimTask):
             cond_in = torch.cat([cond_in, nt], dim=-1)
         return cond_in
 
+    def _train_inputs(self, state, batch, generator, keep):
+        """(x, h, u, cond_in) of a conditional train step, the conditioning
+        dropped to zeros unless `keep` (one uniform < cond_p a step)."""
+        h_un, dxc, dtc, u_un = batch
+        x = self.transform.forward(state, h_un, u_un, generator)
+        h, u = x[..., :self.h_ch], x[..., self.h_ch:self.h_ch + self.u_ch]
+        if keep is None:
+            keep = (torch.rand((), generator=generator, device=x.device)
+                    < self.cond_p).float()
+        return x, h, u, self.get_cond_in(h, u, dxc, dtc) * keep
+
+    def loss_and_grads(self, state: TaskState, batch,
+                       generator: Optional[torch.Generator] = None, *,
+                       t_half=None, noise=None, use_sc=None, keep=None):
+        """The conditional train step's loss and gradients
+        (diffusion.py:907-957); draws as in DdimTask's, with `keep` (a 0/1
+        scalar: the conditioning kept) and noise of u's shape."""
+        _, h, u, cond_in = self._train_inputs(state, batch, generator, keep)
+        noise = (torch.randn(u.shape, generator=generator, device=u.device)
+                 if noise is None else noise)
+        t = self._timesteps(u.shape[0], generator, t_half)
+        abar = self._abar_table[t].reshape(-1, 1, 1, 1)
+        sa, sb = torch.sqrt(abar), torch.sqrt(1.0 - abar)
+        u_noise = u * sa + noise * sb
+        tf = t.float()
+
+        def loss_fn(params):
+            x_sc = self._self_cond(u_noise, use_sc, generator, lambda: (
+                u_noise - self.net_apply(params, u_noise, tf, cond_in) * sb) / sa)
+            output = self.net_apply(params, u_noise, tf, cond_in, x_sc)
+            loss = losses.noise_estimation_loss(output, noise)
+            metrics = {"train_loss": loss}
+            if self.pde_loss_lambda > 0.0:
+                x0_t = (u_noise - output * sb) / sa
+                m = self._pde_matrix_cond(state, h, x0_t, self._gt_un(batch),
+                                          clamp_loss=True)
+                loss = self._add_pde_loss(loss, metrics, m,
+                                          t.reshape(-1, 1, 1, 1).to(m.dtype) + 1.0)
+            return loss, metrics
+
+        return self._grads(state, loss_fn)
+
     def _pde_matrix_cond(self, state: TaskState, h_norm, u_denoised,
                          x_gt_unnorm=None, clamp_loss=True):
         """PDE residual with the conditioning as the known state, summed over
@@ -481,59 +845,100 @@ class CondDdimTask(DdimTask):
             u = torch.clamp(u, 0.0, 1.0)
         return state.normalizer_target(u, inverse=True)
 
+    def sample(self, state: TaskState, cond_in, generator=None, sparams=None,
+               return_last: bool = True, init_noise=None, eta_noise=None):
+        """Conditional DDIM sampling of u (ddim.py:1452-1530)."""
+        sp = sparams or self.test_sparams
+        self._no_guide(sp)
+        eps = self._eps_fn(self._sample_params(state), sp.get("w", 0.0), cond_in)
+        return ddim_samplers.ddim_sample_cond(
+            eps, cond_in.shape[:3] + (self.u_ch,), self._ddim_schedule(sp),
+            generator, self_condition=self.self_condition, return_last=return_last,
+            init_noise=init_noise, eta_noise=eta_noise, device=cond_in.device)
+
+    def _cond_denoise_fn(self, params, cond, w: float):
+        """The DDPM net driven as an EDM denoiser with conditioning; a
+        channel-concatenated cond is scaled by c_in (ddim.py:930-932)."""
+        cat_condition = self.model_cfg.cat_cond
+
+        def denoise(x, sigma: float):
+            c_in, c_noise = self._c_noise(sigma)
+            t_b = torch.full((x.shape[0],), c_noise, device=x.device,
+                             dtype=torch.float32)
+            x_in = float(c_in) * x
+            f_x = self.net_apply(params, x_in, t_b,
+                                 cond * float(c_in) if cat_condition else cond)
+            if w is not None and abs(w) >= 1e-3:
+                f_x = (w + 1) * f_x - w * self.net_apply(params, x_in, t_b, None)
+            return x - float(np.float32(sigma)) * f_x
+
+        return denoise
+
+    def sample_edm(self, state: TaskState, cond_in, generator=None, sparams=None,
+                   guide_dx: bool = False, return_last: bool = True,
+                   init_noise=None, churn_noise=None):
+        """Conditional DDPM-as-EDM Heun sampling (ddim.py:1532-1601)."""
+        sp = sparams or self.test_sparams
+        self._no_guide(sp, guide_dx)
+        denoise = self._cond_denoise_fn(self._sample_params(state), cond_in,
+                                        sp.get("w", 0.0))
+        return edm_samplers.heun_sample_cond(
+            denoise, cond_in.shape[:3] + (self.u_ch,), self._table_edm_schedule(sp),
+            generator, return_last=return_last, init_noise=init_noise,
+            churn_noise=churn_noise, guidance_div_t=True, device=cond_in.device)
+
     @torch.no_grad()
     def eval_step(self, state: TaskState, batch, generator: Optional[torch.Generator],
                   split: str = "val", n_samples: int = 1, *, init_noise=None,
-                  churn_noise=None):
+                  churn_noise=None, eta_noise=None):
         """Sample u given h and score it (`_eval_impl`, diffusion.py:1080-1140);
-        returns (metrics, u_mean) with the reference metric keys. batch =
-        (h, t_grid, x_grid, u), each (B, T, X, 1). init_noise (n_samples, B,
-        T, X, u_ch) and churn_noise (n_samples, N, B, T, X, u_ch) replace the
-        generator's draws."""
+        returns (metrics, u_mean) with the JAX metric keys. batch = (h,
+        t_grid, x_grid, u), each (B, T, X, 1). init_noise (n_samples, B, T, X,
+        u_ch), churn_noise (n_samples, N, B, ...) of the Heun sampler and
+        eta_noise (n_samples, N, B, ...) of DDIM replace the generator's
+        draws."""
         h_un, dxc, dtc, u_un = batch
         h_ch, u_ch = self.h_ch, self.u_ch
         sp = self.test_sparams
-        if split == "test" and sp.get("select_by_pde", False):
-            raise _not_ported("select_by_pde")
         self.model.eval()
 
         state_gt = self.transform.forward(state, h_un, u_un)
         h = state_gt[..., :h_ch]
         u = state_gt[..., h_ch:h_ch + u_ch]
         cond_in = self.get_cond_in(h, u, dxc, dtc)
-
-        def draw(members):
-            k = len(members)
-            cond_k = fold_members(cond_in, k)
-            if sp.get("type", "ddim") == "edm":
-                xs = self.sample_edm(state, cond_k, generator, sp,
-                                     guide_dx=bool(sp.get("guide_dx", False)),
-                                     init_noise=fold_noise(init_noise, members),
-                                     churn_noise=fold_noise(churn_noise, members,
-                                                            per_step=True))
-            else:
-                xs = self.sample(state, cond_k, generator, sp)
-            return xs[:, -1].reshape((k,) + tuple(u.shape))
-
+        if sp.get("type", "ddim") == "edm":
+            draw = self._draw_members(
+                lambda c, **kw: self.sample_edm(state, c, generator, sp, **kw),
+                cond_in, init_noise, {"churn_noise": churn_noise})
+        else:
+            draw = self._draw_members(
+                lambda c, **kw: self.sample(state, c, generator, sp, **kw),
+                cond_in, init_noise, {"eta_noise": eta_noise})
         samples = ensemble(draw, n_samples)
-        u_mean = torch.mean(samples, dim=0)
+        h_rep = h[None].expand((n_samples,) + tuple(h.shape))
+        if split == "test" and sp.get("select_by_pde", False):
+            # score the joint [h | u_sample] field (ddim.py:1259-1273)
+            best = self._select_best_by_pde(
+                state, torch.cat([h_rep, samples], dim=-1),
+                torch.cat([h_un, u_un], dim=-1),
+                use_gt=bool(sp.get("use_gt_pde_select", True)))
+            u_mean = best[..., h_ch:h_ch + u_ch]
+        else:
+            u_mean = torch.mean(samples, dim=0)
 
         u_last = u_mean[..., :u_ch]
-        loss_u = mae(u_last, u)
-        loss_u_un = mae(self._inverse_u(state, u_last), u_un)
         gt_scaled = scale_each_min_max(state_gt)
         xs_scaled = scale_each_min_max(samples.flatten(0, 1)).reshape(samples.shape)
-        loss_u_scaled = mae(torch.mean(xs_scaled, dim=0),
-                            gt_scaled[..., h_ch:h_ch + u_ch])
-        corr_u = torch.mean(losses.correlation(u_mean, u))
-
         n_batch = h_un.shape[0]
-        flat_h = h[None].expand((n_samples,) + h.shape).flatten(0, 1)
         pde_loss = torch.sum(self._pde_matrix_cond(
-            state, flat_h, samples.flatten(0, 1), clamp_loss=False)) / n_samples / n_batch
+            state, h_rep.flatten(0, 1), samples.flatten(0, 1),
+            clamp_loss=False)) / n_samples / n_batch
         metrics = {
-            f"{split}_mae_u": loss_u, f"{split}_mae_u_un": loss_u_un,
-            f"{split}_mae_u_scaled": loss_u_scaled, f"{split}_corr_u": corr_u,
+            f"{split}_mae_u": mae(u_last, u),
+            f"{split}_mae_u_un": mae(self._inverse_u(state, u_last), u_un),
+            f"{split}_mae_u_scaled": mae(torch.mean(xs_scaled, dim=0),
+                                         gt_scaled[..., h_ch:h_ch + u_ch]),
+            f"{split}_corr_u": torch.mean(losses.correlation(u_mean, u)),
             f"{split}_pde_loss": pde_loss,
         }
         if split == "test":
@@ -544,7 +949,7 @@ class CondDdimTask(DdimTask):
 
 class CondEdmTask(CondDdimTask):
     """Conditional model trained with true EDM preconditioning; only the EDM
-    sampler is supported (ddim.py:1647-1652). Ported: its serving path."""
+    sampler is supported (ddim.py:1647-1652)."""
 
     def default_sampler_params(self):
         return dict(DEFAULT_EDM_SAMPLER)
@@ -554,29 +959,61 @@ class CondEdmTask(CondDdimTask):
             sparams = dict(DEFAULT_EDM_SAMPLER, n_samples=5)
         super().set_test_sampler_params(sparams)
 
-    def model_precond(self, params, x_noise, sigma, cond=None):
-        return _edm_precond(self, params, x_noise, sigma, cond)
+    def model_precond(self, params, x_noise, sigma, cond=None, x_self_cond=None):
+        return _edm_precond(self, params, x_noise, sigma, cond, x_self_cond)
+
+    def loss_and_grads(self, state: TaskState, batch,
+                       generator: Optional[torch.Generator] = None, *,
+                       rnd_normal=None, noise=None, use_sc=None, keep=None):
+        """The EDM train step's loss and gradients (diffusion.py:1180-1226):
+        sigma = exp(P_mean + P_std rnd_normal), u + noise sigma, the weighted
+        loss of D(x) against u. rnd_normal (B, 1, 1, 1), noise (u's shape),
+        use_sc and keep replace the generator's draws."""
+        _, h, u, cond_in = self._train_inputs(state, batch, generator, keep)
+        dev = u.device
+        noise = (torch.randn(u.shape, generator=generator, device=dev)
+                 if noise is None else noise)
+        rnd_normal = (torch.randn((u.shape[0], 1, 1, 1), generator=generator,
+                                  device=dev) if rnd_normal is None else rnd_normal)
+        sigma = edm_train_sigma(rnd_normal, P_MEAN, P_STD)
+        weight = edm_loss_weight(sigma, SIGMA_DATA)
+        u_noise = u + noise * sigma
+
+        def loss_fn(params):
+            x_sc = self._self_cond(u_noise, use_sc, generator, lambda: (
+                self.model_precond(params, u_noise, sigma, cond_in)))
+            d_x = self.model_precond(params, u_noise, sigma, cond_in, x_sc)
+            loss = losses.noise_estimation_loss(d_x, u, weight)
+            metrics = {"train_loss": loss}
+            if self.pde_loss_lambda > 0.0:
+                m = self._pde_matrix_cond(state, h, d_x, self._gt_un(batch),
+                                          clamp_loss=True)
+                loss = self._add_pde_loss(loss, metrics, m, sigma + 1.0)
+            return loss, metrics
+
+        return self._grads(state, loss_fn)
 
     def _cond_denoise_fn(self, params, cond, w: float):
-        """True EDM preconditioning (no c_in cond scaling, no sigma table)."""
-        if w is not None and abs(w) >= 1e-3:
-            raise _not_ported("classifier-free guidance (w != 0)")
+        """True EDM preconditioning (no c_in cond scaling, no sigma table),
+        with the optional self-conditioning input x_sc (ddim.py:1770-1773)."""
 
-        def denoise(x, sigma: float):
+        def denoise(x, sigma: float, x_sc=None):
             sig = torch.full((x.shape[0],), sigma, device=x.device,
                              dtype=torch.float32)
-            return self.model_precond(params, x, sig, cond)
+            d_c = self.model_precond(params, x, sig, cond, x_sc)
+            if w is None or abs(w) < 1e-3:
+                return d_c
+            d_u = self.model_precond(params, x, sig, None, x_sc)
+            return (w + 1) * d_c - w * d_u
 
         return denoise
 
-    def sample_edm(self, state: TaskState, cond_in,
-                   generator: Optional[torch.Generator] = None, sparams=None,
+    def sample_edm(self, state: TaskState, cond_in, generator=None, sparams=None,
                    guide_dx: bool = False, return_last: bool = True,
                    init_noise=None, churn_noise=None):
         """Heun EDM sampling of u given the conditioning (ddim.py:1740-1768)."""
-        if guide_dx:
-            raise _not_ported("PDE guidance")
         sp = sparams or self.test_sparams
+        self._no_guide(sp, guide_dx)
         schedule = edm_samplers.make_edm_schedule(
             num_steps=sp.get("timesteps", 50),
             sigma_min=max(sp.get("sigma_min", 0.002), SIGMA_MIN),
@@ -593,5 +1030,9 @@ class CondEdmTask(CondDdimTask):
             self_condition=self.self_condition, device=cond_in.device)
 
     def sample(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Only EDM sampler is supported for the model with EDM pre-conditioning")
+
+    def sample_with_repeat(self, *args, **kwargs):
         raise NotImplementedError(
             "Only EDM sampler is supported for the model with EDM pre-conditioning")

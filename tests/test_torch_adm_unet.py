@@ -138,8 +138,11 @@ def test_unported_inputs_raise(override):
     hp = {"name": "adm_edm_mcedm", "model": dict(_kw(32, 8), ch_mult=[1, 1, 1],
                                                  attn_resolutions=[8])}
     if "name" in override:
+        # any name but adm* selects the DDPM U-Net, which is ported
         hp["name"] = override["name"]
-    else:
-        hp["model"].update(override)
+        model, cfg = build_backbone(hp)
+        assert type(model).__name__ == "DdpmUNet" and cfg.total_in_channels == 4
+        return
+    hp["model"].update(override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_backbone(hp)

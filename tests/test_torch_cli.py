@@ -64,6 +64,17 @@ OFORMER_TINY = [
     "model.hparams.decoder.latent_channels=16",
     "model.hparams.curriculum_steps=2",
 ]
+# the DDPM U-Net's norms take 32 groups, so its configs run at ch 32
+DDPM_TINY = [o if o != "model.hparams.model.ch=16" else "model.hparams.model.ch=32"
+             for o in TINY]
+
+
+def tiny(config):
+    if "fno" in config:  # not ported: the CLI raises before the model is read
+        return []
+    return DDPM_TINY if "ddim" in config or config.startswith("config_edm") else TINY
+
+
 def hparams():
     return {
         "name": "adm_edm_mcedm",
@@ -431,19 +442,70 @@ def test_run_refuses_the_cpu_unless_asked(dataroot, tmp_path):
 
 
 @pytest.mark.parametrize("config,extra,match", [
-    ("config_adm_edm_res32_cond_h.yaml", [], "CondEdmTask.train_step"),
-    ("config_ddim_res32.yaml", [], "DdimTask"),
+    ("config_adm_edm_res32_cond_h.yaml", [], None),
+    ("config_ddim_res32.yaml", ["trainer.precision=bf16"], "bf16"),
+    ("config_fnostatereconstrabs2d.yaml", ["system=swe_per"], "FnoStateReconstrTask"),
     ("config_adm_edm_mcedm_res32.yaml", ["trainer.precision=bf16"], "bf16"),
-], ids=["cond_edm_training", "ddim", "bf16"])
+], ids=["cond_edm_training", "ddim", "fno", "bf16"])
 def test_cli_raises_on_what_is_not_ported(dataroot, tmp_path, config, extra, match):
-    """The conditional EDM reaches its train step's raise at fit, the DDPM
-    task raises when it is built, bf16 reaches the tasks' raise; each names
-    ROADMAP.md."""
+    """bf16 (on the flagship and on the DDPM joint model) reaches the tasks'
+    raise, the FNO family raises when its task is built; each names
+    ROADMAP.md. The conditional EDM's training, which raised before it was
+    ported, now trains, validates and tests with the JAX package's metric
+    keys (the other baselines: test_baseline_configs_train_and_test)."""
+    argv = ["--device", "cpu", f"--config-name={config}", f"dataroot={dataroot}",
+            "trainer.max_epochs=1", "callbacks=callbacks_save_model",
+            f"hydra.run.dir={tmp_path}"] + tiny(config) + extra
+    if match is None:
+        run.main(argv)
+        keys = set().union(*map(set, records(str(tmp_path))))
+        assert keys == chip_smoke().COND_METRIC_KEYS
+        return
     with pytest.raises(NotImplementedError, match=match) as err:
-        run.main(["--device", "cpu", f"--config-name={config}", f"dataroot={dataroot}",
-                  "trainer.max_epochs=1", "callbacks=callbacks_save_model",
-                  f"hydra.run.dir={tmp_path}"] + TINY + extra)
+        run.main(argv)
     assert "ROADMAP.md" in str(err.value)
+
+
+@pytest.mark.parametrize("config", ["config_ddim_res32.yaml", "config_adm_res32_cond_h.yaml",
+                                    "config_ddim_res32_cond_h.yaml",
+                                    "config_edm_res32_cond_h.yaml"])
+def test_baseline_configs_train_and_test(dataroot, tmp_path, config):
+    """The diffusion baselines through run.main and eval_model.main on the
+    CPU: one epoch, validation, the test; eval_model on the run's checkpoint
+    reproduces the run's test metrics; every key is the JAX package's. The
+    joint model runs its configured callbacks (callbacks_ddim.yaml, one
+    plotted sample) and is also tested with diff_sampler=ddim_sampler
+    (RePaint DDIM). Without --device cpu and without a card, run.main
+    raises."""
+    ddim = config == "config_ddim_res32.yaml"
+    callbacks = "callbacks.plotting.num_samples=1" if ddim else "callbacks=callbacks_save_model"
+    common = ["--device", "cpu", f"--config-name={config}", f"dataroot={dataroot}",
+              callbacks] + tiny(config)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            run.main(common[2:] + [f"hydra.run.dir={tmp_path / 'refused'}"])
+    run.main(common + ["trainer.max_epochs=1", f"hydra.run.dir={tmp_path / 'run'}"])
+    recs = records(str(tmp_path / "run"))
+    assert set().union(*map(set, recs)) == (
+        chip_smoke().DDIM_METRIC_KEYS if config == "config_ddim_res32.yaml"
+        else chip_smoke().COND_METRIC_KEYS)
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    eval_model.main(common + [f"ckpt_path={tmp_path / 'run'}",
+                              f"hydra.run.dir={tmp_path / 'eval'}"])
+    want = [r for r in recs if "test_mae_u" in r][0]
+    (got,) = records(str(tmp_path / "eval"))
+    for k, v in want.items():
+        if k.startswith("test_"):
+            np.testing.assert_allclose(got[k], v, rtol=1e-6, err_msg=k)
+    if ddim:
+        assert os.listdir(tmp_path / "run" / "plots")
+        eval_model.main(common + [f"ckpt_path={tmp_path / 'run'}", "diff_sampler=ddim_sampler",
+                                  "diff_sampler.timesteps=4", "diff_sampler.n_repeat=2",
+                                  f"hydra.run.dir={tmp_path / 'eval_ddim'}"])
+        (got,) = records(str(tmp_path / "eval_ddim"))
+        assert set(got) - {"epoch", "time"} == {
+            k for k in chip_smoke().DDIM_METRIC_KEYS if k.startswith("test_")}
+        assert all(np.isfinite(v) for v in got.values())
 
 
 def test_oformer_resume_keeps_the_schedule(tmp_path):

@@ -9,8 +9,9 @@ configs/model/adm_edm_cond_h_res32.yaml): h observed, u sampled.
   to both sides through convert.py), on the port's per-conv path and on its
   megakernel path (`mega=True`; on the CPU K7's plain version).
 - `get_cond_in` at its four widths, with and without the boundary-node
-  channel; the registry; the paths that are not ported yet; chip_smoke.py's
-  copy of the config's hparams.
+  channel; the registry; select_by_pde, guidance and training as a user
+  runs them, the PDE guidance that is not ported yet; chip_smoke.py's copy
+  of the config's hparams.
 
 Tolerances: the sampler trajectory to 1e-5 of the state's scale (it starts
 at sigma 80); the metrics to rtol 1e-5 (the correlation, which lies in
@@ -106,8 +107,18 @@ def test_heun_sample_cond_generator_and_refusals():
     a, b, c = run(0), run(0), run(1)
     assert a.shape == (SHAPE[0], 1) + SHAPE[1:]
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tedm.heun_sample_cond(torch_denoise, SHAPE, schedule, self_condition=True)
+    # the self-conditioning carry runs (tests/test_torch_ddim.py holds it to
+    # JAX's): the denoiser gets the previous step's estimate
+    carried = []
+
+    def sc_denoise(x, t, x_sc):
+        carried.append(x_sc)
+        return torch_denoise(x, t) + 0.1 * torch.sin(x_sc)
+
+    sc = tedm.heun_sample_cond(sc_denoise, SHAPE, schedule,
+                               torch.Generator().manual_seed(0), self_condition=True)
+    assert sc.shape == a.shape and not torch.equal(sc, a)
+    assert not carried[0].any() and carried[-1].any()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tedm.heun_sample_cond(torch_denoise, SHAPE, schedule, guidance_fn=torch_denoise)
 
@@ -232,12 +243,19 @@ def test_registry_config_and_unported_paths():
         task.sample()
     state = task.init_state(torch.Generator().manual_seed(0), STATS)
     batch = tuple(map(torch.from_numpy, swe_batch(2, res=16)))
-    for bad in ({"select_by_pde": True}, {"w": 1.0}):
-        task.set_test_sampler_params(dict(hp["sampler"], **bad))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            task.eval_step(state, batch, None, split="test")
+    # select_by_pde and guidance (w != 0) run, and so does training
+    # (tests/test_torch_ddim_eval.py and test_torch_ddim_task.py hold them
+    # to JAX's); PDE guidance still raises
+    for opt in ({"select_by_pde": True, "n_samples": 2}, {"w": 1.0}):
+        task.set_test_sampler_params(dict(hp["sampler"], **opt))
+        m, u = task.eval_step(state, batch, torch.Generator().manual_seed(1),
+                              split="test", n_samples=opt.get("n_samples", 1))
+        assert u.shape == (B, 16, 16, 1) and all(torch.isfinite(v) for v in m.values())
+    task.set_test_sampler_params(dict(hp["sampler"], guide_dx=True))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        task.train_step(state, batch, None)
+        task.eval_step(state, batch, None, split="test")
+    state, m = task.train_step(state, batch, torch.Generator().manual_seed(2))
+    assert state.step == 1 and all(torch.isfinite(v) for v in m.values())
 
 
 def test_chip_smoke_hparams_equal_cond_h_yaml():

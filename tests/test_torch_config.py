@@ -25,8 +25,7 @@ TOP_CONFIGS = sorted(os.path.basename(p)
 TARGETS = sorted({m.group(1) for p in glob.glob(os.path.join(CONFIG_DIR, "**", "*.yaml"),
                                                 recursive=True)
                   for m in re.finditer(r"_target_:\s*(\S+)", open(p).read())})
-NOT_PORTED = {"m_cedm_tpu.tasks.DdimTask", "m_cedm_tpu.tasks.CondDdimTask",
-              "m_cedm_tpu.tasks.FnoStateReconstrTask"}
+NOT_PORTED = {"m_cedm_tpu.tasks.FnoStateReconstrTask"}
 OVERRIDES = [
     "system=swe_per",                               # top-level scalar
     "trainer.max_epochs=3",                         # nested

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forward kernels, the backward kernels against autograd of the plain
 forwards, the OFormer's two linear-attention kernels (K5, K6) with the
-backward made of them, and the whole-block K7 with the U-Net's megakernel
-mode and the conditional EDM task served through it.
+backward made of them, the whole-block K7 with the U-Net's megakernel
+mode and the conditional EDM task served through it, and K1 and K2 at the
+DDPM U-Net's 32 groups (a ResnetBlock with the statistics chained across
+the temb add, forward and gradients) with a DdimTask step and eval.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor tests/conftest.py's JAX set-up, so it runs on a machine that
@@ -848,7 +850,7 @@ def _assert_scaled(got, want, tol):
         assert a.shape == w.shape, i
         assert torch.isfinite(a).all(), i
         err = float((a.double() - w.double()).abs().max())
-        assert err <= tol * max(1.0, float(w.abs().max())), (i, err)
+        assert err <= tol * max(1.0, float(w.detach().abs().max())), (i, err)
 
 
 @pytest.mark.cuda
@@ -1045,3 +1047,128 @@ def test_cond_edm_eval_on_the_card(cuda):
     for k in mp:
         assert abs(float(mk[k]) - float(mp[k])) <= 1e-4 * max(1.0, abs(float(mp[k]))), k
     _assert_scaled(uk, up, 1e-4)
+
+
+# --- the DDPM U-Net's shapes: 32 groups, eps 1e-6 ------------------------------
+
+DDPM_BLOCKS = {"identity": (64, 64), "projection": (128, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DDPM_BLOCKS))
+def test_ddpm_resnet_block_matches_plain(cuda, case):
+    """One DDPM ResnetBlock (two K2 calls at 32 groups, eps 1e-6: 2 channels
+    a group at 64, 4 at the 128-channel concat) on the kernel path, its second
+    K2 fed the statistics chained across the temb add, against the plain
+    path: output, emitted statistics, and the gradients of x, temb and every
+    parameter (temb_proj's among them), with the chained statistics given and
+    with K1's pass computing the input's."""
+    from m_cedm_tpu_torch.models.ddpm_unet import ResnetBlock
+
+    c_in, c_out = DDPM_BLOCKS[case]
+    b, res, temb_ch = 2, 20, 256
+    blk = ResnetBlock(c_in, c_out, temb_ch).to(cuda)
+    blk.load_state_dict({k: v.to(cuda) for k, v in _seeded_state(blk, 30).items()})
+    rs = np.random.RandomState(31)
+    x = torch.from_numpy((rs.randn(b, res, res, c_in) * 0.8 + 0.3).astype(np.float32)).to(cuda)
+    temb = torch.from_numpy(rs.randn(b, temb_ch).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rs.randn(b, res, res, c_out).astype(np.float32)).to(cuda)
+    x3 = x.reshape(b, -1, c_in)
+    in_stats = (x3.sum(1), (x3 * x3).sum(1))
+    params = list(blk.parameters())
+
+    def run(ops, stats):
+        xl, tl = _leaf(x), _leaf(temb)
+        out, ostats = blk(xl, tl, stats, ops)
+        return (out, ostats), torch.autograd.grad(out, [xl, tl] + params, g)
+
+    (want, want_stats), want_g = run(PLAIN_OPS, None)
+    for stats in (None, in_stats):
+        kernels.reset_launches()
+        (got, got_stats), got_g = run(kernels.DEVICE_OPS, stats)
+        launched = kernels.launches()
+        _assert_scaled(got, want, 2e-5)
+        _assert_scaled(got_stats, want_stats, 2e-5)
+        _assert_grads(got_g, want_g, 1e-4)
+        assert launched["K2 gn_silu_conv"] == 2 and launched["K2 gn_silu_conv_bwd"] == 2
+        assert launched["K1 channel_stats"] == (1 if stats is None else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128], ids=["2-a-group", "4-a-group"])
+def test_k1_at_32_groups_matches_plain(cuda, c):
+    """K1's apply and backward at the DDPM's 32 groups and eps 1e-6, with
+    and without chained statistics."""
+    inp = _inputs(32, cuda, 2, 24, 24, c, c, cr=c)
+    b, h, w, _ = inp["x"].shape
+    x3 = _leaf(inp["x"].reshape(b, h * w, c))
+    gm, bt = _leaf(inp["gamma"]), _leaf(inp["beta"])
+    g1 = torch.randn(b, h * w, c, device=cuda)
+    want = _grads_of(lambda *a: tfn.gn_silu_plain(*a, 32, 1e-6), [x3, gm, bt], g1)
+    _assert_out(tfn.gn_silu(x3.detach(), gm.detach(), bt.detach(), 32, 1e-6),
+                tfn.gn_silu_plain(x3.detach(), gm.detach(), bt.detach(), 32, 1e-6))
+    kernels.reset_launches()
+    for stats in (None, inp["stats"]):
+        _assert_grads(_grads_of(lambda *a: tfn.gn_silu(*a, 32, 1e-6, stats=stats),
+                                [x3, gm, bt], g1), want, 1e-4)
+    assert kernels.launches()["K1 gn_silu_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_ddpm_unet_train_and_eval_on_the_card(cuda):
+    """The DDPM U-Net of configs/model/ddim_res32.yaml at res 32 (three
+    levels, attention at 8): a DdimTask train step (self-conditioning branch
+    taken) and a RePaint Heun eval on the kernel path against the plain path
+    on the same draws, every DDPM kernel launched."""
+    import yaml
+
+    from m_cedm_tpu_torch.tasks import DDIM_TARGET, build_task
+
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", "model", "ddim_res32.yaml")) as f:
+        hp = yaml.safe_load(f)["hparams"]
+    res, b = 32, 2
+    hp["model"].update(resolution=res, attn_resolutions=[8])
+    hp["sampler"].update(timesteps=3, n_time_h=16)
+    rs = np.random.RandomState(33)
+    h = torch.from_numpy((rs.randn(b, res, res, 1) * 0.1 + 4.0).astype(np.float32))
+    u = torch.from_numpy((rs.randn(b, res, res, 1) * 0.2).astype(np.float32))
+    grid = torch.linspace(0, 1, res).reshape(1, res, 1, 1).expand(b, res, res, 1)
+    batch = tuple(t.contiguous().to(cuda) for t in (h, grid, grid.transpose(1, 2), u))
+    stats = {"input_mean": 4.0, "input_std": 0.1, "target_mean": 0.0, "target_std": 0.2}
+    shape = (b, res, res, 2)
+    draws = {"t_half": torch.tensor([10, 700], device=cuda), "use_sc": True,
+             "noise": torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)}
+    noise = {"init_noise": torch.randn((1,) + shape, device=cuda),
+             "churn_noise": torch.randn((1, 3) + shape, device=cuda),
+             "repeat_noise": torch.randn((1, 6) + shape, device=cuda)}
+    out = {}
+    for name, ops in (("kernel", kernels.DEVICE_OPS), ("plain", PLAIN_OPS)):
+        task = build_task(hp, cuda, target=DDIM_TARGET, ops=ops)
+        state = task.init_state(None, stats, params=_seeded_state(task.model, 34))
+        kernels.reset_launches()
+        new, tm = task.train_step(state, batch, None, **draws)
+        train_launches = kernels.launches()
+        kernels.reset_launches()
+        em, hu = task.eval_step(new, batch, None, split="test", **noise)
+        out[name] = (tm, new, train_launches, em, hu, kernels.launches())
+    (tk, sk, lk, ek, huk, lek), (tp, sp, lp, ep, hup, lep) = out["kernel"], out["plain"]
+    assert not any(lp.values()) and not any(lep.values())
+    for k in ("K1 gn_silu", "K1 channel_stats", "K2 gn_silu_conv", "K2 narrow_conv",
+              "K4 attention", "K1 gn_silu_bwd", "K2 gn_silu_conv_bwd",
+              "K2 narrow_conv_bwd", "K4 attention_bwd"):
+        assert lk[k] > 0, (k, lk)
+    assert lek["K2 gn_silu_conv_bwd"] == 0 and lek["K2 gn_silu_conv"] > 0
+    for k in tp:
+        assert abs(float(tk[k]) - float(tp[k])) <= 1e-4 * abs(float(tp[k])), (
+            k, float(tk[k]), float(tp[k]))
+    for k, v in sk.params.items():
+        assert float((v - sp.params[k]).abs().max()) <= 2 * 2e-4 + 1e-6, k
+    for k in ep:
+        if k == "test_pde_loss":  # the PDE residual amplifies the samples' rounding
+            continue
+        assert abs(float(ek[k]) - float(ep[k])) <= 1e-4 * max(1.0, abs(float(ep[k]))), (
+            k, float(ek[k]), float(ep[k]))
+    _assert_scaled(huk, hup, 1e-4)

@@ -141,8 +141,10 @@ def test_task_registry():
     assert isinstance(build_task(hp, "cpu", target="models.mcedm.PlMcedm"), McedmTask)
     assert MCEDM_TARGET == yaml.safe_load(open(os.path.join(
         REPO, "configs/model/adm_edm_mcedm_res32.yaml")))["_target_"]
+    # the FNO family is the one task family not ported (the DDPM tasks are
+    # held by tests/test_torch_ddim_task.py::test_registry_and_entry_point)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_task(hp, "cpu", target="m_cedm_tpu.tasks.DdimTask")
+        build_task(hp, "cpu", target="m_cedm_tpu.tasks.FnoStateReconstrTask")
 
 
 @pytest.mark.parametrize("dtype,ported", [("float32", True), (None, True),
@@ -162,8 +164,9 @@ def test_compute_dtype(dtype, ported):
 def test_port_runtime_imports_no_jax():
     """Importing every module of the port and running a CPU forward, a
     sampling step and a train step of the flagship, an eval of the
-    conditional EDM baseline on the megakernel path, an eval and a train
-    step of the OFormer, and the CLI (run.main, then eval_model.main, with
+    conditional EDM baseline on the megakernel path, a train step and a
+    RePaint DDIM eval of the DDPM joint model, an eval and a train step of
+    the OFormer, and the CLI (run.main, then eval_model.main, with
     --device cpu on h5 data the port writes itself) must leave JAX, flax,
     optax, orbax and m_cedm_tpu unloaded."""
     code = r"""
@@ -197,6 +200,16 @@ cst = ctask.init_state(torch.Generator().manual_seed(0))
 r = torch.rand(1, 16, 16, 1, generator=torch.Generator().manual_seed(2))
 m, u = ctask.eval_step(cst, (x + r, x, x, r), torch.Generator(), split="test")
 assert u.shape == (1, 16, 16, 1) and all(torch.isfinite(v) for v in m.values())
+dhp = dict(chp, name="ddim", model=dict(hp["model"], ch=32, cond_channels=0,
+           cat_cond=False, self_cond=True), sampler={"type": "ddim", "timesteps": 2,
+           "n_repeat": 2, "n_time_h": 8})
+dtask = build_task(dhp, "cpu", target="m_cedm_tpu.tasks.DdimTask")
+assert isinstance(dtask, DdimTask) and type(dtask.model).__name__ == "DdpmUNet"
+dst = dtask.init_state(torch.Generator().manual_seed(0))
+dst, m = dtask.train_step(dst, (x + r, x, x, r), torch.Generator().manual_seed(3))
+assert dst.step == 1 and all(torch.isfinite(v) for v in m.values())
+m, hu = dtask.eval_step(dst, (x + r, x, x, r), torch.Generator(), split="test")
+assert hu.shape == (1, 16, 16, 2) and all(torch.isfinite(v) for v in m.values())
 import numpy as np
 from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
 enc = {"input_channels": 3, "in_emb_dim": 16, "out_channels": 16, "depth": 2, "res": 4}
