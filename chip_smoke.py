@@ -134,6 +134,27 @@ Phases, each printing JSON lines:
               against its plain version at the CLI's shapes, as in phase
               12 (a train step at B = 32, the folded test at B = 80;
               test_pde_loss reported)
+  14. fno, time prediction   the FNO (configs/model/fnostatereconstr2d.yaml:
+              width 32, 5 layers, modes 12, padding_t 4) at B = 32 on seeded
+              fields at T = X = 128: its fp32 forward within 1e-5 of scale
+              of float64 with TF32 turned on beforehand (the model turns it
+              off), the truncated-DFT route against rfft2 (module functions
+              called directly at the first layer's padded shape) within
+              2e-5 with both times, the eval's 7 metrics, 3 train steps
+              against float64 (loss and gradient norm 1e-4, params
+              2 lr steps), ms per step and the eval's samples/s; then
+              configs/config_fnostatereconstrabs2d.yaml through run.main (1
+              epoch of 2 steps at batch 32, validation, the test), a resume
+              to epoch 2 and eval_model as phase 12 (the JAX package's keys,
+              no kernel launched); then OformerTimePredTask (oformer_t with
+              (u, s) in and out, T = 128 split at n_history 64: 8,192 input
+              and 8,192 propagate tokens) at B = 16, its eval and 3 train
+              steps on both paths as phases 7 and 8 (launches 6 / 6 an
+              eval, 12 / 24 a step asserted); K5 and K6 at N = 8,192 as
+              phase 6; then the two two-stage test_steps:
+              OformerStateTimePredTask kernel path against plain path
+              (1e-4; 12 / 12 launches), FnoStateTimePredTask fp32 against
+              float64 (1e-4 of scale) under both flip_xy
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
@@ -143,7 +164,9 @@ phase 10, with phase 11's beside; every flagship kernel's launches in phase
 12 as `launches_cli`; the DDPM U-Net's kernels' launches in phase 13's
 RePaint Heun eval and first train step as `launches_ddim_eval` and
 `launches_ddim_step`, and K1's and K2's times at its 32 groups as
-`at_32_groups`), the nvidia-smi line, and the last line
+`at_32_groups`; K5's and K6's launches per time-prediction eval and step
+of phase 14 and their N = 8,192 cases as `at_n_8192`), the nvidia-smi
+line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
@@ -264,6 +287,34 @@ OFORMER_GRAD_CLIP = 2.0  # configs/trainer/trainer_oformer.yaml
 # (4 heads, BH = 4 B); each runs K5 once and K6 once, and in the backward
 # K5's VJP makes two K6 calls, K6's one K6 and one K5 call
 OFORMER_SITES = 6
+# the OFormer's time prediction (PlOformerSwpTimePredDatamodule, n_history
+# 64 of T = 128): oformer_t with the (u, s) fields and the t, x coordinates
+# in and the future (u, s) out; the same six linear-attention sites
+TIMEPRED_HPARAMS = {**OFORMER_HPARAMS,
+                    "encoder": {**OFORMER_HPARAMS["encoder"], "input_channels": 4},
+                    "decoder": {**OFORMER_HPARAMS["decoder"], "out_channels": 2}}
+TIMEPRED_TARGET = "m_cedm_tpu.tasks.OformerTimePredTask"
+TIMEPRED_HISTORY = 64
+# The time prediction's three-step trajectory, kernel path against plain
+# path: its gradient norm jumps from about 5 to 47 and back to 19, and the
+# trajectories' gap at step 2 reached 1.4-1.5e-4 on two seeds on one H100
+# (PERF.md) while every step alone, held in both directions, stayed within
+# 2.4e-5; so the trajectory's loss and gradient norm are held to 1e-3 and
+# each step alone to TOL_TRAIN
+TOL_TIMEPRED_TRAJECTORY = 1e-3
+
+# identical to the `hparams` block of configs/model/fnostatereconstr2d.yaml
+# (a test holds the two equal)
+FNO_HPARAMS = {
+    "name": "fno_state_reconstr_2d", "modes_1": 12, "modes_2": 12, "width": 32,
+    "num_layers": 5, "padding_t": 4, "padding_x": 0, "inst_norm": False,
+    "time_history": 128, "time_future": 0, "input_size": 1, "state_size": 1,
+    "norm_shape": [], "factor": 0.3, "step_size": 50, "loss": "l1", "lr": 0.001,
+    "weight_decay": 0,
+}
+FNO_TARGET = "m_cedm_tpu.tasks.FnoStateReconstrTask"
+FNO_BATCH = 32  # configs/datamodule/datamodule_abs_coord.yaml
+FNO_RES = 128  # T = X, the shipped data's grid
 
 BATCH = 16
 SEED = 0
@@ -1291,6 +1342,7 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
     from m_cedm_tpu_torch.kernels import linear_attention as la
 
     g = torch.Generator(device=device).manual_seed(SEED + 6)
+    smi = nvidia_smi_line()
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=device) * scale
@@ -1327,8 +1379,8 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
                 want = plain(*args)
                 got = fn(*args)
                 want64 = torch.einsum(eq, *(a.double() for a in args))
-                rec = {"phase": "linear", "kernel": name, "bh": bh, "n": n,
-                       "width": width,
+                rec = {"phase": "linear", "nvidia_smi": smi, "kernel": name, "bh": bh,
+                       "n": n, "width": width,
                        **compare(got, want, TOL_KERNEL, f"{name} BH {bh}"),
                        "vs_float64_max_rel_err": compare(got, want64, 1.0, "")["max_rel_err"],
                        "plain_vs_float64_max_rel_err": compare(
@@ -1380,36 +1432,43 @@ def phase_linear_attention(device, b: int, n: int, width: int) -> dict:
     return results
 
 
-def oformer_setup(device, b: int, seed: int):
+def oformer_setup(device, b: int, seed: int, hparams=OFORMER_HPARAMS,
+                  target=OFORMER_TARGET):
     """The OFormer's own init drawn from a seeded generator (fan-in-scaled
     lecun-normal dense layers, the orthogonal-plus-diagonal q/k/v blocks,
     the Fourier matrix B; no layer starts at zero, so every kernel's work
     shows), and seeded synthetic shallow-water fields on the 128 x 128 grid,
-    tokenized as the OFormer datamodule does (h in, u out)."""
+    tokenized as the OFormer datamodule does (h in, u out), or as the
+    time-prediction datamodule does for OformerTimePredTask (both fields,
+    the first TIMEPRED_HISTORY steps in, the rest out)."""
     import torch
 
-    from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
+    from m_cedm_tpu_torch.data.oformer_data import (TIMEPRED_KEYS, TOKEN_KEYS,
+                                                    tokenize_grid,
+                                                    tokenize_time_pred)
     from m_cedm_tpu_torch.tasks import build_task
 
-    res = OFORMER_HPARAMS["encoder"]["res"]
+    res = hparams["encoder"]["res"]
     h, _, _, u = synthetic_swe_batch(np.random.RandomState(seed), b, res)
     stats = {"input_mean": h.mean(), "input_std": h.std(),
              "target_mean": u.mean(), "target_std": u.std()}
     t = np.broadcast_to(np.linspace(0.0, 1.0, res, dtype=np.float32), (b, res))
     x = np.broadcast_to(np.linspace(-2.5, 2.5, res, dtype=np.float32), (b, res))
-    tok = tokenize_grid(h, u, x, t, stats)
-    batch = tuple(torch.from_numpy(np.ascontiguousarray(tok[k])).to(device)
-                  for k in ("x", "y", "node_type", "pos", "n_time"))
-    fresh = build_task(OFORMER_HPARAMS, "cpu", target=OFORMER_TARGET).init_state(
-        torch.Generator().manual_seed(seed))
+    if target == TIMEPRED_TARGET:
+        tok, keys = tokenize_time_pred(h, u, x, t, stats, TIMEPRED_HISTORY), TIMEPRED_KEYS
+    else:
+        tok, keys = tokenize_grid(h, u, x, t, stats), TOKEN_KEYS
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(tok[k])).to(device) for k in keys)
+    fresh = build_task(hparams, "cpu", target=target).init_state(
+        torch.Generator().manual_seed(seed), stats)
     return stats, batch, fresh.params, fresh.constants
 
 
-def oformer_tasks(device):
+def oformer_tasks(device, hparams=OFORMER_HPARAMS, target=OFORMER_TARGET):
     from m_cedm_tpu_torch import kernels
     from m_cedm_tpu_torch.tasks import build_task
 
-    return [build_task(OFORMER_HPARAMS, device, target=OFORMER_TARGET, ops=ops,
+    return [build_task(hparams, device, target=target, ops=ops,
                        grad_clip=OFORMER_GRAD_CLIP)
             for ops in (kernels.DEVICE_OPS, kernels.PLAIN_OPS)]
 
@@ -1420,14 +1479,16 @@ def check_oformer_launches(launches: dict, k5: int, k6: int, what: str) -> None:
         raise AssertionError(f"{what}: K5, K6 launched {got} times, expected {(k5, k6)}")
 
 
-def phase_oformer_eval(device, b: int) -> dict:
-    """OformerTask.eval_step at full width and depth on both paths."""
+def phase_oformer_eval(device, b: int, hparams=OFORMER_HPARAMS, target=OFORMER_TARGET,
+                       phase: str = "oformer_eval", seed: int = SEED + 7) -> dict:
+    """OformerTask.eval_step (or OformerTimePredTask's) at full width and
+    depth on both paths."""
     import torch
 
     from m_cedm_tpu_torch import kernels
 
-    stats, batch, params, constants = oformer_setup(device, b, SEED + 7)
-    ktask, ptask = oformer_tasks(device)
+    stats, batch, params, constants = oformer_setup(device, b, seed, hparams, target)
+    ktask, ptask = oformer_tasks(device, hparams, target)
     kstate, pstate = (t.init_state(None, stats, params=params, constants=constants)
                       for t in (ktask, ptask))
 
@@ -1441,10 +1502,12 @@ def phase_oformer_eval(device, b: int) -> dict:
     kernels.reset_launches()
     metrics, grid, wall = run(ktask, kstate)
     launches = kernels.launches()
-    check_oformer_launches(launches, OFORMER_SITES, OFORMER_SITES, "one OFormer eval")
-    res = OFORMER_HPARAMS["encoder"]["res"]
-    if tuple(grid.shape) != (b, res, res, 1) or not torch.isfinite(grid).all():
-        raise AssertionError(f"OFormer prediction {tuple(grid.shape)} not finite")
+    check_oformer_launches(launches, OFORMER_SITES, OFORMER_SITES, f"one {phase}")
+    want = (b, int(batch[-1][0]), hparams["encoder"]["res"],
+            hparams["decoder"]["out_channels"])
+    if tuple(grid.shape) != want or not torch.isfinite(grid).all():
+        raise AssertionError(f"OFormer prediction {tuple(grid.shape)} not finite or "
+                             f"not {want}")
     if len(metrics) != 7 or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"OFormer metrics {metrics}")
     walls, pwalls = [wall], []
@@ -1456,7 +1519,8 @@ def phase_oformer_eval(device, b: int) -> dict:
     for k, v in metrics.items():
         if abs(v - pmetrics[k]) > TOL_METRICS * max(1.0, abs(pmetrics[k])):
             raise AssertionError(f"OFormer {k}: kernel path {v} vs plain path {pmetrics[k]}")
-    emit({"phase": "oformer_eval", "batch": b, "tokens": int(batch[0].shape[2]),
+    emit({"phase": phase, "nvidia_smi": nvidia_smi_line(), "batch": b,
+          "tokens": int(batch[0].shape[2]), "prop_tokens": int(batch[1].shape[2]),
           "metrics": metrics, "plain_metrics": pmetrics, "metrics_tol": TOL_METRICS,
           "prediction": compare(grid, pgrid, TOL_FORWARD, "OFormer prediction"),
           "launches": {k: launches[k] for k in OFORMER_KERNELS},
@@ -1466,46 +1530,61 @@ def phase_oformer_eval(device, b: int) -> dict:
     return launches
 
 
-def phase_oformer_train(device, b: int) -> dict:
-    """Three OformerTask.train_steps from one state on both paths, then
-    timing, one profiled step and the peak memory of a step."""
+def phase_oformer_train(device, b: int, hparams=OFORMER_HPARAMS, target=OFORMER_TARGET,
+                        phase: str = "oformer_train", seed: int = SEED + 8,
+                        trajectory_tol: float = TOL_TRAIN) -> dict:
+    """Three OformerTask.train_steps (or OformerTimePredTask's) from one
+    state on both paths, then timing, one profiled step and the peak memory
+    of a step. Each step is also held alone, in both directions: a
+    kernel-path step from each of the plain path's states, and a plain-path
+    step from each of the kernel path's. Returns the launches per step and
+    the kernel path's state after the three steps."""
     import torch
 
     from m_cedm_tpu_torch import kernels
 
-    stats, batch, params, constants = oformer_setup(device, b, SEED + 8)
-    ktask, ptask = oformer_tasks(device)
+    stats, batch, params, constants = oformer_setup(device, b, seed, hparams, target)
+    ktask, ptask = oformer_tasks(device, hparams, target)
     kstate, pstate = (t.init_state(None, stats, params=params, constants=constants)
                       for t in (ktask, ptask))
+
+    def trajectory(task, state):
+        """The steps one at a time, keeping every state."""
+        states, metrics = [state], []
+        for i in range(TRAIN_STEPS):
+            st, m, _ = train_steps(task, states[-1], batch, device, i, 1)
+            states.append(st)
+            metrics += m
+        return states, metrics
+
     kernels.reset_launches()
-    kfinal, kmetrics, _ = train_steps(ktask, kstate, batch, device, 0, TRAIN_STEPS)
+    kstates, kmetrics = trajectory(ktask, kstate)
     launches = kernels.launches()
     check_oformer_launches(launches, 2 * OFORMER_SITES * TRAIN_STEPS,
                            4 * OFORMER_SITES * TRAIN_STEPS,
                            f"{TRAIN_STEPS} OFormer train steps")
-    pstates, pmetrics = [pstate], []
-    for i in range(TRAIN_STEPS):  # the plain path step by step, keeping its states
-        st, m, _ = train_steps(ptask, pstates[-1], batch, device, i, 1)
-        pstates.append(st)
-        pmetrics += m
-    pfinal = pstates[-1]
+    pstates, pmetrics = trajectory(ptask, pstate)
+    kfinal, pfinal = kstates[-1], pstates[-1]
 
-    def hold(metrics, what):
-        for step, (km, pm) in enumerate(zip(metrics, pmetrics, strict=True)):
+    def hold(got, want, tol, what):
+        for step, (km, pm) in enumerate(zip(got, want, strict=True)):
             for key in ("train_loss", "grad_norm"):
-                if (not math.isfinite(km[key])
-                        or abs(km[key] - pm[key]) > TOL_TRAIN * abs(pm[key])):
+                if not math.isfinite(km[key]) or abs(km[key] - pm[key]) > tol * abs(pm[key]):
                     raise AssertionError(f"OFormer {what} step {step} {key}: kernel "
                                          f"{km[key]} vs plain {pm[key]}")
 
-    # one kernel-path step from each of the plain path's states: the step
-    # itself, without the growth of a rounding difference along the
-    # trajectory (the gradient norm grows about sevenfold a step)
+    # each step alone, without the growth of a rounding difference along the
+    # trajectory (the gradient norm grows about sevenfold a step): a kernel
+    # step from each of the plain path's states, a plain step from each of
+    # the kernel path's
     step_metrics = [train_steps(ktask, pstates[i], batch, device, i, 1)[1][0]
                     for i in range(TRAIN_STEPS)]
-    hold(step_metrics, "per-step")
-    hold(kmetrics, "trajectory")
-    lr = OFORMER_HPARAMS["lr"]
+    cross_metrics = [train_steps(ptask, kstates[i], batch, device, i, 1)[1][0]
+                     for i in range(TRAIN_STEPS)]
+    hold(step_metrics, pmetrics, TOL_TRAIN, "per-step")
+    hold(kmetrics, cross_metrics, TOL_TRAIN, "per-step from the kernel path's states")
+    hold(kmetrics, pmetrics, trajectory_tol, "trajectory")
+    lr = hparams["lr"]
     diff = max(float((kfinal.params[k] - pfinal.params[k]).abs().max()) for k in kfinal.params)
     moved = max(float((kfinal.params[k] - kstate.params[k]).abs().max()) for k in kfinal.params)
     if not (diff <= 2 * lr * TRAIN_STEPS and moved > 0):
@@ -1521,21 +1600,22 @@ def phase_oformer_train(device, b: int) -> dict:
     train_steps(ktask, kfinal, batch, device, 50, 1)
     peak = torch.cuda.max_memory_allocated()
     prof = profile_step(ktask, kfinal, batch, device, ms / 1e3)
-    emit({"phase": "oformer_train", "batch": b, "steps": TRAIN_STEPS,
+    emit({"phase": phase, "nvidia_smi": nvidia_smi_line(), "batch": b, "steps": TRAIN_STEPS,
           "train_loss": [m["train_loss"] for m in kmetrics],
           "plain_train_loss": [m["train_loss"] for m in pmetrics],
           "grad_norm": [m["grad_norm"] for m in kmetrics],
           "plain_grad_norm": [m["grad_norm"] for m in pmetrics],
           "per_step_train_loss": [m["train_loss"] for m in step_metrics],
           "per_step_grad_norm": [m["grad_norm"] for m in step_metrics],
-          "tol": TOL_TRAIN, "params_max_abs_diff": diff,
+          "plain_from_kernel_states_grad_norm": [m["grad_norm"] for m in cross_metrics],
+          "tol": TOL_TRAIN, "trajectory_tol": trajectory_tol, "params_max_abs_diff": diff,
           "tol_params": 2 * lr * TRAIN_STEPS, "params_moved_max": moved,
           "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in OFORMER_KERNELS},
           "ms_per_step": ms, "plain_ms_per_step": pms,
           "step_ms": [w * 1e3 for w in kwalls],
           "plain_step_ms": [w * 1e3 for w in pwalls],
           "peak_memory_gib": peak / 2 ** 30, "profile": prof})
-    return {k: launches[k] // TRAIN_STEPS for k in OFORMER_KERNELS}
+    return {k: launches[k] // TRAIN_STEPS for k in OFORMER_KERNELS}, kfinal
 
 
 def two_kernel_block(x, g0, b0, w0, bias0, g1, b1, w1, bias1, groups0, groups1,
@@ -1889,14 +1969,15 @@ class CliProbe:
 
         def wrapped(task, *args, **kw):
             torch.cuda.synchronize()
-            before, calls = kernels.launches(), task.model.calls
+            before, calls = kernels.launches(), getattr(task.model, "calls", 0)
             t0 = time.perf_counter()
             out = fn(task, *args, **kw)
             torch.cuda.synchronize()
             rec = {"s": time.perf_counter() - t0,
                    "launches": {k: v - before[k] for k, v in kernels.launches().items()}}
             if is_eval:
-                rec.update(split=kw.get("split"), forwards=task.model.calls - calls,
+                rec.update(split=kw.get("split"),
+                           forwards=getattr(task.model, "calls", 0) - calls,
                            samples=int(args[1][0].shape[0]) * kw.get("n_samples", 1))
             records.append(rec)
             return out
@@ -2756,6 +2837,373 @@ def phase_ddim_cli(device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the FNO (FnoStateReconstrTask and its CLI config) and the
+# OFormer's time prediction (OformerTimePredTask on K5 / K6)
+# ---------------------------------------------------------------------------
+
+FNO_CLI_CONFIG = "config_fnostatereconstrabs2d.yaml"
+# The metric keys the JAX package's run.main writes for the FNO config with
+# one epoch, written down from one JAX run on tests/test_torch_cli.py's
+# fixtures; tests/test_torch_cli.py holds the JAX run and the port's CLI on
+# the CPU to this set
+FNO_METRIC_KEYS = frozenset(
+    {"epoch", "epoch_time_s", "time", "train_loss", "train_mae_u", "train_mae_u_un"}
+    | {f"{split}_{k}" for split in ("val", "test")
+       for k in ("corr", "loss", "mae_u", "mae_u_scaled", "mae_u_un", "pde_loss",
+                 "pde_loss_gt")})
+# The FNO in fp32 against the same FNO in float64 on the card, TF32 off:
+# five layers, each six chained contractions of up to 132 terms plus a
+# 32-channel 1x1 conv. The output to 1e-5 of its scale; the two spectral
+# routes (truncated DFT as matmuls, rfft2) to each other to 2e-5 of scale;
+# the two-stage test_step's metrics and output to 1e-4 (two FNOs chained,
+# then the finite-volume residual)
+TOL_FNO = 1e-5
+TOL_FNO_ROUTES = 2e-5
+TOL_FNO_STAGES = 1e-4
+FNO_EVAL_RUNS = 3
+
+
+def scaled_error(got, want, tol: float, name: str) -> dict:
+    """max |got - want| over max |want| (the output's own scale); raises
+    beyond tol."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"{name}: error {err:.3e} of scale {scale:.3e} beyond {tol:.0e}")
+    return {"max_abs_err": err, "scale": scale, "max_rel_err": err / scale, "tol": tol}
+
+
+def float64_state(state):
+    """A copy of an FNO TaskState in float64 (the normalizers stay fp32;
+    their products with float64 tensors are float64)."""
+    import dataclasses
+
+    dbl = lambda d: {k: v.double() for k, v in d.items()}
+    opt = state.opt_state
+    return dataclasses.replace(state, params=dbl(state.params),
+                               opt_state={"count": opt["count"], "mu": dbl(opt["mu"]),
+                                          "nu": dbl(opt["nu"])})
+
+
+def fno_data(device, b: int, seed: int):
+    """Seeded synthetic shallow-water fields at T = X = FNO_RES, gauss-normalized
+    as the abs-coord datamodule normalizes them, with its (B, X) and (B, T)
+    coordinate rows: the batch (u, x, t, s) = (h, x, t, u) and its stats."""
+    import torch
+
+    h, _, _, u = synthetic_swe_batch(np.random.RandomState(seed), b, FNO_RES)
+    stats = {"input_mean": h.mean(), "input_std": h.std(),
+             "target_mean": u.mean(), "target_std": u.std()}
+    x = np.tile(np.linspace(-0.5, 0.5, FNO_RES, dtype=np.float32), (b, 1))
+    t = np.tile(np.linspace(0.0, 0.128, FNO_RES, dtype=np.float32), (b, 1))
+    arrays = ((h - stats["input_mean"]) / stats["input_std"], x, t,
+              (u - stats["target_mean"]) / stats["target_std"])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                 for a in arrays), stats
+
+
+def fno_tasks(device, hparams, target=FNO_TARGET):
+    """The task in fp32 and the same task with its model in float64."""
+    from m_cedm_tpu_torch.tasks import build_task
+
+    task, task64 = (build_task(hparams, device, target=target) for _ in range(2))
+    for t in (task, task64):
+        t.set_pde_loss_function("swe_per", False)
+    for m in (task64.model_state.model, task64.model_time.model) if hasattr(
+            task64, "model_state") else (task64.model,):
+        m.double()
+    return task, task64
+
+
+def phase_fno(device, b: int) -> dict:
+    """FnoStateReconstrTask of configs/model/fnostatereconstr2d.yaml at full
+    width and depth (width 32, 5 layers, modes 12, padding_t 4) on B = 32
+    seeded fields at T = X = 128: the forward against float64 with TF32
+    turned on beforehand (the model must turn it off); the DFT route against
+    the rfft2 route (module functions called directly on the first layer's
+    padded input shape and weights), with their times; the eval's 7 metrics;
+    3 train steps against float64; ms per train step and the eval's
+    samples/s, one profiled step. Returns the state, batch and stats for
+    phase 14d."""
+    import torch
+
+    from m_cedm_tpu_torch.models import fno as fno_model
+
+    batch, stats = fno_data(device, b, SEED + 40)
+    batch64 = tuple(a.double() for a in batch)
+    task, task64 = fno_tasks(device, FNO_HPARAMS)
+    state = task.init_state(torch.Generator().manual_seed(SEED + 41), stats)
+    state64 = float64_state(state)
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    with torch.no_grad():
+        pred = task._predict(state.params, *batch[:3])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if any(tf32):
+        raise AssertionError(f"TF32 (matmul, cudnn) {tf32} on after the FNO's forward")
+    with torch.no_grad():
+        pred64 = task64._predict(state64.params, *batch64[:3])
+    if tuple(pred.shape) != (b, FNO_RES, FNO_RES, 1):
+        raise AssertionError(f"FNO prediction shape {tuple(pred.shape)}")
+    forward = scaled_error(pred, pred64, TOL_FNO, "FNO forward vs float64")
+
+    # the two routes on the first spectral layer's input shape (the padded
+    # 128 x 132 grid at width 32) with its weights
+    g = torch.Generator(device=device).manual_seed(SEED + 42)
+    cfg = task.cfg
+    x = torch.randn(b, FNO_RES, FNO_RES + cfg.padding_t, cfg.width, generator=g,
+                    device=device)
+    w = [state.params[f"fourier_0.{n}"] for n in ("w1_real", "w1_imag", "w2_real", "w2_imag")]
+    if not fno_model.dft_route(x.shape[1], x.shape[2], cfg.modes_1, cfg.modes_2):
+        raise AssertionError("the shipped FNO shape must take the DFT route")
+    with torch.no_grad():
+        dft, fft = fno_model.spectral_conv_dft(x, *w), fno_model.spectral_conv_fft(x, *w)
+        want64 = fno_model.spectral_conv_fft(x.double(), *(v.double() for v in w))
+        routes = {"dft_vs_fft": scaled_error(dft, fft, TOL_FNO_ROUTES, "DFT route vs rfft2"),
+                  "dft_vs_float64": scaled_error(dft, want64, TOL_FNO_ROUTES, "DFT route"),
+                  "fft_vs_float64": scaled_error(fft, want64, TOL_FNO_ROUTES, "rfft2 route"),
+                  "dft_ms": cuda_ms(lambda: fno_model.spectral_conv_dft(x, *w)),
+                  "fft_ms": cuda_ms(lambda: fno_model.spectral_conv_fft(x, *w))}
+    del x, dft, fft, want64
+
+    metrics, _ = task.eval_step(state, batch, split="val")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    want_keys = {k for k in FNO_METRIC_KEYS if k.startswith("val_")}
+    if set(metrics) != want_keys or not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"FNO eval metrics {metrics}")
+    metrics64 = {k: float(v) for k, v in task64.eval_step(state64, batch64)[0].items()}
+    eval_s = []
+    for _ in range(FNO_EVAL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.eval_step(state, batch, split="val")
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+
+    s32, s64, steps = state, state64, []
+    for i in range(TRAIN_STEPS):
+        s32, m32 = task.train_step(s32, batch)
+        s64, m64 = task64.train_step(s64, batch64)
+        for key in ("train_loss", "grad_norm"):
+            a, want = float(m32[key]), float(m64[key])
+            if not math.isfinite(a) or abs(a - want) > TOL_TRAIN * abs(want):
+                raise AssertionError(f"FNO train step {i} {key}: fp32 {a} vs float64 {want}")
+        steps.append({"fp32": {k: float(v) for k, v in m32.items()},
+                      "float64": {k: float(v) for k, v in m64.items()}})
+    lr = FNO_HPARAMS["lr"]
+    diff = max(float((s32.params[k] - s64.params[k]).abs().max()) for k in s32.params)
+    moved = max(float((s32.params[k] - state.params[k]).abs().max()) for k in s32.params)
+    if not (diff <= 2 * lr * TRAIN_STEPS and moved > 0):
+        raise AssertionError(f"FNO params after {TRAIN_STEPS} steps: {diff} from float64, "
+                             f"moved {moved}")
+    _, _, walls = train_steps(task, s32, batch, device, TRAIN_STEPS,
+                              TRAIN_WARMUP + TRAIN_TIMED)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if any(tf32):
+        raise AssertionError(f"TF32 (matmul, cudnn) {tf32} on during the FNO's steps")
+    ms = float(np.median(walls[TRAIN_WARMUP:])) * 1e3
+    eval_med = float(np.median(eval_s))
+    emit({"phase": "fno", "config": "fnostatereconstr2d", "nvidia_smi": nvidia_smi_line(),
+          "batch": b, "grid": [FNO_RES, FNO_RES], "padded": [FNO_RES, FNO_RES + cfg.padding_t],
+          "forward_vs_float64": forward, "routes": routes,
+          "tf32_during_fno": list(tf32),
+          "eval_metrics": metrics, "eval_metrics_float64": metrics64,
+          "eval_s": eval_s, "eval_samples_per_s": b / eval_med,
+          "train": steps, "tol": TOL_TRAIN, "params_max_abs_diff": diff,
+          "tol_params": 2 * lr * TRAIN_STEPS, "params_moved_max": moved,
+          "step_ms": [w_ * 1e3 for w_ in walls], "ms_per_step": ms,
+          "profile": profile_step(task, s32, batch, device, ms / 1e3)})
+    return {"state": state, "batch": batch, "stats": stats}
+
+
+def phase_fno_cli(device) -> dict:
+    """config_fnostatereconstrabs2d.yaml through m_cedm_tpu_torch.run at full
+    width and depth on phase 12's seeded fields (64 train and 16 test
+    trajectories at res 128, served as in-memory stores where h5py is
+    missing; system=swe_per, their grid): one epoch of 2 steps at batch 32
+    with validation and the test, a resume to epoch 2, then
+    m_cedm_tpu_torch.eval_model on the resumed run. Every logged metric
+    finite, the keys the JAX package's (FNO_METRIC_KEYS), the resumed run
+    trains epoch 1 only, eval_model's test metrics within 1e-4 of the
+    run's, no kernel launched (the FNO runs none); seconds, ms per train
+    step and the test's samples/s."""
+    import importlib.util
+    import os
+    import shutil
+
+    from m_cedm_tpu_torch import eval_model, kernels, run
+    from m_cedm_tpu_torch.data import datamodule as dm_module
+    from m_cedm_tpu_torch.data.h5_io import write_store
+    from m_cedm_tpu_torch.tasks.fno import FnoStateReconstrTask
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("h5py", "matplotlib", "wandb")}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fno_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    sub = os.path.join(root, "1D_swp_128_per")
+    os.makedirs(sub)
+    stores = cli_stores(FNO_RES)
+    paths = {split: os.path.join(sub, f"1D_swp_128_per_{split}.h5") for split in stores}
+    saved_read, saved_wandb = dm_module.read_store, sys.modules.get("wandb")
+    if have["h5py"]:
+        for split, st in stores.items():
+            write_store(paths[split], st.inputs, st.targets, st.x, st.t)
+    else:
+        dm_module.read_store = {paths[split]: st for split, st in stores.items()}.__getitem__
+    sys.modules["wandb"] = None
+    job = ["--config-name", FNO_CLI_CONFIG, "system=swe_per", f"dataroot={root}"]
+    if not have["matplotlib"]:
+        job.append("callbacks=callbacks_save_model")
+    run_dir, run2_dir, eval_dir = (os.path.join(root, d) for d in ("run", "run2", "eval"))
+    secs = {}
+    kernels.reset_launches()
+    try:
+        with CliProbe(FnoStateReconstrTask) as probe:
+            for name, fn, extra in (
+                    ("fit", run.main, ["trainer.max_epochs=1", f"hydra.run.dir={run_dir}"]),
+                    ("resume", run.main, [f"ckpt_path={run_dir}", "trainer.max_epochs=2",
+                                          f"hydra.run.dir={run2_dir}"]),
+                    ("eval_model", eval_model.main, [f"ckpt_path={run2_dir}",
+                                                     f"hydra.run.dir={eval_dir}"])):
+                t0 = time.perf_counter()
+                fn(job + extra)
+                secs[name] = time.perf_counter() - t0
+    finally:
+        dm_module.read_store = saved_read
+        if saved_wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    launched = {k: v for k, v in kernels.launches().items() if v}
+    if launched:
+        raise AssertionError(f"the FNO's CLI launched {launched}")
+    recs = {d: read_metrics(p) for d, p in (("run", run_dir), ("run2", run2_dir),
+                                              ("eval", eval_dir))}
+    for d in ("run", "run2"):
+        keys = set().union(*map(set, recs[d]))
+        if keys != FNO_METRIC_KEYS:
+            raise AssertionError(f"{d} metric keys {sorted(keys ^ FNO_METRIC_KEYS)} differ "
+                                 f"from the JAX package's")
+    trained = sorted(r["epoch"] for r in recs["run2"] if "train_loss" in r)
+    if trained != [1]:
+        raise AssertionError(f"the resumed run trained epochs {trained}, expected [1]")
+    run2_test = [r for r in recs["run2"] if "test_mae_u" in r][-1]
+    (eval_test,) = recs["eval"]
+    test_keys = {k for k in run2_test if k.startswith("test_")}
+    if test_keys != {k for k in eval_test if k.startswith("test_")}:
+        raise AssertionError(f"eval_model keys {sorted(eval_test)}")
+    eval_err = {k: abs(eval_test[k] - run2_test[k]) / max(abs(run2_test[k]), 1e-30)
+                for k in test_keys}
+    if max(eval_err.values()) > TOL_CLI:
+        raise AssertionError(f"eval_model vs the resumed run's test: {eval_err}")
+    if len(probe.steps) != 4:
+        raise AssertionError(f"{len(probe.steps)} train steps, expected 2 + 2")
+    tests = [r for r in probe.evals if r["split"] == "test"]
+    step_ms = [r["s"] * 1e3 for r in probe.steps]
+    rec = {"phase": "fno_cli", "config": FNO_CLI_CONFIG, "nvidia_smi": nvidia_smi_line(),
+           "data": "h5" if have["h5py"] else "in_memory",
+           "callbacks": "configured" if have["matplotlib"] else "callbacks_save_model",
+           "seconds": secs, "train_step_ms": step_ms,
+           "val_s": [r["s"] for r in probe.evals if r["split"] == "val"],
+           "test_s": [r["s"] for r in tests],
+           "test_samples_per_s": [r["samples"] / r["s"] for r in tests],
+           "eval_model_max_rel_err": max(eval_err.values()), "tol": TOL_CLI,
+           "test_metrics": {k: run2_test[k] for k in sorted(test_keys)}}
+    emit(rec)
+    shutil.rmtree(root)
+    return rec
+
+
+def phase_two_stage(device, fno: dict, timepred_params, timepred_constants) -> dict:
+    """The two two-stage test_steps. OformerStateTimePredTask: a fresh
+    oformer_t reconstruction state and the time-prediction state of phase
+    14c after its train steps, on seeded fields tokenized for both stages
+    (the reconstruction's full grid, the prediction's split at 64), kernel
+    path against plain path within 1e-4, launches asserted (one forward of
+    each model: 2 x OFORMER_SITES of K5 and of K6). FnoStateTimePredTask:
+    phase 14a's reconstruction weights (at time_history 64) and a fresh
+    FnoTimePredTask's ((u, s) in and out; the second half of T = 128 from
+    the first), fp32 against float64 within 1e-4 of scale, under both
+    flip_xy (the fields and statistics swapped, as the datamodule swaps
+    them)."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.data.oformer_data import tokenize_grid
+    from m_cedm_tpu_torch.tasks import build_task
+
+    b = BATCH
+    stats, tbatch, _, _ = oformer_setup(device, b, SEED + 50, TIMEPRED_HPARAMS,
+                                        TIMEPRED_TARGET)
+    # the same seed's fields, tokenized whole for the reconstruction stage
+    _, rbatch, rparams, rconstants = oformer_setup(device, b, SEED + 50)
+    hp = {"hparams_state": OFORMER_HPARAMS, "hparams_time": TIMEPRED_HPARAMS,
+          "time_history": TIMEPRED_HISTORY}
+    out = {}
+    for path, ops in (("kernel", kernels.DEVICE_OPS), ("plain", kernels.PLAIN_OPS)):
+        task = build_task(hp, device, target="m_cedm_tpu.tasks.OformerStateTimePredTask",
+                          ops=ops)
+        rs = task.model_state.init_state(None, stats, params=rparams, constants=rconstants)
+        ts = task.model_time.init_state(None, stats, params=timepred_params,
+                                        constants=timepred_constants)
+        kernels.reset_launches()
+        metrics, pred = task.test_step(rs, ts, rbatch, tbatch)
+        out[path] = ({k: float(v) for k, v in metrics.items()}, pred, kernels.launches())
+    (km, kpred, klaunch), (pm, ppred, plaunch) = out["kernel"], out["plain"]
+    check_oformer_launches(klaunch, 2 * OFORMER_SITES, 2 * OFORMER_SITES,
+                           "the two-stage OFormer test_step")
+    check_oformer_launches(plaunch, 0, 0, "the plain two-stage OFormer test_step")
+    for k, v in km.items():
+        if not math.isfinite(v) or abs(v - pm[k]) > TOL_METRICS * max(1.0, abs(pm[k])):
+            raise AssertionError(f"two-stage OFormer {k}: kernel {v} vs plain {pm[k]}")
+    oformer = {"metrics": km, "plain_metrics": pm, "tol": TOL_METRICS,
+               "prediction": compare(kpred, ppred, TOL_METRICS, "two-stage OFormer"),
+               "launches": {k: klaunch[k] for k in OFORMER_KERNELS}}
+
+    th = FNO_RES // 2  # the FNO predicts as many steps as it sees: the second half
+    fhp = {"hparams_state": {**FNO_HPARAMS, "time_history": th},
+           "hparams_time": {**FNO_HPARAMS, "time_history": th, "input_size": 2,
+                            "state_size": 2}, "time_history": th}
+    task, task64 = fno_tasks(device, fhp, "m_cedm_tpu.tasks.FnoStateTimePredTask")
+    tparams = task.model_time.init_state(torch.Generator().manual_seed(SEED + 51)).params
+    fno_out = {}
+    for flip in (False, True):
+        # flip_xy swaps the roles as the datamodule does: u observed, h hidden
+        stats, batch = fno["stats"], fno["batch"]
+        if flip:
+            stats = {f"{a}_{m}": stats[f"{b_}_{m}"] for a, b_ in (("input", "target"),
+                                                                  ("target", "input"))
+                     for m in ("mean", "std")}
+            batch = (batch[3], batch[1], batch[2], batch[0])
+        rstate = task.model_state.init_state(None, stats, params=fno["state"].params)
+        tstate = task.model_time.init_state(None, stats, params=tparams)
+        for t in (task, task64):
+            t.set_pde_loss_function("swe_per", flip)
+        m32, p32 = task.test_step(rstate, tstate, batch)
+        m64, p64 = task64.test_step(float64_state(rstate), float64_state(tstate),
+                                    tuple(a.double() for a in batch))
+        errs = {}
+        for k, v in m64.items():
+            a, want = float(m32[k]), float(v)
+            errs[k] = abs(a - want) / abs(want)
+            if not math.isfinite(a) or errs[k] > TOL_FNO_STAGES:
+                raise AssertionError(f"two-stage FNO (flip_xy {flip}) {k}: fp32 {a} vs "
+                                     f"float64 {want}")
+        fno_out[f"flip_xy_{flip}"] = {
+            "metrics": {k: float(v) for k, v in m32.items()}, "metrics_rel_err": errs,
+            "output": scaled_error(p32, p64, TOL_FNO_STAGES, "two-stage FNO output")}
+    rec = {"phase": "two_stage", "nvidia_smi": nvidia_smi_line(), "oformer": oformer,
+           "fno": fno_out, "tol_fno": TOL_FNO_STAGES}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2778,7 +3226,7 @@ def main() -> int:
     results.update(phase_linear_attention(device, BATCH, enc["res"] ** 2, enc["in_emb_dim"]))
     eval_launches.update(
         {k: v for k, v in phase_oformer_eval(device, BATCH).items() if k in OFORMER_KERNELS})
-    oformer_step_launches = phase_oformer_train(device, BATCH)
+    oformer_step_launches, _ = phase_oformer_train(device, BATCH)
     results.update(phase_mega_kernel(device, BATCH, m["resolution"], m["ch"]))
     mega_launches = phase_mega_eval(device, hparams, params, BATCH, eval_metrics)
     eval_launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
@@ -2788,6 +3236,16 @@ def main() -> int:
     ddim_launches = phase_ddim(device, BATCH)
     phase_cond_baselines(device, BATCH)
     phase_ddim_cli(device)
+    fno = phase_fno(device, FNO_BATCH)
+    phase_fno_cli(device)
+    timepred_eval = phase_oformer_eval(device, BATCH, TIMEPRED_HPARAMS, TIMEPRED_TARGET,
+                                       "timepred_eval", SEED + 44)
+    timepred_step, timepred_state = phase_oformer_train(
+        device, BATCH, TIMEPRED_HPARAMS, TIMEPRED_TARGET, "timepred_train", SEED + 45,
+        TOL_TIMEPRED_TRAJECTORY)
+    at_n_8192 = phase_linear_attention(device, BATCH, TIMEPRED_HISTORY * enc["res"],
+                                       enc["in_emb_dim"])
+    phase_two_stage(device, fno, timepred_state.params, timepred_state.constants)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -2808,7 +3266,11 @@ def main() -> int:
                 row[key] = rec[key]
         if name in OFORMER_KERNELS:
             row.update(launches_per_train_step=oformer_step_launches[name],
-                       at_bh_64=rec["at_bh_64"])
+                       at_bh_64=rec["at_bh_64"],
+                       launches_timepred_eval=timepred_eval[name],
+                       launches_timepred_step=timepred_step[name],
+                       at_n_8192={k: at_n_8192[name][k] for k in
+                                  LINEAR_KEYS + ("max_abs_err", "max_rel_err", "at_bh_64")})
         if name in FLAGSHIP_KERNELS:
             row.update(launches_cli=cli_launches[name])
         if name in DDPM_KERNELS:

@@ -1,5 +1,5 @@
 """JAX (flax) parameters and train states -> the port's: the ADM U-Net, the
-DDPM U-Net and the OFormer.
+DDPM U-Net, the OFormer and the FNO.
 
 The JAX tree is a nested mapping of arrays, `['params'][<module>][<leaf>]`
 with the flax module names (conv_in, map_layer0/1, out_norm, out_conv, and
@@ -20,12 +20,15 @@ GroupNorm_0. Layouts:
 The OFormer's modules carry the flax names (encoder.s_transformer.attn_0.
 to_qkv, decoder.prop_mlp0, ...), so the same walk converts its 'params'
 collection; its frozen 'constants' collection (decoder/fourier_features/B)
-becomes the model's buffers, unchanged.
+becomes the model's buffers, unchanged. So do the FNO's: fc0, fc1, fc2
+(Dense kernels), conv_{i} (1x1 conv kernels) and fourier_{i}'s w1_real,
+w1_imag, w2_real, w2_imag (in, out, m1, m2), which stay as they are.
 
 `jax_train_state_to_torch` carries a whole JAX TrainState across: params,
 ema_params, constants, the optax Adam state (count, mu, nu; the entries of
 'constants' dropped) and step, so a JAX state continues in the port
-(McedmTask.init_state and OformerTask.init_state take each piece).
+(McedmTask.init_state, OformerTask.init_state and the FNO tasks' take each
+piece; the FNO and the OFormer keep no EMA, so theirs is None).
 
 This is the only bridge between the two packages; it needs numpy, not JAX.
 """

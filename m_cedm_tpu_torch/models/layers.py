@@ -25,9 +25,14 @@ from m_cedm_tpu_torch.kernels import Ops
 from m_cedm_tpu_torch.kernels.fused_norm_conv import (conv3x3_plain,
                                                       upsample2x_nearest)
 
-__all__ = ["make_initializer", "Linear", "Conv2d", "upsample2x_nearest",
+__all__ = ["make_initializer", "gelu", "Linear", "Conv2d", "upsample2x_nearest",
            "downsample2x_mean", "GroupNormSiLU", "GroupNorm", "adm_groups",
            "adm_group_norm", "ddpm_group_norm", "DDPM_GROUPS", "DDPM_EPS"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's nn.gelu: the tanh approximation (not F.gelu's default erf)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def make_initializer(mode: str, scale: float, fan_in: int, fan_out: int):

@@ -31,15 +31,11 @@ import torch.nn.functional as F
 from m_cedm_tpu_torch.kernels import Ops
 from m_cedm_tpu_torch.models.encoding import (apply_rotary_pos_emb_multi,
                                               rotary_freqs)
-from m_cedm_tpu_torch.models.layers import Linear
+from m_cedm_tpu_torch.models.layers import Linear, gelu
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"OFormer {what} is not ported yet (see ROADMAP.md)")
-
-
-def _gelu(x):  # flax nn.gelu: the tanh approximation
-    return F.gelu(x, approximate="tanh")
 
 
 def lecun_normal(shape, fan_in: int, generator: Optional[torch.Generator]):
@@ -182,7 +178,7 @@ class GeGELUFeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.Dense_0(x)
         c = h.shape[-1] // 2
-        return self.Dense_1(_gelu(h[..., :c]) * h[..., c:])
+        return self.Dense_1(gelu(h[..., :c]) * h[..., c:])
 
 
 class LinearAttention(nn.Module):
@@ -344,7 +340,7 @@ class IrregSTEncoder(nn.Module):
         # tw-grouped frames
         x = x.transpose(1, 2).reshape(b, n, t // tw, tw * c)
         x = x[:, :, 0] if t // tw == 1 else x.reshape(b, n * (t // tw), tw * c)
-        x = self.emb1(_gelu(self.emb0(x)))
+        x = self.emb1(gelu(self.emb0(x)))
         x_node = self.node_embedding(node_type[..., 0])
         x = self.combine_embedding(torch.cat([x, x_node], dim=-1))
         x = self.ln(self.s_transformer(x, input_pos) + x)
@@ -417,7 +413,7 @@ class IrregSTDecoder(nn.Module):
         """dropout_keep: the (B, N, z width) 0/1 mask of the decoder's one
         dropout site (rate cfg.dropout, train only); None = deterministic."""
         x_node = self.node_type_embedding(prop_node_type[..., 0])
-        x = self.coord_proj1(_gelu(self.coord_proj0(self.fourier_features(propagate_pos))))
+        x = self.coord_proj1(gelu(self.coord_proj0(self.fourier_features(propagate_pos))))
         x = self.combine_layer(torch.cat([x, x_node], dim=-1))
         if dropout_keep is not None:
             z = torch.where(dropout_keep.bool(), z / (1.0 - self.cfg.dropout), 0.0)
@@ -428,7 +424,7 @@ class IrregSTDecoder(nn.Module):
         for _ in range(forward_steps):
             h = self.prop_mlp0(torch.cat([self.prop_norm(z), x_node, propagate_pos], dim=-1))
             for i in range(1, 4):
-                h = getattr(self, f"prop_mlp{i}")(_gelu(h))
+                h = getattr(self, f"prop_mlp{i}")(gelu(h))
             z = h + z
             h = self.to_out0(torch.cat([self.out_norm(z), x_node], dim=-1))
             history.append(self.to_out2(torch.relu(self.to_out1(torch.relu(h)))))

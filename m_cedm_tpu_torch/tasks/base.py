@@ -148,6 +148,21 @@ def apply_updates(params: Params, updates: Params) -> Params:
                                              [updates[k] for k in keys])))
 
 
+def optimizer_step(tx: Optimizer, state: "TaskState", loss_fn: Callable):
+    """One step of `tx` on loss_fn(params) -> (loss, aux), differentiated
+    with respect to a detached copy of the state's params. Returns the new
+    state (params, optimizer state, step + 1), the loss, the gradient's
+    global norm before any clipping, and aux as loss_fn returned it."""
+    params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+    with torch.enable_grad():
+        loss, aux = loss_fn(params)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    updates, opt_state = tx.update(grads, state.opt_state, state.params)
+    new = dataclasses.replace(state, params=apply_updates(state.params, updates),
+                              opt_state=opt_state, step=state.step + 1)
+    return new, loss.detach(), global_norm(grads), aux
+
+
 def ema_update(ema_params: Params, params: Params, rate: float) -> Params:
     """shadow <- shadow * rate + params * (1 - rate), as new tensors."""
     keys = list(ema_params)

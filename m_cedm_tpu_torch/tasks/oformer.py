@@ -1,4 +1,10 @@
-"""OFormer reconstruction task (port of m_cedm_tpu/tasks/oformer.py::OformerTask).
+"""OFormer tasks (port of m_cedm_tpu/tasks/oformer.py).
+
+  OformerTask               space-time token reconstruction
+  OformerTimePredTask       future prediction: history tokens in, future
+                            tokens out, normalizers over the (u, s) channels
+  OformerStateTimePredTask  reconstruct the history, then predict the
+                            future: test-only, from two trained states
 
     task = build_task(hparams, device, target="m_cedm_tpu.tasks.OformerTask",
                       grad_clip=2.0, steps_per_epoch=None, max_epochs=None)
@@ -6,21 +12,23 @@
     state, metrics = task.train_step(state, batch, generator)
     metrics, grid_pred = task.eval_step(state, batch, split="val")
 
-batch = (x, y, node_type, pos, n_time) as the OFormer datamodule gives it
-(data.oformer_data.tokenize_grid): x (B, 1, T*X, C_in), y (B, 1, T*X, C_out),
-node_type (B, T*X, 1), pos (B, T*X, 2), n_time (B,).
+The reconstruction's batch = (x, y, node_type, pos, n_time) as the OFormer
+datamodule gives it (data.oformer_data.tokenize_grid): x (B, 1, T*X, C_in),
+y (B, 1, T*X, C_out), node_type (B, T*X, 1), pos (B, T*X, 2), n_time (B,).
+The time prediction's = (x, y, node_type_inp, node_type_prop, input_pos,
+prop_pos, n_time) with separate input (history) and propagate (future)
+tokens (data.oformer_data.PlOformerSwpTimePredDatamodule).
 
 Training is the MSE of `_criterion` (sum over channels, mean over the rest),
 the global-norm clip, and AdamW with weight decay on every trainable
 parameter, at a constant lr or, given a schedule length, on optax's
 cosine one-cycle schedule. The state is functional: `train_step` returns a
-new TaskState. The time-prediction tasks come in a later slice (ROADMAP.md).
+new TaskState.
 """
 from __future__ import annotations
 
 import copy
-import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +42,8 @@ from m_cedm_tpu_torch.ops import losses
 from m_cedm_tpu_torch.ops.normalizer import Normalizer
 from m_cedm_tpu_torch.ops.schedules import cosine_onecycle
 from m_cedm_tpu_torch.physics.pde_loss import get_pde_loss_function
-from m_cedm_tpu_torch.tasks.base import (Optimizer, TaskState, apply_updates,
-                                         global_norm, normalizers_from_stats,
+from m_cedm_tpu_torch.tasks.base import (Optimizer, TaskState, mae,
+                                         normalizers_from_stats, optimizer_step,
                                          to_device)
 
 
@@ -106,7 +114,7 @@ class OformerTask:
         if norm_stats is not None:
             self.norm_input = bool(norm_stats.get("norm_input", True))
             self.norm_target = bool(norm_stats.get("norm_target", True))
-            n_in, n_tar = normalizers_from_stats(norm_stats, "gauss", self.device)
+            n_in, n_tar = self._build_normalizers(norm_stats)
         else:
             n_in = Normalizer.identity((), self.device)
             n_tar = Normalizer.identity((), self.device)
@@ -118,13 +126,23 @@ class OformerTask:
                        else to_device(opt_state, self.device)),
             step=int(step), constants=to_device(constants, self.device))
 
+    def _build_normalizers(self, stats) -> Tuple[Normalizer, Normalizer]:
+        return normalizers_from_stats(stats, "gauss", self.device)
+
     # -- forward ------------------------------------------------------------
 
-    def apply(self, state: TaskState, params, x, node_type, pos,
+    @staticmethod
+    def _unpack(batch):
+        """(x, y, node_type_inp, node_type_prop, input_pos, prop_pos): the
+        same tokens in and out."""
+        x, y, node_type, pos, _ = batch
+        return x, y, node_type, node_type, pos, pos
+
+    def apply(self, state: TaskState, params, x, nt_inp, nt_prop, in_pos, pr_pos,
               forward_steps: int, dropout_keep=None) -> torch.Tensor:
         """The model with `params` and the state's constants swapped in."""
         return functional_call(self.model, {**params, **state.constants},
-                               (x, node_type, node_type, pos, pos, forward_steps),
+                               (x, nt_inp, nt_prop, in_pos, pr_pos, forward_steps),
                                {"dropout_keep": dropout_keep})
 
     @staticmethod
@@ -158,7 +176,7 @@ class OformerTask:
         (new state, {"train_loss", "grad_norm"}), the norm before clipping.
         dropout_keep (B, tokens, latent) 0/1 replaces the generator's draw of
         the decoder's dropout mask (kept with probability 1 - rate)."""
-        x, y, node_type, pos, _ = batch
+        x, y, *tokens = self._unpack(batch)
         c_steps = self._curriculum_forward_steps(state.step, int(y.shape[1]))
         y_norm, _ = self._pair_target(state, y[:, :c_steps])
         rate = self.dec_cfg.dropout
@@ -168,15 +186,12 @@ class OformerTask:
             dropout_keep = torch.rand(shape, generator=generator,
                                       device=x.device) < 1.0 - rate
 
-        params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
-        with torch.enable_grad():
-            pred = self.apply(state, params, x, node_type, pos, c_steps, dropout_keep)
-            loss = self._criterion(pred, y_norm)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
-        return (dataclasses.replace(state, params=apply_updates(state.params, updates),
-                                    opt_state=opt_state, step=state.step + 1),
-                {"train_loss": loss.detach(), "grad_norm": global_norm(grads)})
+        def loss_fn(params):
+            pred = self.apply(state, params, x, *tokens, c_steps, dropout_keep)
+            return self._criterion(pred, y_norm), None
+
+        new, loss, norm, _ = optimizer_step(self.tx, state, loss_fn)
+        return new, {"train_loss": loss, "grad_norm": norm}
 
     # -- evaluation ----------------------------------------------------------
 
@@ -186,10 +201,10 @@ class OformerTask:
         the reference keys {split}_loss, _mae_u, _mae_u_un, _corr,
         _mae_u_scaled and, for one-step targets, _pde_loss and _pde_loss_gt;
         grid_pred is the prediction as (B, n_time, X, C)."""
-        x, y, node_type, pos, n_time = batch
-        n_time = int(n_time[0])
+        x, y, *tokens = self._unpack(batch)
+        n_time = int(batch[-1][0])
         y_norm, y_unnorm = self._pair_target(state, y)
-        pred = self.apply(state, state.params, x, node_type, pos, int(y.shape[1]))
+        pred = self.apply(state, state.params, x, *tokens, int(y.shape[1]))
         down = self.down_factor if split == "test" else 1
         pred_un = state.normalizer_target(pred, inverse=True)
         metrics = {
@@ -224,3 +239,102 @@ class OformerTask:
         y = np.asarray(batch[1])
         n_time = int(np.asarray(batch[-1])[0])
         return y.reshape(y.shape[0], n_time, -1, y.shape[-1])
+
+
+class OformerTimePredTask(OformerTask):
+    """Future prediction: the history tokens in, the future tokens out. The
+    normalizers span the concatenated (u, s) channels; the PDE residual of
+    [history | prediction] is scaled by the per-state normalizers."""
+
+    normalizer_state1: Optional[Normalizer] = None
+    normalizer_state2: Optional[Normalizer] = None
+
+    def set_pde_loss_function(self, system: str, flip_xy: bool):
+        self.pde_loss, _ = get_pde_loss_function(system, flip_xy)
+
+    def _build_normalizers(self, stats) -> Tuple[Normalizer, Normalizer]:
+        vec = lambda v: np.asarray(v, np.float32).reshape(-1)
+        self.normalizer_state1 = Normalizer.gauss(
+            np.float32(stats["input_mean"]), np.float32(stats["input_std"]), self.device)
+        self.normalizer_state2 = Normalizer.gauss(
+            np.float32(stats["target_mean"]), np.float32(stats["target_std"]), self.device)
+        n = Normalizer.gauss(np.concatenate([vec(stats["input_mean"]),
+                                             vec(stats["target_mean"])]),
+                             np.concatenate([vec(stats["input_std"]),
+                                             vec(stats["target_std"])]), self.device)
+        return n, n
+
+    @staticmethod
+    def _unpack(batch):
+        x, y, nt_inp, nt_prop, in_pos, pr_pos, _ = batch
+        return x, y, nt_inp, nt_prop, in_pos, pr_pos
+
+    def _pde_metrics(self, state, x, pred, y_norm, n_time: int, split: str):
+        """Without statistics (no per-state normalizers) or for more than
+        one step, none, as in the JAX task."""
+        if pred.shape[1] != 1 or self.normalizer_state1 is None:
+            return {}
+        b, c = pred.shape[0], pred.shape[-1]
+        pred_g = pred.reshape(b, n_time, -1, c)
+        y_g = y_norm.reshape(b, n_time, -1, c)
+        x_in = x.reshape(b, -1, pred_g.shape[2], x.shape[-1])[..., :c]
+
+        def residual(future):
+            full = state.normalizer_target(torch.cat([x_in, future], dim=1), inverse=True)
+            return torch.sum(self.pde_loss(full, full, self.normalizer_state1,
+                                           self.normalizer_state2, clamp_loss=False)) / b
+
+        return {f"{split}_pde_loss": residual(pred_g),
+                f"{split}_pde_loss_gt": residual(y_g)}
+
+
+class OformerStateTimePredTask:
+    """Two stages: reconstruct the unobserved state over the history window,
+    then predict the future from [observed, reconstructed]. Test only, from
+    two trained states."""
+
+    def __init__(self, hparams, device, ops: Ops = DEVICE_OPS, grad_clip=None,
+                 steps_per_epoch=None, max_epochs=None):
+        self.device = torch.device(device)
+        self.model_state = OformerTask(hparams["hparams_state"], device, ops)
+        self.model_time = OformerTimePredTask(hparams["hparams_time"], device, ops)
+        self.time_history = hparams.get("time_history", 64)
+        self.down_factor = 1
+        self.pde_loss, _ = get_pde_loss_function("swe", False)
+
+    def set_pde_loss_function(self, system: str, flip_xy: bool):
+        self.pde_loss, _ = get_pde_loss_function(system, flip_xy)
+        self.model_state.set_pde_loss_function(system, flip_xy)
+        self.model_time.set_pde_loss_function(system, flip_xy)
+
+    @torch.no_grad()
+    def test_step(self, state_reconstr: TaskState, state_time: TaskState,
+                  reconstr_batch, timepred_batch):
+        """Stage 1 reconstructs the history window's tokens of the
+        reconstruction batch; stage 2 predicts the time-prediction batch's
+        future from [u_hist, s_hat, coords]. Returns the three test_* metrics
+        and the prediction (B, 1, tokens, C)."""
+        x, y, node_type, pos, n_time = reconstr_batch
+        n_time, n_hist, b = int(n_time[0]), self.time_history, x.shape[0]
+
+        def history(a):
+            a = a.reshape(b, n_time, -1, a.shape[-1])[:, :n_hist]
+            return a.reshape(b, -1, a.shape[-1])
+
+        x_hist = history(x)[:, None]
+        nt, ps = history(node_type), history(pos)
+        s_hat = self.model_state.apply(state_reconstr, state_reconstr.params,
+                                       x_hist, nt, nt, ps, ps, 1)
+
+        _, yt, *tokens = self.model_time._unpack(timepred_batch)
+        u_ch = x.shape[-1] - 2  # the t, x coordinate channels dropped
+        state_in = torch.cat([x_hist[..., :u_ch], s_hat, x_hist[..., u_ch:]], dim=-1)
+        pred = self.model_time.apply(state_time, state_time.params, state_in, *tokens, 1)
+
+        y_hist = history(y)[:, None]
+        _, y_unnorm = self.model_time._pair_target(state_time, yt)
+        pred_un = state_time.normalizer_target(pred, inverse=True)
+        mae_pred = mae(pred_un, y_unnorm)
+        return {"test_mae_un_rec": mae(state_reconstr.normalizer_target(s_hat, inverse=True),
+                                       state_reconstr.normalizer_target(y_hist, inverse=True)),
+                "test_mae_un_pred": mae_pred, "test_mae_un": mae_pred}, pred

@@ -91,11 +91,8 @@ class Trainer:
                             if getattr(datamodule, "down_interp", True) else 1)
 
         steps_per_epoch = datamodule.num_batches("train")
-        if hasattr(task, "configure_lr_schedule"):
-            try:
-                task.configure_lr_schedule(steps_per_epoch, self.max_epochs)
-            except TypeError:
-                task.configure_lr_schedule(steps_per_epoch)
+        if hasattr(task, "configure_lr_schedule"):  # the OFormer's and the FNO's
+            task.configure_lr_schedule(steps_per_epoch, self.max_epochs)
 
         state = task.init_state(torch.Generator().manual_seed(self.seed),
                                 datamodule.get_norm_stats())

@@ -67,11 +67,22 @@ OFORMER_TINY = [
 # the DDPM U-Net's norms take 32 groups, so its configs run at ch 32
 DDPM_TINY = [o if o != "model.hparams.model.ch=16" else "model.hparams.model.ch=32"
              for o in TINY]
+# the FNO at tiny width on the res-16 fixtures, as tests/test_cli.py runs it
+FNO_TINY = [
+    "system=swe_per",
+    "datamodule.batch_size=4",
+    "model.hparams.width=8",
+    "model.hparams.num_layers=2",
+    "model.hparams.modes_1=4",
+    "model.hparams.modes_2=4",
+    "model.hparams.time_history=16",
+]
+FNO_CONFIG = "--config-name=config_fnostatereconstrabs2d.yaml"
 
 
 def tiny(config):
-    if "fno" in config:  # not ported: the CLI raises before the model is read
-        return []
+    if "fno" in config:
+        return FNO_TINY
     return DDPM_TINY if "ddim" in config or config.startswith("config_edm") else TINY
 
 
@@ -444,13 +455,12 @@ def test_run_refuses_the_cpu_unless_asked(dataroot, tmp_path):
 @pytest.mark.parametrize("config,extra,match", [
     ("config_adm_edm_res32_cond_h.yaml", [], None),
     ("config_ddim_res32.yaml", ["trainer.precision=bf16"], "bf16"),
-    ("config_fnostatereconstrabs2d.yaml", ["system=swe_per"], "FnoStateReconstrTask"),
     ("config_adm_edm_mcedm_res32.yaml", ["trainer.precision=bf16"], "bf16"),
-], ids=["cond_edm_training", "ddim", "fno", "bf16"])
+], ids=["cond_edm_training", "ddim", "bf16"])
 def test_cli_raises_on_what_is_not_ported(dataroot, tmp_path, config, extra, match):
     """bf16 (on the flagship and on the DDPM joint model) reaches the tasks'
-    raise, the FNO family raises when its task is built; each names
-    ROADMAP.md. The conditional EDM's training, which raised before it was
+    raise, which names ROADMAP.md (the FNO, which raised here before it was
+    ported: test_fno_config_trains_resumes_and_tests). The conditional EDM's training, which raised before it was
     ported, now trains, validates and tests with the JAX package's metric
     keys (the other baselines: test_baseline_configs_train_and_test)."""
     argv = ["--device", "cpu", f"--config-name={config}", f"dataroot={dataroot}",
@@ -543,3 +553,47 @@ def test_oformer_resume_keeps_the_schedule(tmp_path):
     assert float(again.tx.lr(count)) != float(again.tx.lr(torch.zeros_like(count)))
     for k, v in state.constants.items():
         assert torch.equal(restored.constants[k], v)
+
+
+def test_fno_config_trains_resumes_and_tests(dataroot, tmp_path, monkeypatch):
+    """config_fnostatereconstrabs2d.yaml through run.main and
+    eval_model.main on the CPU with its configured callbacks (the plots of
+    the FNO's (B, T, X, C) predictions): one epoch with validation and the
+    test; the metric keys those the JAX package's run.main writes on the
+    same fixture (and chip_smoke.py's FNO_METRIC_KEYS, which phase 14 holds
+    on the card); eval_model on the run's checkpoint within 1e-4 of its
+    test metrics; a resume to epoch 2 trains epoch 1 only."""
+    import sys
+
+    sys.path.insert(0, REPO)
+    try:
+        import run as jrun
+    finally:
+        sys.path.remove(REPO)
+    common = [FNO_CONFIG, f"dataroot={dataroot}"] + FNO_TINY
+    monkeypatch.chdir(tmp_path)
+    jrun.main(common + ["trainer.max_epochs=1", f"hydra.run.dir={tmp_path / 'jax'}"])
+    jax_keys = set().union(*map(set, records(str(tmp_path / "jax"))))
+    assert jax_keys == chip_smoke().FNO_METRIC_KEYS
+
+    run.main(["--device", "cpu"] + common + ["trainer.max_epochs=1",
+                                             f"hydra.run.dir={tmp_path / 'run'}"])
+    recs = records(str(tmp_path / "run"))
+    assert set().union(*map(set, recs)) == jax_keys
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    assert os.listdir(tmp_path / "run" / "plots")
+    eval_model.main(["--device", "cpu"] + common + [f"ckpt_path={tmp_path / 'run'}",
+                                                    f"hydra.run.dir={tmp_path / 'eval'}"])
+    want = [r for r in recs if "test_mae_u" in r][0]
+    (got,) = records(str(tmp_path / "eval"))
+    assert {k for k in got if k.startswith("test_")} == {k for k in want
+                                                         if k.startswith("test_")}
+    for k in got:
+        if k.startswith("test_"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+    run.main(["--device", "cpu"] + common + [
+        f"ckpt_path={tmp_path / 'run'}", "trainer.max_epochs=2",
+        "callbacks=callbacks_save_model", f"hydra.run.dir={tmp_path / 'resume'}"])
+    resumed = records(str(tmp_path / "resume"))
+    assert sorted(r["epoch"] for r in resumed if "train_loss" in r) == [1]
+    assert CheckpointManager(str(tmp_path / "resume" / "checkpoints")).latest_step() == 4

@@ -177,13 +177,6 @@ def test_oformer_tokens_equal(paths, down_factor):
                 assert_resized_close(a, b)
 
 
-def test_oformer_time_prediction_datamodule_raises():
-    from m_cedm_tpu_torch.config import instantiate
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        instantiate({"_target_": "m_cedm_tpu.data.PlOformerSwpTimePredDatamodule"})
-
-
 def test_missing_store_raises_at_read(tmp_path):
     with pytest.raises((FileNotFoundError, OSError)):
         th5.read_store(os.path.join(str(tmp_path), "absent.h5"))

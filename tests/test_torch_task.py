@@ -141,10 +141,14 @@ def test_task_registry():
     assert isinstance(build_task(hp, "cpu", target="models.mcedm.PlMcedm"), McedmTask)
     assert MCEDM_TARGET == yaml.safe_load(open(os.path.join(
         REPO, "configs/model/adm_edm_mcedm_res32.yaml")))["_target_"]
-    # the FNO family is the one task family not ported (the DDPM tasks are
-    # held by tests/test_torch_ddim_task.py::test_registry_and_entry_point)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_task(hp, "cpu", target="m_cedm_tpu.tasks.FnoStateReconstrTask")
+    # every task family is ported (the DDPM tasks are held by
+    # tests/test_torch_ddim_task.py::test_registry_and_entry_point, the FNO's
+    # by tests/test_torch_fno_task.py::test_registry); an unknown name raises
+    fno = yaml.safe_load(open(os.path.join(REPO, "configs/model/fnostatereconstr2d.yaml")))
+    assert type(build_task(fno["hparams"], "cpu", target=fno["_target_"])).__name__ == \
+        "FnoStateReconstrTask"
+    with pytest.raises(KeyError, match="registry"):
+        build_task(hp, "cpu", target="m_cedm_tpu.tasks.NoSuchTask")
 
 
 @pytest.mark.parametrize("dtype,ported", [("float32", True), (None, True),
@@ -166,9 +170,11 @@ def test_port_runtime_imports_no_jax():
     sampling step and a train step of the flagship, an eval of the
     conditional EDM baseline on the megakernel path, a train step and a
     RePaint DDIM eval of the DDPM joint model, an eval and a train step of
-    the OFormer, and the CLI (run.main, then eval_model.main, with
-    --device cpu on h5 data the port writes itself) must leave JAX, flax,
-    optax, orbax and m_cedm_tpu unloaded."""
+    the OFormer, an eval and a train step of the OFormer's time prediction
+    and of the FNO, and the CLI (run.main, then eval_model.main, with
+    --device cpu on h5 data the port writes itself, for the flagship and
+    the FNO config) must leave JAX, flax, optax, orbax and m_cedm_tpu
+    unloaded."""
     code = r"""
 import pkgutil, importlib, sys, torch
 import m_cedm_tpu_torch
@@ -226,6 +232,29 @@ m, grid = otask.eval_step(ost, ob)
 assert grid.shape == (2, 4, 4, 1) and all(torch.isfinite(v) for v in m.values())
 ost, m = otask.train_step(ost, ob, torch.Generator().manual_seed(1))
 assert ost.step == 1 and all(torch.isfinite(v) for v in m.values())
+thp = {"encoder": dict(enc, input_channels=4), "decoder": {"latent_channels": 16,
+       "res": 4, "out_channels": 2}, "lr": 1e-3}
+ttask = build_task(thp, "cpu", target="m_cedm_tpu.tasks.OformerTimePredTask")
+tst = ttask.init_state(torch.Generator().manual_seed(0), {"input_mean": 0.0,
+                       "input_std": 1.0, "target_mean": 0.0, "target_std": 1.0})
+ttask.set_pde_loss_function("swe_per", False)
+n = 8
+tb = (torch.rand(2, 1, n, 4), torch.rand(2, 1, n, 2), torch.zeros(2, n, 1, dtype=torch.int32),
+      torch.zeros(2, n, 1, dtype=torch.int32), torch.rand(2, n, 2), torch.rand(2, n, 2),
+      torch.full((2,), 2, dtype=torch.int32))
+m, grid = ttask.eval_step(tst, tb)
+assert grid.shape == (2, 2, 4, 2) and "val_pde_loss" in m
+tst, m = ttask.train_step(tst, tb, torch.Generator().manual_seed(1))
+assert tst.step == 1 and all(torch.isfinite(v) for v in m.values())
+fhp = {"modes_1": 2, "modes_2": 2, "width": 8, "num_layers": 1, "time_history": 8,
+       "lr": 1e-3}
+ftask = build_task(fhp, "cpu", target="m_cedm_tpu.tasks.FnoStateReconstrTask")
+fst = ftask.init_state(torch.Generator().manual_seed(0))
+fb = (torch.rand(2, 8, 8, 1), torch.rand(2, 8), torch.rand(2, 8), torch.rand(2, 8, 8, 1))
+fst, m = ftask.train_step(fst, fb)
+assert fst.step == 1 and all(torch.isfinite(v) for v in m.values())
+m, pred = ftask.eval_step(fst, fb)
+assert pred.shape == (2, 8, 8, 1) and len(m) == 7
 import json, os, shutil, tempfile
 from m_cedm_tpu_torch import eval_model, run
 from m_cedm_tpu_torch.data.h5_io import write_store
@@ -247,6 +276,16 @@ try:
     eval_model.main(cfg + tiny + [f"ckpt_path={tmp}/run", f"hydra.run.dir={tmp}/ev"])
     recs = [json.loads(l) for l in open(os.path.join(tmp, "ev", "metrics.jsonl"))]
     assert "test_mae_u" in recs[-1]
+    fno = ["--device", "cpu", "--config-name=config_fnostatereconstrabs2d.yaml",
+           "system=swe_per", "trainer.max_epochs=1", "datamodule.batch_size=2",
+           "model.hparams.width=8", "model.hparams.num_layers=1",
+           "model.hparams.modes_1=2", "model.hparams.modes_2=2",
+           "model.hparams.time_history=16", "callbacks=callbacks_save_model",
+           f"dataroot={tmp}"]
+    run.main(fno + [f"hydra.run.dir={tmp}/fno"])
+    eval_model.main(fno + [f"ckpt_path={tmp}/fno", f"hydra.run.dir={tmp}/fno_ev"])
+    recs = [json.loads(l) for l in open(os.path.join(tmp, "fno_ev", "metrics.jsonl"))]
+    assert "test_mae_u_scaled" in recs[-1]
 finally:
     shutil.rmtree(tmp)
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax",
