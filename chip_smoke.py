@@ -155,6 +155,35 @@ Phases, each printing JSON lines:
               OformerStateTimePredTask kernel path against plain path
               (1e-4; 12 / 12 launches), FnoStateTimePredTask fp32 against
               float64 (1e-4 of scale) under both flip_xy
+  15. bf16    bf16 serving of the flagship: (1) every bf16 kernel (K1's
+              statistics and apply, K2 in every mode of the U-Net at res
+              128, 64 and 32, the narrow conv's conv_in and out conv, K3, K4
+              at 32x32) against its bf16 plain version (outputs within 1e-2
+              of scale at most and 1e-4 on average, emitted statistics
+              within 1e-5), with times, bf16 bounds (bytes at 3.35 TB/s
+              against products at 989 TFLOP/s; K1 fp32 element work at 67;
+              K4's q k^T at 989 and its P V as two TF32 products at 495)
+              and the bf16 library
+              call where one computes the same function (conv2d, SDPA); with
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+              turned on for the rest of the phase: (2) the full-width U-Net
+              forward through a bf16 McedmTask's net_apply, kernel path
+              against plain path within 2e-2 of scale, its mean gap below
+              the plain bf16 forward's mean gap to the fp32 forward and its
+              own mean gap to the fp32 forward at least half that, and one
+              profiled bf16 and fp32 forward (device time,
+              device operations, idle share); (3) phase 4's eval with model.dtype bfloat16, kernel
+              path against plain path (metrics within 2e-2 relative,
+              test_pde_loss_u reported, h within 1e-5 of the truth, the
+              kernel-vs-plain sample gap below the bf16-vs-fp32 gap,
+              launches equal to phase 4's), samples/s of the bf16 eval and
+              the fp32 per-conv eval in turns; (4) the glue matmuls
+              (layers.matmul, a 1x1 Conv2d) within one bf16 rounding of
+              float64 with the flag on, at K 64 and 8192; (5)
+              m_cedm_tpu_torch.eval_model with +model.hparams.model.dtype=
+              bfloat16 on phase 12's resumed run: its keys those of phase
+              12's eval_model, every metric finite, launches per U-Net
+              forward equal to part 3's, its seconds
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
@@ -165,8 +194,10 @@ phase 10, with phase 11's beside; every flagship kernel's launches in phase
 RePaint Heun eval and first train step as `launches_ddim_eval` and
 `launches_ddim_step`, and K1's and K2's times at its 32 groups as
 `at_32_groups`; K5's and K6's launches per time-prediction eval and step
-of phase 14 and their N = 8,192 cases as `at_n_8192`), the nvidia-smi
-line, and the last line
+of phase 14 and their N = 8,192 cases as `at_n_8192`; then the bf16
+variants, named with " bf16", their launches counted in phase 15's bf16
+eval, their times and bounds from phase 15's first part, each with its
+modes), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
@@ -356,6 +387,7 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 PEAK_FLOPS = 67e12    # H100 SXM fp32, outside the tensor cores
 PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_BF16 = 989e12    # H100 SXM bf16 tensor cores, dense
 
 # name -> (CUDA source, the TPU kernel it replaces); the flagship's nine,
 # then the OFormer's two
@@ -468,17 +500,24 @@ def compare(got, want, tol: float, name: str) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
 
 
-def bound(nbytes: float, flops: float, tf32_products: int = 0) -> dict:
+def bound(nbytes: float, flops: float, tf32_products: float = 0,
+          peak: float = PEAK_FLOPS, bf16_flops: float = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    FLOPs over the fp32 rate, whichever is longer. A kernel whose fp32
-    products run as `tf32_products` TF32 products on the tensor cores (3 for
-    3xTF32) does that many TF32 FLOPs per fp32 FLOP over the TF32 rate; its
-    fp32 CUDA-core bound is kept beside as `bound_fp32_ms`."""
-    t_bytes, t_fp32 = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    t_ops = tf32_products * flops / PEAK_TF32 * 1e3 if tf32_products else t_fp32
+    FLOPs over the fp32 rate (`peak`: PEAK_BF16 for bf16 products),
+    whichever is longer. A kernel whose products run as `tf32_products` TF32
+    products on the tensor cores (3 for 3xTF32; 2 for P V, whose P is fp32,
+    in K4's bf16 forward) does that many TF32 FLOPs per FLOP over the TF32
+    rate; its CUDA-core bound is kept beside as `bound_fp32_ms`.
+    `bf16_flops`: the FLOPs of further products of bf16 operands, at
+    PEAK_BF16 (K4's bf16 q k^T)."""
+    t_bytes, t_fp32 = nbytes / PEAK_BYTES * 1e3, (flops + bf16_flops) / peak * 1e3
+    t_ops = (tf32_products * flops / PEAK_TF32 * 1e3 if tf32_products
+             else flops / peak * 1e3) + bf16_flops / PEAK_BF16 * 1e3
     rec = {"bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "flops": flops}
+           "bytes": nbytes, "flops": flops + bf16_flops}
+    if bf16_flops:
+        rec.update(bf16_flops=bf16_flops)
     if tf32_products:
         rec.update(bound_fp32_ms=max(t_bytes, t_fp32), tf32_products=tf32_products)
     return rec
@@ -501,7 +540,8 @@ ACT_FALSE_KEYS = ("mode", "ms", "plain_ms", "library_ms", "library_max_rel_err",
 
 
 def nbytes(*tensors) -> int:
-    return sum(4 * t.numel() for t in tensors if t is not None)
+    """Bytes of the tensors at their own element size."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def conv_flops(b: int, h: int, w: int, c: int, o: int) -> float:
@@ -2132,7 +2172,8 @@ def phase_cli(device, params) -> dict:
     Heun steps, S_churn 15 and n_samples 5), then a resume to epoch 2, then
     m_cedm_tpu_torch.eval_model on the resumed run; then
     folded_ensemble_check on phase 3's weights. Returns the launches of the
-    three CLI runs (the check after them is not counted)."""
+    three CLI runs (the check after them is not counted), the resumed run's
+    directory and eval_model's, which phase 15 reads and then removes."""
     import importlib.util
     import os
     import shutil
@@ -2256,8 +2297,7 @@ def phase_cli(device, params) -> dict:
           "test_metrics": {k: run2_test[k] for k in sorted(test_keys)},
           "folded_ensemble": folded, "kernel_vs_plain": vs_plain,
           "launches": {k: v for k, v in launches.items() if v}})
-    shutil.rmtree(root)
-    return launches
+    return launches, run2_dir, eval_dir
 
 
 # ---------------------------------------------------------------------------
@@ -3204,6 +3244,527 @@ def phase_two_stage(device, fno: dict, timepred_params, timepred_constants) -> d
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bf16 serving
+# ---------------------------------------------------------------------------
+
+# A bf16 kernel against its bf16 plain version: both sum in fp32 in other
+# orders and round once to bf16, so they differ where that order flips an
+# output's last bit (2^-8 of it): at most about 1e-2 of the output's scale,
+# and rarely, so the mean stays under 1e-4 of scale. Emitted statistics come
+# from the fp32 sums before the rounding: 1e-5 of their scale.
+TOL_BF16 = 1e-2
+TOL_BF16_MEAN = 1e-4
+TOL_BF16_STATS = 1e-5
+# The full bf16 forward, kernel path against the bf16 plain path: about 25
+# chained layers, each of which can flip an ulp of its bf16 output
+TOL_BF16_FORWARD = 2e-2
+# The bf16 eval's metrics, kernel path against plain path (99 forwards whose
+# outputs differ by the forward's flips)
+TOL_BF16_METRICS = 2e-2
+# one rounding to bf16: half an ulp, 2^-8 of the value, with room for the
+# fp32 sum's own error
+BF16_ROUNDING = 1.01 * 2.0 ** -8
+BF16_RUNS = 2  # timed evals per path in phase 15, taken in turns
+# the bf16 variants, by the summary line's name, and the wrapper counting them
+BF16_KERNELS = {f"{name} bf16": name for name in (
+    "K1 channel_stats", "K1 gn_silu", "K2 gn_silu_conv", "K2 narrow_conv",
+    "K3 gn_silu_up_conv", "K4 attention")}
+
+
+def bf16_error(got, want, name: str, stats: bool = False) -> dict:
+    """max and mean |got - want| over the scale max|want|; raises beyond
+    TOL_BF16 / TOL_BF16_MEAN (TOL_BF16_STATS for fp32 statistics)."""
+    import torch
+
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{name}: dtype {got.dtype}, plain {want.dtype}")
+    got, want = got.double(), want.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    scale = max(float(want.abs().max()), 1e-30)
+    mx, mean = float(err.max()) / scale, float(err.mean()) / scale
+    tol, tol_mean = (TOL_BF16_STATS, TOL_BF16_STATS) if stats else (TOL_BF16, TOL_BF16_MEAN)
+    if mx > tol or mean > tol_mean:
+        raise AssertionError(f"{name}: error max {mx:.3e} mean {mean:.3e} of scale, "
+                             f"beyond {tol:.0e} / {tol_mean:.0e}")
+    return {"max_abs_err": float(err.max()), "max_rel_err": mx, "mean_rel_err": mean,
+            "tol": tol, "tol_mean": tol_mean}
+
+
+def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
+    """Phase 15.1: every bf16 kernel against its bf16 plain version at the
+    flagship's serving shapes, with times, bounds and the bf16 library call
+    where one computes the same function; returns per-kernel summaries keyed
+    by BF16_KERNELS' names (the first case of each is its summary case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from m_cedm_tpu_torch.kernels import fused_attention as fa
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(SEED + 60)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=device) * scale + shift).to(dtype)
+
+    def fold(c):
+        return (rnd(b, c, scale=0.3, shift=1.0, dtype=torch.float32),
+                rnd(b, c, scale=0.3, dtype=torch.float32))
+
+    def flat(t):
+        return [u for s in t for u in flat(s)] if isinstance(t, tuple) else [t]
+
+    results = {}
+
+    def check(kernel, mode, got, want, k_fn, p_fn, work, lib_fn=None):
+        """got/want: out, or (out, (sums, sumsq)), or (sums, sumsq) for K1's
+        statistics; work: `bound`'s arguments."""
+        got, want = flat(got), flat(want)
+        if len(got) != len(want):
+            raise AssertionError(f"{kernel} {mode}: {len(got)} outputs, plain {len(want)}")
+        stats_only = kernel.startswith("K1 channel_stats")
+        errs = [bf16_error(a, w, f"{kernel} {mode} output {i}",
+                           stats=stats_only or i > 0)
+                for i, (a, w) in enumerate(zip(got, want))]
+        out_err = errs[0]
+        rec = {"phase": "bf16_kernel", "kernel": kernel, "mode": mode,
+               "max_abs_err": out_err["max_abs_err"], "max_rel_err": out_err["max_rel_err"],
+               "mean_rel_err": out_err["mean_rel_err"], "tol": out_err["tol"],
+               "tol_mean": out_err["tol_mean"],
+               "stats_max_rel_err": max((e["max_rel_err"] for e in errs[1:]), default=None),
+               "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn), **bound(*work),
+               "library_ms": None}
+        if lib_fn is not None:
+            rec["library_ms"] = cuda_ms(lib_fn)
+            lib = lib_fn().double()
+            rec["library_max_rel_err"] = float((lib - want[0].double()).abs().max()
+                                               / want[0].double().abs().max())
+        emit(rec)
+        prev = results.get(kernel)
+        if prev is None:
+            results[kernel] = dict(rec, modes=[])
+        else:
+            for k in ("max_abs_err", "max_rel_err", "mean_rel_err"):
+                prev[k] = max(prev[k], rec[k])
+        results[kernel]["modes"].append(
+            {k: rec[k] for k in ("mode", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "max_rel_err", "mean_rel_err",
+                                 "stats_max_rel_err")})
+
+    def conv_lib(x, w, bias):
+        """bf16 conv2d (cuDNN) on the NHWC operands: the linear mode's and the
+        narrow conv's function up to where it rounds."""
+        return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias.to(bf),
+                        padding=1).permute(0, 2, 3, 1)
+
+    with torch.no_grad():
+        n = res * res
+        c = ch
+        gr = adm_groups(c)
+        x = rnd(b, n, c, scale=0.8, shift=0.2)
+        gamma, beta = fold(c)
+        stats = fn.channel_stats_plain(x)
+        check("K1 channel_stats bf16", "(B,N,C)", fn.channel_stats(x), stats,
+              lambda: fn.channel_stats(x), lambda: fn.channel_stats_plain(x),
+              (nbytes(x, *stats), 3.0 * x.numel()))
+        want = fn.gn_silu_plain(x, gamma, beta, gr, stats=stats)
+        check("K1 gn_silu bf16", "chained stats",
+              fn.gn_silu(x, gamma, beta, gr, stats=stats), want,
+              lambda: fn.gn_silu(x, gamma, beta, gr, stats=stats),
+              lambda: fn.gn_silu_plain(x, gamma, beta, gr, stats=stats),
+              (nbytes(x, gamma, beta, *stats, want), 6.0 * x.numel()))
+        x2 = rnd(b, n, 2 * c, scale=0.8, shift=0.2)
+        g2, b2 = fold(2 * c)
+        check("K1 gn_silu bf16", "own stats pass, 128 channels",
+              fn.gn_silu(x2, g2, b2, adm_groups(2 * c)),
+              fn.gn_silu_plain(x2, g2, b2, adm_groups(2 * c)),
+              lambda: fn.gn_silu(x2, g2, b2, adm_groups(2 * c)),
+              lambda: fn.gn_silu_plain(x2, g2, b2, adm_groups(2 * c)),
+              (nbytes(x2, g2, b2, x2) + 16 * b * c, 6.0 * x2.numel()))
+
+        def conv_w(ci, co):
+            return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
+
+        def k2(mode, x, gamma, beta, w, bias, r_=None, **kw):
+            groups = adm_groups(x.shape[-1]) if gamma is not None else 0
+            got = fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw)
+            want = fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups, **kw)
+            b_, h_, w_, c_ = x.shape
+            cr = kw["residual"].shape[-1] if kw.get("skip_w") is not None else 0
+            work = (nbytes(x, gamma, beta, w, bias, *(kw.get("stats") or ()),
+                              kw.get("residual"), kw.get("skip_w"), kw.get("skip_b"),
+                              *flat(want)),
+                    conv_flops(b_, h_, w_, c_, w.shape[-1])
+                    + 2.0 * b_ * h_ * w_ * cr * w.shape[-1], 0, PEAK_BF16)
+            check("K2 gn_silu_conv bf16", mode, got, want,
+                  lambda: fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw),
+                  lambda: fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups, **kw),
+                  work, lib_fn=None if gamma is not None else lambda: conv_lib(x, w, bias))
+
+        h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
+        hstats = fn.channel_stats_plain(h.reshape(b, -1, ch))
+        gamma, beta = fold(ch)
+        w, bias = conv_w(ch, ch), rnd(ch, scale=0.3, dtype=torch.float32)
+        res_id = rnd(b, res, res, ch)
+        k2("identity (block tail), chained stats", h, gamma, beta, w, bias,
+           residual=res_id, stats=hstats)
+        k2("identity + own stats pass + emit_stats", h, gamma, beta, w, bias,
+           residual=res_id, emit_stats=True)
+        k2("identity_up, emit_stats", h, gamma, beta, w, bias,
+           residual=rnd(b, res // 2, res // 2, ch), res_up=True, emit_stats=True)
+        xc = rnd(b, res, res, 2 * ch, scale=0.8, shift=0.2)
+        gc, bc = fold(2 * ch)
+        k2("proj from 128-channel concat, emit_stats", h, gamma, beta, w, bias,
+           residual=xc, skip_w=rnd(2 * ch, ch, scale=1.0 / math.sqrt(2 * ch)),
+           skip_b=rnd(ch, scale=0.3, dtype=torch.float32), emit_stats=True)
+        k2("128-channel input, emit_stats (decoder conv0)", xc, gc, bc,
+           conv_w(2 * ch, ch), bias, emit_stats=True)
+        k2("act=False, emit_stats (down-block conv0 at res/2)",
+           rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2), None, None,
+           conv_w(ch, ch), bias, emit_stats=True)
+        for r in (res // 2, res // 4):
+            hr = rnd(b, r, r, ch, scale=0.8, shift=0.2)
+            k2(f"identity at res {r}, chained stats", hr, gamma, beta, w, bias,
+               residual=rnd(b, r, r, ch),
+               stats=fn.channel_stats_plain(hr.reshape(b, -1, ch)))
+
+        def narrow(mode, x, w, bias, emit_stats=False):
+            want = fnc.narrow_conv_plain(x, w, bias, emit_stats)
+            b_, h_, w_, c_ = x.shape
+            check("K2 narrow_conv bf16", mode,
+                  fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats), want,
+                  lambda: fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats),
+                  lambda: fnc.narrow_conv_plain(x, w, bias, emit_stats),
+                  (nbytes(x, w, bias, *flat(want)),
+                   conv_flops(b_, h_, w_, c_, w.shape[-1]), 0, PEAK_BF16),
+                  lib_fn=lambda: conv_lib(x, w, bias))
+
+        narrow("out conv, C 64 -> O 2", h, conv_w(ch, 2),
+               rnd(2, scale=0.3, dtype=torch.float32))
+        narrow("conv_in, C 4 -> O 64, emit_stats", rnd(b, res, res, 4), conv_w(4, ch),
+               bias, emit_stats=True)
+
+        xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
+        xl_stats = fn.channel_stats_plain(xl.reshape(b, -1, ch))
+        want = fnc.gn_silu_up_conv_plain(xl, gamma, beta, w, bias, gr, stats=xl_stats,
+                                         emit_stats=True)
+        check("K3 gn_silu_up_conv bf16", "up block conv0, chained stats + emit_stats",
+              fnc.gn_silu_up_conv(xl, gamma, beta, w, bias, gr, stats=xl_stats,
+                                  emit_stats=True), want,
+              lambda: fnc.gn_silu_up_conv(xl, gamma, beta, w, bias, gr, stats=xl_stats,
+                                          emit_stats=True),
+              lambda: fnc.gn_silu_up_conv_plain(xl, gamma, beta, w, bias, gr,
+                                                stats=xl_stats, emit_stats=True),
+              (nbytes(xl, gamma, beta, w, bias, *xl_stats, *flat(want)),
+               conv_flops(b, res, res, ch, ch), 0, PEAK_BF16))
+
+        # K4 at the 32x32 sites. The bound takes q k^T, a product of bf16
+        # operands, at the bf16 rate, and P V, whose P is fp32, as two TF32
+        # products (the kernel runs q k^T as one TF32 product)
+        L = (res // 4) ** 2
+        q, k, v = (rnd(b, L, 64) for _ in range(3))
+        want = fa.attention_plain(q, k, v)
+
+        def sdpa_bf16():
+            return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
+
+        check("K4 attention bf16", "(N, L, D)", fa.attention(q, k, v), want,
+              lambda: fa.attention(q, k, v), lambda: fa.attention_plain(q, k, v),
+              (nbytes(q, k, v, want), 2.0 * b * L * L * 64, 2, PEAK_FLOPS,
+               2.0 * b * L * L * 64),
+              lib_fn=sdpa_bf16)
+    return results
+
+
+BF16_FORWARD_KERNELS = ("K1 channel_stats", "K1 gn_silu", "K2 gn_silu_conv",
+                        "K2 narrow_conv", "K3 gn_silu_up_conv", "K4 attention")
+
+
+def bf16_hparams(hparams) -> dict:
+    hp = json.loads(json.dumps(hparams))
+    hp["model"]["dtype"] = "bfloat16"
+    return hp
+
+
+def phase_bf16_forward(device, hparams, params, b: int) -> dict:
+    """Phase 15.2: the full-width U-Net forward in bf16 through a bf16
+    McedmTask's net_apply (params cast once, x and cond in bf16, the output
+    in fp32), kernel path against the bf16 plain path, and its gap to the
+    fp32 kernel path's forward."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp = bf16_hparams(hparams)
+    r = hp["model"]["resolution"]
+    rs = np.random.RandomState(SEED + 61)
+    x, cond = (torch.from_numpy(rs.randn(b, r, r, 2).astype(np.float32)).to(device)
+               for _ in range(2))
+    sigma = torch.from_numpy(rs.uniform(-1.5, 1.0, b).astype(np.float32)).to(device)
+    outs, ms, prof = {}, {}, {}
+    for name, h, ops in (("kernel", hp, kernels.DEVICE_OPS), ("plain", hp, kernels.PLAIN_OPS),
+                         ("fp32_kernel", hparams, kernels.DEVICE_OPS)):
+        task = build_task(h, device, ops=ops)
+        state = task.init_state(None, None, params=params)
+        p = task._sample_params(state)
+        with torch.no_grad():
+            outs[name] = task.net_apply(p, x, sigma, cond)
+            ms[name] = cuda_ms(lambda: task.net_apply(p, x, sigma, cond), 5)
+            if name != "plain":
+                prof[name] = profile_forward(lambda: task.net_apply(p, x, sigma, cond),
+                                             ms[name])
+    got, want = outs["kernel"], outs["plain"]
+    if got.dtype != torch.float32 or tuple(got.shape) != (b, r, r, 2):
+        raise AssertionError(f"bf16 forward output {got.dtype} {tuple(got.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("bf16 forward: non-finite output")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    if err > TOL_BF16_FORWARD:
+        raise AssertionError(f"bf16 forward, kernel vs plain: {err:.3e} of scale")
+    fp32 = outs["fp32_kernel"]
+    mean = float((got - want).abs().mean()) / scale
+    # the mean gaps: kernel vs plain under the plain bf16 forward's own gap
+    # to fp32, and the kernel path's gap to fp32 at least half of it, which a
+    # path that computed in fp32 would not have
+    bf16_gap = float((want - fp32).abs().mean() / fp32.abs().max())
+    fp32_gap = float((got - fp32).abs().mean() / fp32.abs().max())
+    if not mean < bf16_gap or not fp32_gap >= 0.5 * bf16_gap:
+        raise AssertionError(f"bf16 forward mean gaps: kernel vs plain {mean:.3e}, "
+                             f"kernel vs fp32 {fp32_gap:.3e}, plain vs fp32 {bf16_gap:.3e}")
+    rec = {"phase": "bf16_forward", "shape": list(got.shape), "max_rel_err": err,
+           "mean_rel_err": mean, "tol": TOL_BF16_FORWARD,
+           "mean_rel_err_limit": bf16_gap, "plain_vs_fp32_kernel_mean_rel": bf16_gap,
+           "vs_fp32_kernel_max_rel": float((got - fp32).abs().max() / fp32.abs().max()),
+           "vs_fp32_kernel_mean_rel": fp32_gap,
+           "ms": ms["kernel"], "plain_ms": ms["plain"], "fp32_kernel_ms": ms["fp32_kernel"],
+           "profile": prof["kernel"], "fp32_profile": prof["fp32_kernel"]}
+    emit(rec)
+    return rec
+
+
+def profile_forward(fn, ms: float) -> dict:
+    """Device time and launches of one forward under torch.profiler; the idle
+    share is taken against `ms`, the unprofiled forward's time (CUDA events
+    around back-to-back forwards, so the host's pace when it is the slower)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, n = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n += 1
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_busy_ms": busy_us / 1e3, "device_ops": n,
+            "idle_share_vs_unprofiled": 1.0 - busy_us / 1e3 / ms,
+            "share_by_kernel": {name: us / busy_us for name, us in top}}
+
+
+def phase_bf16_matmul_flag(device) -> dict:
+    """Phase 15.4, with torch.backends.cuda.matmul.allow_bf16_reduced_precision_
+    reduction turned on before the model runs (main does so): the model's
+    glue matmuls (layers.matmul, and the attention site's qkv and proj, 1x1
+    Conv2d) still accumulate in fp32. A bf16 product with fp32 sums differs
+    from float64's by its one rounding, at most half a bf16 ulp (2^-8 of the
+    value, so of the scale), plus fp32 sums' error; torch.matmul in bf16
+    with the flag on is timed and measured beside, as context."""
+    import torch
+
+    from m_cedm_tpu_torch.models.layers import Conv2d, matmul
+
+    if not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("the reduced-precision-reduction flag is off")
+    g = torch.Generator(device=device).manual_seed(SEED + 62)
+    rec = {"phase": "bf16_matmul_flag", "flag": True}
+    for k in (64, 8192):  # the qkv's depth, and a depth where split-K reduces
+        x = torch.randn(16 * 1024, k, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(k, 192, generator=g, device=device) / math.sqrt(k)).to(torch.bfloat16)
+        ref = x.double() @ w.double()
+        scale = float(ref.abs().max())
+        conv = Conv2d(k, 192, 1).to(device)
+        with torch.no_grad():
+            conv.weight.copy_(w.float())
+            conv.bias.zero_()
+            layer = conv(x.reshape(16, 32, 32, k)).reshape(-1, 192)
+        errs = {name: float((y.double() - ref).abs().max()) / scale
+                for name, y in (("layers.matmul", matmul(x, w)), ("Conv2d 1x1", layer),
+                                ("torch.matmul bf16 (context)", x @ w))}
+        for name in ("layers.matmul", "Conv2d 1x1"):
+            if errs[name] > BF16_ROUNDING:
+                raise AssertionError(f"K {k}: {name} error {errs[name]:.3e} of scale: "
+                                     "not fp32 accumulation")
+        rec[f"K_{k}"] = {"max_rel_err": errs, "bound": BF16_ROUNDING,
+                         "ms": cuda_ms(lambda: matmul(x, w)),
+                         "torch_matmul_bf16_ms": cuda_ms(lambda: x @ w)}
+    emit(rec)
+    return rec
+
+
+def phase_bf16_eval(device, hparams, params, b: int, fp32_launches: dict) -> dict:
+    """Phase 15.3: the flagship's eval (phase 4's batch, mask and noise) with
+    model.dtype bfloat16, kernel path against the bf16 plain path; launches
+    per eval asserted equal to phase 4's; samples/s of the bf16 eval and the
+    fp32 per-conv eval, in turns. Returns the bf16 eval's launches and its
+    launches per U-Net forward."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp = bf16_hparams(hparams)
+    r = hp["model"]["resolution"]
+    batch, mask, stats = flagship_eval_data(device, hp, b)
+    task = build_task(hp, device)
+    state = task.init_state(None, stats, params=params)
+    task.model.calls = 0
+    kernels.reset_launches()
+    metrics, hu, wall = run_eval(task, state, batch, mask, device)
+    launches, calls = kernels.launches(), task.model.calls
+    if tuple(hu.shape) != (b, r, r, 2) or hu.dtype != torch.float32 \
+            or not torch.isfinite(hu).all():
+        raise AssertionError(f"bf16 eval output {hu.dtype} {tuple(hu.shape)} not finite")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"bf16 eval: non-finite metrics {metrics}")
+    gt = task.transform.forward(state, batch[0], batch[3])
+    known_err = float((hu[..., 0] - gt[..., 0]).abs().max())
+    if known_err > TOL_KNOWN:
+        raise AssertionError(f"bf16 eval: observed channel moved by {known_err}")
+    got = {k: launches[k] for k in BF16_FORWARD_KERNELS}
+    want = {k: fp32_launches[k] for k in BF16_FORWARD_KERNELS}
+    if got != want or any(v for k, v in launches.items() if k not in BF16_FORWARD_KERNELS):
+        raise AssertionError(f"bf16 eval launches {launches}, phase 4's {want}")
+
+    ptask = build_task(hp, device, ops=kernels.PLAIN_OPS)
+    pmetrics, phu, _ = run_eval(ptask, ptask.init_state(None, stats, params=params),
+                                batch, mask, device)
+    ftask = build_task(hparams, device)
+    fstate = ftask.init_state(None, stats, params=params)
+    _, fhu, fwall = run_eval(ftask, fstate, batch, mask, device)
+    gaps = {"kernel_vs_plain": float((hu - phu).abs().mean()),
+            "bf16_vs_fp32": float((hu - fhu).abs().mean())}
+    if not gaps["kernel_vs_plain"] < gaps["bf16_vs_fp32"]:
+        raise AssertionError(f"bf16 eval sample gaps {gaps}")
+    rel = {}
+    for k, v in metrics.items():
+        rel[k] = abs(v - pmetrics[k]) / max(abs(pmetrics[k]), 1e-30)
+        unheld = k.startswith("test_pde_loss") and not k.endswith("_gt")
+        if not unheld and rel[k] > TOL_BF16_METRICS:
+            raise AssertionError(f"bf16 {k}: kernel path {v} vs plain path {pmetrics[k]}")
+    walls, fwalls = [wall], [fwall]
+    for i in range(BF16_RUNS):  # in turns: bf16, fp32, bf16, fp32
+        walls.append(run_eval(task, state, batch, mask, device)[2])
+        fwalls.append(run_eval(ftask, fstate, batch, mask, device)[2])
+    n = hp["sampler"]["n_samples"]
+    wall, fwall = float(np.median(walls)), float(np.median(fwalls))
+    per_forward = {k: launches[k] / calls for k in BF16_FORWARD_KERNELS}
+    emit({"phase": "bf16_eval", "mask": "u", "batch": b, "nvidia_smi": nvidia_smi_line(),
+          "steps": hp["sampler"]["timesteps"], "S_churn": hp["sampler"]["S_churn"],
+          "unet_forwards": calls, "metrics": metrics, "plain_metrics": pmetrics,
+          "metrics_rel_diff": rel, "metrics_tol": TOL_BF16_METRICS,
+          "unheld": [k for k in metrics if k.startswith("test_pde_loss")
+                     and not k.endswith("_gt")],
+          "known_channel_max_err": known_err, "sample_mean_abs_gaps": gaps,
+          "launches": launches, "launches_per_forward": per_forward,
+          "wall_s": walls, "fp32_wall_s": fwalls,
+          "samples_per_s": b * n / wall, "fp32_samples_per_s": b * n / fwall})
+    return {"launches": launches, "per_forward": per_forward}
+
+
+def phase_bf16_cli(device, run2_dir: str, eval_dir: str, per_forward: dict) -> dict:
+    """Phase 15.5: m_cedm_tpu_torch.eval_model with the JAX package's bf16
+    override on phase 12's resumed run (its checkpoint, and its data: the
+    h5 files, or the same seeded in-memory stores): the metric keys of
+    phase 12's fp32 eval_model, every metric finite, the launches per U-Net
+    forward equal to part 3's, and its seconds. Removes phase 12's
+    directory."""
+    import importlib.util
+    import os
+    import shutil
+
+    from m_cedm_tpu_torch import eval_model, kernels
+    from m_cedm_tpu_torch.data import datamodule as dm_module
+
+    root = os.path.dirname(run2_dir)
+    res = FLAGSHIP_HPARAMS["model"]["resolution"]
+    sub = os.path.join(root, "1D_swp_128_per")
+    saved_read, saved_wandb = dm_module.read_store, sys.modules.get("wandb")
+    if importlib.util.find_spec("h5py") is None:
+        by_path = {os.path.join(sub, f"1D_swp_128_per_{split}.h5"): s
+                   for split, s in cli_stores(res).items()}
+        dm_module.read_store = by_path.__getitem__
+    sys.modules["wandb"] = None
+    job = ["system=swe_per", f"dataroot={root}"]
+    if importlib.util.find_spec("matplotlib") is None:
+        job.append("callbacks=callbacks_save_model")
+    bf16_dir = os.path.join(root, "eval_bf16")
+    kernels.reset_launches()
+    try:
+        with CliProbe() as probe:
+            t0 = time.perf_counter()
+            eval_model.main(["--config-name", CLI_CONFIG] + job + [
+                f"ckpt_path={run2_dir}", f"hydra.run.dir={bf16_dir}",
+                "+model.hparams.model.dtype=bfloat16"])
+            secs = time.perf_counter() - t0
+    finally:
+        dm_module.read_store = saved_read
+        if saved_wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    (got,) = read_metrics(bf16_dir)
+    (fp32,) = read_metrics(eval_dir)
+    if set(got) - {"time"} != set(fp32) - {"time"}:
+        raise AssertionError(f"bf16 eval_model keys {sorted(set(got) ^ set(fp32))}")
+    for i, rec in enumerate(probe.evals):
+        per = {k: rec["launches"][k] / rec["forwards"] for k in BF16_FORWARD_KERNELS}
+        if per != per_forward:
+            raise AssertionError(f"bf16 eval_model eval {i}: launches per forward {per}, "
+                                 f"part 3's {per_forward}")
+    if not probe.evals:
+        raise AssertionError("bf16 eval_model ran no eval")
+    rec = {"phase": "bf16_cli", "config": CLI_CONFIG,
+           "override": "+model.hparams.model.dtype=bfloat16", "seconds": secs,
+           "metrics": got, "fp32_eval_model_metrics": fp32,
+           "evals": [{k: r[k] for k in ("split", "forwards", "samples", "s")}
+                     for r in probe.evals],
+           "launches_per_forward": per_forward}
+    emit(rec)
+    shutil.rmtree(root)
+    return rec
+
+
+def phase_bf16(device, hparams, params, b: int, fp32_launches: dict, run2_dir: str,
+               eval_dir: str):
+    """Phase 15: bf16 serving of the flagship on the card (parts 1-5; the
+    reduced-precision-reduction flag is on from part 2 to the end)."""
+    import torch
+
+    m = hparams["model"]
+    results = phase_bf16_kernels(device, b, m["resolution"], m["ch"])
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        phase_bf16_forward(device, hparams, params, b)
+        ev = phase_bf16_eval(device, hparams, params, b, fp32_launches)
+        phase_bf16_matmul_flag(device)
+        phase_bf16_cli(device, run2_dir, eval_dir, ev["per_forward"])
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return results, ev["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3231,7 +3792,7 @@ def main() -> int:
     mega_launches = phase_mega_eval(device, hparams, params, BATCH, eval_metrics)
     eval_launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
     cond_launches = phase_cond_edm(device, BATCH)
-    cli_launches = phase_cli(device, params)
+    cli_launches, cli_run2, cli_eval = phase_cli(device, params)
     at_32_groups = phase_ddpm_kernels(device, BATCH)
     ddim_launches = phase_ddim(device, BATCH)
     phase_cond_baselines(device, BATCH)
@@ -3246,6 +3807,8 @@ def main() -> int:
     at_n_8192 = phase_linear_attention(device, BATCH, TIMEPRED_HISTORY * enc["res"],
                                        enc["in_emb_dim"])
     phase_two_stage(device, fno, timepred_state.params, timepred_state.constants)
+    bf16_results, bf16_launches = phase_bf16(device, hparams, params, BATCH, eval_launches,
+                                             cli_run2, cli_eval)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -3285,6 +3848,19 @@ def main() -> int:
                        backward_max_rel_err=rec["backward_max_rel_err"],
                        launches_cond_edm_eval=cond_launches[name])
         summary.append(row)
+    for name, fp32_name in BF16_KERNELS.items():
+        rec = bf16_results[name]
+        source, replaces = KERNEL_INFO[fp32_name]
+        summary.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "dtype": "bfloat16",
+                        "launches": bf16_launches[fp32_name],
+                        "max_abs_err": rec["max_abs_err"],
+                        "max_rel_err": rec["max_rel_err"],
+                        "mean_rel_err": rec["mean_rel_err"], "tol": rec["tol"],
+                        "tol_mean": rec["tol_mean"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                        "modes": rec["modes"]})
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

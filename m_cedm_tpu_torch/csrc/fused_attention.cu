@@ -84,6 +84,22 @@
 // for P^T and dS^T. A warp takes each 64-row tile 16 rows (two n-tiles) at a
 // time, so that S and dP need 16 registers and leave room for two split
 // operands (128 registers) and up to two accumulators (64).
+//
+// bf16 forward (attention_fwd_bf16_kernel): replaces the same _fwd_kernel on
+// bf16 q, k, v, which upcasts them, runs both products and the softmax in
+// fp32 and rounds the output once to bf16. Every bf16 value is exact in TF32
+// (7 mantissa bits against 10) and the scale 1/8 is a power of two, so
+// S = q k^T is exact in products with ONE TF32 mma.sync where 3xTF32 takes
+// three; P V takes two (P split hi/lo, V exact): three products where the
+// fp32 kernel takes six, with the output held to fp32 accuracy before its one
+// rounding. Bound at the flagship shape: operations, 4.3 GFLOP at 1.5 TF32
+// products per fp32 product (0.013 ms at 495 TFLOP/s) against 8.4 MB of bf16
+// q/k/v/o (0.0025 ms). The tiling is the fp32 forward's; k and v stream
+// through shared memory as bf16 (rows padded to 72 values, 36 words = 4 mod
+// 32, so that the B-fragment reads, 2 bytes a thread, fall on distinct
+// banks) and are widened to fp32 as each fragment is read; q is held as
+// unsplit A fragments. The output is stored as bf16 pairs.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -256,6 +272,9 @@ __device__ __forceinline__ void store_c(float* dst, const float (*acc)[4], int r
 }
 
 constexpr int kFwdSmem = kStages * 2 * kTileFloats * 4;
+constexpr int kStrideH = kD + 8;  // padded bf16 row of the bf16 forward's tiles
+constexpr int kTileHalves = kTile * kStrideH;
+constexpr int kFwdSmemBf16 = kStages * 2 * kTileHalves * 2;
 constexpr int kDkdvSmem = kStages * (2 * kTileFloats + 2 * kTile) * 4;
 
 // ---------------------------------------------------------------------------
@@ -351,6 +370,172 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float la = quad_sum(l[0]), lb = quad_sum(l[1]);
   store_c(o + base, acc, ra, rb, L, t, 1.f / la, 1.f / lb);
+  if (lse && t == 0) {
+    if (ra < L) lse[(size_t)blockIdx.y * L + ra] = m[0] + logf(la);
+    if (rb < L) lse[(size_t)blockIdx.y * L + rb] = m[1] + logf(lb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward
+// ---------------------------------------------------------------------------
+
+// a bf16 value's fp32 bit pattern, an exact TF32 operand
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 h) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(h)) << 16;
+}
+
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+// rows r0 .. r0 + 63 of one head-batch's bf16 (L, D) slice into a padded
+// tile, 8 values (16 bytes) a copy; rows past L are zero-filled
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int r0, int L) {
+#pragma unroll
+  for (int i = 0; i < kTile * kD / 8 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
+    const bool valid = r0 + r < L;
+    cp_async16(dst + r * kStrideH + c, src + (size_t)(valid ? r0 + r : 0) * kD + c,
+               valid);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int L,
+                          float scale) {
+  extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
+  __nv_bfloat16* sk = hsmem;                          // [stage][64][72]
+  __nv_bfloat16* sv = hsmem + kStages * kTileHalves;  // [stage][64][72]
+  const size_t base = (size_t)blockIdx.y * L * kD;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ra = blockIdx.x * kTile + warp * 16 + g, rb = ra + 8;
+  const int ntiles = (L + kTile - 1) / kTile;
+
+  load_tile(sk, kb, 0, L);
+  load_tile(sv, vb, 0, L);
+  cp_commit();
+
+  // q's A fragments, exact in TF32: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  uint32_t qa[kKSteps][4];
+  {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const __nv_bfloat16* pa = q + base + (size_t)ra * kD;
+    const __nv_bfloat16* pb = q + base + (size_t)rb * kD;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      const int c = 8 * ks + t;
+      qa[ks][0] = bf16_bits(ra < L ? pa[c] : zero);
+      qa[ks][1] = bf16_bits(rb < L ? pb[c] : zero);
+      qa[ks][2] = bf16_bits(ra < L ? pa[c + 4] : zero);
+      qa[ks][3] = bf16_bits(rb < L ? pb[c + 4] : zero);
+    }
+  }
+
+  float acc[kD / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % kStages;
+    if (j + 1 < ntiles) {
+      load_tile(sk + (st ^ 1) * kTileHalves, kb, (j + 1) * kTile, L);
+      load_tile(sv + (st ^ 1) * kTileHalves, vb, (j + 1) * kTile, L);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* ks_ = sk + st * kTileHalves;
+    const __nv_bfloat16* vs_ = sv + st * kTileHalves;
+
+    // S = q k^T: one exact TF32 product a k-step (key row 8 nt + g, width t, t + 4)
+    float s[kNTiles][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+        const __nv_bfloat16* p = ks_ + (8 * nt + g) * kStrideH + 8 * ks + t;
+        mma_tf32(s[nt], qa[ks], bf16_bits(p[0]), bf16_bits(p[4]));
+      }
+    }
+
+    // online softmax, as the fp32 forward
+    const int k0 = j * kTile;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = k0 + 8 * nt + 2 * t + (e & 1) < L;
+        s[nt][e] = valid ? s[nt][e] * scale : -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      corr[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      acc[nd][0] *= corr[0];
+      acc[nd][1] *= corr[0];
+      acc[nd][2] *= corr[1];
+      acc[nd][3] *= corr[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e / 2]);
+        l[e / 2] += s[nt][e];
+      }
+    }
+
+    // acc += P V: P split (the key permutation of the fp32 forward), V exact;
+    // the small product first
+#pragma unroll
+    for (int kk = 0; kk < kNTiles; ++kk) {
+      AFrag pa;
+      split_a_from_c(pa, s[kk]);
+      const __nv_bfloat16* p = vs_ + (8 * kk + 2 * t) * kStrideH + g;
+#pragma unroll
+      for (int nd = 0; nd < kD / 8; ++nd) {
+        const uint32_t b0 = bf16_bits(p[8 * nd]), b1 = bf16_bits(p[kStrideH + 8 * nd]);
+        mma_tf32(acc[nd], pa.lo, b0, b1);
+        mma_tf32(acc[nd], pa.hi, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+
+  const float la = quad_sum(l[0]), lb = quad_sum(l[1]);
+  const float ia = 1.f / la, ib = 1.f / lb;
+  __nv_bfloat16* ob = o + base;
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    if (ra < L)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)ra * kD + c) =
+          __floats2bfloat162_rn(acc[nd][0] * ia, acc[nd][1] * ia);
+    if (rb < L)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rb * kD + c) =
+          __floats2bfloat162_rn(acc[nd][2] * ib, acc[nd][3] * ib);
+  }
   if (lse && t == 0) {
     if (ra < L) lse[(size_t)blockIdx.y * L + ra] = m[0] + logf(la);
     if (rb < L) lse[(size_t)blockIdx.y * L + rb] = m[1] + logf(lb);
@@ -540,6 +725,7 @@ cudaError_t configure() {
     cudaError_t e = allow_smem(attention_fwd_kernel, kFwdSmem);
     if (e == cudaSuccess) e = allow_smem(attention_bwd_dq_kernel, kFwdSmem);
     if (e == cudaSuccess) e = allow_smem(attention_bwd_dkdv_kernel, kDkdvSmem);
+    if (e == cudaSuccess) e = allow_smem(attention_fwd_bf16_kernel, kFwdSmemBf16);
     return e;
   }();
   return err;
@@ -557,6 +743,19 @@ int mc_attention_fwd(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + kTile - 1) / kTile, n);
   attention_fwd_kernel<<<grid, kThreads, kFwdSmem, (cudaStream_t)stream>>>(
+      q, k, v, o, lse, L, scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forward: q, k, v, o bf16 (16-byte aligned), lse fp32 or null.
+int mc_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int n,
+                          int L, int d, float scale, void* stream) {
+  if (d != kD) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + kTile - 1) / kTile, n);
+  attention_fwd_bf16_kernel<<<grid, kThreads, kFwdSmemBf16, (cudaStream_t)stream>>>(
       q, k, v, o, lse, L, scale);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,14 @@
 // and then streams x with coalesced loads: consecutive threads touch
 // consecutive channels of one row.
 //
+// bf16: both passes are templated on the activation type. The bf16
+// instances read bf16 x, sum and normalize in fp32 (the per-(B, C) sums stay
+// fp32) and round once, at pass 2's store: the rounding points of the Pallas
+// kernels on bf16 input (_stats_kernel upcasts before its sums, _apply_kernel
+// computes in fp32 and casts at the store). Bound: bytes, half of fp32's
+// (8.4 MB of x read by pass 1 at the flagship shape, 16.8 MB moved by pass
+// 2); the design is the fp32 one, one 2-byte element a thread per access.
+//
 // Backward: gn_silu_bwd_kernel, one cooperative launch. Replaces
 // fused_norm.py::_grad_stats_kernel and ::_grad_apply_kernel (via
 // _pallas_backward; the paired twins _grad_stats4_kernel and
@@ -68,6 +76,7 @@
 // are atomics), so the sums do not depend on which block arrives when, and
 // two calls give the same bits. The caller zeroes the counters and the
 // tagged words.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -78,8 +87,15 @@ constexpr int kThreads = 256;
 constexpr int kStatsRows = 256;   // rows of x reduced by one pass-1 block
 constexpr int kApplyRows = 64;    // rows of x normalized by one pass-2 block
 
+// an activation element as fp32, and an fp32 value stored as one
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-channel_stats_kernel(const float* __restrict__ x, float* __restrict__ sums,
+channel_stats_kernel(const T* __restrict__ x, float* __restrict__ sums,
                      float* __restrict__ sumsq, int n, int c) {
   __shared__ float red_s[kThreads];
   __shared__ float red_ss[kThreads];
@@ -91,13 +107,13 @@ channel_stats_kernel(const float* __restrict__ x, float* __restrict__ sums,
   const int lanes = min(c, kThreads);
   const int rsteps = kThreads / lanes;
   const int lane = threadIdx.x % lanes, slot = threadIdx.x / lanes;
-  const float* xb = x + (size_t)b * n * c;
+  const T* xb = x + (size_t)b * n * c;
   for (int c0 = 0; c0 < c; c0 += lanes) {
     const int ch = c0 + lane;
     float s = 0.f, ss = 0.f;
     if (slot < rsteps && ch < c) {
       for (int r = row0 + slot; r < row_end; r += rsteps) {
-        const float v = xb[(size_t)r * c + ch];
+        const float v = load_f(xb + (size_t)r * c + ch);
         s += v;
         ss += v * v;
       }
@@ -117,10 +133,11 @@ channel_stats_kernel(const float* __restrict__ x, float* __restrict__ sums,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_silu_apply_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, const float* __restrict__ sums,
-                     const float* __restrict__ sumsq, float* __restrict__ out,
+                     const float* __restrict__ sumsq, T* __restrict__ out,
                      int n, int c, int groups, float eps) {
   extern __shared__ float sm[];
   float* sa = sm;      // per-channel scale gamma * rstd
@@ -147,8 +164,8 @@ gn_silu_apply_kernel(const float* __restrict__ x, const float* __restrict__ gamm
   const int count = min(kApplyRows, n - row0) * c;
   for (int i = threadIdx.x; i < count; i += kThreads) {
     const int ch = i % c;
-    const float y = x[base + i] * sa[ch] + sb[ch];
-    out[base + i] = y / (1.f + expf(-y));
+    const float y = load_f(x + base + i) * sa[ch] + sb[ch];
+    store_f(out + base + i, y / (1.f + expf(-y)));
   }
 }
 
@@ -758,6 +775,25 @@ int mc_channel_stats(const float* x, float* sums, float* sumsq, int b, int n,
 int mc_gn_silu(const float* x, const float* gamma, const float* beta,
                const float* sums, const float* sumsq, float* out, int b, int n,
                int c, int groups, float eps, void* stream) {
+  dim3 grid((n + kApplyRows - 1) / kApplyRows, b);
+  gn_silu_apply_kernel<<<grid, kThreads, 2 * c * sizeof(float),
+                         (cudaStream_t)stream>>>(x, gamma, beta, sums, sumsq,
+                                                 out, n, c, groups, eps);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 instances: x and out bf16; sums, sumsq, gamma, beta fp32.
+int mc_channel_stats_bf16(const __nv_bfloat16* x, float* sums, float* sumsq, int b,
+                          int n, int c, void* stream) {
+  dim3 grid((n + kStatsRows - 1) / kStatsRows, b);
+  channel_stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, sums, sumsq, n, c);
+  return (int)cudaGetLastError();
+}
+
+int mc_gn_silu_bf16(const __nv_bfloat16* x, const float* gamma, const float* beta,
+                    const float* sums, const float* sumsq, __nv_bfloat16* out, int b,
+                    int n, int c, int groups, float eps, void* stream) {
   dim3 grid((n + kApplyRows - 1) / kApplyRows, b);
   gn_silu_apply_kernel<<<grid, kThreads, 2 * c * sizeof(float),
                          (cudaStream_t)stream>>>(x, gamma, beta, sums, sumsq,

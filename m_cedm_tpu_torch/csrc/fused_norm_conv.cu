@@ -105,6 +105,34 @@
 // (csrc/fused_norm_conv_bwd.cu) run their products on the same 3xTF32
 // mma.sync core, and so do both convs and the projection of K7
 // (csrc/fused_block.cu, which carries its own copy of this core's helpers).
+//
+// bf16 (gnsc_bf16_kernel<kUp>, beside the fp32 kernel, whose code it leaves
+// as it was). The Pallas kernel on a bf16 network (fused_norm_conv.py
+// _gnsc_kernel): GroupNorm and SiLU in fp32, the activation rounded to bf16
+// before the product, bf16 weights, fp32 accumulation; bias, residual and
+// the 1x1 projection (bf16 operands) into the fp32 accumulator; emitted
+// statistics from that fp32 accumulator; one rounding of the output to bf16
+// at the store. Here every product is ONE mma.sync.m16n8k16 in bf16 with
+// fp32 accumulation, where fp32 takes three m16n8k8 TF32 products per 8
+// channels: a sixth of the tensor-core instructions. Bound at the flagship's
+// res-128 identity tail: 19.3 GFLOP at 989 TFLOP/s (0.020 ms) against
+// 100.7 MB of bf16 activations (0.030 ms): bytes.
+//
+// The same tile and ring as the fp32 kernel, with 16 input channels a chunk
+// (one k16 step): cp.async brings the raw bf16 10 x 18 x 16 input tile (K3:
+// the 6 x 10 low-res tile) and the 9 x 16 x 64 weight chunk; one pass over
+// shared memory then applies the GroupNorm affine and the SiLU in fp32,
+// zeroes positions outside the image after the activation, and rounds each
+// activation once to bf16 into an A plane in fragment order (a position's
+// 16 channels as 8 words: word 2t holds channels (2t, 2t + 1), word 2t + 1
+// channels (2t + 8, 2t + 9), so thread t's A registers for one pixel are one
+// 8-byte load); the weights go to a B plane, (tap, n-tile, lane) holding b0
+// = w[2t, 2t + 1][g] and b1 = w[2t + 8, 2t + 9][g] as one 8-byte word pair.
+// The raw stages are padded so that this pass reads them without bank
+// conflicts: 24 values (12 words) a position, 72 values (36 words, 4 mod 32)
+// a weight row. 87 KB of shared memory, two blocks an SM. The taps add
+// straight into the fp32 accumulator fragments.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -639,6 +667,417 @@ int launch(const float* x, const float* w, const float* bias, const float* gamma
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16
+// ---------------------------------------------------------------------------
+
+constexpr int kCKH = 16;         // input channels per chunk: one k16 step
+constexpr int kXSH = 24;         // raw input values a position (16 used), 12 words
+constexpr int kWSH = kBO + 8;    // raw weight row stride in values: 36 words, 4 mod 32
+// shared memory, in 32-bit words
+constexpr int kRawXH = kPos * kXSH / 2;
+constexpr int kRawWH = 9 * kCKH * kWSH / 2;
+constexpr int kPlaneAH = kPos * 8;
+constexpr int kPlaneBH = 9 * 8 * 32 * 2;
+constexpr int kSmemWordsH = 2 * (kRawXH + kRawWH) + kPlaneAH + kPlaneBH + 2 * kMaxC;
+constexpr size_t kSmemBytesH = 4 * kSmemWordsH;
+
+typedef __nv_bfloat16 bf16;
+
+struct ArgsH {
+  const bf16* x;        // (B, Hin, Win, C)
+  const bf16* w;        // (3, 3, C, O)
+  const float* bias;    // (O,) or null
+  const float* gamma;   // (B, C) folded scale, unused when act == 0
+  const float* beta;    // (B, C)
+  const float* sums;    // (B, C) channel sums of x (fp32)
+  const float* sumsq;
+  const bf16* res;      // as Args::res
+  const bf16* skip_w;   // (Cr, O)
+  const float* skip_b;  // (O,) or null
+  bf16* out;            // (B, H, W, O)
+  float* osums;         // (B, O) zeroed, or null
+  float* osumsq;
+  int H, W, C, O, Cr, groups;
+  float eps;
+  int act, res_mode;
+  int xvec, wvec, rvec, svec, pair;  // 16-byte copies of x / w / res / skip_w; 4-byte stores
+};
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(bf16* smem, const bf16* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+// `rows` x `cols` values of a row-major global matrix (row stride `ld`) into
+// shared memory at row stride `sld`, zero where !valid(row, col); 8 values
+// (16 bytes) a copy when vec, else one value a plain load.
+template <typename Valid, typename Addr>
+__device__ __forceinline__ void stage(bf16* dst, int rows, int cols, int sld, bool vec,
+                                      int tid, Valid valid, Addr addr, const bf16* any) {
+  if (vec) {
+    const int c8 = cols / 8;
+    for (int idx = tid; idx < rows * c8; idx += kThreads) {
+      const int r = idx / c8, c = 8 * (idx % c8);
+      const bool v = valid(r, c);
+      cp_async16(dst + r * sld + c, v ? addr(r, c) : any, v);
+    }
+  } else {
+    for (int idx = tid; idx < rows * cols; idx += kThreads) {
+      const int r = idx / cols, c = idx % cols;
+      dst[r * sld + c] = valid(r, c) ? *addr(r, c) : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Chunk q of the K loop (as load_chunk, 16 channels a chunk) into one raw stage.
+template <bool kUp>
+__device__ __forceinline__ void load_chunk_h(const ArgsH& p, int q, int nc, bf16* rx,
+                                             bf16* rw, int b, int ty0, int tx0, int o0,
+                                             int tid) {
+  const int O = p.O;
+  if (q < nc) {
+    const int c0 = q * kCKH, C = p.C;
+    const int hin = kUp ? p.H / 2 : p.H, win = kUp ? p.W / 2 : p.W;
+    const int cols = kUp ? kLW : kIW, npos = kUp ? kLH * kLW : kPos;
+    const int y0 = kUp ? ty0 / 2 - 1 : ty0 - 1, x0 = kUp ? tx0 / 2 - 1 : tx0 - 1;
+    const bf16* xb = p.x + (size_t)b * hin * win * C;
+    stage(rx, npos, kCKH, kXSH, p.xvec, tid,
+          [&](int pos, int c) {
+            const int y = y0 + pos / cols, x = x0 + pos % cols;
+            return y >= 0 && y < hin && x >= 0 && x < win && c0 + c < C;
+          },
+          [&](int pos, int c) {
+            return xb + ((size_t)(y0 + pos / cols) * win + x0 + pos % cols) * C + c0 + c;
+          }, p.x);
+    // row = tap * 16 + ck
+    stage(rw, 9 * kCKH, kBO, kWSH, p.wvec, tid,
+          [&](int row, int o) { return c0 + row % kCKH < C && o0 + o < O; },
+          [&](int row, int o) {
+            return p.w + ((size_t)(row / kCKH) * C + c0 + row % kCKH) * O + o0 + o;
+          }, p.w);
+  } else {
+    const int c0 = (q - nc) * kCKH, Cr = p.Cr;
+    const bf16* rb = p.res + (size_t)b * p.H * p.W * Cr;
+    stage(rx, kTH * kTW, kCKH, kXSH, p.rvec, tid,
+          [&](int pos, int c) {
+            return ty0 + pos / kTW < p.H && tx0 + pos % kTW < p.W && c0 + c < Cr;
+          },
+          [&](int pos, int c) {
+            return rb + ((size_t)(ty0 + pos / kTW) * p.W + tx0 + pos % kTW) * Cr + c0 + c;
+          }, p.res);
+    stage(rw, kCKH, kBO, kWSH, p.svec, tid,
+          [&](int ck, int o) { return c0 + ck < Cr && o0 + o < O; },
+          [&](int ck, int o) { return p.skip_w + (size_t)(c0 + ck) * O + o0 + o; },
+          p.skip_w);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The conv chunk's A plane: thread t of a position takes channels c0 + 2t,
+// + 1, + 8, + 9, activated in fp32, zero outside the image and past C, each
+// rounded once to bf16.
+template <bool kUp>
+__device__ __forceinline__ void plane_x(const ArgsH& p, const bf16* rx, uint32_t* sa,
+                                        int c0, int ty0, int tx0, const float* s_a,
+                                        const float* s_b, int tid) {
+  for (int idx = tid; idx < kPos * 4; idx += kThreads) {
+    const int t = idx & 3, pos = idx >> 2;
+    const int y = ty0 - 1 + pos / kIW, x = tx0 - 1 + pos % kIW;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};  // SAME zero padding of the ACTIVATED tensor
+    if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
+      const int rpos = kUp ? ((y >> 1) - (ty0 / 2 - 1)) * kLW + (x >> 1) - (tx0 / 2 - 1)
+                           : pos;
+      const bf16* r = rx + rpos * kXSH + 2 * t;
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r + 8));
+      v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+      if (p.act) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ch = c0 + 2 * t + (i & 1) + 8 * (i >> 1);
+          v[i] = ch < p.C ? silu(v[i] * s_a[ch] + s_b[ch]) : 0.f;
+        }
+      }
+    }
+    *reinterpret_cast<uint2*>(sa + pos * 8 + 2 * t) =
+        make_uint2(pack(v[0], v[1]), pack(v[2], v[3]));
+  }
+}
+
+// The projection chunk's A plane: the tile's own pixels at the centre tap's
+// positions, as they are.
+__device__ __forceinline__ void plane_r(const bf16* rx, uint32_t* sa, int tid) {
+  for (int idx = tid; idx < kTH * kTW * 4; idx += kThreads) {
+    const int t = idx & 3, pos = idx >> 2;
+    const int spos = (pos / kTW + 1) * kIW + pos % kTW + 1;
+    const bf16* r = rx + pos * kXSH + 2 * t;
+    *reinterpret_cast<uint2*>(sa + spos * 8 + 2 * t) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(r),
+                   *reinterpret_cast<const uint32_t*>(r + 8));
+  }
+}
+
+// Weights of kTaps taps in B-fragment order: (tap, n-tile, lane) holds
+// b0 = w[k = 2t, 2t + 1][n = g] and b1 = w[k = 2t + 8, 2t + 9][n = g].
+template <int kTaps>
+__device__ __forceinline__ void plane_w(const bf16* rw, uint32_t* sb, int tid) {
+  for (int idx = tid; idx < kTaps * 8 * 32; idx += kThreads) {
+    const int lane = idx & 31, nt = (idx >> 5) & 7, tap = idx >> 8;
+    const int g = lane >> 2, t = lane & 3;
+    const bf16* r = rw + (tap * kCKH + 2 * t) * kWSH + 8 * nt + g;
+    __nv_bfloat162 b0, b1;
+    b0.x = r[0];
+    b0.y = r[kWSH];
+    b1.x = r[8 * kWSH];
+    b1.y = r[9 * kWSH];
+    *reinterpret_cast<uint2*>(sb + 2 * idx) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&b0),
+                   *reinterpret_cast<const uint32_t*>(&b1));
+  }
+}
+
+// One chunk's taps on the warp's two m-tiles x four n-tiles, straight into acc.
+template <int kTaps>
+__device__ __forceinline__ void mma_chunk_h(const uint32_t* sa, const uint32_t* sb,
+                                            float (&acc)[2][4][4], int rg, int cq,
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 3
+  for (int s = 0; s < kTaps; ++s) {
+    const int tap = kTaps == 1 ? 4 : s;
+    const int dy = tap / 3, dx = tap % 3;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const uint32_t* pa = sa + ((2 * rg + m + dy) * kIW + g + dx) * 8 + 2 * t;
+      const uint2 p0 = *reinterpret_cast<const uint2*>(pa);           // pixel g
+      const uint2 p8 = *reinterpret_cast<const uint2*>(pa + 8 * 8);   // pixel g + 8
+      a[m][0] = p0.x;
+      a[m][1] = p8.x;
+      a[m][2] = p0.y;
+      a[m][3] = p8.y;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint2 bw = *reinterpret_cast<const uint2*>(
+          sb + (((kTaps == 1 ? 0 : s) * 8 + 4 * cq + j) * 32 + lane) * 2);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma_bf16(acc[m][j], a[m], bw.x, bw.y);
+    }
+  }
+}
+
+template <bool kUp>
+__global__ void __launch_bounds__(kThreads, 2) gnsc_bf16_kernel(const ArgsH p) {
+  extern __shared__ __align__(16) uint32_t wsmem[];
+  bf16* rx = reinterpret_cast<bf16*>(wsmem);          // [2][kRawXH words] raw input
+  bf16* rw = rx + 2 * 2 * kRawXH;                      // [2][kRawWH words] raw weights
+  uint32_t* sa = wsmem + 2 * (kRawXH + kRawWH);        // the A plane
+  uint32_t* sb = sa + kPlaneAH;                        // the B plane
+  float* s_a = reinterpret_cast<float*>(sb + kPlaneBH);  // [kMaxC] folded scale
+  float* s_b = s_a + kMaxC;                              // and shift
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int tiles_w = (p.W + kTW - 1) / kTW;
+  const int ty0 = (blockIdx.x / tiles_w) * kTH;
+  const int tx0 = (blockIdx.x % tiles_w) * kTW;
+  const int o0 = blockIdx.z * kBO;
+  const int C = p.C, O = p.O;
+  const int nc = (C + kCKH - 1) / kCKH;
+  const int nq = nc + (p.res_mode == kResProj ? (p.Cr + kCKH - 1) / kCKH : 0);
+
+  load_chunk_h<kUp>(p, 0, nc, rx, rw, b, ty0, tx0, o0, tid);
+  cp_commit();
+
+  if (p.act) {
+    const int hin = kUp ? p.H / 2 : p.H, win = kUp ? p.W / 2 : p.W;
+    const int per = C / p.groups;
+    const float cnt = (float)hin * (float)win * (float)per;
+    for (int ch = tid; ch < C; ch += kThreads) {
+      const int g0 = (ch / per) * per;
+      float s = 0.f, ss = 0.f;
+      for (int k = 0; k < per; ++k) {
+        s += p.sums[b * C + g0 + k];
+        ss += p.sumsq[b * C + g0 + k];
+      }
+      const float mean = s / cnt;
+      const float var = fmaxf(ss / cnt - mean * mean, 0.f);
+      const float a = p.gamma[b * C + ch] * rsqrtf(var + p.eps);
+      s_a[ch] = a;
+      s_b[ch] = p.beta[b * C + ch] - a * mean;
+    }
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rg = warp & 3, cq = warp >> 2;
+  float acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  for (int q = 0; q < nq; ++q) {
+    const int st = q & 1;
+    if (q + 1 < nq)
+      load_chunk_h<kUp>(p, q + 1, nc, rx + (st ^ 1) * 2 * kRawXH, rw + (st ^ 1) * 2 * kRawWH,
+                        b, ty0, tx0, o0, tid);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // chunk q has landed; every warp is done with q - 1's planes
+    if (q < nc) {
+      plane_x<kUp>(p, rx + st * 2 * kRawXH, sa, q * kCKH, ty0, tx0, s_a, s_b, tid);
+      plane_w<9>(rw + st * 2 * kRawWH, sb, tid);
+    } else {
+      plane_r(rx + st * 2 * kRawXH, sa, tid);
+      plane_w<1>(rw + st * 2 * kRawWH, sb, tid);
+    }
+    __syncthreads();
+    if (q < nc)
+      mma_chunk_h<9>(sa, sb, acc, rg, cq, lane);
+    else
+      mma_chunk_h<1>(sa, sb, acc, rg, cq, lane);
+  }
+  cp_wait<0>();
+
+  // epilogue, as the fp32 kernel's: fp32 sums, statistics from them, one
+  // rounding at the store
+  const int g = lane >> 2, t = lane & 3;
+  float ps[4][2], pss[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ps[j][0] = ps[j][1] = pss[j][0] = pss[j][1] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int y = ty0 + 2 * rg + m;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = tx0 + g + 8 * h;
+      if (y >= p.H || x >= p.W) continue;
+      const size_t pix = ((size_t)b * p.H + y) * p.W + x;
+      const bf16* rrow = nullptr;
+      if (p.res_mode == kResIdentity) rrow = p.res + pix * O;
+      if (p.res_mode == kResIdentityUp)
+        rrow = p.res + (((size_t)b * (p.H / 2) + y / 2) * (p.W / 2) + x / 2) * O;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + 32 * cq + 8 * j + 2 * t;
+        if (o >= O) continue;
+        const bool two = o + 1 < O;
+        float v0 = acc[m][j][2 * h], v1 = acc[m][j][2 * h + 1];
+        if (p.bias) {
+          v0 += p.bias[o];
+          if (two) v1 += p.bias[o + 1];
+        }
+        if (rrow) {
+          if (p.pair) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(rrow + o));
+            v0 += r.x;
+            v1 += r.y;
+          } else {
+            v0 += __bfloat162float(rrow[o]);
+            if (two) v1 += __bfloat162float(rrow[o + 1]);
+          }
+        }
+        if (p.res_mode == kResProj && p.skip_b) {
+          v0 += p.skip_b[o];
+          if (two) v1 += p.skip_b[o + 1];
+        }
+        if (p.pair) {
+          *reinterpret_cast<__nv_bfloat162*>(p.out + pix * O + o) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          p.out[pix * O + o] = __float2bfloat16_rn(v0);
+          if (two) p.out[pix * O + o + 1] = __float2bfloat16_rn(v1);
+        }
+        ps[j][0] += v0;
+        pss[j][0] += v0 * v0;
+        if (two) {
+          ps[j][1] += v1;
+          pss[j][1] += v1 * v1;
+        }
+      }
+    }
+  }
+
+  if (p.osums) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int sh = 4; sh < 32; sh <<= 1) {
+          ps[j][k] += __shfl_xor_sync(0xffffffffu, ps[j][k], sh);
+          pss[j][k] += __shfl_xor_sync(0xffffffffu, pss[j][k], sh);
+        }
+    __syncthreads();  // every warp is done reading the planes: reuse them
+    float* red_s = reinterpret_cast<float*>(sa);
+    float* red_ss = red_s + 4 * kBO;
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          red_s[rg * kBO + 32 * cq + 8 * j + 2 * t + k] = ps[j][k];
+          red_ss[rg * kBO + 32 * cq + 8 * j + 2 * t + k] = pss[j][k];
+        }
+    }
+    __syncthreads();
+    if (tid < kBO && o0 + tid < O) {
+      float s = 0.f, ss = 0.f;
+      for (int r = 0; r < 4; ++r) {
+        s += red_s[r * kBO + tid];
+        ss += red_ss[r * kBO + tid];
+      }
+      atomicAdd(&p.osums[b * O + o0 + tid], s);
+      atomicAdd(&p.osumsq[b * O + o0 + tid], ss);
+    }
+  }
+}
+
+template <bool kUp>
+int launch_bf16(const bf16* x, const bf16* w, const float* bias, const float* gamma,
+                const float* beta, const float* sums, const float* sumsq, const bf16* res,
+                const bf16* skip_w, const float* skip_b, bf16* out, float* osums,
+                float* osumsq, int batch, int h, int wd, int c, int o, int cr, int groups,
+                float eps, int act, int res_mode, void* stream) {
+  if (c < 1 || o < 1 || c > kMaxC || (act && (groups < 1 || c % groups)))
+    return (int)cudaErrorInvalidValue;
+  static cudaError_t attr = [] {
+    return cudaFuncSetAttribute(gnsc_bf16_kernel<kUp>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kSmemBytesH);
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const bool pair = o % 2 == 0 && aligned(out, 4) &&
+                    (res_mode == kResProj || !res || aligned(res, 4));
+  ArgsH p{x, w, bias, gamma, beta, sums, sumsq, res, skip_w, skip_b, out,
+          osums, osumsq, h, wd, c, o, cr, groups, eps, act, res_mode,
+          c % 8 == 0 && aligned(x, 16), o % 8 == 0 && aligned(w, 16),
+          cr % 8 == 0 && aligned(res, 16), o % 8 == 0 && aligned(skip_w, 16),
+          (int)pair};
+  dim3 grid(((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW), batch,
+            (o + kBO - 1) / kBO);
+  gnsc_bf16_kernel<kUp><<<grid, kThreads, kSmemBytesH, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -664,6 +1103,29 @@ int mc_gn_silu_up_conv(const float* x, const float* w, const float* bias,
   return launch<true>(x, w, bias, gamma, beta, sums, sumsq, nullptr, nullptr,
                       nullptr, out, osums, osumsq, batch, h, wd, c, o, 0, groups,
                       eps, 1, kResNone, stream);
+}
+
+// The bf16 instances: x, w, res, skip_w and out bf16; bias, gamma, beta,
+// sums, sumsq, skip_b, osums and osumsq fp32.
+int mc_gn_silu_conv_bf16(const bf16* x, const bf16* w, const float* bias,
+                         const float* gamma, const float* beta, const float* sums,
+                         const float* sumsq, const bf16* res, const bf16* skip_w,
+                         const float* skip_b, bf16* out, float* osums, float* osumsq,
+                         int batch, int h, int wd, int c, int o, int cr, int groups,
+                         float eps, int act, int res_mode, void* stream) {
+  return launch_bf16<false>(x, w, bias, gamma, beta, sums, sumsq, res, skip_w, skip_b,
+                            out, osums, osumsq, batch, h, wd, c, o, cr, groups, eps,
+                            act, res_mode, stream);
+}
+
+int mc_gn_silu_up_conv_bf16(const bf16* x, const bf16* w, const float* bias,
+                            const float* gamma, const float* beta, const float* sums,
+                            const float* sumsq, bf16* out, float* osums, float* osumsq,
+                            int batch, int h, int wd, int c, int o, int groups,
+                            float eps, void* stream) {
+  return launch_bf16<true>(x, w, bias, gamma, beta, sums, sumsq, nullptr, nullptr,
+                           nullptr, out, osums, osumsq, batch, h, wd, c, o, 0, groups,
+                           eps, 1, kResNone, stream);
 }
 
 }  // extern "C"

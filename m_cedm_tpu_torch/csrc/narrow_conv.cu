@@ -50,8 +50,21 @@
 //             channel along the row in registers, and reads g as a broadcast.
 //             Blocks write per-run partial dW and dbias; colsum_kernel adds
 //             them in a fixed order, so dW repeats bit for bit.
+//
+// bf16: both forward kernels are templated on the element type of x, w and
+// out. The bf16 instances read bf16 x and w, widen them to fp32 as they
+// stage them in shared memory (plain 8-byte loads, 4 channels at a time,
+// where the fp32 instances copy with cp.async), multiply and add in fp32 on
+// the CUDA cores (a product of two bf16 values is exact in fp32, so this is
+// the Pallas kernel's bf16-product, fp32-accumulate arithmetic), add the fp32
+// bias, sum the statistics from the fp32 values, and round once at the
+// store. Bound: bytes, half of fp32's (conv_in writes 33.6 MB, the out conv
+// reads 33.6 MB at the flagship shape: about 0.010 ms each at 3.35 TB/s).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -135,6 +148,65 @@ __device__ __forceinline__ void load_tile(float* dst, const float* xb, int ty0, 
   }
 }
 
+// The bf16 tile: the same layout in fp32, widened as it is staged (plain
+// loads; 8 bytes, four channels, a load when vec: C % 4 == 0 and x 8-byte
+// aligned).
+template <int IH, int IW>
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* xb, int ty0,
+                                          int tx0, int H, int W, int C, int c0, int nch,
+                                          int stride, bool vec, int tid, int nthreads) {
+  if (vec) {
+    const int q4 = nch / 4;
+    for (int idx = tid; idx < IH * IW * q4; idx += nthreads) {
+      const int k = idx % q4, pos = idx / q4;
+      const int iy = pos / IW, ix = pos % IW;
+      const int y = ty0 - 1 + iy, x = tx0 - 1 + ix, c = c0 + 4 * k;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (y >= 0 && y < H && x >= 0 && x < W && c < C) {
+        const uint2 u = *reinterpret_cast<const uint2*>(xb + ((size_t)y * W + x) * C + c);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        f = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      *reinterpret_cast<float4*>(dst + pos * stride + 4 * k) = f;
+    }
+  } else {
+    for (int idx = tid; idx < IH * IW * nch; idx += nthreads) {
+      const int k = idx % nch, pos = idx / nch;
+      const int iy = pos / IW, ix = pos % IW;
+      const int y = ty0 - 1 + iy, x = tx0 - 1 + ix, c = c0 + k;
+      const bool valid = y >= 0 && y < H && x >= 0 && x < W && c < C;
+      dst[pos * stride + k] =
+          valid ? __bfloat162float(xb[((size_t)y * W + x) * C + c]) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// n consecutive outputs of one pixel (n = 1, 2 or 4; dst aligned to n
+// elements when vec), rounded once for bf16
+__device__ __forceinline__ void store_out(float* dst, const float* v, int n, bool vec) {
+  if (vec && n == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else if (vec && n == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int i = 0; i < n; ++i) dst[i] = v[i];
+  }
+}
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* dst, const float* v, int n,
+                                          bool vec) {
+  if (vec && n % 2 == 0) {
+    for (int i = 0; i < n; i += 2)
+      *reinterpret_cast<__nv_bfloat162*>(dst + i) = __floats2bfloat162_rn(v[i], v[i + 1]);
+  } else {
+    for (int i = 0; i < n; ++i) dst[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
 // OP floats from shared memory (OP = 1, 2, 4 or 8; aligned to their size)
 template <int OP>
 __device__ __forceinline__ void load_w(const float* p, float* w) {
@@ -152,21 +224,23 @@ __device__ __forceinline__ void load_w(const float* p, float* w) {
   }
 }
 
-struct ConvArgs {
-  const float* x;     // (B, H, W, C)
-  const float* w;     // (3, 3, C, O); flip: the forward weight (3, 3, O, C)
+template <typename T>
+struct ConvArgsT {
+  const T* x;         // (B, H, W, C)
+  const T* w;         // (3, 3, C, O); flip: the forward weight (3, 3, O, C)
   const float* bias;  // (O,) or null
-  float* out;         // (B, H, W, O)
+  T* out;             // (B, H, W, O)
   float* part;        // (2, B, tiles, O) scratch for the statistics, or null
   int H, W, C, O, vec;
 };
+using ConvArgs = ConvArgsT<float>;
 
 // ---------------------------------------------------------------------------
 // narrow O: O <= OP <= 8, any C
 // ---------------------------------------------------------------------------
 
-template <int OP>
-__global__ void __launch_bounds__(kOThreads) narrow_o_kernel(const ConvArgs p) {
+template <int OP, typename T>
+__global__ void __launch_bounds__(kOThreads) narrow_o_kernel(const ConvArgsT<T> p) {
   extern __shared__ __align__(16) float smem[];
   float* sx = smem;                 // [stage][18][34][12]
   float* sw = smem + 2 * kOStageX;  // [stage][9][kOKC][OP]
@@ -175,7 +249,7 @@ __global__ void __launch_bounds__(kOThreads) narrow_o_kernel(const ConvArgs p) {
   const int tiles_w = (p.W + kOTW - 1) / kOTW;
   const int ty0 = (blockIdx.x / tiles_w) * kOTH, tx0 = (blockIdx.x % tiles_w) * kOTW;
   const int C = p.C, O = p.O;
-  const float* xb = p.x + (size_t)b * p.H * p.W * C;
+  const T* xb = p.x + (size_t)b * p.H * p.W * C;
   const int nchunks = (C + kOKC - 1) / kOKC;
 
   auto load = [&](int stage, int c0) {
@@ -186,7 +260,10 @@ __global__ void __launch_bounds__(kOThreads) narrow_o_kernel(const ConvArgs p) {
       const int o = idx % OP, t = idx / OP;
       const int ck = t % kOKC, tap = t / kOKC, c = c0 + ck;
       const bool valid = c < C && o < O;
-      cp_async4(dw + idx, valid ? p.w + ((size_t)tap * C + c) * O + o : p.w, valid);
+      if constexpr (std::is_same<T, float>::value)
+        cp_async4(dw + idx, valid ? p.w + ((size_t)tap * C + c) * O + o : p.w, valid);
+      else
+        dw[idx] = valid ? to_f(p.w[((size_t)tap * C + c) * O + o]) : 0.f;
     }
   };
 
@@ -251,18 +328,22 @@ __global__ void __launch_bounds__(kOThreads) narrow_o_kernel(const ConvArgs p) {
         ss[o] += v[o] * v[o];
       }
     }
-    float* dst = p.out + (((size_t)b * p.H + y) * p.W + x) * O;
-    if (OP == O && OP == 2) {
-      *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-    } else if (OP == O && OP >= 4) {
+    T* dst = p.out + (((size_t)b * p.H + y) * p.W + x) * O;
+    if constexpr (std::is_same<T, float>::value) {
+      if (OP == O && OP == 2) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+      } else if (OP == O && OP >= 4) {
 #pragma unroll
-      for (int h = 0; h < OP / 4; ++h)
-        *reinterpret_cast<float4*>(dst + 4 * h) =
-            make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+        for (int h = 0; h < OP / 4; ++h)
+          *reinterpret_cast<float4*>(dst + 4 * h) =
+              make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int o = 0; o < OP; ++o)
+          if (o < O) dst[o] = v[o];
+      }
     } else {
-#pragma unroll
-      for (int o = 0; o < OP; ++o)
-        if (o < O) dst[o] = v[o];
+      store_out(dst, v, O < OP ? O : OP, OP == O && OP >= 2);
     }
   }
 
@@ -299,8 +380,8 @@ __global__ void __launch_bounds__(kOThreads) narrow_o_kernel(const ConvArgs p) {
 // narrow C: C <= 8, any O; kFlip: the dgrad of a narrow-O conv
 // ---------------------------------------------------------------------------
 
-template <bool kFlip>
-__global__ void __launch_bounds__(kCThreads) narrow_c_kernel(const ConvArgs p) {
+template <bool kFlip, typename T>
+__global__ void __launch_bounds__(kCThreads) narrow_c_kernel(const ConvArgsT<T> p) {
   __shared__ __align__(16) float sx[kCIH * kCIW * kPS];
   __shared__ __align__(16) float sw[9 * kKC * kCO];  // [tap][c][64 outputs]
   __shared__ float red[2][kCTW][kCO];
@@ -321,7 +402,8 @@ __global__ void __launch_bounds__(kCThreads) narrow_c_kernel(const ConvArgs p) {
     if (c < C && o < O)
       // flip: tap (dr, dc) takes the forward weight of tap (2 - dr, 2 - dc)
       // with the channel axes swapped
-      v = kFlip ? p.w[((size_t)(8 - tap) * O + o) * C + c] : p.w[((size_t)tap * C + c) * O + o];
+      v = to_f(kFlip ? p.w[((size_t)(8 - tap) * O + o) * C + c]
+                     : p.w[((size_t)tap * C + c) * O + o]);
     sw[idx] = v;
   }
   cp_wait<0>();
@@ -381,13 +463,17 @@ __global__ void __launch_bounds__(kCThreads) narrow_c_kernel(const ConvArgs p) {
           ss[i] += v[i] * v[i];
         }
       }
-      float* dst = p.out + (((size_t)b * p.H + y) * p.W + x) * O + ob;
-      if (O % 4 == 0) {
-        if (ob < O) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
+      T* dst = p.out + (((size_t)b * p.H + y) * p.W + x) * O + ob;
+      if constexpr (std::is_same<T, float>::value) {
+        if (O % 4 == 0) {
+          if (ob < O) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (ob + i < O) dst[i] = v[i];
+          for (int i = 0; i < 4; ++i)
+            if (ob + i < O) dst[i] = v[i];
+        }
+      } else if (ob < O) {
+        store_out(dst, v, O - ob < 4 ? O - ob : 4, O % 4 == 0);
       }
     }
   }
@@ -559,10 +645,14 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 // above 48 KB of dynamic shared memory a kernel must opt in, once per process
 cudaError_t configure() {
   static cudaError_t err = [] {
-    cudaError_t e = allow_smem(narrow_o_kernel<1>, kOSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<2>, kOSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<4>, kOSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<8>, kOSmem);
+    cudaError_t e = allow_smem(narrow_o_kernel<1, float>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<2, float>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<4, float>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<8, float>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<1, __nv_bfloat16>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<2, __nv_bfloat16>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<4, __nv_bfloat16>, kOSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<8, __nv_bfloat16>, kOSmem);
     if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<1>, kWSmem);
     if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<2>, kWSmem);
     if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<4>, kWSmem);
@@ -572,9 +662,41 @@ cudaError_t configure() {
   return err;
 }
 
-bool vec_ok(const float* x, int c) { return c % 4 == 0 && (uintptr_t)x % 16 == 0; }
-
 int tiles_of(int h, int wd, int th, int tw) { return ((h + th - 1) / th) * ((wd + tw - 1) / tw); }
+
+bool vec_ok(const float* x, int c) { return c % 4 == 0 && (uintptr_t)x % 16 == 0; }
+bool vec_ok(const __nv_bfloat16* x, int c) { return c % 4 == 0 && (uintptr_t)x % 8 == 0; }
+
+// the forward for either element type; ostats and part as mc_narrow_conv's
+template <typename T>
+int narrow_conv(const T* x, const T* w, const float* bias, T* out, float* ostats,
+                float* part, int batch, int h, int wd, int c, int o, void* stream) {
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || (c > kKC && o > 8) ||
+      (!ostats) != (!part))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  ConvArgsT<T> p{x, w, bias, out, part, h, wd, c, o, (int)vec_ok(x, c)};
+  const int which = o <= 8 ? 0 : 1;
+  const int tiles = which ? tiles_of(h, wd, kCTH, kCTW) : tiles_of(h, wd, kOTH, kOTW);
+  if (which == 0) {
+    dim3 grid(tiles, batch);
+    if (o <= 1) narrow_o_kernel<1, T><<<grid, kOThreads, kOSmem, st>>>(p);
+    else if (o <= 2) narrow_o_kernel<2, T><<<grid, kOThreads, kOSmem, st>>>(p);
+    else if (o <= 4) narrow_o_kernel<4, T><<<grid, kOThreads, kOSmem, st>>>(p);
+    else narrow_o_kernel<8, T><<<grid, kOThreads, kOSmem, st>>>(p);
+  } else {
+    dim3 grid(tiles, batch, (o + kCO - 1) / kCO);
+    narrow_c_kernel<false, T><<<grid, kCThreads, 0, st>>>(p);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !ostats) return (int)err;
+  colsum_kernel<<<dim3((o + 31) / 32, 2 * batch), 32 * kSumGroups, 0, st>>>(part, ostats,
+                                                                          tiles, o);
+  return (int)cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -595,30 +717,14 @@ int mc_narrow_conv_tiles(int h, int wd, int which) {
 int mc_narrow_conv(const float* x, const float* w, const float* bias, float* out,
                    float* ostats, float* part, int batch, int h, int wd, int c, int o,
                    void* stream) {
-  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || (c > kKC && o > 8) ||
-      (!ostats) != (!part))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure();
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  ConvArgs p{x, w, bias, out, part, h, wd, c, o, (int)vec_ok(x, c)};
-  const int which = o <= 8 ? 0 : 1;
-  const int tiles = mc_narrow_conv_tiles(h, wd, which);
-  if (which == 0) {
-    dim3 grid(tiles, batch);
-    if (o <= 1) narrow_o_kernel<1><<<grid, kOThreads, kOSmem, st>>>(p);
-    else if (o <= 2) narrow_o_kernel<2><<<grid, kOThreads, kOSmem, st>>>(p);
-    else if (o <= 4) narrow_o_kernel<4><<<grid, kOThreads, kOSmem, st>>>(p);
-    else narrow_o_kernel<8><<<grid, kOThreads, kOSmem, st>>>(p);
-  } else {
-    dim3 grid(tiles, batch, (o + kCO - 1) / kCO);
-    narrow_c_kernel<false><<<grid, kCThreads, 0, st>>>(p);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !ostats) return (int)err;
-  colsum_kernel<<<dim3((o + 31) / 32, 2 * batch), 32 * kSumGroups, 0, st>>>(part, ostats,
-                                                                          tiles, o);
-  return (int)cudaGetLastError();
+  return narrow_conv(x, w, bias, out, ostats, part, batch, h, wd, c, o, stream);
+}
+
+// The bf16 instance: x, w and out bf16; bias, ostats and part fp32.
+int mc_narrow_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                        __nv_bfloat16* out, float* ostats, float* part, int batch, int h,
+                        int wd, int c, int o, void* stream) {
+  return narrow_conv(x, w, bias, out, ostats, part, batch, h, wd, c, o, stream);
 }
 
 // The backward of out = conv3x3_same(x) + bias for o <= 8: dx (null: not
@@ -636,7 +742,7 @@ int mc_narrow_conv_bwd(const float* g, const float* x, const float* w, float* dx
     // dgrad: the narrow-C kernel on g (o channels in, c out), weights mirrored
     ConvArgs p{g, w, nullptr, dx, nullptr, h, wd, o, c, (int)vec_ok(g, o)};
     dim3 grid(mc_narrow_conv_tiles(h, wd, 1), batch, (c + kCO - 1) / kCO);
-    narrow_c_kernel<true><<<grid, kCThreads, 0, st>>>(p);
+    narrow_c_kernel<true, float><<<grid, kCThreads, 0, st>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -29,11 +29,30 @@ def on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def check(t: torch.Tensor, name: str, shape: Sequence[int], device) -> None:
+# the activation dtypes a kernel has an instance for; the statistics, the
+# folded GroupNorm scale and shift and the biases stay float32 with either
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def act_dtype(x: torch.Tensor) -> torch.dtype:
+    """The kernel instance a CUDA activation selects: float32 or bfloat16;
+    any other dtype raises."""
+    if x.dtype not in ACT_DTYPES:
+        raise ValueError(f"the kernels take float32 or bfloat16 activations, "
+                         f"got {x.dtype}")
+    return x.dtype
+
+
+def check(t: torch.Tensor, name: str, shape: Sequence[int], device,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Device, dtype, shape and contiguity of one kernel argument. `dtype` is
+    the one the launched instance reads: the activation's for activations and
+    weights, float32 for statistics, scales, shifts and biases, so a mix of
+    dtypes other than bfloat16 activations with float32 vectors raises."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

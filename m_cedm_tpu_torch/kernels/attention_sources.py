@@ -62,7 +62,10 @@ parent commit's csrc file unpacked with `git archive`), and each
       independent accumulators a warp, 4 to 32 warps an SM), as the
       ceiling of the 3xTF32 kernels built on it; and the rate of the
       3xTF32 split itself (two cvt.rn.tf32.f32 and a subtraction), in
-      warp-wide splits per ns per SM.
+      warp-wide splits per ns per SM; then the rate of bf16
+      mma.sync.m16n8k16 with fp32 accumulation, the same way, the ceiling
+      of the bf16 kernels (K2/K3's gnsc_bf16_kernel) beside the 989
+      TFLOP/s of bf16 wgmma.
 
 Each output is checked against float64 (the plain versions, or einsum, in
 float64 on the card): errors are max |err| / max(1, max |float64|), the
@@ -335,6 +338,28 @@ extern "C" int mc_mma_rate(float* out, int blocks, int threads, int iters, void*
   mma_rate<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
   return (int)cudaGetLastError();
 }
+// iters rounds of eight independent m16n8k16 bf16 products per warp
+__global__ void mma_rate_bf16(float* out, int iters) {
+  uint32_t a[4], b0 = threadIdx.x, b1 = threadIdx.x * 3u;
+  for (int i = 0; i < 4; ++i) a[i] = threadIdx.x * (i + 7u);
+  float c[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                   "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+                   : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mc_mma_rate_bf16(float* out, int blocks, int threads, int iters,
+                                void* stream) {
+  mma_rate_bf16<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
 // iters rounds of eight independent 3xTF32 splits (two cvt.rn.tf32.f32 and
 // one subtraction each) per thread
 __global__ void split_rate(float* out, int iters) {
@@ -362,7 +387,8 @@ extern "C" int mc_split_rate(float* out, int blocks, int threads, int iters, voi
 
 def _time_mma() -> int:
     """TF32 mma.sync.m16n8k8 products per second on the card, with blocks of
-    4 warps filling 4 to 32 warps an SM; then the 3xTF32 split's rate."""
+    4 warps filling 4 to 32 warps an SM; then the 3xTF32 split's rate; then
+    bf16 mma.sync.m16n8k16's rate, as the TF32 one."""
     out_dir = _build.BUILD_DIR / "attention_sources"
     out_dir.mkdir(parents=True, exist_ok=True)
     src, so = out_dir / "mma_rate.cu", out_dir / "mma_rate.so"
@@ -393,6 +419,18 @@ def _time_mma() -> int:
         splits = 8.0 * iters * blocks * 128
         print(json.dumps({"warps_per_sm": warps, "ms": ms,
                           "split_warp_instr_per_ns_per_sm": splits / 32 / ms / 1e6 / sms}),
+              flush=True)
+    lib.mc_mma_rate_bf16.argtypes = [P, I, I, I, P]
+    iters = 4096
+    for warps in (4, 8, 16, 32):
+        blocks = sms * warps // 4
+        out = torch.empty(blocks * 128, device=dev)
+        ms = _cuda_ms(lambda: lib.mc_mma_rate_bf16(out.data_ptr(), blocks, 128, iters,
+                                                   stream))
+        flops = 2.0 * 16 * 8 * 16 * 8 * iters * blocks * 4
+        print(json.dumps({"instruction": "mma.sync.m16n8k16 bf16", "warps_per_sm": warps,
+                          "ms": ms, "bf16_tflops": flops / ms / 1e9,
+                          "ns_per_mma_per_sm": ms * 1e6 / (flops / 4096 / sms)}),
               flush=True)
     return 0
 

@@ -13,6 +13,11 @@ ADM U-Net's head width.
 `attention` is a torch.autograd.Function: the CUDA kernels for CUDA tensors,
 the plain PyTorch versions for CPU tensors. `attention.launches` counts
 forward kernel launches, `attention_bwd.launches` backward ones.
+
+bf16 q, k, v go to the bf16 forward kernel (`_fwd_kernel` on bf16 operands:
+upcast, both products and the softmax in fp32, the output rounded once to
+bf16); `attention_plain` of bf16 operands is that function. Its backward is
+not ported yet (ROADMAP.md) and raises.
 """
 from __future__ import annotations
 
@@ -22,15 +27,20 @@ from typing import Optional, Tuple
 import torch
 
 from m_cedm_tpu_torch.kernels import _build
-from m_cedm_tpu_torch.kernels._launch import (F, I, P, check,
+from m_cedm_tpu_torch.kernels._launch import (F, I, P, act_dtype, check,
                                               fp32_reference_math, on_cpu, ptr,
                                               raise_on_error, stream)
+from m_cedm_tpu_torch.kernels.fused_norm import bf16_backward_not_ported
 
 HEAD_DIM = 64
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v in fp32 (attention_reference)."""
+    """softmax(q k^T / sqrt(D)) v in fp32 (attention_reference); bf16
+    operands are upcast and the result rounded once to bf16, as _fwd_kernel
+    does."""
+    if q.dtype == torch.bfloat16:
+        return attention_plain(q.float(), k.float(), v.float()).to(q.dtype)
     if q.is_cuda:
         fp32_reference_math()
     scale = 1.0 / math.sqrt(k.shape[-1])
@@ -54,8 +64,9 @@ def attention_bwd_plain(g, q, k, v) -> Tuple[torch.Tensor, ...]:
 
 def _check_qkv(*tensors):
     n, l, d = tensors[0].shape
+    dt = act_dtype(tensors[0])
     for i, t in enumerate(tensors):
-        check(t, f"attention operand {i}", (n, l, d), tensors[0].device)
+        check(t, f"attention operand {i}", (n, l, d), tensors[0].device, dt)
     if d != HEAD_DIM:
         raise ValueError(f"attention kernel takes head width {HEAD_DIM}, got {d}")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -70,10 +81,10 @@ def attention_fwd(q, k, v, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     if lse is not None:
         check(lse, "lse", (n, l), q.device)
     out = torch.empty_like(q)
-    fn = _build.bind("fused_attention", "mc_attention_fwd",
-                     [P, P, P, P, P, I, I, I, F, P])
+    name = "mc_attention_fwd" + ("_bf16" if q.dtype == torch.bfloat16 else "")
+    fn = _build.bind("fused_attention", name, [P, P, P, P, P, I, I, I, F, P])
     raise_on_error(fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), n, l, d,
-                      1.0 / math.sqrt(d), stream()), "mc_attention_fwd")
+                      1.0 / math.sqrt(d), stream()), name)
     attention.launches += 1
     return out
 
@@ -112,6 +123,8 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        if q.dtype == torch.bfloat16:
+            raise bf16_backward_not_ported("K4")
         g = g.contiguous()
         if on_cpu(g):
             return attention_bwd_plain(g, q, k, v)

@@ -14,6 +14,13 @@ beside it for a CPU tensor, and counts its kernel launches in `.launches`
 (`gn_silu_bwd.launches` for the backward). The statistics are not
 differentiable: a consumer's backward computes the full GroupNorm gradient
 from x and gives chained statistics a zero cotangent.
+
+bf16: both forward kernels have a bf16 instance, which the wrappers launch
+for a bf16 activation (gamma, beta and the statistics stay fp32): the sums
+are fp32 sums of the upcast input, the apply runs in fp32 and rounds once at
+its store, where the Pallas kernels round. `gn_silu_plain` on a bf16 input
+is the plain version of that function (`gn_silu_bf16_plain`). The backward
+has no bf16 instance yet (ROADMAP.md) and raises.
 """
 from __future__ import annotations
 
@@ -22,8 +29,9 @@ from typing import Optional, Tuple
 import torch
 
 from m_cedm_tpu_torch.kernels import _build
-from m_cedm_tpu_torch.kernels._launch import (F, I, P, check, on_cpu, ptr,
-                                              raise_on_error, stream)
+from m_cedm_tpu_torch.kernels._launch import (F, I, P, act_dtype, check,
+                                              on_cpu, ptr, raise_on_error,
+                                              stream)
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -33,7 +41,9 @@ Stats = Tuple[torch.Tensor, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def channel_stats_plain(x: torch.Tensor) -> Stats:
-    """Per-(B, C) sum and sum of squares of a (B, N, C) activation."""
+    """Per-(B, C) sum and sum of squares of a (B, N, C) activation, in fp32
+    (a bf16 input is upcast first)."""
+    x = x.float()
     return x.sum(dim=1), (x * x).sum(dim=1)
 
 
@@ -43,7 +53,10 @@ def gn_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """silu(group_norm(x) * gamma + beta); x (B, N, C), gamma/beta (B, C).
 
     Two-pass variance as in group_norm_silu_reference. Chained `stats` are
-    ignored and recomputed, as the JAX reference does."""
+    ignored and recomputed, as the JAX reference does. A bf16 x takes the
+    bf16 kernels' function instead (`gn_silu_bf16_plain`)."""
+    if x.dtype == torch.bfloat16:
+        return gn_silu_bf16_plain(x, gamma, beta, num_groups, eps, stats)
     del stats
     b, n, c = x.shape
     xg = x.reshape(b, n, num_groups, c // num_groups)
@@ -52,6 +65,23 @@ def gn_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     xhat = ((xg - mean) / torch.sqrt(var + eps)).reshape(b, n, c)
     y = xhat * gamma[:, None, :] + beta[:, None, :]
     return y * torch.sigmoid(y)
+
+
+def gn_silu_bf16_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       num_groups: int, eps: float = 1e-5,
+                       stats: Optional[Stats] = None) -> torch.Tensor:
+    """The bf16 kernels' function (the Pallas _stats_kernel / _apply_kernel
+    on bf16 input): fp32 channel sums of the upcast x (or the chained
+    `stats`), the group mean and E[x^2] - mean^2 from them, the normalize,
+    FiLM and SiLU in fp32 as the kernel folds them (x * a + b with a = gamma
+    * rstd, b = beta - a * mean), one rounding to bf16 at the end."""
+    xf = x.float()
+    b, n, c = x.shape
+    sums, sumsq = stats if stats is not None else channel_stats_plain(xf)
+    mean, rstd = group_mean_rstd_from_sums(sums, sumsq, n, num_groups, eps)
+    a = gamma * rstd
+    y = xf * a[:, None] + (beta - a * mean)[:, None]
+    return (y * torch.sigmoid(y)).to(x.dtype)
 
 
 def _per_channel(v: torch.Tensor, c: int) -> torch.Tensor:
@@ -130,16 +160,17 @@ def channel_stats(x: torch.Tensor) -> Stats:
     if on_cpu(x):
         return channel_stats_plain(x)
     b, n, c = x.shape
-    check(x, "x", (b, n, c), x.device)
+    dt = act_dtype(x)
+    check(x, "x", (b, n, c), x.device, dt)
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("channel statistics are not differentiable: pass a "
                          "detached tensor (the consumers' backward kernels "
                          "take the full GroupNorm gradient)")
     sums = torch.zeros((b, c), device=x.device, dtype=torch.float32)
     sumsq = torch.zeros_like(sums)
-    fn = _build.bind("fused_norm", "mc_channel_stats", [P, P, P, I, I, I, P])
-    raise_on_error(fn(ptr(x), ptr(sums), ptr(sumsq), b, n, c, stream()),
-                   "mc_channel_stats")
+    name = "mc_channel_stats" + ("_bf16" if dt == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm", name, [P, P, P, I, I, I, P])
+    raise_on_error(fn(ptr(x), ptr(sums), ptr(sumsq), b, n, c, stream()), name)
     channel_stats.launches += 1
     return sums, sumsq
 
@@ -150,15 +181,17 @@ channel_stats.launches = 0
 def _gn_silu_kernel(x, gamma, beta, sums, sumsq, num_groups, eps):
     b, n, c = x.shape
     dev = x.device
-    check(x, "x", (b, n, c), dev)
+    dt = act_dtype(x)
+    check(x, "x", (b, n, c), dev, dt)
     check(gamma, "gamma", (b, c), dev)
     check(beta, "beta", (b, c), dev)
     check(sums, "sums", (b, c), dev)
     check(sumsq, "sumsq", (b, c), dev)
     out = torch.empty_like(x)
-    fn = _build.bind("fused_norm", "mc_gn_silu", [P, P, P, P, P, P, I, I, I, I, F, P])
+    name = "mc_gn_silu" + ("_bf16" if dt == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm", name, [P, P, P, P, P, P, I, I, I, I, F, P])
     raise_on_error(fn(ptr(x), ptr(gamma), ptr(beta), ptr(sums), ptr(sumsq),
-                      ptr(out), b, n, c, num_groups, eps, stream()), "mc_gn_silu")
+                      ptr(out), b, n, c, num_groups, eps, stream()), name)
     gn_silu.launches += 1
     return out
 
@@ -227,13 +260,19 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
 gn_silu_bwd.launches = 0
 
 
+def bf16_backward_not_ported(kernel: str) -> NotImplementedError:
+    return NotImplementedError(f"{kernel}'s backward in bf16 (bf16 training) is "
+                               "not ported yet (see ROADMAP.md)")
+
+
 class _GnSilu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, sums, sumsq, num_groups, eps):
         ctx.cfg = (num_groups, eps)
         if on_cpu(x):
             ctx.save_for_backward(x, gamma, beta)
-            return gn_silu_plain(x, gamma, beta, num_groups, eps)
+            stats = None if sums is None else (sums, sumsq)
+            return gn_silu_plain(x, gamma, beta, num_groups, eps, stats)
         if x.shape[-1] % num_groups:
             raise ValueError(f"{x.shape[-1]} channels do not split into "
                              f"{num_groups} groups")
@@ -246,6 +285,8 @@ class _GnSilu(torch.autograd.Function):
     def backward(ctx, g):
         num_groups, eps = ctx.cfg
         x, gamma, beta, *stats = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            raise bf16_backward_not_ported("K1")
         g = g.contiguous()
         if on_cpu(g):
             grads = gn_silu_bwd_plain(g, x, gamma, beta, num_groups, eps)

@@ -43,6 +43,18 @@ backward's plain version is `*_bwd_plain`). `.launches` counts the forward
 kernels, `gn_silu_conv_bwd.launches` and `gn_silu_up_conv_bwd.launches` the
 backward ones; `narrow_conv.launches` and `narrow_conv_bwd.launches` those of
 the narrow route (`gn_silu_conv.launches` counts gnsc_kernel only).
+
+bf16: K2, K3 and the narrow conv have bf16 kernels (gnsc_bf16_kernel and
+the narrow kernels' bf16 instances), which the wrappers launch for bf16
+activations; x, w, the residual and the skip weight are then bf16, and bias,
+skip bias, gamma, beta and the statistics fp32. They round where the Pallas
+kernel rounds on a bf16 network: the activation (GroupNorm and SiLU in fp32)
+once to bf16 before the product, bf16 products summed in fp32, bias and
+residual added in fp32, statistics emitted from the fp32 sums, the output
+rounded once. `gn_silu_conv_plain`, `gn_silu_up_conv_plain` and
+`narrow_conv_plain` of bf16 operands are that function; they use chained
+statistics, as the kernels do. The backward has no bf16 kernels yet
+(ROADMAP.md) and raises.
 """
 from __future__ import annotations
 
@@ -53,11 +65,13 @@ import torch
 import torch.nn.functional as Fn
 
 from m_cedm_tpu_torch.kernels import _build
-from m_cedm_tpu_torch.kernels._launch import (F, I, P, check,
+from m_cedm_tpu_torch.kernels._launch import (F, I, P, act_dtype, check,
                                               fp32_reference_math, on_cpu, ptr,
                                               raise_on_error, stream)
-from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats, dx_from_da,
-                                                 gn_silu_plain, group_mean_rstd,
+from m_cedm_tpu_torch.kernels.fused_norm import (bf16_backward_not_ported,
+                                                 channel_stats, dx_from_da,
+                                                 gn_silu_bf16_plain, gn_silu_plain,
+                                                 group_mean_rstd,
                                                  group_mean_rstd_from_sums,
                                                  silu_grad)
 
@@ -104,7 +118,12 @@ def gn_silu_conv_plain(x, gamma, beta, w, bias, num_groups: int = 0,
                        emit_stats: bool = False) -> Out:
     """Reference of `gn_silu_conv` (gn_silu_conv_block_reference plus the
     identity_up and linear modes). Chained `stats` are ignored and the
-    emitted ones recomputed from the output, as the JAX reference does."""
+    emitted ones recomputed from the output, as the JAX reference does.
+    bf16 operands take the bf16 kernel's function (module docstring)."""
+    if x.dtype == torch.bfloat16:
+        return _gn_silu_conv_bf16_plain(x, gamma, beta, w, bias, num_groups, eps,
+                                        stats, residual, res_up, skip_w, skip_b,
+                                        emit_stats)
     del stats
     out = conv3x3_plain(_act_plain(x, gamma, beta, num_groups, eps), w, bias)
     if residual is not None:
@@ -123,11 +142,53 @@ def gn_silu_conv_plain(x, gamma, beta, w, bias, num_groups: int = 0,
 def gn_silu_up_conv_plain(x, gamma, beta, w, bias, num_groups: int,
                           eps: float = 1e-5, *, stats=None,
                           emit_stats: bool = False) -> Out:
-    """Reference of `gn_silu_up_conv` (gn_silu_up_conv_reference)."""
+    """Reference of `gn_silu_up_conv` (gn_silu_up_conv_reference); bf16
+    operands take the bf16 kernel's function."""
+    if x.dtype == torch.bfloat16:
+        a = upsample2x_nearest(_act_bf16(x, gamma, beta, num_groups, eps, stats))
+        return _round_out(conv3x3_plain(a.float(), w.float(), bias), emit_stats)
     del stats
     y = upsample2x_nearest(_act_plain(x, gamma, beta, num_groups, eps))
     out = conv3x3_plain(y, w, bias)
     return (out, _out_stats_plain(out)) if emit_stats else out
+
+
+def _act_bf16(x, gamma, beta, num_groups, eps, stats):
+    """What a bf16 kernel feeds its products: K1's bf16 function (GroupNorm
+    and SiLU in fp32 from fp32 sums, chained or of x) rounded once, or x
+    itself in the linear mode."""
+    if gamma is None:
+        return x
+    b, h, w, c = x.shape
+    return gn_silu_bf16_plain(x.reshape(b, h * w, c), gamma, beta, num_groups,
+                              eps, stats).reshape(x.shape)
+
+
+def _round_out(acc, emit_stats):
+    """The fp32 sums rounded once to bf16; the statistics from the fp32 sums."""
+    out = acc.to(torch.bfloat16)
+    return (out, _out_stats_plain(acc)) if emit_stats else out
+
+
+def _gn_silu_conv_bf16_plain(x, gamma, beta, w, bias, num_groups, eps, stats,
+                             residual, res_up, skip_w, skip_b, emit_stats):
+    """gnsc_bf16_kernel's function: bf16 products (exact in fp32) summed in
+    fp32, the fp32 bias and the upcast residual (or its projection, bf16
+    products summed in fp32, plus the fp32 skip bias) added in fp32."""
+    a = _act_bf16(x, gamma, beta, num_groups, eps, stats)
+    acc = conv3x3_plain(a.float(), w.float(), bias)
+    if residual is not None:
+        r = residual.float()
+        if skip_w is not None:
+            if x.is_cuda:
+                fp32_reference_math()
+            proj = r @ skip_w.float()
+            acc = acc + (proj + skip_b if skip_b is not None else proj)
+        elif res_up:
+            acc = acc + upsample2x_nearest(r)
+        else:
+            acc = acc + r
+    return _round_out(acc, emit_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +296,11 @@ def gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int,
 def narrow_conv_plain(x: torch.Tensor, w: torch.Tensor,
                       bias: Optional[torch.Tensor], emit_stats: bool = False) -> Out:
     """Reference of the narrow-channel kernel: conv3x3_same(x) + bias, and
-    with emit_stats the output's per-(B, O) sums and sums of squares."""
+    with emit_stats the output's per-(B, O) sums and sums of squares. bf16
+    operands: fp32 products and sums, the statistics of the fp32 result, one
+    rounding to bf16."""
+    if x.dtype == torch.bfloat16:
+        return _round_out(conv3x3_plain(x.float(), w.float(), bias), emit_stats)
     out = conv3x3_plain(x, w, bias)
     return (out, _out_stats_plain(out)) if emit_stats else out
 
@@ -269,8 +334,9 @@ def narrow_bwd_route(c: int, o: int, act: bool, residual: bool) -> bool:
 def _check_narrow(x, w, bias):
     b, h, wd, c = x.shape
     o = w.shape[-1]
-    check(x, "x", (b, h, wd, c), x.device)
-    check(w, "w", (3, 3, c, o), x.device)
+    dt = act_dtype(x)
+    check(x, "x", (b, h, wd, c), x.device, dt)
+    check(w, "w", (3, 3, c, o), x.device, dt)
     if bias is not None:
         check(bias, "bias", (o,), x.device)
     if not narrow_route(c, o, False, False) or max(c, o) > _MAX_C:
@@ -282,16 +348,17 @@ def _check_narrow(x, w, bias):
 def _narrow_conv_kernel(x, w, bias, emit_stats):
     """Narrow-channel conv launch: out, or (out, (sums, sumsq))."""
     b, h, wd, c, o = _check_narrow(x, w, bias)
-    out = torch.empty((b, h, wd, o), device=x.device, dtype=torch.float32)
+    out = torch.empty((b, h, wd, o), device=x.device, dtype=x.dtype)
     ostats = part = None
     if emit_stats:  # the output's channel sums, then its sums of squares
         ostats = torch.empty((2, b, o), device=x.device, dtype=torch.float32)
         tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(
             h, wd, 0 if o <= NARROW else 1)
         part = torch.empty((2, b, tiles, o), device=x.device, dtype=torch.float32)
-    fn = _build.bind("narrow_conv", "mc_narrow_conv", [P] * 6 + [I] * 5 + [P])
+    name = "mc_narrow_conv" + ("_bf16" if x.dtype == torch.bfloat16 else "")
+    fn = _build.bind("narrow_conv", name, [P] * 6 + [I] * 5 + [P])
     raise_on_error(fn(ptr(x), ptr(w), ptr(bias), ptr(out), ptr(ostats), ptr(part),
-                      b, h, wd, c, o, stream()), "mc_narrow_conv")
+                      b, h, wd, c, o, stream()), name)
     narrow_conv.launches += 1
     return (out, (ostats[0], ostats[1])) if emit_stats else out
 
@@ -351,8 +418,9 @@ def _gn_silu_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
     b, h, wd, c = x.shape
     o = w.shape[-1]
     dev = x.device
-    check(x, "x", (b, h, wd, c), dev)
-    check(w, "w", (3, 3, c, o), dev)
+    dt = act_dtype(x)
+    check(x, "x", (b, h, wd, c), dev, dt)
+    check(w, "w", (3, 3, c, o), dev, dt)
     if bias is not None:
         check(bias, "bias", (o,), dev)
     if c > _MAX_C:
@@ -365,27 +433,27 @@ def _gn_silu_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
     if residual is not None:
         if skip_w is not None:
             cr, res_mode = residual.shape[-1], _RES_PROJ
-            check(residual, "residual", (b, h, wd, cr), dev)
-            check(skip_w, "skip_w", (cr, o), dev)
+            check(residual, "residual", (b, h, wd, cr), dev, dt)
+            check(skip_w, "skip_w", (cr, o), dev, dt)
             if skip_b is not None:
                 check(skip_b, "skip_b", (o,), dev)
         elif res_up:
             res_mode = _RES_IDENTITY_UP
-            check(residual, "residual", (b, h // 2, wd // 2, o), dev)
+            check(residual, "residual", (b, h // 2, wd // 2, o), dev, dt)
             if h % 2 or wd % 2:
                 raise ValueError("res_up needs an even output height and width")
         else:
             res_mode = _RES_IDENTITY
-            check(residual, "residual", (b, h, wd, o), dev)
-    out = torch.empty((b, h, wd, o), device=dev, dtype=torch.float32)
+            check(residual, "residual", (b, h, wd, o), dev, dt)
+    out = torch.empty((b, h, wd, o), device=dev, dtype=dt)
     osums, osumsq = _emit_buffers(emit_stats, b, o, dev)
-    fn = _build.bind("fused_norm_conv", "mc_gn_silu_conv",
-                     [P] * 13 + [I] * 7 + [F, I, I, P])
+    name = "mc_gn_silu_conv" + ("_bf16" if dt == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm_conv", name, [P] * 13 + [I] * 7 + [F, I, I, P])
     rc = fn(ptr(x), ptr(w), ptr(bias), ptr(gamma), ptr(beta), ptr(sums),
             ptr(sumsq), ptr(residual), ptr(skip_w), ptr(skip_b), ptr(out),
             ptr(osums), ptr(osumsq), b, h, wd, c, o, cr, max(num_groups, 1),
             eps, int(act), res_mode, stream())
-    raise_on_error(rc, "mc_gn_silu_conv")
+    raise_on_error(rc, name)
     gn_silu_conv.launches += 1
     return ((out, (osums, osumsq)) if emit_stats else out), (sums, sumsq)
 
@@ -396,21 +464,22 @@ def _gn_silu_up_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
     b, h, wd, c = x.shape
     o = w.shape[-1]
     dev = x.device
-    check(x, "x", (b, h, wd, c), dev)
-    check(w, "w", (3, 3, c, o), dev)
+    dt = act_dtype(x)
+    check(x, "x", (b, h, wd, c), dev, dt)
+    check(w, "w", (3, 3, c, o), dev, dt)
     if bias is not None:
         check(bias, "bias", (o,), dev)
     if c > _MAX_C:
         raise ValueError(f"gn_silu_up_conv takes at most {_MAX_C} input channels")
     sums, sumsq = _norm_inputs(x, gamma, beta, num_groups, stats)
-    out = torch.empty((b, 2 * h, 2 * wd, o), device=dev, dtype=torch.float32)
+    out = torch.empty((b, 2 * h, 2 * wd, o), device=dev, dtype=dt)
     osums, osumsq = _emit_buffers(emit_stats, b, o, dev)
-    fn = _build.bind("fused_norm_conv", "mc_gn_silu_up_conv",
-                     [P] * 10 + [I] * 6 + [F, P])
+    name = "mc_gn_silu_up_conv" + ("_bf16" if dt == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm_conv", name, [P] * 10 + [I] * 6 + [F, P])
     rc = fn(ptr(x), ptr(w), ptr(bias), ptr(gamma), ptr(beta), ptr(sums),
             ptr(sumsq), ptr(out), ptr(osums), ptr(osumsq), b, 2 * h, 2 * wd, c,
             o, num_groups, eps, stream())
-    raise_on_error(rc, "mc_gn_silu_up_conv")
+    raise_on_error(rc, name)
     gn_silu_up_conv.launches += 1
     return ((out, (osums, osumsq)) if emit_stats else out), (sums, sumsq)
 
@@ -555,7 +624,7 @@ class _GnSiluConv(torch.autograd.Function):
                 x, w, bias, emit_stats)
         elif on_cpu(x):
             out = gn_silu_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
-                                     residual=residual, res_up=res_up,
+                                     stats=stats, residual=residual, res_up=res_up,
                                      skip_w=skip_w, skip_b=skip_b,
                                      emit_stats=emit_stats)
         else:
@@ -575,6 +644,8 @@ class _GnSiluConv(torch.autograd.Function):
     def backward(ctx, g, *unused_stats_grads):
         num_groups, eps, res_up, has_bias, has_skip_b, narrow = ctx.cfg
         x, gamma, beta, w, residual, skip_w, sums, sumsq = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            raise bf16_backward_not_ported("K2")
         g = g.contiguous()
         if narrow:
             dx, dw, dbias = (narrow_conv_bwd_plain if on_cpu(g) else narrow_conv_bwd)(
@@ -603,7 +674,7 @@ class _GnSiluUpConv(torch.autograd.Function):
         stats = None if sums is None else (sums, sumsq)
         if on_cpu(x):
             out = gn_silu_up_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
-                                        emit_stats=emit_stats)
+                                        stats=stats, emit_stats=emit_stats)
             used = (None, None)
         else:
             out, used = _gn_silu_up_conv_kernel(x, gamma, beta, w, bias,
@@ -620,6 +691,8 @@ class _GnSiluUpConv(torch.autograd.Function):
     def backward(ctx, g, *unused_stats_grads):
         num_groups, eps, has_bias = ctx.cfg
         x, gamma, beta, w, sums, sumsq = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            raise bf16_backward_not_ported("K3")
         g = g.contiguous()
         if on_cpu(g):
             grads = gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps)

@@ -28,6 +28,16 @@ torch.autograd.Function whose backward is a kernel on the card, and the
 (B, C) gamma/beta that `GroupNormSiLU.fold` builds carry their gradients on
 to the norm weights, `affine` and the embedding MLP through autograd.
 
+bf16 serving (the JAX net's dtype flow on a bf16 input and the task's
+compute params: bf16 weights, and the biases and norm scales rounded to
+bf16 but held in fp32, `DiffusionTaskBase._compute_params`): the embedding MLP runs in fp32 on the bf16-rounded weights, the
+FiLM fold and the folded gamma/beta are fp32, the fused kernels take bf16
+activations and weights with fp32 biases and statistics (their bf16
+instances), the attention site's norm, qkv and proj run in bf16 with fp32
+accumulation around K4's bf16 forward, and the output is the out conv's
+bf16. With a bf16 input the megakernel path raises (K7 has no bf16 instance
+yet, ROADMAP.md); so does the backward of every bf16 kernel.
+
 The cond encoder, dx and self-conditioning inputs are not used by the
 flagship config and raise NotImplementedError (listed in ROADMAP.md).
 Dropout is the identity at inference; training with dropout > 0 raises
@@ -178,8 +188,9 @@ class UNetBlock(nn.Module):
                                           g_in, self.eps, stats=in_stats,
                                           emit_stats=True)
             tail = dict(residual=x, skip_w=skw, skip_b=skb)
-        return ops.gn_silu_conv(h, g1, b1, conv1.weight, conv1.bias, adm_groups(c),
-                                self.eps, stats=h_stats, emit_stats=emit, **tail)
+        return ops.gn_silu_conv(h, g1, b1, conv1.weight, conv1.bias,
+                                adm_groups(c), self.eps, stats=h_stats,
+                                emit_stats=emit, **tail)
 
     def _attention(self, x: torch.Tensor, ops: Ops) -> torch.Tensor:
         b, hh, ww, c = x.shape
@@ -192,7 +203,7 @@ class UNetBlock(nn.Module):
                 b * heads, length, -1).contiguous()
 
         q, k, v = (split(t) for t in qkv.chunk(3, dim=-1))
-        a = ops.attention(q, k, v)  # fp32 softmax attention, K4
+        a = ops.attention(q, k, v)  # fp32 softmax attention, K4 (bf16 in and out on bf16)
         a = a.reshape(b, heads, length, -1).transpose(1, 2).reshape(b, hh, ww, c)
         return self.proj(a) + x
 
@@ -263,6 +274,9 @@ class AdmUNet(nn.Module):
         if self.training and cfg.dropout > 0:
             raise NotImplementedError("training with dropout > 0 is not ported "
                                       "yet (see ROADMAP.md)")
+        if self.mega and x.dtype == torch.bfloat16:
+            raise NotImplementedError("the megakernel path (K7, mega=True) in bf16 "
+                                      "is not ported yet (see ROADMAP.md)")
         self.calls += 1
         emb = fourier_positional_embedding(noise_labels, cfg.ch)
         emb = F.silu(self.map_layer0(emb))

@@ -272,6 +272,9 @@ class DdpmUNet(nn.Module):
                 cond: Optional[torch.Tensor] = None,
                 x_self_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, ops = self.cfg, self.ops
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError("bf16 compute of the DDPM U-Net is not ported "
+                                      "yet (see ROADMAP.md)")
         if x.shape[1] != cfg.resolution or x.shape[2] != cfg.resolution:
             raise ValueError(f"input {tuple(x.shape)} is not at resolution "
                              f"{cfg.resolution}")

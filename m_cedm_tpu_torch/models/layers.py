@@ -11,6 +11,14 @@ The DDPM U-Net's layers (the JAX package's TorchConv2d / TorchLinear) are
 Conv2d and Linear with `init_mode="torch_default"`: torch's default init,
 kaiming_uniform(a=sqrt(5)) on the weight, whose bound sqrt(6 / ((1 + 5)
 fan_in)) is 1 / sqrt(fan_in), and the same bound on the bias.
+
+bf16 (the JAX layers' dtype flow, m_cedm_tpu/models/layers.py): Linear and
+Conv2d cast their weight and bias to the input's dtype, so an fp32 input (the
+embedding MLP) runs in fp32 on bf16-rounded weights; a bf16 input's product
+accumulates in fp32 (`matmul`) and is rounded once, then the bias is added
+in bf16. GroupNorm computes in fp32 and returns x's dtype; GroupNormSiLU's
+folded gamma and beta are fp32. The norms' scales and biases come fp32 in a
+bf16 forward (bf16-rounded values, `DiffusionTaskBase._compute_params`).
 """
 from __future__ import annotations
 
@@ -33,6 +41,16 @@ __all__ = ["make_initializer", "gelu", "Linear", "Conv2d", "upsample2x_nearest",
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax's nn.gelu: the tanh approximation (not F.gelu's default erf)."""
     return F.gelu(x, approximate="tanh")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's dtype. A bf16 product is taken on the fp32 upcasts and
+    rounded once: bf16 values are exact in TF32 and their products in fp32,
+    so the sum is an fp32 sum whatever the TF32 switch and cuBLAS's
+    reduced-precision-reduction switch say, as XLA accumulates a bf16 dot."""
+    if x.dtype == torch.bfloat16:
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w.to(x.dtype)
 
 
 def make_initializer(mode: str, scale: float, fan_in: int, fan_out: int):
@@ -82,7 +100,11 @@ class Linear(nn.Module):
                     (out_f,), generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        if x.dtype == torch.bfloat16:
+            y = matmul(x, self.weight.t())
+            return y + bias if bias is not None else y
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class Conv2d(nn.Module):
@@ -114,10 +136,14 @@ class Conv2d(nn.Module):
                     (o,), generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.kernel == 1:
-            y = x @ self.weight
-            return y + self.bias if self.bias is not None else y
-        return conv3x3_plain(x, self.weight, self.bias)
+            y = matmul(x, self.weight)
+            return y + bias if bias is not None else y
+        if x.dtype == torch.bfloat16:
+            y = conv3x3_plain(x.float(), self.weight.float(), None).to(x.dtype)
+            return y + bias if bias is not None else y
+        return conv3x3_plain(x, self.weight, bias)
 
 
 def downsample2x_mean(x: torch.Tensor) -> torch.Tensor:
@@ -173,7 +199,8 @@ class GroupNormSiLU(nn.Module):
 class GroupNorm(nn.Module):
     """flax nn.GroupNorm on NHWC: fp32 statistics with the fast variance
     max(E[x^2] - E[x]^2, 0), then (x - mean) * (rsqrt(var + eps) * scale)
-    + bias. Plain PyTorch: the attention-site norm is not a TPU kernel."""
+    + bias, in fp32 on an upcast bf16 input (the scale and bias come fp32),
+    rounded once to x's dtype. Plain PyTorch: the attention-site norm is not a TPU kernel."""
 
     def __init__(self, num_channels: int, num_groups: int, eps: float = 1e-5):
         super().__init__()
@@ -190,13 +217,13 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         g = self.num_groups
-        xg = x.reshape(b, h * w, g, c // g)
+        xg = x.float().reshape(b, h * w, g, c // g)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean,
                           min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(1, 1, g, c // g)
         y = (xg - mean) * mul + self.bias.reshape(1, 1, g, c // g)
-        return y.reshape(x.shape)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 def adm_group_norm(num_channels: int, eps: float = 1e-5) -> GroupNorm:

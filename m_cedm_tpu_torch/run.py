@@ -167,8 +167,10 @@ def main(argv=None) -> float:
         callbacks=callbacks, logger=logger, out_dir=out_dir, seed=seed,
         ckpt_monitor=ckpt_monitor, ckpt_mode=ckpt_mode)
 
-    # trainer precision 'bf16' selects bf16 compute, which the tasks refuse
-    # until it is ported (ROADMAP.md)
+    # trainer precision 'bf16' selects bf16 compute, as the JAX run.py maps
+    # it: the ADM tasks serve in bf16, and their first train step raises
+    # (bf16 training is not ported yet, ROADMAP.md); the DDPM U-Net, the
+    # OFormer and the FNO raise when the task is built
     if str(trainer_kw.get("precision", "32")) in ("bf16", "bfloat16"):
         if "model" in cfg.model.hparams:
             cfg.model.hparams.model["dtype"] = "bfloat16"

@@ -43,6 +43,13 @@ class TaskState:
     constants: Optional[Params] = None
 
 
+def cast_floating(params: Params, dtype: torch.dtype) -> Params:
+    """The floating tensors of a params dict cast to a compute dtype, the
+    others as they are (m_cedm_tpu/tasks/diffusion.py::cast_floating); a
+    tensor already of that dtype is returned itself."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of squares of every entry (optax.global_norm)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tree.values()))))

@@ -20,6 +20,16 @@ new TaskState and leaves its argument as it was. Every random draw of a
 train or eval step can be injected by keyword (the JAX draws in the tests);
 otherwise it comes from the generator, step by step. PDE guidance, dx
 conditioning and `DdimTask.unroll_metrics` are not ported yet (ROADMAP.md).
+
+bf16 (`model.dtype: bfloat16`, or `trainer.precision=bf16` through run.py),
+as the JAX tasks run it: the params stay fp32 masters, the sampling params
+are cast to bf16 once per sampler call (`_sample_params`; the vectors are
+upcast again, exactly, since the kernels take them in fp32), and `net_apply`
+casts x, cond and x_self_cond to bf16, keeps t fp32 and returns the net's
+output as fp32, so preconditioning, the samplers and the losses stay fp32.
+The ADM U-Net serves in bf16 on its per-conv path (McedmTask, CondEdmTask,
+CondDdimTask); bf16 training, the megakernel path (mega=True) and the DDPM
+U-Net in bf16 raise NotImplementedError naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -44,7 +54,8 @@ from m_cedm_tpu_torch.ops.schedules import (alphas_cumprod_from_betas,
 from m_cedm_tpu_torch.physics.pde_loss import get_pde_loss_function
 from m_cedm_tpu_torch.samplers import edm as edm_samplers
 from m_cedm_tpu_torch.tasks.base import (DataTransform, TaskState,
-                                         apply_updates, ema_update, ensemble,
+                                         apply_updates, cast_floating,
+                                         ema_update, ensemble,
                                          fold_members, fold_noise, global_norm,
                                          mae, make_optimizer,
                                          normalizers_from_stats,
@@ -99,9 +110,12 @@ class DiffusionTaskBase:
         self.ema_enabled = m.get("ema", True)
         self.ema_rate = m.get("ema_rate", 0.999)
         self.cond_p = m.get("cond_p", self.default_cond_p)
-        if m.get("dtype", "float32") in ("bfloat16", "bf16"):
-            raise NotImplementedError("bf16 compute is not ported yet (see ROADMAP.md)")
+        # mixed precision as in the JAX task: fp32 master params, compute in
+        # compute_dtype (None: fp32)
+        self.compute_dtype = (torch.bfloat16 if m.get("dtype", "float32")
+                              in ("bfloat16", "bf16") else None)
         self._adjust_cond_channels(hparams)
+        # the DDPM U-Net and the megakernel path refuse bf16 in their forward
         self.model, self.model_cfg = build_backbone(hparams, ops, mega=mega)
         self.model.to(self.device).eval()
         self.transform = DataTransform(hparams["data"])
@@ -168,10 +182,42 @@ class DiffusionTaskBase:
                          step=int(step))
 
     def _sample_params(self, state: TaskState):
-        return state.ema_params if self.ema_enabled else state.params
+        params = state.ema_params if self.ema_enabled else state.params
+        # cast once, outside the sampler's loop
+        if self.compute_dtype is not None:
+            params = self._compute_params(params)
+        return params
+
+    def _compute_params(self, params):
+        """The params as the net computes with them: every floating tensor
+        rounded to the compute dtype by `cast_floating`, as the JAX task
+        rounds them; the vectors (biases, norm scales), which the kernels
+        and the norms take in fp32, upcast again. The upcast is exact, so
+        this is JAX's function, with the casts made here once and not in
+        every forward."""
+        params = cast_floating(params, self.compute_dtype)
+        return {k: v.float() if v.is_floating_point() and v.dim() == 1 else v
+                for k, v in params.items()}
+
+    def _refuse_bf16_training(self) -> None:
+        if self.compute_dtype is not None:
+            raise NotImplementedError("bf16 training (trainer.precision=bf16) is not "
+                                      "ported yet: the backward kernels have no bf16 "
+                                      "instances (see ROADMAP.md)")
 
     def net_apply(self, params, x, t, cond=None, x_self_cond=None) -> torch.Tensor:
-        """The backbone with `params` swapped in; fp32 in and out."""
+        """The backbone with `params` swapped in; fp32 in and out. With a
+        compute dtype, params, x, cond and x_self_cond are cast to it (t
+        stays fp32), as the JAX task's net_apply does."""
+        dt = self.compute_dtype
+        if dt is not None:
+            # the sampler's params come cast (`_sample_params`)
+            if any(v.dim() > 1 and v.is_floating_point() and v.dtype != dt
+                   for v in params.values()):
+                params = self._compute_params(params)
+            x = x.to(dt)
+            cond = None if cond is None else cond.to(dt)
+            x_self_cond = None if x_self_cond is None else x_self_cond.to(dt)
         kw = {} if x_self_cond is None else {"x_self_cond": x_self_cond}
         return functional_call(self.model, params, (x, t, cond), kw).float()
 
@@ -244,6 +290,7 @@ class McedmTask(DiffusionTaskBase):
         cond_noise and noise (B, T, X, C), rnd_normal (B, 1, 1, 1) and keep
         (a 0/1 scalar: classifier-free conditioning kept) replace the
         generator's draws."""
+        self._refuse_bf16_training()
         if self.dx_cond:
             raise NotImplementedError("dx conditioning is not ported yet "
                                       "(see ROADMAP.md)")
@@ -483,6 +530,7 @@ class DdimTask(DiffusionTaskBase):
         (metrics {"train_loss"[, "train_pde_loss"]}, gradients). t_half
         (n // 2 + 1,) integers, noise (x's shape) and use_sc (a bool: the
         self-conditioning branch taken) replace the generator's draws."""
+        self._refuse_bf16_training()
         h_un, _, _, u_un = batch
         x = self.transform.forward(state, h_un, u_un, generator)
         noise = (torch.randn(x.shape, generator=generator, device=x.device)
@@ -801,6 +849,7 @@ class CondDdimTask(DdimTask):
         """The conditional train step's loss and gradients
         (diffusion.py:907-957); draws as in DdimTask's, with `keep` (a 0/1
         scalar: the conditioning kept) and noise of u's shape."""
+        self._refuse_bf16_training()
         _, h, u, cond_in = self._train_inputs(state, batch, generator, keep)
         noise = (torch.randn(u.shape, generator=generator, device=u.device)
                  if noise is None else noise)
@@ -969,6 +1018,7 @@ class CondEdmTask(CondDdimTask):
         sigma = exp(P_mean + P_std rnd_normal), u + noise sigma, the weighted
         loss of D(x) against u. rnd_normal (B, 1, 1, 1), noise (u's shape),
         use_sc and keep replace the generator's draws."""
+        self._refuse_bf16_training()
         _, h, u, cond_in = self._train_inputs(state, batch, generator, keep)
         dev = u.device
         noise = (torch.randn(u.shape, generator=generator, device=dev)

@@ -1172,3 +1172,138 @@ def test_ddpm_unet_train_and_eval_on_the_card(cuda):
         assert abs(float(ek[k]) - float(ep[k])) <= 1e-4 * max(1.0, abs(float(ep[k]))), (
             k, float(ek[k]), float(ep[k]))
     _assert_scaled(huk, hup, 1e-4)
+
+
+# --- bf16 serving: the bf16 kernels against their bf16 plain versions --------
+# Both sides sum in fp32 in other orders and round once to bf16: a bf16
+# output within 1e-2 of its scale at most and 1e-4 on average (the one-ulp
+# flips of that order); emitted fp32 statistics within 1e-5 of their scale.
+
+def _bf16_close(got, want, stats=False):
+    assert got.dtype == want.dtype
+    err = (got.double() - want.double()).abs()
+    scale = float(want.double().abs().max())
+    if stats:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        assert float(err.max()) <= 1e-2 * scale
+        assert float(err.mean()) <= 1e-4 * scale
+
+
+def _bf16_all(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        _bf16_close(a, w, stats=i > 0 or a.dtype == torch.float32)
+
+
+def _bf16_rnd(g, dev, *shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 32, 64, 128])
+@pytest.mark.parametrize("chained", [True, False])
+def test_k1_bf16_matches_plain(cuda, c, chained):
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = _bf16_rnd(g, cuda, 3, 333, c, scale=0.8, shift=0.2)
+    gamma = _bf16_rnd(g, cuda, 3, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    beta = _bf16_rnd(g, cuda, 3, c, scale=0.3, dtype=torch.float32)
+    groups = max(c // 4, 1) if c < 128 else 32
+    stats = tfn.channel_stats_plain(x) if chained else None
+    _bf16_all(tfn.channel_stats(x), tfn.channel_stats_plain(x))
+    with torch.no_grad():
+        _bf16_all(tfn.gn_silu(x, gamma, beta, groups, stats=stats),
+                  tfn.gn_silu_plain(x, gamma, beta, groups, stats=stats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(2, 13, 21, 24, 40), (1, 18, 36, 64, 80), (1, 9, 17, 12, 20),
+                                   (2, 16, 16, 128, 64)])
+def test_k2_bf16_matches_plain(cuda, mode, shape):
+    b, h, w, c, o = shape
+    if mode == "identity_up" and (h % 2 or w % 2):
+        pytest.skip("identity_up needs an even height and width")
+    g = torch.Generator(device=cuda).manual_seed(h * w + c)
+    x = _bf16_rnd(g, cuda, b, h, w, c, scale=0.8, shift=0.2)
+    act = mode != "linear"
+    gamma = _bf16_rnd(g, cuda, b, c, scale=0.3, shift=1.0, dtype=torch.float32) if act else None
+    beta = _bf16_rnd(g, cuda, b, c, scale=0.3, dtype=torch.float32) if act else None
+    wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
+    bias = _bf16_rnd(g, cuda, o, scale=0.3, dtype=torch.float32)
+    kw = {}
+    if mode == "identity":
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h, w, o))
+    elif mode == "identity_up":
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h // 2, w // 2, o), res_up=True)
+    elif mode == "proj":
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h, w, 24),
+                  skip_w=_bf16_rnd(g, cuda, 24, o, scale=0.2),
+                  skip_b=_bf16_rnd(g, cuda, o, scale=0.3, dtype=torch.float32))
+    groups = 4 if act else 0
+    stats = tfn.channel_stats_plain(x.reshape(b, -1, c)) if act else None
+    with torch.no_grad():
+        _bf16_all(tfnc.gn_silu_conv(x, gamma, beta, wt, bias, groups, stats=stats,
+                                    emit_stats=True, **kw),
+                  tfnc.gn_silu_conv_plain(x, gamma, beta, wt, bias, groups, stats=stats,
+                                          emit_stats=True, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 11, 24, 40), (1, 8, 16, 64, 64)])
+def test_k3_bf16_matches_plain(cuda, shape):
+    b, h, w, c, o = shape
+    g = torch.Generator(device=cuda).manual_seed(h * w)
+    x = _bf16_rnd(g, cuda, b, h, w, c, scale=0.8, shift=0.2)
+    gamma = _bf16_rnd(g, cuda, b, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    beta = _bf16_rnd(g, cuda, b, c, scale=0.3, dtype=torch.float32)
+    wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
+    bias = _bf16_rnd(g, cuda, o, scale=0.3, dtype=torch.float32)
+    stats = tfn.channel_stats_plain(x.reshape(b, -1, c))
+    with torch.no_grad():
+        _bf16_all(tfnc.gn_silu_up_conv(x, gamma, beta, wt, bias, 4, stats=stats,
+                                       emit_stats=True),
+                  tfnc.gn_silu_up_conv_plain(x, gamma, beta, wt, bias, 4, stats=stats,
+                                             emit_stats=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(4, 64), (2, 64), (3, 70), (64, 2), (64, 1), (37, 5)])
+def test_narrow_conv_bf16_matches_plain(cuda, c, o):
+    g = torch.Generator(device=cuda).manual_seed(c * 100 + o)
+    x = _bf16_rnd(g, cuda, 2, 19, 37, c)
+    wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
+    bias = _bf16_rnd(g, cuda, o, scale=0.3, dtype=torch.float32)
+    before = tfnc.narrow_conv.launches
+    with torch.no_grad():
+        _bf16_all(tfnc.narrow_conv(x, wt, bias, emit_stats=True),
+                  tfnc.narrow_conv_plain(x, wt, bias, emit_stats=True))
+    assert tfnc.narrow_conv.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 200, 1024])
+def test_k4_bf16_matches_plain(cuda, length):
+    g = torch.Generator(device=cuda).manual_seed(length)
+    q, k, v = (_bf16_rnd(g, cuda, 3, length, 64, scale=2.0) for _ in range(3))
+    with torch.no_grad():
+        _bf16_all(tfa.attention(q, k, v), tfa.attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_mixed_dtypes_and_backward(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = _bf16_rnd(g, cuda, 1, 8, 8, 16)
+    gamma = _bf16_rnd(g, cuda, 1, 16, dtype=torch.float32)
+    wt = _bf16_rnd(g, cuda, 3, 3, 16, 16)
+    with pytest.raises(ValueError, match="must be"):
+        tfnc.gn_silu_conv(x, gamma, gamma, wt.float(), None, 4)
+    with pytest.raises(ValueError, match="must be"):
+        tfnc.gn_silu_conv(x, gamma.bfloat16(), gamma, wt, None, 4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfn.channel_stats(x.half().reshape(1, 64, 16))
+    xg = x.clone().requires_grad_()
+    out = tfnc.gn_silu_conv(xg, gamma, gamma, wt, None, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        out.float().sum().backward()

@@ -154,15 +154,20 @@ def test_task_registry():
 @pytest.mark.parametrize("dtype,ported", [("float32", True), (None, True),
                                           ("bfloat16", False)])
 def test_compute_dtype(dtype, ported):
-    """fp32 unless the config asks for bf16, as the JAX task reads it; bf16
-    compute is a later slice."""
+    """fp32 unless the config asks for bf16, as the JAX task reads it. A
+    bf16 McedmTask serves (tests/test_torch_bf16_task.py); `ported` says
+    whether it also trains: bf16 training is a later slice, and its train
+    step raises naming ROADMAP.md."""
     hp = hparams()
     hp["model"]["dtype"] = dtype
-    if ported:
-        assert isinstance(build_task(hp, "cpu"), McedmTask)
-    else:
+    task = build_task(hp, "cpu")
+    assert isinstance(task, McedmTask)
+    assert task.compute_dtype == (None if ported else torch.bfloat16)
+    if not ported:
+        state = task.init_state(torch.Generator().manual_seed(0), STATS)
+        batch = tuple(map(torch.from_numpy, swe_batch(4)))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_task(hp, "cpu")
+            task.train_step(state, batch, torch.Generator().manual_seed(1))
 
 
 def test_port_runtime_imports_no_jax():
