@@ -3293,6 +3293,28 @@ def bf16_error(got, want, name: str, stats: bool = False) -> dict:
             "tol": tol, "tol_mean": tol_mean}
 
 
+def bf16_conv_plan(x, o: int, *, up: bool = False, cr: int = 0, act: bool = True,
+                   res_mode: int = 0, emit: bool = False) -> dict:
+    """gnsc_bf16_kernel's launch plan for a K2 / K3 call on x (B, H, W, C)
+    (H, W: the input's; K3 outputs twice them), from the CUDA source's
+    mc_gn_silu_conv_bf16_plan: tile rows, weights resident (else streamed),
+    blocks, dynamic shared memory, co-resident blocks an SM."""
+    import ctypes
+
+    from m_cedm_tpu_torch.kernels import _build
+
+    b_, h_, w_, c_ = x.shape
+    h_, w_ = (2 * h_, 2 * w_) if up else (h_, w_)
+    fn = _build.bind("fused_norm_conv", "mc_gn_silu_conv_bf16_plan",
+                     [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    rc = fn(int(up), b_, h_, w_, c_, o, cr, int(act), res_mode, int(emit), out)
+    if rc:
+        raise RuntimeError(f"mc_gn_silu_conv_bf16_plan failed with cudaError {rc}")
+    return dict(zip(("tile_rows", "resident_weights", "blocks", "smem_bytes",
+                     "blocks_per_sm"), list(out)))
+
+
 def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
     """Phase 15.1: every bf16 kernel against its bf16 plain version at the
     flagship's serving shapes, with times, bounds and the bf16 library call
@@ -3321,9 +3343,10 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
 
     results = {}
 
-    def check(kernel, mode, got, want, k_fn, p_fn, work, lib_fn=None):
+    def check(kernel, mode, got, want, k_fn, p_fn, work, lib_fn=None, plan=None):
         """got/want: out, or (out, (sums, sumsq)), or (sums, sumsq) for K1's
-        statistics; work: `bound`'s arguments."""
+        statistics; work: `bound`'s arguments; plan: the kernel's launch plan
+        (K2 / K3)."""
         got, want = flat(got), flat(want)
         if len(got) != len(want):
             raise AssertionError(f"{kernel} {mode}: {len(got)} outputs, plain {len(want)}")
@@ -3339,6 +3362,8 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
                "stats_max_rel_err": max((e["max_rel_err"] for e in errs[1:]), default=None),
                "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn), **bound(*work),
                "library_ms": None}
+        if plan is not None:
+            rec["plan"] = plan
         if lib_fn is not None:
             rec["library_ms"] = cuda_ms(lib_fn)
             lib = lib_fn().double()
@@ -3354,7 +3379,7 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
         results[kernel]["modes"].append(
             {k: rec[k] for k in ("mode", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "max_rel_err", "mean_rel_err",
-                                 "stats_max_rel_err")})
+                                 "stats_max_rel_err", "plan") if k in rec})
 
     def conv_lib(x, w, bias):
         """bf16 conv2d (cuDNN) on the NHWC operands: the linear mode's and the
@@ -3401,10 +3426,15 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
                               *flat(want)),
                     conv_flops(b_, h_, w_, c_, w.shape[-1])
                     + 2.0 * b_ * h_ * w_ * cr * w.shape[-1], 0, PEAK_BF16)
+            res_mode = (0 if kw.get("residual") is None else 3 if cr else
+                        2 if kw.get("res_up") else 1)
             check("K2 gn_silu_conv bf16", mode, got, want,
                   lambda: fnc.gn_silu_conv(x, gamma, beta, w, bias, groups, **kw),
                   lambda: fnc.gn_silu_conv_plain(x, gamma, beta, w, bias, groups, **kw),
-                  work, lib_fn=None if gamma is not None else lambda: conv_lib(x, w, bias))
+                  work, lib_fn=None if gamma is not None else lambda: conv_lib(x, w, bias),
+                  plan=bf16_conv_plan(x, w.shape[-1], cr=cr, act=gamma is not None,
+                                      res_mode=res_mode,
+                                      emit=bool(kw.get("emit_stats"))))
 
         h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
         hstats = fn.channel_stats_plain(h.reshape(b, -1, ch))
@@ -3461,7 +3491,8 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
               lambda: fnc.gn_silu_up_conv_plain(xl, gamma, beta, w, bias, gr,
                                                 stats=xl_stats, emit_stats=True),
               (nbytes(xl, gamma, beta, w, bias, *xl_stats, *flat(want)),
-               conv_flops(b, res, res, ch, ch), 0, PEAK_BF16))
+               conv_flops(b, res, res, ch, ch), 0, PEAK_BF16),
+              plan=bf16_conv_plan(xl, ch, up=True, emit=True))
 
         # K4 at the 32x32 sites. The bound takes q k^T, a product of bf16
         # operands, at the bf16 rate, and P V, whose P is fp32, as two TF32

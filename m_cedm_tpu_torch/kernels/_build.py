@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own with
 nvcc for sm_90a into `build/kernels/<name>-<hash>.so` at the repository root
-(listed in .gitignore); the hash covers the source and the flags, so an edit
-rebuilds. The library is loaded with ctypes. Nothing here runs at import:
+(listed in .gitignore); the hash covers the source, the csrc headers it
+includes with quotes (`#include "bf16_conv_tiles.cuh"`) and the flags, so an
+edit to any of them rebuilds. The library is loaded with ctypes. Nothing here runs at import:
 the first launch of a kernel builds its library, and `build_all` builds every
 library at once, one nvcc process per source, all started together.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,8 +41,22 @@ def _nvcc() -> str:
                        "m_cedm_tpu_torch are compiled at first use")
 
 
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(path: Path, seen=None) -> list:
+    """The file and, depth first, every file it includes with quotes (looked
+    up beside it, as nvcc does), each once."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for inc in _QUOTED_INCLUDE.findall(path.read_bytes()):
+            _sources_of(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(f.read_bytes() for f in _sources_of(CSRC / f"{name}.cu"))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,7 +1,7 @@
-"""Time K4, K6, K2/K3, their backward, K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
+"""Time K4, K6, K2/K3 (fp32 or bf16), their backward, K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k6|k2|k2bwd|k5|k7|k1bwd] [--variant NAME ...] [--sass DIR]
+        [--kernel k4|k6|k2|k2bf16|k2bwd|k5|k7|k1bwd] [--variant NAME ...] [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
 
 Every source exports the C entry points of the kernel's package source with
@@ -20,6 +20,17 @@ parent commit's csrc file unpacked with `git archive`), and each
       statistics, with emitted statistics, identity_up, the projection from
       the 128-channel concat, the 128-channel decoder conv0, the linear down
       conv0 at res 64), the identity tail at res 64 and 32, and K3 to res 128.
+  k2bf16  `mc_gn_silu_conv_bf16` and `mc_gn_silu_up_conv_bf16` (the bf16
+      instances, csrc/fused_norm_conv.cu), called directly at every K2 / K3
+      case of chip_smoke.py's phase 15.1 (B = 16, ch 64: the res-128
+      identity tail with chained statistics, with emitted statistics,
+      identity_up, the projection from the 128-channel concat, the
+      128-channel decoder conv0, the linear down conv0 at res 64 with bf16
+      conv2d timed beside it, the identity tail at res 64 and 32, K3 to res
+      128), each output against the bf16 plain version (max and mean error
+      of scale, statistics of theirs); a source that exports
+      `mc_gn_silu_conv_bf16_plan` also gives each case's plan (tile rows,
+      resident weights, blocks, shared memory, blocks an SM).
   k2bwd  `mc_conv_wgrad` and `mc_conv_dgrad` (csrc/fused_norm_conv_bwd.cu)
       at the flagship train step's shapes (B = 16, ch 64): the res-128
       identity tail (wgrad and dgrad with the activation), the decoder's
@@ -117,6 +128,39 @@ VARIANTS = {
     # staging pass (results wrong; the time of the rest)
     "diag_k2_no_mma": ("k2", "      mma_chunk<9>(sa, sb, acc, rg, cq, lane);", "      ;"),
     "diag_k2_no_split": ("k2", "      split_x<kUp>(p, rx + st * kRawX, sa, q * kCK, ty0, tx0, s_a, s_b, tid);\n      split_w<9>(rw + st * kRawW, sb, tid);", "      ;"),
+    # the bf16 K2/K3 with 16 x 16 tiles only where they give two tiles a
+    # block (not at res 64, B = 16), or with 8 x 16 tiles everywhere
+    "k2bf16_big_tile_waves_2": ("k2bf16", "constexpr int kBigTileWaves = 1;",
+                                "constexpr int kBigTileWaves = 2;"),
+    "k2bf16_small_tiles": ("k2bf16", "constexpr int kBigTileWaves = 1;",
+                           "constexpr int kBigTileWaves = 1 << 20;"),
+    # diagnostics, not kernels: the bf16 K2/K3 with its products left out, or
+    # its activation pass (results wrong; the time of the rest)
+    "diag_k2bf16_no_mma": (
+        "k2bf16",
+        "    if (q < p.nc)\n"
+        "      mma_chunk_bf16<kUp, 9>(bf16t::smem_addr(A), wbase, acc, warp, lane);\n"
+        "    else\n"
+        "      mma_chunk_bf16<kUp, 1>(bf16t::smem_addr(A), wbase, acc, warp, lane);\n",
+        "    (void)wbase;\n"),
+    "diag_k2bf16_no_act": (
+        "k2bf16",
+        "    if (q < p.nc && p.act) activate_h<kUp, kTHt>(p, A, ty0, tx0, q, s_sc, s_sh, tid);\n",
+        ""),
+    # ... with the activation's SiLU left out (the GroupNorm affine only),
+    # with no copies after the first step's, or with no output stores
+    "diag_k2bf16_no_silu": (
+        "k2bf16",
+        "      o[i] = bf16t::pack2(bf16t::silu_fast(lo * sc[2 * i] + sh[2 * i]),\n"
+        "                          bf16t::silu_fast(hi * sc[2 * i + 1] + sh[2 * i + 1]));\n",
+        "      o[i] = bf16t::pack2(lo * sc[2 * i] + sh[2 * i], hi * sc[2 * i + 1] + sh[2 * i + 1]);\n"),
+    "diag_k2bf16_no_copies": (
+        "k2bf16",
+        "      load_step_h<kUp, kTHt>(p, stage0 + (st ^ 1) * p.stage_bytes, sm + (st ^ 1) * w_slot,\n"
+        "                             b1, ty1, tx1, (s + 1) % p.nq, o0, tid);\n",
+        "      (void)b1;\n"),
+    "diag_k2bf16_no_stores": ("k2bf16", "        *reinterpret_cast<uint4*>(dst) = v;\n",
+                              "        (void)dst;\n"),
     # the K2 / K3 backward: dgrad's partial sums added after each tap instead
     # of after a chunk's nine; wgrad's after each k-step instead of a tile's
     # eight
@@ -170,6 +214,9 @@ KERNELS = {
     "k6": ("linear_attention.cu", {"mc_apply_dots": [P] * 3 + [I] * 4 + [P]}),
     "k2": ("fused_norm_conv.cu", {"mc_gn_silu_conv": [P] * 13 + [I] * 7 + [F, I, I, P],
                                   "mc_gn_silu_up_conv": [P] * 10 + [I] * 6 + [F, P]}),
+    "k2bf16": ("fused_norm_conv.cu",
+               {"mc_gn_silu_conv_bf16": [P] * 13 + [I] * 7 + [F, I, I, P],
+                "mc_gn_silu_up_conv_bf16": [P] * 10 + [I] * 6 + [F, P]}),
     "k5": ("linear_attention.cu", {"mc_kv_dots": [P] * 4 + [I] * 6 + [P]}),
     "k7": ("fused_block.cu", {"mc_unet_block": [P] * 22 + [I] * 8 + [F, I, P]}),
     # two interfaces (see _time_k2bwd, _time_k1bwd): argument types are set
@@ -218,7 +265,9 @@ def _build_libs(kernel, srcs, out_dir: Path):
     procs = {}
     for i, (name, src) in enumerate(srcs.items()):
         so = out_dir / f"{kernel}_{i}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
+        # -I: a variant written elsewhere finds the package's csrc headers
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
+               str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
     libs, ptxas = {}, {}
@@ -264,7 +313,8 @@ def main(argv=None) -> int:
                 subprocess.run(["cuobjdump", "-sass", str(so)], stdout=f,
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
-        return {"k6": _time_k6, "k2": _time_k2, "k2bwd": _time_k2bwd,
+        return {"k6": _time_k6, "k2": _time_k2, "k2bf16": _time_k2bf16,
+                "k2bwd": _time_k2bwd,
                 "k5": _time_k5, "k7": _time_k7,
                 "k1bwd": _time_k1bwd}[args.kernel](libs, ptxas)
 
@@ -593,6 +643,144 @@ def _time_k2(libs, ptxas) -> int:
     _report(libs, ptxas, calls, errs)
     return 0
 
+
+def _time_k2bf16(libs, ptxas) -> int:
+    """mc_gn_silu_conv_bf16 / mc_gn_silu_up_conv_bf16 of every source at
+    chip_smoke.py phase 15.1's K2 and K3 cases, checked against the bf16
+    plain version, then timed; bf16 conv2d beside the linear mode."""
+    import torch.nn.functional as tnf
+
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    b, res, ch = K2_B, K2_RES, K2_CH
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def conv_w(ci, co):
+        return rnd(3, 3, ci, co, scale=(9 * ci) ** -0.5)
+
+    w, bias = conv_w(ch, ch), rnd(ch, scale=0.3, dtype=torch.float32)
+    cases = {}
+
+    def k2(name, x, act, *, res_=None, res_mode=0, skip_w=None, skip_b=None,
+           emit=False, wt=w, up=False):
+        c = x.shape[-1]
+        gamma, beta = ((rnd(b, c, scale=0.3, shift=1.0, dtype=torch.float32),
+                        rnd(b, c, scale=0.3, dtype=torch.float32)) if act else (None, None))
+        groups = adm_groups(c) if act else 0
+        stats = fn.channel_stats_plain(x.reshape(b, -1, c)) if act else None
+        kw = {}
+        if res_mode == 1:
+            kw = dict(residual=res_)
+        elif res_mode == 2:
+            kw = dict(residual=res_, res_up=True)
+        elif res_mode == 3:
+            kw = dict(residual=res_, skip_w=skip_w, skip_b=skip_b)
+        with torch.no_grad():
+            if up:
+                want = fnc.gn_silu_up_conv_plain(x, gamma, beta, wt, bias, groups,
+                                                 stats=stats, emit_stats=emit)
+            else:
+                want = fnc.gn_silu_conv_plain(x, gamma, beta, wt, bias, groups, stats=stats,
+                                              emit_stats=emit, **kw)
+        want = want if emit else (want, (None, None))
+        h_out, w_out = (2 * x.shape[1], 2 * x.shape[2]) if up else x.shape[1:3]
+        cases[name] = dict(
+            x=x, gamma=gamma, beta=beta, w=wt, sums=stats or (None, None), res=res_,
+            res_mode=res_mode, skip_w=skip_w, skip_b=skip_b, act=int(act), up=up,
+            groups=max(groups, 1), want=want, cr=skip_w.shape[0] if skip_w is not None else 0,
+            out=torch.empty(b, h_out, w_out, wt.shape[-1], device=dev, dtype=bf),
+            osums=torch.zeros(b, wt.shape[-1], device=dev) if emit else None,
+            osumsq=torch.zeros(b, wt.shape[-1], device=dev) if emit else None)
+
+    h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
+    xc = rnd(b, res, res, 2 * ch, scale=0.8, shift=0.2)
+    xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
+    k2("identity, chained stats, res 128", h, True, res_=rnd(b, res, res, ch), res_mode=1)
+    k2("identity, emit_stats, res 128", h, True, res_=rnd(b, res, res, ch), res_mode=1,
+       emit=True)
+    k2("identity_up, emit_stats, res 128", h, True, res_=rnd(b, res // 2, res // 2, ch),
+       res_mode=2, emit=True)
+    k2("proj from the 128-channel concat, emit_stats, res 128", h, True, res_=xc,
+       res_mode=3, skip_w=rnd(2 * ch, ch, scale=(2 * ch) ** -0.5),
+       skip_b=rnd(ch, scale=0.3, dtype=torch.float32), emit=True)
+    k2("128-channel input, emit_stats, res 128", xc, True, emit=True, wt=conv_w(2 * ch, ch))
+    k2("act=False (down conv0), emit_stats, res 64", xl, False, emit=True)
+    for r in (res // 2, res // 4):
+        k2(f"identity, chained stats, res {r}", rnd(b, r, r, ch, scale=0.8, shift=0.2), True,
+           res_=rnd(b, r, r, ch), res_mode=1)
+    k2("K3 up conv0, chained stats, emit_stats, to res 128", xl, True, emit=True, up=True)
+
+    def call(lib, c):
+        p = [None if t is None else t.data_ptr() for t in (
+            c["x"], c["w"], bias, c["gamma"], c["beta"], *c["sums"], c["res"],
+            c["skip_w"], c["skip_b"], c["out"], c["osums"], c["osumsq"])]
+        bb, hh, ww, o = c["out"].shape
+        cin = c["x"].shape[-1]
+
+        def fn_():
+            if c["osums"] is not None:
+                c["osums"].zero_()
+                c["osumsq"].zero_()
+            if c["up"]:
+                rc = lib.mc_gn_silu_up_conv_bf16(*p[:7], *p[10:], bb, hh, ww, cin, o,
+                                                 c["groups"], 1e-5, stream)
+            else:
+                rc = lib.mc_gn_silu_conv_bf16(*p, bb, hh, ww, cin, o, c["cr"], c["groups"],
+                                              1e-5, c["act"], c["res_mode"], stream)
+            if rc:
+                raise RuntimeError(f"launch failed with cudaError {rc}")
+        return fn_
+
+    def plan(lib, c):
+        try:
+            fn_ = lib.mc_gn_silu_conv_bf16_plan
+        except AttributeError:
+            return None
+        fn_.argtypes = [I] * 10 + [P]
+        out = (ctypes.c_int * 5)()
+        bb, hh, ww, o = c["out"].shape
+        rc = fn_(int(c["up"]), bb, hh, ww, c["x"].shape[-1], o, c["cr"], c["act"],
+                 c["res_mode"], int(c["osums"] is not None), out)
+        return dict(zip(("tile_rows", "resident", "blocks", "smem", "blocks_per_sm"),
+                        list(out))) if rc == 0 else {"error": rc}
+
+    def bf16_err(got, want):
+        err = (got.double() - want.double()).abs()
+        scale = max(float(want.double().abs().max()), 1e-30)
+        return float(err.max()) / scale, float(err.mean()) / scale
+
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name] = {case: call(lib, c) for case, c in cases.items()}
+        errs[name] = {}
+        for case, c in cases.items():
+            calls[name][case]()
+            torch.cuda.synchronize()
+            out, (ws, wss) = c["want"]
+            mx, mean = bf16_err(c["out"], out)
+            rec = {"max": mx, "mean": mean}
+            if ws is not None:
+                rec["stats_max"] = max(bf16_err(c["osums"], ws)[0],
+                                       bf16_err(c["osumsq"], wss)[0])
+            rec["plan"] = plan(lib, c)
+            errs[name][f"err {case}"] = rec
+    lin = cases["act=False (down conv0), emit_stats, res 64"]
+
+    def conv2d():
+        return tnf.conv2d(lin["x"].permute(0, 3, 1, 2), lin["w"].permute(3, 2, 0, 1),
+                          bias.to(bf), padding=1)
+    for name in libs:
+        calls[name]["bf16 conv2d, the linear case (library)"] = conv2d
+    _report(libs, ptxas, calls, errs)
+    return 0
 
 # the CUDA-core backward's wgrad blocks (16 input x 64 output channels) and
 # split rule, for a source without mc_conv_bwd_tiles

@@ -169,8 +169,8 @@ def main(argv=None) -> float:
 
     # trainer precision 'bf16' selects bf16 compute, as the JAX run.py maps
     # it: the ADM tasks serve in bf16, and their first train step raises
-    # (bf16 training is not ported yet, ROADMAP.md); the DDPM U-Net, the
-    # OFormer and the FNO raise when the task is built
+    # (bf16 training is not ported yet, ROADMAP.md); the OFormer and the FNO
+    # raise when the task is built, the DDPM U-Net at its first bf16 forward
     if str(trainer_kw.get("precision", "32")) in ("bf16", "bfloat16"):
         if "model" in cfg.model.hparams:
             cfg.model.hparams.model["dtype"] = "bfloat16"

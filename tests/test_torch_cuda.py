@@ -1217,12 +1217,22 @@ def test_k1_bf16_matches_plain(cuda, c, chained):
                   tfn.gn_silu_plain(x, gamma, beta, groups, stats=stats))
 
 
+# (B, H, W, C, O, Cr): ragged tiles, two output blocks (O 80), the scalar
+# copies and stores (C 12, O 20 or 40), C 128 (two chunks, resident at 8 x
+# 16 rows) and C 192 (weights streamed a chunk a step), one res-128 image
+# (8 x 16 tiles), 16 x 16 tiles with ragged edges (B 5 at 130 x 100), res 32
+# at B 16, and the projection from 128 channels
+K2_BF16_SHAPES = [(2, 13, 21, 24, 40, 24), (1, 18, 36, 64, 80, 24), (1, 9, 17, 12, 20, 24),
+                  (2, 16, 16, 128, 64, 24), (2, 13, 21, 12, 40, 12), (1, 128, 128, 64, 64, 24),
+                  (5, 130, 100, 64, 64, 24), (16, 32, 32, 64, 64, 24),
+                  (2, 24, 40, 64, 64, 128), (1, 20, 24, 192, 64, 40)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("shape", [(2, 13, 21, 24, 40), (1, 18, 36, 64, 80), (1, 9, 17, 12, 20),
-                                   (2, 16, 16, 128, 64)])
+@pytest.mark.parametrize("shape", K2_BF16_SHAPES)
 def test_k2_bf16_matches_plain(cuda, mode, shape):
-    b, h, w, c, o = shape
+    b, h, w, c, o, cr = shape
     if mode == "identity_up" and (h % 2 or w % 2):
         pytest.skip("identity_up needs an even height and width")
     g = torch.Generator(device=cuda).manual_seed(h * w + c)
@@ -1238,8 +1248,8 @@ def test_k2_bf16_matches_plain(cuda, mode, shape):
     elif mode == "identity_up":
         kw = dict(residual=_bf16_rnd(g, cuda, b, h // 2, w // 2, o), res_up=True)
     elif mode == "proj":
-        kw = dict(residual=_bf16_rnd(g, cuda, b, h, w, 24),
-                  skip_w=_bf16_rnd(g, cuda, 24, o, scale=0.2),
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h, w, cr),
+                  skip_w=_bf16_rnd(g, cuda, cr, o, scale=0.2),
                   skip_b=_bf16_rnd(g, cuda, o, scale=0.3, dtype=torch.float32))
     groups = 4 if act else 0
     stats = tfn.channel_stats_plain(x.reshape(b, -1, c)) if act else None
@@ -1251,7 +1261,8 @@ def test_k2_bf16_matches_plain(cuda, mode, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 7, 11, 24, 40), (1, 8, 16, 64, 64)])
+@pytest.mark.parametrize("shape", [(2, 7, 11, 24, 40), (1, 8, 16, 64, 64), (16, 64, 64, 64, 64),
+                                   (2, 20, 36, 128, 64), (1, 13, 9, 12, 40)])
 def test_k3_bf16_matches_plain(cuda, shape):
     b, h, w, c, o = shape
     g = torch.Generator(device=cuda).manual_seed(h * w)
