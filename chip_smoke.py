@@ -184,6 +184,36 @@ Phases, each printing JSON lines:
               bfloat16 on phase 12's resumed run: its keys those of phase
               12's eval_model, every metric finite, launches per U-Net
               forward equal to part 3's, its seconds
+  16. bf16 training   the flagship's bf16 train step: (1) every bf16
+              backward kernel (K1's at res 128 and 64; K2 in every mode of
+              the train step: the identity tail with chained statistics,
+              identity_up, the projection from the 128-channel concat, the
+              128-channel decoder conv0, conv_in's weight gradient, the
+              down blocks' linear conv0; K3; the narrow out conv; K4 at
+              32x32) called directly against its bf16 plain version (bf16
+              outputs within 1e-2 of scale at most and 1e-4 on average; the
+              fp32 dW, dbias, dgamma, dbeta within 1e-3 of scale; K4's o32
+              within 1e-5 of the fp32 plain forward), with times, bf16
+              bounds (bytes at 3.35 TB/s against bf16 products at 989
+              TFLOP/s; K1 fp32 element work at 67; K4's P V, dS K and dS^T Q
+              as two TF32 products at 495), the library's time (the
+              autograd backward of bf16 conv2d, of bf16 SDPA), and the
+              device time under torch.profiler of the bf16 kernels and of
+              the fp32 kernels on the same inputs upcast; (2)
+              McedmTask.train_step with model.dtype bfloat16 at B = 16, full
+              width and depth, from phase 5's state: kernel path against
+              the bf16 plain path over 3 steps (loss and gradient norm
+              within 1e-2 relative, params within 2 lr steps), the kernel
+              path's gradient gap to the fp32 kernel step at most 1.5 times
+              the plain path's, the launches per step equal to phase 5's
+              (asserted), ms per step of the bf16 and the fp32 step in
+              turns, and one profiled bf16 step; (3)
+              configs/config_adm_edm_mcedm_res32.yaml with
+              trainer.precision=bf16 through m_cedm_tpu_torch.run (fit and a
+              resume to epoch 2) and m_cedm_tpu_torch.eval_model on the
+              resumed run: phase 12's key set, every metric finite, the
+              checkpoint's params, Adam state and EMA fp32, the launches per
+              train step equal to part 2's, seconds
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
@@ -197,7 +227,9 @@ RePaint Heun eval and first train step as `launches_ddim_eval` and
 of phase 14 and their N = 8,192 cases as `at_n_8192`; then the bf16
 variants, named with " bf16", their launches counted in phase 15's bf16
 eval, their times and bounds from phase 15's first part, each with its
-modes), the nvidia-smi line, and the last line
+modes; then the bf16 backward kernels, named with " bf16", their launches
+counted in phase 16's three kernel-path bf16 train steps, their times and
+bounds from phase 16's first part), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
@@ -388,6 +420,8 @@ PEAK_FLOPS = 67e12    # H100 SXM fp32, outside the tensor cores
 PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_BF16 = 989e12    # H100 SXM bf16 tensor cores, dense
+L2_BYTES = 50 * 2**20  # H100 SXM L2
+SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep's clock, at or above the SM clock
 
 # name -> (CUDA source, the TPU kernel it replaces); the flagship's nine,
 # then the OFormer's two
@@ -3796,6 +3830,495 @@ def phase_bf16(device, hparams, params, b: int, fp32_launches: dict, run2_dir: s
     return results, ev["launches"]
 
 
+# Phase 16: bf16 training. The fp32 outputs of a bf16 backward kernel (dW,
+# dbias, dgamma, dbeta) sum exact bf16 products in another order than the
+# plain version, and a recomputed activation that rounds to bf16 may flip
+# an ulp where the two sides' fp32 values differ in the last bit
+TOL_BF16_BWD_F32 = 1e-3
+# the bf16 train step, kernel path against the bf16 plain path: the two
+# round the backward at different points (the plain path is autograd of the
+# plain forward), within a few bf16 roundings of each gradient
+TOL_BF16_TRAIN = 1e-2
+# the kernel path's gradient gap to the fp32 step against the plain path's
+BF16_GAP_RATIO = 1.5
+BF16_BWD_KERNELS = {f"{name} bf16": name for name in (
+    "K1 gn_silu_bwd", "K2 gn_silu_conv_bwd", "K2 narrow_conv_bwd",
+    "K3 gn_silu_up_conv_bwd", "K4 attention_bwd")}
+
+
+def bf16_grads_error(got, want, name: str) -> dict:
+    """Each output of a bf16 backward against its plain version: bf16 ones by
+    bf16_error, fp32 ones to TOL_BF16_BWD_F32 of their scale; None where the
+    kernel computes no such output."""
+    import torch
+
+    errs = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        if a is None:
+            continue
+        if a.dtype != w.dtype:
+            raise AssertionError(f"{name} output {i}: dtype {a.dtype}, plain {w.dtype}")
+        if a.dtype == torch.bfloat16:
+            errs.append(dict(bf16_error(a, w, f"{name} output {i}"), output=i))
+        else:
+            e = compare(a, w, 1.0, f"{name} output {i}")
+            scale = float(w.double().abs().max())
+            rel = e["max_abs_err"] / max(scale, 1e-30)
+            if rel > TOL_BF16_BWD_F32:
+                raise AssertionError(f"{name} output {i}: fp32 error {rel:.3e} of scale")
+            errs.append({"output": i, "max_abs_err": e["max_abs_err"], "max_rel_err": rel,
+                         "tol": TOL_BF16_BWD_F32})
+    return {"outputs": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "max_rel_err": max(e["max_rel_err"] for e in errs)}
+
+
+def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
+    """Phase 16.1: every bf16 backward kernel, its wrapper called directly,
+    against its bf16 plain version at the flagship train step's shapes, with
+    times, bounds and the library's autograd backward; returns per-kernel
+    summaries keyed by BF16_BWD_KERNELS' names."""
+    import torch
+    import torch.nn.functional as F
+
+    from m_cedm_tpu_torch.kernels import fused_attention as fa
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(SEED + 70)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=device) * scale + shift).to(dtype)
+
+    def fold(c):
+        return (rnd(b, c, scale=0.3, shift=1.0, dtype=torch.float32),
+                rnd(b, c, scale=0.3, dtype=torch.float32))
+
+    results = {}
+
+    def f32(*ts):
+        return [None if t is None else t.float() for t in ts]
+
+    def check(kernel, mode, k_fn, p_fn, work, lib_fn=None, f32_fn=None):
+        """f32_fn: the fp32 kernels on the same inputs upcast, whose device
+        time is recorded beside the bf16 kernels' (`fp32_device_ms`)."""
+        err = bf16_grads_error(k_fn(), p_fn(), f"{kernel} {mode}")
+        lim = bound(*work)
+        rec = {"phase": "bf16_backward", "kernel": kernel, "mode": mode, **err,
+               "ms": cuda_ms(k_fn), "device_ms": device_ms(k_fn, lim),
+               "plain_ms": cuda_ms(p_fn), **lim, "library_ms": None}
+        if f32_fn is not None:
+            rec["fp32_device_ms"] = device_ms(f32_fn, lim)
+        if lib_fn is not None:
+            rec["library_ms"] = cuda_ms(lib_fn)
+        emit(rec)
+        prev = results.get(kernel)
+        if prev is None:
+            results[kernel] = dict(rec, modes=[])
+        else:
+            for k in ("max_abs_err", "max_rel_err"):
+                prev[k] = max(prev[k], rec[k])
+        results[kernel]["modes"].append(
+            {k: rec[k] for k in ("mode", "ms", "device_ms", "fp32_device_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms", "max_rel_err")
+             if k in rec})
+        return rec
+
+    def conv_bwd_lib(x, w):
+        """bf16 conv2d's autograd backward (cuDNN) of the conv alone on x's
+        shape: the library's time for the same products."""
+        xs = x.detach().clone().requires_grad_()
+        ws = w.detach().clone().requires_grad_()
+        out = F.conv2d(xs.permute(0, 3, 1, 2), ws.permute(3, 2, 0, 1), padding=1)
+        cot = torch.randn(out.shape, generator=g, device=device).to(bf)
+        return lambda: torch.autograd.grad(out, (xs, ws), cot, retain_graph=True)
+
+    # K1 backward: the down blocks' norm0 at res and res/2, the out head's
+    gr = adm_groups(ch)
+    for r in (res, res // 2):
+        x = rnd(b, r * r, ch, scale=0.8, shift=0.2)
+        gy = rnd(b, r * r, ch)
+        gamma, beta = fold(ch)
+        stats = fn.channel_stats_plain(x)
+        x32, gy32 = f32(x, gy)
+        check("K1 gn_silu_bwd bf16", f"chained stats, res {r}",
+              lambda x=x, gy=gy, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd(
+                  gy, x, gm, bt, st, gr),
+              lambda x=x, gy=gy, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd_bf16_plain(
+                  gy, x, gm, bt, gr, stats=st),
+              (nbytes(x, gy, x, gamma, beta, *stats, gamma, beta), 20.0 * x.numel()),
+              f32_fn=lambda x=x32, gy=gy32, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd(
+                  gy, x, gm, bt, st, gr))
+
+    def conv_w(ci, co):
+        return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
+
+    def k2(mode, x, gamma, beta, w, need_da=True, **kw):
+        act = gamma is not None
+        groups = adm_groups(x.shape[-1]) if act else 0
+        stats = fn.channel_stats_plain(x.reshape(b, -1, x.shape[-1])) if act else None
+        b_, h_, w_, c_ = x.shape
+        o = w.shape[-1]
+        gy = rnd(b_, h_, w_, o)
+
+        def kern():
+            return fnc.gn_silu_conv_bwd(gy, x, gamma, beta, w, stats, groups, 1e-5,
+                                        need_da=need_da, **kw)
+
+        def plain():
+            out = fnc.gn_silu_conv_bwd_plain(gy, x, gamma, beta, w, groups, 1e-5,
+                                             stats=stats, **kw)
+            return out if need_da else (None,) + out[1:]
+
+        cr = kw["residual"].shape[-1] if kw.get("skip_w") is not None else 0
+        flops = conv_flops(b_, h_, w_, c_, o) * (2 if need_da else 1) + 4.0 * b_ * h_ * w_ * cr * o
+        # the proj mode alone reads the residual; identity's dres is gy itself
+        outs = [t for t in plain() if t is not None and t is not gy]
+        work = (nbytes(gy, x, gamma, beta, w, *(stats or ()),
+                       kw.get("residual") if cr else None, kw.get("skip_w"), *outs),
+                flops, 0, PEAK_BF16)
+        x32, gy32, w32 = f32(x, gy, w)
+        kw32 = {k: v.float() if torch.is_tensor(v) else v for k, v in kw.items()}
+
+        def kern32():
+            return fnc.gn_silu_conv_bwd(gy32, x32, gamma, beta, w32, stats, groups, 1e-5,
+                                        need_da=need_da, **kw32)
+
+        return check("K2 gn_silu_conv_bwd bf16", mode, kern, plain, work,
+                     lib_fn=conv_bwd_lib(x, w), f32_fn=kern32)
+
+    h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
+    gamma, beta = fold(ch)
+    w = conv_w(ch, ch)
+    k2("identity (block tail), chained stats", h, gamma, beta, w,
+       residual=rnd(b, res, res, ch))
+    k2("identity_up", h, gamma, beta, w, residual=rnd(b, res // 2, res // 2, ch),
+       res_up=True)
+    xc = rnd(b, res, res, 2 * ch, scale=0.8, shift=0.2)
+    k2("proj from 128-channel concat (conv1 + tail)", h, gamma, beta, w, residual=xc,
+       skip_w=rnd(2 * ch, ch, scale=1.0 / math.sqrt(2 * ch)))
+    gc, bc = fold(2 * ch)
+    k2("128-channel input (decoder conv0)", xc, gc, bc, conv_w(2 * ch, ch))
+    k2("act=False (conv_in, no input gradient)", rnd(b, res, res, 4), None, None,
+       conv_w(4, ch), need_da=False)
+    k2("act=False (down-block conv0 at res/2)", rnd(b, res // 2, res // 2, ch, scale=0.8),
+       None, None, w)
+
+    # the narrow backward: the out conv, C 64 -> O 2
+    w_out = conv_w(ch, 2)
+    gy = rnd(b, res, res, 2)
+    gy32, h32, wo32 = f32(gy, h, w_out)
+    check("K2 narrow_conv_bwd bf16", "out conv, C 64 -> O 2",
+          lambda: fnc.narrow_conv_bwd(gy, h, w_out),
+          lambda: fnc.narrow_conv_bwd_plain(gy, h, w_out),
+          (nbytes(gy, h, w_out, h, w_out) + 4 * 2, 2 * conv_flops(b, res, res, ch, 2), 0,
+           PEAK_BF16), lib_fn=conv_bwd_lib(h, w_out),
+          f32_fn=lambda: fnc.narrow_conv_bwd(gy32, h32, wo32))
+
+    # K3 backward: the decoder's up-block conv0, res/2 -> res
+    xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
+    xl_stats = fn.channel_stats_plain(xl.reshape(b, -1, ch))
+    gy = rnd(b, res, res, ch)
+    gy32, xl32, w32 = f32(gy, xl, w)
+    check("K3 gn_silu_up_conv_bwd bf16", "up block conv0, chained stats",
+          lambda: fnc.gn_silu_up_conv_bwd(gy, xl, gamma, beta, w, xl_stats, gr),
+          lambda: fnc.gn_silu_up_conv_bwd_plain(gy, xl, gamma, beta, w, gr, stats=xl_stats),
+          (nbytes(gy, xl, gamma, beta, w, *xl_stats, xl, w) + 4 * (4 * b * ch + ch),
+           2 * conv_flops(b, res, res, ch, ch), 0, PEAK_BF16),
+          lib_fn=conv_bwd_lib(rnd(b, res, res, ch), w),
+          f32_fn=lambda: fnc.gn_silu_up_conv_bwd(gy32, xl32, gamma, beta, w32, xl_stats, gr))
+
+    # K4 backward at the 32x32 sites: the bf16 forward's o32 (the output
+    # before its rounding) feeds delta; held to the fp32 plain forward first
+    L = (res // 4) ** 2
+    q, k, v, gy = (rnd(b, L, 64) for _ in range(4))
+    lse = torch.empty(b, L, device=device)
+    o32 = torch.empty(b, L, 64, device=device)
+    with torch.no_grad():
+        fa.attention_fwd(q, k, v, lse, o32)
+        o32_err = compare(o32, fa.attention_plain(q.float(), k.float(), v.float()),
+                          TOL_KERNEL, "K4 bf16 forward's o32")
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    sd = F.scaled_dot_product_attention(qs[:, None], ks[:, None], vs[:, None])[:, 0]
+    prod = 2.0 * b * L * L * 64
+    q32, k32, v32, gy32 = f32(q, k, v, gy)
+    lse32 = torch.empty(b, L, device=device)
+    with torch.no_grad():
+        o_32 = fa.attention_fwd(q32, k32, v32, lse32)
+    rec = check("K4 attention_bwd bf16", "(N, L, D)",
+                lambda: fa.attention_bwd(gy, q, k, v, o32, lse),
+                lambda: fa.attention_bwd_plain(gy, q, k, v),
+                (nbytes(q, k, v, gy, o32, lse, q, k, v), 3 * prod, 2, PEAK_FLOPS, 2 * prod),
+                lib_fn=lambda: torch.autograd.grad(sd, (qs, ks, vs), gy, retain_graph=True),
+                f32_fn=lambda: fa.attention_bwd(gy32, q32, k32, v32, o_32, lse32))
+    results["K4 attention_bwd bf16"]["o32_max_rel_err"] = o32_err["max_rel_err"]
+    emit({"phase": "bf16_backward", "kernel": "K4 attention_bwd bf16",
+          "o32_vs_fp32_plain": o32_err, "kernel_ms": rec["ms"]})
+    return results
+
+
+def device_ms(fn, work: dict, n: int = 10) -> float:
+    """The card's time of one fn(): n back-to-back calls bracketed by CUDA
+    events and queued behind a spin kernel (torch.cuda._sleep) that outlasts
+    their enqueueing, so the card runs them without waiting on the host.
+    Where a wrapper's host cost exceeds its kernels' time, cuda_ms reads the
+    host; this reads the card, and counts every kernel and copy of the call,
+    since the events bracket the stream. Raises where the enqueueing outlasted
+    the spin, and where the time is under `work`'s bound (bound()) while the
+    call's bytes exceed the L2, which no data the call reads can then be
+    served from."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(int(max(4 * host_s, 2e-3) * SPIN_CYCLES_PER_S))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    spin_ms = spin.elapsed_time(start)
+    if enqueue_ms >= spin_ms:
+        raise AssertionError(f"device_ms: enqueueing took {enqueue_ms:.3f} ms, the spin "
+                             f"{spin_ms:.3f} ms: the card may have waited on the host")
+    ms = start.elapsed_time(end) / n
+    if ms < work["bound_ms"] and work["bytes"] > L2_BYTES:
+        raise AssertionError(f"device_ms {ms:.4f} under the bound {work['bound_ms']:.4f} "
+                             f"of a call that moves {work['bytes']} bytes")
+    return ms
+
+
+def grads_gap(grads, ref) -> float:
+    """The mean over parameters of mean |g - ref| / max |ref| (the attention
+    key biases, whose exact gradient is zero, left out)."""
+    keys = [k for k in ref if not k.endswith(".k.bias")]
+    return float(np.mean([float((grads[k].double() - ref[k].double()).abs().mean()
+                                / ref[k].double().abs().max()) for k in keys]))
+
+
+def phase_bf16_train(device, hparams, params, b: int, fp32_launches: dict) -> dict:
+    """Phase 16.2: McedmTask.train_step with model.dtype bfloat16 at full
+    width and depth, kernel path against the bf16 plain path over
+    TRAIN_STEPS steps from phase 5's state; the gradient gaps to the fp32
+    step; launches per step against phase 5's; ms per step of the bf16 and
+    the fp32 kernel path in turns; one profiled bf16 step. Returns the
+    launches of the kernel path's steps."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp16 = bf16_hparams(hparams)
+    r = hparams["model"]["resolution"]
+    lr = hparams["optimization"]["lr"]
+    rs = np.random.RandomState(SEED + 4)  # phase 5's batch
+    h, tg, xg, u = synthetic_swe_batch(rs, b, r)
+    stats = {"input_mean": h.mean(), "input_std": h.std(),
+             "target_mean": u.mean(), "target_std": u.std()}
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (h, tg, xg, u))
+    ktask = build_task(hp16, device)
+    ptask = build_task(hp16, device, ops=kernels.PLAIN_OPS)
+    ftask = build_task(hparams, device)
+    kstate = ktask.init_state(None, stats, params=params)
+    pstate = ptask.init_state(None, stats, params=params)
+    fstate = ftask.init_state(None, stats, params=params)
+
+    def grads_of(task, state):
+        gen = torch.Generator(device=device).manual_seed(SEED + 10)  # step 0's draws
+        return task.loss_and_grads(state, batch, gen)[1]
+
+    g32 = grads_of(ftask, fstate)
+    gap_k = grads_gap(grads_of(ktask, kstate), g32)
+    gap_p = grads_gap(grads_of(ptask, pstate), g32)
+    if not gap_k <= BF16_GAP_RATIO * gap_p:
+        raise AssertionError(f"bf16 kernel path's gradient gap to fp32 {gap_k:.3e}, "
+                             f"plain path's {gap_p:.3e}")
+
+    kernels.reset_launches()
+    kfinal, kmetrics, _ = train_steps(ktask, kstate, batch, device, 0, TRAIN_STEPS)
+    launches = kernels.launches()
+    pfinal, pmetrics, _ = train_steps(ptask, pstate, batch, device, 0, TRAIN_STEPS)
+    for step, (km, pm) in enumerate(zip(kmetrics, pmetrics)):
+        for key in ("train_loss", "grad_norm"):
+            if (not math.isfinite(km[key])
+                    or abs(km[key] - pm[key]) > TOL_BF16_TRAIN * abs(pm[key])):
+                raise AssertionError(f"bf16 step {step} {key}: kernel {km[key]} vs "
+                                     f"plain {pm[key]}")
+
+    def max_diff(a, b_):
+        return max(float((a[k] - b_[k]).abs().max()) for k in a)
+
+    tol_params = 2 * lr * TRAIN_STEPS
+    diffs = {"params": max_diff(kfinal.params, pfinal.params),
+             "ema_params": max_diff(kfinal.ema_params, pfinal.ema_params)}
+    if not (diffs["params"] <= tol_params and diffs["ema_params"] <= tol_params):
+        raise AssertionError(f"bf16 params after {TRAIN_STEPS} steps differ: {diffs}")
+    fp32_state = all(t.dtype == torch.float32 for tree in (
+        kfinal.params, kfinal.ema_params, kfinal.opt_state["mu"], kfinal.opt_state["nu"])
+        for t in tree.values())
+    if not fp32_state:
+        raise AssertionError("the bf16 step's master params, Adam state or EMA left fp32")
+    # the bf16 steps launch what phase 5's fp32 steps launch
+    names = list(FLAGSHIP_KERNELS)
+    got = {k: launches[k] for k in names}
+    want = {k: fp32_launches[k] for k in names}
+    if got != want:
+        raise AssertionError(f"bf16 train steps launched {got}, the fp32 steps {want}")
+    missing = [k for k in BF16_BWD_KERNELS.values() if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"bf16 backward kernels not launched: {missing}")
+
+    n = TRAIN_WARMUP + TRAIN_TIMED  # in turns: fp32, bf16, bf16, fp32
+    fstate_t, kstate_t = fstate, kfinal
+    walls = {"fp32": [], "bf16": []}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        task, st = (ftask, fstate_t) if name == "fp32" else (ktask, kstate_t)
+        st, _, w = train_steps(task, st, batch, device, TRAIN_STEPS, n)
+        walls[name].append(float(np.median(w[TRAIN_WARMUP:])) * 1e3)
+        if name == "fp32":
+            fstate_t = st
+        else:
+            kstate_t = st
+    prof = profile_step(ktask, kstate_t, batch, device, min(walls["bf16"]) / 1e3)
+    rec = {"phase": "bf16_train", "batch": b, "steps": TRAIN_STEPS,
+           "nvidia_smi": nvidia_smi_line(),
+           "train_loss": [m["train_loss"] for m in kmetrics],
+           "plain_train_loss": [m["train_loss"] for m in pmetrics],
+           "grad_norm": [m["grad_norm"] for m in kmetrics],
+           "plain_grad_norm": [m["grad_norm"] for m in pmetrics],
+           "tol": TOL_BF16_TRAIN, "max_abs_diff": diffs, "tol_params": tol_params,
+           "grad_gap_to_fp32": gap_k, "plain_grad_gap_to_fp32": gap_p,
+           "gap_ratio": gap_k / gap_p, "gap_ratio_tol": BF16_GAP_RATIO,
+           "fp32_state": fp32_state,
+           "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in names},
+           "ms_per_step": walls["bf16"], "fp32_ms_per_step": walls["fp32"],
+           "order": ["fp32", "bf16", "bf16", "fp32"], "profile": prof}
+    emit(rec)
+    return launches
+
+
+def phase_bf16_train_cli(device, per_step: dict) -> dict:
+    """Phase 16.3: config_adm_edm_mcedm_res32.yaml with trainer.precision=bf16
+    through m_cedm_tpu_torch.run (fit, then a resume to epoch 2) and
+    m_cedm_tpu_torch.eval_model on the resumed run, on phase 12's seeded
+    data: phase 12's key set, every metric finite, the resume trains epoch 1
+    only, the checkpoint's params, Adam state and EMA fp32, each train
+    step's launches equal to part 2's per step. Removes its directory."""
+    import importlib.util
+    import os
+    import shutil
+
+    import torch
+
+    from m_cedm_tpu_torch import eval_model, run
+    from m_cedm_tpu_torch.data import datamodule as dm_module
+    from m_cedm_tpu_torch.data.h5_io import write_store
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("h5py", "matplotlib")}
+    res = FLAGSHIP_HPARAMS["model"]["resolution"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_bf16_train")
+    shutil.rmtree(root, ignore_errors=True)
+    sub = os.path.join(root, "1D_swp_128_per")
+    os.makedirs(sub)
+    stores = cli_stores(res)
+    paths = {split: os.path.join(sub, f"1D_swp_128_per_{split}.h5") for split in stores}
+    saved_read, saved_wandb = dm_module.read_store, sys.modules.get("wandb")
+    if have["h5py"]:
+        for split, st in stores.items():
+            write_store(paths[split], st.inputs, st.targets, st.x, st.t)
+    else:
+        by_path = {paths[split]: st for split, st in stores.items()}
+        dm_module.read_store = by_path.__getitem__
+    sys.modules["wandb"] = None
+    job = ["system=swe_per", f"dataroot={root}", "trainer.precision=bf16"]
+    if not have["matplotlib"]:
+        job.append("callbacks=callbacks_save_model")
+    base = ["--config-name", CLI_CONFIG] + job
+    run_dir, run2_dir, eval_dir = (os.path.join(root, d) for d in ("run", "run2", "eval"))
+    secs = {}
+    try:
+        with CliProbe() as probe:
+            for name, fn, extra in (
+                    ("fit", run.main, ["trainer.max_epochs=1", f"hydra.run.dir={run_dir}"]),
+                    ("resume", run.main, [f"ckpt_path={run_dir}", "trainer.max_epochs=2",
+                                          f"hydra.run.dir={run2_dir}"]),
+                    ("eval_model", eval_model.main, [f"ckpt_path={run2_dir}",
+                                                     f"hydra.run.dir={eval_dir}"])):
+                t0 = time.perf_counter()
+                fn(base + extra)
+                secs[name] = time.perf_counter() - t0
+    finally:
+        dm_module.read_store = saved_read
+        if saved_wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    recs = {d: read_metrics(p) for d, p in (("run", run_dir), ("run2", run2_dir),
+                                              ("eval", eval_dir))}
+    for d in ("run", "run2"):
+        keys = set().union(*map(set, recs[d]))
+        if keys != FLAGSHIP_METRIC_KEYS:
+            raise AssertionError(f"bf16 {d} metric keys {sorted(keys ^ FLAGSHIP_METRIC_KEYS)}")
+    if not all(math.isfinite(v) for d in recs for r in recs[d] for v in r.values()):
+        raise AssertionError("a bf16 CLI metric is not finite")
+    trained = sorted(r["epoch"] for r in recs["run2"] if "train_loss" in r)
+    if trained != [1]:
+        raise AssertionError(f"the bf16 resume trained epochs {trained}, expected [1]")
+    (eval_test,) = recs["eval"]
+    run2_test = [r for r in recs["run2"] if "test_mae_u" in r][-1]
+    if ({k for k in run2_test if k.startswith("test_")}
+            != {k for k in eval_test if k.startswith("test_")}):
+        raise AssertionError(f"bf16 eval_model keys {sorted(eval_test)}")
+    ckpt_root = os.path.join(run2_dir, "checkpoints")
+    last = max(os.listdir(ckpt_root), key=int)
+    saved = torch.load(os.path.join(ckpt_root, last, "state.pt"), map_location="cpu",
+                       weights_only=False)
+    dtypes = {t.dtype for part in ("params", "ema_params") for t in saved[part].values()}
+    dtypes |= {t.dtype for m_ in ("mu", "nu") for t in saved["opt_state"][m_].values()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"the bf16 run's checkpoint holds {dtypes}")
+    for i, rec in enumerate(probe.steps):
+        got = {k: rec["launches"][k] for k in per_step}
+        if got != per_step:
+            raise AssertionError(f"bf16 CLI train step {i}: launches {got}, "
+                                 f"expected {per_step}")
+    if len(probe.steps) != 4:
+        raise AssertionError(f"{len(probe.steps)} bf16 CLI train steps, expected 2 + 2")
+    step_ms = [r["s"] * 1e3 for r in probe.steps]
+    emit({"phase": "bf16_train_cli", "config": CLI_CONFIG,
+          "override": "trainer.precision=bf16", "seconds": secs,
+          "data": "h5" if have["h5py"] else "in_memory",
+          "train_step_ms": step_ms, "checkpoint_dtypes": sorted(map(str, dtypes)),
+          "test_metrics": {k: run2_test[k] for k in sorted(run2_test)
+                           if k.startswith("test_")},
+          "eval_model_metrics": eval_test, "launches_per_step": per_step})
+    shutil.rmtree(root)
+    return {"seconds": secs}
+
+
+def phase_bf16_training(device, hparams, params, b: int, fp32_launches: dict):
+    """Phase 16: bf16 training of the flagship on the card (parts 1-3)."""
+    m = hparams["model"]
+    results = phase_bf16_backward(device, b, m["resolution"], m["ch"])
+    launches = phase_bf16_train(device, hparams, params, b, fp32_launches)
+    per_step = {k: launches[k] // TRAIN_STEPS for k in (
+        "K2 gn_silu_conv", "K2 narrow_conv", "K4 attention", *BF16_BWD_KERNELS.values())}
+    phase_bf16_train_cli(device, per_step)
+    return results, launches
+
+
 def main() -> int:
     import torch
 
@@ -3840,6 +4363,8 @@ def main() -> int:
     phase_two_stage(device, fno, timepred_state.params, timepred_state.constants)
     bf16_results, bf16_launches = phase_bf16(device, hparams, params, BATCH, eval_launches,
                                              cli_run2, cli_eval)
+    bwd16_results, bwd16_launches = phase_bf16_training(device, hparams, params, BATCH,
+                                                        train_launches)
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -3892,6 +4417,20 @@ def main() -> int:
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                         "modes": rec["modes"]})
+    for name, fp32_name in BF16_BWD_KERNELS.items():
+        rec = bwd16_results[name]
+        source, replaces = KERNEL_INFO[fp32_name]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "dtype": "bfloat16", "launches": bwd16_launches[fp32_name],
+               "launches_per_step": bwd16_launches[fp32_name] / TRAIN_STEPS,
+               "max_abs_err": rec["max_abs_err"], "max_rel_err": rec["max_rel_err"],
+               "ms": rec["ms"], "device_ms": rec["device_ms"],
+               "fp32_device_ms": rec.get("fp32_device_ms"), "plain_ms": rec["plain_ms"],
+               "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+               "library_ms": rec["library_ms"], "modes": rec["modes"]}
+        if "o32_max_rel_err" in rec:
+            row["o32_max_rel_err"] = rec["o32_max_rel_err"]
+        summary.append(row)
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

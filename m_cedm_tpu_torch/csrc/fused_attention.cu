@@ -98,7 +98,23 @@
 // through shared memory as bf16 (rows padded to 72 values, 36 words = 4 mod
 // 32, so that the B-fragment reads, 2 bytes a thread, fall on distinct
 // banks) and are widened to fp32 as each fragment is read; q is held as
-// unsplit A fragments. The output is stored as bf16 pairs.
+// unsplit A fragments. The output is stored as bf16 pairs; where the caller
+// trains, also as fp32 (`o32`), for the backward's delta.
+//
+// bf16 backward (attention_bwd_dq_bf16_kernel, attention_bwd_dkdv_bf16_kernel):
+// replaces _bwd_kernel on bf16 q, k, v, g, which upcasts them, recomputes the
+// softmax, forms every product in fp32 and rounds dq, dk and dv once. The
+// kernels are the fp32 pair's, with bf16 tiles (the forward's 72-value rows)
+// and exact A fragments: S = q k^T and dP = g v^T (both operands bf16) take
+// ONE TF32 product where 3xTF32 takes three; dv += P^T g, dq += dS k and
+// dk += dS^T q (P and dS fp32, split hi/lo; the bf16 operand exact) take two.
+// delta = rowsum(g * o) is taken against the forward's fp32 output o32: JAX's
+// sum(dw * w) is g against the unrounded P V, and the rounded bf16 output
+// would move every row's delta by a bf16 rounding (1.3e-3 of scale at L =
+// 256, tests/test_torch_bf16_backward.py). Bound at the flagship shape: 7
+// (L, L, D) products, 2 exact and 5 at the two-product rate, 13.7 GFLOP at
+// 1.7 TF32 products a product against 13.6 MB of bf16 q/k/v/g/dq/dk/dv and
+// the fp32 o32: operations, 0.047 ms at 495 TFLOP/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -410,8 +426,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int L,
-                          float scale) {
+                          __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
+                          float* __restrict__ lse, int L, float scale) {
   extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
   __nv_bfloat16* sk = hsmem;                          // [stage][64][72]
   __nv_bfloat16* sv = hsmem + kStages * kTileHalves;  // [stage][64][72]
@@ -536,6 +552,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rb * kD + c) =
           __floats2bfloat162_rn(acc[nd][2] * ib, acc[nd][3] * ib);
   }
+  if (o32) store_c(o32 + base, acc, ra, rb, L, t, ia, ib);
   if (lse && t == 0) {
     if (ra < L) lse[(size_t)blockIdx.y * L + ra] = m[0] + logf(la);
     if (rb < L) lse[(size_t)blockIdx.y * L + rb] = m[1] + logf(lb);
@@ -713,6 +730,245 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
   store_c(dv + base, dva, ra, rb, L, t, 1.f, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward
+// ---------------------------------------------------------------------------
+
+// The exact A fragments of rows ra (g) and rb (g + 8) of a bf16 (L, D) slice
+// for the 8 k-steps over the width; zero past L.
+__device__ __forceinline__ void load_a_exact(uint32_t (*a)[4], const __nv_bfloat16* src,
+                                             int ra, int rb, int L, int t) {
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const __nv_bfloat16* pa = src + (size_t)ra * kD;
+  const __nv_bfloat16* pb = src + (size_t)rb * kD;
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    const int c = 8 * ks + t;
+    a[ks][0] = bf16_bits(ra < L ? pa[c] : zero);
+    a[ks][1] = bf16_bits(rb < L ? pb[c] : zero);
+    a[ks][2] = bf16_bits(ra < L ? pa[c + 4] : zero);
+    a[ks][3] = bf16_bits(rb < L ? pb[c + 4] : zero);
+  }
+}
+
+// c[j] += A (16 x 64 width, exact) * tile^T for the NT n-tiles from nt0, one
+// TF32 product a k-step: both operands are bf16 values
+template <int NT>
+__device__ __forceinline__ void mma_rows_t_exact(float (*c)[4], uint32_t (*a)[4],
+                                                 const __nv_bfloat16* tile, int nt0, int g,
+                                                 int t) {
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* p = tile + (8 * (nt0 + j) + g) * kStrideH + 8 * ks + t;
+      mma_tf32(c[j], a[ks], bf16_bits(p[0]), bf16_bits(p[4]));
+    }
+  }
+}
+
+// acc (16 x 64 width) += A (split) * bf16 tile rows 8kk .. 8kk + 7 in the
+// permuted order 2t, 2t + 1: two products, the small one first
+__device__ __forceinline__ void mma_rows_exact_b(float (*acc)[4], const AFrag& a,
+                                                 const __nv_bfloat16* tile, int kk, int g,
+                                                 int t) {
+  const __nv_bfloat16* p = tile + (8 * kk + 2 * t) * kStrideH + g;
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+    const uint32_t b0 = bf16_bits(p[8 * nd]), b1 = bf16_bits(p[kStrideH + 8 * nd]);
+    mma_tf32(acc[nd], a.lo, b0, b1);
+    mma_tf32(acc[nd], a.hi, b0, b1);
+  }
+}
+
+// rows ra (g) and rb (g + 8) of a 16 x 64 C accumulator, times mul, rounded
+// once to a bf16 (L, D) slice
+__device__ __forceinline__ void store_c_bf16(__nv_bfloat16* dst, const float (*acc)[4],
+                                             int ra, int rb, int L, int t, float mul) {
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    if (ra < L)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)ra * kD + c) =
+          __floats2bfloat162_rn(acc[nd][0] * mul, acc[nd][1] * mul);
+    if (rb < L)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)rb * kD + c) =
+          __floats2bfloat162_rn(acc[nd][2] * mul, acc[nd][3] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const float* __restrict__ o32,
+                             const __nv_bfloat16* __restrict__ g,
+                             const float* __restrict__ lse, float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int L, float scale) {
+  extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
+  __nv_bfloat16* sk = hsmem;
+  __nv_bfloat16* sv = hsmem + kStages * kTileHalves;
+  const size_t base = (size_t)blockIdx.y * L * kD;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int ra = blockIdx.x * kTile + warp * 16 + gr, rb = ra + 8;
+  const int ntiles = (L + kTile - 1) / kTile;
+
+  load_tile(sk, kb, 0, L);
+  load_tile(sv, vb, 0, L);
+  cp_commit();
+
+  // delta_i = sum_d g_i o32_i, as the fp32 kernel
+  float dl[2] = {0.f, 0.f};
+  {
+    const __nv_bfloat16* ga = g + base + (size_t)ra * kD;
+    const __nv_bfloat16* gb = g + base + (size_t)rb * kD;
+    const float* oa = o32 + base + (size_t)ra * kD;
+    const float* ob = o32 + base + (size_t)rb * kD;
+#pragma unroll
+    for (int c = t; c < kD; c += 4) {
+      if (ra < L) dl[0] = fmaf(__bfloat162float(ga[c]), oa[c], dl[0]);
+      if (rb < L) dl[1] = fmaf(__bfloat162float(gb[c]), ob[c], dl[1]);
+    }
+  }
+  dl[0] = quad_sum(dl[0]);
+  dl[1] = quad_sum(dl[1]);
+  if (t == 0) {
+    if (ra < L) delta[(size_t)blockIdx.y * L + ra] = dl[0];
+    if (rb < L) delta[(size_t)blockIdx.y * L + rb] = dl[1];
+  }
+  const float lse_r[2] = {ra < L ? lse[(size_t)blockIdx.y * L + ra] : 0.f,
+                          rb < L ? lse[(size_t)blockIdx.y * L + rb] : 0.f};
+
+  uint32_t qa[kKSteps][4], ga_[kKSteps][4];
+  load_a_exact(qa, q + base, ra, rb, L, t);
+  load_a_exact(ga_, g + base, ra, rb, L, t);
+
+  float acc[kD / 8][4] = {};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % kStages;
+    if (j + 1 < ntiles) {
+      load_tile(sk + (st ^ 1) * kTileHalves, kb, (j + 1) * kTile, L);
+      load_tile(sv + (st ^ 1) * kTileHalves, vb, (j + 1) * kTile, L);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* ks_ = sk + st * kTileHalves;
+    const __nv_bfloat16* vs_ = sv + st * kTileHalves;
+    const int k0 = j * kTile;
+
+#pragma unroll 1
+    for (int nt0 = 0; nt0 < kNTiles; nt0 += 2) {
+      float s[2][4] = {}, dp[2][4] = {};
+      mma_rows_t_exact<2>(s, qa, ks_, nt0, gr, t);    // S = q k^T
+      mma_rows_t_exact<2>(dp, ga_, vs_, nt0, gr, t);  // dP = g v^T
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = k0 + 8 * (nt0 + jn) + 2 * t + (e & 1) < L;
+          const float p = valid ? expf(s[jn][e] * scale - lse_r[e / 2]) : 0.f;
+          s[jn][e] = p * (dp[jn][e] - dl[e / 2]);  // dS
+        }
+        AFrag da;
+        split_a_from_c(da, s[jn]);
+        mma_rows_exact_b(acc, da, ks_, nt0 + jn, gr, t);  // dq += dS k
+      }
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+  store_c_bf16(dq + base, acc, ra, rb, L, t, scale);
+}
+
+constexpr int kDkdvSmemBf16 = kStages * 2 * kTileHalves * 2 + kStages * 2 * kTile * 4;
+
+__global__ void __launch_bounds__(kThreads, 2)
+attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ g,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int L, float scale) {
+  extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
+  __nv_bfloat16* sq = hsmem;                            // [stage][64][72]
+  __nv_bfloat16* sg = hsmem + kStages * kTileHalves;    // [stage][64][72]
+  float* slse = reinterpret_cast<float*>(hsmem + 2 * kStages * kTileHalves);  // [stage][64]
+  float* sdl = slse + kStages * kTile;                                        // [stage][64]
+  const size_t base = (size_t)blockIdx.y * L * kD;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* gb = g + base;
+  const float* lse_b = lse + (size_t)blockIdx.y * L;
+  const float* dl_b = delta + (size_t)blockIdx.y * L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int ra = blockIdx.x * kTile + warp * 16 + gr, rb = ra + 8;  // key rows
+  const int ntiles = (L + kTile - 1) / kTile;
+
+  auto load = [&](int stage, int q0) {
+    load_tile(sq + stage * kTileHalves, qb, q0, L);
+    load_tile(sg + stage * kTileHalves, gb, q0, L);
+    const int i = threadIdx.x % kTile;
+    const bool valid = q0 + i < L;
+    const int r = valid ? q0 + i : 0;
+    if (threadIdx.x < kTile) cp_async4(slse + stage * kTile + i, lse_b + r, valid);
+    else cp_async4(sdl + stage * kTile + i, dl_b + r, valid);
+  };
+  load(0, 0);
+  cp_commit();
+
+  uint32_t ka[kKSteps][4], va[kKSteps][4];
+  load_a_exact(ka, k + base, ra, rb, L, t);
+  load_a_exact(va, v + base, ra, rb, L, t);
+
+  float dka[kD / 8][4] = {}, dva[kD / 8][4] = {};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % kStages;
+    if (j + 1 < ntiles) load(st ^ 1, (j + 1) * kTile);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* qs_ = sq + st * kTileHalves;
+    const __nv_bfloat16* gs_ = sg + st * kTileHalves;
+    const float* ls_ = slse + st * kTile;
+    const float* ds_ = sdl + st * kTile;
+    const int q0 = j * kTile;
+
+#pragma unroll 1
+    for (int nt0 = 0; nt0 < kNTiles; nt0 += 2) {
+      float s[2][4] = {}, dp[2][4] = {};
+      mma_rows_t_exact<2>(s, ka, qs_, nt0, gr, t);   // S^T = k q^T
+      mma_rows_t_exact<2>(dp, va, gs_, nt0, gr, t);  // dP^T = v g^T
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * (nt0 + jn) + 2 * t + (e & 1);
+          const float p = q0 + c < L ? expf(s[jn][e] * scale - ls_[c]) : 0.f;
+          s[jn][e] = p;
+          dp[jn][e] = p * (dp[jn][e] - ds_[c]);  // dS^T
+        }
+        AFrag pa;
+        split_a_from_c(pa, s[jn]);
+        mma_rows_exact_b(dva, pa, gs_, nt0 + jn, gr, t);  // dv += P^T g
+        split_a_from_c(pa, dp[jn]);
+        mma_rows_exact_b(dka, pa, qs_, nt0 + jn, gr, t);  // dk += dS^T q
+      }
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+  store_c_bf16(dk + base, dka, ra, rb, L, t, scale);
+  store_c_bf16(dv + base, dva, ra, rb, L, t, 1.f);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -726,6 +982,8 @@ cudaError_t configure() {
     if (e == cudaSuccess) e = allow_smem(attention_bwd_dq_kernel, kFwdSmem);
     if (e == cudaSuccess) e = allow_smem(attention_bwd_dkdv_kernel, kDkdvSmem);
     if (e == cudaSuccess) e = allow_smem(attention_fwd_bf16_kernel, kFwdSmemBf16);
+    if (e == cudaSuccess) e = allow_smem(attention_bwd_dq_bf16_kernel, kFwdSmemBf16);
+    if (e == cudaSuccess) e = allow_smem(attention_bwd_dkdv_bf16_kernel, kDkdvSmemBf16);
     return e;
   }();
   return err;
@@ -747,16 +1005,17 @@ int mc_attention_fwd(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
-// The bf16 forward: q, k, v, o bf16 (16-byte aligned), lse fp32 or null.
+// The bf16 forward: q, k, v, o bf16 (16-byte aligned); o32 (the output in
+// fp32, before its rounding; for the backward's delta) and lse fp32 or null.
 int mc_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                          const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int n,
-                          int L, int d, float scale, void* stream) {
+                          const __nv_bfloat16* v, __nv_bfloat16* o, float* o32, float* lse,
+                          int n, int L, int d, float scale, void* stream) {
   if (d != kD) return (int)cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + kTile - 1) / kTile, n);
   attention_fwd_bf16_kernel<<<grid, kThreads, kFwdSmemBf16, (cudaStream_t)stream>>>(
-      q, k, v, o, lse, L, scale);
+      q, k, v, o, o32, lse, L, scale);
   return (int)cudaGetLastError();
 }
 
@@ -776,6 +1035,28 @@ int mc_attention_bwd(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   attention_bwd_dkdv_kernel<<<grid, kThreads, kDkdvSmem, s>>>(q, k, v, g, lse, delta,
                                                               dk, dv, L, scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward: q, k, v, g, dq, dk, dv bf16; o32 (the forward's fp32
+// output) and lse from mc_attention_fwd_bf16; delta: (n, L) fp32 scratch.
+int mc_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, const float* o32, const __nv_bfloat16* g,
+                          const float* lse, float* delta, __nv_bfloat16* dq,
+                          __nv_bfloat16* dk, __nv_bfloat16* dv, int n, int L, int d,
+                          float scale, void* stream) {
+  if (d != kD) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + kTile - 1) / kTile, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  attention_bwd_dq_bf16_kernel<<<grid, kThreads, kFwdSmemBf16, s>>>(q, k, v, o32, g, lse,
+                                                                     delta, dq, L, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dkdv_bf16_kernel<<<grid, kThreads, kDkdvSmemBf16, s>>>(q, k, v, g, lse,
+                                                                       delta, dk, dv, L,
+                                                                       scale);
   return (int)cudaGetLastError();
 }
 

@@ -76,6 +76,15 @@
 // are atomics), so the sums do not depend on which block arrives when, and
 // two calls give the same bits. The caller zeroes the counters and the
 // tagged words.
+//
+// bf16 backward: the same kernel on bf16 x and g (gn_silu_bwd_kernel<V,
+// __nv_bfloat16>), the bf16 instance of _grad_stats_kernel and
+// _grad_apply_kernel, which upcast x and g, compute in fp32 and round dx once
+// at the store. The ring stages x and g as they are (16-byte cp.async, eight
+// values; the instance takes C % 8 == 0), so a stage holds twice the rows;
+// every value is widened to fp32 as it is read, dgamma, dbeta and the
+// partials stay fp32, and dx is stored as bf16. Bound: bytes, 3 x 33.6 MB at
+// the flagship's shape, 0.030 ms at 3.35 TB/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -196,14 +205,16 @@ constexpr int kBwdMinLead = 2;
 constexpr int kRedFloats = 8 * kBwdPass;
 
 struct BwdArgs {
-  const float *x, *g, *gamma, *beta, *sums, *sumsq;
-  float *dgamma, *dbeta, *dx;
+  const void *x, *g;  // (B, N, C) of the instance's element type
+  const float *gamma, *beta, *sums, *sumsq;
+  float *dgamma, *dbeta;
+  void* dx;
   float* part;   // (B, slabs, row) per-slab partials, row = 2C padded to 4
   unsigned* count;          // (B,) arrivals, zeroed by the caller
   unsigned long long* mm;   // (B, 2, groups) m1, m2 as (1 << 32 | bits), zeroed
   int batch, n, c, groups;
   float eps;
-  int slabs, rows, smem_rows, stages, lag, row, vec;
+  int slabs, rows, smem_rows, stages, lag, row, vec, esz;  // esz: bytes an element
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -217,6 +228,11 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_addr(smem)), "l"(gmem)
                : "memory");
 }
 
@@ -278,12 +294,40 @@ __device__ __forceinline__ void load_v(const float* p, float* a) {
   }
 }
 
+// V consecutive bf16 values widened (V = 4: one 8-byte access)
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* a) {
+  if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
+  } else {
+    a[0] = __bfloat162float(*p);
+  }
+}
+
 template <int V>
 __device__ __forceinline__ void store_v_streaming(float* p, const float* a) {
   if constexpr (V == 4)
     __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
   else
     __stcs(p, a[0]);
+}
+
+// V values rounded once to bf16 (V = 4: one 8-byte store)
+template <int V>
+__device__ __forceinline__ void store_v_streaming(__nv_bfloat16* p, const float* a) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(p), u);
+  } else {
+    *p = __float2bfloat16_rn(a[0]);
+  }
 }
 
 // count floats from device to shared memory by the lanes of one warp
@@ -294,6 +338,13 @@ __device__ __forceinline__ void warp_copy_async(float* dst, const float* src, in
   } else {
     for (int i = lane; i < count; i += 32) cp_async4(dst + i, src + i);
   }
+}
+
+// count bf16 values by the lanes of one warp (the bf16 instance takes only
+// 16-byte copies: count a multiple of 8, 16-byte aligned)
+__device__ __forceinline__ void warp_copy_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                int count, int, int lane) {
+  for (int i = 8 * lane; i < count; i += 256) cp_async16(dst + i, src + i);
 }
 
 // dy = g * silu'(y) for y = xhat * gamma + beta
@@ -313,13 +364,18 @@ struct Stage {
 // the floats of a stage's parts, each a multiple of 4 (16-byte aligned)
 __host__ __device__ __forceinline__ long round4(long n) { return (n + 3) / 4 * 4; }
 
+// the floats that hold `rows` rows of C elements of esz bytes
+__host__ __device__ __forceinline__ long rows_floats(long rows, int c, int esz) {
+  return round4((rows * c * esz + 3) / 4);
+}
+
 __device__ __forceinline__ size_t stage_floats(const BwdArgs& p) {
-  return 2 * round4((long)p.smem_rows * p.c) + round4(6L * p.c) + p.row +
+  return 2 * rows_floats(p.smem_rows, p.c, p.esz) + round4(6L * p.c) + p.row +
          round4(2L * p.groups);
 }
 
 __device__ __forceinline__ Stage stage_at(float* ring, const BwdArgs& p, int b) {
-  const long buf = round4((long)p.smem_rows * p.c);
+  const long buf = rows_floats(p.smem_rows, p.c, p.esz);
   float* base = ring + stage_floats(p) * (b % p.stages);
   float* vec = base + 2 * buf;
   float* part = vec + round4(6L * p.c);
@@ -373,10 +429,12 @@ struct Lanes {
 // rows in order; then, where a warp holds whole slots, a fixed butterfly over
 // the warp's slots and the warps summed in order, else the slots summed in
 // order. Rows below smem_rows come from the stage, the rest from xd / gd.
-template <int V>
-__device__ void grad_partials(const Stage& st, const float* xd, const float* gd, int rows,
+template <int V, typename T>
+__device__ void grad_partials(const Stage& st, const T* xd, const T* gd, int rows,
                               const BwdArgs& p, float* red, float* out, int tid) {
   const int c = p.c;
+  const T* sx = reinterpret_cast<const T*>(st.x);
+  const T* sgt = reinterpret_cast<const T*>(st.g);
   const Lanes ln(c, V, tid);
   const int width = ln.per_chunk * V;  // channels of a chunk
   const bool shuffle = ln.per_chunk <= 32 && 32 % ln.per_chunk == 0;
@@ -393,8 +451,8 @@ __device__ void grad_partials(const Stage& st, const float* xd, const float* gd,
       for (int r = ln.slot; r < rows; r += ln.slots) {
         const size_t off = (size_t)r * c + ch;
         float xv[V], gv[V];
-        load_v<V>((r < p.smem_rows ? st.x : xd) + off, xv);
-        load_v<V>((r < p.smem_rows ? st.g : gd) + off, gv);
+        load_v<V>((r < p.smem_rows ? sx : xd) + off, xv);
+        load_v<V>((r < p.smem_rows ? sgt : gd) + off, gv);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           const float xhat = (xv[v] - mean[v]) * rstd[v];
@@ -439,10 +497,12 @@ __device__ void grad_partials(const Stage& st, const float* xd, const float* gd,
 
 // Pass B over one slab (compute threads): dx, with m1 and m2 of each
 // channel's group from mm
-template <int V>
-__device__ void grad_apply(const Stage& st, const float* xd, const float* gd, float* dxd,
+template <int V, typename T>
+__device__ void grad_apply(const Stage& st, const T* xd, const T* gd, T* dxd,
                            int rows, const BwdArgs& p, const float* mm, int tid) {
   const int c = p.c, per = c / p.groups;
+  const T* sx = reinterpret_cast<const T*>(st.x);
+  const T* sgt = reinterpret_cast<const T*>(st.g);
   const Lanes ln(c, V, tid);
   if (ln.slot >= ln.slots) return;
   for (int l0 = 0; l0 < ln.lanes; l0 += ln.per_chunk) {
@@ -458,8 +518,8 @@ __device__ void grad_apply(const Stage& st, const float* xd, const float* gd, fl
     for (int r = ln.slot; r < rows; r += ln.slots) {
       const size_t off = (size_t)r * c + ch;
       float xv[V], gv[V], d[V];
-      load_v<V>((r < p.smem_rows ? st.x : xd) + off, xv);
-      load_v<V>((r < p.smem_rows ? st.g : gd) + off, gv);
+      load_v<V>((r < p.smem_rows ? sx : xd) + off, xv);
+      load_v<V>((r < p.smem_rows ? sgt : gd) + off, gv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const float xhat = (xv[v] - mean[v]) * rstd[v];
@@ -569,7 +629,7 @@ __device__ __forceinline__ size_t slab_offset(const BwdArgs& p, int b, int s) {
 // Pass A waits on nothing but the copies and pass B on nothing but m1, m2
 // (A runs on while B waits), and every device-memory latency of the
 // hand-off falls on the sync warp.
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 2) gn_silu_bwd_kernel(const BwdArgs p) {
   extern __shared__ __align__(16) float sm[];
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(sm);
@@ -579,6 +639,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gn_silu_bwd_kernel(const BwdAr
   float* red = ring + stage_floats(p) * S;
   const int c = p.c, s = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rows = min(p.rows, p.n - s * p.rows), srows = min(rows, p.smem_rows);
+  const T* px = static_cast<const T*>(p.x);
+  const T* pg = static_cast<const T*>(p.g);
   if (threadIdx.x == 0) {
     for (int k = 0; k < S; ++k) {
       mbar_init(full + k, 32);
@@ -595,8 +657,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gn_silu_bwd_kernel(const BwdAr
       if (b >= S) mbar_wait(empty + k, (b / S - 1) & 1);
       const Stage st = stage_at(ring, p, b);
       const size_t off = slab_offset(p, b, s);
-      warp_copy_async(st.x, p.x + off, srows * c, p.vec, lane);
-      warp_copy_async(st.g, p.g + off, srows * c, p.vec, lane);
+      warp_copy_async(reinterpret_cast<T*>(st.x), px + off, srows * c, p.vec, lane);
+      warp_copy_async(reinterpret_cast<T*>(st.g), pg + off, srows * c, p.vec, lane);
       warp_copy_async(st.vec, p.sums + (size_t)b * c, c, p.vec, lane);
       warp_copy_async(st.vec + c, p.sumsq + (size_t)b * c, c, p.vec, lane);
       warp_copy_async(st.vec + 2 * c, p.gamma + (size_t)b * c, c, p.vec, lane);
@@ -656,7 +718,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gn_silu_bwd_kernel(const BwdAr
       mbar_wait(full + it % S, (it / S) & 1);
       stage_norm(st.vec, p, threadIdx.x);
       pass_sync();
-      grad_partials<V>(st, p.x + off, p.g + off, rows, p, red, st.part, threadIdx.x);
+      grad_partials<V>(st, px + off, pg + off, rows, p, red, st.part, threadIdx.x);
       if (threadIdx.x == 0) mbar_arrive(part + it % S);  // after its last barrier
     }
   } else {  // pass B of each sample; its stage is then free
@@ -664,7 +726,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gn_silu_bwd_kernel(const BwdAr
       const Stage st = stage_at(ring, p, b);
       const size_t off = slab_offset(p, b, s);
       mbar_wait(coef + b % S, (b / S) & 1);
-      grad_apply<V>(st, p.x + off, p.g + off, p.dx + off, rows, p, st.mm,
+      grad_apply<V>(st, px + off, pg + off, static_cast<T*>(p.dx) + off, rows, p, st.mm,
                     threadIdx.x - kBwdPass);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + b % S);
@@ -677,13 +739,13 @@ bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
 // The ring of a plan: stages, the lag of pass B, the rows of a slab held in
 // shared memory, and the block's dynamic shared memory in bytes (-1 if C
 // is too wide).
-long bwd_ring(int c, int groups, int rows, int* stages, int* lag, int* smem_rows) {
+long bwd_ring(int c, int groups, int rows, int esz, int* stages, int* lag, int* smem_rows) {
   // a stage: x and g rows (each part rounded to 4 floats, so 16 bytes of
   // slack for the two), then the vectors, partials and m1, m2
   const long vec_bytes = (round4(6L * c) + round4(2L * c) + round4(2L * groups)) * 4 + 32;
   const long fixed = kRedFloats * 4L + 32L * kBwdMaxStages;  // + a barrier set a stage
   const long budget = c > kBwdWideC ? kBwdWideSmemBytes : kBwdSmemBytes;
-  const long ring = budget - fixed, row_bytes = 8L * c;
+  const long ring = budget - fixed, row_bytes = 2L * esz * c;
   // whole slabs, or kBwdMinStages stages of a row at least where they fit
   long s = ring / (row_bytes * rows + vec_bytes);
   const long some = ring / (row_bytes + vec_bytes);
@@ -694,29 +756,29 @@ long bwd_ring(int c, int groups, int rows, int* stages, int* lag, int* smem_rows
   *lag = (int)(s - kBwdMinLead < kBwdMaxLag ? s - kBwdMinLead : kBwdMaxLag);
   const long r = (ring / s - vec_bytes) / row_bytes;
   *smem_rows = (int)(r < rows ? r : rows);
-  const long stage = 2 * round4((long)*smem_rows * c) + round4(6L * c) + round4(2L * c) +
+  const long stage = 2 * rows_floats(*smem_rows, c, esz) + round4(6L * c) + round4(2L * c) +
                      round4(2L * groups);
   return 32L * s + 4L * stage * s + kRedFloats * 4L;
 }
 
-// Blocks of gn_silu_bwd_kernel<V> co-resident on one SM at `smem` bytes of
+// Blocks of gn_silu_bwd_kernel<V, T> co-resident on one SM at `smem` bytes of
 // dynamic shared memory (opted into first: above 48 KB a kernel must ask);
 // the last answer is kept, since a train step asks with the same few sizes
-template <int V>
+template <int V, typename T>
 int bwd_blocks_per_sm(long smem, int* per_sm) {
   static bool opted = false;
   static long last_smem = -1;
   static int last_per_sm = 0;
   if (!opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gn_silu_bwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gn_silu_bwd_kernel<V, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kBwdWideSmemBytes);
     if (e != cudaSuccess) return (int)e;
     opted = true;
   }
   if (smem != last_smem) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &last_per_sm, gn_silu_bwd_kernel<V>, kBwdThreads, (size_t)smem);
+        &last_per_sm, gn_silu_bwd_kernel<V, T>, kBwdThreads, (size_t)smem);
     if (e != cudaSuccess) return (int)e;
     last_smem = smem;
   }
@@ -740,23 +802,47 @@ int bwd_device(int* sms, int* coop) {
 }
 
 // Checks the call and fills the kernel's arguments; a cudaError_t code.
-int bwd_args(const float* x, const float* g, const float* gamma, const float* beta,
+// esz: bytes of an x, g and dx element (4: fp32; 2: bf16, which takes
+// C % 8 == 0 and 16-byte aligned vectors and tensors).
+int bwd_args(const void* x, const void* g, const float* gamma, const float* beta,
              const float* sums, const float* sumsq, float* dgamma, float* dbeta,
-             float* dx, float* scratch, unsigned* sync, int b, int n, int c, int groups,
-             float eps, int slabs, int rows, BwdArgs* p, long* smem) {
+             void* dx, float* scratch, unsigned* sync, int b, int n, int c, int groups,
+             float eps, int slabs, int rows, int esz, BwdArgs* p, long* smem) {
   if (b < 1 || n < 1 || c < 1 || groups < 1 || c % groups || rows < 1 || slabs < 1 ||
       (long)(slabs - 1) * rows >= n || (long)slabs * rows < n)
     return (int)cudaErrorInvalidValue;
   int stages = 0, lag = 0, smem_rows = 0;
-  *smem = bwd_ring(c, groups, rows, &stages, &lag, &smem_rows);
+  *smem = bwd_ring(c, groups, rows, esz, &stages, &lag, &smem_rows);
   if (*smem < 0) return (int)cudaErrorInvalidValue;
   const bool vec = c % 4 == 0 && aligned16(x) && aligned16(g) && aligned16(dx) &&
                    aligned16(gamma) && aligned16(beta) && aligned16(sums) && aligned16(sumsq);
+  if (esz == 2 && (!vec || c % 8)) return (int)cudaErrorInvalidValue;
   *p = BwdArgs{x, g, gamma, beta, sums, sumsq, dgamma, dbeta, dx, scratch, sync,
                reinterpret_cast<unsigned long long*>(sync + (b + 1) / 2 * 2),
                b, n, c, groups, eps, slabs, rows, smem_rows, stages, lag,
-               (2 * c + 3) / 4 * 4, vec ? 4 : 1};
+               (2 * c + 3) / 4 * 4, vec ? 4 : 1, esz};
   return 0;
+}
+
+// The cooperative launch of gn_silu_bwd_kernel<4 or 1, T> on filled arguments
+template <typename T>
+int bwd_launch(const BwdArgs& p, long smem, int slabs, void* stream) {
+  int coop = 0, sms = 0, per_sm = 0;
+  int rc = bwd_device(&sms, &coop);
+  if (rc) return rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  const bool vec = p.vec == 4;
+  rc = vec ? bwd_blocks_per_sm<4, T>(smem, &per_sm) : bwd_blocks_per_sm<1, T>(smem, &per_sm);
+  if (rc) return rc;
+  if ((long)per_sm * sms < slabs) return (int)cudaErrorCooperativeLaunchTooLarge;
+  BwdArgs q = p;
+  void* args[] = {&q};
+  const void* fn =
+      vec ? (const void*)gn_silu_bwd_kernel<4, T> : (const void*)gn_silu_bwd_kernel<1, T>;
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(slabs), dim3(kBwdThreads), args,
+                                                    (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -808,13 +894,14 @@ int mc_gn_silu_bf16(const __nv_bfloat16* x, const float* gamma, const float* bet
 int mc_gn_silu_bwd_occupancy(int c, int groups, int rows, int* stages, int* lag,
                              int* smem_rows, int* smem_bytes, int* per_sm, int* sms) {
   if (c < 1 || groups < 1 || c % groups || rows < 1) return (int)cudaErrorInvalidValue;
-  const long smem = bwd_ring(c, groups, rows, stages, lag, smem_rows);
+  const long smem = bwd_ring(c, groups, rows, 4, stages, lag, smem_rows);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
   int coop = 0;
   const int rc = bwd_device(sms, &coop);
   if (rc) return rc;
-  return c % 4 == 0 ? bwd_blocks_per_sm<4>(smem, per_sm) : bwd_blocks_per_sm<1>(smem, per_sm);
+  return c % 4 == 0 ? bwd_blocks_per_sm<4, float>(smem, per_sm)
+                    : bwd_blocks_per_sm<1, float>(smem, per_sm);
 }
 
 // x, g, dx (B, N, C); gamma, beta, sums, sumsq (the forward's statistics),
@@ -831,23 +918,23 @@ int mc_gn_silu_bwd(const float* x, const float* g, const float* gamma,
                    int slabs, int rows, void* stream) {
   BwdArgs p;
   long smem = 0;
-  int rc = bwd_args(x, g, gamma, beta, sums, sumsq, dgamma, dbeta, dx, scratch, sync, b,
-                    n, c, groups, eps, slabs, rows, &p, &smem);
-  if (rc) return rc;
-  int coop = 0, sms = 0, per_sm = 0;
-  rc = bwd_device(&sms, &coop);
-  if (rc) return rc;
-  if (!coop) return (int)cudaErrorNotSupported;
-  const bool vec = p.vec == 4;
-  rc = vec ? bwd_blocks_per_sm<4>(smem, &per_sm) : bwd_blocks_per_sm<1>(smem, &per_sm);
-  if (rc) return rc;
-  if ((long)per_sm * sms < slabs) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&p};
-  const void* fn = vec ? (const void*)gn_silu_bwd_kernel<4> : (const void*)gn_silu_bwd_kernel<1>;
-  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(slabs), dim3(kBwdThreads), args,
-                                                    (size_t)smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const int rc = bwd_args(x, g, gamma, beta, sums, sumsq, dgamma, dbeta, dx, scratch, sync,
+                          b, n, c, groups, eps, slabs, rows, 4, &p, &smem);
+  return rc ? rc : bwd_launch<float>(p, smem, slabs, stream);
+}
+
+// The bf16 instance: x, g, dx bf16 (C % 8 == 0, 16-byte aligned); the rest as
+// mc_gn_silu_bwd's.
+int mc_gn_silu_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* gamma,
+                        const float* beta, const float* sums, const float* sumsq,
+                        float* dgamma, float* dbeta, __nv_bfloat16* dx, float* scratch,
+                        unsigned* sync, int b, int n, int c, int groups, float eps,
+                        int slabs, int rows, void* stream) {
+  BwdArgs p;
+  long smem = 0;
+  const int rc = bwd_args(x, g, gamma, beta, sums, sumsq, dgamma, dbeta, dx, scratch, sync,
+                          b, n, c, groups, eps, slabs, rows, 2, &p, &smem);
+  return rc ? rc : bwd_launch<__nv_bfloat16>(p, smem, slabs, stream);
 }
 
 }  // extern "C"

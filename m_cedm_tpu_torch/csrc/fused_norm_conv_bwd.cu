@@ -114,8 +114,34 @@
 // mc_conv_wgrad_runs picks the runs per image to fill about two blocks an
 // SM in one wave; the scratch is then (B * runs) x 9 C O floats (9.4 MB at
 // the flagship's res-128 tail).
+//
+// bf16 (mc_conv_dgrad_bf16, mc_conv_wgrad_bf16): the kernels' instances on
+// bf16 x, g and w (template argument T), replacing _gnsc_bwd_kernel_a and
+// _up_pair_bwd_kernel on a bf16 network, where they round at these points:
+//   - the activation is recomputed in fp32 and rounded to bf16 before its
+//     products: K2 in _act_from_x's form, ((x - mean) * rstd) * gamma + beta
+//     then SiLU; K3 in _up_pair_bwd_kernel's folded form, x * (gamma * rstd)
+//     + (beta - gamma * rstd * mean) then SiLU;
+//   - dW, dbias and the conv input's cotangent ds are sums in fp32 of bf16
+//     products (exact in fp32);
+//   - dgrad's act mode forms da = ds * silu' and the dgamma, dbeta partials in
+//     fp32 and stores da rounded to bf16 (the linear mode stores ds rounded);
+//     the up-fold mode's ds stays fp32, as K3's does.
+// Both take their products as bf16 mma.sync.m16n8k16 (one where 3xTF32 takes
+// three TF32 products), from raw tiles staged as they are (16-byte cp.async,
+// eight values, where C and O are multiples of 8): no split pass. dgrad
+// (dgrad_kernel<mode, bf16>) reads A (pixel, o) and B (o, c) as 32-bit pairs,
+// since o pairs lie together in g (NHWC) and in w (HWIO). wgrad
+// (wgrad_bf16_kernel) contracts over pixels, the strided axis of both NHWC
+// operands, so ldmatrix.trans builds its fragments from [pixel][channel]
+// rows; its one pass over a tile is the activation. Bound at the res-128
+// tail: 19.3 GFLOP each of bf16 products, 0.020 ms at 989 TFLOP/s (bytes:
+// 0.010 ms).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -159,6 +185,61 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool v
                :: "r"(s), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
 }
 
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// two consecutive elements (pair: one aligned access; two: the second exists)
+__device__ __forceinline__ void load2(const float* p, bool pair, bool two, float& a,
+                                      float& b) {
+  if (pair) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a = v.x;
+    b = v.y;
+  } else {
+    a = p[0];
+    b = two ? p[1] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, bool pair, bool two, float& a,
+                                      float& b) {
+  if (pair) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    a = v.x;
+    b = v.y;
+  } else {
+    a = __bfloat162float(p[0]);
+    b = two ? __bfloat162float(p[1]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, bool pair, bool two, float a, float b) {
+  if (pair) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    if (two) p[1] = b;
+  }
+}
+
+// rounded once to bf16
+__device__ __forceinline__ void store2(__nv_bfloat16* p, bool pair, bool two, float a,
+                                       float b) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16_rn(a);
+    if (two) p[1] = __float2bfloat16_rn(b);
+  }
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -197,6 +278,8 @@ __device__ __forceinline__ void mean_rstd(const float* sums, const float* sumsq,
 bool aligned(const void* ptr, int bytes) {
   return ((uintptr_t)ptr & (uintptr_t)(bytes - 1)) == 0;
 }
+
+
 
 // out[s, k] = sum over i < n of part[s, i, k] for every slice s: each of
 // kSumGroups threads of a column adds every kSumGroups-th row in order, then
@@ -249,17 +332,20 @@ constexpr int kSplitB = 9 * 8 * 32 * 4;   // the split weight plane
 constexpr int kDSmemFloats = 2 * (kRawG + kRawW) + kSplitA + kSplitB + 4 * kBC;
 constexpr size_t kDSmemBytes = sizeof(float) * kDSmemFloats;
 
+// pixel tiles per image of the dgrad kernel (h, w the cotangent's)
+int dgrad_tiles(int h, int wd) { return ((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW); }
+
 enum DgradMode { kLinear = 0, kAct = 1, kUpFold = 2 };
 
 struct DgradArgs {
-  const float* g;      // (B, H, W, O) cotangent of the conv output
-  const float* w;      // (3, 3, C, O) forward weight
-  const float* x;      // (B, H, W, C) forward input (kAct)
+  const void* g;       // (B, H, W, O) cotangent of the conv output
+  const void* w;       // (3, 3, C, O) forward weight
+  const void* x;       // (B, H, W, C) forward input (kAct); g, w, x of type T
   const float* gamma;  // (B, C) folded scale and shift (kAct)
   const float* beta;
   const float* sums;   // (B, C) the forward's channel sums of x (kAct)
   const float* sumsq;
-  float* out;          // da (B, H, W, C); kUpFold: (B, H, W / 2, C)
+  void* out;           // da (B, H, W, C) of type T; kUpFold: fp32 (B, H, W / 2, C)
   float* part;         // kAct: (2, B, tiles, C) per-block dgamma, dbeta
   int H, W, C, O, groups;
   float eps;
@@ -274,14 +360,15 @@ __device__ __forceinline__ void dg_load_chunk(const DgradArgs& p, int q, float* 
                                               float* rw, int b, int ty0, int tx0,
                                               int c0, int tid) {
   const int o0 = q * kCK, O = p.O, C = p.C;
-  const float* gb = p.g + (size_t)b * p.H * p.W * O;
+  const float* gb = static_cast<const float*>(p.g) + (size_t)b * p.H * p.W * O;
+  const float* w = static_cast<const float*>(p.w);
   if (p.gvec) {
     for (int idx = tid; idx < kPos * 2; idx += kThreads) {
       const int h = idx & 1, pos = idx >> 1;
       const int y = ty0 - 1 + pos / kIW, x = tx0 - 1 + pos % kIW, o = o0 + 4 * h;
       const bool valid = y >= 0 && y < p.H && x >= 0 && x < p.W && o < O;
       cp_async16(rg + pos * kXS + 4 * h,
-                 valid ? gb + ((size_t)y * p.W + x) * O + o : p.g, valid);
+                 valid ? gb + ((size_t)y * p.W + x) * O + o : gb, valid);
     }
   } else {
     for (int idx = tid; idx < kPos * kCK; idx += kThreads) {
@@ -289,7 +376,7 @@ __device__ __forceinline__ void dg_load_chunk(const DgradArgs& p, int q, float* 
       const int y = ty0 - 1 + pos / kIW, x = tx0 - 1 + pos % kIW, o = o0 + k;
       const bool valid = y >= 0 && y < p.H && x >= 0 && x < p.W && o < O;
       cp_async4(rg + pos * kXS + k,
-                valid ? gb + ((size_t)y * p.W + x) * O + o : p.g, valid);
+                valid ? gb + ((size_t)y * p.W + x) * O + o : gb, valid);
     }
   }
   if (p.wvec) {
@@ -298,7 +385,7 @@ __device__ __forceinline__ void dg_load_chunk(const DgradArgs& p, int q, float* 
       const int tap = row / kBC, cc = row % kBC, c = c0 + cc, o = o0 + 4 * h;
       const bool valid = c < C && o < O;
       cp_async16(rw + row * kCK + 4 * (h ^ ((cc >> 2) & 1)),
-                 valid ? p.w + ((size_t)(8 - tap) * C + c) * O + o : p.w, valid);
+                 valid ? w + ((size_t)(8 - tap) * C + c) * O + o : w, valid);
     }
   } else {
     for (int idx = tid; idx < 9 * kBC * kCK; idx += kThreads) {
@@ -306,7 +393,7 @@ __device__ __forceinline__ void dg_load_chunk(const DgradArgs& p, int q, float* 
       const int tap = row / kBC, cc = row % kBC, c = c0 + cc, o = o0 + k;
       const bool valid = c < C && o < O;
       cp_async4(rw + row * kCK + (k ^ (cc & 4)),
-                valid ? p.w + ((size_t)(8 - tap) * C + c) * O + o : p.w, valid);
+                valid ? w + ((size_t)(8 - tap) * C + c) * O + o : w, valid);
     }
   }
 }
@@ -320,6 +407,7 @@ __device__ __forceinline__ void dg_split_g(const float* rg, float* sa, int tid) 
   }
 }
 
+
 // The weight plane in B-fragment order: (tap, n-tile, lane) holds (hi, lo) of
 // b0 = W'[k = t][n = g] and b1 = W'[k = t + 4][n = g], W'[k][n] = the raw row
 // (tap, n)'s entry k (its halves swapped back).
@@ -332,6 +420,7 @@ __device__ __forceinline__ void dg_split_w(const float* rw, float* sb, int tid) 
     store_split(sb + 4 * idx, r[t ^ sw], r[(t + 4) ^ sw]);
   }
 }
+
 
 // One chunk's nine taps on the warp's two m-tiles x four n-tiles:
 // kTempSteps taps into a zeroed fragment, then one fp32 add into acc (the
@@ -400,17 +489,110 @@ __device__ __forceinline__ void dg_mma_chunk(const float* sa, const float* sb,
   }
 }
 
-template <int kMode>
+// The bf16 dgrad: one bf16 mma.sync.m16n8k16 a k-step of 16 cotangent
+// channels, its A and B fragments read as 32-bit pairs straight from the raw
+// tiles (no split pass): A (pixel, o) is the cotangent, whose channel pairs
+// lie together in NHWC; B (o, c) is the transposed weight, whose o pairs lie
+// together in HWIO. A position of the halo'd cotangent tile and a weight row
+// (tap, c) hold 16 values in 48 bytes, so the eight rows a fragment load
+// touches start 12 words apart and a warp's 32 words fall on 32 banks.
+constexpr int kCK16 = 16;   // cotangent channels a bf16 chunk
+constexpr int kRS16 = 24;   // bf16 values a staged position or weight row
+constexpr int kRawG16 = kPos * kRS16;
+constexpr int kRawW16 = 9 * kBC * kRS16;
+static_assert(2 * 2 * (kRawG16 + kRawW16) <= 4 * (2 * (kRawG + kRawW) + kSplitA + kSplitB),
+              "the bf16 stages fit below the statistics of the fp32 layout");
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Cotangent channels o0 .. o0 + 15 into one raw bf16 stage: the halo'd tile
+// of g (zero outside the image and past O) and the rows (tap, cc) = w[8 -
+// tap][c0 + cc][o0 .. o0 + 15] of the nine transposed taps; two 16-byte
+// copies a position or row where O % 8 == 0, element loads otherwise.
+__device__ __forceinline__ void dg16_load_chunk(const DgradArgs& p, int q, __nv_bfloat16* rg,
+                                                __nv_bfloat16* rw, int b, int ty0, int tx0,
+                                                int c0, int tid) {
+  const int o0 = q * kCK16, O = p.O, C = p.C;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const __nv_bfloat16* gb =
+      static_cast<const __nv_bfloat16*>(p.g) + (size_t)b * p.H * p.W * O;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
+  for (int idx = tid; idx < kPos * 2; idx += kThreads) {
+    const int h = idx & 1, pos = idx >> 1;
+    const int y = ty0 - 1 + pos / kIW, x = tx0 - 1 + pos % kIW, o = o0 + 8 * h;
+    const bool inside = y >= 0 && y < p.H && x >= 0 && x < p.W;
+    const __nv_bfloat16* src = gb + ((size_t)y * p.W + x) * O + o;
+    __nv_bfloat16* dst = rg + pos * kRS16 + 8 * h;
+    if (p.gvec) {
+      cp_async16(dst, inside && o < O ? src : gb, inside && o < O);
+    } else {
+      for (int k = 0; k < 8; ++k) dst[k] = inside && o + k < O ? src[k] : zero;
+    }
+  }
+  for (int idx = tid; idx < 9 * kBC * 2; idx += kThreads) {
+    const int h = idx & 1, row = idx >> 1;
+    const int tap = row / kBC, c = c0 + row % kBC, o = o0 + 8 * h;
+    const __nv_bfloat16* src = w + ((size_t)(8 - tap) * C + c) * O + o;
+    __nv_bfloat16* dst = rw + row * kRS16 + 8 * h;
+    if (p.wvec) {
+      cp_async16(dst, c < C && o < O ? src : w, c < C && o < O);
+    } else {
+      for (int k = 0; k < 8; ++k) dst[k] = c < C && o + k < O ? src[k] : zero;
+    }
+  }
+}
+
+// One chunk's nine taps on the warp's two m-tiles (pixel rows 2 rg + m, the
+// A rows pixels g and g + 8) x four n-tiles (input channels 32 cq + 8 j + g),
+// summed into acc on the tensor cores.
+__device__ __forceinline__ void dg16_mma_chunk(const __nv_bfloat16* rg,
+                                               const __nv_bfloat16* rw,
+                                               float (&acc)[2][4][4], int rgi, int cq,
+                                               int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int s = 0; s < 9; ++s) {
+    const int dy = s / 3, dx = s % 3;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const __nv_bfloat16* p0 = rg + ((2 * rgi + m + dy) * kIW + g + dx) * kRS16 + 2 * t;
+      const __nv_bfloat16* p8 = p0 + 8 * kRS16;
+      a[m][0] = ld_pair(p0);
+      a[m][1] = ld_pair(p8);
+      a[m][2] = ld_pair(p0 + 8);
+      a[m][3] = ld_pair(p8 + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat16* pb = rw + (s * kBC + 32 * cq + 8 * j + g) * kRS16 + 2 * t;
+      const uint32_t b0 = ld_pair(pb), b1 = ld_pair(pb + 8);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma_bf16(acc[m][j], a[m], b0, b1);
+    }
+  }
+}
+
+template <int kMode, typename T>
 __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  float* rg = smem;              // [2][kRawG] raw cotangent stages
-  float* rw = rg + 2 * kRawG;    // [2][kRawW] raw weight stages
-  float* sa = rw + 2 * kRawW;    // the split cotangent plane
-  float* sb = sa + kSplitA;      // the split weight plane
-  float* s_mean = sb + kSplitB;  // [kBC] each: mean, rstd, gamma, beta (kAct)
-  float* s_rstd = s_mean + kBC;
-  float* s_gam = s_rstd + kBC;
-  float* s_bet = s_gam + kBC;
+  // fp32: [2][kRawG] raw cotangent stages, [2][kRawW] raw weight stages;
+  // bf16: [2][kRawG16], then [2][kRawW16] bf16 values from the same start
+  float* rg = smem;
+  float* rw = rg + 2 * kRawG;
+  __nv_bfloat16* rg16 = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* rw16 = rg16 + 2 * kRawG16;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -421,8 +603,16 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
   const int C = p.C;
   const int nq = (p.O + kCK - 1) / kCK;
 
-  dg_load_chunk(p, 0, rg, rw, b, ty0, tx0, c0, tid);
+  const int nq16 = (p.O + kCK16 - 1) / kCK16;
+  if (kExact) dg16_load_chunk(p, 0, rg16, rw16, b, ty0, tx0, c0, tid);
+  else dg_load_chunk(p, 0, rg, rw, b, ty0, tx0, c0, tid);
   cp_commit();
+  float* sa = smem + 2 * (kRawG + kRawW);  // the split cotangent plane
+  float* sb = sa + kSplitA;                // the split weight plane
+  float* s_mean = sb + kSplitB;            // [kBC] each: mean, rstd, gamma, beta (kAct)
+  float* s_rstd = s_mean + kBC;
+  float* s_gam = s_rstd + kBC;
+  float* s_bet = s_gam + kBC;
 
   if (kMode == kAct && tid < kBC && c0 + tid < C) {
     const int ch = c0 + tid;
@@ -443,18 +633,32 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
 
-  for (int q = 0; q < nq; ++q) {
-    const int st = q & 1;
-    if (q + 1 < nq)
-      dg_load_chunk(p, q + 1, rg + (st ^ 1) * kRawG, rw + (st ^ 1) * kRawW, b, ty0,
-                    tx0, c0, tid);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();  // chunk q has landed; every warp is done with q - 1's planes
-    dg_split_g(rg + st * kRawG, sa, tid);
-    dg_split_w(rw + st * kRawW, sb, tid);
-    __syncthreads();
-    dg_mma_chunk(sa, sb, acc, rg_, cq, lane);
+  if (kExact) {
+    for (int q = 0; q < nq16; ++q) {
+      const int st = q & 1;
+      if (q + 1 < nq16)
+        dg16_load_chunk(p, q + 1, rg16 + (st ^ 1) * kRawG16, rw16 + (st ^ 1) * kRawW16, b,
+                        ty0, tx0, c0, tid);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();  // chunk q has landed
+      dg16_mma_chunk(rg16 + st * kRawG16, rw16 + st * kRawW16, acc, rg_, cq, lane);
+      __syncthreads();  // every warp is done with stage st before it is refilled
+    }
+  } else {
+    for (int q = 0; q < nq; ++q) {
+      const int st = q & 1;
+      if (q + 1 < nq)
+        dg_load_chunk(p, q + 1, rg + (st ^ 1) * kRawG, rw + (st ^ 1) * kRawW, b, ty0,
+                      tx0, c0, tid);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();  // chunk q has landed; every warp is done with q - 1's planes
+      dg_split_g(rg + st * kRawG, sa, tid);
+      dg_split_w(rw + st * kRawW, sb, tid);
+      __syncthreads();
+      dg_mma_chunk(sa, sb, acc, rg_, cq, lane);
+    }
   }
   cp_wait<0>();
 
@@ -483,12 +687,8 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
         for (int j = 0; j < 4; ++j) {
           const int c = c0 + 32 * cq + 8 * j + 2 * t;
           if (c >= C) continue;
-          if (p.pair) {
-            *reinterpret_cast<float2*>(p.out + pix * C + c) = make_float2(v[j][0], v[j][1]);
-          } else {
-            p.out[pix * C + c] = v[j][0];
-            if (c + 1 < C) p.out[pix * C + c + 1] = v[j][1];
-          }
+          store2(static_cast<float*>(p.out) + pix * C + c, p.pair, c + 1 < C, v[j][0],
+                 v[j][1]);
         }
       }
     }
@@ -513,15 +713,8 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
         const bool two = c + 1 < C;
         float v0 = acc[m][j][2 * h], v1 = acc[m][j][2 * h + 1];
         if (kMode == kAct) {
-          float x0, x1 = 0.f;
-          if (p.pair) {
-            const float2 xv = *reinterpret_cast<const float2*>(p.x + pix * C + c);
-            x0 = xv.x;
-            x1 = xv.y;
-          } else {
-            x0 = p.x[pix * C + c];
-            if (two) x1 = p.x[pix * C + c + 1];
-          }
+          float x0, x1;
+          load2(static_cast<const T*>(p.x) + pix * C + c, p.pair, two, x0, x1);
           const float xh0 = (x0 - s_mean[cl]) * s_rstd[cl];
           const float a0 = xh0 * s_gam[cl] + s_bet[cl];
           const float sg0 = sigmoid(a0);
@@ -537,12 +730,8 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
             pdb[j][1] += v1;
           }
         }
-        if (p.pair) {
-          *reinterpret_cast<float2*>(p.out + pix * C + c) = make_float2(v0, v1);
-        } else {
-          p.out[pix * C + c] = v0;
-          if (two) p.out[pix * C + c + 1] = v1;
-        }
+        // bf16: da stored rounded once (dgamma, dbeta above from the fp32 da)
+        store2(static_cast<T*>(p.out) + pix * C + c, p.pair, two, v0, v1);
       }
     }
   }
@@ -614,8 +803,8 @@ static_assert(kWSteps % kWTempSteps == 0, "partials tile a tile");
 static_assert(kWPix / kWTW * 2 == kWSteps, "a k-step is half a tile row");
 
 struct WgradArgs {
-  const float* x;      // (B, Hin, Win, C) conv input before the activation
-  const float* g;      // (B, H, W, O) cotangent of the conv output
+  const void* x;       // (B, Hin, Win, C) conv input before the activation
+  const void* g;       // (B, H, W, O) cotangent of the conv output (x, g fp32 or bf16)
   const float* gamma;  // (B, C) folded scale and shift, unused when act == 0
   const float* beta;
   const float* sums;   // (B, C) the forward's channel sums of x
@@ -639,7 +828,8 @@ __device__ __forceinline__ void wg_load_tile(const WgradArgs& p, float* rx, floa
   const int cols = kUp ? kWLW : kWIW, npos = kUp ? kWLH * kWLW : kWPos;
   const int y0 = kUp ? ty0 / 2 - 1 : ty0 - 1, x0 = kUp ? tx0 / 2 - 1 : tx0 - 1;
   const bool one = p.taps == 1;
-  const float* xb = p.x + (size_t)b * hin * win * C;
+  const float* px_ = static_cast<const float*>(p.x);
+  const float* xb = px_ + (size_t)b * hin * win * C;
   if (p.xvec) {
     for (int idx = tid; idx < npos * (kWC / 4); idx += kWThreads) {
       const int h = idx % (kWC / 4), pos = idx / (kWC / 4);
@@ -648,7 +838,7 @@ __device__ __forceinline__ void wg_load_tile(const WgradArgs& p, float* rx, floa
       const bool halo = one && (iy == 0 || iy == kWIH - 1 || ix == 0 || ix == kWIW - 1);
       const bool valid = !halo && y >= 0 && y < hin && x >= 0 && x < win && c < C;
       cp_async16(rx + pos * kWRS + 4 * h,
-                 valid ? xb + ((size_t)y * win + x) * C + c : p.x, valid);
+                 valid ? xb + ((size_t)y * win + x) * C + c : px_, valid);
     }
   } else {
     for (int idx = tid; idx < npos * kWC; idx += kWThreads) {
@@ -658,17 +848,17 @@ __device__ __forceinline__ void wg_load_tile(const WgradArgs& p, float* rx, floa
       const bool halo = one && (iy == 0 || iy == kWIH - 1 || ix == 0 || ix == kWIW - 1);
       const bool valid = !halo && y >= 0 && y < hin && x >= 0 && x < win && c < C;
       cp_async4(rx + pos * kWRS + k,
-                valid ? xb + ((size_t)y * win + x) * C + c : p.x, valid);
+                valid ? xb + ((size_t)y * win + x) * C + c : px_, valid);
     }
   }
-  const float* gb = p.g + (size_t)b * p.H * p.W * O;
+  const float* gb = static_cast<const float*>(p.g) + (size_t)b * p.H * p.W * O;
   if (p.gvec) {
     for (int idx = tid; idx < kWPix * (kWO / 4); idx += kWThreads) {
       const int h = idx % (kWO / 4), px = idx / (kWO / 4);
       const int y = ty0 + px / kWTW, x = tx0 + px % kWTW, o = o0 + 4 * h;
       const bool valid = y < p.H && x < p.W && o < O;
       cp_async16(rgt + px * kWRS + 4 * h,
-                 valid ? gb + ((size_t)y * p.W + x) * O + o : p.g, valid);
+                 valid ? gb + ((size_t)y * p.W + x) * O + o : gb, valid);
     }
   } else {
     for (int idx = tid; idx < kWPix * kWO; idx += kWThreads) {
@@ -676,7 +866,7 @@ __device__ __forceinline__ void wg_load_tile(const WgradArgs& p, float* rx, floa
       const int y = ty0 + px / kWTW, x = tx0 + px % kWTW, o = o0 + k;
       const bool valid = y < p.H && x < p.W && o < O;
       cp_async4(rgt + px * kWRS + k,
-                valid ? gb + ((size_t)y * p.W + x) * O + o : p.g, valid);
+                valid ? gb + ((size_t)y * p.W + x) * O + o : gb, valid);
     }
   }
 }
@@ -792,6 +982,79 @@ __device__ __forceinline__ void wg_flush(float* sacc, float (&part)[2][4][4], in
     }
 }
 
+// The run's partial dW from the warps' fp32 sums in sacc ([warp][8][lane][4]
+// floats, entry 4 q + e of the flattened [m][j][e]), and dbias from the sums
+// of g: fp32, the threads below 256 each hold one output channel's in gsum
+// (two threads 128 apart a channel, each over its lanes t = 0..3); bf16, the
+// threads below kWO each hold one channel's whole sum. red: kWO * 2 free floats.
+template <bool kBf16>
+__device__ __forceinline__ void wg_store(const WgradArgs& p, float* sacc, float* red, int b,
+                                         int run, int c0, int o0, int tid, float gsum) {
+  const int C = p.C, O = p.O, warp = tid >> 5, lane = tid & 31;
+  const bool one = p.taps == 1;
+  float* my_acc = sacc + warp * 32 * 32;
+  // the run's partial dW: entry (m, j, e) of a lane is channel c0 + 16 m + g
+  // (+ 8 for e >= 2) and output o0 + 8 j + 2t (+ 1 for odd e)
+  float* out = p.part + (size_t)(b * p.runs + run) *
+                            ((size_t)p.taps * C * O + (p.bias ? O : 0));
+  if (one) {
+    // the nine warps' sums of the same outputs, added in warp order
+    __syncthreads();
+    if (tid < 2 * 4 * 32) {
+      float4 v = *reinterpret_cast<const float4*>(sacc + tid * 4);
+      for (int w = 1; w < kWWarps; ++w) {
+        const float4 u = *reinterpret_cast<const float4*>(sacc + w * 1024 + tid * 4);
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(sacc + tid * 4) = v;
+    }
+    __syncthreads();
+  }
+  if (!one || warp == 0) {
+    const int g = lane >> 2, t = lane & 3;
+    const int tap = one ? 0 : warp;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(my_acc + ((m * 4 + j) * 32 + lane) * 4);
+        const int o = o0 + 8 * j + 2 * t;
+        if (o >= O) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + 16 * m + g + 8 * h;
+          if (c >= C) continue;
+          float* dst = out + ((size_t)tap * C + c) * O + o;
+          const float v0 = h ? v.z : v.x, v1 = h ? v.w : v.y;
+          if (p.pair) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (o + 1 < O) dst[1] = v1;
+          }
+        }
+      }
+  }
+  if (p.bias && c0 == 0) {
+    float total = gsum;
+    if (!kBf16) {
+      // the sums of one output channel are held by the lanes t = 0..3 of two
+      // threads 128 apart; add them in a fixed order
+      gsum += __shfl_xor_sync(0xffffffffu, gsum, 1);
+      gsum += __shfl_xor_sync(0xffffffffu, gsum, 2);
+      __syncthreads();
+      if (tid < 256 && (tid & 3) == 0)
+        red[(tid >> 7) * 32 + ((tid >> 5) & 3) * 8 + ((tid & 31) >> 2)] = gsum;
+      __syncthreads();
+      if (tid < kWO) total = red[tid] + red[32 + tid];
+    }
+    if (tid < kWO && o0 + tid < O) out[(size_t)p.taps * C * O + o0 + tid] = total;
+  }
+}
+
 template <bool kUp>
 __global__ void __launch_bounds__(kWThreads, 2) wgrad_kernel(const WgradArgs p) {
   extern __shared__ __align__(16) float smem[];
@@ -878,64 +1141,223 @@ __global__ void __launch_bounds__(kWThreads, 2) wgrad_kernel(const WgradArgs p) 
   }
   cp_wait<0>();
 
-  // the run's partial dW: entry (m, j, e) of a lane is channel c0 + 16 m + g
-  // (+ 8 for e >= 2) and output o0 + 8 j + 2t (+ 1 for odd e)
-  float* out = p.part + (size_t)(b * p.runs + run) *
-                            ((size_t)p.taps * C * O + (p.bias ? O : 0));
-  if (one) {
-    // the nine warps' sums of the same outputs, added in warp order
-    __syncthreads();
-    if (tid < 2 * 4 * 32) {
-      float4 v = *reinterpret_cast<const float4*>(sacc + tid * 4);
-      for (int w = 1; w < kWWarps; ++w) {
-        const float4 u = *reinterpret_cast<const float4*>(sacc + w * 1024 + tid * 4);
-        v.x += u.x;
-        v.y += u.y;
-        v.z += u.z;
-        v.w += u.w;
+  wg_store<false>(p, sacc, pa, b, run, c0, o0, tid, gsum);
+}
+
+
+// ---------------------------------------------------------------------------
+// wgrad in bf16: bf16 mma.sync.m16n8k16 with ldmatrix.trans fragments
+// ---------------------------------------------------------------------------
+//
+// The same GEMM (M = 32 input channels, N = 32 output channels a block, K =
+// the pixels; warp w tap w, or for one tap the k-steps dealt round the
+// warps), one k-step a tile row of 16 pixels. Both operands lie in shared
+// memory as [pixel][channel] rows of bf16 (40 values, 80 bytes, so the eight
+// rows of an 8 x 8 matrix fall on distinct banks), and ldmatrix.trans turns
+// each 8 x 8 block into the fragment that pairs two pixels of one channel:
+// A (channel, pixel) from the activated tile at the tap's shifted pixels, B
+// (pixel, o) from the raw cotangent tile. The activation pass (GroupNorm and
+// SiLU in fp32, rounded to bf16; zero outside the image) is the only pass
+// over a tile; the linear mode reads the raw x tile itself. Raw tiles are
+// double-buffered, so tile i + 1 lands while tile i is multiplied; the sums
+// stay in registers. Per-thread sums of g give dbias (threads below kWO, one
+// output channel each, in pixel order).
+constexpr int kW16Pos = kWPos * kWRS;  // bf16 values of an activated or raw x tile
+constexpr int kW16Pix = kWPix * kWRS;  // of a raw g tile
+constexpr size_t kW16SmemBytes =
+    2 * (2 * (kW16Pos + kW16Pix) + kW16Pos) + 4 * (kWAcc + 4 * kWC);
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// The raw bf16 tiles of tile (ty0, tx0) into a stage, as wg_load_tile's fp32
+// ones: kWRS values a position (pixel), 16 bytes (eight values) a copy where
+// C (O) % 8 == 0, element loads otherwise; zero outside the image, past C
+// and past O.
+template <bool kUp>
+__device__ __forceinline__ void wg_load_tile(const WgradArgs& p, __nv_bfloat16* rx,
+                                             __nv_bfloat16* rgt, int b, int ty0, int tx0,
+                                             int c0, int o0, int tid) {
+  const int C = p.C, O = p.O;
+  const int hin = kUp ? p.H / 2 : p.H, win = kUp ? p.W / 2 : p.W;
+  const int cols = kUp ? kWLW : kWIW, npos = kUp ? kWLH * kWLW : kWPos;
+  const int y0 = kUp ? ty0 / 2 - 1 : ty0 - 1, x0 = kUp ? tx0 / 2 - 1 : tx0 - 1;
+  const bool one = p.taps == 1;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(p.x) + (size_t)b * hin * win * C;
+  const int xper = p.xvec ? kWC / 8 : kWC;  // copies a position
+  for (int idx = tid; idx < npos * xper; idx += kWThreads) {
+    const int h = idx % xper, pos = idx / xper;
+    const int iy = pos / cols, ix = pos % cols;
+    const int y = y0 + iy, x = x0 + ix, c = c0 + (p.xvec ? 8 * h : h);
+    const bool halo = one && (iy == 0 || iy == kWIH - 1 || ix == 0 || ix == kWIW - 1);
+    const bool valid = !halo && y >= 0 && y < hin && x >= 0 && x < win && c < C;
+    const __nv_bfloat16* src = xb + ((size_t)y * win + x) * C + c;
+    if (p.xvec) cp_async16(rx + pos * kWRS + 8 * h, valid ? src : xb, valid);
+    else rx[pos * kWRS + h] = valid ? *src : zero;
+  }
+  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(p.g) + (size_t)b * p.H * p.W * O;
+  const int gper = p.gvec ? kWO / 8 : kWO;
+  for (int idx = tid; idx < kWPix * gper; idx += kWThreads) {
+    const int h = idx % gper, px = idx / gper;
+    const int y = ty0 + px / kWTW, x = tx0 + px % kWTW, o = o0 + (p.gvec ? 8 * h : h);
+    const bool valid = y < p.H && x < p.W && o < O;
+    const __nv_bfloat16* src = gb + ((size_t)y * p.W + x) * O + o;
+    if (p.gvec) cp_async16(rgt + px * kWRS + 8 * h, valid ? src : gb, valid);
+    else rgt[px * kWRS + h] = valid ? *src : zero;
+  }
+}
+
+// The activated tile: act(x) at every halo'd position of the output tile (K3:
+// of the upsampled low-res tile), zero outside the image and past C, rounded
+// to bf16; K2 in _act_from_x's form, K3 in the folded form, two channels a
+// thread-item.
+template <bool kUp>
+__device__ __forceinline__ void wg16_activate(const WgradArgs& p, const __nv_bfloat16* rx,
+                                              __nv_bfloat16* act, const float* s_a,
+                                              const float* s_b, const float* s_m,
+                                              const float* s_r, int ty0, int tx0, int c0,
+                                              int tid) {
+  for (int idx = tid; idx < kWPos * kWC / 2; idx += kWThreads) {
+    const int cl = 2 * (idx % (kWC / 2)), pos = idx / (kWC / 2);
+    const int iy = pos / kWIW, ix = pos % kWIW;
+    const int y = ty0 - 1 + iy, x = tx0 - 1 + ix;
+    float v[2] = {0.f, 0.f};
+    if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
+      const int rpos = kUp ? ((y >> 1) - (ty0 / 2 - 1)) * kWLW + (x >> 1) - (tx0 / 2 - 1)
+                           : pos;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(rx + rpos * kWRS + cl));
+      const float xs[2] = {xv.x, xv.y};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = cl + k;
+        const float t = kUp ? xs[k] * s_a[c] + s_b[c]
+                            : ((xs[k] - s_m[c]) * s_r[c]) * s_a[c] + s_b[c];
+        v[k] = c0 + c < p.C ? t * sigmoid(t) : 0.f;
       }
-      *reinterpret_cast<float4*>(sacc + tid * 4) = v;
     }
-    __syncthreads();
+    *reinterpret_cast<__nv_bfloat162*>(act + pos * kWRS + cl) = __floats2bfloat162_rn(v[0], v[1]);
   }
-  if (!one || warp == 0) {
-    const int g = lane >> 2, t = lane & 3;
-    const int tap = one ? 0 : warp;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(my_acc + ((m * 4 + j) * 32 + lane) * 4);
-        const int o = o0 + 8 * j + 2 * t;
-        if (o >= O) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = c0 + 16 * m + g + 8 * h;
-          if (c >= C) continue;
-          float* dst = out + ((size_t)tap * C + c) * O + o;
-          const float v0 = h ? v.z : v.x, v1 = h ? v.w : v.y;
-          if (p.pair) {
-            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-          } else {
-            dst[0] = v0;
-            if (o + 1 < O) dst[1] = v1;
-          }
-        }
+}
+
+template <bool kUp>
+__global__ void __launch_bounds__(kWThreads, 2) wgrad_bf16_kernel(const WgradArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  __nv_bfloat16* rx = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] raw x stages
+  __nv_bfloat16* rgt = rx + 2 * kW16Pos;                        // [2] raw g stages
+  __nv_bfloat16* act = rgt + 2 * kW16Pix;                       // the activated tile
+  float* sacc = reinterpret_cast<float*>(act + kW16Pos);        // the warps' sums
+  float* s_a = sacc + kWAcc;  // [kWC] K2: gamma, K3: the folded scale
+  float* s_b = s_a + kWC;     // K2: beta, K3: the folded shift
+  float* s_m = s_b + kWC;     // K2: mean
+  float* s_r = s_m + kWC;     // K2: rstd
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int C = p.C, O = p.O;
+  const int oslices = (O + kWO - 1) / kWO, cslices = (C + kWC - 1) / kWC;
+  int blk = blockIdx.x;
+  const int o0 = (blk % oslices) * kWO;
+  blk /= oslices;
+  const int c0 = (blk % cslices) * kWC;
+  blk /= cslices;
+  const int run = blk % p.runs, b = blk / p.runs;
+  const int tiles_w = (p.W + kWTW - 1) / kWTW;
+  const int tiles = ((p.H + kWTH - 1) / kWTH) * tiles_w;
+  const int per = (tiles + p.runs - 1) / p.runs;
+  const int t_begin = run * per, t_end = min(tiles, t_begin + per);
+
+  if (t_begin < t_end)
+    wg_load_tile<kUp>(p, rx, rgt, b, (t_begin / tiles_w) * kWTH,
+                      (t_begin % tiles_w) * kWTW, c0, o0, tid);
+  cp_commit();
+
+  if (p.act && tid < kWC) {
+    float a = 0.f, sh = 0.f, mean = 0.f, rstd = 0.f;
+    if (c0 + tid < C) {
+      const int hin = kUp ? p.H / 2 : p.H, win = kUp ? p.W / 2 : p.W;
+      const float cnt = (float)hin * (float)win * (float)(C / p.groups);
+      mean_rstd(p.sums, p.sumsq, b, C, c0 + tid, p.groups, cnt, p.eps, &mean, &rstd);
+      a = p.gamma[b * C + c0 + tid];
+      sh = p.beta[b * C + c0 + tid];
+      if (kUp) {  // folded, as _up_pair_bwd_kernel
+        sh -= a * rstd * mean;
+        a *= rstd;
       }
+    }
+    s_a[tid] = a;
+    s_b[tid] = sh;
+    s_m[tid] = mean;
+    s_r[tid] = rstd;
   }
-  if (p.bias && c0 == 0) {
-    // dbias: the sums of one output channel are held by the lanes t = 0..3
-    // of two threads 128 apart; add them in a fixed order
-    gsum += __shfl_xor_sync(0xffffffffu, gsum, 1);
-    gsum += __shfl_xor_sync(0xffffffffu, gsum, 2);
-    __syncthreads();
-    float* red = pa;  // the planes are free
-    if (tid < 256 && (tid & 3) == 0)
-      red[(tid >> 7) * 32 + ((tid >> 5) & 3) * 8 + ((tid & 31) >> 2)] = gsum;
-    __syncthreads();
-    if (tid < kWO && o0 + tid < O)
-      out[(size_t)p.taps * C * O + o0 + tid] = red[tid] + red[32 + tid];
+
+  const bool one = p.taps == 1;
+  const int dy = one ? 1 : warp / 3, dx = one ? 1 : warp % 3;
+  const int mat = lane >> 3, mi = lane & 7;  // the ldmatrix row this lane addresses
+  float acc[2][4][4] = {};
+  float gsum = 0.f;
+  int kbase = 0;  // k-steps of the run before this tile
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int st = (tile - t_begin) & 1;
+    const int ty0 = (tile / tiles_w) * kWTH, tx0 = (tile % tiles_w) * kWTW;
+    if (tile + 1 < t_end)
+      wg_load_tile<kUp>(p, rx + (st ^ 1) * kW16Pos, rgt + (st ^ 1) * kW16Pix, b,
+                        ((tile + 1) / tiles_w) * kWTH, ((tile + 1) % tiles_w) * kWTW, c0,
+                        o0, tid);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // tile's raw stages have landed
+    const __nv_bfloat16* xs = rx + st * kW16Pos;
+    const __nv_bfloat16* gs = rgt + st * kW16Pix;
+    if (p.act) {
+      wg16_activate<kUp>(p, xs, act, s_a, s_b, s_m, s_r, ty0, tx0, c0, tid);
+      __syncthreads();
+      xs = act;
+    }
+    const int nsteps = min(kWTH, p.H - ty0);  // rows past the image add nothing
+    if (tid < kWO) {
+      for (int px = 0; px < nsteps * kWTW; ++px) gsum += to_f(gs[px * kWRS + tid]);
+    }
+#pragma unroll 1
+    for (int s = 0; s < nsteps; ++s) {
+      if (one && (kbase + s) % kWWarps != warp) continue;  // one tap: round the warps
+      // A rows: pixel mi + 8 (mat >> 1) of row s shifted by the tap, channels
+      // 16 m + 8 (mat & 1); B rows: pixel mi + 8 (mat & 1) of row s, outputs
+      // 8 (2 jj + (mat >> 1))
+      uint32_t a[2][4], bb[2][4];
+      const int apos = (s + dy) * kWIW + mi + 8 * (mat >> 1) + dx;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        ldsm_x4_trans(a[m], xs + apos * kWRS + 16 * m + 8 * (mat & 1));
+      const int bpix = s * kWTW + mi + 8 * (mat & 1);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        ldsm_x4_trans(bb[jj], gs + bpix * kWRS + 8 * (2 * jj + (mat >> 1)));
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          mma_bf16(acc[m][2 * jj], a[m], bb[jj][0], bb[jj][1]);
+          mma_bf16(acc[m][2 * jj + 1], a[m], bb[jj][2], bb[jj][3]);
+        }
+    }
+    kbase += nsteps;
+    __syncthreads();  // every warp is done with this tile's stages
   }
+  cp_wait<0>();
+
+  float* my_acc = sacc + warp * 32 * 32;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(my_acc + ((m * 4 + j) * 32 + lane) * 4) =
+          make_float4(acc[m][j][0], acc[m][j][1], acc[m][j][2], acc[m][j][3]);
+  wg_store<true>(p, sacc, s_a, b, run, c0, o0, tid, gsum);
 }
 
 // ---------------------------------------------------------------------------
@@ -956,7 +1378,7 @@ constexpr int kNThreads = kNO * kNGroups;
 // window of act(x) (CP channels a position, read from shared memory as a
 // broadcast) along its rows. The four pixel groups' sums are added in a
 // fixed order at the end of the run.
-template <int CP>  // C rounded up to 4 or 8
+template <int CP, typename T>  // C rounded up to 4 or 8; T the element type
 __global__ void __launch_bounds__(kNThreads) wgrad_narrow_kernel(const WgradArgs p) {
   __shared__ __align__(16) float xs[kNIH * kNIW * CP];  // act(x), the halo'd tile
   __shared__ float red[(9 * CP + 1) * kNO];             // the run's sums, then dbias
@@ -983,8 +1405,8 @@ __global__ void __launch_bounds__(kNThreads) wgrad_narrow_kernel(const WgradArgs
   for (int t = 0; t < 9; ++t)
 #pragma unroll
     for (int c = 0; c < CP; ++c) acc[t][c] = 0.f;
-  const float* xb = p.x + (size_t)b * p.H * p.W * C;
-  const float* gb = p.g + (size_t)b * p.H * p.W * O + o;
+  const T* xb = static_cast<const T*>(p.x) + (size_t)b * p.H * p.W * C;
+  const T* gb = static_cast<const T*>(p.g) + (size_t)b * p.H * p.W * O + o;
   for (int tile = run * per; tile < min(tiles, (run + 1) * per); ++tile) {
     const int ty0 = (tile / tiles_w) * kNTH, tx0 = (tile % tiles_w) * kNTW;
     __syncthreads();  // s_a / s_b are set; every thread is done with the last tile
@@ -993,8 +1415,8 @@ __global__ void __launch_bounds__(kNThreads) wgrad_narrow_kernel(const WgradArgs
       const int y = ty0 - 1 + pos / kNIW, x = tx0 - 1 + pos % kNIW;
       float v = 0.f;  // SAME zero padding of the ACTIVATED tensor
       if (y >= 0 && y < p.H && x >= 0 && x < p.W && c < C) {
-        v = xb[((size_t)y * p.W + x) * C + c];
-        if (p.act) {
+        v = to_f(xb[((size_t)y * p.W + x) * C + c]);
+        if (p.act) {  // fp32 only: the bf16 instance takes the linear mode
           const float t = v * s_a[c] + s_b[c];
           v = t * sigmoid(t);
         }
@@ -1024,7 +1446,7 @@ __global__ void __launch_bounds__(kNThreads) wgrad_narrow_kernel(const WgradArgs
             win[dy][1][c] = win[dy][2][c];
             win[dy][2][c] = xs[((r + dy) * kNIW + xx + 2) * CP + c];
           }
-        const float gv = (x < p.W && o < O) ? gb[((size_t)y * p.W + x) * O] : 0.f;
+        const float gv = (x < p.W && o < O) ? to_f(gb[((size_t)y * p.W + x) * O]) : 0.f;
         gsum += gv;
 #pragma unroll
         for (int t = 0; t < 9; ++t)
@@ -1065,16 +1487,58 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // above 48 KB of dynamic shared memory a kernel must opt in, once per process
+template <typename T>
+cudaError_t configure_dgrad() {
+  cudaError_t e = allow_smem(dgrad_kernel<kLinear, T>, kDSmemBytes);
+  if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kAct, T>, kDSmemBytes);
+  if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kUpFold, T>, kDSmemBytes);
+  return e;
+}
+
 cudaError_t configure() {
   static cudaError_t err = [] {
-    cudaError_t e = allow_smem(dgrad_kernel<kLinear>, kDSmemBytes);
-    if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kAct>, kDSmemBytes);
-    if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kUpFold>, kDSmemBytes);
+    cudaError_t e = configure_dgrad<float>();
+    if (e == cudaSuccess) e = configure_dgrad<__nv_bfloat16>();
     if (e == cudaSuccess) e = allow_smem(wgrad_kernel<false>, kWSmemBytes);
     if (e == cudaSuccess) e = allow_smem(wgrad_kernel<true>, kWSmemBytes);
+    if (e == cudaSuccess) e = allow_smem(wgrad_bf16_kernel<false>, kW16SmemBytes);
+    if (e == cudaSuccess) e = allow_smem(wgrad_bf16_kernel<true>, kW16SmemBytes);
     return e;
   }();
   return err;
+}
+
+// the dgrad launch for either element type (mc_conv_dgrad's arguments)
+template <typename T>
+int conv_dgrad(const T* g, const T* w, const T* x, const float* gamma, const float* beta,
+               const float* sums, const float* sumsq, void* out, float* dstats, float* part,
+               int batch, int h, int wd, int c, int o, int groups, float eps, int mode,
+               void* stream) {
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || mode < kLinear ||
+      mode > kUpFold || (mode == kUpFold && (wd % 2)) ||
+      (mode == kAct && (!dstats || !part || groups < 1 || c % groups)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int esz = sizeof(T);
+  // 16-byte copies: four fp32 or eight bf16 values
+  const int vec_o = 16 / esz;
+  const bool pair = c % 2 == 0 && aligned(out, mode == kUpFold ? 8 : 2 * esz) &&
+                    (mode != kAct || aligned(x, 2 * esz));
+  DgradArgs p{g, w, x, gamma, beta, sums, sumsq, out, part, h, wd, c, o,
+              groups, eps, o % vec_o == 0 && aligned(g, 16), o % vec_o == 0 && aligned(w, 16),
+              (int)pair};
+  const int tiles = dgrad_tiles(h, wd);
+  dim3 grid(tiles, batch, (c + kBC - 1) / kBC);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == kLinear) dgrad_kernel<kLinear, T><<<grid, kThreads, kDSmemBytes, s>>>(p);
+  else if (mode == kAct) dgrad_kernel<kAct, T><<<grid, kThreads, kDSmemBytes, s>>>(p);
+  else dgrad_kernel<kUpFold, T><<<grid, kThreads, kDSmemBytes, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || mode != kAct) return (int)err;
+  colsum_kernel<<<dim3((c + 31) / 32, 2 * batch), 32 * kSumGroups, 0, s>>>(part, dstats,
+                                                                         tiles, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1085,7 +1549,7 @@ extern "C" {
 // cotangent's) and of the wgrad kernel (which = 1; 2: its narrow-C form).
 // The dgrad scratch is (2, batch, tiles, c).
 int mc_conv_bwd_tiles(int h, int wd, int which) {
-  if (which == 0) return ((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW);
+  if (which == 0) return dgrad_tiles(h, wd);
   if (which == 2) return ((h + kNTH - 1) / kNTH) * ((wd + kNTW - 1) / kNTW);
   return ((h + kWTH - 1) / kWTH) * ((wd + kWTW - 1) / kWTW);
 }
@@ -1114,27 +1578,19 @@ int mc_conv_dgrad(const float* g, const float* w, const float* x,
                   const float* sumsq, float* out, float* dstats, float* part,
                   int batch, int h, int wd, int c, int o, int groups, float eps,
                   int mode, void* stream) {
-  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || mode < kLinear ||
-      mode > kUpFold || (mode == kUpFold && (wd % 2)) ||
-      (mode == kAct && (!dstats || !part || groups < 1 || c % groups)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure();
-  if (err != cudaSuccess) return (int)err;
-  const bool pair = c % 2 == 0 && aligned(out, 8) && (mode != kAct || aligned(x, 8));
-  DgradArgs p{g, w, x, gamma, beta, sums, sumsq, out, part, h, wd, c, o,
-              groups, eps, o % 4 == 0 && aligned(g, 16), o % 4 == 0 && aligned(w, 16),
-              (int)pair};
-  const int tiles = mc_conv_bwd_tiles(h, wd, 0);
-  dim3 grid(tiles, batch, (c + kBC - 1) / kBC);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kLinear) dgrad_kernel<kLinear><<<grid, kThreads, kDSmemBytes, s>>>(p);
-  else if (mode == kAct) dgrad_kernel<kAct><<<grid, kThreads, kDSmemBytes, s>>>(p);
-  else dgrad_kernel<kUpFold><<<grid, kThreads, kDSmemBytes, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || mode != kAct) return (int)err;
-  colsum_kernel<<<dim3((c + 31) / 32, 2 * batch), 32 * kSumGroups, 0, s>>>(part, dstats,
-                                                                         tiles, c);
-  return (int)cudaGetLastError();
+  return conv_dgrad(g, w, x, gamma, beta, sums, sumsq, out, dstats, part, batch, h, wd, c,
+                    o, groups, eps, mode, stream);
+}
+
+// The bf16 instance: g, w, x bf16; out bf16 in modes 0 and 1 (da rounded
+// once), fp32 in mode 2; the vectors, dstats and part fp32.
+int mc_conv_dgrad_bf16(const __nv_bfloat16* g, const __nv_bfloat16* w,
+                       const __nv_bfloat16* x, const float* gamma, const float* beta,
+                       const float* sums, const float* sumsq, void* out, float* dstats,
+                       float* part, int batch, int h, int wd, int c, int o, int groups,
+                       float eps, int mode, void* stream) {
+  return conv_dgrad(g, w, x, gamma, beta, sums, sumsq, out, dstats, part, batch, h, wd, c,
+                    o, groups, eps, mode, stream);
 }
 
 // h, w: the cotangent's (output's) height and width; x is (B, h, w, c), or
@@ -1142,31 +1598,40 @@ int mc_conv_dgrad(const float* g, const float* w, const float* x,
 // when bias = 1; part: the (batch * runs, taps c o [+ o]) scratch, runs:
 // pixel-tile runs per image (from mc_conv_wgrad_runs). At c <= 8 (3 x 3,
 // not up) the narrow-C kernel runs, else the tensor-core one.
-int mc_conv_wgrad(const float* x, const float* g, const float* gamma,
-                  const float* beta, const float* sums, const float* sumsq,
-                  float* dwb, float* part, int batch, int h, int wd, int c, int o,
-                  int groups, float eps, int act, int taps, int up, int bias,
-                  int runs, void* stream) {
+}  // extern "C"
+
+// the wgrad launch for either element type (mc_conv_wgrad's arguments)
+template <typename T>
+int conv_wgrad(const T* x, const T* g, const float* gamma, const float* beta,
+               const float* sums, const float* sumsq, float* dwb, float* part, int batch,
+               int h, int wd, int c, int o, int groups, float eps, int act, int taps, int up,
+               int bias, int runs, void* stream) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   const bool narrow_c = wgrad_narrow(c, taps, up);
   if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || (taps != 9 && taps != 1) ||
       runs < 1 || runs > mc_conv_bwd_tiles(h, wd, narrow_c ? 2 : 1) ||
       (up && (h % 2 || wd % 2)) ||
-      (up && taps != 9) || (act && (groups < 1 || c % groups)) || !dwb || !part)
+      (up && taps != 9) || (act && (groups < 1 || c % groups)) || !dwb || !part ||
+      (kBf16 && narrow_c && act))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
   const size_t k = (size_t)taps * c * o + (bias ? o : 0);
+  // 16-byte copies: four fp32 or eight bf16 values
+  const int vec = 16 / (int)sizeof(T);
   WgradArgs p{x, g, gamma, beta, sums, sumsq, part, h, wd, c, o, groups, eps,
-              act, taps, runs, bias, c % 4 == 0 && aligned(x, 16),
-              o % 4 == 0 && aligned(g, 16), o % 2 == 0 && aligned(part, 8) && k % 2 == 0};
+              act, taps, runs, bias, c % vec == 0 && aligned(x, 16),
+              o % vec == 0 && aligned(g, 16), o % 2 == 0 && aligned(part, 8) && k % 2 == 0};
   cudaStream_t s = (cudaStream_t)stream;
   if (narrow_c) {
     dim3 grid(batch * runs * ((o + kNO - 1) / kNO));
-    if (c <= 4) wgrad_narrow_kernel<4><<<grid, kNThreads, 0, s>>>(p);
-    else wgrad_narrow_kernel<8><<<grid, kNThreads, 0, s>>>(p);
+    if (c <= 4) wgrad_narrow_kernel<4, T><<<grid, kNThreads, 0, s>>>(p);
+    else wgrad_narrow_kernel<8, T><<<grid, kNThreads, 0, s>>>(p);
   } else {
     dim3 grid(batch * runs * ((c + kWC - 1) / kWC) * ((o + kWO - 1) / kWO));
-    if (up) wgrad_kernel<true><<<grid, kWThreads, kWSmemBytes, s>>>(p);
+    if (kBf16 && up) wgrad_bf16_kernel<true><<<grid, kWThreads, kW16SmemBytes, s>>>(p);
+    else if (kBf16) wgrad_bf16_kernel<false><<<grid, kWThreads, kW16SmemBytes, s>>>(p);
+    else if (up) wgrad_kernel<true><<<grid, kWThreads, kWSmemBytes, s>>>(p);
     else wgrad_kernel<false><<<grid, kWThreads, kWSmemBytes, s>>>(p);
   }
   err = cudaGetLastError();
@@ -1174,6 +1639,28 @@ int mc_conv_wgrad(const float* x, const float* g, const float* gamma,
   colsum_kernel<<<dim3((unsigned)((k + 31) / 32), 1), 32 * kSumGroups, 0, s>>>(
       part, dwb, batch * runs, (int)k);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int mc_conv_wgrad(const float* x, const float* g, const float* gamma,
+                  const float* beta, const float* sums, const float* sumsq,
+                  float* dwb, float* part, int batch, int h, int wd, int c, int o,
+                  int groups, float eps, int act, int taps, int up, int bias,
+                  int runs, void* stream) {
+  return conv_wgrad(x, g, gamma, beta, sums, sumsq, dwb, part, batch, h, wd, c, o, groups,
+                    eps, act, taps, up, bias, runs, stream);
+}
+
+// The bf16 instance: x and g bf16; the vectors, dwb and part fp32. At
+// c <= 8 (the narrow-C kernel) it takes the linear mode only (act = 0).
+int mc_conv_wgrad_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* gamma,
+                       const float* beta, const float* sums, const float* sumsq,
+                       float* dwb, float* part, int batch, int h, int wd, int c, int o,
+                       int groups, float eps, int act, int taps, int up, int bias,
+                       int runs, void* stream) {
+  return conv_wgrad(x, g, gamma, beta, sums, sumsq, dwb, part, batch, h, wd, c, o, groups,
+                    eps, act, taps, up, bias, runs, stream);
 }
 
 }  // extern "C"

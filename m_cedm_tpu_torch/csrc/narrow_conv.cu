@@ -60,6 +60,15 @@
 // bias, sum the statistics from the fp32 values, and round once at the
 // store. Bound: bytes, half of fp32's (conv_in writes 33.6 MB, the out conv
 // reads 33.6 MB at the flagship shape: about 0.010 ms each at 3.35 TB/s).
+//
+// bf16 backward (the out conv in bf16 training): the same two kernels on
+// bf16 g, x and w, the Pallas K2 backward's linear mode on a bf16 network
+// (_bwd_phase_a with act = False: bf16 products summed in fp32, the input
+// cotangent rounded once to bf16, dW and dbias fp32). dgrad is
+// narrow_c_kernel<true, bf16> (widened as it stages, rounded at its store);
+// narrow_wgrad_kernel<OP, bf16> widens x and g as it stages them and keeps
+// its fp32 partials. Bound: bytes, 33.6 MB of x read, 33.6 MB of dx written
+// and 1 MB of g at the flagship shape, 0.020 ms at 3.35 TB/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -233,7 +242,6 @@ struct ConvArgsT {
   float* part;        // (2, B, tiles, O) scratch for the statistics, or null
   int H, W, C, O, vec;
 };
-using ConvArgs = ConvArgsT<float>;
 
 // ---------------------------------------------------------------------------
 // narrow O: O <= OP <= 8, any C
@@ -525,15 +533,16 @@ colsum_kernel(const float* __restrict__ part, float* __restrict__ out, int n, in
 // wgrad for O <= OP <= 8
 // ---------------------------------------------------------------------------
 
+template <typename T>
 struct WgradArgs {
-  const float* x;  // (B, H, W, C) the forward input
-  const float* g;  // (B, H, W, O) the output's cotangent
-  float* part;     // (B * runs, 9 * C * O + O): per-run dW, then dbias
+  const T* x;   // (B, H, W, C) the forward input
+  const T* g;   // (B, H, W, O) the output's cotangent
+  float* part;  // (B * runs, 9 * C * O + O): per-run dW, then dbias
   int H, W, C, O, runs, vec;
 };
 
-template <int OP>
-__global__ void __launch_bounds__(kWThreads) narrow_wgrad_kernel(const WgradArgs p) {
+template <int OP, typename T>
+__global__ void __launch_bounds__(kWThreads) narrow_wgrad_kernel(const WgradArgs<T> p) {
   extern __shared__ __align__(16) float smem[];
   float* sx = smem;             // [10][34][32]
   float* sg = smem + kWStageX;  // [8 * 32 pixels][OP]
@@ -542,8 +551,8 @@ __global__ void __launch_bounds__(kWThreads) narrow_wgrad_kernel(const WgradArgs
   const int c0 = blockIdx.y * kWC;
   const int C = p.C, O = p.O;
   const int nch = min(kWC, C - c0);
-  const float* xb = p.x + (size_t)b * p.H * p.W * C;
-  const float* gb = p.g + (size_t)b * p.H * p.W * O;
+  const T* xb = p.x + (size_t)b * p.H * p.W * C;
+  const T* gb = p.g + (size_t)b * p.H * p.W * O;
   const int tiles_w = (p.W + kWTW - 1) / kWTW;
   const int tiles = ((p.H + kWTH - 1) / kWTH) * tiles_w;
   const int per = (tiles + p.runs - 1) / p.runs;
@@ -566,7 +575,10 @@ __global__ void __launch_bounds__(kWThreads) narrow_wgrad_kernel(const WgradArgs
       const int o = idx % OP, px = idx / OP;
       const int y = ty0 + px / kWTW, x = tx0 + px % kWTW;
       const bool valid = y < p.H && x < p.W && o < O;
-      cp_async4(sg + idx, valid ? gb + ((size_t)y * p.W + x) * O + o : gb, valid);
+      if constexpr (std::is_same<T, float>::value)
+        cp_async4(sg + idx, valid ? gb + ((size_t)y * p.W + x) * O + o : gb, valid);
+      else
+        sg[idx] = valid ? to_f(gb[((size_t)y * p.W + x) * O + o]) : 0.f;
     }
     cp_commit();
     cp_wait<0>();
@@ -653,10 +665,14 @@ cudaError_t configure() {
     if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<2, __nv_bfloat16>, kOSmem);
     if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<4, __nv_bfloat16>, kOSmem);
     if (e == cudaSuccess) e = allow_smem(narrow_o_kernel<8, __nv_bfloat16>, kOSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<1>, kWSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<2>, kWSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<4>, kWSmem);
-    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<8>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<1, float>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<2, float>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<4, float>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<8, float>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<1, __nv_bfloat16>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<2, __nv_bfloat16>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<4, __nv_bfloat16>, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(narrow_wgrad_kernel<8, __nv_bfloat16>, kWSmem);
     return e;
   }();
   return err;
@@ -697,6 +713,35 @@ int narrow_conv(const T* x, const T* w, const float* bias, T* out, float* ostats
   return (int)cudaGetLastError();
 }
 
+// the backward for either element type; arguments as mc_narrow_conv_bwd's
+template <typename T>
+int narrow_conv_bwd(const T* g, const T* x, const T* w, T* dx, float* dwb, float* part,
+                    int batch, int h, int wd, int c, int o, int runs, void* stream) {
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || o > 8 || runs < 1 || !dwb || !part)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dx) {
+    // dgrad: the narrow-C kernel on g (o channels in, c out), weights mirrored
+    ConvArgsT<T> p{g, w, nullptr, dx, nullptr, h, wd, o, c, (int)vec_ok(g, o)};
+    dim3 grid(tiles_of(h, wd, kCTH, kCTW), batch, (c + kCO - 1) / kCO);
+    narrow_c_kernel<true, T><<<grid, kCThreads, 0, st>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  WgradArgs<T> q{x, g, part, h, wd, c, o, runs, (int)vec_ok(x, c)};
+  dim3 grid(batch * runs, (c + kWC - 1) / kWC);
+  if (o <= 1) narrow_wgrad_kernel<1, T><<<grid, kWThreads, kWSmem, st>>>(q);
+  else if (o <= 2) narrow_wgrad_kernel<2, T><<<grid, kWThreads, kWSmem, st>>>(q);
+  else if (o <= 4) narrow_wgrad_kernel<4, T><<<grid, kWThreads, kWSmem, st>>>(q);
+  else narrow_wgrad_kernel<8, T><<<grid, kWThreads, kWSmem, st>>>(q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int k = 9 * c * o + o;
+  colsum_kernel<<<dim3((k + 31) / 32, 1), 32 * kSumGroups, 0, st>>>(part, dwb, batch * runs, k);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -733,30 +778,14 @@ int mc_narrow_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const fl
 int mc_narrow_conv_bwd(const float* g, const float* x, const float* w, float* dx,
                        float* dwb, float* part, int batch, int h, int wd, int c, int o,
                        int runs, void* stream) {
-  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || o > 8 || runs < 1 || !dwb || !part)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure();
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dx) {
-    // dgrad: the narrow-C kernel on g (o channels in, c out), weights mirrored
-    ConvArgs p{g, w, nullptr, dx, nullptr, h, wd, o, c, (int)vec_ok(g, o)};
-    dim3 grid(mc_narrow_conv_tiles(h, wd, 1), batch, (c + kCO - 1) / kCO);
-    narrow_c_kernel<true, float><<<grid, kCThreads, 0, st>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  WgradArgs q{x, g, part, h, wd, c, o, runs, (int)vec_ok(x, c)};
-  dim3 grid(batch * runs, (c + kWC - 1) / kWC);
-  if (o <= 1) narrow_wgrad_kernel<1><<<grid, kWThreads, kWSmem, st>>>(q);
-  else if (o <= 2) narrow_wgrad_kernel<2><<<grid, kWThreads, kWSmem, st>>>(q);
-  else if (o <= 4) narrow_wgrad_kernel<4><<<grid, kWThreads, kWSmem, st>>>(q);
-  else narrow_wgrad_kernel<8><<<grid, kWThreads, kWSmem, st>>>(q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int k = 9 * c * o + o;
-  colsum_kernel<<<dim3((k + 31) / 32, 1), 32 * kSumGroups, 0, st>>>(part, dwb, batch * runs, k);
-  return (int)cudaGetLastError();
+  return narrow_conv_bwd(g, x, w, dx, dwb, part, batch, h, wd, c, o, runs, stream);
+}
+
+// The bf16 instance: g, x, w and dx bf16; dwb and part fp32.
+int mc_narrow_conv_bwd_bf16(const __nv_bfloat16* g, const __nv_bfloat16* x,
+                            const __nv_bfloat16* w, __nv_bfloat16* dx, float* dwb, float* part,
+                            int batch, int h, int wd, int c, int o, int runs, void* stream) {
+  return narrow_conv_bwd(g, x, w, dx, dwb, part, batch, h, wd, c, o, runs, stream);
 }
 
 }  // extern "C"

@@ -16,8 +16,14 @@ forward kernel launches, `attention_bwd.launches` backward ones.
 
 bf16 q, k, v go to the bf16 forward kernel (`_fwd_kernel` on bf16 operands:
 upcast, both products and the softmax in fp32, the output rounded once to
-bf16); `attention_plain` of bf16 operands is that function. Its backward is
-not ported yet (ROADMAP.md) and raises.
+bf16); `attention_plain` of bf16 operands is that function. The backward has
+a bf16 instance too (`_bwd_kernel` on bf16 operands: upcast, every product
+and the softmax in fp32, dq, dk and dv rounded once to bf16;
+`attention_bwd_plain` of bf16 operands). Its row term delta = rowsum(g * o)
+must be JAX's sum(dw * w), the cotangent against the fp32 output: so a
+forward that needs gradients also writes its output in fp32 (`o32`, 4 MB a
+call at the flagship's shape), and the backward reads that one, not the
+rounded bf16 output: sum_k (g v^T)_ik w_ik = g_i . (w v)_i.
 """
 from __future__ import annotations
 
@@ -30,7 +36,6 @@ from m_cedm_tpu_torch.kernels import _build
 from m_cedm_tpu_torch.kernels._launch import (F, I, P, act_dtype, check,
                                               fp32_reference_math, on_cpu, ptr,
                                               raise_on_error, stream)
-from m_cedm_tpu_torch.kernels.fused_norm import bf16_backward_not_ported
 
 HEAD_DIM = 64
 
@@ -51,7 +56,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 def attention_bwd_plain(g, q, k, v) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's formulas (_bwd_kernel): recompute w, then
     dv = w^T g, dl = w * (g v^T - rowsum(g v^T * w)), dq = dl k / sqrt(D),
-    dk = dl^T q / sqrt(D)."""
+    dk = dl^T q / sqrt(D). bf16 operands are upcast and dq, dk, dv rounded
+    once to bf16, as _bwd_kernel does."""
+    if q.dtype == torch.bfloat16:
+        grads = attention_bwd_plain(g.float(), q.float(), k.float(), v.float())
+        return tuple(t.to(q.dtype) for t in grads)
+    if q.is_cuda:
+        fp32_reference_math()
     scale = 1.0 / math.sqrt(k.shape[-1])
     w = torch.softmax(torch.einsum("nqd,nkd->nqk", q, k * scale), dim=-1)
     dv = torch.einsum("nqk,nqd->nkd", w, g)
@@ -74,17 +85,29 @@ def _check_qkv(*tensors):
     return n, l, d
 
 
-def attention_fwd(q, k, v, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+def attention_fwd(q, k, v, lse: Optional[torch.Tensor] = None,
+                  o32: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4 forward kernel on the card; when `lse` (N, L) is given it receives
-    each row's log-sum-exp of the scaled logits, which the backward needs."""
+    each row's log-sum-exp of the scaled logits, which the backward needs.
+    bf16 operands: `o32` (N, L, D) fp32, when given, receives the output
+    before its rounding (the bf16 backward's delta)."""
     n, l, d = _check_qkv(q, k, v)
     if lse is not None:
         check(lse, "lse", (n, l), q.device)
     out = torch.empty_like(q)
-    name = "mc_attention_fwd" + ("_bf16" if q.dtype == torch.bfloat16 else "")
-    fn = _build.bind("fused_attention", name, [P, P, P, P, P, I, I, I, F, P])
-    raise_on_error(fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), n, l, d,
-                      1.0 / math.sqrt(d), stream()), name)
+    if q.dtype == torch.bfloat16:
+        if o32 is not None:
+            check(o32, "o32", (n, l, d), q.device)
+        fn = _build.bind("fused_attention", "mc_attention_fwd_bf16",
+                         [P, P, P, P, P, P, I, I, I, F, P])
+        rc = fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(o32), ptr(lse), n, l, d,
+                1.0 / math.sqrt(d), stream())
+        raise_on_error(rc, "mc_attention_fwd_bf16")
+    else:
+        fn = _build.bind("fused_attention", "mc_attention_fwd",
+                         [P, P, P, P, P, I, I, I, F, P])
+        raise_on_error(fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), n, l, d,
+                          1.0 / math.sqrt(d), stream()), "mc_attention_fwd")
     attention.launches += 1
     return out
 
@@ -92,16 +115,20 @@ def attention_fwd(q, k, v, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
 def attention_bwd(g, q, k, v, o, lse) -> Tuple[torch.Tensor, ...]:
     """K4 backward kernels on the card: (dq, dk, dv) from the output
     cotangent g, the operands, and the forward's output o and per-row
-    log-sum-exp lse (N, L)."""
-    n, l, d = _check_qkv(g, q, k, v, o)
+    log-sum-exp lse (N, L). bf16 g, q, k, v take the bf16 instance, with o
+    the forward's fp32 output (`o32`); dq, dk, dv are then bf16."""
+    n, l, d = _check_qkv(g, q, k, v)
+    check(o, "o", (n, l, d), q.device)
     check(lse, "lse", (n, l), q.device)
+    if o.data_ptr() % 16:
+        raise ValueError("attention kernels need 16-byte aligned operands")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
-    fn = _build.bind("fused_attention", "mc_attention_bwd",
-                     [P] * 10 + [I, I, I, F, P])
+    name = "mc_attention_bwd" + ("_bf16" if q.dtype == torch.bfloat16 else "")
+    fn = _build.bind("fused_attention", name, [P] * 10 + [I, I, I, F, P])
     raise_on_error(fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse),
                       ptr(delta), ptr(dq), ptr(dk), ptr(dv), n, l, d,
-                      1.0 / math.sqrt(d), stream()), "mc_attention_bwd")
+                      1.0 / math.sqrt(d), stream()), name)
     attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -113,18 +140,21 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         if on_cpu(q):
-            out, lse = attention_plain(q, k, v), None
+            out, lse, o_saved = attention_plain(q, k, v), None, None
         else:
-            lse = q.new_empty(q.shape[:2]) if any(ctx.needs_input_grad) else None
-            out = attention_fwd(q, k, v, lse)
-        ctx.save_for_backward(q, k, v, out, lse)
+            grad = any(ctx.needs_input_grad)
+            lse = q.new_empty(q.shape[:2], dtype=torch.float32) if grad else None
+            # bf16: the backward's delta comes from the unrounded output
+            o32 = (torch.empty(q.shape, device=q.device, dtype=torch.float32)
+                   if grad and q.dtype == torch.bfloat16 else None)
+            out = attention_fwd(q, k, v, lse, o32)
+            o_saved = out if o32 is None else o32
+        ctx.save_for_backward(q, k, v, o_saved, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.dtype == torch.bfloat16:
-            raise bf16_backward_not_ported("K4")
         g = g.contiguous()
         if on_cpu(g):
             return attention_bwd_plain(g, q, k, v)

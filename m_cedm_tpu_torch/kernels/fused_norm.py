@@ -20,7 +20,10 @@ for a bf16 activation (gamma, beta and the statistics stay fp32): the sums
 are fp32 sums of the upcast input, the apply runs in fp32 and rounds once at
 its store, where the Pallas kernels round. `gn_silu_plain` on a bf16 input
 is the plain version of that function (`gn_silu_bf16_plain`). The backward
-has no bf16 instance yet (ROADMAP.md) and raises.
+kernel has a bf16 instance too (x and g bf16, the statistics the forward
+used): it computes in fp32 as _grad_stats_kernel / _grad_apply_kernel do on
+bf16 input, emits dgamma and dbeta in fp32 and rounds dx once to bf16;
+`gn_silu_bwd_bf16_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -117,7 +120,8 @@ def dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups: int):
     dbeta = sum da (`_dx_from_da`): dx = rstd * (da * gamma - m1 - xhat * m2),
     m1 and m2 the group means of da * gamma and da * gamma * xhat, which the
     identities sum(da * gamma) = gamma * dbeta and sum(da * gamma * xhat) =
-    gamma * dgamma give from (B, C) vectors. x, da (B, N, C) or NHWC."""
+    gamma * dgamma give from (B, C) vectors. x, da (B, N, C) or NHWC; bf16 x
+    or da promote to fp32 as they are read, and dx is fp32 then."""
     b, c = gamma.shape
     n = x.numel() // (b * c)
     cnt = n * (c // num_groups)
@@ -141,14 +145,34 @@ def silu_grad(y: torch.Tensor) -> torch.Tensor:
     return sig * (1.0 + y * (1.0 - sig))
 
 
-def gn_silu_bwd_plain(g, x, gamma, beta, num_groups: int, eps: float = 1e-5):
+def gn_silu_bwd_plain(g, x, gamma, beta, num_groups: int, eps: float = 1e-5,
+                      stats: Optional[Stats] = None):
     """The backward kernels' formulas (_grad_stats_kernel, _grad_apply_kernel)
-    with the plain forward's statistics: (dx, dgamma, dbeta)."""
+    with the plain forward's statistics: (dx, dgamma, dbeta). A bf16 x takes
+    the bf16 kernel's function (`gn_silu_bwd_bf16_plain`, with `stats`)."""
+    if x.dtype == torch.bfloat16:
+        return gn_silu_bwd_bf16_plain(g, x, gamma, beta, num_groups, eps, stats)
     mean, rstd = group_mean_rstd(x, num_groups, eps)
     xhat = (x - mean[:, None]) * rstd[:, None]
     dy = g * silu_grad(xhat * gamma[:, None] + beta[:, None])
     dgamma, dbeta = (dy * xhat).sum(dim=1), dy.sum(dim=1)
     return dx_from_da(x, dy, gamma, dgamma, dbeta, mean, rstd, num_groups), dgamma, dbeta
+
+
+def gn_silu_bwd_bf16_plain(g, x, gamma, beta, num_groups: int, eps: float = 1e-5,
+                           stats: Optional[Stats] = None):
+    """The bf16 backward kernel's function (_grad_stats_kernel and
+    _grad_apply_kernel on bf16 x and g): x and g upcast, mean and rstd from
+    the forward's fp32 `stats` (the channel sums of x when None), every step
+    in fp32, dgamma and dbeta fp32, dx rounded once to bf16."""
+    xf, gf = x.float(), g.float()
+    sums, sumsq = stats if stats is not None else channel_stats_plain(xf)
+    mean, rstd = group_mean_rstd_from_sums(sums, sumsq, x.shape[1], num_groups, eps)
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    dy = gf * silu_grad(xhat * gamma[:, None] + beta[:, None])
+    dgamma, dbeta = (dy * xhat).sum(dim=1), dy.sum(dim=1)
+    dx = dx_from_da(xf, dy, gamma, dgamma, dbeta, mean, rstd, num_groups)
+    return dx.to(x.dtype), dgamma, dbeta
 
 
 # ---------------------------------------------------------------------------
@@ -230,16 +254,20 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
     """K1's backward kernel on the card: (dx, dgamma, dbeta), with `stats`
     the (sums, sumsq) the forward used. x and g are read once and dx written
     once; dgamma and dbeta are summed in a fixed order (bit for bit on a
-    repeat)."""
+    repeat). bf16 x and g take the bf16 instance (dx bf16)."""
     b, n, c = x.shape
     dev = x.device
+    dt = act_dtype(x)
     for name, t, shape in (("g", g, (b, n, c)), ("x", x, (b, n, c)),
                            ("gamma", gamma, (b, c)), ("beta", beta, (b, c)),
                            ("sums", stats[0], (b, c)), ("sumsq", stats[1], (b, c))):
-        check(t, name, shape, dev)
+        check(t, name, shape, dev, dt if name in ("g", "x") else torch.float32)
     if c % num_groups or c > BWD_MAX_CHANNELS:
         raise ValueError(f"K1's backward takes up to {BWD_MAX_CHANNELS} channels "
                          f"in whole groups; got {c} in {num_groups}")
+    if dt == torch.bfloat16 and (c % 8 or any(t.data_ptr() % 16 for t in (x, g))):
+        raise ValueError("K1's bf16 backward takes a multiple of 8 channels and "
+                         "16-byte aligned x and g")
     slabs, rows = _plan(n, c, dev)
     # per-slab partials; the arrival counters, then each group's m1 and m2 as
     # tagged words
@@ -248,11 +276,12 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
     dgamma = torch.empty((b, c), device=dev, dtype=torch.float32)
     dbeta = torch.empty_like(dgamma)
     dx = torch.empty_like(x)
-    fn = _build.bind("fused_norm", "mc_gn_silu_bwd", [P] * 11 + [I] * 4 + [F, I, I, P])
+    name = "mc_gn_silu_bwd" + ("_bf16" if dt == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm", name, [P] * 11 + [I] * 4 + [F, I, I, P])
     raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(stats[0]),
                       ptr(stats[1]), ptr(dgamma), ptr(dbeta), ptr(dx), ptr(scratch),
                       ptr(sync), b, n, c, num_groups, eps, slabs, rows, stream()),
-                   "mc_gn_silu_bwd")
+                   name)
     gn_silu_bwd.launches += 1
     return dx, dgamma, dbeta
 
@@ -260,18 +289,14 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
 gn_silu_bwd.launches = 0
 
 
-def bf16_backward_not_ported(kernel: str) -> NotImplementedError:
-    return NotImplementedError(f"{kernel}'s backward in bf16 (bf16 training) is "
-                               "not ported yet (see ROADMAP.md)")
-
-
 class _GnSilu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, sums, sumsq, num_groups, eps):
         ctx.cfg = (num_groups, eps)
         if on_cpu(x):
-            ctx.save_for_backward(x, gamma, beta)
             stats = None if sums is None else (sums, sumsq)
+            # the bf16 backward uses the statistics its forward used
+            ctx.save_for_backward(x, gamma, beta, *(stats or ()))
             return gn_silu_plain(x, gamma, beta, num_groups, eps, stats)
         if x.shape[-1] % num_groups:
             raise ValueError(f"{x.shape[-1]} channels do not split into "
@@ -285,11 +310,10 @@ class _GnSilu(torch.autograd.Function):
     def backward(ctx, g):
         num_groups, eps = ctx.cfg
         x, gamma, beta, *stats = ctx.saved_tensors
-        if x.dtype == torch.bfloat16:
-            raise bf16_backward_not_ported("K1")
         g = g.contiguous()
         if on_cpu(g):
-            grads = gn_silu_bwd_plain(g, x, gamma, beta, num_groups, eps)
+            grads = gn_silu_bwd_plain(g, x, gamma, beta, num_groups, eps,
+                                      tuple(stats) or None)
         else:
             grads = gn_silu_bwd(g, x, gamma, beta, tuple(stats), num_groups, eps)
         # the statistics take a zero cotangent: dx above is the full gradient

@@ -53,8 +53,22 @@ once to bf16 before the product, bf16 products summed in fp32, bias and
 residual added in fp32, statistics emitted from the fp32 sums, the output
 rounded once. `gn_silu_conv_plain`, `gn_silu_up_conv_plain` and
 `narrow_conv_plain` of bf16 operands are that function; they use chained
-statistics, as the kernels do. The backward has no bf16 kernels yet
-(ROADMAP.md) and raises.
+statistics, as the kernels do.
+
+The backward kernels have bf16 instances too (x, g, w, the residual and the
+skip weight bf16; dW, dbias, dgamma, dbeta fp32), rounding where the Pallas
+backward rounds on a bf16 network. K2 (_bwd_phase_a): the activation
+recomputed in fp32 as _act_from_x writes it, ((x - mean) * rstd) * gamma +
+beta, then SiLU, and rounded to bf16 before the product; dW, dbias and the
+conv input's cotangent ds sums of bf16 products in fp32; da = ds * silu'
+in fp32, dgamma and dbeta summed from it, da stored rounded to bf16; dx from
+the upcast bf16 da in fp32 (_dx_from_da), rounded once. The linear mode's da
+is ds rounded to bf16. K3 (_up_pair_bwd_kernel): the activation in the
+folded form x * (gamma * rstd) + (beta - gamma * rstd * mean), rounded to
+bf16; ds stays fp32 through the row fold and the fp32 low-res tail; dx
+rounded once. `gn_silu_conv_bwd_plain`, `gn_silu_up_conv_bwd_plain` and
+`narrow_conv_bwd_plain` of bf16 operands are that function, with the
+statistics the forward used.
 """
 from __future__ import annotations
 
@@ -68,8 +82,8 @@ from m_cedm_tpu_torch.kernels import _build
 from m_cedm_tpu_torch.kernels._launch import (F, I, P, act_dtype, check,
                                               fp32_reference_math, on_cpu, ptr,
                                               raise_on_error, stream)
-from m_cedm_tpu_torch.kernels.fused_norm import (bf16_backward_not_ported,
-                                                 channel_stats, dx_from_da,
+from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats,
+                                                 channel_stats_plain, dx_from_da,
                                                  gn_silu_bf16_plain, gn_silu_plain,
                                                  group_mean_rstd,
                                                  group_mean_rstd_from_sums,
@@ -234,9 +248,15 @@ def _fold2x2(t: torch.Tensor) -> torch.Tensor:
 
 def _residual_grad(g, residual, res_up, skip_w):
     """dres of the block tail; plain PyTorch on either device, as in the JAX
-    package (the proj mode's g @ skip_w^T is one XLA matmul there)."""
+    package (the proj mode's g @ skip_w^T is one XLA matmul there). bf16: the
+    products and the fold in fp32, one rounding to bf16 (upcast operands, so
+    no reduced-precision reduction of the library applies); identity's dres
+    is g itself."""
     if residual is None:
         return None
+    if g.dtype == torch.bfloat16 and (res_up or skip_w is not None):
+        return _residual_grad(g.float(), residual, res_up,
+                              None if skip_w is None else skip_w.float()).to(g.dtype)
     if skip_w is not None:
         return g @ skip_w.t()
     return _fold2x2(g) if res_up else g
@@ -244,11 +264,15 @@ def _residual_grad(g, residual, res_up, skip_w):
 
 def gn_silu_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int = 0,
                            eps: float = 1e-5, residual=None, res_up: bool = False,
-                           skip_w=None):
+                           skip_w=None, stats: Optional[Stats] = None):
     """The K2 backward kernels' formulas (_gnsc_bwd_kernel_a, then
     _dx_from_da) with the plain forward's statistics. Returns (dx, dgamma,
     dbeta, dw, dbias, dres, dskip_w); None where the mode has no such input.
-    dskip_b, where there is one, equals dbias."""
+    dskip_b, where there is one, equals dbias. bf16 operands take the bf16
+    kernels' function (module docstring), with the forward's `stats`."""
+    if x.dtype == torch.bfloat16:
+        return _gn_silu_conv_bwd_bf16_plain(g, x, gamma, beta, w, num_groups, eps,
+                                            residual, res_up, skip_w, stats)
     b, h, wd, c = x.shape
     if gamma is None:  # linear mode: the conv input is x itself
         s, dsilu = x, None
@@ -271,6 +295,46 @@ def gn_silu_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int = 0,
             _residual_grad(g, residual, res_up, skip_w), dskip_w)
 
 
+def _mean_rstd_bf16(x, num_groups, eps, stats):
+    """Per-(B, C) mean and rstd of NHWC x from the forward's fp32 `stats`
+    (the channel sums of the upcast x when None), as the kernels fold them."""
+    b, h, wd, c = x.shape
+    if stats is None:
+        stats = channel_stats_plain(x.reshape(b, h * wd, c))
+    return group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
+
+
+def _gn_silu_conv_bwd_bf16_plain(g, x, gamma, beta, w, num_groups, eps,
+                                 residual, res_up, skip_w, stats):
+    """The bf16 K2 backward's function: the activation rounded to bf16 before
+    the products, bf16 products summed in fp32, da = ds * silu' in fp32 with
+    dgamma and dbeta from it, da rounded to bf16, dx from the upcast da in
+    fp32 rounded once (the linear mode's dx is ds rounded)."""
+    gf = g.float()
+    if gamma is None:
+        s = x.float()
+    else:
+        mean, rstd = _mean_rstd_bf16(x, num_groups, eps, stats)
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        a = xhat * gamma[:, None, None] + beta[:, None, None]
+        s = (a * torch.sigmoid(a)).to(torch.bfloat16).float()
+    dw = conv3x3_wgrad_plain(s, gf)
+    dbias = gf.sum(dim=(0, 1, 2))
+    ds = conv3x3_dgrad_plain(gf, w.float())
+    dgamma = dbeta = None
+    if gamma is None:
+        dx = ds.to(x.dtype)
+    else:
+        da = ds * silu_grad(a)
+        dgamma, dbeta = (da * xhat).sum(dim=(1, 2)), da.sum(dim=(1, 2))
+        dx = dx_from_da(x.float(), da.to(x.dtype).float(), gamma, dgamma, dbeta,
+                        mean, rstd, num_groups).to(x.dtype)
+    dskip_w = (torch.einsum("bhwr,bhwo->ro", residual.float(), gf)
+               if skip_w is not None else None)
+    return (dx, dgamma, dbeta, dw, dbias,
+            _residual_grad(g, residual, res_up, skip_w), dskip_w)
+
+
 def _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups):
     """GroupNorm / SiLU backward at low resolution from the folded conv-input
     cotangent (`_pallas_up_pair_bwd`'s XLA tail): (dx, dgamma, dbeta)."""
@@ -282,10 +346,23 @@ def _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups):
 
 
 def gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups: int,
-                              eps: float = 1e-5):
+                              eps: float = 1e-5, stats: Optional[Stats] = None):
     """The K3 backward kernel's formulas (_up_pair_bwd_kernel and its XLA
     tail) with the plain forward's statistics: (dx, dgamma, dbeta, dw, dbias).
-    x is low-res (B, h, w, C), g high-res (B, 2h, 2w, O)."""
+    x is low-res (B, h, w, C), g high-res (B, 2h, 2w, O). bf16 operands take
+    the bf16 kernel's function (module docstring), with the forward's
+    `stats`."""
+    if x.dtype == torch.bfloat16:
+        mean, rstd = _mean_rstd_bf16(x, num_groups, eps, stats)
+        a_ = (gamma * rstd)[:, None, None]
+        y = x.float() * a_ + (beta - gamma * rstd * mean)[:, None, None]
+        s = (y * torch.sigmoid(y)).to(torch.bfloat16).float()
+        gf = g.float()
+        dw = conv3x3_wgrad_plain(upsample2x_nearest(s), gf)
+        ds_low = _fold2x2(conv3x3_dgrad_plain(gf, w.float()))
+        dx, dgamma, dbeta = _up_tail_bwd(ds_low, x.float(), gamma, beta, mean, rstd,
+                                         num_groups)
+        return dx.to(x.dtype), dgamma, dbeta, dw, gf.sum(dim=(0, 1, 2))
     s, _, mean, rstd = _act_grad_plain(x, gamma, beta, num_groups, eps)
     dw = conv3x3_wgrad_plain(upsample2x_nearest(s), g)
     ds_low = _fold2x2(conv3x3_dgrad_plain(g, w))
@@ -307,7 +384,12 @@ def narrow_conv_plain(x: torch.Tensor, w: torch.Tensor,
 
 def narrow_conv_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           need_dx: bool = True):
-    """The narrow backward kernels' formulas: (dx or None, dw, dbias)."""
+    """The narrow backward kernels' formulas: (dx or None, dw, dbias). bf16
+    operands: bf16 products summed in fp32, dx rounded once to bf16 (the
+    Pallas K2 backward's linear mode)."""
+    if x.dtype == torch.bfloat16:
+        dx, dw, dbias = narrow_conv_bwd_plain(g.float(), x.float(), w.float(), need_dx)
+        return None if dx is None else dx.to(x.dtype), dw, dbias
     dx = conv3x3_dgrad_plain(g, w) if need_dx else None
     return dx, conv3x3_wgrad_plain(x, g), g.sum(dim=(0, 1, 2))
 
@@ -369,9 +451,10 @@ _NARROW_WGRAD_BLOCKS = 4 * 132  # about four narrow wgrad blocks per SM of an H1
 def narrow_conv_bwd(g, x, w, need_dx: bool = True):
     """The narrow backward kernels on the card (O <= 8): (dx or None, dw,
     dbias). dgrad and wgrad write every entry once and wgrad's per-run
-    partials are added in a fixed order, so the result repeats bit for bit."""
+    partials are added in a fixed order, so the result repeats bit for bit.
+    bf16 g, x, w take the bf16 instances (dx bf16; dw, dbias fp32)."""
     b, h, wd, c, o = _check_narrow(x, w, None)
-    check(g, "g", (b, h, wd, o), x.device)
+    check(g, "g", (b, h, wd, o), x.device, x.dtype)
     if o > NARROW:
         raise ValueError(f"the narrow backward takes O <= {NARROW}, got {o}")
     dev = x.device
@@ -381,9 +464,10 @@ def narrow_conv_bwd(g, x, w, need_dx: bool = True):
     tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(h, wd, 2)
     runs = min(tiles, -(-_NARROW_WGRAD_BLOCKS // b))
     part = torch.empty((b * runs, nw + o), device=dev, dtype=torch.float32)
-    fn = _build.bind("narrow_conv", "mc_narrow_conv_bwd", [P] * 6 + [I] * 6 + [P])
+    name = "mc_narrow_conv_bwd" + ("_bf16" if x.dtype == torch.bfloat16 else "")
+    fn = _build.bind("narrow_conv", name, [P] * 6 + [I] * 6 + [P])
     raise_on_error(fn(ptr(g), ptr(x), ptr(w), ptr(dx), ptr(dwb), ptr(part),
-                      b, h, wd, c, o, runs, stream()), "mc_narrow_conv_bwd")
+                      b, h, wd, c, o, runs, stream()), name)
     narrow_conv_bwd.launches += 1
     return dx, dwb[:nw].view(3, 3, c, o), dwb[nw:]
 
@@ -506,7 +590,8 @@ def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, with_bias):
     """Launch the wgrad kernel and its fixed-order reduce: (dw (3, 3, C, O),
     or (C, O) for one tap, and dbias (O,) or None). x (B, Hin, Win, C), g
     (B, H, W, O) at the output size. Per-run partials go to a scratch that
-    the reduce adds in a fixed order, so the result repeats bit for bit."""
+    the reduce adds in a fixed order, so the result repeats bit for bit.
+    bf16 x and g take the bf16 instance (dw, dbias fp32)."""
     b, h, wd, o = g.shape
     c = x.shape[-1]
     runs = _wgrad_runs(b, h, wd, c, o, taps, up, x.device)
@@ -515,12 +600,12 @@ def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, with_bias):
     dwb = torch.empty((k,), device=x.device, dtype=torch.float32)
     part = torch.empty((b * runs, k), device=x.device, dtype=torch.float32)
     sums, sumsq = stats if stats is not None else (None, None)
-    fn = _build.bind("fused_norm_conv_bwd", "mc_conv_wgrad",
-                     [P] * 8 + [I] * 6 + [F] + [I] * 5 + [P])
+    name = "mc_conv_wgrad" + ("_bf16" if x.dtype == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm_conv_bwd", name, [P] * 8 + [I] * 6 + [F] + [I] * 5 + [P])
     raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(sums),
                       ptr(sumsq), ptr(dwb), ptr(part), b, h, wd, c, o,
                       max(num_groups, 1), eps, int(gamma is not None), taps,
-                      int(up), int(with_bias), runs, stream()), "mc_conv_wgrad")
+                      int(up), int(with_bias), runs, stream()), name)
     dw = dwb[:nw].view((3, 3, c, o) if taps == 9 else (c, o))
     return dw, (dwb[nw:] if with_bias else None)
 
@@ -531,7 +616,9 @@ _DGRAD_LINEAR, _DGRAD_ACT, _DGRAD_UP_FOLD = 0, 1, 2
 def _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, mode, out):
     """Launch the dgrad kernel (modes in csrc/fused_norm_conv_bwd.cu) into
     `out`; in the act mode also the fixed-order reduce of its per-tile
-    partials, returning (dgamma, dbeta), each (B, C)."""
+    partials, returning (dgamma, dbeta), each (B, C). bf16 g and w take the
+    bf16 instance: `out` bf16 in the linear and act modes (da rounded once),
+    fp32 in the up-fold mode."""
     b, h, wd, o = g.shape
     c = w.shape[2]
     sums, sumsq = stats if stats is not None else (None, None)
@@ -540,12 +627,11 @@ def _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, mode, out):
         dstats = torch.empty((2, b, c), device=g.device, dtype=torch.float32)
         part = torch.empty((2, b, _dgrad_tiles(h, wd), c), device=g.device,
                            dtype=torch.float32)
-    fn = _build.bind("fused_norm_conv_bwd", "mc_conv_dgrad",
-                     [P] * 10 + [I] * 6 + [F, I, P])
+    name = "mc_conv_dgrad" + ("_bf16" if g.dtype == torch.bfloat16 else "")
+    fn = _build.bind("fused_norm_conv_bwd", name, [P] * 10 + [I] * 6 + [F, I, P])
     raise_on_error(fn(ptr(g), ptr(w), ptr(x), ptr(gamma), ptr(beta), ptr(sums),
                       ptr(sumsq), ptr(out), ptr(dstats), ptr(part), b, h, wd,
-                      c, o, max(num_groups, 1), eps, mode, stream()),
-                   "mc_conv_dgrad")
+                      c, o, max(num_groups, 1), eps, mode, stream()), name)
     return (dstats[0], dstats[1]) if dstats is not None else (None, None)
 
 
@@ -555,13 +641,19 @@ def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
     """K2 backward kernels on the card, with `stats` the (sums, sumsq) the
     forward used (None in the linear mode). Returns what
     `gn_silu_conv_bwd_plain` returns; dx (and dgamma, dbeta) are None when
-    `need_da` is False, which skips the dgrad kernel."""
+    `need_da` is False, which skips the dgrad kernel. bf16 operands take the
+    bf16 instances (dx and dres bf16)."""
     b, h, wd, c = x.shape
     o = w.shape[-1]
     dev = x.device
-    check(g, "g", (b, h, wd, o), dev)
-    check(x, "x", (b, h, wd, c), dev)
-    check(w, "w", (3, 3, c, o), dev)
+    dt = act_dtype(x)
+    check(g, "g", (b, h, wd, o), dev, dt)
+    check(x, "x", (b, h, wd, c), dev, dt)
+    check(w, "w", (3, 3, c, o), dev, dt)
+    if skip_w is not None:
+        cr = residual.shape[-1]
+        check(residual, "residual", (b, h, wd, cr), dev, dt)
+        check(skip_w, "skip_w", (cr, o), dev, dt)
     act = gamma is not None
     if act:
         _norm_inputs(x, gamma, beta, num_groups, stats)
@@ -573,12 +665,12 @@ def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
                                _DGRAD_ACT if act else _DGRAD_LINEAR, da)
         dx = da
         if act:
+            # in fp32 (bf16 x and da promote as they are read), rounded once
+            # to x's dtype
             mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
-            dx = dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups)
+            dx = dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups).to(dt)
     dskip_w = None
     if skip_w is not None:
-        cr = residual.shape[-1]
-        check(residual, "residual", (b, h, wd, cr), dev)
         dskip_w = _wgrad(residual, g, None, None, None, 0, eps, 1, False, False)[0]
     gn_silu_conv_bwd.launches += 1
     return (dx, dgamma, dbeta, dw, dbias,
@@ -591,22 +683,26 @@ gn_silu_conv_bwd.launches = 0
 def gn_silu_up_conv_bwd(g, x, gamma, beta, w, stats: Stats, num_groups: int,
                         eps: float = 1e-5):
     """K3 backward kernels on the card: (dx, dgamma, dbeta, dw, dbias). x is
-    low-res (B, h, w, C), g high-res (B, 2h, 2w, O)."""
+    low-res (B, h, w, C), g high-res (B, 2h, 2w, O). bf16 operands take the
+    bf16 instances (dx bf16)."""
     b, h, wd, c = x.shape
     o = w.shape[-1]
     dev = x.device
-    check(g, "g", (b, 2 * h, 2 * wd, o), dev)
-    check(x, "x", (b, h, wd, c), dev)
-    check(w, "w", (3, 3, c, o), dev)
+    dt = act_dtype(x)
+    check(g, "g", (b, 2 * h, 2 * wd, o), dev, dt)
+    check(x, "x", (b, h, wd, c), dev, dt)
+    check(w, "w", (3, 3, c, o), dev, dt)
     _norm_inputs(x, gamma, beta, num_groups, stats)
     dw, dbias = _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, True, True)
     ds = torch.empty((b, 2 * h, wd, c), device=dev, dtype=torch.float32)
     _dgrad(g, w, None, None, None, None, num_groups, eps, _DGRAD_UP_FOLD, ds)
-    # the row pair of each low-res pixel, then GroupNorm / SiLU at low res
+    # the row pair of each low-res pixel, then GroupNorm / SiLU at low res in
+    # fp32; dx rounded once to x's dtype
     ds_low = ds.reshape(b, h, 2, wd, c).sum(dim=2)
     mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
     gn_silu_up_conv_bwd.launches += 1
-    return _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups) + (dw, dbias)
+    dx, dgamma, dbeta = _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups)
+    return dx.to(dt), dgamma, dbeta, dw, dbias
 
 
 gn_silu_up_conv_bwd.launches = 0
@@ -627,6 +723,8 @@ class _GnSiluConv(torch.autograd.Function):
                                      stats=stats, residual=residual, res_up=res_up,
                                      skip_w=skip_w, skip_b=skip_b,
                                      emit_stats=emit_stats)
+            if stats is not None:  # the bf16 backward uses the forward's
+                used = stats
         else:
             out, used = _gn_silu_conv_kernel(x, gamma, beta, w, bias, num_groups,
                                              eps, stats, residual, res_up,
@@ -644,18 +742,16 @@ class _GnSiluConv(torch.autograd.Function):
     def backward(ctx, g, *unused_stats_grads):
         num_groups, eps, res_up, has_bias, has_skip_b, narrow = ctx.cfg
         x, gamma, beta, w, residual, skip_w, sums, sumsq = ctx.saved_tensors
-        if x.dtype == torch.bfloat16:
-            raise bf16_backward_not_ported("K2")
         g = g.contiguous()
+        stats = None if sums is None else (sums, sumsq)
         if narrow:
             dx, dw, dbias = (narrow_conv_bwd_plain if on_cpu(g) else narrow_conv_bwd)(
                 g, x, w, ctx.needs_input_grad[0])
             grads = (dx, None, None, dw, dbias, None, None)
         elif on_cpu(g):
             grads = gn_silu_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps,
-                                           residual, res_up, skip_w)
+                                           residual, res_up, skip_w, stats)
         else:
-            stats = None if sums is None else (sums, sumsq)
             need_da = any(ctx.needs_input_grad[:3])
             grads = gn_silu_conv_bwd(g, x, gamma, beta, w, stats, num_groups,
                                      eps, residual, res_up, skip_w, need_da)
@@ -675,7 +771,7 @@ class _GnSiluUpConv(torch.autograd.Function):
         if on_cpu(x):
             out = gn_silu_up_conv_plain(x, gamma, beta, w, bias, num_groups, eps,
                                         stats=stats, emit_stats=emit_stats)
-            used = (None, None)
+            used = (None, None) if stats is None else stats
         else:
             out, used = _gn_silu_up_conv_kernel(x, gamma, beta, w, bias,
                                                 num_groups, eps, stats, emit_stats)
@@ -691,11 +787,10 @@ class _GnSiluUpConv(torch.autograd.Function):
     def backward(ctx, g, *unused_stats_grads):
         num_groups, eps, has_bias = ctx.cfg
         x, gamma, beta, w, sums, sumsq = ctx.saved_tensors
-        if x.dtype == torch.bfloat16:
-            raise bf16_backward_not_ported("K3")
         g = g.contiguous()
         if on_cpu(g):
-            grads = gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps)
+            grads = gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, num_groups, eps,
+                                              None if sums is None else (sums, sumsq))
         else:
             grads = gn_silu_up_conv_bwd(g, x, gamma, beta, w, (sums, sumsq),
                                         num_groups, eps)

@@ -28,15 +28,16 @@ torch.autograd.Function whose backward is a kernel on the card, and the
 (B, C) gamma/beta that `GroupNormSiLU.fold` builds carry their gradients on
 to the norm weights, `affine` and the embedding MLP through autograd.
 
-bf16 serving (the JAX net's dtype flow on a bf16 input and the task's
-compute params: bf16 weights, and the biases and norm scales rounded to
-bf16 but held in fp32, `DiffusionTaskBase._compute_params`): the embedding MLP runs in fp32 on the bf16-rounded weights, the
-FiLM fold and the folded gamma/beta are fp32, the fused kernels take bf16
-activations and weights with fp32 biases and statistics (their bf16
-instances), the attention site's norm, qkv and proj run in bf16 with fp32
-accumulation around K4's bf16 forward, and the output is the out conv's
+bf16 (the JAX net's dtype flow on a bf16 input and the task's compute
+params: bf16 weights, and the biases and norm scales rounded to bf16 but
+held in fp32, `DiffusionTaskBase._compute_params`): the embedding MLP runs
+in fp32 on the bf16-rounded weights, the FiLM fold and the folded
+gamma/beta are fp32, the fused kernels take bf16 activations and weights
+with fp32 biases and statistics (their bf16 instances, forward and
+backward), the attention site's norm, qkv and proj run in bf16 with fp32
+accumulation around K4's bf16 kernels, and the output is the out conv's
 bf16. With a bf16 input the megakernel path raises (K7 has no bf16 instance
-yet, ROADMAP.md); so does the backward of every bf16 kernel.
+yet, ROADMAP.md).
 
 The cond encoder, dx and self-conditioning inputs are not used by the
 flagship config and raise NotImplementedError (listed in ROADMAP.md).

@@ -27,9 +27,13 @@ are cast to bf16 once per sampler call (`_sample_params`; the vectors are
 upcast again, exactly, since the kernels take them in fp32), and `net_apply`
 casts x, cond and x_self_cond to bf16, keeps t fp32 and returns the net's
 output as fp32, so preconditioning, the samplers and the losses stay fp32.
-The ADM U-Net serves in bf16 on its per-conv path (McedmTask, CondEdmTask,
-CondDdimTask); bf16 training, the megakernel path (mega=True) and the DDPM
-U-Net in bf16 raise NotImplementedError naming ROADMAP.md.
+The ADM U-Net serves and trains in bf16 on its per-conv path (McedmTask,
+CondEdmTask, and DdimTask and CondDdimTask on it). A train step differentiates
+the fp32 master params through the compute cast in `net_apply`, so every
+gradient passes the bf16 rounding of the transposed cast, as JAX's does; the
+master params, the optimizer state and the EMA stay fp32. The megakernel
+path (mega=True) and the DDPM U-Net in bf16 raise NotImplementedError naming
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -194,16 +198,13 @@ class DiffusionTaskBase:
         rounds them; the vectors (biases, norm scales), which the kernels
         and the norms take in fp32, upcast again. The upcast is exact, so
         this is JAX's function, with the casts made here once and not in
-        every forward."""
+        every forward. In a train step the casts act on the requires_grad
+        fp32 masters inside the autograd graph, so every gradient is rounded
+        to the compute dtype once on its way back to fp32, as the transpose
+        of JAX's cast rounds it."""
         params = cast_floating(params, self.compute_dtype)
         return {k: v.float() if v.is_floating_point() and v.dim() == 1 else v
                 for k, v in params.items()}
-
-    def _refuse_bf16_training(self) -> None:
-        if self.compute_dtype is not None:
-            raise NotImplementedError("bf16 training (trainer.precision=bf16) is not "
-                                      "ported yet: the backward kernels have no bf16 "
-                                      "instances (see ROADMAP.md)")
 
     def net_apply(self, params, x, t, cond=None, x_self_cond=None) -> torch.Tensor:
         """The backbone with `params` swapped in; fp32 in and out. With a
@@ -211,7 +212,8 @@ class DiffusionTaskBase:
         stays fp32), as the JAX task's net_apply does."""
         dt = self.compute_dtype
         if dt is not None:
-            # the sampler's params come cast (`_sample_params`)
+            # the sampler's params come cast (`_sample_params`); a train
+            # step's fp32 masters are cast here, in the autograd graph
             if any(v.dim() > 1 and v.is_floating_point() and v.dtype != dt
                    for v in params.values()):
                 params = self._compute_params(params)
@@ -290,7 +292,6 @@ class McedmTask(DiffusionTaskBase):
         cond_noise and noise (B, T, X, C), rnd_normal (B, 1, 1, 1) and keep
         (a 0/1 scalar: classifier-free conditioning kept) replace the
         generator's draws."""
-        self._refuse_bf16_training()
         if self.dx_cond:
             raise NotImplementedError("dx conditioning is not ported yet "
                                       "(see ROADMAP.md)")
@@ -530,7 +531,6 @@ class DdimTask(DiffusionTaskBase):
         (metrics {"train_loss"[, "train_pde_loss"]}, gradients). t_half
         (n // 2 + 1,) integers, noise (x's shape) and use_sc (a bool: the
         self-conditioning branch taken) replace the generator's draws."""
-        self._refuse_bf16_training()
         h_un, _, _, u_un = batch
         x = self.transform.forward(state, h_un, u_un, generator)
         noise = (torch.randn(x.shape, generator=generator, device=x.device)
@@ -849,7 +849,6 @@ class CondDdimTask(DdimTask):
         """The conditional train step's loss and gradients
         (diffusion.py:907-957); draws as in DdimTask's, with `keep` (a 0/1
         scalar: the conditioning kept) and noise of u's shape."""
-        self._refuse_bf16_training()
         _, h, u, cond_in = self._train_inputs(state, batch, generator, keep)
         noise = (torch.randn(u.shape, generator=generator, device=u.device)
                  if noise is None else noise)
@@ -1018,7 +1017,6 @@ class CondEdmTask(CondDdimTask):
         sigma = exp(P_mean + P_std rnd_normal), u + noise sigma, the weighted
         loss of D(x) against u. rnd_normal (B, 1, 1, 1), noise (u's shape),
         use_sc and keep replace the generator's draws."""
-        self._refuse_bf16_training()
         _, h, u, cond_in = self._train_inputs(state, batch, generator, keep)
         dev = u.device
         noise = (torch.randn(u.shape, generator=generator, device=dev)

@@ -29,8 +29,9 @@ interpret mode, and JAX's evals).
             JAX's own 0.1 (tests/test_precision.py);
   cond      CondEdmTask.eval_step (adm_edm_cond_h) in bf16 against JAX's,
             held the same way;
-  refusals  the bf16 train step, mega=True, the DDPM U-Net, the OFormer and
-            the FNO in bf16 raise NotImplementedError naming ROADMAP.md.
+  refusals  mega=True, the DDPM U-Net, the OFormer and the FNO in bf16
+            raise NotImplementedError naming ROADMAP.md (bf16 training of the
+            ADM tasks is held in tests/test_torch_bf16_train.py).
 """
 import copy
 import os
@@ -302,13 +303,6 @@ def test_cond_edm_eval_step_matches_jax():
 
 
 # --- refusals -----------------------------------------------------------------
-
-def test_bf16_train_step_raises(flagship):
-    *_, task, state = flagship
-    batch = tuple(map(torch.from_numpy, swe_batch(3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        task.train_step(state, batch, torch.Generator().manual_seed(0))
-
 
 def test_bf16_mega_raises():
     # the task builds; its first bf16 forward raises in the model

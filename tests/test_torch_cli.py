@@ -473,27 +473,69 @@ def test_run_refuses_the_cpu_unless_asked(dataroot, tmp_path):
 @pytest.mark.parametrize("config,extra,match", [
     ("config_adm_edm_res32_cond_h.yaml", [], None),
     ("config_ddim_res32.yaml", ["trainer.precision=bf16"], "bf16"),
-    ("config_adm_edm_mcedm_res32.yaml", ["trainer.precision=bf16"], "bf16"),
+    ("config_adm_edm_mcedm_res32.yaml", ["trainer.precision=bf16"], None),
 ], ids=["cond_edm_training", "ddim", "bf16"])
 def test_cli_raises_on_what_is_not_ported(dataroot, tmp_path, config, extra, match):
-    """bf16 training reaches the tasks' raise, which names ROADMAP.md: the
-    flagship's at its first train step (bf16 serving is ported:
-    test_eval_model_serves_in_bf16), the DDPM joint model's at its first
-    train step too (its U-Net has no bf16 path yet either) (the FNO, which raised here before it was
-    ported: test_fno_config_trains_resumes_and_tests). The conditional EDM's training, which raised before it was
+    """bf16 training of the DDPM joint model reaches its U-Net's raise, which
+    names ROADMAP.md, at its first train step (its U-Net has no bf16 path
+    yet). The flagship's bf16 training, which raised here before it was
     ported, now trains, validates and tests with the JAX package's metric
-    keys (the other baselines: test_baseline_configs_train_and_test)."""
+    keys (resume and eval_model: test_flagship_trains_in_bf16_resumes_and_tests),
+    as the conditional EDM's training does since it was ported (the FNO, which
+    raised here before it was ported: test_fno_config_trains_resumes_and_tests;
+    the other baselines: test_baseline_configs_train_and_test)."""
     argv = ["--device", "cpu", f"--config-name={config}", f"dataroot={dataroot}",
             "trainer.max_epochs=1", "callbacks=callbacks_save_model",
             f"hydra.run.dir={tmp_path}"] + tiny(config) + extra
     if match is None:
         run.main(argv)
-        keys = set().union(*map(set, records(str(tmp_path))))
-        assert keys == chip_smoke().COND_METRIC_KEYS
+        recs = records(str(tmp_path))
+        keys = set().union(*map(set, recs))
+        assert keys == (chip_smoke().FLAGSHIP_METRIC_KEYS if "mcedm" in config
+                        else chip_smoke().COND_METRIC_KEYS)
+        assert all(np.isfinite(v) for r in recs for v in r.values())
         return
     with pytest.raises(NotImplementedError, match=match) as err:
         run.main(argv)
     assert "ROADMAP.md" in str(err.value)
+
+
+def test_flagship_trains_in_bf16_resumes_and_tests(dataroot, tmp_path):
+    """trainer.precision=bf16 through run.main: one epoch (fit, validation,
+    test) with the JAX package's keys, all finite; the checkpoint holds fp32
+    master params, Adam state and EMA; a resume to epoch 2 trains epoch 1
+    only, in bf16; eval_model reads the checkpoint and tests in bf16."""
+    common = ["--device", "cpu", FLAGSHIP, f"dataroot={dataroot}",
+              "callbacks=callbacks_save_model", "trainer.precision=bf16"] + TINY
+    run.main(common + ["trainer.max_epochs=1", f"hydra.run.dir={tmp_path / 'run'}"])
+    recs = records(str(tmp_path / "run"))
+    assert set().union(*map(set, recs)) == chip_smoke().FLAGSHIP_METRIC_KEYS
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    ckpt = CheckpointManager(str(tmp_path / "run" / "checkpoints"))
+    saved = torch.load(os.path.join(ckpt.ckpt_dir, str(ckpt.latest_step()), "state.pt"),
+                       weights_only=False)
+    floats = [t for part in ("params", "ema_params", "opt_state")
+              for t in _tensors(saved[part]) if t.is_floating_point()]
+    assert floats and all(t.dtype == torch.float32 for t in floats)
+    run.main(common + [f"ckpt_path={tmp_path / 'run'}", "trainer.max_epochs=2",
+                       f"hydra.run.dir={tmp_path / 'resume'}"])
+    resumed = records(str(tmp_path / "resume"))
+    assert sorted(r["epoch"] for r in resumed if "train_loss" in r) == [1]
+    assert all(np.isfinite(v) for r in resumed for v in r.values())
+    eval_model.main(common + [f"ckpt_path={tmp_path / 'resume'}",
+                              f"hydra.run.dir={tmp_path / 'eval'}"])
+    (got,) = records(str(tmp_path / "eval"))
+    want = [r for r in resumed if "test_mae_u" in r][-1]
+    assert set(got) - {"time"} == {k for k in want if k.startswith("test_")} | {"epoch"}
+    assert all(np.isfinite(v) for v in got.values())
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return []
 
 
 @pytest.mark.parametrize("config", ["config_ddim_res32.yaml", "config_adm_res32_cond_h.yaml",

@@ -1304,6 +1304,8 @@ def test_k4_bf16_matches_plain(cuda, length):
 
 @pytest.mark.cuda
 def test_bf16_kernels_refuse_mixed_dtypes_and_backward(cuda):
+    """Mixed dtypes raise; the backward of a bf16 call launches the bf16
+    backward kernels."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = _bf16_rnd(g, cuda, 1, 8, 8, 16)
     gamma = _bf16_rnd(g, cuda, 1, 16, dtype=torch.float32)
@@ -1316,5 +1318,176 @@ def test_bf16_kernels_refuse_mixed_dtypes_and_backward(cuda):
         tfn.channel_stats(x.half().reshape(1, 64, 16))
     xg = x.clone().requires_grad_()
     out = tfnc.gn_silu_conv(xg, gamma, gamma, wt, None, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        out.float().sum().backward()
+    before = tfnc.gn_silu_conv_bwd.launches
+    out.float().sum().backward()
+    assert tfnc.gn_silu_conv_bwd.launches == before + 1
+    assert xg.grad.dtype == torch.bfloat16 and bool(torch.isfinite(xg.grad.float()).all())
+
+
+# --- bf16 training: the bf16 backward kernels against their bf16 plain versions
+# bf16 outputs (dx, da, dq, dk, dv) as above; the fp32 outputs (dW, dbias,
+# dgamma, dbeta) within 1e-3 of their scale: sums of exact bf16 products in
+# other orders, and the one-ulp flips of a rounded activation where the two
+# sides' fp32 activations differ in the last bit.
+
+def _bf16_grads_close(got, want):
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert (a is None) == (w is None), i
+        if a is None:
+            continue
+        assert a.dtype == w.dtype, i
+        if a.dtype == torch.bfloat16:
+            _bf16_close(a, w)
+        else:
+            err = float((a.double() - w.double()).abs().max())
+            assert err <= 1e-3 * float(w.double().abs().max()), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_k1_bf16_backward_matches_plain(cuda, c):
+    g = torch.Generator(device=cuda).manual_seed(c + 1)
+    x = _bf16_rnd(g, cuda, 3, 700, c, scale=0.8, shift=0.2)
+    gy = _bf16_rnd(g, cuda, 3, 700, c)
+    gamma = _bf16_rnd(g, cuda, 3, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    beta = _bf16_rnd(g, cuda, 3, c, scale=0.3, dtype=torch.float32)
+    stats = tfn.channel_stats_plain(x)
+    groups = 32 if c == 128 else c // 4
+    before = tfn.gn_silu_bwd.launches
+    got = tfn.gn_silu_bwd(gy, x, gamma, beta, stats, groups)
+    assert tfn.gn_silu_bwd.launches == before + 1
+    _bf16_grads_close(got, tfn.gn_silu_bwd_bf16_plain(gy, x, gamma, beta, groups,
+                                                      stats=stats))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfn.gn_silu_bwd(*(t[..., :12].contiguous() for t in (gy, x, gamma, beta)),
+                        tuple(t[:, :12].contiguous() for t in stats), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(2, 12, 20, 24, 40, 24), (1, 10, 6, 64, 70, 24),
+                                   (2, 16, 16, 128, 64, 128), (1, 9, 17, 12, 20, 24)],
+                         ids=["ragged", "two-o-blocks", "c128", "scalar"])
+def test_k2_bf16_backward_matches_plain(cuda, mode, shape):
+    b, h, w, c, o, cr = shape
+    if mode == "identity_up" and (h % 2 or w % 2):
+        pytest.skip("identity_up needs an even height and width")
+    g = torch.Generator(device=cuda).manual_seed(h * w + c + 7)
+    act = mode != "linear"
+    x = _bf16_rnd(g, cuda, b, h, w, c, scale=0.8, shift=0.2)
+    gy = _bf16_rnd(g, cuda, b, h, w, o)
+    gamma = _bf16_rnd(g, cuda, b, c, scale=0.3, shift=1.0, dtype=torch.float32) if act else None
+    beta = _bf16_rnd(g, cuda, b, c, scale=0.3, dtype=torch.float32) if act else None
+    wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
+    kw = {}
+    if mode == "identity":
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h, w, o))
+    elif mode == "identity_up":
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h // 2, w // 2, o), res_up=True)
+    elif mode == "proj":
+        kw = dict(residual=_bf16_rnd(g, cuda, b, h, w, cr),
+                  skip_w=_bf16_rnd(g, cuda, cr, o, scale=0.2))
+    groups = 4 if act else 0
+    stats = tfn.channel_stats_plain(x.reshape(b, -1, c)) if act else None
+    got = tfnc.gn_silu_conv_bwd(gy, x, gamma, beta, wt, stats, groups, 1e-5, **kw)
+    want = tfnc.gn_silu_conv_bwd_plain(gy, x, gamma, beta, wt, groups, 1e-5, stats=stats, **kw)
+    _bf16_grads_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 11, 24, 40), (1, 8, 16, 64, 64), (2, 10, 18, 128, 64),
+                                   (1, 13, 9, 12, 40)])
+def test_k3_bf16_backward_matches_plain(cuda, shape):
+    b, h, w, c, o = shape
+    g = torch.Generator(device=cuda).manual_seed(h * w + 3)
+    x = _bf16_rnd(g, cuda, b, h, w, c, scale=0.8, shift=0.2)
+    gy = _bf16_rnd(g, cuda, b, 2 * h, 2 * w, o)
+    gamma = _bf16_rnd(g, cuda, b, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    beta = _bf16_rnd(g, cuda, b, c, scale=0.3, dtype=torch.float32)
+    wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
+    stats = tfn.channel_stats_plain(x.reshape(b, -1, c))
+    _bf16_grads_close(tfnc.gn_silu_up_conv_bwd(gy, x, gamma, beta, wt, stats, 4),
+                      tfnc.gn_silu_up_conv_bwd_plain(gy, x, gamma, beta, wt, 4, stats=stats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(64, 2), (64, 1), (37, 5), (8, 8)])
+def test_narrow_conv_bf16_backward_matches_plain(cuda, c, o):
+    g = torch.Generator(device=cuda).manual_seed(c * 10 + o)
+    x = _bf16_rnd(g, cuda, 2, 19, 37, c)
+    gy = _bf16_rnd(g, cuda, 2, 19, 37, o)
+    wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
+    before = tfnc.narrow_conv_bwd.launches
+    got = tfnc.narrow_conv_bwd(gy, x, wt)
+    assert tfnc.narrow_conv_bwd.launches == before + 1
+    _bf16_grads_close(got, tfnc.narrow_conv_bwd_plain(gy, x, wt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 63, 65, 200, 1024])
+def test_k4_bf16_backward_matches_plain(cuda, length):
+    g = torch.Generator(device=cuda).manual_seed(length + 5)
+    q, k, v, gy = (_bf16_rnd(g, cuda, 3, length, 64, scale=2.0) for _ in range(4))
+    lse = torch.empty(3, length, device=cuda)
+    o32 = torch.empty(3, length, 64, device=cuda)
+    out = tfa.attention_fwd(q, k, v, lse, o32)
+    _bf16_close(out, o32.to(torch.bfloat16))
+    err = float((o32 - tfa.attention_plain(q.float(), k.float(), v.float())).abs().max())
+    assert err <= 1e-5 * float(o32.abs().max())
+    got, want = tfa.attention_bwd(gy, q, k, v, o32, lse), tfa.attention_bwd_plain(gy, q, k, v)
+    if length == 1:
+        # one key: the softmax is 1, dS = dP - delta is zero in exact
+        # arithmetic and both sides hold rounding noise in dq and dk
+        assert all(float(t.float().abs().max()) <= 1e-5 for t in got[:2] + want[:2])
+        got, want = got[2:], want[2:]
+    _bf16_grads_close(got, want)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = tfa.attention_bwd.launches
+    tfa.attention(qg, kg, vg).backward(gy)
+    assert tfa.attention_bwd.launches == before + 1
+    _bf16_close(vg.grad, want[-1])
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_the_card(cuda):
+    """A bf16 McedmTask step on the kernel path against the bf16 plain path
+    from one state (loss and gradient norm 1e-2, params 2 lr), the master
+    params, Adam state and EMA fp32, every backward kernel launched."""
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp = {"name": "adm_edm_mcedm",
+          "model": {"in_channels": 2, "cond_channels": 2, "cat_cond": True, "out_ch": 2,
+                    "ch": 64, "ch_mult": [1, 1], "num_res_blocks": 1,
+                    "attn_resolutions": [16], "dropout": 0.0, "resolution": 32,
+                    "ema": True, "cond_p": 1.0, "dtype": "bfloat16"},
+          "data": {"normalization": "gauss"},
+          "optimization": {"optimizer": "Adam", "lr": 2e-4}}
+    stats = {"input_mean": 4.0, "input_std": 0.1, "target_mean": 0.1, "target_std": 0.3}
+    kern = build_task(hp, cuda)
+    plain = build_task(hp, cuda, ops=PLAIN_OPS)
+    state = kern.init_state(torch.Generator().manual_seed(0), stats)
+    for k_, v in state.params.items():  # non-zero weights everywhere
+        if v.dim() > 1:
+            v.copy_(torch.randn(v.shape, generator=torch.Generator().manual_seed(len(k_)))
+                    .to(v.device) / float(np.prod(v.shape[:-1])) ** 0.5)
+    rs = np.random.RandomState(3)
+    h = torch.from_numpy((rs.randn(4, 32, 32, 1) * 0.1 + 4.0).astype(np.float32)).to(cuda)
+    u = torch.from_numpy((rs.randn(4, 32, 32, 1) * 0.2).astype(np.float32)).to(cuda)
+    grid = torch.zeros_like(h)
+    draws = dict(mask=torch.from_numpy(rs.randint(0, 2, (4, 32, 32, 2)).astype(np.float32)).to(cuda),
+                 cond_noise=torch.randn(4, 32, 32, 2, device=cuda),
+                 noise=torch.randn(4, 32, 32, 2, device=cuda),
+                 rnd_normal=torch.randn(4, 1, 1, 1, device=cuda),
+                 keep=torch.ones((), device=cuda))
+    counters = (tfn.gn_silu_bwd, tfnc.gn_silu_conv_bwd, tfnc.gn_silu_up_conv_bwd,
+                tfnc.narrow_conv_bwd, tfa.attention_bwd)
+    before = [f.launches for f in counters]
+    s_k, m_k = kern.train_step(state, (h, grid, grid, u), None, **draws)
+    assert all(f.launches > n for f, n in zip(counters, before))
+    s_p, m_p = plain.train_step(state, (h, grid, grid, u), None, **draws)
+    for key in ("train_loss", "grad_norm"):
+        np.testing.assert_allclose(float(m_k[key]), float(m_p[key]), rtol=1e-2)
+    for k_ in s_p.params:
+        assert s_k.params[k_].dtype == s_k.ema_params[k_].dtype == torch.float32
+        assert s_k.opt_state["mu"][k_].dtype == torch.float32
+        assert float((s_k.params[k_] - s_p.params[k_]).abs().max()) <= 2 * 2e-4

@@ -151,23 +151,26 @@ def test_task_registry():
         build_task(hp, "cpu", target="m_cedm_tpu.tasks.NoSuchTask")
 
 
-@pytest.mark.parametrize("dtype,ported", [("float32", True), (None, True),
-                                          ("bfloat16", False)])
-def test_compute_dtype(dtype, ported):
+@pytest.mark.parametrize("dtype,fp32", [("float32", True), (None, True),
+                                       ("bfloat16", False)])
+def test_compute_dtype(dtype, fp32):
     """fp32 unless the config asks for bf16, as the JAX task reads it. A
-    bf16 McedmTask serves (tests/test_torch_bf16_task.py); `ported` says
-    whether it also trains: bf16 training is a later slice, and its train
-    step raises naming ROADMAP.md."""
+    bf16 McedmTask serves (tests/test_torch_bf16_task.py) and trains
+    (tests/test_torch_bf16_train.py): its train step keeps the master
+    params, the Adam moments and the EMA in fp32."""
     hp = hparams()
     hp["model"]["dtype"] = dtype
     task = build_task(hp, "cpu")
     assert isinstance(task, McedmTask)
-    assert task.compute_dtype == (None if ported else torch.bfloat16)
-    if not ported:
+    assert task.compute_dtype == (None if fp32 else torch.bfloat16)
+    if not fp32:
         state = task.init_state(torch.Generator().manual_seed(0), STATS)
         batch = tuple(map(torch.from_numpy, swe_batch(4)))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            task.train_step(state, batch, torch.Generator().manual_seed(1))
+        state, metrics = task.train_step(state, batch, torch.Generator().manual_seed(1))
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+        for tree in (state.params, state.ema_params, state.opt_state["mu"],
+                     state.opt_state["nu"]):
+            assert all(v.dtype == torch.float32 for v in tree.values())
 
 
 def test_port_runtime_imports_no_jax():
