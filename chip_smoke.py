@@ -198,8 +198,12 @@ Phases, each printing JSON lines:
               TFLOP/s; K1 fp32 element work at 67; K4's P V, dS K and dS^T Q
               as two TF32 products at 495), the library's time (the
               autograd backward of bf16 conv2d, of bf16 SDPA), and the
-              device time under torch.profiler of the bf16 kernels and of
-              the fp32 kernels on the same inputs upcast; (2)
+              device time (CUDA events behind a spin kernel) of the bf16
+              kernels and of the fp32 kernels on the same inputs upcast;
+              each K2 / K3 case's device time split into wgrad, dgrad and
+              the dx pass (at the identity tail also the dx pass as the
+              earlier PyTorch passes on the same da); the dx kernel (gn_dx)
+              alone on K2's bf16 da and K3's fp32 low-res da; (2)
               McedmTask.train_step with model.dtype bfloat16 at B = 16, full
               width and depth, from phase 5's state: kernel path against
               the bf16 plain path over 3 steps (loss and gradient norm
@@ -207,7 +211,9 @@ Phases, each printing JSON lines:
               path's gradient gap to the fp32 kernel step at most 1.5 times
               the plain path's, the launches per step equal to phase 5's
               (asserted), ms per step of the bf16 and the fp32 step in
-              turns, and one profiled bf16 step; (3)
+              turns, and one profiled bf16 step (its device busy beside
+              PARENT_BF16_STEP_BUSY_MS, the step's before the bf16 K2 / K3
+              backward's redesign); (3)
               configs/config_adm_edm_mcedm_res32.yaml with
               trainer.precision=bf16 through m_cedm_tpu_torch.run (fit and a
               resume to epoch 2) and m_cedm_tpu_torch.eval_model on the
@@ -3843,7 +3849,16 @@ TOL_BF16_TRAIN = 1e-2
 BF16_GAP_RATIO = 1.5
 BF16_BWD_KERNELS = {f"{name} bf16": name for name in (
     "K1 gn_silu_bwd", "K2 gn_silu_conv_bwd", "K2 narrow_conv_bwd",
-    "K3 gn_silu_up_conv_bwd", "K4 attention_bwd")}
+    "K3 gn_silu_up_conv_bwd", "K4 attention_bwd", "K2 gn_dx")}
+# the bf16 backward's dx pass has no fp32 instance: its source, and the
+# XLA pass it stands for (_dx_from_da, which phase A's kernel feeds; no
+# Pallas kernel of its own)
+BF16_ONLY_INFO = {"K2 gn_dx": ("m_cedm_tpu_torch/csrc/fused_norm_conv_bwd.cu",
+                               "m_cedm_tpu/pallas/fused_norm_conv.py:1425")}
+# the bf16 train step's device busy before the K2 / K3 backward's Hopper
+# redesign (PERF.md section 5: the profiled step of phase 16.2 on the
+# parent commit of that redesign, one H100 80GB HBM3 at 700.00 W)
+PARENT_BF16_STEP_BUSY_MS = 22.30
 
 
 def bf16_grads_error(got, want, name: str) -> dict:
@@ -3901,14 +3916,19 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
     def f32(*ts):
         return [None if t is None else t.float() for t in ts]
 
-    def check(kernel, mode, k_fn, p_fn, work, lib_fn=None, f32_fn=None):
+    def check(kernel, mode, k_fn, p_fn, work, lib_fn=None, f32_fn=None, pieces=None):
         """f32_fn: the fp32 kernels on the same inputs upcast, whose device
-        time is recorded beside the bf16 kernels' (`fp32_device_ms`)."""
+        time is recorded beside the bf16 kernels' (`fp32_device_ms`);
+        pieces: the call's kernels apart ({name: call}), each one's device
+        time recorded (`split_device_ms`)."""
         err = bf16_grads_error(k_fn(), p_fn(), f"{kernel} {mode}")
         lim = bound(*work)
         rec = {"phase": "bf16_backward", "kernel": kernel, "mode": mode, **err,
                "ms": cuda_ms(k_fn), "device_ms": device_ms(k_fn, lim),
                "plain_ms": cuda_ms(p_fn), **lim, "library_ms": None}
+        if pieces:
+            unbounded = {"bound_ms": 0.0, "bytes": 0}
+            rec["split_device_ms"] = {k: device_ms(f, unbounded) for k, f in pieces.items()}
         if f32_fn is not None:
             rec["fp32_device_ms"] = device_ms(f32_fn, lim)
         if lib_fn is not None:
@@ -3922,7 +3942,8 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
                 prev[k] = max(prev[k], rec[k])
         results[kernel]["modes"].append(
             {k: rec[k] for k in ("mode", "ms", "device_ms", "fp32_device_ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms", "max_rel_err")
+                                 "bound_ms", "bound_by", "library_ms", "max_rel_err",
+                                 "split_device_ms")
              if k in rec})
         return rec
 
@@ -3954,6 +3975,36 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
 
     def conv_w(ci, co):
         return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
+
+    def bwd_pieces(gy, x, gamma, beta, w, stats, groups, need_da, kw, up=False,
+                   torch_dx=False):
+        """The K2 / K3 bf16 backward's kernels apart: wgrad (and the
+        projection's one-tap wgrad), dgrad, the dx pass, each with its
+        reduce; with torch_dx also the parent's dx pass, dx_from_da's
+        PyTorch passes on the same da."""
+        act = gamma is not None
+        pieces = {"wgrad": lambda: fnc._wgrad(x, gy, gamma, beta, stats, groups, 1e-5, 9,
+                                              up, True)}
+        if kw.get("skip_w") is not None:
+            res_ = kw["residual"]
+            pieces["wgrad, one tap"] = lambda: fnc._wgrad(res_, gy, None, None, None, 0,
+                                                          1e-5, 1, False, False)
+        if need_da:
+            mode = (fnc._DGRAD_UP_FOLD if up else
+                    fnc._DGRAD_ACT if act else fnc._DGRAD_LINEAR)
+            da = torch.empty(x.shape, device=device,
+                             dtype=torch.float32 if up else bf)
+            pieces["dgrad"] = lambda: fnc._dgrad(gy, w, x if act else None, gamma, beta,
+                                                 stats, groups, 1e-5, mode, da)
+            if act:
+                dst = pieces["dgrad"]()
+                pieces["dx pass"] = lambda: fnc.gn_dx(x, da, gamma, dst, stats, groups)
+                if torch_dx:
+                    n = x.shape[1] * x.shape[2]
+                    mean, rstd = fn.group_mean_rstd_from_sums(*stats, n, groups, 1e-5)
+                    pieces["dx pass, PyTorch (parent style)"] = lambda: fn.dx_from_da(
+                        x, da, gamma, dst[0], dst[1], mean, rstd, groups).to(bf)
+        return pieces
 
     def k2(mode, x, gamma, beta, w, need_da=True, **kw):
         act = gamma is not None
@@ -3987,7 +4038,9 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
                                         need_da=need_da, **kw32)
 
         return check("K2 gn_silu_conv_bwd bf16", mode, kern, plain, work,
-                     lib_fn=conv_bwd_lib(x, w), f32_fn=kern32)
+                     lib_fn=conv_bwd_lib(x, w), f32_fn=kern32,
+                     pieces=bwd_pieces(gy, x, gamma, beta, w, stats, groups, need_da, kw,
+                                       torch_dx=mode.startswith("identity (")))
 
     h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
     gamma, beta = fold(ch)
@@ -4028,7 +4081,21 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
           (nbytes(gy, xl, gamma, beta, w, *xl_stats, xl, w) + 4 * (4 * b * ch + ch),
            2 * conv_flops(b, res, res, ch, ch), 0, PEAK_BF16),
           lib_fn=conv_bwd_lib(rnd(b, res, res, ch), w),
-          f32_fn=lambda: fnc.gn_silu_up_conv_bwd(gy32, xl32, gamma, beta, w32, xl_stats, gr))
+          f32_fn=lambda: fnc.gn_silu_up_conv_bwd(gy32, xl32, gamma, beta, w32, xl_stats, gr),
+          pieces=bwd_pieces(gy, xl, gamma, beta, w, xl_stats, gr, True, {}, up=True))
+
+    # the dx pass alone: K2's bf16 da at the res-128 tail, K3's fp32 da at
+    # its low resolution; bound by bytes (x and da read, dx written)
+    for mode, xs, da_dt in (("res-128 tail, bf16 da", h, bf),
+                            ("K3's low-res tail, fp32 da", xl, torch.float32)):
+        da = rnd(*xs.shape, scale=0.1, dtype=da_dt)
+        dst = rnd(2, b, ch, scale=30.0, dtype=torch.float32)
+        st = fn.channel_stats_plain(xs.reshape(b, -1, ch))
+        check("K2 gn_dx bf16", mode,
+              lambda xs=xs, da=da, dst=dst, st=st: (fnc.gn_dx(xs, da, gamma, dst, st, gr),),
+              lambda xs=xs, da=da, dst=dst, st=st: (
+                  fnc.gn_dx_plain(xs, da, gamma, dst, st, gr),),
+              (nbytes(xs, da, gamma, dst, *st, xs), 8.0 * xs.numel()))
 
     # K4 backward at the 32x32 sites: the bf16 forward's o32 (the output
     # before its rounding) feeds delta; held to the fp32 plain forward first
@@ -4201,7 +4268,7 @@ def phase_bf16_train(device, hparams, params, b: int, fp32_launches: dict) -> di
            "tol": TOL_BF16_TRAIN, "max_abs_diff": diffs, "tol_params": tol_params,
            "grad_gap_to_fp32": gap_k, "plain_grad_gap_to_fp32": gap_p,
            "gap_ratio": gap_k / gap_p, "gap_ratio_tol": BF16_GAP_RATIO,
-           "fp32_state": fp32_state,
+           "fp32_state": fp32_state, "parent_device_busy_ms": PARENT_BF16_STEP_BUSY_MS,
            "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in names},
            "ms_per_step": walls["bf16"], "fp32_ms_per_step": walls["fp32"],
            "order": ["fp32", "bf16", "bf16", "fp32"], "profile": prof}
@@ -4419,7 +4486,7 @@ def main() -> int:
                         "modes": rec["modes"]})
     for name, fp32_name in BF16_BWD_KERNELS.items():
         rec = bwd16_results[name]
-        source, replaces = KERNEL_INFO[fp32_name]
+        source, replaces = KERNEL_INFO.get(fp32_name) or BF16_ONLY_INFO[fp32_name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "dtype": "bfloat16", "launches": bwd16_launches[fp32_name],
                "launches_per_step": bwd16_launches[fp32_name] / TRAIN_STEPS,

@@ -115,33 +115,70 @@
 // SM in one wave; the scratch is then (B * runs) x 9 C O floats (9.4 MB at
 // the flagship's res-128 tail).
 //
-// bf16 (mc_conv_dgrad_bf16, mc_conv_wgrad_bf16): the kernels' instances on
-// bf16 x, g and w (template argument T), replacing _gnsc_bwd_kernel_a and
-// _up_pair_bwd_kernel on a bf16 network, where they round at these points:
+// bf16 (mc_conv_dgrad_bf16, mc_conv_wgrad_bf16, mc_gn_dx_bf16; the fp32
+// kernels above are not shared with them). They replace _gnsc_bwd_kernel_a
+// and _up_pair_bwd_kernel on a bf16 network, and round where those round:
 //   - the activation is recomputed in fp32 and rounded to bf16 before its
-//     products: K2 in _act_from_x's form, ((x - mean) * rstd) * gamma + beta
-//     then SiLU; K3 in _up_pair_bwd_kernel's folded form, x * (gamma * rstd)
-//     + (beta - gamma * rstd * mean) then SiLU;
+//     products (here in the folded form x * (gamma rstd) + (beta - gamma
+//     rstd mean), SiLU by __expf and a fast division: fp32 before the one
+//     rounding, so a value may differ from the plain version's by one bf16
+//     ulp, within the tolerances of the bf16 outputs);
 //   - dW, dbias and the conv input's cotangent ds are sums in fp32 of bf16
 //     products (exact in fp32);
-//   - dgrad's act mode forms da = ds * silu' and the dgamma, dbeta partials in
-//     fp32 and stores da rounded to bf16 (the linear mode stores ds rounded);
-//     the up-fold mode's ds stays fp32, as K3's does.
-// Both take their products as bf16 mma.sync.m16n8k16 (one where 3xTF32 takes
-// three TF32 products), from raw tiles staged as they are (16-byte cp.async,
-// eight values, where C and O are multiples of 8): no split pass. dgrad
-// (dgrad_kernel<mode, bf16>) reads A (pixel, o) and B (o, c) as 32-bit pairs,
-// since o pairs lie together in g (NHWC) and in w (HWIO). wgrad
-// (wgrad_bf16_kernel) contracts over pixels, the strided axis of both NHWC
-// operands, so ldmatrix.trans builds its fragments from [pixel][channel]
-// rows; its one pass over a tile is the activation. Bound at the res-128
-// tail: 19.3 GFLOP each of bf16 products, 0.020 ms at 989 TFLOP/s (bytes:
-// 0.010 ms).
+//   - dgrad's act mode forms da = ds * silu'(a) and the dgamma, dbeta
+//     partials in fp32 and stores da rounded to bf16 (the linear mode stores
+//     ds rounded); K3's ds stays fp32 through its low-res tail;
+//   - dx is formed from da in fp32 and rounded once (_dx_from_da).
+// Bound at the res-128 tail: 19.3 GFLOP each of bf16 products for dgrad and
+// wgrad, 0.020 ms at 989 TFLOP/s; the whole backward 0.039 ms (both
+// products); the dx pass moves 100 MB (x, da, dx), 0.030 ms at 3.35 TB/s.
+//
+// An earlier design, the fp32 kernels templated onto bf16 mma.sync.m16n8k16,
+// was held by wgrad's activation pass (each 32-channel slice of act(x)
+// rebuilt for each 32-output slice over a 6 x 18 halo: about 3.4
+// activations an element), and dx took four fp32 PyTorch passes. The
+// design for Hopper, on the layout and helpers of csrc/bf16_conv_tiles.cuh
+// (gnsc_bf16_kernel's):
+//   dgrad_bf16_kernel  the forward's conv applied to g: persistent blocks
+//     (one an SM) each walk a run of 16 x 16 (or 8 x 16) pixel tiles of one
+//     64-channel N-block; the mirrored, transposed weights resident in
+//     shared memory for the whole call, copied as they lie (HWIO rows
+//     (tap, c) hold the 64 o of a K chunk: K-major B, wgmma's 128-byte
+//     swizzle, no repack); wgmma m64n64k16 with A (g) by per-lane ldmatrix;
+//     16-byte copies and stores. The epilogue reads x (copied while the
+//     products run), forms da, and keeps the (dgamma, dbeta) partials in
+//     registers until the block leaves an image; K3's also folds the 2 x 2
+//     block of each low-res pixel (a shuffle for the columns, the row pair
+//     between two warps) and writes the low-res fp32 da, replacing the
+//     PyTorch fold and tail. dgrad_reduce_kernel adds the (block, image)
+//     partials in block order.
+//   wgrad_bf16_kernel  persistent blocks, one an SM, each a run of tiles for
+//     a (64-channel C-block, 64-output O-block) pair, so an input element is
+//     activated once a tile (1.27 times at 16 x 16, halo included, for every
+//     output channel at O = 64), in place on the raw tile, 16 bytes a
+//     thread-item. Three warpgroups, one a row of taps (96 accumulator
+//     registers a thread), run wgmma m64n64k16 over the tile's rows, 48
+//     products a warpgroup between two barriers: A = act(x)^T by ldmatrix
+//     .trans rows (the tap's shift moves the rows, which the registers do
+//     not care about), B = the g tile as 128-byte [pixel][output] rows in
+//     the swizzle (N-contiguous). Per-run partials and colsum_kernel as the
+//     fp32 kernel, so dW and dbias repeat bit for bit.
+//   gn_dx_kernel  the dx pass in one elementwise kernel, 16 bytes of x and dx
+//     a thread-item; K2's bf16 da, K3's fp32 low-res da. It replaces no
+//     Pallas kernel: XLA fuses _dx_from_da into one pass on the TPU.
+// Measured on one H100 (attention_sources --kernel k2bwdbf16; PERF.md
+// section 6, NVIDIA H100 80GB HBM3 at 700 W): the res-128 identity tail
+// 0.216-0.221 ms in all against 0.835-0.853 for the earlier design (wgrad
+// 0.089, dgrad 0.094, dx 0.040); by diagnostic
+// variants wgrad's activation pass is about 0.016 ms and its products 0.019,
+// dgrad's products 0.021.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "bf16_conv_tiles.cuh"
 
 namespace {
 
@@ -185,13 +222,6 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool v
                :: "r"(s), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
-}
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -208,35 +238,12 @@ __device__ __forceinline__ void load2(const float* p, bool pair, bool two, float
   }
 }
 
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, bool pair, bool two, float& a,
-                                      float& b) {
-  if (pair) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    a = v.x;
-    b = v.y;
-  } else {
-    a = __bfloat162float(p[0]);
-    b = two ? __bfloat162float(p[1]) : 0.f;
-  }
-}
-
 __device__ __forceinline__ void store2(float* p, bool pair, bool two, float a, float b) {
   if (pair) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
   } else {
     p[0] = a;
     if (two) p[1] = b;
-  }
-}
-
-// rounded once to bf16
-__device__ __forceinline__ void store2(__nv_bfloat16* p, bool pair, bool two, float a,
-                                       float b) {
-  if (pair) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    p[0] = __float2bfloat16_rn(a);
-    if (two) p[1] = __float2bfloat16_rn(b);
   }
 }
 
@@ -489,110 +496,12 @@ __device__ __forceinline__ void dg_mma_chunk(const float* sa, const float* sb,
   }
 }
 
-// The bf16 dgrad: one bf16 mma.sync.m16n8k16 a k-step of 16 cotangent
-// channels, its A and B fragments read as 32-bit pairs straight from the raw
-// tiles (no split pass): A (pixel, o) is the cotangent, whose channel pairs
-// lie together in NHWC; B (o, c) is the transposed weight, whose o pairs lie
-// together in HWIO. A position of the halo'd cotangent tile and a weight row
-// (tap, c) hold 16 values in 48 bytes, so the eight rows a fragment load
-// touches start 12 words apart and a warp's 32 words fall on 32 banks.
-constexpr int kCK16 = 16;   // cotangent channels a bf16 chunk
-constexpr int kRS16 = 24;   // bf16 values a staged position or weight row
-constexpr int kRawG16 = kPos * kRS16;
-constexpr int kRawW16 = 9 * kBC * kRS16;
-static_assert(2 * 2 * (kRawG16 + kRawW16) <= 4 * (2 * (kRawG + kRawW) + kSplitA + kSplitB),
-              "the bf16 stages fit below the statistics of the fp32 layout");
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Cotangent channels o0 .. o0 + 15 into one raw bf16 stage: the halo'd tile
-// of g (zero outside the image and past O) and the rows (tap, cc) = w[8 -
-// tap][c0 + cc][o0 .. o0 + 15] of the nine transposed taps; two 16-byte
-// copies a position or row where O % 8 == 0, element loads otherwise.
-__device__ __forceinline__ void dg16_load_chunk(const DgradArgs& p, int q, __nv_bfloat16* rg,
-                                                __nv_bfloat16* rw, int b, int ty0, int tx0,
-                                                int c0, int tid) {
-  const int o0 = q * kCK16, O = p.O, C = p.C;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const __nv_bfloat16* gb =
-      static_cast<const __nv_bfloat16*>(p.g) + (size_t)b * p.H * p.W * O;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-  for (int idx = tid; idx < kPos * 2; idx += kThreads) {
-    const int h = idx & 1, pos = idx >> 1;
-    const int y = ty0 - 1 + pos / kIW, x = tx0 - 1 + pos % kIW, o = o0 + 8 * h;
-    const bool inside = y >= 0 && y < p.H && x >= 0 && x < p.W;
-    const __nv_bfloat16* src = gb + ((size_t)y * p.W + x) * O + o;
-    __nv_bfloat16* dst = rg + pos * kRS16 + 8 * h;
-    if (p.gvec) {
-      cp_async16(dst, inside && o < O ? src : gb, inside && o < O);
-    } else {
-      for (int k = 0; k < 8; ++k) dst[k] = inside && o + k < O ? src[k] : zero;
-    }
-  }
-  for (int idx = tid; idx < 9 * kBC * 2; idx += kThreads) {
-    const int h = idx & 1, row = idx >> 1;
-    const int tap = row / kBC, c = c0 + row % kBC, o = o0 + 8 * h;
-    const __nv_bfloat16* src = w + ((size_t)(8 - tap) * C + c) * O + o;
-    __nv_bfloat16* dst = rw + row * kRS16 + 8 * h;
-    if (p.wvec) {
-      cp_async16(dst, c < C && o < O ? src : w, c < C && o < O);
-    } else {
-      for (int k = 0; k < 8; ++k) dst[k] = c < C && o + k < O ? src[k] : zero;
-    }
-  }
-}
-
-// One chunk's nine taps on the warp's two m-tiles (pixel rows 2 rg + m, the
-// A rows pixels g and g + 8) x four n-tiles (input channels 32 cq + 8 j + g),
-// summed into acc on the tensor cores.
-__device__ __forceinline__ void dg16_mma_chunk(const __nv_bfloat16* rg,
-                                               const __nv_bfloat16* rw,
-                                               float (&acc)[2][4][4], int rgi, int cq,
-                                               int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int s = 0; s < 9; ++s) {
-    const int dy = s / 3, dx = s % 3;
-    uint32_t a[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const __nv_bfloat16* p0 = rg + ((2 * rgi + m + dy) * kIW + g + dx) * kRS16 + 2 * t;
-      const __nv_bfloat16* p8 = p0 + 8 * kRS16;
-      a[m][0] = ld_pair(p0);
-      a[m][1] = ld_pair(p8);
-      a[m][2] = ld_pair(p0 + 8);
-      a[m][3] = ld_pair(p8 + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat16* pb = rw + (s * kBC + 32 * cq + 8 * j + g) * kRS16 + 2 * t;
-      const uint32_t b0 = ld_pair(pb), b1 = ld_pair(pb + 8);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) mma_bf16(acc[m][j], a[m], b0, b1);
-    }
-  }
-}
-
-template <int kMode, typename T>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
-  constexpr bool kExact = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  // fp32: [2][kRawG] raw cotangent stages, [2][kRawW] raw weight stages;
-  // bf16: [2][kRawG16], then [2][kRawW16] bf16 values from the same start
+  // [2][kRawG] raw cotangent stages, [2][kRawW] raw weight stages
   float* rg = smem;
   float* rw = rg + 2 * kRawG;
-  __nv_bfloat16* rg16 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* rw16 = rg16 + 2 * kRawG16;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -603,9 +512,7 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
   const int C = p.C;
   const int nq = (p.O + kCK - 1) / kCK;
 
-  const int nq16 = (p.O + kCK16 - 1) / kCK16;
-  if (kExact) dg16_load_chunk(p, 0, rg16, rw16, b, ty0, tx0, c0, tid);
-  else dg_load_chunk(p, 0, rg, rw, b, ty0, tx0, c0, tid);
+  dg_load_chunk(p, 0, rg, rw, b, ty0, tx0, c0, tid);
   cp_commit();
   float* sa = smem + 2 * (kRawG + kRawW);  // the split cotangent plane
   float* sb = sa + kSplitA;                // the split weight plane
@@ -633,32 +540,18 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
 
-  if (kExact) {
-    for (int q = 0; q < nq16; ++q) {
-      const int st = q & 1;
-      if (q + 1 < nq16)
-        dg16_load_chunk(p, q + 1, rg16 + (st ^ 1) * kRawG16, rw16 + (st ^ 1) * kRawW16, b,
-                        ty0, tx0, c0, tid);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();  // chunk q has landed
-      dg16_mma_chunk(rg16 + st * kRawG16, rw16 + st * kRawW16, acc, rg_, cq, lane);
-      __syncthreads();  // every warp is done with stage st before it is refilled
-    }
-  } else {
-    for (int q = 0; q < nq; ++q) {
-      const int st = q & 1;
-      if (q + 1 < nq)
-        dg_load_chunk(p, q + 1, rg + (st ^ 1) * kRawG, rw + (st ^ 1) * kRawW, b, ty0,
-                      tx0, c0, tid);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();  // chunk q has landed; every warp is done with q - 1's planes
-      dg_split_g(rg + st * kRawG, sa, tid);
-      dg_split_w(rw + st * kRawW, sb, tid);
-      __syncthreads();
-      dg_mma_chunk(sa, sb, acc, rg_, cq, lane);
-    }
+  for (int q = 0; q < nq; ++q) {
+    const int st = q & 1;
+    if (q + 1 < nq)
+      dg_load_chunk(p, q + 1, rg + (st ^ 1) * kRawG, rw + (st ^ 1) * kRawW, b, ty0,
+                    tx0, c0, tid);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // chunk q has landed; every warp is done with q - 1's planes
+    dg_split_g(rg + st * kRawG, sa, tid);
+    dg_split_w(rw + st * kRawW, sb, tid);
+    __syncthreads();
+    dg_mma_chunk(sa, sb, acc, rg_, cq, lane);
   }
   cp_wait<0>();
 
@@ -714,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
         float v0 = acc[m][j][2 * h], v1 = acc[m][j][2 * h + 1];
         if (kMode == kAct) {
           float x0, x1;
-          load2(static_cast<const T*>(p.x) + pix * C + c, p.pair, two, x0, x1);
+          load2(static_cast<const float*>(p.x) + pix * C + c, p.pair, two, x0, x1);
           const float xh0 = (x0 - s_mean[cl]) * s_rstd[cl];
           const float a0 = xh0 * s_gam[cl] + s_bet[cl];
           const float sg0 = sigmoid(a0);
@@ -730,8 +623,7 @@ __global__ void __launch_bounds__(kThreads, 2) dgrad_kernel(const DgradArgs p) {
             pdb[j][1] += v1;
           }
         }
-        // bf16: da stored rounded once (dgamma, dbeta above from the fp32 da)
-        store2(static_cast<T*>(p.out) + pix * C + c, p.pair, two, v0, v1);
+        store2(static_cast<float*>(p.out) + pix * C + c, p.pair, two, v0, v1);
       }
     }
   }
@@ -984,10 +876,9 @@ __device__ __forceinline__ void wg_flush(float* sacc, float (&part)[2][4][4], in
 
 // The run's partial dW from the warps' fp32 sums in sacc ([warp][8][lane][4]
 // floats, entry 4 q + e of the flattened [m][j][e]), and dbias from the sums
-// of g: fp32, the threads below 256 each hold one output channel's in gsum
-// (two threads 128 apart a channel, each over its lanes t = 0..3); bf16, the
-// threads below kWO each hold one channel's whole sum. red: kWO * 2 free floats.
-template <bool kBf16>
+// of g: the threads below 256 each hold one output channel's in gsum (two
+// threads 128 apart a channel, each over its lanes t = 0..3). red: kWO * 2
+// free floats.
 __device__ __forceinline__ void wg_store(const WgradArgs& p, float* sacc, float* red, int b,
                                          int run, int c0, int o0, int tid, float gsum) {
   const int C = p.C, O = p.O, warp = tid >> 5, lane = tid & 31;
@@ -1039,19 +930,15 @@ __device__ __forceinline__ void wg_store(const WgradArgs& p, float* sacc, float*
       }
   }
   if (p.bias && c0 == 0) {
-    float total = gsum;
-    if (!kBf16) {
-      // the sums of one output channel are held by the lanes t = 0..3 of two
-      // threads 128 apart; add them in a fixed order
-      gsum += __shfl_xor_sync(0xffffffffu, gsum, 1);
-      gsum += __shfl_xor_sync(0xffffffffu, gsum, 2);
-      __syncthreads();
-      if (tid < 256 && (tid & 3) == 0)
-        red[(tid >> 7) * 32 + ((tid >> 5) & 3) * 8 + ((tid & 31) >> 2)] = gsum;
-      __syncthreads();
-      if (tid < kWO) total = red[tid] + red[32 + tid];
-    }
-    if (tid < kWO && o0 + tid < O) out[(size_t)p.taps * C * O + o0 + tid] = total;
+    // the sums of one output channel are held by the lanes t = 0..3 of two
+    // threads 128 apart; add them in a fixed order
+    gsum += __shfl_xor_sync(0xffffffffu, gsum, 1);
+    gsum += __shfl_xor_sync(0xffffffffu, gsum, 2);
+    __syncthreads();
+    if (tid < 256 && (tid & 3) == 0)
+      red[(tid >> 7) * 32 + ((tid >> 5) & 3) * 8 + ((tid & 31) >> 2)] = gsum;
+    __syncthreads();
+    if (tid < kWO && o0 + tid < O) out[(size_t)p.taps * C * O + o0 + tid] = red[tid] + red[32 + tid];
   }
 }
 
@@ -1141,224 +1028,9 @@ __global__ void __launch_bounds__(kWThreads, 2) wgrad_kernel(const WgradArgs p) 
   }
   cp_wait<0>();
 
-  wg_store<false>(p, sacc, pa, b, run, c0, o0, tid, gsum);
+  wg_store(p, sacc, pa, b, run, c0, o0, tid, gsum);
 }
 
-
-// ---------------------------------------------------------------------------
-// wgrad in bf16: bf16 mma.sync.m16n8k16 with ldmatrix.trans fragments
-// ---------------------------------------------------------------------------
-//
-// The same GEMM (M = 32 input channels, N = 32 output channels a block, K =
-// the pixels; warp w tap w, or for one tap the k-steps dealt round the
-// warps), one k-step a tile row of 16 pixels. Both operands lie in shared
-// memory as [pixel][channel] rows of bf16 (40 values, 80 bytes, so the eight
-// rows of an 8 x 8 matrix fall on distinct banks), and ldmatrix.trans turns
-// each 8 x 8 block into the fragment that pairs two pixels of one channel:
-// A (channel, pixel) from the activated tile at the tap's shifted pixels, B
-// (pixel, o) from the raw cotangent tile. The activation pass (GroupNorm and
-// SiLU in fp32, rounded to bf16; zero outside the image) is the only pass
-// over a tile; the linear mode reads the raw x tile itself. Raw tiles are
-// double-buffered, so tile i + 1 lands while tile i is multiplied; the sums
-// stay in registers. Per-thread sums of g give dbias (threads below kWO, one
-// output channel each, in pixel order).
-constexpr int kW16Pos = kWPos * kWRS;  // bf16 values of an activated or raw x tile
-constexpr int kW16Pix = kWPix * kWRS;  // of a raw g tile
-constexpr size_t kW16SmemBytes =
-    2 * (2 * (kW16Pos + kW16Pix) + kW16Pos) + 4 * (kWAcc + 4 * kWC);
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// The raw bf16 tiles of tile (ty0, tx0) into a stage, as wg_load_tile's fp32
-// ones: kWRS values a position (pixel), 16 bytes (eight values) a copy where
-// C (O) % 8 == 0, element loads otherwise; zero outside the image, past C
-// and past O.
-template <bool kUp>
-__device__ __forceinline__ void wg_load_tile(const WgradArgs& p, __nv_bfloat16* rx,
-                                             __nv_bfloat16* rgt, int b, int ty0, int tx0,
-                                             int c0, int o0, int tid) {
-  const int C = p.C, O = p.O;
-  const int hin = kUp ? p.H / 2 : p.H, win = kUp ? p.W / 2 : p.W;
-  const int cols = kUp ? kWLW : kWIW, npos = kUp ? kWLH * kWLW : kWPos;
-  const int y0 = kUp ? ty0 / 2 - 1 : ty0 - 1, x0 = kUp ? tx0 / 2 - 1 : tx0 - 1;
-  const bool one = p.taps == 1;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(p.x) + (size_t)b * hin * win * C;
-  const int xper = p.xvec ? kWC / 8 : kWC;  // copies a position
-  for (int idx = tid; idx < npos * xper; idx += kWThreads) {
-    const int h = idx % xper, pos = idx / xper;
-    const int iy = pos / cols, ix = pos % cols;
-    const int y = y0 + iy, x = x0 + ix, c = c0 + (p.xvec ? 8 * h : h);
-    const bool halo = one && (iy == 0 || iy == kWIH - 1 || ix == 0 || ix == kWIW - 1);
-    const bool valid = !halo && y >= 0 && y < hin && x >= 0 && x < win && c < C;
-    const __nv_bfloat16* src = xb + ((size_t)y * win + x) * C + c;
-    if (p.xvec) cp_async16(rx + pos * kWRS + 8 * h, valid ? src : xb, valid);
-    else rx[pos * kWRS + h] = valid ? *src : zero;
-  }
-  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(p.g) + (size_t)b * p.H * p.W * O;
-  const int gper = p.gvec ? kWO / 8 : kWO;
-  for (int idx = tid; idx < kWPix * gper; idx += kWThreads) {
-    const int h = idx % gper, px = idx / gper;
-    const int y = ty0 + px / kWTW, x = tx0 + px % kWTW, o = o0 + (p.gvec ? 8 * h : h);
-    const bool valid = y < p.H && x < p.W && o < O;
-    const __nv_bfloat16* src = gb + ((size_t)y * p.W + x) * O + o;
-    if (p.gvec) cp_async16(rgt + px * kWRS + 8 * h, valid ? src : gb, valid);
-    else rgt[px * kWRS + h] = valid ? *src : zero;
-  }
-}
-
-// The activated tile: act(x) at every halo'd position of the output tile (K3:
-// of the upsampled low-res tile), zero outside the image and past C, rounded
-// to bf16; K2 in _act_from_x's form, K3 in the folded form, two channels a
-// thread-item.
-template <bool kUp>
-__device__ __forceinline__ void wg16_activate(const WgradArgs& p, const __nv_bfloat16* rx,
-                                              __nv_bfloat16* act, const float* s_a,
-                                              const float* s_b, const float* s_m,
-                                              const float* s_r, int ty0, int tx0, int c0,
-                                              int tid) {
-  for (int idx = tid; idx < kWPos * kWC / 2; idx += kWThreads) {
-    const int cl = 2 * (idx % (kWC / 2)), pos = idx / (kWC / 2);
-    const int iy = pos / kWIW, ix = pos % kWIW;
-    const int y = ty0 - 1 + iy, x = tx0 - 1 + ix;
-    float v[2] = {0.f, 0.f};
-    if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
-      const int rpos = kUp ? ((y >> 1) - (ty0 / 2 - 1)) * kWLW + (x >> 1) - (tx0 / 2 - 1)
-                           : pos;
-      const float2 xv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(rx + rpos * kWRS + cl));
-      const float xs[2] = {xv.x, xv.y};
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int c = cl + k;
-        const float t = kUp ? xs[k] * s_a[c] + s_b[c]
-                            : ((xs[k] - s_m[c]) * s_r[c]) * s_a[c] + s_b[c];
-        v[k] = c0 + c < p.C ? t * sigmoid(t) : 0.f;
-      }
-    }
-    *reinterpret_cast<__nv_bfloat162*>(act + pos * kWRS + cl) = __floats2bfloat162_rn(v[0], v[1]);
-  }
-}
-
-template <bool kUp>
-__global__ void __launch_bounds__(kWThreads, 2) wgrad_bf16_kernel(const WgradArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  __nv_bfloat16* rx = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] raw x stages
-  __nv_bfloat16* rgt = rx + 2 * kW16Pos;                        // [2] raw g stages
-  __nv_bfloat16* act = rgt + 2 * kW16Pix;                       // the activated tile
-  float* sacc = reinterpret_cast<float*>(act + kW16Pos);        // the warps' sums
-  float* s_a = sacc + kWAcc;  // [kWC] K2: gamma, K3: the folded scale
-  float* s_b = s_a + kWC;     // K2: beta, K3: the folded shift
-  float* s_m = s_b + kWC;     // K2: mean
-  float* s_r = s_m + kWC;     // K2: rstd
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int C = p.C, O = p.O;
-  const int oslices = (O + kWO - 1) / kWO, cslices = (C + kWC - 1) / kWC;
-  int blk = blockIdx.x;
-  const int o0 = (blk % oslices) * kWO;
-  blk /= oslices;
-  const int c0 = (blk % cslices) * kWC;
-  blk /= cslices;
-  const int run = blk % p.runs, b = blk / p.runs;
-  const int tiles_w = (p.W + kWTW - 1) / kWTW;
-  const int tiles = ((p.H + kWTH - 1) / kWTH) * tiles_w;
-  const int per = (tiles + p.runs - 1) / p.runs;
-  const int t_begin = run * per, t_end = min(tiles, t_begin + per);
-
-  if (t_begin < t_end)
-    wg_load_tile<kUp>(p, rx, rgt, b, (t_begin / tiles_w) * kWTH,
-                      (t_begin % tiles_w) * kWTW, c0, o0, tid);
-  cp_commit();
-
-  if (p.act && tid < kWC) {
-    float a = 0.f, sh = 0.f, mean = 0.f, rstd = 0.f;
-    if (c0 + tid < C) {
-      const int hin = kUp ? p.H / 2 : p.H, win = kUp ? p.W / 2 : p.W;
-      const float cnt = (float)hin * (float)win * (float)(C / p.groups);
-      mean_rstd(p.sums, p.sumsq, b, C, c0 + tid, p.groups, cnt, p.eps, &mean, &rstd);
-      a = p.gamma[b * C + c0 + tid];
-      sh = p.beta[b * C + c0 + tid];
-      if (kUp) {  // folded, as _up_pair_bwd_kernel
-        sh -= a * rstd * mean;
-        a *= rstd;
-      }
-    }
-    s_a[tid] = a;
-    s_b[tid] = sh;
-    s_m[tid] = mean;
-    s_r[tid] = rstd;
-  }
-
-  const bool one = p.taps == 1;
-  const int dy = one ? 1 : warp / 3, dx = one ? 1 : warp % 3;
-  const int mat = lane >> 3, mi = lane & 7;  // the ldmatrix row this lane addresses
-  float acc[2][4][4] = {};
-  float gsum = 0.f;
-  int kbase = 0;  // k-steps of the run before this tile
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int st = (tile - t_begin) & 1;
-    const int ty0 = (tile / tiles_w) * kWTH, tx0 = (tile % tiles_w) * kWTW;
-    if (tile + 1 < t_end)
-      wg_load_tile<kUp>(p, rx + (st ^ 1) * kW16Pos, rgt + (st ^ 1) * kW16Pix, b,
-                        ((tile + 1) / tiles_w) * kWTH, ((tile + 1) % tiles_w) * kWTW, c0,
-                        o0, tid);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();  // tile's raw stages have landed
-    const __nv_bfloat16* xs = rx + st * kW16Pos;
-    const __nv_bfloat16* gs = rgt + st * kW16Pix;
-    if (p.act) {
-      wg16_activate<kUp>(p, xs, act, s_a, s_b, s_m, s_r, ty0, tx0, c0, tid);
-      __syncthreads();
-      xs = act;
-    }
-    const int nsteps = min(kWTH, p.H - ty0);  // rows past the image add nothing
-    if (tid < kWO) {
-      for (int px = 0; px < nsteps * kWTW; ++px) gsum += to_f(gs[px * kWRS + tid]);
-    }
-#pragma unroll 1
-    for (int s = 0; s < nsteps; ++s) {
-      if (one && (kbase + s) % kWWarps != warp) continue;  // one tap: round the warps
-      // A rows: pixel mi + 8 (mat >> 1) of row s shifted by the tap, channels
-      // 16 m + 8 (mat & 1); B rows: pixel mi + 8 (mat & 1) of row s, outputs
-      // 8 (2 jj + (mat >> 1))
-      uint32_t a[2][4], bb[2][4];
-      const int apos = (s + dy) * kWIW + mi + 8 * (mat >> 1) + dx;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        ldsm_x4_trans(a[m], xs + apos * kWRS + 16 * m + 8 * (mat & 1));
-      const int bpix = s * kWTW + mi + 8 * (mat & 1);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        ldsm_x4_trans(bb[jj], gs + bpix * kWRS + 8 * (2 * jj + (mat >> 1)));
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          mma_bf16(acc[m][2 * jj], a[m], bb[jj][0], bb[jj][1]);
-          mma_bf16(acc[m][2 * jj + 1], a[m], bb[jj][2], bb[jj][3]);
-        }
-    }
-    kbase += nsteps;
-    __syncthreads();  // every warp is done with this tile's stages
-  }
-  cp_wait<0>();
-
-  float* my_acc = sacc + warp * 32 * 32;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(my_acc + ((m * 4 + j) * 32 + lane) * 4) =
-          make_float4(acc[m][j][0], acc[m][j][1], acc[m][j][2], acc[m][j][3]);
-  wg_store<true>(p, sacc, s_a, b, run, c0, o0, tid, gsum);
-}
 
 // ---------------------------------------------------------------------------
 // wgrad at C <= kNC (conv_in): bytes, not products, set its time
@@ -1487,30 +1159,20 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // above 48 KB of dynamic shared memory a kernel must opt in, once per process
-template <typename T>
-cudaError_t configure_dgrad() {
-  cudaError_t e = allow_smem(dgrad_kernel<kLinear, T>, kDSmemBytes);
-  if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kAct, T>, kDSmemBytes);
-  if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kUpFold, T>, kDSmemBytes);
-  return e;
-}
-
 cudaError_t configure() {
   static cudaError_t err = [] {
-    cudaError_t e = configure_dgrad<float>();
-    if (e == cudaSuccess) e = configure_dgrad<__nv_bfloat16>();
+    cudaError_t e = allow_smem(dgrad_kernel<kLinear>, kDSmemBytes);
+    if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kAct>, kDSmemBytes);
+    if (e == cudaSuccess) e = allow_smem(dgrad_kernel<kUpFold>, kDSmemBytes);
     if (e == cudaSuccess) e = allow_smem(wgrad_kernel<false>, kWSmemBytes);
     if (e == cudaSuccess) e = allow_smem(wgrad_kernel<true>, kWSmemBytes);
-    if (e == cudaSuccess) e = allow_smem(wgrad_bf16_kernel<false>, kW16SmemBytes);
-    if (e == cudaSuccess) e = allow_smem(wgrad_bf16_kernel<true>, kW16SmemBytes);
     return e;
   }();
   return err;
 }
 
-// the dgrad launch for either element type (mc_conv_dgrad's arguments)
-template <typename T>
-int conv_dgrad(const T* g, const T* w, const T* x, const float* gamma, const float* beta,
+// the fp32 dgrad launch (mc_conv_dgrad's arguments)
+int conv_dgrad(const float* g, const float* w, const float* x, const float* gamma, const float* beta,
                const float* sums, const float* sumsq, void* out, float* dstats, float* part,
                int batch, int h, int wd, int c, int o, int groups, float eps, int mode,
                void* stream) {
@@ -1520,20 +1182,18 @@ int conv_dgrad(const T* g, const T* w, const T* x, const float* gamma, const flo
     return (int)cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
-  constexpr int esz = sizeof(T);
-  // 16-byte copies: four fp32 or eight bf16 values
-  const int vec_o = 16 / esz;
-  const bool pair = c % 2 == 0 && aligned(out, mode == kUpFold ? 8 : 2 * esz) &&
-                    (mode != kAct || aligned(x, 2 * esz));
+  // 16-byte copies: four values
+  const int vec_o = 4;
+  const bool pair = c % 2 == 0 && aligned(out, 8) && (mode != kAct || aligned(x, 8));
   DgradArgs p{g, w, x, gamma, beta, sums, sumsq, out, part, h, wd, c, o,
               groups, eps, o % vec_o == 0 && aligned(g, 16), o % vec_o == 0 && aligned(w, 16),
               (int)pair};
   const int tiles = dgrad_tiles(h, wd);
   dim3 grid(tiles, batch, (c + kBC - 1) / kBC);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kLinear) dgrad_kernel<kLinear, T><<<grid, kThreads, kDSmemBytes, s>>>(p);
-  else if (mode == kAct) dgrad_kernel<kAct, T><<<grid, kThreads, kDSmemBytes, s>>>(p);
-  else dgrad_kernel<kUpFold, T><<<grid, kThreads, kDSmemBytes, s>>>(p);
+  if (mode == kLinear) dgrad_kernel<kLinear><<<grid, kThreads, kDSmemBytes, s>>>(p);
+  else if (mode == kAct) dgrad_kernel<kAct><<<grid, kThreads, kDSmemBytes, s>>>(p);
+  else dgrad_kernel<kUpFold><<<grid, kThreads, kDSmemBytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || mode != kAct) return (int)err;
   colsum_kernel<<<dim3((c + 31) / 32, 2 * batch), 32 * kSumGroups, 0, s>>>(part, dstats,
@@ -1582,17 +1242,6 @@ int mc_conv_dgrad(const float* g, const float* w, const float* x,
                     o, groups, eps, mode, stream);
 }
 
-// The bf16 instance: g, w, x bf16; out bf16 in modes 0 and 1 (da rounded
-// once), fp32 in mode 2; the vectors, dstats and part fp32.
-int mc_conv_dgrad_bf16(const __nv_bfloat16* g, const __nv_bfloat16* w,
-                       const __nv_bfloat16* x, const float* gamma, const float* beta,
-                       const float* sums, const float* sumsq, void* out, float* dstats,
-                       float* part, int batch, int h, int wd, int c, int o, int groups,
-                       float eps, int mode, void* stream) {
-  return conv_dgrad(g, w, x, gamma, beta, sums, sumsq, out, dstats, part, batch, h, wd, c,
-                    o, groups, eps, mode, stream);
-}
-
 // h, w: the cotangent's (output's) height and width; x is (B, h, w, c), or
 // (B, h / 2, w / 2, c) with up = 1. dwb: dW (taps, c, o), then dbias (o)
 // when bias = 1; part: the (batch * runs, taps c o [+ o]) scratch, runs:
@@ -1600,7 +1249,8 @@ int mc_conv_dgrad_bf16(const __nv_bfloat16* g, const __nv_bfloat16* w,
 // not up) the narrow-C kernel runs, else the tensor-core one.
 }  // extern "C"
 
-// the wgrad launch for either element type (mc_conv_wgrad's arguments)
+// the wgrad launch for either element type (mc_conv_wgrad's arguments); bf16
+// only on the narrow-C kernel (the tensor-core one is conv_wgrad_bf16's)
 template <typename T>
 int conv_wgrad(const T* x, const T* g, const float* gamma, const float* beta,
                const float* sums, const float* sumsq, float* dwb, float* part, int batch,
@@ -1612,7 +1262,7 @@ int conv_wgrad(const T* x, const T* g, const float* gamma, const float* beta,
       runs < 1 || runs > mc_conv_bwd_tiles(h, wd, narrow_c ? 2 : 1) ||
       (up && (h % 2 || wd % 2)) ||
       (up && taps != 9) || (act && (groups < 1 || c % groups)) || !dwb || !part ||
-      (kBf16 && narrow_c && act))
+      (kBf16 && (!narrow_c || act)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
@@ -1629,9 +1279,7 @@ int conv_wgrad(const T* x, const T* g, const float* gamma, const float* beta,
     else wgrad_narrow_kernel<8, T><<<grid, kNThreads, 0, s>>>(p);
   } else {
     dim3 grid(batch * runs * ((c + kWC - 1) / kWC) * ((o + kWO - 1) / kWO));
-    if (kBf16 && up) wgrad_bf16_kernel<true><<<grid, kWThreads, kW16SmemBytes, s>>>(p);
-    else if (kBf16) wgrad_bf16_kernel<false><<<grid, kWThreads, kW16SmemBytes, s>>>(p);
-    else if (up) wgrad_kernel<true><<<grid, kWThreads, kWSmemBytes, s>>>(p);
+    if (up) wgrad_kernel<true><<<grid, kWThreads, kWSmemBytes, s>>>(p);
     else wgrad_kernel<false><<<grid, kWThreads, kWSmemBytes, s>>>(p);
   }
   err = cudaGetLastError();
@@ -1640,6 +1288,1065 @@ int conv_wgrad(const T* x, const T* g, const float* gamma, const float* beta,
       part, dwb, batch * runs, (int)k);
   return (int)cudaGetLastError();
 }
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// bf16: dgrad, wgrad and the dx pass, written for Hopper (header note)
+// ---------------------------------------------------------------------------
+
+using bf16t::bf16;
+
+constexpr int kHW = 16;              // tile columns: one row of 16 pixels, one m16 / k16
+constexpr int kHCh = bf16t::kRowCh;  // 64: channels a row, N of a product, K of a chunk
+constexpr int kHCap = 232448;        // dynamic shared memory a block may take (H100)
+constexpr int kHBigTileWaves = 1;    // 16-row tiles where they give this many a block
+constexpr int kHWRows = 9 * kHCh;    // dgrad weight rows of one o-chunk: (tap, c)
+constexpr int kHWChunk = kHWRows * bf16t::kWRowBytes;  // 73,728 bytes
+constexpr int kWgWarps = 12;         // wgrad: three warpgroups, one a row of taps
+constexpr int kWgThreads = 32 * kWgWarps;
+constexpr int kBiasClasses = kWgThreads / 32;  // wgrad's dbias: pixel classes a tile
+constexpr int kDxThreads = 256;      // the dx pass
+constexpr int kDxItems = 4;          // 16-byte items a thread
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (bf16t::smem_addr(p) & 1023)) & 1023);
+}
+
+// silu'(a) in fp32 with the fast exponential and division
+__device__ __forceinline__ float silu_grad_fast(float a) {
+  const float sg = __fdividef(1.f, 1.f + __expf(-a));
+  return sg * (1.f + a * (1.f - sg));
+}
+
+__device__ __forceinline__ void bar_pair(int id) {
+  asm volatile("bar.sync %0, 64;" :: "r"(id) : "memory");
+}
+
+int sm_count() {
+  static int n[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) return 132;
+  if (!n[dev]) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev] > 0 ? n[dev] : 132;
+}
+
+// co-resident blocks an SM of `kernel` at `smem` bytes, asked once per
+// instance (id) and KB; the dynamic shared memory cap is raised first
+template <typename Kernel>
+int blocks_per_sm_h(Kernel kernel, int id, int threads, int smem) {
+  static int cache[16][kHCap / 1024 + 2] = {};
+  static bool raised[16] = {};
+  const int kb = (smem + 1023) / 1024;
+  if (id < 0 || id >= 16 || kb > kHCap / 1024 + 1) return 0;
+  int& n = cache[id][kb];
+  if (!n) {
+    if (!raised[id] && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            kHCap) != cudaSuccess)
+      return 0;
+    raised[id] = true;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, kernel, threads, kb * 1024 < kHCap ? kb * 1024 : kHCap) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// ---- dgrad ----------------------------------------------------------------
+
+struct DgradH {
+  const bf16* g;       // (B, H, W, O) cotangent of the conv output
+  const bf16* w;       // (3, 3, C, O) forward weight
+  const bf16* x;       // (B, Hx, Wx, C): K2 the conv's input, K3 the low-res input
+  const float* gamma;  // (B, C)
+  const float* beta;
+  const float* sums;   // (B, C) the forward's channel sums of x
+  const float* sumsq;
+  void* out;           // K2 (B, H, W, C) bf16 da or ds; K3 (B, H / 2, W / 2, C) fp32 da
+  float* part;         // (2, B, grid x, C): dgamma, dbeta partials a block and image
+  int B, H, W, C, O, groups;
+  float eps;
+  int gvec, wvec, xvec, ovec, pair;  // 16-byte copies of g / w / x, 16-byte and 8-byte stores
+  // the plan (plan_dgrad_h): weights resident (else streamed a chunk a step),
+  // o-chunks, tiles an image, byte offsets
+  int resident, nq, tiles_y, tiles_x;
+  int a_off, stage_bytes, s_off, v_off, red_off;
+};
+
+// The weight rows of o-chunk q for the N-block at c0 into W: row tap * 64 +
+// cl is the transposed tap 8 - tap's row w[8 - tap][c0 + cl][64 q ..], 64
+// cotangent channels (the product's K) as HWIO holds them: K-major B, copied
+// as it lies into the 128-byte swizzle. Zero past C and O.
+template <int kThr>
+__device__ __forceinline__ void dg_load_w(const DgradH& p, unsigned char* W, int q, int c0,
+                                          int tid) {
+  const int o0 = q * kHCh;
+  for (int idx = tid; idx < kHWRows * 8; idx += kThr) {
+    const int row = idx >> 3, k = idx & 7, tap = row / kHCh, c = c0 + (row & (kHCh - 1));
+    const bool ok = c < p.C;
+    bf16t::copy8(W + bf16t::w_byte(row, k),
+                 ok ? p.w + ((size_t)(8 - tap) * p.C + c) * p.O + o0 + 8 * k : p.w, ok,
+                 o0 + 8 * k, p.O, p.wvec, p.w);
+  }
+}
+
+// o-chunk q of the halo'd cotangent tile into A stage A: zero outside the
+// image (the cotangent of SAME zero padding) and past O
+template <int kTHt>
+__device__ __forceinline__ void dg_load_a(const DgradH& p, unsigned char* A, int b, int ty0,
+                                          int tx0, int q, int tid) {
+  constexpr int kThr = 32 * kTHt, kCols = kHW + 2, kNPos = (kTHt + 2) * kCols;
+  const int o0 = q * kHCh;
+  const bf16* gb = p.g + (size_t)b * p.H * p.W * p.O;
+  for (int idx = tid; idx < kNPos * 8; idx += kThr) {
+    const int pos = idx >> 3, k = idx & 7;
+    const int y = ty0 - 1 + pos / kCols, x = tx0 - 1 + pos % kCols, o = o0 + 8 * k;
+    const bool in = y >= 0 && y < p.H && x >= 0 && x < p.W;
+    bf16t::copy8(A + bf16t::a_byte(pos, k), in ? gb + ((size_t)y * p.W + x) * p.O + o : p.g,
+                 in, o, p.O, p.gvec, p.g);
+  }
+}
+
+// The epilogue's x: K2 tile row y's 16 pixels, K3 the low-res row y / 2
+// under a warp pair's rows (8 pixels), channels c0 .. c0 + 63, into the
+// warp's staging rows S; zero outside the image and past C
+template <bool kUp>
+__device__ __forceinline__ void dg_load_x_row(const DgradH& p, unsigned char* S, int b, int y,
+                                              int tx0, int c0, int lane) {
+  const int hx = kUp ? p.H / 2 : p.H, wx = kUp ? p.W / 2 : p.W;
+  const int yx = kUp ? y >> 1 : y, x0 = kUp ? tx0 / 2 : tx0, npix = kUp ? kHW / 2 : kHW;
+  for (int idx = lane; idx < npix * 8; idx += 32) {
+    const int px = idx >> 3, k = idx & 7, x = x0 + px, c = c0 + 8 * k;
+    const bool in = yx < hx && x < wx;
+    bf16t::copy8(S + bf16t::a_byte(px, k),
+                 in ? p.x + (((size_t)b * hx + yx) * wx + x) * p.C + c : p.x, in, c, p.C,
+                 p.xvec, p.x);
+  }
+}
+
+// mean, rstd, gamma, beta of image b's channels c0 .. c0 + 63 into v[4][64]
+__device__ __forceinline__ void dg_stats(const DgradH& p, float* v, int b, int c0, int tid,
+                                         bool up) {
+  if (tid >= kHCh) return;
+  const int ch = c0 + tid;
+  float mean = 0.f, rstd = 0.f, gm = 0.f, bt = 0.f;
+  if (ch < p.C) {
+    const float cnt = (float)(up ? p.H / 2 : p.H) * (float)(up ? p.W / 2 : p.W) *
+                      (float)(p.C / p.groups);
+    mean_rstd(p.sums, p.sumsq, b, p.C, ch, p.groups, cnt, p.eps, &mean, &rstd);
+    gm = p.gamma[b * p.C + ch];
+    bt = p.beta[b * p.C + ch];
+  }
+  v[tid] = mean;
+  v[kHCh + tid] = rstd;
+  v[2 * kHCh + tid] = gm;
+  v[3 * kHCh + tid] = bt;
+}
+
+// One o-chunk's products of the warpgroup's 64 pixels (four tile rows, one
+// a warp) x 64 input channels: 9 taps x 4 k16 steps of wgmma m64n64k16, A
+// (16 pixels x 16 cotangent channels a warp) by ldmatrix from the A stage,
+// double buffered as the forward's mma_chunk_bf16; B the transposed taps'
+// K-major weight rows through a descriptor, a k16 step 32 bytes along them.
+__device__ __forceinline__ void dg_mma_chunk_h(uint32_t A, uint32_t W, float (&acc)[32],
+                                               int r, int lane) {
+  const int ri = lane & 7, mi = lane >> 3;
+  const int px = ri + 8 * (mi & 1);    // the lane's A row: pixel of the tile row
+  const uint32_t ak = (mi >> 1) << 4;  // and its 8-channel half of a k16 step
+  auto row_of = [&](int tap) -> uint32_t {
+    return A + ((r + tap / 3) * (kHW + 2) + px + tap % 3) * bf16t::kARowBytes + ak;
+  };
+  uint32_t a[2][4];
+  uint32_t row = row_of(0);
+  bf16t::ldsm_x4(row, a[0]);
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const uint32_t next = tap + 1 < 9 ? row_of(tap + 1) : row;
+    const uint64_t desc = bf16t::wg_desc_k(W + tap * kHCh * bf16t::kWRowBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      bf16t::wg_fence();
+      bf16t::wg_mma_kb(acc, a[kk & 1], desc + 2 * kk);  // + 32 bytes a k16 step
+      bf16t::wg_commit();
+      bf16t::wg_wait<1>();  // step i - 1 is done with the other buffer
+      if (kk < 3)
+        bf16t::ldsm_x4(row + 32 * (kk + 1), a[(kk + 1) & 1]);
+      else if (tap + 1 < 9)
+        bf16t::ldsm_x4(next, a[0]);
+    }
+    row = next;
+  }
+  bf16t::wg_wait<0>();
+}
+
+// Persistent blocks: blockIdx.y is the 64-channel N-block, blockIdx.x walks
+// a contiguous run of the pixel tiles (image-major), each tile a step per
+// o-chunk; warp w owns tile row w (16 pixels x 64 channels). A two-stage
+// ring of cotangent tiles; the weights of every o-chunk resident for the
+// whole call where they fit, else streamed a chunk a step (two slots).
+// Epilogue, warp by warp as its products end:
+//   kLinear  ds rounded to bf16 through the warp's staging rows, 16-byte stores;
+//   kAct     da = ds * silu'(a), a from x (copied into the staging rows
+//            while the products run) and the statistics in fp32; dgamma,
+//            dbeta partials from the fp32 da; da rounded to bf16, stored so;
+//   kUpFold  the column pair by one shuffle, the row pair from the odd warp
+//            of each pair through its staging rows (a barrier of the two
+//            warps), then the kAct epilogue at the low-res pixel, da fp32.
+// The partials go out when the block leaves an image: summed over the
+// warp's pixels, then over the warps in a fixed order, one row of the
+// (2, B, grid x, C) scratch a block and image, which dgrad_reduce_kernel adds
+// in block order.
+template <int kMode, int kTHt>
+__global__ void __launch_bounds__(32 * kTHt, 1) dgrad_bf16_kernel(const DgradH p) {
+  constexpr int kWarps = kTHt, kThr = 32 * kWarps;
+  constexpr bool kUp = kMode == kUpFold;
+  extern __shared__ __align__(128) unsigned char sm_raw[];
+  unsigned char* sm = align1024(sm_raw);  // wgmma's 128-byte swizzle
+  unsigned char* stage0 = sm + p.a_off;
+  float* sv = reinterpret_cast<float*>(sm + p.v_off);     // [2][4][64] statistics
+  float* red = reinterpret_cast<float*>(sm + p.red_off);  // [2][kWarps][64]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = blockIdx.y * kHCh;
+  unsigned char* S = sm + p.s_off + warp * kHW * bf16t::kARowBytes;
+  const int per_img = p.tiles_y * p.tiles_x;
+  const int ntiles = p.B * per_img;
+  const int t_begin = (int)((long long)blockIdx.x * ntiles / gridDim.x);
+  const int t_end = (int)((long long)(blockIdx.x + 1) * ntiles / gridDim.x);
+  const int steps = (t_end - t_begin) * p.nq;
+  if (steps == 0) return;
+
+  auto tile_of = [&](int tile, int& b, int& ty0, int& tx0) {
+    b = tile / per_img;
+    const int rem = tile - b * per_img;
+    ty0 = (rem / p.tiles_x) * kTHt;
+    tx0 = (rem % p.tiles_x) * kHW;
+  };
+
+  {
+    int b, ty0, tx0;
+    tile_of(t_begin, b, ty0, tx0);
+    for (int q = 0; q < (p.resident ? p.nq : 1); ++q)
+      dg_load_w<kThr>(p, sm + q * kHWChunk, q, c0, tid);
+    dg_load_a<kTHt>(p, stage0, b, ty0, tx0, 0, tid);
+    bf16t::commit();
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float pdg[8][2], pdb[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) pdg[j][0] = pdg[j][1] = pdb[j][0] = pdb[j][1] = 0.f;
+  int stats_b = -1;  // the image whose statistics slot stats_b & 1 holds
+
+  for (int s = 0; s < steps; ++s) {
+    const int tile = t_begin + s / p.nq, q = s % p.nq, st = s & 1;
+    int b, ty0, tx0;
+    tile_of(tile, b, ty0, tx0);
+    // image b's statistics take slot b & 1: a warp still in the epilogue of
+    // the last tile of image b - 1 reads the other one, and image b - 2's
+    // last epilogue ended before the last barrier
+    float* v = sv + (b & 1) * 4 * kHCh;
+    bf16t::wait<0>();
+    if (kMode != kLinear && b != stats_b) dg_stats(p, v, b, c0, tid, kUp);
+    stats_b = b;
+    bf16t::fence_async_smem();
+    __syncthreads();  // step s is staged; every warp is done with step s - 1
+
+    if (kMode != kLinear && q == 0 && !(kUp && (warp & 1)))
+      dg_load_x_row<kUp>(p, S, b, ty0 + warp, tx0, c0, lane);
+    bf16t::commit();
+    if (s + 1 < steps) {
+      int b1, ty1, tx1;
+      tile_of(t_begin + (s + 1) / p.nq, b1, ty1, tx1);
+      const int q1 = (s + 1) % p.nq;
+      dg_load_a<kTHt>(p, stage0 + (st ^ 1) * p.stage_bytes, b1, ty1, tx1, q1, tid);
+      if (!p.resident) dg_load_w<kThr>(p, sm + (st ^ 1) * kHWChunk, q1, c0, tid);
+    }
+    bf16t::commit();
+    dg_mma_chunk_h(bf16t::smem_addr(stage0 + st * p.stage_bytes),
+                   bf16t::smem_addr(sm) + (p.resident ? q : st) * kHWChunk, acc, warp, lane);
+    if (q != p.nq - 1) continue;
+
+    // accumulator entry 4 j + 2 h + e: pixel g + 8 h of tile row `warp`,
+    // channel c0 + 8 j + 2 t4 + e
+    const int y = ty0 + warp;
+    if (kMode != kUpFold) {
+      uint32_t xw[8][2];
+      if (kMode == kAct) {
+        bf16t::wait<1>();  // the warp's x row has landed (step s + 1's copies may not have)
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            xw[j][h] = *reinterpret_cast<const uint32_t*>(S + bf16t::a_byte(g + 8 * h, 0) +
+                                                          2 * (8 * j + 2 * t4));
+        __syncwarp();  // every lane has its x before any da lands over it
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 8 * j + 2 * t4, c = c0 + cl;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = g + 8 * h;
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (kMode == kAct) {
+            const float2 xv = bf16t::unpack2(xw[j][h]);
+            const float xh0 = (xv.x - v[cl]) * v[kHCh + cl];
+            const float xh1 = (xv.y - v[cl + 1]) * v[kHCh + cl + 1];
+            v0 *= silu_grad_fast(xh0 * v[2 * kHCh + cl] + v[3 * kHCh + cl]);
+            v1 *= silu_grad_fast(xh1 * v[2 * kHCh + cl + 1] + v[3 * kHCh + cl + 1]);
+            if (y < p.H && tx0 + px < p.W) {
+              if (c < p.C) {
+                pdg[j][0] += v0 * xh0;
+                pdb[j][0] += v0;
+              }
+              if (c + 1 < p.C) {
+                pdg[j][1] += v1 * xh1;
+                pdb[j][1] += v1;
+              }
+            }
+          }
+          // bf16: da (ds) rounded once; dgamma, dbeta above from the fp32 da
+          *reinterpret_cast<uint32_t*>(S + bf16t::a_byte(px, 0) + 2 * cl) = bf16t::pack2(v0, v1);
+          acc[4 * j + 2 * h] = acc[4 * j + 2 * h + 1] = 0.f;
+        }
+      }
+      __syncwarp();
+      bf16* out = static_cast<bf16*>(p.out);
+      for (int idx = lane; idx < kHW * 8; idx += 32) {
+        const int px = idx >> 3, k = idx & 7, x = tx0 + px, c = c0 + 8 * k;
+        if (y >= p.H || x >= p.W || c >= p.C) continue;
+        const uint4 val = *reinterpret_cast<const uint4*>(S + bf16t::a_byte(px, k));
+        bf16* dst = out + (((size_t)b * p.H + y) * p.W + x) * p.C + c;
+        if (p.ovec) {
+          *reinterpret_cast<uint4*>(dst) = val;
+        } else {
+          const bf16* e = reinterpret_cast<const bf16*>(&val);
+          for (int i = 0; i < 8 && c + i < p.C; ++i) dst[i] = e[i];
+        }
+      }
+    } else {
+      // column x + 1 of pixel x lies 4 lanes on (tx0 and W are even): lanes
+      // of even g hold low-res pixel (g + 8 h) / 2 of the row's 8
+      float vv[8][2][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = acc[4 * j + 2 * h + e];
+            vv[j][h][e] = a + __shfl_down_sync(0xffffffffu, a, 4);
+            acc[4 * j + 2 * h + e] = 0.f;
+          }
+      const bool lead = (g & 1) == 0;
+      // the odd warp's staging rows hold its row's column-folded sums,
+      // [8 low-res pixels][64 channels] fp32, for the even warp
+      float* F = reinterpret_cast<float*>(sm + p.s_off + (warp | 1) * kHW * bf16t::kARowBytes);
+      if ((warp & 1) && lead) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(F + ((g >> 1) + 4 * h) * kHCh + 8 * j + 2 * t4) =
+                make_float2(vv[j][h][0], vv[j][h][1]);
+      }
+      bar_pair(1 + (warp >> 1));
+      if (!(warp & 1)) {
+        bf16t::wait<1>();  // the low-res x row has landed
+        __syncwarp();
+        const int Y = y >> 1, hl = p.H / 2, wl = p.W / 2;
+        float* out = static_cast<float*>(p.out);
+        if (lead) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int cl = 8 * j + 2 * t4, c = c0 + cl;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int L = (g >> 1) + 4 * h, X = tx0 / 2 + L;
+              const float2 f = *reinterpret_cast<const float2*>(F + L * kHCh + cl);
+              float d0 = vv[j][h][0] + f.x, d1 = vv[j][h][1] + f.y;  // rows 2Y, 2Y + 1
+              const float2 xv = bf16t::unpack2(*reinterpret_cast<const uint32_t*>(
+                  S + bf16t::a_byte(L, 0) + 2 * cl));
+              const float xh0 = (xv.x - v[cl]) * v[kHCh + cl];
+              const float xh1 = (xv.y - v[cl + 1]) * v[kHCh + cl + 1];
+              d0 *= silu_grad_fast(xh0 * v[2 * kHCh + cl] + v[3 * kHCh + cl]);
+              d1 *= silu_grad_fast(xh1 * v[2 * kHCh + cl + 1] + v[3 * kHCh + cl + 1]);
+              if (Y >= hl || X >= wl || c >= p.C) continue;
+              pdg[j][0] += d0 * xh0;
+              pdb[j][0] += d0;
+              float* dst = out + (((size_t)b * hl + Y) * wl + X) * p.C + c;
+              if (c + 1 < p.C) {
+                pdg[j][1] += d1 * xh1;
+                pdb[j][1] += d1;
+              }
+              if (p.pair) {
+                *reinterpret_cast<float2*>(dst) = make_float2(d0, d1);
+              } else {
+                dst[0] = d0;
+                if (c + 1 < p.C) dst[1] = d1;
+              }
+            }
+          }
+        }
+      }
+    }
+
+    if (kMode == kLinear) continue;
+    // the partials go out when the block leaves image b: sums over g (lane
+    // bits 2-4), then the warps in a fixed order
+    int bn = -1, tyn, txn;
+    if (tile + 1 < t_end) tile_of(tile + 1, bn, tyn, txn);
+    if (bn == b) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int sh = 4; sh < 32; sh <<= 1) {
+          pdg[j][e] += __shfl_xor_sync(0xffffffffu, pdg[j][e], sh);
+          pdb[j][e] += __shfl_xor_sync(0xffffffffu, pdb[j][e], sh);
+        }
+        if (g == 0) {
+          red[warp * kHCh + 8 * j + 2 * t4 + e] = pdg[j][e];
+          red[(kWarps + warp) * kHCh + 8 * j + 2 * t4 + e] = pdb[j][e];
+        }
+        pdg[j][e] = pdb[j][e] = 0.f;
+      }
+    __syncthreads();
+    if (tid < kHCh && c0 + tid < p.C) {
+      float sg = 0.f, sb = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        sg += red[w * kHCh + tid];
+        sb += red[(kWarps + w) * kHCh + tid];
+      }
+      const size_t gx = gridDim.x;
+      p.part[((size_t)b * gx + blockIdx.x) * p.C + c0 + tid] = sg;
+      p.part[(((size_t)p.B + b) * gx + blockIdx.x) * p.C + c0 + tid] = sb;
+    }
+  }
+  bf16t::wait<0>();
+}
+
+// (dgamma, dbeta)[b, c] = the sum over the dgrad blocks that covered image b
+// of their partials, in block order (the tile partition of dgrad_bf16_kernel:
+// block k walks tiles [k n / gx, (k + 1) n / gx))
+__global__ void __launch_bounds__(kHCh) dgrad_reduce_kernel(const float* __restrict__ part,
+                                                           float* __restrict__ out, int B,
+                                                           int C, int gx, int per_img) {
+  const int c = blockIdx.x * kHCh + threadIdx.x, b = blockIdx.y, s = blockIdx.z;
+  if (c >= C) return;
+  const long long ntiles = (long long)B * per_img;
+  const long long lo = (long long)b * per_img, hi = lo + per_img;
+  // the first block whose run can reach image b: k n / gx <= lo
+  int k = (int)(lo * gx / ntiles);
+  while (k > 0 && k * ntiles / gx > lo) --k;
+  float acc = 0.f;
+  for (; k < gx; ++k) {
+    const long long t0 = k * ntiles / gx, t1 = (k + 1) * ntiles / gx;
+    if (t0 >= hi) break;
+    if (t0 == t1 || t1 <= lo) continue;
+    acc += part[(((size_t)s * B + b) * gx + k) * C + c];
+  }
+  out[((size_t)s * B + b) * C + c] = acc;
+}
+
+// ---- wgrad ----------------------------------------------------------------
+
+struct WgradH {
+  const bf16* x;       // (B, Hx, Wx, C): the conv input before the activation (K3 low-res)
+  const bf16* g;       // (B, H, W, O) cotangent of the conv output
+  const float* gamma;  // (B, C), unused when act == 0
+  const float* beta;
+  const float* sums;   // (B, C) the forward's channel sums of x
+  const float* sumsq;
+  float* part;         // (grid x, taps C O [+ O]): a run's partial dW [, dbias]
+  int B, H, W, C, O, groups;
+  float eps;
+  int act, taps, bias, xvec, gvec, pair;
+  // the plan (plan_wgrad_h): tiles an image; byte offsets: the two g planes
+  // from 0, g_bytes each, then the two x stages, x_bytes each
+  int tiles_y, tiles_x, g_bytes, x_off, x_bytes, v_off, red_off;
+};
+
+// The raw tiles of tile (ty0, tx0) into a stage: x (K3: the low-res tile
+// under it; one tap: the tile's own pixels) as [position][channel] rows,
+// channels c0 .. c0 + 63, and g as 128-byte [pixel][output] rows in
+// wgmma's swizzle, outputs o0 .. o0 + 63; zero outside the image and past
+// C and O.
+template <bool kUp, int kTHt>
+__device__ __forceinline__ void wg_load_tile_h(const WgradH& p, unsigned char* G,
+                                               unsigned char* X, int b, int ty0, int tx0,
+                                               int c0, int o0, int tid) {
+  constexpr int kCols = kUp ? kHW / 2 + 2 : kHW + 2;
+  constexpr int kNPos = (kUp ? kTHt / 2 + 2 : kTHt + 2) * kCols;
+  const int hx = kUp ? p.H / 2 : p.H, wx = kUp ? p.W / 2 : p.W;
+  const int y0 = kUp ? ty0 / 2 - 1 : ty0 - 1, x0 = kUp ? tx0 / 2 - 1 : tx0 - 1;
+  const bool one = p.taps == 1;
+  const bf16* xb = p.x + (size_t)b * hx * wx * p.C;
+  for (int idx = tid; idx < kNPos * 8; idx += kWgThreads) {
+    const int pos = idx >> 3, k = idx & 7, iy = pos / kCols, ix = pos % kCols;
+    const int y = y0 + iy, x = x0 + ix, c = c0 + 8 * k;
+    const bool halo = one && (iy == 0 || iy == kTHt + 1 || ix == 0 || ix == kCols - 1);
+    const bool in = !halo && y >= 0 && y < hx && x >= 0 && x < wx;
+    bf16t::copy8(X + bf16t::a_byte(pos, k), in ? xb + ((size_t)y * wx + x) * p.C + c : p.x,
+                 in, c, p.C, p.xvec, p.x);
+  }
+  const bf16* gb = p.g + (size_t)b * p.H * p.W * p.O;
+  for (int idx = tid; idx < kTHt * kHW * 8; idx += kWgThreads) {
+    const int px = idx >> 3, k = idx & 7;
+    const int y = ty0 + px / kHW, x = tx0 + px % kHW, o = o0 + 8 * k;
+    const bool in = y < p.H && x < p.W;
+    bf16t::copy8(G + bf16t::w_byte(px, k), in ? gb + ((size_t)y * p.W + x) * p.O + o : p.g,
+                 in, o, p.O, p.gvec, p.g);
+  }
+}
+
+// GroupNorm and SiLU in fp32 on the x stage, in place, each value rounded
+// once to bf16: the forward's activate_h, 16 bytes (8 channels) a
+// thread-item on the items the thread copied itself. The scale and shift are
+// folded, x * (gamma rstd) + (beta - gamma rstd mean) (zero past C, so those
+// channels come out silu(0) = 0), SiLU by __expf and a fast division: fp32
+// before the one rounding, so a value can differ from the plain version's
+// by one bf16 ulp. Positions outside the image keep the copy's zeros.
+template <bool kUp, int kTHt>
+__device__ __forceinline__ void wg_activate(const WgradH& p, unsigned char* X, int ty0, int tx0,
+                                            const float* s_sc, const float* s_sh, int c0,
+                                            int tid) {
+  constexpr int kCols = kUp ? kHW / 2 + 2 : kHW + 2;
+  constexpr int kNPos = (kUp ? kTHt / 2 + 2 : kTHt + 2) * kCols;
+  const int k = tid & 7;
+  if (c0 + 8 * k >= p.C) return;
+  const int hx = kUp ? p.H / 2 : p.H, wx = kUp ? p.W / 2 : p.W;
+  const int y0 = kUp ? ty0 / 2 - 1 : ty0 - 1, x0 = kUp ? tx0 / 2 - 1 : tx0 - 1;
+  float sc[8], sh[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    sc[i] = s_sc[8 * k + i];
+    sh[i] = s_sh[8 * k + i];
+  }
+#pragma unroll 2
+  for (int pos = tid >> 3; pos < kNPos; pos += kWgThreads / 8) {
+    const int y = y0 + pos / kCols, x = x0 + pos % kCols;
+    if (y < 0 || y >= hx || x < 0 || x >= wx) continue;
+    uint4* ptr = reinterpret_cast<uint4*>(X + bf16t::a_byte(pos, k));
+    const uint4 raw = *ptr;
+    const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float lo = __uint_as_float(in[i] << 16), hi = __uint_as_float(in[i] & 0xffff0000u);
+      o[i] = bf16t::pack2(bf16t::silu_fast(lo * sc[2 * i] + sh[2 * i]),
+                          bf16t::silu_fast(hi * sc[2 * i + 1] + sh[2 * i + 1]));
+    }
+    *ptr = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// One tile's products of warpgroup wg: taps (wg, dx) for dx = 0, 1, 2, each
+// a (64 channels x 64 outputs) sum over the tile's pixels, a k16 step a
+// tile row: wgmma m64n64k16 into acc[dx], A = act(x)^T (warp wi: channels
+// 16 wi .. + 15) by ldmatrix .trans from the x stage at the tap's shifted
+// pixels (K3: low-res pixel (y / 2, x / 2)), B = the g rows of the tile row
+// through a descriptor (N-contiguous, transposed). A rides a three-deep
+// ring of fragments: step s + 2's is loaded once step s - 1 is done.
+template <bool kUp>
+__device__ __forceinline__ void wg_mma_tile(uint32_t X, uint32_t G, float (&acc)[3][32], int dy,
+                                            int wi, int rows, int lane) {
+  constexpr int kCols = kUp ? kHW / 2 + 2 : kHW + 2;
+  const int ri = lane & 7, mi = lane >> 3;
+  const int px = ri + 8 * (mi >> 1);                       // the lane's pixel row
+  const uint32_t cb = 2 * (16 * wi + 8 * (mi & 1));        // and its 8 channels
+  auto row_of = [&](int r, int dx) -> uint32_t {
+    const int pos = kUp ? (((r + dy - 1) >> 1) + 1) * kCols + ((px + dx - 1) >> 1) + 1
+                        : (r + dy) * kCols + px + dx;
+    return X + pos * bf16t::kARowBytes + cb;
+  };
+  uint32_t a[3][4];
+  bf16t::ldsm_x4_trans(row_of(0, 0), a[0]);
+  bf16t::ldsm_x4_trans(row_of(0, 1), a[1]);
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    const uint64_t desc = bf16t::wg_desc(G + r * kHW * bf16t::kWRowBytes);
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      bf16t::wg_fence();
+      bf16t::wg_mma(acc[dx], a[dx], desc);
+      bf16t::wg_commit();
+      bf16t::wg_wait<1>();  // step s - 1 is done with its buffer, (dx + 2) % 3
+      const int r2 = dx == 0 ? r : r + 1, d2 = (dx + 2) % 3;  // step s + 2
+      if (r2 < rows) bf16t::ldsm_x4_trans(row_of(r2, d2), a[(dx + 2) % 3]);
+    }
+  }
+  bf16t::wg_wait<0>();
+}
+
+// The one-tap product (the 1x1 projection's weight): warpgroup wg takes
+// the tile rows r = wg (mod 3), each a k16 step into acc
+__device__ __forceinline__ void wg_mma_one(uint32_t X, uint32_t G, float (&acc)[32], int wg,
+                                           int wi, int rows, int lane) {
+  const int ri = lane & 7, mi = lane >> 3;
+  const int px = ri + 8 * (mi >> 1);
+  const uint32_t cb = 2 * (16 * wi + 8 * (mi & 1));
+  uint32_t a[4];
+#pragma unroll 1
+  for (int r = wg; r < rows; r += 3) {
+    bf16t::ldsm_x4_trans(X + ((r + 1) * (kHW + 2) + px + 1) * bf16t::kARowBytes + cb, a);
+    bf16t::wg_fence();
+    bf16t::wg_mma(acc, a, bf16t::wg_desc(G + r * kHW * bf16t::kWRowBytes));
+    bf16t::wg_commit();
+    bf16t::wg_wait<0>();
+  }
+}
+
+// Persistent blocks: blockIdx.y is the (64-channel C-block, 64-output
+// O-block) pair, blockIdx.x walks a contiguous run of the pixel tiles
+// (image-major) and owns one row of the partial scratch. Each tile: its
+// raw x and g tiles arrive by cp.async one tile ahead (two stages), the
+// x stage is activated in place once (every input channel of the block
+// against every output channel: no pass a second time for another O slice),
+// then each warpgroup runs its three taps' products over the tile's rows.
+// dbias (the C-block at 0): thread tid sums outputs 2 (tid % 32), + 1 over
+// the pixels of class tid / 32 (of 12), in pixel order; the classes are
+// added in order at the end.
+template <bool kUp, int kTHt>
+__global__ void __launch_bounds__(kWgThreads, 1) wgrad_bf16_kernel(const WgradH p) {
+  extern __shared__ __align__(128) unsigned char sm_raw[];
+  unsigned char* sm = align1024(sm_raw);
+  float* s_sc = reinterpret_cast<float*>(sm + p.v_off);  // [64] folded scale
+  float* s_sh = s_sc + kHCh;                             // [64] and shift
+  float* red = reinterpret_cast<float*>(sm + p.red_off);  // [kBiasClasses][64]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int ncb = (p.C + kHCh - 1) / kHCh;
+  const int c0 = (blockIdx.y % ncb) * kHCh, o0 = (blockIdx.y / ncb) * kHCh;
+  const int per_img = p.tiles_y * p.tiles_x;
+  const int ntiles = p.B * per_img;
+  const int t_begin = (int)((long long)blockIdx.x * ntiles / gridDim.x);
+  const int t_end = (int)((long long)(blockIdx.x + 1) * ntiles / gridDim.x);
+  const bool one = p.taps == 1, do_bias = p.bias && c0 == 0;
+
+  auto tile_of = [&](int tile, int& b, int& ty0, int& tx0) {
+    b = tile / per_img;
+    const int rem = tile - b * per_img;
+    ty0 = (rem / p.tiles_x) * kTHt;
+    tx0 = (rem % p.tiles_x) * kHW;
+  };
+  if (t_begin < t_end) {
+    int b, ty0, tx0;
+    tile_of(t_begin, b, ty0, tx0);
+    wg_load_tile_h<kUp, kTHt>(p, sm, sm + p.x_off, b, ty0, tx0, c0, o0, tid);
+  }
+  bf16t::commit();
+
+  float acc[3][32];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[d][i] = 0.f;
+  float gs0 = 0.f, gs1 = 0.f;
+  int scale_b = -1;  // the image whose scale and shift s_sc / s_sh hold
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int st = (tile - t_begin) & 1;
+    int b, ty0, tx0;
+    tile_of(tile, b, ty0, tx0);
+    unsigned char* G = sm + st * p.g_bytes;
+    unsigned char* X = sm + p.x_off + st * p.x_bytes;
+    bf16t::wait<0>();
+    if (p.act && b != scale_b) {
+      // every warp is past the last tile's activation pass (its barrier)
+      if (tid < kHCh) {
+        const int ch = c0 + tid;
+        float sc = 0.f, sh = 0.f;
+        if (ch < p.C) {
+          const float cnt = (float)(kUp ? p.H / 2 : p.H) * (float)(kUp ? p.W / 2 : p.W) *
+                            (float)(p.C / p.groups);
+          float mean, rstd;
+          mean_rstd(p.sums, p.sumsq, b, p.C, ch, p.groups, cnt, p.eps, &mean, &rstd);
+          sc = p.gamma[b * p.C + ch] * rstd;
+          sh = p.beta[b * p.C + ch] - sc * mean;
+        }
+        s_sc[tid] = sc;
+        s_sh[tid] = sh;
+      }
+      scale_b = b;
+      __syncthreads();
+    }
+    if (p.act) wg_activate<kUp, kTHt>(p, X, ty0, tx0, s_sc, s_sh, c0, tid);
+    bf16t::fence_async_smem();
+    __syncthreads();  // the tile is staged; every warp is done with the last one
+    if (tile + 1 < t_end) {
+      int b1, ty1, tx1;
+      tile_of(tile + 1, b1, ty1, tx1);
+      wg_load_tile_h<kUp, kTHt>(p, sm + (st ^ 1) * p.g_bytes, sm + p.x_off + (st ^ 1) * p.x_bytes,
+                                b1, ty1, tx1, c0, o0, tid);
+    }
+    bf16t::commit();
+    const int rows = min(kTHt, p.H - ty0);  // rows past the image add nothing
+    if (do_bias) {
+      const int op = tid & 31;
+      for (int px = tid >> 5; px < rows * kHW; px += kBiasClasses) {
+        const float2 f = bf16t::unpack2(*reinterpret_cast<const uint32_t*>(
+            G + bf16t::w_byte(px, op >> 2) + 4 * (op & 3)));
+        gs0 += f.x;
+        gs1 += f.y;
+      }
+    }
+    if (one)
+      wg_mma_one(bf16t::smem_addr(X), bf16t::smem_addr(G), acc[0], wg, wi, rows, lane);
+    else
+      wg_mma_tile<kUp>(bf16t::smem_addr(X), bf16t::smem_addr(G), acc, wg, wi, rows, lane);
+  }
+  bf16t::wait<0>();
+
+  float* out = p.part + (size_t)blockIdx.x * ((size_t)p.taps * p.C * p.O + (p.bias ? p.O : 0));
+  const int g = lane >> 2, t4 = lane & 3;
+  if (one) {
+    // the three warpgroups' sums of the same outputs, added in order
+    float* sacc = reinterpret_cast<float*>(sm);  // [2][32][128], over the g planes
+    __syncthreads();
+    if (wg > 0)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[((wg - 1) * 32 + i) * 128 + (tid & 127)] = acc[0][i];
+    __syncthreads();
+    if (wg == 0)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[0][i] = (acc[0][i] + sacc[i * 128 + tid]) + sacc[(32 + i) * 128 + tid];
+  }
+  // entry 4 j + 2 h + e of acc[dx]: channel c0 + 16 wi + g + 8 h, output
+  // o0 + 8 j + 2 t4 + e
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    if (one && (dx > 0 || wg > 0)) break;
+    const int tap = one ? 0 : 3 * wg + dx;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = o0 + 8 * j + 2 * t4;
+      if (o >= p.O) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 16 * wi + g + 8 * h;
+        if (c >= p.C) continue;
+        float* dst = out + ((size_t)tap * p.C + c) * p.O + o;
+        const float v0 = acc[dx][4 * j + 2 * h], v1 = acc[dx][4 * j + 2 * h + 1];
+        if (p.pair) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (o + 1 < p.O) dst[1] = v1;
+        }
+      }
+    }
+  }
+  if (do_bias) {
+    red[(tid >> 5) * kHCh + 2 * (tid & 31)] = gs0;
+    red[(tid >> 5) * kHCh + 2 * (tid & 31) + 1] = gs1;
+    __syncthreads();
+    if (tid < kHCh && o0 + tid < p.O) {
+      float total = 0.f;
+      for (int k = 0; k < kBiasClasses; ++k) total += red[k * kHCh + tid];
+      out[(size_t)p.taps * p.C * p.O + o0 + tid] = total;
+    }
+  }
+}
+
+// ---- the dx pass ----------------------------------------------------------
+
+// dx = rstd (da gamma - m1 - xhat m2), with m1, m2 the group means of
+// da gamma and da gamma xhat from the (B, C) sums dgamma = sum da xhat and
+// dbeta = sum da (_dx_from_da's identities), formed as _dx_from_da writes
+// it: da (rstd gamma) - (x - mean) (rstd^2 m2) - rstd m1, in fp32, rounded
+// once to bf16. x bf16; da bf16 (K2) or fp32 (K3's low-res tail). A block
+// takes a slice of one image's elements, 8 channels (16 bytes of x and dx)
+// a thread-item where C % 8 == 0, and first folds the image's per-channel
+// factors into shared memory.
+template <typename TDa>
+__global__ void __launch_bounds__(kDxThreads) gn_dx_kernel(
+    const bf16* __restrict__ x, const TDa* __restrict__ da, const float* __restrict__ gamma,
+    const float* __restrict__ dstats, const float* __restrict__ sums,
+    const float* __restrict__ sumsq, bf16* __restrict__ dx, int B, int N, int C, int groups,
+    float eps, int vec) {
+  extern __shared__ float coef[];  // [4][C]: rstd gamma, rstd^2 m2, rstd m1, mean
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int per = C / groups;
+  const float cnt = (float)N * (float)per;
+  for (int ch = tid; ch < C; ch += kDxThreads) {
+    const int g0 = (ch / per) * per;
+    float s = 0.f, ss = 0.f, m1 = 0.f, m2 = 0.f;
+    for (int k = 0; k < per; ++k) {
+      const int i = b * C + g0 + k;
+      s += sums[i];
+      ss += sumsq[i];
+      m1 += gamma[i] * dstats[(size_t)B * C + i];  // gamma dbeta
+      m2 += gamma[i] * dstats[i];                  // gamma dgamma
+    }
+    const float mean = s / cnt;
+    const float rstd = rsqrtf(fmaxf(ss / cnt - mean * mean, 0.f) + eps);
+    coef[ch] = rstd * gamma[b * C + ch];
+    coef[C + ch] = rstd * rstd * (m2 / cnt);
+    coef[2 * C + ch] = rstd * (m1 / cnt);
+    coef[3 * C + ch] = mean;
+  }
+  __syncthreads();
+  const size_t base = (size_t)b * N * C;
+  auto one = [&](float xv, float dv, int c) {
+    return dv * coef[c] - (xv - coef[3 * C + c]) * coef[C + c] - coef[2 * C + c];
+  };
+  if (vec) {
+    const int items = N * (C / 8);
+    for (int it = blockIdx.x * kDxThreads + tid; it < items; it += gridDim.x * kDxThreads) {
+      const size_t e = base + (size_t)it * 8;
+      const int c = (it % (C / 8)) * 8;
+      const uint4 xr = *reinterpret_cast<const uint4*>(x + e);
+      float dv[8];
+      if constexpr (std::is_same<TDa, float>::value) {
+        const float4 d0 = *reinterpret_cast<const float4*>(da + e);
+        const float4 d1 = *reinterpret_cast<const float4*>(da + e + 4);
+        dv[0] = d0.x; dv[1] = d0.y; dv[2] = d0.z; dv[3] = d0.w;
+        dv[4] = d1.x; dv[5] = d1.y; dv[6] = d1.z; dv[7] = d1.w;
+      } else {
+        const uint4 dr = *reinterpret_cast<const uint4*>(da + e);
+        const uint32_t dw[4] = {dr.x, dr.y, dr.z, dr.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = bf16t::unpack2(dw[i]);
+          dv[2 * i] = f.x;
+          dv[2 * i + 1] = f.y;
+        }
+      }
+      const uint32_t xw[4] = {xr.x, xr.y, xr.z, xr.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xv = bf16t::unpack2(xw[i]);
+        o[i] = bf16t::pack2(one(xv.x, dv[2 * i], c + 2 * i), one(xv.y, dv[2 * i + 1], c + 2 * i + 1));
+      }
+      *reinterpret_cast<uint4*>(dx + e) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    const int items = N * C;
+    for (int it = blockIdx.x * kDxThreads + tid; it < items; it += gridDim.x * kDxThreads) {
+      const size_t e = base + it;
+      const float dv = to_f(da[e]);
+      dx[e] = __float2bfloat16_rn(one(__bfloat162float(x[e]), dv, it % C));
+    }
+  }
+}
+
+// ---- plans and launches ---------------------------------------------------
+
+// The launch plan of a bf16 dgrad call. Tile: 16 x 16 pixels (16 warps)
+// where that gives kHBigTileWaves tiles a block on one wave and its layout
+// fits, else 8 x 16 (8 warps). Weights resident when every o-chunk fits
+// beside the rest, else streamed a chunk a step through two slots. Shared
+// memory, in this order: weights, the two A stages, the staging rows (16
+// a warp), the two statistics slots, the partials' reduction; + 1024 for
+// the alignment.
+struct PlanD {
+  int th, resident, nq, nb, tiles_y, tiles_x, grid_x, bps, smem;
+  int a_off, stage_bytes, s_off, v_off, red_off;
+};
+
+int layout_dgrad_h(int th, bool resident, int nq, PlanD& pl) {
+  pl.stage_bytes = (th + 2) * (kHW + 2) * bf16t::kARowBytes;
+  pl.a_off = (resident ? nq : 2) * kHWChunk;
+  pl.s_off = pl.a_off + 2 * pl.stage_bytes;
+  pl.v_off = pl.s_off + th * kHW * bf16t::kARowBytes;
+  pl.red_off = pl.v_off + 2 * 4 * kHCh * 4;
+  pl.smem = pl.red_off + 2 * th * kHCh * 4 + 1024;
+  return pl.smem;
+}
+
+template <int kMode, int kTHt>
+int dgrad_bps(int smem) {
+  return blocks_per_sm_h(dgrad_bf16_kernel<kMode, kTHt>, kMode * 2 + (kTHt == 16), 32 * kTHt,
+                         smem);
+}
+
+int dgrad_bps_of(int mode, int th, int smem) {
+  if (mode == kLinear) return th == 16 ? dgrad_bps<kLinear, 16>(smem) : dgrad_bps<kLinear, 8>(smem);
+  if (mode == kAct) return th == 16 ? dgrad_bps<kAct, 16>(smem) : dgrad_bps<kAct, 8>(smem);
+  return th == 16 ? dgrad_bps<kUpFold, 16>(smem) : dgrad_bps<kUpFold, 8>(smem);
+}
+
+bool plan_dgrad_h(int mode, int batch, int h, int wd, int c, int o, PlanD& pl) {
+  const int sms = sm_count();
+  pl.nq = (o + kHCh - 1) / kHCh;
+  pl.nb = (c + kHCh - 1) / kHCh;
+  const long long tiles16 = (long long)batch * ((h + 15) / 16) * ((wd + kHW - 1) / kHW);
+  if (tiles16 * pl.nb >= (long long)kHBigTileWaves * sms &&
+      layout_dgrad_h(16, true, pl.nq, pl) <= kHCap) {
+    pl.th = 16;
+    pl.resident = 1;
+  } else {
+    pl.th = 8;
+    pl.resident = layout_dgrad_h(8, true, pl.nq, pl) <= kHCap;
+    if (!pl.resident && layout_dgrad_h(8, false, pl.nq, pl) > kHCap) return false;
+  }
+  pl.tiles_y = (h + pl.th - 1) / pl.th;
+  pl.tiles_x = (wd + kHW - 1) / kHW;
+  pl.bps = dgrad_bps_of(mode, pl.th, pl.smem);
+  if (pl.bps < 1) return false;
+  const long long tiles = (long long)batch * pl.tiles_y * pl.tiles_x;
+  const long long per_nb = (long long)sms * pl.bps / pl.nb;
+  pl.grid_x = (int)(tiles < per_nb ? tiles : (per_nb < 1 ? 1 : per_nb));
+  return true;
+}
+
+// The launch plan of a bf16 wgrad call on the tensor cores: 16 x 16 tiles
+// where they give kHBigTileWaves tiles a block on one wave, else 8 x 16;
+// one block an SM (three warpgroups, up to 96 accumulator registers a
+// thread); a run of tiles a block. Shared memory: the two g planes, the two
+// x stages, the scale and shift, dbias's reduction; + 1024.
+struct PlanW {
+  int th, tiles_y, tiles_x, grid_x, n_cb, n_ob, bps, smem;
+  int g_bytes, x_off, x_bytes, v_off, red_off;
+};
+
+template <bool kUp, int kTHt>
+int wgrad_bps(int smem) {
+  return blocks_per_sm_h(wgrad_bf16_kernel<kUp, kTHt>, 6 + 2 * kUp + (kTHt == 16), kWgThreads,
+                         smem);
+}
+
+bool plan_wgrad_h(bool up, int batch, int h, int wd, int c, int o, PlanW& pl) {
+  const int sms = sm_count();
+  pl.n_cb = (c + kHCh - 1) / kHCh;
+  pl.n_ob = (o + kHCh - 1) / kHCh;
+  const long long tiles16 = (long long)batch * ((h + 15) / 16) * ((wd + kHW - 1) / kHW);
+  pl.th = tiles16 * pl.n_cb * pl.n_ob >= (long long)kHBigTileWaves * sms ? 16 : 8;
+  const int cols = up ? kHW / 2 + 2 : kHW + 2;
+  pl.g_bytes = pl.th * kHW * bf16t::kWRowBytes;
+  pl.x_bytes = (up ? pl.th / 2 + 2 : pl.th + 2) * cols * bf16t::kARowBytes;
+  pl.x_off = 2 * pl.g_bytes;
+  pl.v_off = pl.x_off + 2 * pl.x_bytes;
+  pl.red_off = pl.v_off + 2 * kHCh * 4;
+  pl.smem = pl.red_off + kBiasClasses * kHCh * 4 + 1024;
+  pl.tiles_y = (h + pl.th - 1) / pl.th;
+  pl.tiles_x = (wd + kHW - 1) / kHW;
+  pl.bps = up ? (pl.th == 16 ? wgrad_bps<true, 16>(pl.smem) : wgrad_bps<true, 8>(pl.smem))
+              : (pl.th == 16 ? wgrad_bps<false, 16>(pl.smem) : wgrad_bps<false, 8>(pl.smem));
+  if (pl.bps < 1) return false;
+  const long long tiles = (long long)batch * pl.tiles_y * pl.tiles_x;
+  const long long per = (long long)sms * pl.bps / (pl.n_cb * pl.n_ob);
+  pl.grid_x = (int)(tiles < per ? tiles : (per < 1 ? 1 : per));
+  return true;
+}
+
+template <int kMode>
+void launch_dgrad_h(const PlanD& pl, const DgradH& p, cudaStream_t s) {
+  const dim3 grid(pl.grid_x, pl.nb);
+  if (pl.th == 16) dgrad_bf16_kernel<kMode, 16><<<grid, 32 * 16, pl.smem, s>>>(p);
+  else dgrad_bf16_kernel<kMode, 8><<<grid, 32 * 8, pl.smem, s>>>(p);
+}
+
+int dgrad_reduce(const float* part, float* dstats, int batch, int c, int gx, int per_img,
+                 cudaStream_t s) {
+  dgrad_reduce_kernel<<<dim3((c + kHCh - 1) / kHCh, batch, 2), kHCh, 0, s>>>(part, dstats, batch,
+                                                                           c, gx, per_img);
+  return (int)cudaGetLastError();
+}
+
+// mc_conv_dgrad_bf16's launch. Modes: kLinear ds, kAct da (bf16 out,
+// dstats), kUpFold (h, w even; x low-res (B, h / 2, w / 2, c); out fp32 da
+// of that shape, dstats). part: the (2, batch, grid x, c) scratch of the
+// plan (mc_conv_bwd_bf16_plan).
+int conv_dgrad_bf16(const bf16* g, const bf16* w, const bf16* x, const float* gamma,
+                    const float* beta, const float* sums, const float* sumsq, void* out,
+                    float* dstats, float* part, int batch, int h, int wd, int c, int o,
+                    int groups, float eps, int mode, void* stream) {
+  const bool stats = mode != kLinear;
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || mode < kLinear ||
+      mode > kUpFold || (mode == kUpFold && (h % 2 || wd % 2)) || !out ||
+      (stats && (!x || !gamma || !beta || !sums || !sumsq || !dstats || !part || groups < 1 ||
+                 c % groups)))
+    return (int)cudaErrorInvalidValue;
+  PlanD pl;
+  if (!plan_dgrad_h(mode, batch, h, wd, c, o, pl)) return (int)cudaErrorInvalidConfiguration;
+  const bool up = mode == kUpFold;
+  DgradH p{g, w, x, gamma, beta, sums, sumsq, out, part, batch, h, wd, c, o, groups, eps,
+           o % 8 == 0 && aligned(g, 16), o % 8 == 0 && aligned(w, 16),
+           stats && c % 8 == 0 && aligned(x, 16), !up && c % 8 == 0 && aligned(out, 16),
+           up && c % 2 == 0 && aligned(out, 8),
+           pl.resident, pl.nq, pl.tiles_y, pl.tiles_x,
+           pl.a_off, pl.stage_bytes, pl.s_off, pl.v_off, pl.red_off};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == kLinear) launch_dgrad_h<kLinear>(pl, p, s);
+  else if (mode == kAct) launch_dgrad_h<kAct>(pl, p, s);
+  else launch_dgrad_h<kUpFold>(pl, p, s);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !stats) return (int)err;
+  return dgrad_reduce(part, dstats, batch, c, pl.grid_x, pl.tiles_y * pl.tiles_x, s);
+}
+
+// mc_conv_wgrad_bf16's launch: the narrow-C kernel at c <= 8 (3 x 3, not
+// up; linear only; rows = batch x its runs an image), else the tensor-core
+// kernel (rows = its plan's blocks along the pixels), then the fixed-order
+// reduce of the (rows, taps c o [+ o]) scratch.
+int conv_wgrad_bf16(const bf16* x, const bf16* g, const float* gamma, const float* beta,
+                    const float* sums, const float* sumsq, float* dwb, float* part, int batch,
+                    int h, int wd, int c, int o, int groups, float eps, int act, int taps,
+                    int up, int bias, int rows, void* stream) {
+  if (wgrad_narrow(c, taps, up))
+    return batch < 1 || rows % batch
+               ? (int)cudaErrorInvalidValue
+               : conv_wgrad(x, g, gamma, beta, sums, sumsq, dwb, part, batch, h, wd, c, o,
+                            groups, eps, act, taps, up, bias, rows / batch, stream);
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 ||
+      (taps != 9 && taps != 1) || (up && (h % 2 || wd % 2 || taps != 9)) ||
+      (act && (groups < 1 || c % groups || !gamma || !beta || !sums || !sumsq)) ||
+      (taps == 1 && act) || !dwb || !part)
+    return (int)cudaErrorInvalidValue;
+  PlanW pl;
+  if (!plan_wgrad_h(up, batch, h, wd, c, o, pl)) return (int)cudaErrorInvalidConfiguration;
+  if (rows != pl.grid_x) return (int)cudaErrorInvalidValue;
+  const size_t k = (size_t)taps * c * o + (bias ? o : 0);
+  WgradH p{x, g, gamma, beta, sums, sumsq, part, batch, h, wd, c, o, groups, eps,
+           act, taps, bias, c % 8 == 0 && aligned(x, 16), o % 8 == 0 && aligned(g, 16),
+           o % 2 == 0 && aligned(part, 8) && k % 2 == 0,
+           pl.tiles_y, pl.tiles_x, pl.g_bytes, pl.x_off, pl.x_bytes, pl.v_off, pl.red_off};
+  const dim3 grid(pl.grid_x, pl.n_cb * pl.n_ob);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (up && pl.th == 16) wgrad_bf16_kernel<true, 16><<<grid, kWgThreads, pl.smem, s>>>(p);
+  else if (up) wgrad_bf16_kernel<true, 8><<<grid, kWgThreads, pl.smem, s>>>(p);
+  else if (pl.th == 16) wgrad_bf16_kernel<false, 16><<<grid, kWgThreads, pl.smem, s>>>(p);
+  else wgrad_bf16_kernel<false, 8><<<grid, kWgThreads, pl.smem, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  colsum_kernel<<<dim3((unsigned)((k + 31) / 32), 1), 32 * kSumGroups, 0, s>>>(part, dwb, rows,
+                                                                             (int)k);
+  return (int)cudaGetLastError();
+}
+
+int gn_dx_bf16(const bf16* x, const void* da, const float* gamma, const float* dstats,
+               const float* sums, const float* sumsq, bf16* dx, int batch, int n, int c,
+               int groups, float eps, int da_fp32, void* stream) {
+  if (batch < 1 || n < 1 || c < 1 || groups < 1 || c % groups || 4 * c * 4 > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int vec = c % 8 == 0 && aligned(x, 16) && aligned(dx, 16) && aligned(da, 16);
+  const long long items = (long long)n * (vec ? c / 8 : c);
+  const long long per_block = (long long)kDxThreads * kDxItems;
+  const dim3 grid((unsigned)((items + per_block - 1) / per_block), batch);
+  const size_t smem = 4 * (size_t)c * sizeof(float);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (da_fp32)
+    gn_dx_kernel<float><<<grid, kDxThreads, smem, s>>>(x, static_cast<const float*>(da), gamma,
+                                                        dstats, sums, sumsq, dx, batch, n, c,
+                                                        groups, eps, vec);
+  else
+    gn_dx_kernel<bf16><<<grid, kDxThreads, smem, s>>>(x, static_cast<const bf16*>(da), gamma,
+                                                       dstats, sums, sumsq, dx, batch, n, c,
+                                                       groups, eps, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -1652,15 +2359,86 @@ int mc_conv_wgrad(const float* x, const float* g, const float* gamma,
                     eps, act, taps, up, bias, runs, stream);
 }
 
-// The bf16 instance: x and g bf16; the vectors, dwb and part fp32. At
-// c <= 8 (the narrow-C kernel) it takes the linear mode only (act = 0).
-int mc_conv_wgrad_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* gamma,
-                       const float* beta, const float* sums, const float* sumsq,
-                       float* dwb, float* part, int batch, int h, int wd, int c, int o,
-                       int groups, float eps, int act, int taps, int up, int bias,
-                       int runs, void* stream) {
-  return conv_wgrad(x, g, gamma, beta, sums, sumsq, dwb, part, batch, h, wd, c, o, groups,
-                    eps, act, taps, up, bias, runs, stream);
+// The bf16 wgrad: x and g bf16; the vectors, dwb and part fp32; part the
+// (rows, taps c o [+ o]) scratch of mc_conv_bwd_bf16_plan(1, ...). At c <= 8
+// (the narrow-C kernel) it takes the linear mode only (act = 0).
+int mc_conv_wgrad_bf16(const bf16* x, const bf16* g, const float* gamma, const float* beta,
+                       const float* sums, const float* sumsq, float* dwb, float* part,
+                       int batch, int h, int wd, int c, int o, int groups, float eps, int act,
+                       int taps, int up, int bias, int rows, void* stream) {
+  return conv_wgrad_bf16(x, g, gamma, beta, sums, sumsq, dwb, part, batch, h, wd, c, o,
+                         groups, eps, act, taps, up, bias, rows, stream);
+}
+
+// The bf16 dgrad: g, w, x bf16; h, w the cotangent's (K3: the high
+// resolution). mode 0: ds = conv3x3^T(g), out bf16 (B, h, w, c); 1: da = ds
+// * silu'(a), out bf16, dstats (2, batch, c) = (dgamma, dbeta); 2 (K3): x
+// low-res, the 2 x 2 fold of ds, then mode 1 at low resolution, out fp32
+// (B, h / 2, w / 2, c), dstats. part: the (2, batch, rows, c) scratch of
+// mc_conv_bwd_bf16_plan(0, ...).
+int mc_conv_dgrad_bf16(const bf16* g, const bf16* w, const bf16* x, const float* gamma,
+                       const float* beta, const float* sums, const float* sumsq, void* out,
+                       float* dstats, float* part, int batch, int h, int wd, int c, int o,
+                       int groups, float eps, int mode, void* stream) {
+  return conv_dgrad_bf16(g, w, x, gamma, beta, sums, sumsq, out, dstats, part, batch, h, wd, c,
+                         o, groups, eps, mode, stream);
+}
+
+// dgrad's fixed-order reduce of its (2, batch, rows, c) partials into
+// dstats (2, batch, c), per_img its pixel tiles an image (for timing alone)
+int mc_conv_dgrad_bf16_reduce(const float* part, float* dstats, int batch, int c, int rows,
+                              int per_img, void* stream) {
+  if (batch < 1 || c < 1 || rows < 1 || per_img < 1) return (int)cudaErrorInvalidValue;
+  return dgrad_reduce(part, dstats, batch, c, rows, per_img, (cudaStream_t)stream);
+}
+
+// The plan of a bf16 backward call (which 0: dgrad, mode 1, or 2 with up;
+// 1: wgrad with taps 9 or 1): out = {tile rows, weights resident, blocks,
+// dynamic shared memory bytes, scratch rows}. The narrow-C wgrad (c <= 8)
+// gives {0, 0, blocks, 0, batch x its runs an image}. Returns a cudaError_t.
+int mc_conv_bwd_bf16_plan(int which, int up, int batch, int h, int wd, int c, int o, int taps,
+                          int* out) {
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1) return (int)cudaErrorInvalidValue;
+  int vals[5];
+  if (which == 0) {
+    PlanD pl;
+    if (!plan_dgrad_h(up ? kUpFold : kAct, batch, h, wd, c, o, pl))
+      return (int)cudaErrorInvalidConfiguration;
+    const int v[5] = {pl.th, pl.resident, pl.grid_x * pl.nb, pl.smem, pl.grid_x};
+    for (int i = 0; i < 5; ++i) vals[i] = v[i];
+  } else if (wgrad_narrow(c, taps, up)) {
+    const int runs = mc_conv_wgrad_runs(batch, h, wd, c, o, taps, up, 2 * sm_count());
+    const int v[5] = {0, 0, batch * runs * ((o + kNO - 1) / kNO), 0, batch * runs};
+    for (int i = 0; i < 5; ++i) vals[i] = v[i];
+  } else {
+    PlanW pl;
+    if (!plan_wgrad_h(up, batch, h, wd, c, o, pl)) return (int)cudaErrorInvalidConfiguration;
+    const int v[5] = {pl.th, 0, pl.grid_x * pl.n_cb * pl.n_ob, pl.smem, pl.grid_x};
+    for (int i = 0; i < 5; ++i) vals[i] = v[i];
+  }
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return (int)cudaSuccess;
+}
+
+// The dx pass of the bf16 backward: x bf16 (B, n, c), da bf16 or, with
+// da_fp32, fp32 of x's shape, dstats (2, B, c) = (dgamma, dbeta), the
+// forward's sums; dx bf16.
+int mc_gn_dx_bf16(const bf16* x, const void* da, const float* gamma, const float* dstats,
+                  const float* sums, const float* sumsq, bf16* dx, int batch, int n, int c,
+                  int groups, float eps, int da_fp32, void* stream) {
+  return gn_dx_bf16(x, da, gamma, dstats, sums, sumsq, dx, batch, n, c, groups, eps, da_fp32,
+                    stream);
+}
+
+
+// out[s, k] = sum over i < n of part[s, i, k] for s < slices, in a fixed
+// order (the reduce the entry points above launch after their kernels),
+// for timing it alone
+int mc_colsum(const float* part, float* out, int n, int k, int slices, void* stream) {
+  if (n < 1 || k < 1 || slices < 1) return (int)cudaErrorInvalidValue;
+  colsum_kernel<<<dim3((unsigned)((k + 31) / 32), slices), 32 * kSumGroups, 0,
+                  (cudaStream_t)stream>>>(part, out, n, k);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

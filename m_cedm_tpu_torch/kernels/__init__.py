@@ -24,7 +24,7 @@ from m_cedm_tpu_torch.kernels.fused_block import (fused_unet_block,
 from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats,
                                                  channel_stats_plain, gn_silu,
                                                  gn_silu_bwd, gn_silu_plain)
-from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_silu_conv,
+from m_cedm_tpu_torch.kernels.fused_norm_conv import (gn_dx, gn_silu_conv,
                                                       gn_silu_conv_bwd,
                                                       gn_silu_conv_plain,
                                                       gn_silu_up_conv,
@@ -67,6 +67,7 @@ WRAPPERS: Dict[str, Callable] = {
     "K2 gn_silu_conv_bwd": gn_silu_conv_bwd,
     "K2 narrow_conv_bwd": narrow_conv_bwd,
     "K3 gn_silu_up_conv_bwd": gn_silu_up_conv_bwd,
+    "K2 gn_dx": gn_dx,  # the bf16 K2 / K3 backward's dx pass
     "K4 attention_bwd": attention_bwd,
     "K5 kv_dots": kv_dots,
     "K6 apply_dots": apply_dots,

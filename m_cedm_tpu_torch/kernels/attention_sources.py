@@ -1,7 +1,8 @@
-"""Time K4, K6, K2/K3 (fp32 or bf16), their backward, K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
+"""Time K4, K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k6|k2|k2bf16|k2bwd|k5|k7|k1bwd] [--variant NAME ...] [--sass DIR]
+        [--kernel k4|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd] [--variant NAME ...]
+        [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
 
 Every source exports the C entry points of the kernel's package source with
@@ -43,6 +44,22 @@ parent commit's csrc file unpacked with `git archive`), and each
       without it is called as the earlier CUDA-core kernels were (zeroed
       outputs that it adds into with atomics, 16-channel wgrad slices), so
       an older commit's source is timed through its own interface.
+  k2bwdbf16  the bf16 K2 / K3 backward (csrc/fused_norm_conv_bwd.cu:
+      `mc_conv_wgrad_bf16`, `mc_conv_dgrad_bf16`, `mc_gn_dx_bf16`) at every
+      K2 / K3 case of chip_smoke.py's phase 16.1 (B = 16, ch 64: the res-128
+      identity tail with chained statistics, identity_up, the projection
+      from the 128-channel concat with its one-tap wgrad, the 128-channel
+      decoder conv0, the linear down conv0 at res 64, conv_in's wgrad, K3
+      from res 64 to 128), each piece called directly and timed apart:
+      wgrad, dgrad (each with its fixed-order reduce), the reduces alone
+      (`mc_colsum`, `mc_conv_dgrad_bf16_reduce`), the dx pass, the dx pass as
+      the earlier PyTorch passes, and the whole backward, which is held to
+      the bf16 plain version and to its own bits on a repeat. A source
+      without `mc_conv_bwd_bf16_plan`, such as the parent's unpacked with
+      `git archive`, is called through its own interface (wgrad runs an
+      image, K3's column-folded ds, dx, the row fold and the low-res tail in
+      PyTorch); variants `diag_k2bwdbf16_*` leave out wgrad's activation
+      pass, its products or its copies, or dgrad's products or copies.
   k5  `mc_kv_dots` (csrc/linear_attention.cu), at BH = 16 and 64 (N =
       16,384, D = E = 128), with the wrapper's split rule (about one block
       per SM) and with two blocks per SM (the rule of the CUDA-core kernel
@@ -178,6 +195,25 @@ VARIANTS = {
     # exposed copy latency)
     "diag_k2bwd_no_copy_wait": ("k2bwd", "    cp_wait<0>();\n    __syncthreads();  // the tile has landed",
                                 "    __syncthreads();  // the tile has landed"),
+    # diagnostics of the bf16 K2/K3 backward (results wrong; the time of the
+    # rest): wgrad without its activation pass, its products or its copies of
+    # the next tile; dgrad without its products or its copies of the next step
+    "diag_k2bwdbf16_no_act": (
+        "k2bwdbf16",
+        "    if (p.act) wg_activate<kUp, kTHt>(p, X, ty0, tx0, s_sc, s_sh, c0, tid);\n", ""),
+    "diag_k2bwdbf16_wgrad_no_mma": (
+        "k2bwdbf16", "      bf16t::wg_mma(acc[dx], a[dx], desc);\n", ""),
+    "diag_k2bwdbf16_wgrad_no_copies": (
+        "k2bwdbf16",
+        "      wg_load_tile_h<kUp, kTHt>(p, sm + (st ^ 1) * p.g_bytes, sm + p.x_off + (st ^ 1) * p.x_bytes,\n"
+        "                                b1, ty1, tx1, c0, o0, tid);\n", ""),
+    "diag_k2bwdbf16_dgrad_no_mma": (
+        "k2bwdbf16",
+        "      bf16t::wg_mma_kb(acc, a[kk & 1], desc + 2 * kk);  // + 32 bytes a k16 step\n", ""),
+    "diag_k2bwdbf16_dgrad_no_copies": (
+        "k2bwdbf16",
+        "      dg_load_a<kTHt>(p, stage0 + (st ^ 1) * p.stage_bytes, b1, ty1, tx1, q1, tid);\n",
+        ""),
     # K5's partial sums added after each k-step instead of after a 64-row stage
     "k5_temp_steps_1": ("k5", "constexpr int kKvTempSteps = 8;",
                         "constexpr int kKvTempSteps = 1;"),
@@ -222,6 +258,7 @@ KERNELS = {
     # two interfaces (see _time_k2bwd, _time_k1bwd): argument types are set
     # per library
     "k2bwd": ("fused_norm_conv_bwd.cu", {}),
+    "k2bwdbf16": ("fused_norm_conv_bwd.cu", {}),
     "k1bwd": ("fused_norm.cu", {}),
     "mma": (None, {}),
 }
@@ -314,7 +351,7 @@ def main(argv=None) -> int:
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
         return {"k6": _time_k6, "k2": _time_k2, "k2bf16": _time_k2bf16,
-                "k2bwd": _time_k2bwd,
+                "k2bwd": _time_k2bwd, "k2bwdbf16": _time_k2bwdbf16,
                 "k5": _time_k5, "k7": _time_k7,
                 "k1bwd": _time_k1bwd}[args.kernel](libs, ptxas)
 
@@ -950,6 +987,264 @@ def _time_k2bwd(libs, ptxas) -> int:
                 errs[name][f"err dgrad {cname}"] = max(
                     _rel(a, w_) for a, w_ in zip(d_out, cs["want_d"], strict=True))
     _report(libs, ptxas, timed, errs)
+    return 0
+
+
+K2BWD16_REPEATS = 2  # calls compared bit for bit
+
+
+def _time_k2bwdbf16(libs, ptxas) -> int:
+    """The bf16 K2 / K3 backward of every source at each K2 / K3 case of
+    chip_smoke.py's phase 16.1, in its pieces: wgrad (mc_conv_wgrad_bf16),
+    dgrad (mc_conv_dgrad_bf16), each with its fixed-order reduce, the reduces
+    alone, and the dx pass; the case's whole backward against the bf16 plain
+    version and for the same bits on a repeat. A source that exports
+    mc_conv_bwd_bf16_plan (this package's) runs its dx pass as the kernel
+    mc_gn_dx_bf16 and K3's up-fold dgrad to the low-res da; one without it
+    (an earlier commit's) is called through its own interface, with its dx
+    pass, K3's row fold and low-res tail in PyTorch as its wrapper ran them.
+    The reduces of an earlier source are timed on the package's mc_colsum
+    with that source's scratch shapes."""
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.kernels.fused_norm import (channel_stats_plain, dx_from_da,
+                                                     group_mean_rstd_from_sums)
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    b, res, ch, eps = K2_B, K2_RES, K2_CH, 1e-5
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pkg = libs["package"][0]
+    pkg.mc_colsum.argtypes = [P, P, I, I, I, P]
+    new_if = {}
+    for name, (lib, _) in libs.items():
+        new_if[name] = hasattr(lib, "mc_conv_bwd_bf16_plan")
+        lib.mc_conv_dgrad_bf16.argtypes = [P] * 10 + [I] * 6 + [F, I, P]
+        lib.mc_conv_wgrad_bf16.argtypes = [P] * 8 + [I] * 6 + [F] + [I] * 5 + [P]
+        if new_if[name]:
+            lib.mc_conv_bwd_bf16_plan.argtypes = [I] * 8 + [P]
+            lib.mc_gn_dx_bf16.argtypes = [P] * 7 + [I] * 4 + [F, I, P]
+            lib.mc_conv_dgrad_bf16_reduce.argtypes = [P, P, I, I, I, I, P]
+        else:
+            lib.mc_conv_wgrad_runs.argtypes = [I] * 8
+            lib.mc_conv_bwd_tiles.argtypes = [I] * 3
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def conv_w(ci, co):
+        return rnd(3, 3, ci, co, scale=(9 * ci) ** -0.5)
+
+    def rc_ok(rc):
+        if rc:
+            raise RuntimeError(f"launch failed with cudaError {rc}")
+
+    cases = {}
+
+    def case(name, x, o, act, up=False, skip=None, need_da=True):
+        """x the conv input (K3: low-res), o output channels; skip: the
+        projection's residual (its one-tap wgrad runs beside)."""
+        bb, hin, win, c = x.shape
+        h, wd = (2 * hin, 2 * win) if up else (hin, win)
+        g = rnd(bb, h, wd, o)
+        w = conv_w(c, o)
+        groups = adm_groups(c) if act else 0
+        gamma, beta = ((rnd(bb, c, scale=0.3, shift=1.0, dtype=torch.float32),
+                        rnd(bb, c, scale=0.3, dtype=torch.float32)) if act else (None, None))
+        stats = channel_stats_plain(x.reshape(bb, -1, c)) if act else None
+        with torch.no_grad():
+            if up:
+                want = fnc.gn_silu_up_conv_bwd_plain(g, x, gamma, beta, w, groups, eps,
+                                                     stats=stats)
+            else:
+                want = fnc.gn_silu_conv_bwd_plain(g, x, gamma, beta, w, groups, eps,
+                                                  stats=stats)[:5]
+                if not need_da:
+                    want = (None, None, None) + want[3:]
+            want = list(want)
+            if skip is not None:
+                want.append(torch.einsum("bhwr,bhwo->ro", skip.float(), g.float()))
+        cases[name] = dict(x=x, g=g, w=w, gamma=gamma, beta=beta, stats=stats, act=act,
+                           up=up, skip=skip, need_da=need_da, groups=max(groups, 1),
+                           c=c, o=o, h=h, wd=wd, want=want)
+
+    h = rnd(b, res, res, ch, scale=0.8, shift=0.2)
+    xc = rnd(b, res, res, 2 * ch, scale=0.8, shift=0.2)
+    xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
+    case("identity tail, chained stats, res 128", h, ch, True)
+    case("identity_up, res 128", rnd(b, res, res, ch, scale=0.8, shift=0.2), ch, True)
+    case("proj from the 128-channel concat, res 128", h, ch, True, skip=xc)
+    case("128-channel decoder conv0, res 128", xc, ch, True)
+    case("linear down conv0, res 64", rnd(b, res // 2, res // 2, ch, scale=0.8), ch, False)
+    case("conv_in (C 4, wgrad only), res 128", rnd(b, res, res, 4), ch, False,
+         need_da=False)
+    case("K3 up conv0, res 64 -> 128", xl, ch, True, up=True)
+
+    def pieces(name, lib, cs):
+        """{piece: call} and the outputs' getter of one source and case."""
+        new = new_if[name]
+        x, g, w, c, o = cs["x"], cs["g"], cs["w"], cs["c"], cs["o"]
+        bb, hh, ww = g.shape[:3]
+        up, act, gr = cs["up"], cs["act"], cs["groups"]
+        sums, sumsq = cs["stats"] if act else (None, None)
+        pv = [None if t is None else t.data_ptr() for t in (cs["gamma"], cs["beta"], sums,
+                                                              sumsq)]
+        calls, red = {}, []
+
+        def wgrad_call(xin, taps, bias, cin, a):
+            if new:  # persistent blocks: the plan's runs, a scratch row each
+                plan = (ctypes.c_int * 5)()
+                rc_ok(lib.mc_conv_bwd_bf16_plan(1, int(up), bb, hh, ww, cin, o, taps, plan))
+                runs = rows = plan[4]
+            else:  # runs per image, a scratch row each
+                runs = lib.mc_conv_wgrad_runs(bb, hh, ww, cin, o, taps, int(up),
+                                              fnc._BLOCKS_PER_SM * sms)
+                rows = bb * runs
+            k = taps * cin * o + (o if bias else 0)
+            dwb = g.new_empty(k, dtype=torch.float32)
+            part = g.new_empty(rows, k, dtype=torch.float32)
+            p_ = pv if a else [None] * 4
+
+            def call():
+                rc_ok(lib.mc_conv_wgrad_bf16(xin.data_ptr(), g.data_ptr(), *p_,
+                                             dwb.data_ptr(), part.data_ptr(), bb, hh, ww,
+                                             cin, o, gr, eps, int(a), taps, int(up),
+                                             int(bias), runs, stream))
+            red.append(lambda: rc_ok(pkg.mc_colsum(part.data_ptr(), dwb.data_ptr(), rows, k,
+                                                   1, stream)))
+            return call, dwb
+
+        wcall, dwb = wgrad_call(x, 9, True, c, act)
+        calls["wgrad"] = wcall
+        outs = {"dwb": dwb}
+        if cs["skip"] is not None:
+            scall, dskw = wgrad_call(cs["skip"], 1, False, cs["skip"].shape[-1], False)
+            calls["wgrad, one tap (projection)"] = scall
+            outs["dskw"] = dskw
+        if cs["need_da"]:
+            mode = 2 if up else int(act)
+            dstats = g.new_empty(2, bb, c, dtype=torch.float32)
+            xs = [x.data_ptr()] + pv if act else [None] * 5
+            if new:
+                plan = (ctypes.c_int * 5)()
+                rc_ok(lib.mc_conv_bwd_bf16_plan(0, int(up), bb, hh, ww, c, o, 9, plan))
+                gx = plan[4]
+                part = g.new_empty(2, bb, gx, c, dtype=torch.float32)
+                da = (x.new_empty(x.shape, dtype=torch.float32) if up
+                      else torch.empty_like(x))
+                per_img = -(-hh // plan[0]) * -(-ww // 16)
+
+                def dcall():
+                    rc_ok(lib.mc_conv_dgrad_bf16(g.data_ptr(), w.data_ptr(), *xs,
+                                                 da.data_ptr(), dstats.data_ptr(),
+                                                 part.data_ptr(), bb, hh, ww, c, o, gr, eps,
+                                                 mode, stream))
+                calls["dgrad"] = dcall
+                dx = None
+                if act:
+                    red.append(lambda: rc_ok(lib.mc_conv_dgrad_bf16_reduce(
+                        part.data_ptr(), dstats.data_ptr(), bb, c, gx, per_img, stream)))
+                    dx = torch.empty_like(x)
+
+                    def xcall():
+                        rc_ok(lib.mc_gn_dx_bf16(x.data_ptr(), da.data_ptr(), pv[0],
+                                                dstats.data_ptr(), pv[2], pv[3],
+                                                dx.data_ptr(), bb, x.shape[1] * x.shape[2],
+                                                c, gr, eps, int(up), stream))
+                    calls["dx pass"] = xcall
+            else:
+                tiles = lib.mc_conv_bwd_tiles(hh, ww, 0)
+                part = g.new_empty(2, bb, tiles, c, dtype=torch.float32)
+                da = (g.new_empty(bb, hh, ww // 2, c, dtype=torch.float32) if up
+                      else torch.empty_like(x))
+                if up:  # the earlier K3 dgrad takes no x
+                    xs = [None] * 5
+
+                def dcall():
+                    rc_ok(lib.mc_conv_dgrad_bf16(g.data_ptr(), w.data_ptr(), *xs,
+                                                 da.data_ptr(), dstats.data_ptr(),
+                                                 part.data_ptr(), bb, hh, ww, c, o, gr, eps,
+                                                 mode, stream))
+                if mode == 1:
+                    red.append(lambda: rc_ok(pkg.mc_colsum(part.data_ptr(),
+                                                           dstats.data_ptr(), tiles, c,
+                                                           2 * bb, stream)))
+                dx = None
+                calls["dgrad"] = dcall
+            outs.update(da=da, dstats=dstats)
+            if act:
+                hin, win = x.shape[1:3]
+                mean, rstd = group_mean_rstd_from_sums(sums, sumsq, hin * win, gr, eps)
+                gam, bet = cs["gamma"], cs["beta"]
+
+                def torch_dx():
+                    if up and not new:  # the row fold and the low-res tail
+                        ds_low = da.reshape(bb, hin, 2, win, c).sum(dim=2)
+                        dx_, dg_, db_ = fnc._up_tail_bwd(ds_low, x, gam, bet, mean, rstd, gr)
+                        dstats[0].copy_(dg_)
+                        dstats[1].copy_(db_)
+                        return dx_.to(bf)
+                    return dx_from_da(x, da, gam, dstats[0], dstats[1], mean, rstd,
+                                      gr).to(bf)
+                calls["dx pass, PyTorch (parent style)"] = torch_dx
+                outs["dx"] = dx
+        parts = list(calls.items())
+        calls["reduces alone"] = lambda: [f() for f in red]
+
+        def whole():
+            outs["dx_torch"] = None
+            for key, fn_ in parts:
+                if key == "dx pass, PyTorch (parent style)":
+                    if outs.get("dx") is None:
+                        outs["dx_torch"] = fn_()
+                    continue
+                fn_()
+        calls["whole backward"] = whole
+
+        def result():
+            whole()
+            dx = outs.get("dx") if outs.get("dx") is not None else outs.get("dx_torch")
+            nw = 9 * c * o
+            got = [dx, *(outs["dstats"] if "dstats" in outs and act else (None, None)),
+                   outs["dwb"][:nw].view(3, 3, c, o), outs["dwb"][nw:]]
+            if not cs["need_da"]:
+                got[0] = None
+            elif not act:
+                got[0] = outs["da"]
+            if "dskw" in outs:
+                got.append(outs["dskw"].view(-1, o))
+            return got
+        return calls, result
+
+    def bf16_err(got, want):
+        err = (got.double() - want.double()).abs()
+        scale = max(float(want.double().abs().max()), 1e-30)
+        return float(err.max()) / scale, float(err.mean()) / scale
+
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for cname, cs in cases.items():
+            pc, result = pieces(name, lib, cs)
+            for piece, fn_ in pc.items():
+                calls[name][f"{piece}: {cname}"] = fn_
+            runs = []
+            for _ in range(K2BWD16_REPEATS):
+                got = [None if t is None else t.clone() for t in result()]
+                torch.cuda.synchronize()
+                runs.append(got)
+            rec = {}
+            for i, (a, e) in enumerate(zip(runs[0], cs["want"])):
+                if a is None or e is None:
+                    continue
+                mx, mean = bf16_err(a, e)
+                rec[f"out {i}"] = {"max": mx, "mean": mean, "dtype": str(a.dtype)[6:]}
+            rec["repeat_bitwise"] = all(
+                a is None or torch.equal(a, r) for a, r in zip(runs[0][1:], runs[1][1:]))
+            errs[name][f"err {cname}"] = rec
+    _report(libs, ptxas, calls, errs)
     return 0
 
 

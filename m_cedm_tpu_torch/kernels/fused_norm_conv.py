@@ -55,23 +55,27 @@ rounded once. `gn_silu_conv_plain`, `gn_silu_up_conv_plain` and
 `narrow_conv_plain` of bf16 operands are that function; they use chained
 statistics, as the kernels do.
 
-The backward kernels have bf16 instances too (x, g, w, the residual and the
-skip weight bf16; dW, dbias, dgamma, dbeta fp32), rounding where the Pallas
-backward rounds on a bf16 network. K2 (_bwd_phase_a): the activation
-recomputed in fp32 as _act_from_x writes it, ((x - mean) * rstd) * gamma +
-beta, then SiLU, and rounded to bf16 before the product; dW, dbias and the
-conv input's cotangent ds sums of bf16 products in fp32; da = ds * silu'
-in fp32, dgamma and dbeta summed from it, da stored rounded to bf16; dx from
-the upcast bf16 da in fp32 (_dx_from_da), rounded once. The linear mode's da
-is ds rounded to bf16. K3 (_up_pair_bwd_kernel): the activation in the
-folded form x * (gamma * rstd) + (beta - gamma * rstd * mean), rounded to
-bf16; ds stays fp32 through the row fold and the fp32 low-res tail; dx
-rounded once. `gn_silu_conv_bwd_plain`, `gn_silu_up_conv_bwd_plain` and
+The backward has bf16 kernels too (x, g, w, the residual and the skip
+weight bf16; dW, dbias, dgamma, dbeta fp32), written for Hopper
+(csrc/fused_norm_conv_bwd.cu: wgrad_bf16_kernel, dgrad_bf16_kernel and the
+dx pass gn_dx_kernel, `gn_dx`, with its own launch counter), rounding where
+the Pallas backward rounds on a bf16 network. K2 (_bwd_phase_a): the
+activation recomputed in fp32 and rounded to bf16 before the product; dW,
+dbias and the conv input's cotangent ds sums of bf16 products in fp32; da =
+ds * silu' in fp32, dgamma and dbeta summed from it, da stored rounded to
+bf16; dx from the upcast bf16 da in fp32 (_dx_from_da), rounded once. The
+linear mode's da is ds rounded to bf16. K3 (_up_pair_bwd_kernel): ds stays
+fp32 through the 2 x 2 fold (in dgrad's epilogue) and the low-res tail (da =
+ds_low * silu' in the same epilogue, then the dx pass); dx rounded once.
+`gn_silu_conv_bwd_plain`, `gn_silu_up_conv_bwd_plain` and
 `narrow_conv_bwd_plain` of bf16 operands are that function, with the
-statistics the forward used.
+statistics the forward used (the activation there in _act_from_x's form,
+((x - mean) * rstd) * gamma + beta; K3's in the folded form, as
+_up_pair_bwd_kernel writes it); `gn_dx_plain` is the dx pass's.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple, Union
 
@@ -568,7 +572,7 @@ def _gn_silu_up_conv_kernel(x, gamma, beta, w, bias, num_groups, eps, stats,
     return ((out, (osums, osumsq)) if emit_stats else out), (sums, sumsq)
 
 
-_BLOCKS_PER_SM = 2  # the wgrad kernel's occupancy (csrc/fused_norm_conv_bwd.cu)
+_BLOCKS_PER_SM = 2  # the fp32 wgrad kernel's occupancy (csrc/fused_norm_conv_bwd.cu)
 
 
 @functools.lru_cache(maxsize=None)
@@ -579,11 +583,25 @@ def _dgrad_tiles(h: int, wd: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _wgrad_runs(b, h, wd, c, o, taps, up, device) -> int:
-    """Pixel-tile runs per image of the wgrad kernel: about one wave of
+    """Pixel-tile runs per image of the fp32 wgrad kernel: about one wave of
     blocks at two an SM, at most one tile a run (the kernel's own rule)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return _build.bind("fused_norm_conv_bwd", "mc_conv_wgrad_runs", [I] * 8)(
         b, h, wd, c, o, taps, int(up), _BLOCKS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_bwd_plan(which: int, up: bool, b: int, h: int, wd: int, c: int, o: int,
+                  taps: int, device) -> Tuple[int, int, int, int, int]:
+    """The bf16 backward kernels' launch plan (mc_conv_bwd_bf16_plan; which 0
+    dgrad, 1 wgrad; h, wd the cotangent's): (tile rows, weights resident,
+    blocks, dynamic shared memory bytes, rows of the partials' scratch).
+    `device` keys the cache: the plan fills the card's SMs."""
+    out = (ctypes.c_int * 5)()
+    name = "mc_conv_bwd_bf16_plan"
+    raise_on_error(_build.bind("fused_norm_conv_bwd", name, [I] * 8 + [P])(
+        which, int(up), b, h, wd, c, o, taps, out), name)
+    return tuple(out)
 
 
 def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, with_bias):
@@ -591,16 +609,22 @@ def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, with_bias):
     or (C, O) for one tap, and dbias (O,) or None). x (B, Hin, Win, C), g
     (B, H, W, O) at the output size. Per-run partials go to a scratch that
     the reduce adds in a fixed order, so the result repeats bit for bit.
-    bf16 x and g take the bf16 instance (dw, dbias fp32)."""
+    bf16 x and g take the bf16 kernel (dw, dbias fp32), whose scratch has a
+    row a persistent block (_bf16_bwd_plan)."""
     b, h, wd, o = g.shape
     c = x.shape[-1]
-    runs = _wgrad_runs(b, h, wd, c, o, taps, up, x.device)
+    bf = x.dtype == torch.bfloat16
+    if bf:
+        runs = rows = _bf16_bwd_plan(1, up, b, h, wd, c, o, taps, x.device)[4]
+    else:
+        runs = _wgrad_runs(b, h, wd, c, o, taps, up, x.device)
+        rows = b * runs
     nw = taps * c * o
     k = nw + (o if with_bias else 0)
     dwb = torch.empty((k,), device=x.device, dtype=torch.float32)
-    part = torch.empty((b * runs, k), device=x.device, dtype=torch.float32)
+    part = torch.empty((rows, k), device=x.device, dtype=torch.float32)
     sums, sumsq = stats if stats is not None else (None, None)
-    name = "mc_conv_wgrad" + ("_bf16" if x.dtype == torch.bfloat16 else "")
+    name = "mc_conv_wgrad" + ("_bf16" if bf else "")
     fn = _build.bind("fused_norm_conv_bwd", name, [P] * 8 + [I] * 6 + [F] + [I] * 5 + [P])
     raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(sums),
                       ptr(sumsq), ptr(dwb), ptr(part), b, h, wd, c, o,
@@ -615,24 +639,77 @@ _DGRAD_LINEAR, _DGRAD_ACT, _DGRAD_UP_FOLD = 0, 1, 2
 
 def _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, mode, out):
     """Launch the dgrad kernel (modes in csrc/fused_norm_conv_bwd.cu) into
-    `out`; in the act mode also the fixed-order reduce of its per-tile
-    partials, returning (dgamma, dbeta), each (B, C). bf16 g and w take the
-    bf16 instance: `out` bf16 in the linear and act modes (da rounded once),
-    fp32 in the up-fold mode."""
+    `out`; where it emits (dgamma, dbeta) also the fixed-order reduce of its
+    partials, returning them as one (2, B, C) tensor (else None): the act
+    mode, and bf16's up-fold mode. bf16 g and w take the bf16 kernel: `out`
+    bf16 in the linear and act modes (da rounded once); in the up-fold mode
+    the low-res da (B, H / 2, W / 2, C) in fp32 (fp32's: the column-folded
+    ds (B, H, W / 2, C), no statistics)."""
     b, h, wd, o = g.shape
     c = w.shape[2]
+    bf = g.dtype == torch.bfloat16
     sums, sumsq = stats if stats is not None else (None, None)
     dstats = part = None
-    if mode == _DGRAD_ACT:
+    if mode == _DGRAD_ACT or (bf and mode == _DGRAD_UP_FOLD):
+        rows = (_bf16_bwd_plan(0, mode == _DGRAD_UP_FOLD, b, h, wd, c, o, 9, g.device)[4]
+                if bf else _dgrad_tiles(h, wd))
         dstats = torch.empty((2, b, c), device=g.device, dtype=torch.float32)
-        part = torch.empty((2, b, _dgrad_tiles(h, wd), c), device=g.device,
-                           dtype=torch.float32)
-    name = "mc_conv_dgrad" + ("_bf16" if g.dtype == torch.bfloat16 else "")
+        part = torch.empty((2, b, rows, c), device=g.device, dtype=torch.float32)
+    name = "mc_conv_dgrad" + ("_bf16" if bf else "")
     fn = _build.bind("fused_norm_conv_bwd", name, [P] * 10 + [I] * 6 + [F, I, P])
     raise_on_error(fn(ptr(g), ptr(w), ptr(x), ptr(gamma), ptr(beta), ptr(sums),
                       ptr(sumsq), ptr(out), ptr(dstats), ptr(part), b, h, wd,
                       c, o, max(num_groups, 1), eps, mode, stream()), name)
-    return (dstats[0], dstats[1]) if dstats is not None else (None, None)
+    return dstats
+
+
+def gn_dx_plain(x, da, gamma, dstats, stats: Stats, num_groups: int,
+                eps: float = 1e-5) -> torch.Tensor:
+    """The dx pass's function (`_dx_from_da`, rounded once to x's dtype):
+    the GroupNorm input gradient of x (B, ..., C) from the cotangent da of
+    the affine output (bf16, or fp32 as K3's low-res tail keeps it), dstats
+    (2, B, C) = (dgamma, dbeta) and the forward's channel sums `stats`, in
+    fp32 (`dx_from_da`)."""
+    b, c = gamma.shape
+    mean, rstd = group_mean_rstd_from_sums(*stats, x.numel() // (b * c), num_groups, eps)
+    return dx_from_da(x.float(), da.float(), gamma, dstats[0], dstats[1], mean, rstd,
+                      num_groups).to(x.dtype)
+
+
+def gn_dx(x, da, gamma, dstats, stats: Stats, num_groups: int,
+          eps: float = 1e-5) -> torch.Tensor:
+    """The dx pass of the bf16 K2 / K3 backward (`gn_dx_plain`'s function) as
+    one kernel on the card (csrc/fused_norm_conv_bwd.cu::gn_dx_kernel): x
+    bf16, da bf16 or fp32 of x's shape, dstats (2, B, C), gamma and the
+    statistics fp32; dx bf16. The plain version for CPU tensors; other
+    dtypes raise."""
+    if on_cpu(x):
+        return gn_dx_plain(x, da, gamma, dstats, stats, num_groups, eps)
+    b, c = gamma.shape
+    dev = x.device
+    if x.dtype != torch.bfloat16 or da.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the dx kernel takes bf16 x and bf16 or fp32 da, got {x.dtype} "
+                         f"and {da.dtype}")
+    check(x, "x", x.shape, dev, torch.bfloat16)
+    if x.shape[0] != b or x.shape[-1] != c:
+        raise ValueError(f"x {tuple(x.shape)} does not match gamma {tuple(gamma.shape)}")
+    check(da, "da", x.shape, dev, da.dtype)
+    check(gamma, "gamma", (b, c), dev)
+    check(dstats, "dstats", (2, b, c), dev)
+    for t, name in zip(stats, ("sums", "sumsq")):
+        check(t, name, (b, c), dev)
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    dx = torch.empty_like(x)
+    fn = _build.bind("fused_norm_conv_bwd", "mc_gn_dx_bf16", [P] * 7 + [I] * 4 + [F, I, P])
+    raise_on_error(fn(ptr(x), ptr(da), ptr(gamma), ptr(dstats), ptr(stats[0]), ptr(stats[1]),
+                      ptr(dx), b, x.numel() // (b * c), c, num_groups, eps,
+                      int(da.dtype == torch.float32), stream()), "mc_gn_dx_bf16")
+    gn_dx.launches += 1
+    return dx
+
+
+gn_dx.launches = 0
 
 
 def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
@@ -661,14 +738,16 @@ def gn_silu_conv_bwd(g, x, gamma, beta, w, stats: Optional[Stats],
     dx = dgamma = dbeta = None
     if need_da:
         da = torch.empty_like(x)
-        dgamma, dbeta = _dgrad(g, w, x, gamma, beta, stats, num_groups, eps,
-                               _DGRAD_ACT if act else _DGRAD_LINEAR, da)
+        dstats = _dgrad(g, w, x, gamma, beta, stats, num_groups, eps,
+                        _DGRAD_ACT if act else _DGRAD_LINEAR, da)
         dx = da
         if act:
-            # in fp32 (bf16 x and da promote as they are read), rounded once
-            # to x's dtype
-            mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
-            dx = dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups).to(dt)
+            dgamma, dbeta = dstats[0], dstats[1]
+            if dt == torch.bfloat16:
+                dx = gn_dx(x, da, gamma, dstats, stats, num_groups, eps)
+            else:
+                mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
+                dx = dx_from_da(x, da, gamma, dgamma, dbeta, mean, rstd, num_groups)
     dskip_w = None
     if skip_w is not None:
         dskip_w = _wgrad(residual, g, None, None, None, 0, eps, 1, False, False)[0]
@@ -694,15 +773,20 @@ def gn_silu_up_conv_bwd(g, x, gamma, beta, w, stats: Stats, num_groups: int,
     check(w, "w", (3, 3, c, o), dev, dt)
     _norm_inputs(x, gamma, beta, num_groups, stats)
     dw, dbias = _wgrad(x, g, gamma, beta, stats, num_groups, eps, 9, True, True)
+    gn_silu_up_conv_bwd.launches += 1
+    if dt == torch.bfloat16:
+        # dgrad folds the 2 x 2 block of each low-res pixel and forms the
+        # fp32 da there with (dgamma, dbeta); the dx kernel rounds dx once
+        da = torch.empty(x.shape, device=dev, dtype=torch.float32)
+        dstats = _dgrad(g, w, x, gamma, beta, stats, num_groups, eps, _DGRAD_UP_FOLD, da)
+        dx = gn_dx(x, da, gamma, dstats, stats, num_groups, eps)
+        return dx, dstats[0], dstats[1], dw, dbias
     ds = torch.empty((b, 2 * h, wd, c), device=dev, dtype=torch.float32)
     _dgrad(g, w, None, None, None, None, num_groups, eps, _DGRAD_UP_FOLD, ds)
-    # the row pair of each low-res pixel, then GroupNorm / SiLU at low res in
-    # fp32; dx rounded once to x's dtype
+    # the row pair of each low-res pixel, then GroupNorm / SiLU at low res
     ds_low = ds.reshape(b, h, 2, wd, c).sum(dim=2)
     mean, rstd = group_mean_rstd_from_sums(*stats, h * wd, num_groups, eps)
-    gn_silu_up_conv_bwd.launches += 1
-    dx, dgamma, dbeta = _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups)
-    return dx.to(dt), dgamma, dbeta, dw, dbias
+    return _up_tail_bwd(ds_low, x, gamma, beta, mean, rstd, num_groups) + (dw, dbias)
 
 
 gn_silu_up_conv_bwd.launches = 0

@@ -301,8 +301,9 @@ def test_train_step_on_the_card(cuda):
                                        torch.Generator(cuda).manual_seed(1))
         out[name] = (metrics, new, kernels.launches())
     (mk, sk, lk), (mp, sp, lp) = out["kernel"], out["plain"]
-    # the OFormer's kernels, and K7, which runs only on the sampling path
-    idle = ("K5 kv_dots", "K6 apply_dots", "K7 unet_block")
+    # the OFormer's kernels, K7, which runs only on the sampling path, and the
+    # bf16 backward's dx pass (an fp32 step forms dx in PyTorch)
+    idle = ("K5 kv_dots", "K6 apply_dots", "K7 unet_block", "K2 gn_dx")
     assert all(n > 0 for k, n in lk.items() if k not in idle), lk
     assert not any(lk[k] for k in idle), lk
     assert not any(lp.values()), lp
@@ -1363,15 +1364,19 @@ def test_k1_bf16_backward_matches_plain(cuda, c):
                         tuple(t[:, :12].contiguous() for t in stats), 4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("shape", [(2, 12, 20, 24, 40, 24), (1, 10, 6, 64, 70, 24),
-                                   (2, 16, 16, 128, 64, 128), (1, 9, 17, 12, 20, 24)],
-                         ids=["ragged", "two-o-blocks", "c128", "scalar"])
-def test_k2_bf16_backward_matches_plain(cuda, mode, shape):
+# K2_BF16_SHAPES: (B, H, W, C, O, Cr). "tiles16" has more 16 x 16 tiles than
+# an H100 has SMs, neither dividing H nor W, so persistent blocks take one or
+# two tiles and cross images; "tiles8" the same on 8 x 16 tiles; "o128" two
+# o-chunks of dgrad's K and two O-blocks of wgrad's N; "c128-o64" two
+# C-blocks (the decoder's conv0 shape)
+K2_BF16_SHAPES = {"ragged": (2, 12, 20, 24, 40, 24), "two-o-blocks": (1, 10, 6, 64, 70, 24),
+                  "c128": (2, 16, 16, 128, 64, 128), "scalar": (1, 9, 17, 12, 20, 24),
+                  "tiles16": (3, 100, 120, 64, 64, 64), "tiles8": (4, 64, 80, 64, 64, 128),
+                  "o128": (1, 18, 34, 64, 128, 64), "c128-o64": (1, 33, 20, 128, 64, 64)}
+
+
+def _k2_bf16_case(cuda, mode, shape):
     b, h, w, c, o, cr = shape
-    if mode == "identity_up" and (h % 2 or w % 2):
-        pytest.skip("identity_up needs an even height and width")
     g = torch.Generator(device=cuda).manual_seed(h * w + c + 7)
     act = mode != "linear"
     x = _bf16_rnd(g, cuda, b, h, w, c, scale=0.8, shift=0.2)
@@ -1389,15 +1394,29 @@ def test_k2_bf16_backward_matches_plain(cuda, mode, shape):
                   skip_w=_bf16_rnd(g, cuda, cr, o, scale=0.2))
     groups = 4 if act else 0
     stats = tfn.channel_stats_plain(x.reshape(b, -1, c)) if act else None
-    got = tfnc.gn_silu_conv_bwd(gy, x, gamma, beta, wt, stats, groups, 1e-5, **kw)
-    want = tfnc.gn_silu_conv_bwd_plain(gy, x, gamma, beta, wt, groups, 1e-5, stats=stats, **kw)
-    _bf16_grads_close(got, want)
+    return (gy, x, gamma, beta, wt, stats, groups, 1e-5), kw
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 7, 11, 24, 40), (1, 8, 16, 64, 64), (2, 10, 18, 128, 64),
-                                   (1, 13, 9, 12, 40)])
-def test_k3_bf16_backward_matches_plain(cuda, shape):
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", list(K2_BF16_SHAPES.values()), ids=list(K2_BF16_SHAPES))
+def test_k2_bf16_backward_matches_plain(cuda, mode, shape):
+    if mode == "identity_up" and (shape[1] % 2 or shape[2] % 2):
+        pytest.skip("identity_up needs an even height and width")
+    (gy, x, gamma, beta, wt, stats, groups, eps), kw = _k2_bf16_case(cuda, mode, shape)
+    got = tfnc.gn_silu_conv_bwd(gy, x, gamma, beta, wt, stats, groups, eps, **kw)
+    want = tfnc.gn_silu_conv_bwd_plain(gy, x, gamma, beta, wt, groups, eps, stats=stats, **kw)
+    _bf16_grads_close(got, want)
+
+
+# (B, h, w, C, O) at the low resolution; "tiles16": 168 high-res 16 x 16
+# tiles (ragged in both axes) for 132 persistent blocks
+K3_BF16_SHAPES = {"ragged": (2, 7, 11, 24, 40), "one-tile": (1, 8, 16, 64, 64),
+                  "c128": (2, 10, 18, 128, 64), "scalar": (1, 13, 9, 12, 40),
+                  "tiles16": (3, 50, 60, 64, 64), "o128": (1, 9, 17, 64, 128)}
+
+
+def _k3_bf16_case(cuda, shape):
     b, h, w, c, o = shape
     g = torch.Generator(device=cuda).manual_seed(h * w + 3)
     x = _bf16_rnd(g, cuda, b, h, w, c, scale=0.8, shift=0.2)
@@ -1405,9 +1424,60 @@ def test_k3_bf16_backward_matches_plain(cuda, shape):
     gamma = _bf16_rnd(g, cuda, b, c, scale=0.3, shift=1.0, dtype=torch.float32)
     beta = _bf16_rnd(g, cuda, b, c, scale=0.3, dtype=torch.float32)
     wt = _bf16_rnd(g, cuda, 3, 3, c, o, scale=1.0 / (3 * c ** 0.5))
-    stats = tfn.channel_stats_plain(x.reshape(b, -1, c))
+    return gy, x, gamma, beta, wt, tfn.channel_stats_plain(x.reshape(b, -1, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K3_BF16_SHAPES.values()), ids=list(K3_BF16_SHAPES))
+def test_k3_bf16_backward_matches_plain(cuda, shape):
+    gy, x, gamma, beta, wt, stats = _k3_bf16_case(cuda, shape)
+    before = tfnc.gn_dx.launches
     _bf16_grads_close(tfnc.gn_silu_up_conv_bwd(gy, x, gamma, beta, wt, stats, 4),
                       tfnc.gn_silu_up_conv_bwd_plain(gy, x, gamma, beta, wt, 4, stats=stats))
+    assert tfnc.gn_dx.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k2 identity tiles16", "k2 proj tiles8", "k2 linear o128",
+                                  "k3 up tiles16"])
+def test_k2_k3_bf16_backward_repeat_bit_for_bit(cuda, case):
+    """dW, dbias, dgamma, dbeta (and dskip_w) from fixed-order partials: two
+    calls give the same bits; the bf16 outputs too (no atomics)."""
+    kind, mode, name = case.split()
+    if kind == "k3":
+        args = _k3_bf16_case(cuda, K3_BF16_SHAPES[name])
+        runs = [tfnc.gn_silu_up_conv_bwd(*args, 4) for _ in range(2)]
+    else:
+        (gy, x, gamma, beta, wt, stats, groups, eps), kw = _k2_bf16_case(
+            cuda, mode, K2_BF16_SHAPES[name])
+        runs = [tfnc.gn_silu_conv_bwd(gy, x, gamma, beta, wt, stats, groups, eps, **kw)
+                for _ in range(2)]
+    for i, (a, b_) in enumerate(zip(*runs)):
+        assert (a is None) == (b_ is None), i
+        assert a is None or torch.equal(a, b_), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("da_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,groups", [((2, 7, 13, 24), 4), ((3, 5, 9, 12), 3),
+                                          ((16, 128, 128, 64), 16), ((16, 64, 64, 64), 16)],
+                         ids=["ragged", "scalar", "flagship-k2", "flagship-k3"])
+def test_gn_dx_matches_plain(cuda, da_dtype, shape, groups):
+    """The dx kernel alone: bf16 da (K2) and fp32 da (K3's low-res tail)
+    against gn_dx_plain; C % 8 != 0 takes its element path."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    b, c = shape[0], shape[-1]
+    x = _bf16_rnd(g, cuda, *shape, scale=0.8, shift=0.2)
+    da = _bf16_rnd(g, cuda, *shape, scale=0.1, dtype=da_dtype)
+    gamma = _bf16_rnd(g, cuda, b, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    dstats = _bf16_rnd(g, cuda, 2, b, c, scale=30.0, dtype=torch.float32)
+    stats = tfn.channel_stats_plain(x.reshape(b, -1, c))
+    before = tfnc.gn_dx.launches
+    got = tfnc.gn_dx(x, da, gamma, dstats, stats, groups)
+    assert tfnc.gn_dx.launches == before + 1
+    _bf16_close(got, tfnc.gn_dx_plain(x, da, gamma, dstats, stats, groups))
+    with pytest.raises(ValueError, match="bf16 x"):
+        tfnc.gn_dx(x.float(), da, gamma, dstats, stats, groups)
 
 
 @pytest.mark.cuda

@@ -251,6 +251,9 @@ def _wrapper_calls(inp):
     # the narrow route: C 4 -> O 24 (narrow C), and C 16 -> O 2 (narrow O)
     x4, w4 = inp.t("x")[..., :4].contiguous(), inp.t("w")[:, :, :4].contiguous()
     w2, b2, g2n = (t[..., :2].contiguous() for t in (inp.t("w"), inp.t("bias"), g2))
+    dx_args = (inp.t("x").bfloat16(), g2[..., :c].bfloat16(), inp.t("gamma"),
+               torch.stack([inp.t("gamma"), inp.t("beta")]),
+               tfn.channel_stats_plain(x3), 4)
     return {
         "K1 gn_silu": (lambda: tfn.gn_silu(x3, inp.t("gamma"), inp.t("beta"), 4),
                        lambda: tfn.gn_silu_plain(x3, inp.t("gamma"), inp.t("beta"), 4)),
@@ -294,6 +297,8 @@ def _wrapper_calls(inp):
                                                    inp.t("beta"), inp.t("w"), 4)[:4]),
         "K4 attention_bwd": (lambda: _grads(tfa.attention, (q, q, q), q),
                              lambda: tfa.attention_bwd_plain(q, q, q, q)),
+        # the bf16 backward's dx pass, from a bf16 x and da
+        "K2 gn_dx": (lambda: tfnc.gn_dx(*dx_args), lambda: tfnc.gn_dx_plain(*dx_args)),
         # the linear-attention pair (forward only: each backward is the pair)
         "K5 kv_dots": (lambda: tla.kv_dots(x3, x3), lambda: tla.kv_dots_plain(x3, x3)),
         "K6 apply_dots": (lambda: tla.apply_dots(q, dots), lambda: tla.apply_dots_plain(q, dots)),
