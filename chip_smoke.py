@@ -16,7 +16,9 @@ Phases, each printing JSON lines:
               linear mode at C <= 8 or O <= 8) in each of its modes: the
               flagship's conv_in (C 4) and out conv (O 2), adm_edm_cond_h's
               (C 2, O 1), beside conv2d and the old route (gnsc_kernel on
-              the same operands)
+              the same operands). K1's statistics pass at the main path's
+              shapes, the 32x32 sites ((B, 1024, 64) and (B, 1024, 128), the
+              summary mode), then at res 128 as context
   3. forward  one full-width U-Net forward (B = 16, res 128, ch 64, the four
               attention sites), kernel path against the plain path
   2b. backward each backward kernel against autograd of its plain forward at
@@ -162,8 +164,11 @@ Phases, each printing JSON lines:
               of scale at most and 1e-4 on average, emitted statistics
               within 1e-5), with times, bf16 bounds (bytes at 3.35 TB/s
               against products at 989 TFLOP/s; K1 fp32 element work at 67;
-              K4's q k^T at 989 and its P V as two TF32 products at 495)
-              and the bf16 library
+              K4 at its least work that keeps fp32 accuracy, q k^T one
+              bf16 product and P V three, P in three bf16 pieces, all at
+              989, the TF32-split bound of earlier slices beside; K4's
+              SASS, every product a wgmma; K1's statistics at the
+              32x32 sites first, as phase 2) and the bf16 library
               call where one computes the same function (conv2d, SDPA); with
               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
               turned on for the rest of the phase: (2) the full-width U-Net
@@ -195,8 +200,11 @@ Phases, each printing JSON lines:
               fp32 dW, dbias, dgamma, dbeta within 1e-3 of scale; K4's o32
               within 1e-5 of the fp32 plain forward), with times, bf16
               bounds (bytes at 3.35 TB/s against bf16 products at 989
-              TFLOP/s; K1 fp32 element work at 67; K4's P V, dS K and dS^T Q
-              as two TF32 products at 495), the library's time (the
+              TFLOP/s; K1 fp32 element work at 67; K4's S and dP one bf16
+              product each and P^T g, dS K and dS^T Q three each, the
+              TF32-split bound beside; K4's two kernels' SASS, every product
+              a wgmma; their gradients asserted bit for bit on a repeat),
+              the library's time (the
               autograd backward of bf16 conv2d, of bf16 SDPA), and the
               device time (CUDA events behind a spin kernel) of the bf16
               kernels and of the fp32 kernels on the same inputs upcast;
@@ -254,6 +262,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -427,7 +436,6 @@ PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_BF16 = 989e12    # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 * 2**20  # H100 SXM L2
-SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep's clock, at or above the SM clock
 
 # name -> (CUDA source, the TPU kernel it replaces); the flagship's nine,
 # then the OFormer's two
@@ -545,11 +553,11 @@ def bound(nbytes: float, flops: float, tf32_products: float = 0,
     """The least time the card could take: bytes over the memory rate or
     FLOPs over the fp32 rate (`peak`: PEAK_BF16 for bf16 products),
     whichever is longer. A kernel whose products run as `tf32_products` TF32
-    products on the tensor cores (3 for 3xTF32; 2 for P V, whose P is fp32,
-    in K4's bf16 forward) does that many TF32 FLOPs per FLOP over the TF32
+    products on the tensor cores (3 for 3xTF32; 2 for a product with an
+    fp32 P or dS in the bf16 K4's TF32-split bound) does that many TF32 FLOPs per FLOP over the TF32
     rate; its CUDA-core bound is kept beside as `bound_fp32_ms`.
     `bf16_flops`: the FLOPs of further products of bf16 operands, at
-    PEAK_BF16 (K4's bf16 q k^T)."""
+    PEAK_BF16 (K4's bf16 q k^T; k4_bf16_bound)."""
     t_bytes, t_fp32 = nbytes / PEAK_BYTES * 1e3, (flops + bf16_flops) / peak * 1e3
     t_ops = (tf32_products * flops / PEAK_TF32 * 1e3 if tf32_products
              else flops / peak * 1e3) + bf16_flops / PEAK_BF16 * 1e3
@@ -682,13 +690,14 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
         return [u for s in t for u in flat(s)] if isinstance(t, tuple) else [t]
 
     def check(kernel, mode, got, want, k_fn, p_fn, work=None, lib_fn=None,
-              old_fn=None):
+              old_fn=None, device_fn=None):
         """`work`: (bytes, flops[, tf32 products]) of the kernel's call, given
         for the mode whose time the summary line reports (each kernel's
         first). `lib_fn`: the PyTorch call computing the same function, timed
         beside (its error against the plain version recorded, not held).
         `old_fn`: the route the kernel replaced, held to the plain version
-        and timed beside."""
+        and timed beside. `device_fn`: timed on the card's clock as well
+        (`device_ms`), where the wrapper's host cost exceeds the kernel's."""
         errs = [compare(a, w, TOL_KERNEL, f"{kernel} {mode} output {i}")
                 for i, (a, w) in enumerate(zip(flat(got), flat(want), strict=True))]
         rec = {"phase": "kernel", "kernel": kernel, "mode": mode,
@@ -698,6 +707,8 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
         rec["plain_ms"] = cuda_ms(p_fn)
         if work is not None:
             rec.update(bound(*work), library_ms=None)
+        if device_fn is not None:
+            rec["device_ms"] = device_ms(device_fn, bound(*work))
         if lib_fn is not None:
             rec["library_ms"] = cuda_ms(lib_fn)
             rec["library_max_rel_err"] = compare(
@@ -720,9 +731,19 @@ def phase_kernels(device, b: int, res: int, ch: int) -> dict:
         gamma, beta = fold(c)
         gr = adm_groups(c)
         stats = fn.channel_stats_plain(x)
-        check("K1 channel_stats", "(B,N,C)", fn.channel_stats(x), stats,
-              lambda: fn.channel_stats(x), lambda: fn.channel_stats_plain(x),
-              work=(nbytes(x, *stats), 3.0 * x.numel()))
+        # K1's statistics pass runs on the main path only where K2 gets no
+        # chained statistics: after an attention block, at the 32 x 32 sites
+        # ((B, 1024, 64) and the decoder's (B, 1024, 128)); the summary mode
+        # is the first, res 128 is context
+        g_st = torch.Generator(device=device).manual_seed(SEED + 1)
+        for mode, xs in ((STATS_MODES[0], x_stats(b, res, c, g_st, device)),
+                         (STATS_MODES[1], x_stats(b, res, 2 * c, g_st, device)),
+                         (STATS_MODES[2], x)):
+            st = fn.channel_stats_plain(xs)
+            check("K1 channel_stats", mode, fn.channel_stats(xs), st,
+                  lambda xs=xs: fn.channel_stats(xs), lambda xs=xs: fn.channel_stats_plain(xs),
+                  work=(nbytes(xs, *st), 3.0 * xs.numel()),
+                  device_fn=lambda xs=xs: fn.channel_stats(xs))
         want = fn.gn_silu_plain(x, gamma, beta, gr)
         # the first mode of each kernel is timed alone (chained stats): its
         # time is the one the summary line reports
@@ -845,6 +866,19 @@ def keep_result(results: dict, rec: dict) -> None:
     elif rec["max_rel_err"] > prev["max_rel_err"]:
         for k in ("max_abs_err", "max_rel_err", "tol"):
             prev[k] = rec[k]
+
+
+# K1 channel_stats' modes: the main path's two shapes, then res 128 as context
+STATS_MODES = ("(B, 1024, 64): the 32x32 sites", "(B, 1024, 128): the decoder's 32x32 concat",
+               "(B, N, C) at res 128 (context: not on the main path)")
+
+
+def x_stats(b: int, res: int, c: int, gen, device, dtype=None):
+    """An input of K1's statistics pass at the 32 x 32 sites: (B, (res / 4)^2, c)."""
+    import torch
+
+    x = torch.randn(b, (res // 4) ** 2, c, generator=gen, device=device) * 0.8 + 0.2
+    return x if dtype is None else x.to(dtype)
 
 
 def _sdpa():
@@ -3383,10 +3417,12 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
 
     results = {}
 
-    def check(kernel, mode, got, want, k_fn, p_fn, work, lib_fn=None, plan=None):
+    def check(kernel, mode, got, want, k_fn, p_fn, work, lib_fn=None, plan=None,
+              device_fn=None):
         """got/want: out, or (out, (sums, sumsq)), or (sums, sumsq) for K1's
         statistics; work: `bound`'s arguments; plan: the kernel's launch plan
-        (K2 / K3)."""
+        (K2 / K3); device_fn: timed on the card's clock as well
+        (`device_ms`), where the wrapper's host cost exceeds the kernel's."""
         got, want = flat(got), flat(want)
         if len(got) != len(want):
             raise AssertionError(f"{kernel} {mode}: {len(got)} outputs, plain {len(want)}")
@@ -3402,6 +3438,8 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
                "stats_max_rel_err": max((e["max_rel_err"] for e in errs[1:]), default=None),
                "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn), **bound(*work),
                "library_ms": None}
+        if device_fn is not None:
+            rec["device_ms"] = device_ms(device_fn, bound(*work))
         if plan is not None:
             rec["plan"] = plan
         if lib_fn is not None:
@@ -3417,7 +3455,7 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
             for k in ("max_abs_err", "max_rel_err", "mean_rel_err"):
                 prev[k] = max(prev[k], rec[k])
         results[kernel]["modes"].append(
-            {k: rec[k] for k in ("mode", "ms", "plain_ms", "bound_ms", "bound_by",
+            {k: rec[k] for k in ("mode", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "max_rel_err", "mean_rel_err",
                                  "stats_max_rel_err", "plan") if k in rec})
 
@@ -3434,9 +3472,17 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
         x = rnd(b, n, c, scale=0.8, shift=0.2)
         gamma, beta = fold(c)
         stats = fn.channel_stats_plain(x)
-        check("K1 channel_stats bf16", "(B,N,C)", fn.channel_stats(x), stats,
-              lambda: fn.channel_stats(x), lambda: fn.channel_stats_plain(x),
-              (nbytes(x, *stats), 3.0 * x.numel()))
+        # the main path's two shapes first (the summary mode), res 128 as
+        # context (phase 2's STATS_MODES)
+        g_st = torch.Generator(device=device).manual_seed(SEED + 61)
+        for mode, xs in ((STATS_MODES[0], x_stats(b, res, c, g_st, device, bf)),
+                         (STATS_MODES[1], x_stats(b, res, 2 * c, g_st, device, bf)),
+                         (STATS_MODES[2], x)):
+            st = fn.channel_stats_plain(xs)
+            check("K1 channel_stats bf16", mode, fn.channel_stats(xs), st,
+                  lambda xs=xs: fn.channel_stats(xs), lambda xs=xs: fn.channel_stats_plain(xs),
+                  (nbytes(xs, *st), 3.0 * xs.numel()),
+                  device_fn=lambda xs=xs: fn.channel_stats(xs))
         want = fn.gn_silu_plain(x, gamma, beta, gr, stats=stats)
         check("K1 gn_silu bf16", "chained stats",
               fn.gn_silu(x, gamma, beta, gr, stats=stats), want,
@@ -3534,9 +3580,10 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
                conv_flops(b, res, res, ch, ch), 0, PEAK_BF16),
               plan=bf16_conv_plan(xl, ch, up=True, emit=True))
 
-        # K4 at the 32x32 sites. The bound takes q k^T, a product of bf16
-        # operands, at the bf16 rate, and P V, whose P is fp32, as two TF32
-        # products (the kernel runs q k^T as one TF32 product)
+        # K4 at the 32x32 sites. The bound is the least work that keeps fp32
+        # accuracy (k4_bf16_bound): q k^T one bf16 product, P V, whose P is
+        # fp32, three (P in three bf16 pieces); the SASS of the built
+        # library shows every product on wgmma
         L = (res // 4) ** 2
         q, k, v = (rnd(b, L, 64) for _ in range(3))
         want = fa.attention_plain(q, k, v)
@@ -3544,13 +3591,49 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
         def sdpa_bf16():
             return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
 
+        work, tf32_work = k4_bf16_bound(nbytes(q, k, v, want), 2.0 * b * L * L * 64, 1, 1)
         check("K4 attention bf16", "(N, L, D)", fa.attention(q, k, v), want,
-              lambda: fa.attention(q, k, v), lambda: fa.attention_plain(q, k, v),
-              (nbytes(q, k, v, want), 2.0 * b * L * L * 64, 2, PEAK_FLOPS,
-               2.0 * b * L * L * 64),
-              lib_fn=sdpa_bf16)
+              lambda: fa.attention(q, k, v), lambda: fa.attention_plain(q, k, v), work,
+              lib_fn=sdpa_bf16, device_fn=lambda: fa.attention(q, k, v))
+        results["K4 attention bf16"].update(bound_tf32_ms=bound(*tf32_work)["bound_ms"],
+                                            sass=k4_bf16_sass("attention_fwd_bf16"))
+        emit({"phase": "bf16_kernel", "kernel": "K4 attention bf16",
+              **{k: results["K4 attention bf16"][k] for k in ("bound_tf32_ms", "sass")}})
     return results
 
+
+def k4_bf16_bound(nbytes_: float, flops: float, exact: int, split: int):
+    """`bound`'s arguments for the bf16 K4: `exact` products of two bf16
+    operands (q k^T, g v^T) of `flops` each, and `split` with an fp32 P or
+    dS. The first is the least work that keeps fp32 accuracy: a bf16 product
+    each, three for a split one (P in three bf16 pieces that sum back to it,
+    as the kernels run them), all at the bf16 rate. The second is the
+    TF32-split bound of PRs 15-18 (a split product as two TF32 products),
+    recorded beside as `bound_tf32_ms` so the earlier rows stay comparable."""
+    return ((nbytes_, 3 * split * flops, 0, PEAK_BF16, exact * flops),
+            (nbytes_, split * flops, 2, PEAK_FLOPS, exact * flops))
+
+
+def k4_bf16_sass(contains: str) -> dict:
+    """HGMMA / HMMA counts of the built fused_attention library's bf16
+    kernels whose name holds `contains`; raises unless each issues wgmma and
+    no mma.sync."""
+    from m_cedm_tpu_torch.kernels import _build
+
+    counts = {}
+    for name, c in _build.sass_counts("fused_attention", "_bf16_kernel").items():
+        short = re.search(r"\d(attention_\w+?_kernel)(?:ILi(\d+)EE)?", name)
+        if contains in name:
+            counts[short[1] + (f"<{short[2]}>" if short[2] else "")] = c
+    if not counts or any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"bf16 K4 kernels {contains}: SASS counts {counts}: "
+                             "every product should be a wgmma")
+    return counts
+
+
+# the bf16 K4's keys beside the contract's in the `kernels` line (with the
+# device time that phases 15.1 and 16.1 record for every kernel they time so)
+K4_BF16_KEYS = ("device_ms", "bound_tf32_ms", "sass")
 
 BF16_FORWARD_KERNELS = ("K1 channel_stats", "K1 gn_silu", "K2 gn_silu_conv",
                         "K2 narrow_conv", "K3 gn_silu_up_conv", "K4 attention")
@@ -3855,10 +3938,10 @@ BF16_BWD_KERNELS = {f"{name} bf16": name for name in (
 # Pallas kernel of its own)
 BF16_ONLY_INFO = {"K2 gn_dx": ("m_cedm_tpu_torch/csrc/fused_norm_conv_bwd.cu",
                                "m_cedm_tpu/pallas/fused_norm_conv.py:1425")}
-# the bf16 train step's device busy before the K2 / K3 backward's Hopper
-# redesign (PERF.md section 5: the profiled step of phase 16.2 on the
-# parent commit of that redesign, one H100 80GB HBM3 at 700.00 W)
-PARENT_BF16_STEP_BUSY_MS = 22.30
+# the bf16 train step's device busy before the bf16 K4's wgmma redesign
+# (PERF.md section 5: the profiled step of phase 16.2 on the parent commit
+# of that redesign, one H100 80GB HBM3 at 700.00 W)
+PARENT_BF16_STEP_BUSY_MS = 13.27
 
 
 def bf16_grads_error(got, want, name: str) -> dict:
@@ -4098,7 +4181,9 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
               (nbytes(xs, da, gamma, dst, *st, xs), 8.0 * xs.numel()))
 
     # K4 backward at the 32x32 sites: the bf16 forward's o32 (the output
-    # before its rounding) feeds delta; held to the fp32 plain forward first
+    # before its rounding) feeds delta; held to the fp32 plain forward first.
+    # The bound is the least work that keeps fp32 accuracy (k4_bf16_bound):
+    # S and dP one bf16 product each, dv, dq and dk three each
     L = (res // 4) ** 2
     q, k, v, gy = (rnd(b, L, 64) for _ in range(4))
     lse = torch.empty(b, L, device=device)
@@ -4110,6 +4195,7 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
     sd = F.scaled_dot_product_attention(qs[:, None], ks[:, None], vs[:, None])[:, 0]
     prod = 2.0 * b * L * L * 64
+    work, tf32_work = k4_bf16_bound(nbytes(q, k, v, gy, o32, lse, q, k, v), prod, 2, 3)
     q32, k32, v32, gy32 = f32(q, k, v, gy)
     lse32 = torch.empty(b, L, device=device)
     with torch.no_grad():
@@ -4117,49 +4203,30 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
     rec = check("K4 attention_bwd bf16", "(N, L, D)",
                 lambda: fa.attention_bwd(gy, q, k, v, o32, lse),
                 lambda: fa.attention_bwd_plain(gy, q, k, v),
-                (nbytes(q, k, v, gy, o32, lse, q, k, v), 3 * prod, 2, PEAK_FLOPS, 2 * prod),
-                lib_fn=lambda: torch.autograd.grad(sd, (qs, ks, vs), gy, retain_graph=True),
+                work, lib_fn=lambda: torch.autograd.grad(sd, (qs, ks, vs), gy,
+                                                         retain_graph=True),
                 f32_fn=lambda: fa.attention_bwd(gy32, q32, k32, v32, o_32, lse32))
-    results["K4 attention_bwd bf16"]["o32_max_rel_err"] = o32_err["max_rel_err"]
+    rep = [fa.attention_bwd(gy, q, k, v, o32, lse) for _ in range(2)]
+    if not all(torch.equal(a, c) for a, c in zip(*rep)):
+        raise AssertionError("K4 attention_bwd bf16: two calls gave different bits")
+    results["K4 attention_bwd bf16"].update(
+        o32_max_rel_err=o32_err["max_rel_err"], bound_tf32_ms=bound(*tf32_work)["bound_ms"],
+        sass=k4_bf16_sass("attention_bwd_d"))
     emit({"phase": "bf16_backward", "kernel": "K4 attention_bwd bf16",
-          "o32_vs_fp32_plain": o32_err, "kernel_ms": rec["ms"]})
+          "o32_vs_fp32_plain": o32_err, "kernel_ms": rec["ms"],
+          **{k: results["K4 attention_bwd bf16"][k] for k in ("bound_tf32_ms", "sass")}})
     return results
 
 
 def device_ms(fn, work: dict, n: int = 10) -> float:
-    """The card's time of one fn(): n back-to-back calls bracketed by CUDA
-    events and queued behind a spin kernel (torch.cuda._sleep) that outlasts
-    their enqueueing, so the card runs them without waiting on the host.
-    Where a wrapper's host cost exceeds its kernels' time, cuda_ms reads the
-    host; this reads the card, and counts every kernel and copy of the call,
-    since the events bracket the stream. Raises where the enqueueing outlasted
-    the spin, and where the time is under `work`'s bound (bound()) while the
-    call's bytes exceed the L2, which no data the call reads can then be
-    served from."""
-    import torch
+    """The card's time of one fn() (kernels/_timing.py: n calls bracketed by
+    CUDA events behind a spin kernel, so it reads the card, not the host).
+    Raises where the time is under `work`'s bound (bound()) while the call's
+    bytes exceed the L2, which no data the call reads can then be served
+    from."""
+    from m_cedm_tpu_torch.kernels._timing import device_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    spin.record()
-    torch.cuda._sleep(int(max(4 * host_s, 2e-3) * SPIN_CYCLES_PER_S))
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    spin_ms = spin.elapsed_time(start)
-    if enqueue_ms >= spin_ms:
-        raise AssertionError(f"device_ms: enqueueing took {enqueue_ms:.3f} ms, the spin "
-                             f"{spin_ms:.3f} ms: the card may have waited on the host")
-    ms = start.elapsed_time(end) / n
+    ms = timed(fn, n)
     if ms < work["bound_ms"] and work["bytes"] > L2_BYTES:
         raise AssertionError(f"device_ms {ms:.4f} under the bound {work['bound_ms']:.4f} "
                              f"of a call that moves {work['bytes']} bytes")
@@ -4443,7 +4510,7 @@ def main() -> int:
                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                "library_ms": rec["library_ms"]}
-        for key in ("kernel_call_ms", "old_route_ms", "old_route_call_ms",
+        for key in ("kernel_call_ms", "device_ms", "old_route_ms", "old_route_call_ms",
                     "bound_fp32_ms", "act_false_modes", "backward_ms",
                     "backward_library_ms", "backward_bound_ms", "wgrad_call_ms",
                     "dgrad_call_ms", "conv2d_conv_only_bwd_ms", "context_ms",
@@ -4483,7 +4550,8 @@ def main() -> int:
                         "tol_mean": rec["tol_mean"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "modes": rec["modes"]})
+                        "modes": rec["modes"],
+                        **{k: rec[k] for k in K4_BF16_KEYS if k in rec}})
     for name, fp32_name in BF16_BWD_KERNELS.items():
         rec = bwd16_results[name]
         source, replaces = KERNEL_INFO.get(fp32_name) or BF16_ONLY_INFO[fp32_name]
@@ -4497,6 +4565,7 @@ def main() -> int:
                "library_ms": rec["library_ms"], "modes": rec["modes"]}
         if "o32_max_rel_err" in rec:
             row["o32_max_rel_err"] = rec["o32_max_rel_err"]
+        row.update({k: rec[k] for k in K4_BF16_KEYS if k in rec})
         summary.append(row)
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)

@@ -1,8 +1,9 @@
 // bf16 conv tiles on Hopper's tensor cores: the shared-memory layout and the
 // copy and product helpers of gnsc_bf16_kernel (csrc/fused_norm_conv.cu),
 // kept apart so that a bf16 instance of the K2/K3 backward
-// (csrc/fused_norm_conv_bwd.cu) can stage its tiles the same way. Built
-// for sm_90a; everything here is in namespace bf16t.
+// (csrc/fused_norm_conv_bwd.cu) and the bf16 attention
+// (csrc/fused_attention.cu) can stage their tiles the same way. Built for
+// sm_90a; everything here is in namespace bf16t.
 //
 // Products: wgmma m64n64k16 with bf16 operands and fp32 accumulation.
 //   A, 16 pixels x 16 channels a warp, stored [position][channel], comes
@@ -31,6 +32,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace bf16t {
@@ -53,6 +55,22 @@ __host__ __device__ __forceinline__ int w_byte(int row, int chunk) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// p moved up to the next 1024-byte boundary of shared memory, where wgmma's
+// 128-byte swizzle starts its phase (a kernel asks for 1024 bytes more)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// the current device's SMs (132 where it cannot be read)
+inline int sm_count() {
+  static int n[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) return 132;
+  if (!n[dev]) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev] > 0 ? n[dev] : 132;
 }
 
 // 16 bytes global -> shared, zero-filled (and nothing read) when !valid

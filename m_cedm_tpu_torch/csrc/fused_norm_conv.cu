@@ -944,7 +944,7 @@ __global__ void __launch_bounds__(32 * warps_bf16(kTHt), 1) gnsc_bf16_kernel(con
   constexpr int kWarps = warps_bf16(kTHt), kThr = 32 * kWarps;
   extern __shared__ __align__(128) unsigned char sm_raw[];
   // the plane starts on a 1024-byte boundary (wgmma's 128-byte swizzle)
-  unsigned char* sm = sm_raw + ((1024 - (bf16t::smem_addr(sm_raw) & 1023)) & 1023);
+  unsigned char* sm = bf16t::align1024(sm_raw);
   unsigned char* stage0 = sm + p.a_off;
   float* s_bias = reinterpret_cast<float*>(sm + p.s_off);  // [64] bias of the O-block
   float* s_skb = s_bias + kCH;                              // [64] and skip bias
@@ -1161,15 +1161,6 @@ struct PlanH {
   int a_off, stage_bytes, r_off, s_off, red_off;
 };
 
-int sm_count() {
-  static int n[16] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 16) return 132;
-  if (!n[dev]) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
-  return n[dev] > 0 ? n[dev] : 132;
-}
-
 template <bool kUp, int kTHt>
 cudaError_t allow_smem_bf16() {
   static cudaError_t e = cudaFuncSetAttribute(
@@ -1208,7 +1199,7 @@ int layout_bf16(bool up, int th, bool resident, int c, int nc, int nr, int act, 
 template <bool kUp>
 bool plan_bf16(int batch, int h, int wd, int c, int o, int cr, int act, int res_mode,
                bool emit, PlanH& pl) {
-  const int sms = sm_count();
+  const int sms = bf16t::sm_count();
   pl.nc = (c + kCH - 1) / kCH;
   const int nr = res_mode == kResProj ? (cr + kCH - 1) / kCH : 0;
   pl.nq = pl.nc + nr;

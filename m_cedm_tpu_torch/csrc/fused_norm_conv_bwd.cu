@@ -1309,10 +1309,6 @@ constexpr int kBiasClasses = kWgThreads / 32;  // wgrad's dbias: pixel classes a
 constexpr int kDxThreads = 256;      // the dx pass
 constexpr int kDxItems = 4;          // 16-byte items a thread
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (bf16t::smem_addr(p) & 1023)) & 1023);
-}
-
 // silu'(a) in fp32 with the fast exponential and division
 __device__ __forceinline__ float silu_grad_fast(float a) {
   const float sg = __fdividef(1.f, 1.f + __expf(-a));
@@ -1321,15 +1317,6 @@ __device__ __forceinline__ float silu_grad_fast(float a) {
 
 __device__ __forceinline__ void bar_pair(int id) {
   asm volatile("bar.sync %0, 64;" :: "r"(id) : "memory");
-}
-
-int sm_count() {
-  static int n[16] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 16) return 132;
-  if (!n[dev]) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
-  return n[dev] > 0 ? n[dev] : 132;
 }
 
 // co-resident blocks an SM of `kernel` at `smem` bytes, asked once per
@@ -1502,7 +1489,7 @@ __global__ void __launch_bounds__(32 * kTHt, 1) dgrad_bf16_kernel(const DgradH p
   constexpr int kWarps = kTHt, kThr = 32 * kWarps;
   constexpr bool kUp = kMode == kUpFold;
   extern __shared__ __align__(128) unsigned char sm_raw[];
-  unsigned char* sm = align1024(sm_raw);  // wgmma's 128-byte swizzle
+  unsigned char* sm = bf16t::align1024(sm_raw);  // wgmma's 128-byte swizzle
   unsigned char* stage0 = sm + p.a_off;
   float* sv = reinterpret_cast<float*>(sm + p.v_off);     // [2][4][64] statistics
   float* red = reinterpret_cast<float*>(sm + p.red_off);  // [2][kWarps][64]
@@ -1916,7 +1903,7 @@ __device__ __forceinline__ void wg_mma_one(uint32_t X, uint32_t G, float (&acc)[
 template <bool kUp, int kTHt>
 __global__ void __launch_bounds__(kWgThreads, 1) wgrad_bf16_kernel(const WgradH p) {
   extern __shared__ __align__(128) unsigned char sm_raw[];
-  unsigned char* sm = align1024(sm_raw);
+  unsigned char* sm = bf16t::align1024(sm_raw);
   float* s_sc = reinterpret_cast<float*>(sm + p.v_off);  // [64] folded scale
   float* s_sh = s_sc + kHCh;                             // [64] and shift
   float* red = reinterpret_cast<float*>(sm + p.red_off);  // [kBiasClasses][64]
@@ -2176,7 +2163,7 @@ int dgrad_bps_of(int mode, int th, int smem) {
 }
 
 bool plan_dgrad_h(int mode, int batch, int h, int wd, int c, int o, PlanD& pl) {
-  const int sms = sm_count();
+  const int sms = bf16t::sm_count();
   pl.nq = (o + kHCh - 1) / kHCh;
   pl.nb = (c + kHCh - 1) / kHCh;
   const long long tiles16 = (long long)batch * ((h + 15) / 16) * ((wd + kHW - 1) / kHW);
@@ -2216,7 +2203,7 @@ int wgrad_bps(int smem) {
 }
 
 bool plan_wgrad_h(bool up, int batch, int h, int wd, int c, int o, PlanW& pl) {
-  const int sms = sm_count();
+  const int sms = bf16t::sm_count();
   pl.n_cb = (c + kHCh - 1) / kHCh;
   pl.n_ob = (o + kHCh - 1) / kHCh;
   const long long tiles16 = (long long)batch * ((h + 15) / 16) * ((wd + kHW - 1) / kHW);
@@ -2407,7 +2394,7 @@ int mc_conv_bwd_bf16_plan(int which, int up, int batch, int h, int wd, int c, in
     const int v[5] = {pl.th, pl.resident, pl.grid_x * pl.nb, pl.smem, pl.grid_x};
     for (int i = 0; i < 5; ++i) vals[i] = v[i];
   } else if (wgrad_narrow(c, taps, up)) {
-    const int runs = mc_conv_wgrad_runs(batch, h, wd, c, o, taps, up, 2 * sm_count());
+    const int runs = mc_conv_wgrad_runs(batch, h, wd, c, o, taps, up, 2 * bf16t::sm_count());
     const int v[5] = {0, 0, batch * runs * ((o + kNO - 1) / kNO), 0, batch * runs};
     for (int i = 0; i < 5; ++i) vals[i] = v[i];
   } else {

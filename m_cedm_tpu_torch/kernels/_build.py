@@ -109,6 +109,29 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass_counts(lib, contains: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a built library (a source's name, or the path of a
+    .so) whose mangled name holds `contains`: its HGMMA (wgmma) and HMMA
+    (mma.sync) instructions in cuobjdump's SASS."""
+    so = _lib_path(lib) if isinstance(lib, str) else lib
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if contains in name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+            else:
+                name = None
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[name][op] += 1
+    return counts
+
+
 def bind(lib_name: str, fn_name: str, argtypes):
     """A C entry point with its argument types declared (pointers and the
     stream as c_void_p, so ctypes never truncates them to 32 bits)."""

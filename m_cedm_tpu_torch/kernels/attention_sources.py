@@ -1,7 +1,8 @@
-"""Time K4, K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
+"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd] [--variant NAME ...]
+        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd]
+        [--variant NAME ...]
         [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
 
@@ -13,6 +14,18 @@ parent commit's csrc file unpacked with `git archive`), and each
   k4 (the default)  `mc_attention_fwd` and `mc_attention_bwd`
       (csrc/fused_attention.cu), checked at the flagship's attention shape
       (N = 16, L = 1024, D = 64; forward output and the three gradients).
+  k4bf16  the bf16 K4 (csrc/fused_attention.cu): `mc_attention_fwd_bf16`
+      with and without its fp32 output `o32`, `mc_attention_bwd_bf16`, and
+      its dq and dk/dv kernels apart where the source exports them
+      (`mc_attention_bwd_dq_bf16`, `mc_attention_bwd_dkdv_bf16`), at N = 16
+      (the flagship's attention sites) and N = 80 (the CLI test's folded
+      ensemble), L = 1024, D = 64; each output held to the bf16 plain version
+      (max and mean error of scale; o32 to the fp32 plain attention), the
+      backward to its own bits on a repeat; bf16 SDPA's forward and its
+      autograd backward timed beside them. Timed on the card's clock: CUDA
+      events around ten calls queued behind a spin kernel that outlasts
+      their enqueueing (chip_smoke.py's device_ms), the median of five. Each
+      library's SASS is counted per kernel (HGMMA: wgmma; HMMA: mma.sync).
   k6  `mc_apply_dots` (csrc/linear_attention.cu), at the OFormer's two
       shapes (BH = 16 and 64, N = 16,384, D = E = 128).
   k2  `mc_gn_silu_conv` and `mc_gn_silu_up_conv` (csrc/fused_norm_conv.cu),
@@ -118,6 +131,7 @@ import numpy as np
 import torch
 
 from m_cedm_tpu_torch.kernels import _build
+from m_cedm_tpu_torch.kernels._timing import device_ms
 
 # name -> (kernel, text in its package source, the replacement)
 VARIANTS = {
@@ -132,6 +146,26 @@ VARIANTS = {
     # one TF32 product (hi * hi) instead of three; the lo halves go unused
     "one_product": ("k4", "  mma_tf32(c, a.lo, bh0, bh1);\n  mma_tf32(c, a.hi, bl0, bl1);\n",
                     ""),
+    # the bf16 K4 with P and dS in two bf16 pieces (hi, mid), not three: the
+    # lo products left out
+    "k4bf16_two_pieces": ("k4bf16", "  product_piece(d, lo, b_tile);\n", ""),
+    # the bf16 K4 forward at two blocks an SM (255 registers) whatever the
+    # grid, or at three (168) whatever the grid
+    "k4bf16_fwd_2_blocks": ("k4bf16", "  if ((long)grid.x * grid.y > 2L * bf16t::sm_count())\n",
+                            "  if (false)\n"),
+    "k4bf16_fwd_3_blocks": ("k4bf16", "  if ((long)grid.x * grid.y > 2L * bf16t::sm_count())\n",
+                            "  if (true)\n"),
+    # diagnostics, not kernels: the bf16 K4 forward without its P V products
+    # (and so without P's split), or with P packed once instead of split in
+    # three (results wrong; the time of the rest)
+    "diag_k4bf16_fwd_no_pv": (
+        "k4bf16",
+        "    product_split(acc, pl, pm, ph, sv + (j % kHFwdStages) * kHTile);  // acc += P_j V_j\n",
+        ""),
+    "diag_k4bf16_fwd_no_split": (
+        "k4bf16", "    split_acc(s, ph, pm, pl);\n",
+        "#pragma unroll\n    for (int i = 0; i < 16; ++i)\n"
+        "      ph[i] = pm[i] = pl[i] = bf16t::pack2(s[2 * i], s[2 * i + 1]);\n"),
     # K6's tensor-core partial sums added into the fp32 accumulator after four
     # k-steps, or once (the products accumulated on the tensor cores alone)
     "temp_steps_4": ("k6", "constexpr int kTempSteps = 1;", "constexpr int kTempSteps = 4;"),
@@ -247,6 +281,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "k4": ("fused_attention.cu", {"mc_attention_fwd": [P] * 5 + [I, I, I, F, P],
                                   "mc_attention_bwd": [P] * 10 + [I, I, I, F, P]}),
+    # the dq and dk/dv entry points apart are optional: set per library
+    "k4bf16": ("fused_attention.cu", {"mc_attention_fwd_bf16": [P] * 6 + [I, I, I, F, P],
+                                      "mc_attention_bwd_bf16": [P] * 10 + [I, I, I, F, P]}),
     "k6": ("linear_attention.cu", {"mc_apply_dots": [P] * 3 + [I] * 4 + [P]}),
     "k2": ("fused_norm_conv.cu", {"mc_gn_silu_conv": [P] * 13 + [I] * 7 + [F, I, I, P],
                                   "mc_gn_silu_up_conv": [P] * 10 + [I] * 6 + [F, P]}),
@@ -350,7 +387,8 @@ def main(argv=None) -> int:
                 subprocess.run(["cuobjdump", "-sass", str(so)], stdout=f,
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
-        return {"k6": _time_k6, "k2": _time_k2, "k2bf16": _time_k2bf16,
+        return {"k4bf16": _time_k4bf16, "k6": _time_k6, "k2": _time_k2,
+                "k2bf16": _time_k2bf16,
                 "k2bwd": _time_k2bwd, "k2bwdbf16": _time_k2bwdbf16,
                 "k5": _time_k5, "k7": _time_k7,
                 "k1bwd": _time_k1bwd}[args.kernel](libs, ptxas)
@@ -526,16 +564,123 @@ def _rel(got, want) -> float:
     return float((got.double() - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
-def _report(libs, ptxas, calls, errs) -> None:
-    """Time calls[name][case]() for every source, in two rounds of opposite
-    order, and print one line per source and round."""
+def _report(libs, ptxas, calls, errs, timer=_cuda_ms) -> None:
+    """Time calls[name][case]() for every source by `timer`, in two rounds of
+    opposite order, and print one line per source and round."""
     names = list(libs)
     for rnd, order in enumerate((names, names[::-1])):
         for name in order:
             print(json.dumps({"source": name, "round": rnd,
-                              **{f"ms {case}": _cuda_ms(fn)
+                              **{f"ms {case}": timer(fn)
                                  for case, fn in calls[name].items()},
                               **errs[name], "ptxas": ptxas[name]}), flush=True)
+
+
+K4_BF16_N = (16, 80)
+
+
+def _time_k4bf16(libs, ptxas) -> int:
+    """The bf16 K4 of every source at N = 16 and 80 (L = 1024, D = 64):
+    forward with and without o32, the backward, and its dq and dk/dv kernels
+    apart where exported; checked against the bf16 plain version and for the
+    same bits on a repeat, then timed on the card's clock; bf16 SDPA's
+    forward and backward beside them."""
+    import torch.nn.functional as tnf
+
+    from m_cedm_tpu_torch.kernels import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    split_if = {}
+    for name, (lib, so) in libs.items():
+        split_if[name] = hasattr(lib, "mc_attention_bwd_dq_bf16")
+        if split_if[name]:
+            lib.mc_attention_bwd_dq_bf16.argtypes = [P] * 8 + [I, I, I, F, P]
+            lib.mc_attention_bwd_dkdv_bf16.argtypes = [P] * 8 + [I, I, I, F, P]
+        print(json.dumps({"source": name, "sass": _build.sass_counts(so, "_bf16_kernel")}),
+              flush=True)
+
+    def bf16_err(got, want):
+        err = (got.double() - want.double()).abs()
+        scale = max(float(want.double().abs().max()), 1e-30)
+        return float(err.max()) / scale, float(err.mean()) / scale
+
+    cases = {}
+    for n in K4_BF16_N:
+        q, k, v, g = (torch.randn(n, L, D, generator=gen, device=dev).to(bf) for _ in range(4))
+        with torch.no_grad():
+            want = fa.attention_plain(q, k, v)
+            want32 = fa.attention_plain(q.float(), k.float(), v.float())
+            want_bwd = fa.attention_bwd_plain(g, q, k, v)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        sd = tnf.scaled_dot_product_attention(qs[:, None], ks[:, None], vs[:, None])[:, 0]
+        cases[n] = dict(q=q, k=k, v=v, g=g, want=want, want32=want32, want_bwd=want_bwd,
+                        sdpa=(qs, ks, vs, sd))
+
+    def call(name, lib, c, n):
+        q, k, v, g = (c[x].data_ptr() for x in "qkvg")
+        o, dq, dk, dv = (torch.empty_like(c["q"]) for _ in range(4))
+        o32 = torch.empty(n, L, D, device=dev)
+        lse, delta = torch.empty(n, L, device=dev), torch.empty(n, L, device=dev)
+        outs = dict(o=o, o32=o32, dq=dq, dk=dk, dv=dv)
+
+        def check(rc):
+            if rc:
+                raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+
+        def fwd():
+            check(lib.mc_attention_fwd_bf16(q, k, v, o.data_ptr(), None, lse.data_ptr(),
+                                            n, L, D, 0.125, stream))
+
+        def fwd_o32():
+            check(lib.mc_attention_fwd_bf16(q, k, v, o.data_ptr(), o32.data_ptr(),
+                                            lse.data_ptr(), n, L, D, 0.125, stream))
+
+        def bwd():
+            check(lib.mc_attention_bwd_bf16(q, k, v, o32.data_ptr(), g, lse.data_ptr(),
+                                            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                            dv.data_ptr(), n, L, D, 0.125, stream))
+        fns = {f"fwd N {n}": fwd, f"fwd with o32 N {n}": fwd_o32, f"bwd N {n}": bwd}
+        if split_if[name]:
+            fns[f"bwd dq N {n}"] = lambda: check(lib.mc_attention_bwd_dq_bf16(
+                q, k, v, o32.data_ptr(), g, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                n, L, D, 0.125, stream))
+            fns[f"bwd dk/dv N {n}"] = lambda: check(lib.mc_attention_bwd_dkdv_bf16(
+                q, k, v, g, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                n, L, D, 0.125, stream))
+        return fns, outs
+
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for n, c in cases.items():
+            fns, outs = call(name, lib, c, n)
+            fns[f"fwd with o32 N {n}"]()
+            fns[f"bwd N {n}"]()
+            torch.cuda.synchronize()
+            first = [outs[x].clone() for x in ("dq", "dk", "dv")]
+            fns[f"bwd N {n}"]()
+            torch.cuda.synchronize()
+            rec = {"fwd": bf16_err(outs["o"], c["want"]),
+                   "o32": _rel(outs["o32"], c["want32"].double()),
+                   "bwd": [bf16_err(outs[x], w) for x, w in zip(("dq", "dk", "dv"),
+                                                                c["want_bwd"])],
+                   "same bits": all(torch.equal(a, outs[x])
+                                    for a, x in zip(first, ("dq", "dk", "dv")))}
+            errs[name][f"err N {n}"] = rec
+            calls[name].update(fns)
+        for n, c in cases.items():
+            qs, ks, vs, sd = c["sdpa"]
+            calls[name][f"bf16 SDPA fwd N {n} (library)"] = (
+                lambda c=c: tnf.scaled_dot_product_attention(
+                    c["q"][:, None], c["k"][:, None], c["v"][:, None]))
+            calls[name][f"bf16 SDPA bwd N {n} (library)"] = (
+                lambda qs=qs, ks=ks, vs=vs, sd=sd, g=c["g"]: torch.autograd.grad(
+                    sd, (qs, ks, vs), g, retain_graph=True))
+    _report(libs, ptxas, calls, errs, timer=lambda fn: device_ms(fn, repeats=5))
+    return 0
 
 
 def _time_k6(libs, ptxas) -> int:

@@ -24,6 +24,12 @@ must be JAX's sum(dw * w), the cotangent against the fp32 output: so a
 forward that needs gradients also writes its output in fp32 (`o32`, 4 MB a
 call at the flagship's shape), and the backward reads that one, not the
 rounded bf16 output: sum_k (g v^T)_ik w_ik = g_i . (w v)_i.
+
+The bf16 kernels run every product on wgmma with bf16 operands: q k^T and
+g v^T as they are (exact products), and each product with an fp32 operand
+(P V, P^T g, dS k, dS^T q) as three bf16 products, P or dS split in three
+bf16 pieces that sum back to it exactly (`split_bf16x3`, the kernels'
+`split3`; tests/test_torch_bf16_split.py emulates their order on the CPU).
 """
 from __future__ import annotations
 
@@ -71,6 +77,19 @@ def attention_bwd_plain(g, q, k, v) -> Tuple[torch.Tensor, ...]:
     dq = torch.einsum("nqk,nkd->nqd", dl, k) * scale
     dk = torch.einsum("nqk,nqd->nkd", dl, q) * scale
     return dq, dk, dv
+
+
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 kernels' split of an fp32 P or dS: hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest (ties to
+    even, as cvt.rn.bf16x2.f32). A rounding leaves at most half an ulp of the
+    piece before, which fits in the 8 bits of the next, and bf16 has fp32's
+    exponent range: hi + mid + lo == x in fp32, exactly."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def _check_qkv(*tensors):

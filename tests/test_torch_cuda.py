@@ -1519,6 +1519,47 @@ def test_k4_bf16_backward_matches_plain(cuda, length):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("peak", [1.0, 6.0], ids=["normal", "peaked"])
+@pytest.mark.parametrize("length, n", [(length, n) for length in (1, 63, 65, 1024)
+                                        for n in (3, 16)] + [(1024, 80)])
+def test_k4_bf16_wgmma_kernels(cuda, length, n, peak):
+    """The bf16 K4 kernels (wgmma, P and dS in three bf16 pieces) at one key,
+    ragged tails and whole tiles, and at 80 head-batches of 1024 tokens (the
+    bf16 CLI test's folded ensemble: 5 members of a 16-item batch): the
+    output within the bf16 tolerances of
+    the bf16 plain version, o32 within 1e-5 of scale of the fp32 plain
+    attention, lse within 2e-5 of torch.logsumexp, the gradients within the
+    bf16 tolerances of the bf16 plain backward, two backward calls bit for
+    bit equal, one launch of each per autograd call. With peak 6 the logits
+    have std 6, so a row's max moves between key tiles and between the
+    fragments of a tile: the online rescale is what is held."""
+    g = torch.Generator(device=cuda).manual_seed(1000 * n + length + int(peak))
+    q, k, v, gy = (_bf16_rnd(g, cuda, n, length, 64) for _ in range(4))
+    q = (q.float() * peak).to(torch.bfloat16)
+    lse = torch.empty(n, length, device=cuda)
+    o32 = torch.empty(n, length, 64, device=cuda)
+    out = tfa.attention_fwd(q, k, v, lse, o32)
+    _bf16_close(out, tfa.attention_plain(q, k, v))
+    assert torch.equal(out, o32.to(torch.bfloat16))
+    err = float((o32 - tfa.attention_plain(q.float(), k.float(), v.float())).abs().max())
+    assert err <= 1e-5 * float(o32.abs().max())
+    logits = torch.einsum("nqd,nkd->nqk", q.float(), k.float()) / 8
+    assert _rel(lse, torch.logsumexp(logits, dim=-1)) <= 2e-5
+    got, want = tfa.attention_bwd(gy, q, k, v, o32, lse), tfa.attention_bwd_plain(gy, q, k, v)
+    again = tfa.attention_bwd(gy, q, k, v, o32, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if length == 1:
+        # one key: dS = dP - delta is zero in exact arithmetic
+        assert all(float(t.float().abs().max()) <= 1e-5 for t in got[:2] + want[:2])
+        got, want = got[2:], want[2:]
+    _bf16_grads_close(got, want)
+    leaves = [_leaf(t) for t in (q, k, v)]
+    kernels.reset_launches()
+    torch.autograd.grad(tfa.attention(*leaves), leaves, gy)
+    assert (tfa.attention.launches, tfa.attention_bwd.launches) == (1, 1)
+
+
+@pytest.mark.cuda
 def test_bf16_train_step_on_the_card(cuda):
     """A bf16 McedmTask step on the kernel path against the bf16 plain path
     from one state (loss and gradient norm 1e-2, params 2 lr), the master
