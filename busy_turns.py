@@ -1,0 +1,104 @@
+"""Device busy of the port's bf16 U-Net forward and bf16 train step on one
+card: this checkout against another one (say the parent commit unpacked with
+`git archive` into the ignored local/parent), in turns.
+
+    python3 busy_turns.py OTHER_TREE
+
+Each turn is a fresh process started in its tree's root, so it imports that
+tree's package and builds that tree's kernels; the turns run in the order
+other, this, this, other. A turn takes chip_smoke.py's seeded flagship
+weights (B = 16, res 128, ch 64) in bf16 and profiles, with its own
+chip_smoke.py's functions, the forward as phase 15.2 runs it (net_apply,
+cuBLAS's reduced-precision reduction on; `profile_forward`, FORWARDS times)
+and the train step as phase 16.2 runs it (phase 5's batch, WARMUP steps,
+then `profile_step` STEPS times). Prints the card's nvidia-smi name and
+power limit, then one JSON line a turn: each profiled forward's device busy
+and device operations, each profiled step's device busy. Needs a CUDA
+device; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+FORWARDS, WARMUP, STEPS = 5, 3, 3
+
+# one turn, run from a tree's root with only what chip_smoke.py had before
+# this script existed
+TURN = r"""
+import json, sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from m_cedm_tpu_torch.kernels import _build
+from m_cedm_tpu_torch.kernels._launch import fp32_reference_math
+from m_cedm_tpu_torch.models import build_backbone
+from m_cedm_tpu_torch.tasks import build_task
+
+forwards, warmup, steps = map(int, sys.argv[1:4])
+_build.build_all()
+fp32_reference_math()
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+dev = torch.device("cuda", 0)
+hp, b = cs.FLAGSHIP_HPARAMS, cs.BATCH
+params = cs.seeded_params(build_backbone(hp)[0], cs.SEED)
+hp16 = cs.bf16_hparams(hp)
+r = hp16["model"]["resolution"]
+rs = np.random.RandomState(cs.SEED + 61)  # phase 15.2's inputs
+x, cond = (torch.from_numpy(rs.randn(b, r, r, 2).astype(np.float32)).to(dev) for _ in range(2))
+sigma = torch.from_numpy(rs.uniform(-1.5, 1.0, b).astype(np.float32)).to(dev)
+task = build_task(hp16, dev)
+p = task._sample_params(task.init_state(None, None, params=params))
+fwd = []
+with torch.no_grad():
+    ms = cs.cuda_ms(lambda: task.net_apply(p, x, sigma, cond), 5)
+    for _ in range(forwards):
+        prof = cs.profile_forward(lambda: task.net_apply(p, x, sigma, cond), ms)
+        fwd.append([prof["device_busy_ms"], prof["device_ops"]])
+rs = np.random.RandomState(cs.SEED + 4)  # phase 5's batch
+h, tg, xg, u = cs.synthetic_swe_batch(rs, b, r)
+stats = {"input_mean": h.mean(), "input_std": h.std(),
+         "target_mean": u.mean(), "target_std": u.std()}
+batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (h, tg, xg, u))
+ktask = build_task(hp16, dev)
+state, _, walls = cs.train_steps(ktask, ktask.init_state(None, stats, params=params),
+                                 batch, dev, 0, warmup)
+step = [cs.profile_step(ktask, state, batch, dev, min(walls))["device_busy_ms"]
+        for _ in range(steps)]
+print(json.dumps({"forward_ms": ms, "forward_busy_ms_ops": fwd, "step_busy_ms": step}))
+"""
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("busy_turns.py needs a CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"other": os.path.abspath(argv[0]), "this": here}
+    for turn, name in enumerate(("other", "this", "this", "other")):
+        env = dict(os.environ, PYTHONPATH=trees[name])
+        out = subprocess.run([sys.executable, "-c", TURN, str(FORWARDS), str(WARMUP),
+                              str(STEPS)], cwd=trees[name], env=env, capture_output=True,
+                             text=True)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": name, "path": trees[name], "turn": turn, **rec}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -168,7 +168,11 @@ Phases, each printing JSON lines:
               bf16 product and P V three, P in three bf16 pieces, all at
               989, the TF32-split bound of earlier slices beside; K4's
               SASS, every product a wgmma; K1's statistics at the
-              32x32 sites first, as phase 2) and the bf16 library
+              32x32 sites first, as phase 2, each asserted to give the
+              same bits on a repeat; K1's apply at its main-path sites,
+              (B, 16384, 64) and (B, 4096, 64) with chained statistics,
+              on the card's clock, then its own-statistics pass at C 128
+              as context) and the bf16 library
               call where one computes the same function (conv2d, SDPA); with
               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
               turned on for the rest of the phase: (2) the full-width U-Net
@@ -3389,6 +3393,13 @@ def bf16_conv_plan(x, o: int, *, up: bool = False, cr: int = 0, act: bool = True
                      "blocks_per_sm"), list(out)))
 
 
+# K1 gn_silu bf16's modes: its main-path sites (every one with chained
+# statistics), then the own-statistics pass at C 128, on no bf16 path
+APPLY_BF16_MODES = ("(B, 16384, 64): down norm0 at res 128 and out_norm",
+                    "(B, 4096, 64): down norm0 at res 64",
+                    "own stats pass, 128 channels (context: on no bf16 path)")
+
+
 def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
     """Phase 15.1: every bf16 kernel against its bf16 plain version at the
     flagship's serving shapes, with times, bounds and the bf16 library call
@@ -3471,27 +3482,35 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
         gr = adm_groups(c)
         x = rnd(b, n, c, scale=0.8, shift=0.2)
         gamma, beta = fold(c)
-        stats = fn.channel_stats_plain(x)
         # the main path's two shapes first (the summary mode), res 128 as
-        # context (phase 2's STATS_MODES)
+        # context (phase 2's STATS_MODES); each call twice for the same bits
         g_st = torch.Generator(device=device).manual_seed(SEED + 61)
         for mode, xs in ((STATS_MODES[0], x_stats(b, res, c, g_st, device, bf)),
                          (STATS_MODES[1], x_stats(b, res, 2 * c, g_st, device, bf)),
                          (STATS_MODES[2], x)):
             st = fn.channel_stats_plain(xs)
-            check("K1 channel_stats bf16", mode, fn.channel_stats(xs), st,
+            got = fn.channel_stats(xs)
+            again = fn.channel_stats(xs)
+            if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                raise AssertionError(f"K1 channel_stats bf16 {mode}: two calls differ")
+            check("K1 channel_stats bf16", mode, got, st,
                   lambda xs=xs: fn.channel_stats(xs), lambda xs=xs: fn.channel_stats_plain(xs),
                   (nbytes(xs, *st), 3.0 * xs.numel()),
                   device_fn=lambda xs=xs: fn.channel_stats(xs))
-        want = fn.gn_silu_plain(x, gamma, beta, gr, stats=stats)
-        check("K1 gn_silu bf16", "chained stats",
-              fn.gn_silu(x, gamma, beta, gr, stats=stats), want,
-              lambda: fn.gn_silu(x, gamma, beta, gr, stats=stats),
-              lambda: fn.gn_silu_plain(x, gamma, beta, gr, stats=stats),
-              (nbytes(x, gamma, beta, *stats, want), 6.0 * x.numel()))
+        # the apply at its main-path sites, chained statistics (the summary
+        # mode first), then with its own statistics pass at C 128 as context
+        x_r64 = rnd(b, n // 4, c, scale=0.8, shift=0.2)
+        for mode, xa in ((APPLY_BF16_MODES[0], x), (APPLY_BF16_MODES[1], x_r64)):
+            sa = fn.channel_stats_plain(xa)
+            want = fn.gn_silu_plain(xa, gamma, beta, gr, stats=sa)
+            check("K1 gn_silu bf16", mode, fn.gn_silu(xa, gamma, beta, gr, stats=sa), want,
+                  lambda xa=xa, sa=sa: fn.gn_silu(xa, gamma, beta, gr, stats=sa),
+                  lambda xa=xa, sa=sa: fn.gn_silu_plain(xa, gamma, beta, gr, stats=sa),
+                  (nbytes(xa, gamma, beta, *sa, want), 6.0 * xa.numel()),
+                  device_fn=lambda xa=xa, sa=sa: fn.gn_silu(xa, gamma, beta, gr, stats=sa))
         x2 = rnd(b, n, 2 * c, scale=0.8, shift=0.2)
         g2, b2 = fold(2 * c)
-        check("K1 gn_silu bf16", "own stats pass, 128 channels",
+        check("K1 gn_silu bf16", APPLY_BF16_MODES[2],
               fn.gn_silu(x2, g2, b2, adm_groups(2 * c)),
               fn.gn_silu_plain(x2, g2, b2, adm_groups(2 * c)),
               lambda: fn.gn_silu(x2, g2, b2, adm_groups(2 * c)),

@@ -1,31 +1,51 @@
-// K1: GroupNorm (+ per-sample FiLM) + SiLU on a (B, N, C) fp32 activation.
+// K1: GroupNorm (+ per-sample FiLM) + SiLU on a (B, N, C) activation, fp32
+// or bf16.
 //
 // Replaces m_cedm_tpu/pallas/fused_norm.py::_stats_kernel (pass 1) and
 // ::_apply_kernel (pass 2); the paired-lane twins _stats4_kernel and
 // _apply4_kernel in fused_norm_conv.py compute the same math on the TPU's
 // (W/2, 2C) layout and map here too.
 //
-// Bound: device-memory bandwidth. Pass 1 reads x once; pass 2 reads x and
-// writes y once (the flagship shape is 16 x 16384 x 64 fp32 = 64 MiB). The
-// FLOP count is a few per element.
+// Bound: device-memory bandwidth, a few FLOPs an element. Pass 1 reads x
+// once; pass 2 reads x and writes y once. At the flagship's (16, 16384, 64)
+// x is 67.1 MB in fp32 and 33.6 MB in bf16: pass 1 0.020 / 0.010 ms and
+// pass 2 (134.2 / 67.1 MB moved) 0.040 / 0.020 ms at 3.35 TB/s; the apply's
+// bf16 site at res 64, (16, 4096, 64), moves 16.8 MB, 0.005 ms. The main
+// path runs pass 1 only at the 32x32 sites after an attention block, (16,
+// 1024, 64) and (16, 1024, 128): 2.1 / 4.2 MB of bf16 x, 0.6 / 1.3 us of
+// bytes, so one launch and one round trip to device memory set its time.
 //
-// Design: the TPU carried per-(B, C) sums across a sequential grid. Blocks on
-// Hopper run in parallel and in no order, so pass 1 reduces a strip of rows
-// inside each block (per-thread partials, then shared memory) and adds the
-// block's partials into zeroed (B, C) buffers with fp32 atomicAdd: one atomic
-// per channel per block. The order of those adds changes from run to run, so
-// the sums differ from a sequential sum by rounding only. Pass 2 folds the
-// group statistics into one per-channel scale/shift per block (shared memory)
-// and then streams x with coalesced loads: consecutive threads touch
-// consecutive channels of one row.
+// Pass 1, channel_stats_kernel<V, T>: one launch, no atomics, the same bits
+// on every call. A sample is one thread-block cluster of up to kStatsCluster
+// blocks (4 at the 32x32 sites: kStatsMinRows rows a block at least), each a
+// contiguous run of its rows (the launch plan:
+// kernels/fused_norm.py::stats_plan). A thread takes V channels (one 16-byte
+// load: 8 bf16 or 4 fp32 values; V = 1 where C % V != 0 or x is unaligned)
+// of every slots-th row of its block, kStatsUnroll loads in flight, and sums
+// them in row order; a fixed butterfly over a warp's row slots, then the
+// warps in order in shared memory (the slots in order where a warp does not
+// hold whole slots) give the block's partials. After a cluster barrier, rank
+// 0 reads the ranks' partials over distributed shared memory in rank order
+// and stores sums and sumsq: no buffer to zero first.
 //
-// bf16: both passes are templated on the activation type. The bf16
-// instances read bf16 x, sum and normalize in fp32 (the per-(B, C) sums stay
-// fp32) and round once, at pass 2's store: the rounding points of the Pallas
-// kernels on bf16 input (_stats_kernel upcasts before its sums, _apply_kernel
-// computes in fp32 and casts at the store). Bound: bytes, half of fp32's
-// (8.4 MB of x read by pass 1 at the flagship shape, 16.8 MB moved by pass
-// 2); the design is the fp32 one, one 2-byte element a thread per access.
+// Pass 2, gn_silu_apply_kernel<V, T>: about kApplyBlocksPerSm blocks an SM,
+// each a contiguous run of one sample's rows (kernels/fused_norm.py::
+// apply_plan). A thread owns one V-channel chunk for the whole call and
+// takes every slots-th row of its block. Its rows come through a ring of
+// kApplyStages 16-byte cp.async copies of its own in shared memory, which
+// hold the copies in flight without registers: the first ones are issued
+// before it folds its V scales a = gamma * rstd and shifts b = beta - a *
+// mean from the group sums once, into registers; each slot read is refilled
+// with the row kApplyStages on. y = x * a + b, then silu(y), leaves in one
+// streaming 16-byte store. V = 1 loads its elements directly.
+//
+// bf16: the same two kernels on bf16 x. They sum and normalize in fp32 (the
+// per-(B, C) sums stay fp32) and round once, at pass 2's store: the rounding
+// points of the Pallas kernels on bf16 input (_stats_kernel upcasts before
+// its sums, _apply_kernel computes in fp32 and casts at the store). The bf16
+// apply takes SiLU as y / (1 + e^-y) by __expf and __fdividef, a few ulp of
+// fp32 under the one bf16 rounding that follows; fp32 keeps expf and an IEEE
+// divide.
 //
 // Backward: gn_silu_bwd_kernel, one cooperative launch. Replaces
 // fused_norm.py::_grad_stats_kernel and ::_grad_apply_kernel (via
@@ -85,97 +105,372 @@
 // every value is widened to fp32 as it is read, dgamma, dbeta and the
 // partials stay fp32, and dx is stored as bf16. Bound: bytes, 3 x 33.6 MB at
 // the flagship's shape, 0.030 ms at 3.35 TB/s.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStatsRows = 256;   // rows of x reduced by one pass-1 block
-constexpr int kApplyRows = 64;    // rows of x normalized by one pass-2 block
+constexpr int kStatsThreads = 256;
+constexpr int kStatsCluster = 8;  // blocks a sample at most: the portable cluster size
+constexpr int kStatsMinRows = 256;  // rows a block at least, where a sample has them
+constexpr int kStatsUnroll = 8;   // rows a thread loads before it adds them
+constexpr int kApplyThreads = 256;
+constexpr int kApplyBlocksPerSm = 4;
+constexpr int kApplyStages = 6;   // a thread's 16-byte copies in flight
+
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+// close this thread's cp.async copies issued since the last commit into one
+// group; wait until at most N of its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
 
 // an activation element as fp32, and an fp32 value stored as one
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// elements of T in one 16-byte vector
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-channel_stats_kernel(const T* __restrict__ x, float* __restrict__ sums,
-                     float* __restrict__ sumsq, int n, int c) {
-  __shared__ float red_s[kThreads];
-  __shared__ float red_ss[kThreads];
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kStatsRows;
-  const int row_end = min(row0 + kStatsRows, n);
-  // `lanes` threads cover consecutive channels of one row; `rsteps` such
-  // groups take every rsteps-th row. Wider rows go in chunks of kThreads.
-  const int lanes = min(c, kThreads);
-  const int rsteps = kThreads / lanes;
-  const int lane = threadIdx.x % lanes, slot = threadIdx.x / lanes;
-  const T* xb = x + (size_t)b * n * c;
-  for (int c0 = 0; c0 < c; c0 += lanes) {
-    const int ch = c0 + lane;
-    float s = 0.f, ss = 0.f;
-    if (slot < rsteps && ch < c) {
-      for (int r = row0 + slot; r < row_end; r += rsteps) {
-        const float v = load_f(xb + (size_t)r * c + ch);
-        s += v;
-        ss += v * v;
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// V values of T as loaded: one 16-byte word, or one element (V = 1)
+template <typename T, int V>
+struct Chunk {
+  uint4 u;
+};
+template <typename T>
+struct Chunk<T, 1> {
+  T u;
+};
+
+// V values at p: for V > 1 one 16-byte load through the non-coherent path,
+// not kept in L1 (p 16-byte aligned)
+template <int V, typename T>
+__device__ __forceinline__ Chunk<T, V> load_chunk(const T* p) {
+  Chunk<T, V> k;
+  if constexpr (V == 1) {
+    k.u = *p;
+  } else {
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(k.u.x), "=r"(k.u.y), "=r"(k.u.z), "=r"(k.u.w) : "l"(p));
+  }
+  return k;
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void widen(const Chunk<T, V>& k, float* a) {
+  if constexpr (V == 1) {
+    a[0] = to_f(k.u);
+  } else {
+    const unsigned w[4] = {k.u.x, k.u.y, k.u.z, k.u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        a[2 * i] = f.x;
+        a[2 * i + 1] = f.y;
+      } else {
+        a[i] = __uint_as_float(w[i]);
       }
     }
-    red_s[threadIdx.x] = s;
-    red_ss[threadIdx.x] = ss;
-    __syncthreads();
-    if (threadIdx.x < lanes && ch < c) {
-      for (int k = 1; k < rsteps; ++k) {
-        s += red_s[threadIdx.x + k * lanes];
-        ss += red_ss[threadIdx.x + k * lanes];
-      }
-      atomicAdd(&sums[b * c + ch], s);
-      atomicAdd(&sumsq[b * c + ch], ss);
-    }
-    __syncthreads();
   }
 }
 
+// V values stored at p, each rounded once to T (V > 1: one 16-byte
+// streaming store, marked first to evict from L2)
+template <int V, typename T>
+__device__ __forceinline__ void store_chunk(T* p, const float* a) {
+  if constexpr (V == 1) {
+    store_f(p, a[0]);
+  } else {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+        w[i] = *reinterpret_cast<const unsigned*>(&h);
+      } else {
+        w[i] = __float_as_uint(a[i]);
+      }
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+}
+
+// The first row of part i of n rows cut into `parts` contiguous parts (none
+// empty where parts <= n)
+__host__ __device__ __forceinline__ int part_begin(int i, int parts, int n) {
+  return (int)((long long)i * n / parts);
+}
+
+// A block's threads over V-channel chunks: `lanes` consecutive chunks of a
+// row (at most the block's threads; wider rows go in passes of `lanes`),
+// `slots` rows at a time
+struct FwdLanes {
+  int lanes, slots;
+  __host__ __device__ FwdLanes(int c, int v, int threads) {
+    lanes = c / v < threads ? c / v : threads;
+    slots = threads / lanes;
+  }
+};
+
+// sums and sumsq of one sample's channels: see the header
+template <int V, typename T>
+__global__ void __launch_bounds__(kStatsThreads)
+channel_stats_kernel(const T* __restrict__ x, float* __restrict__ sums,
+                     float* __restrict__ sumsq, int n, int c) {
+  __shared__ float red[2 * kStatsThreads * V];   // partial sets: sums, then squares
+  __shared__ float part[2 * kStatsThreads * V];  // the block's partials of a pass
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ranks = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const int row0 = part_begin(rank, ranks, n), row_end = part_begin(rank + 1, ranks, n);
+  const FwdLanes ln(c, V, kStatsThreads);
+  const int lane = threadIdx.x % ln.lanes, slot = threadIdx.x / ln.lanes;
+  // a warp's slots summed by a butterfly where it holds whole slots
+  const bool shuffle = ln.lanes <= 32 && 32 % ln.lanes == 0;
+  const int sets = shuffle ? kStatsThreads / 32 : ln.slots;
+  const int set = shuffle ? threadIdx.x / 32 : slot;
+  const int width = ln.lanes * V;  // channels of a pass
+  const int chunks = c / V;
+  const T* xb = x + (size_t)b * n * c;
+  for (int l0 = 0; l0 < chunks; l0 += ln.lanes) {
+    const int ch = (l0 + lane) * V;
+    const bool active = slot < ln.slots && ch < c;
+    float s[V], ss[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) s[v] = ss[v] = 0.f;
+    if (active) {
+      for (int r = row0 + slot; r < row_end; r += kStatsUnroll * ln.slots) {
+        Chunk<T, V> raw[kStatsUnroll];
+#pragma unroll
+        for (int u = 0; u < kStatsUnroll; ++u)
+          if (r + u * ln.slots < row_end)
+            raw[u] = load_chunk<V>(xb + (size_t)(r + u * ln.slots) * c + ch);
+#pragma unroll
+        for (int u = 0; u < kStatsUnroll; ++u) {
+          if (r + u * ln.slots < row_end) {
+            float a[V];
+            widen(raw[u], a);
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              s[v] += a[v];
+              ss[v] += a[v] * a[v];
+            }
+          }
+        }
+      }
+    }
+    if (shuffle) {
+      for (int m = ln.lanes; m < 32; m *= 2) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          s[v] += __shfl_xor_sync(0xffffffffu, s[v], m);
+          ss[v] += __shfl_xor_sync(0xffffffffu, ss[v], m);
+        }
+      }
+    }
+    if (active && (!shuffle || threadIdx.x % 32 < ln.lanes)) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        red[set * width + lane * V + v] = s[v];
+        red[(sets + set) * width + lane * V + v] = ss[v];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * width; i += kStatsThreads) {
+      const int e = i % width;
+      const float* src = red + (i < width ? 0 : sets * width) + e;
+      if (l0 * V + e < c) {
+        float t = src[0];
+        for (int k = 1; k < sets; ++k) t += src[k * width];
+        part[i] = t;
+      }
+    }
+    cluster.sync();  // every rank's partials are in its shared memory
+    if (rank == 0) {
+      for (int i = threadIdx.x; i < 2 * width; i += kStatsThreads) {
+        const int e = i % width;
+        if (l0 * V + e < c) {
+          float t = part[i];
+          for (int q = 1; q < ranks; ++q) t += cluster.map_shared_rank(part, q)[i];
+          (i < width ? sums : sumsq)[(size_t)b * c + l0 * V + e] = t;
+        }
+      }
+    }
+    cluster.sync();  // rank 0 has read them: the next pass, or the exit, may follow
+  }
+}
+
+// silu(y) for the instance of T: bf16 by __expf and __fdividef (one bf16
+// rounding follows), fp32 by expf and an IEEE divide
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float silu(float y) {
+  if constexpr (sizeof(T) == 2)
+    return __fdividef(y, 1.f + __expf(-y));
+  else
+    return y / (1.f + expf(-y));
+}
+
+// silu(x * a + b) over a contiguous run of one sample's rows: see the header
+template <int V, typename T>
+__global__ void __launch_bounds__(kApplyThreads, kApplyBlocksPerSm)
 gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, const float* __restrict__ sums,
                      const float* __restrict__ sumsq, T* __restrict__ out,
                      int n, int c, int groups, float eps) {
-  extern __shared__ float sm[];
-  float* sa = sm;      // per-channel scale gamma * rstd
-  float* sb = sm + c;  // per-channel shift beta - gamma * rstd * mean
   const int b = blockIdx.y;
+  const FwdLanes ln(c, V, kApplyThreads);
+  const int lane = threadIdx.x % ln.lanes, slot = threadIdx.x / ln.lanes;
+  if (slot >= ln.slots) return;
+  // this thread's rows: first, first + slots, ... below row_end
+  const int row_end = part_begin(blockIdx.x + 1, gridDim.x, n);
+  const int first = part_begin(blockIdx.x, gridDim.x, n) + slot;
   const int per = c / groups;
   const float cnt = (float)n * (float)per;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    const int g0 = (ch / per) * per;
-    float s = 0.f, ss = 0.f;
-    for (int k = 0; k < per; ++k) {
-      s += sums[b * c + g0 + k];
-      ss += sumsq[b * c + g0 + k];
+  const size_t base = (size_t)b * n * c;
+  const float *sb = sums + (size_t)b * c, *qb = sumsq + (size_t)b * c;
+  const float *gb = gamma + (size_t)b * c, *bb = beta + (size_t)b * c;
+  // each thread's ring of kApplyStages 16-byte slots (V > 1), consecutive
+  // threads in consecutive slots
+  __shared__ uint4 ring[V > 1 ? kApplyStages * kApplyThreads : 1];
+  for (int l = lane; l < c / V; l += ln.lanes) {
+    const int ch = l * V;
+    const T* xc = x + base + ch;
+    T* oc = out + base + ch;
+    if constexpr (V > 1) {  // the first rows in flight while the scales are folded
+#pragma unroll
+      for (int s = 0; s < kApplyStages; ++s) {
+        const int r = first + s * ln.slots;
+        if (r < row_end) cp_async16(reinterpret_cast<T*>(ring + s * kApplyThreads + threadIdx.x), xc + (size_t)r * c);
+        cp_async_commit();
+      }
     }
-    const float mean = s / cnt;
-    const float var = fmaxf(ss / cnt - mean * mean, 0.f);
-    const float a = gamma[b * c + ch] * rsqrtf(var + eps);
-    sa[ch] = a;
-    sb[ch] = beta[b * c + ch] - a * mean;
+    float a[V], sh[V];
+    int g_prev = -1;
+    float mean = 0.f, rstd = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int g0 = (ch + v) / per * per;
+      if (g0 != g_prev) {  // the group's mean and rstd, once a group
+        float s = 0.f, ss = 0.f;
+        for (int k = 0; k < per; ++k) {
+          s += sb[g0 + k];
+          ss += qb[g0 + k];
+        }
+        mean = s / cnt;
+        rstd = rsqrtf(fmaxf(ss / cnt - mean * mean, 0.f) + eps);
+        g_prev = g0;
+      }
+      a[v] = gb[ch + v] * rstd;
+      sh[v] = bb[ch + v] - a[v] * mean;
+    }
+    int st = 0;
+    for (int r = first; r < row_end; r += ln.slots) {
+      Chunk<T, V> k;
+      if constexpr (V > 1) {
+        cp_async_wait<kApplyStages - 1>();  // row r's copy has landed
+        k.u = ring[st * kApplyThreads + threadIdx.x];
+      } else {
+        k.u = xc[(size_t)r * c];
+      }
+      float y[V];
+      widen(k, y);
+#pragma unroll
+      for (int v = 0; v < V; ++v) y[v] = silu<T>(y[v] * a[v] + sh[v]);
+      store_chunk<V>(oc + (size_t)r * c, y);
+      if constexpr (V > 1) {  // the slot, read into y, takes the row kApplyStages on
+        const int r_next = r + kApplyStages * ln.slots;
+        if (r_next < row_end)
+          cp_async16(reinterpret_cast<T*>(ring + st * kApplyThreads + threadIdx.x), xc + (size_t)r_next * c);
+        cp_async_commit();
+        st = st + 1 == kApplyStages ? 0 : st + 1;
+      }
+    }
   }
-  __syncthreads();
-  const int row0 = blockIdx.x * kApplyRows;
-  const size_t base = ((size_t)b * n + row0) * c;
-  const int count = min(kApplyRows, n - row0) * c;
-  for (int i = threadIdx.x; i < count; i += kThreads) {
-    const int ch = i % c;
-    const float y = load_f(x + base + i) * sa[ch] + sb[ch];
-    store_f(out + base + i, y / (1.f + expf(-y)));
-  }
+}
+
+// The statistics pass's blocks a sample, its cluster: the largest power of
+// two up to kStatsCluster that leaves each block kStatsMinRows rows, or 1
+int stats_cluster(int n) {
+  int cl = kStatsCluster;
+  while (cl > 1 && (long long)cl * kStatsMinRows > n) cl /= 2;
+  return cl;
+}
+
+// The apply's blocks a sample on `sms` SMs: about kApplyBlocksPerSm blocks
+// an SM over the batch, at most one per `slots` rows of the sample
+int apply_blocks(int b, int n, int c, int v, int sms) {
+  const FwdLanes ln(c, v, kApplyThreads);
+  const long long want = ((long long)kApplyBlocksPerSm * sms + b - 1) / b;
+  const long long cap = ((long long)n + ln.slots - 1) / ln.slots;
+  return (int)(want < cap ? (want > 1 ? want : 1) : cap);
+}
+
+// The instance's V: one 16-byte vector of T where C takes whole vectors and
+// the tensors are 16-byte aligned, else 1
+template <typename T>
+int fwd_vec(int c, const void* x, const void* out) {
+  return c % kVec<T> == 0 && aligned16(x) && (out == nullptr || aligned16(out)) ? kVec<T> : 1;
+}
+
+template <int V, typename T>
+int stats_launch(const T* x, float* sums, float* sumsq, int b, int n, int c, void* stream) {
+  const int cl = stats_cluster(n);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, b);
+  cfg.blockDim = dim3(kStatsThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, channel_stats_kernel<V, T>, x, sums, sumsq, n, c);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int stats_fwd(const T* x, float* sums, float* sumsq, int b, int n, int c, void* stream) {
+  if (b < 1 || n < 1 || c < 1) return (int)cudaErrorInvalidValue;
+  return fwd_vec<T>(c, x, nullptr) > 1 ? stats_launch<kVec<T>>(x, sums, sumsq, b, n, c, stream)
+                                       : stats_launch<1>(x, sums, sumsq, b, n, c, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -216,25 +511,6 @@ struct BwdArgs {
   float eps;
   int slabs, rows, smem_rows, stages, lag, row, vec, esz;  // esz: bytes an element
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_addr(smem)), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(smem_addr(smem)), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_addr(smem)), "l"(gmem)
-               : "memory");
-}
 
 // mbarriers: a phase completes when `count` arrivals are in; a waiter names
 // the parity of the phase it waits for
@@ -734,8 +1010,6 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gn_silu_bwd_kernel(const BwdAr
   }
 }
 
-bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
-
 // The ring of a plan: stages, the lag of pass B, the rows of a slab held in
 // shared memory, and the block's dynamic shared memory in bytes (-1 if C
 // is too wide).
@@ -787,7 +1061,8 @@ int bwd_blocks_per_sm(long smem, int* per_sm) {
 }
 
 // The current device's SM count, and whether it takes cooperative launches
-int bwd_device(int* sms, int* coop) {
+// (the last answer kept; the forward's apply reads it too)
+int device_info(int* sms, int* coop) {
   static int last_dev = -1, last_sms = 0, last_coop = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -799,6 +1074,25 @@ int bwd_device(int* sms, int* coop) {
   *sms = last_sms;
   *coop = last_coop;
   return (int)e;
+}
+
+template <typename T>
+int apply_fwd(const T* x, const float* gamma, const float* beta, const float* sums,
+              const float* sumsq, T* out, int b, int n, int c, int groups, float eps,
+              void* stream) {
+  if (b < 1 || n < 1 || c < 1 || groups < 1 || c % groups) return (int)cudaErrorInvalidValue;
+  int sms = 0, coop = 0;
+  const int rc = device_info(&sms, &coop);
+  if (rc) return rc;
+  const int v = fwd_vec<T>(c, x, out);
+  const dim3 grid(apply_blocks(b, n, c, v, sms), b);
+  if (v > 1)
+    gn_silu_apply_kernel<kVec<T>><<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
+        x, gamma, beta, sums, sumsq, out, n, c, groups, eps);
+  else
+    gn_silu_apply_kernel<1><<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
+        x, gamma, beta, sums, sumsq, out, n, c, groups, eps);
+  return (int)cudaGetLastError();
 }
 
 // Checks the call and fills the kernel's arguments; a cudaError_t code.
@@ -828,7 +1122,7 @@ int bwd_args(const void* x, const void* g, const float* gamma, const float* beta
 template <typename T>
 int bwd_launch(const BwdArgs& p, long smem, int slabs, void* stream) {
   int coop = 0, sms = 0, per_sm = 0;
-  int rc = bwd_device(&sms, &coop);
+  int rc = device_info(&sms, &coop);
   if (rc) return rc;
   if (!coop) return (int)cudaErrorNotSupported;
   const bool vec = p.vec == 4;
@@ -849,42 +1143,56 @@ int bwd_launch(const BwdArgs& p, long smem, int slabs, void* stream) {
 
 extern "C" {
 
-// sums/sumsq must be zeroed (B, C) buffers; the kernel adds into them.
+// x (B, N, C); sums and sumsq (B, C), written whole (no zeroing needed). One
+// cluster launch; returns a cudaError_t code.
 int mc_channel_stats(const float* x, float* sums, float* sumsq, int b, int n,
                      int c, void* stream) {
-  dim3 grid((n + kStatsRows - 1) / kStatsRows, b);
-  channel_stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, sums, sumsq, n, c);
-  return (int)cudaGetLastError();
+  return stats_fwd(x, sums, sumsq, b, n, c, stream);
 }
 
+// x and out (B, N, C); gamma, beta, sums, sumsq (B, C) fp32.
 int mc_gn_silu(const float* x, const float* gamma, const float* beta,
                const float* sums, const float* sumsq, float* out, int b, int n,
                int c, int groups, float eps, void* stream) {
-  dim3 grid((n + kApplyRows - 1) / kApplyRows, b);
-  gn_silu_apply_kernel<<<grid, kThreads, 2 * c * sizeof(float),
-                         (cudaStream_t)stream>>>(x, gamma, beta, sums, sumsq,
-                                                 out, n, c, groups, eps);
-  return (int)cudaGetLastError();
+  return apply_fwd(x, gamma, beta, sums, sumsq, out, b, n, c, groups, eps, stream);
 }
 
 // The bf16 instances: x and out bf16; sums, sumsq, gamma, beta fp32.
 int mc_channel_stats_bf16(const __nv_bfloat16* x, float* sums, float* sumsq, int b,
                           int n, int c, void* stream) {
-  dim3 grid((n + kStatsRows - 1) / kStatsRows, b);
-  channel_stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, sums, sumsq, n, c);
-  return (int)cudaGetLastError();
+  return stats_fwd(x, sums, sumsq, b, n, c, stream);
 }
 
 int mc_gn_silu_bf16(const __nv_bfloat16* x, const float* gamma, const float* beta,
                     const float* sums, const float* sumsq, __nv_bfloat16* out, int b,
                     int n, int c, int groups, float eps, void* stream) {
-  dim3 grid((n + kApplyRows - 1) / kApplyRows, b);
-  gn_silu_apply_kernel<<<grid, kThreads, 2 * c * sizeof(float),
-                         (cudaStream_t)stream>>>(x, gamma, beta, sums, sumsq,
-                                                 out, n, c, groups, eps);
-  return (int)cudaGetLastError();
+  return apply_fwd(x, gamma, beta, sums, sumsq, out, b, n, c, groups, eps, stream);
+}
+
+// The forward passes' launch plans at V channels a thread (1, or a 16-byte
+// vector: 4 fp32, 8 bf16): the statistics pass's {blocks a sample (its
+// cluster), lanes, slots} and the apply's {blocks a sample on the current
+// card, lanes, slots, the card's SMs}, mirrored by kernels/fused_norm.py.
+int mc_channel_stats_plan(int n, int c, int v, int* out) {
+  if (n < 1 || c < 1 || v < 1 || c % v) return (int)cudaErrorInvalidValue;
+  const FwdLanes ln(c, v, kStatsThreads);
+  out[0] = stats_cluster(n);
+  out[1] = ln.lanes;
+  out[2] = ln.slots;
+  return 0;
+}
+
+int mc_gn_silu_plan(int b, int n, int c, int v, int* out) {
+  if (b < 1 || n < 1 || c < 1 || v < 1 || c % v) return (int)cudaErrorInvalidValue;
+  int sms = 0, coop = 0;
+  const int rc = device_info(&sms, &coop);
+  if (rc) return rc;
+  const FwdLanes ln(c, v, kApplyThreads);
+  out[0] = apply_blocks(b, n, c, v, sms);
+  out[1] = ln.lanes;
+  out[2] = ln.slots;
+  out[3] = sms;
+  return 0;
 }
 
 // The backward's launch for slabs of `rows` rows at C channels in `groups`
@@ -898,7 +1206,7 @@ int mc_gn_silu_bwd_occupancy(int c, int groups, int rows, int* stages, int* lag,
   if (smem < 0) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
   int coop = 0;
-  const int rc = bwd_device(sms, &coop);
+  const int rc = device_info(sms, &coop);
   if (rc) return rc;
   return c % 4 == 0 ? bwd_blocks_per_sm<4, float>(smem, per_sm)
                     : bwd_blocks_per_sm<1, float>(smem, per_sm);

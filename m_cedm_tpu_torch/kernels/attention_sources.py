@@ -1,7 +1,7 @@
-"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7 or K1's backward built from other CUDA sources beside the package's own, on one card.
+"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7, K1's backward or K1's bf16 forward built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd]
+        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd|k1bf16]
         [--variant NAME ...]
         [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
@@ -97,6 +97,26 @@ parent commit's csrc file unpacked with `git archive`), and each
       interface (zeroed dgamma / dbeta it adds into with atomics).
       csrc/variants/k1_bwd_l2_chunks.cu, given as a file, is the two-pass
       alternative launched per chunk of samples that fits in L2.
+
+  k1bf16  K1's forward passes (csrc/fused_norm.cu) called directly:
+      `mc_channel_stats_bf16` at the main path's 32x32 sites, (16, 1024, 64)
+      and (16, 1024, 128), and at the CLI test's batch 80, then at res 128
+      (16, 16384, 64) as context; `mc_gn_silu_bf16`
+      with chained statistics at its sites, (16, 16384, 64) (the down
+      blocks' norm0 at res 128 and out_norm) and (16, 4096, 64) (norm0 at res
+      64); beside them the fp32 instances, `mc_channel_stats` at the two
+      32x32 shapes and res 128 and `mc_gn_silu` at (16, 16384, 64). Variants
+      `k1bf16_*` change one constant of the plans or the apply's stores.
+      Each output is held
+      to the plain version (bf16: max and mean error of scale; statistics
+      max error of scale) and the statistics to their own bits on a repeat;
+      beside each apply case, `Tensor.copy_` of x into y (the same bytes);
+      timed on the card's clock (device_ms, the median of five). A source
+      without `mc_channel_stats_plan`, such as the parent's unpacked with
+      `git archive`, is called through its own interface (zeroed sums it
+      adds into with atomics, zeroed inside the timed call as its wrapper
+      allocated them); for this package's the plan of each case
+      (`mc_channel_stats_plan`, `mc_gn_silu_plan`) is printed.
 
   mma  no source: the rate of TF32 mma.sync.m16n8k8 with fp32 accumulation
       on this card, from a kernel that issues nothing else (eight
@@ -266,6 +286,24 @@ VARIANTS = {
                            "constexpr int kBwdMinStages = 6;"),
     # ... with a group's finish keeping 16 loads of 16 bytes in flight a lane,
     # not 8
+    # K1's forward: the apply's 16-byte stores as plain (write-back) stores;
+    # 4 or 8 copies in flight a thread, not 6; the statistics pass on
+    # clusters of 4 blocks at most, or of 8 down to 128 rows a block (8 at
+    # the 32x32 sites)
+    "k1bf16_plain_stores": ("k1bf16",
+                            "    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));",
+                            "    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);"),
+    "k1bf16_apply_stages_4": ("k1bf16", "constexpr int kApplyStages = 6;",
+                              "constexpr int kApplyStages = 4;"),
+    "k1bf16_apply_stages_8": ("k1bf16", "constexpr int kApplyStages = 6;",
+                              "constexpr int kApplyStages = 8;"),
+    "k1bf16_cluster_4": ("k1bf16", "constexpr int kStatsCluster = 8;",
+                         "constexpr int kStatsCluster = 4;"),
+    "k1bf16_min_rows_128": ("k1bf16", "constexpr int kStatsMinRows = 256;",
+                            "constexpr int kStatsMinRows = 128;"),
+    # a diagnostic, not a kernel: the apply without its SiLU (y = x a + b)
+    "diag_k1bf16_no_silu": ("k1bf16", "      for (int v = 0; v < V; ++v) y[v] = silu<T>(y[v] * a[v] + sh[v]);",
+                            "      for (int v = 0; v < V; ++v) y[v] = y[v] * a[v] + sh[v];"),
     "k1bwd_finish_batch_16": ("k1bwd", "constexpr int kBatch = U == 4 ? 8 : 16;",
                               "constexpr int kBatch = 16;"),
     # K7's partial sums added into the fp32 accumulator after each tap
@@ -297,6 +335,10 @@ KERNELS = {
     "k2bwd": ("fused_norm_conv_bwd.cu", {}),
     "k2bwdbf16": ("fused_norm_conv_bwd.cu", {}),
     "k1bwd": ("fused_norm.cu", {}),
+    "k1bf16": ("fused_norm.cu", {"mc_channel_stats_bf16": [P] * 3 + [I] * 3 + [P],
+                                 "mc_channel_stats": [P] * 3 + [I] * 3 + [P],
+                                 "mc_gn_silu_bf16": [P] * 6 + [I] * 4 + [F, P],
+                                 "mc_gn_silu": [P] * 6 + [I] * 4 + [F, P]}),
     "mma": (None, {}),
 }
 K6_BH, K6_N, K6_W = (16, 64), 16384, 128
@@ -350,7 +392,7 @@ def _build_libs(kernel, srcs, out_dir: Path):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
+                       if "registers" in ln or "spill" in ln or "Function properties" in ln]
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in KERNELS[kernel][1].items():
             getattr(lib, fn).argtypes = argtypes
@@ -391,7 +433,7 @@ def main(argv=None) -> int:
                 "k2bf16": _time_k2bf16,
                 "k2bwd": _time_k2bwd, "k2bwdbf16": _time_k2bwdbf16,
                 "k5": _time_k5, "k7": _time_k7,
-                "k1bwd": _time_k1bwd}[args.kernel](libs, ptxas)
+                "k1bwd": _time_k1bwd, "k1bf16": _time_k1bf16}[args.kernel](libs, ptxas)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -1646,6 +1688,135 @@ def _time_k1bwd(libs, ptxas) -> int:
                                                   for a, a2 in zip(first, outs))
             calls[name][case] = fn_
     _report(libs, ptxas, calls, errs)
+    return 0
+
+
+# K1's forward at the main path's shapes (B, N, C): the statistics pass at
+# the 32x32 sites (B 16, and the CLI test's 80), then res 128 as context
+# (on no bf16 path); the apply at its two sites
+K1_STATS_SHAPES = ((16, 1024, 64), (16, 1024, 128), (80, 1024, 64), (80, 1024, 128),
+                   (16, 16384, 64))
+K1_APPLY_SHAPES = ((16, 16384, 64), (16, 4096, 64))
+
+
+def _time_k1bf16(libs, ptxas) -> int:
+    """K1's forward passes of every source, bf16 at the main path's shapes
+    and fp32 beside: each output against the plain version, the statistics
+    for the same bits on a repeat, then timed on the card's clock; each
+    case's bytes bound and, for this package's interface, its launch plan."""
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    # this package's interface writes the sums whole; the parent's adds into
+    # zeroed ones
+    new_if = {name: hasattr(lib, "mc_channel_stats_plan") for name, (lib, _) in libs.items()}
+    for name, (lib, _) in libs.items():
+        if new_if[name]:
+            lib.mc_channel_stats_plan.argtypes = [I, I, I, P]
+            lib.mc_gn_silu_plan.argtypes = [I, I, I, I, P]
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def bf16_err(got, want):
+        err = (got.double() - want.double()).abs()
+        scale = max(float(want.double().abs().max()), 1e-30)
+        return float(err.max()) / scale, float(err.mean()) / scale
+
+    cases, info = {}, {}
+    for dt, shapes in ((bf, K1_STATS_SHAPES), (torch.float32, K1_STATS_SHAPES[:2]
+                                                + K1_STATS_SHAPES[4:])):
+        for b, n, c in shapes:
+            x = rnd(b, n, c, scale=0.8, shift=0.2, dtype=dt)
+            case = f"stats {'bf16' if dt == bf else 'fp32'} {(b, n, c)}"
+            cases[case] = dict(kind="stats", x=x, b=b, n=n, c=c,
+                               want=fn.channel_stats_plain(x))
+            info[case] = {"bound_ms": (x.numel() * x.element_size() + 8 * b * c)
+                          / 3.35e12 * 1e3}
+    for dt, shapes in ((bf, K1_APPLY_SHAPES), (torch.float32, K1_APPLY_SHAPES[:1])):
+        for b, n, c in shapes:
+            x = rnd(b, n, c, scale=0.8, shift=0.2, dtype=dt)
+            gamma, beta = rnd(b, c, scale=0.3, shift=1.0), rnd(b, c, scale=0.3)
+            stats = fn.channel_stats_plain(x)
+            groups = min(32, c // 4)
+            case = f"apply {'bf16' if dt == bf else 'fp32'} {(b, n, c)}"
+            cases[case] = dict(kind="apply", x=x, b=b, n=n, c=c, gamma=gamma, beta=beta,
+                               stats=stats, groups=groups,
+                               want=fn.gn_silu_plain(x, gamma, beta, groups, stats=stats))
+            info[case] = {"bound_ms": (2 * x.numel() * x.element_size() + 16 * b * c)
+                          / 3.35e12 * 1e3}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case, cs in cases.items():
+        vec = fn.fwd_vec(cs["c"], cs["x"].element_size(), True)
+        if cs["kind"] == "stats":
+            info[case]["mirror"] = fn.stats_plan(cs["n"], cs["c"], vec)
+        else:
+            info[case]["mirror"] = fn.apply_plan(cs["b"], cs["n"], cs["c"], vec, sms)
+        for name, (lib, _) in libs.items():
+            if new_if[name]:
+                out = (ctypes.c_int * 4)()
+                rc = (lib.mc_channel_stats_plan(cs["n"], cs["c"], vec, out)
+                      if cs["kind"] == "stats" else
+                      lib.mc_gn_silu_plan(cs["b"], cs["n"], cs["c"], vec, out))
+                if rc:
+                    raise RuntimeError(f"{name}: plan query failed with cudaError {rc}")
+                info[case][name] = list(out)
+    print(json.dumps({"k1bf16_cases": info}), flush=True)
+
+    def call(name, lib, cs):
+        x, b, n, c = cs["x"], cs["b"], cs["n"], cs["c"]
+        sfx = "_bf16" if x.dtype == bf else ""
+
+        def checked(rc):
+            if rc:
+                raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+        if cs["kind"] == "stats":
+            sums, sumsq = x.new_empty(b, c, dtype=torch.float32), x.new_empty(b, c, dtype=torch.float32)
+            fn_ = getattr(lib, "mc_channel_stats" + sfx)
+
+            def run():
+                if not new_if[name]:
+                    sums.zero_()
+                    sumsq.zero_()
+                checked(fn_(x.data_ptr(), sums.data_ptr(), sumsq.data_ptr(), b, n, c, stream))
+            return run, (sums, sumsq)
+        out = torch.empty_like(x)
+        fn_ = getattr(lib, "mc_gn_silu" + sfx)
+        ptrs = [t.data_ptr() for t in (x, cs["gamma"], cs["beta"], *cs["stats"], out)]
+
+        def run():
+            checked(fn_(*ptrs, b, n, c, cs["groups"], 1e-5, stream))
+        return run, (out,)
+
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for case, cs in cases.items():
+            run, outs = call(name, lib, cs)
+            run()
+            torch.cuda.synchronize()
+            first = [t.clone() for t in outs]
+            run()
+            torch.cuda.synchronize()
+            if cs["kind"] == "stats":
+                errs[name][f"err {case}"] = max(bf16_err(a, w)[0]
+                                                for a, w in zip(outs, cs["want"]))
+                errs[name][f"same bits {case}"] = all(torch.equal(a, a2)
+                                                      for a, a2 in zip(first, outs))
+            elif outs[0].dtype == bf:
+                errs[name][f"err {case}"] = bf16_err(outs[0], cs["want"])
+            else:
+                errs[name][f"err {case}"] = _rel(outs[0], cs["want"].double())
+            calls[name][case] = run
+        for case, cs in cases.items():  # the card's copy of the apply's bytes
+            if cs["kind"] == "apply":
+                out = torch.empty_like(cs["x"])
+                calls[name][f"copy {case[6:]} (library, x into y)"] = (
+                    lambda out=out, x=cs["x"]: out.copy_(x))
+    _report(libs, ptxas, calls, errs, timer=lambda fn_: device_ms(fn_, repeats=5))
     return 0
 
 

@@ -15,15 +15,25 @@ beside it for a CPU tensor, and counts its kernel launches in `.launches`
 differentiable: a consumer's backward computes the full GroupNorm gradient
 from x and gives chained statistics a zero cotangent.
 
+The forward passes (csrc/fused_norm.cu, whose plans `stats_plan` and
+`apply_plan` mirror): the statistics pass is one cluster launch, a cluster
+of up to STATS_CLUSTER blocks a sample, whose partials are summed in a fixed
+order (no atomics, no zeroed buffers: the same bits on every call); the
+apply runs about APPLY_BLOCKS_PER_SM blocks an SM, each thread on one
+16-byte channel chunk for the whole call, its rows coming through a ring of
+cp.async copies in shared memory. Both read 16-byte vectors where C takes
+whole ones and the tensors are 16-byte aligned, else one element.
+
 bf16: both forward kernels have a bf16 instance, which the wrappers launch
 for a bf16 activation (gamma, beta and the statistics stay fp32): the sums
-are fp32 sums of the upcast input, the apply runs in fp32 and rounds once at
-its store, where the Pallas kernels round. `gn_silu_plain` on a bf16 input
-is the plain version of that function (`gn_silu_bf16_plain`). The backward
-kernel has a bf16 instance too (x and g bf16, the statistics the forward
-used): it computes in fp32 as _grad_stats_kernel / _grad_apply_kernel do on
-bf16 input, emits dgamma and dbeta in fp32 and rounds dx once to bf16;
-`gn_silu_bwd_bf16_plain` is its plain version.
+are fp32 sums of the upcast input, the apply runs in fp32 (SiLU by fast
+exp and divide) and rounds once at its store, where the Pallas kernels
+round. `gn_silu_plain` on a bf16 input is the plain version of that function
+(`gn_silu_bf16_plain`). The backward kernel has a bf16 instance too (x and g
+bf16, the statistics the forward used): it computes in fp32 as
+_grad_stats_kernel / _grad_apply_kernel do on bf16 input, emits dgamma and
+dbeta in fp32 and rounds dx once to bf16; `gn_silu_bwd_bf16_plain` is its
+plain version.
 """
 from __future__ import annotations
 
@@ -175,12 +185,58 @@ def gn_silu_bwd_bf16_plain(g, x, gamma, beta, num_groups: int, eps: float = 1e-5
     return dx.to(x.dtype), dgamma, dbeta
 
 
+# K1's forward launch plans (csrc/fused_norm.cu: kStatsThreads, kStatsCluster,
+# kStatsMinRows, kStatsUnroll, kApplyThreads, kApplyBlocksPerSm)
+STATS_THREADS, STATS_CLUSTER, STATS_MIN_ROWS, STATS_UNROLL = 256, 8, 256, 8
+APPLY_THREADS, APPLY_BLOCKS_PER_SM = 256, 4
+
+
+def fwd_vec(c: int, itemsize: int, aligned: bool) -> int:
+    """Channels a thread loads at once: one 16-byte vector (4 fp32, 8 bf16)
+    where C takes whole vectors and the tensors are 16-byte aligned, else 1."""
+    v = 16 // itemsize
+    return v if aligned and c % v == 0 else 1
+
+
+def fwd_lanes(c: int, vec: int, threads: int) -> Tuple[int, int]:
+    """(lanes, slots): a block's threads as `lanes` consecutive vec-channel
+    chunks of a row (wider rows in passes of `lanes`), `slots` rows at a
+    time."""
+    lanes = min(c // vec, threads)
+    return lanes, threads // lanes
+
+
+def part_begin(i: int, parts: int, n: int) -> int:
+    """The first row of part i of n rows cut into `parts` contiguous parts."""
+    return i * n // parts
+
+
+def stats_plan(n: int, c: int, vec: int) -> Tuple[int, int, int]:
+    """(blocks a sample, lanes, slots) of the statistics pass: one cluster a
+    sample, the largest power of two up to STATS_CLUSTER blocks that leaves
+    each block STATS_MIN_ROWS rows, or one block."""
+    cl = STATS_CLUSTER
+    while cl > 1 and cl * STATS_MIN_ROWS > n:
+        cl //= 2
+    return (cl, *fwd_lanes(c, vec, STATS_THREADS))
+
+
+def apply_plan(b: int, n: int, c: int, vec: int, sms: int) -> Tuple[int, int, int]:
+    """(blocks a sample, lanes, slots) of the apply on `sms` SMs: about
+    APPLY_BLOCKS_PER_SM blocks an SM over the batch, at most one per `slots`
+    rows of the sample."""
+    lanes, slots = fwd_lanes(c, vec, APPLY_THREADS)
+    want = -(-APPLY_BLOCKS_PER_SM * sms // b)
+    return max(1, min(want, -(-n // slots))), lanes, slots
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 def channel_stats(x: torch.Tensor) -> Stats:
-    """K1 pass 1: per-(B, C) sums of a (B, N, C) activation."""
+    """K1 pass 1: per-(B, C) sums of a (B, N, C) activation (one launch,
+    which writes both outputs whole)."""
     if on_cpu(x):
         return channel_stats_plain(x)
     b, n, c = x.shape
@@ -190,8 +246,8 @@ def channel_stats(x: torch.Tensor) -> Stats:
         raise ValueError("channel statistics are not differentiable: pass a "
                          "detached tensor (the consumers' backward kernels "
                          "take the full GroupNorm gradient)")
-    sums = torch.zeros((b, c), device=x.device, dtype=torch.float32)
-    sumsq = torch.zeros_like(sums)
+    sums = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    sumsq = torch.empty_like(sums)
     name = "mc_channel_stats" + ("_bf16" if dt == torch.bfloat16 else "")
     fn = _build.bind("fused_norm", name, [P, P, P, I, I, I, P])
     raise_on_error(fn(ptr(x), ptr(sums), ptr(sumsq), b, n, c, stream()), name)

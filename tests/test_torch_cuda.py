@@ -1218,6 +1218,110 @@ def test_k1_bf16_matches_plain(cuda, c, chained):
                   tfn.gn_silu_plain(x, gamma, beta, groups, stats=stats))
 
 
+# K1's bf16 forward at the main path's shapes (the statistics pass at the
+# 32 x 32 sites, the apply at res 128 and 64) and at ragged N (no multiple
+# of a cluster's or the apply's blocks)
+K1_BF16_SHAPES = [(16, 1024, 64), (16, 1024, 128), (16, 4096, 64), (16, 16384, 64),
+                  (3, 1001, 64), (2, 2601, 128), (2, 333, 128), (5, 7, 64)]
+
+
+def _k1_inputs(g, dev, b, n, c, dtype=torch.bfloat16, offset=0):
+    """x (B, N, C), `offset` elements into its storage (a misaligned view
+    where offset * itemsize is no multiple of 16), gamma, beta, groups."""
+    flat = _bf16_rnd(g, dev, b * n * c + offset, scale=0.8, shift=0.2, dtype=dtype)
+    x = flat[offset:].view(b, n, c)
+    gamma = _bf16_rnd(g, dev, b, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    beta = _bf16_rnd(g, dev, b, c, scale=0.3, dtype=torch.float32)
+    return x, gamma, beta, max(1, min(32, c // 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K1_BF16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_bf16_passes_at_main_path_shapes(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, gamma, beta, groups = _k1_inputs(g, cuda, *shape)
+    stats = tfn.channel_stats_plain(x)
+    _bf16_all(tfn.channel_stats(x), stats)
+    with torch.no_grad():
+        _bf16_all(tfn.gn_silu(x, gamma, beta, groups, stats=stats),
+                  tfn.gn_silu_plain(x, gamma, beta, groups, stats=stats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("c,offset", [(4, 0), (24, 0), (4, 1), (24, 1), (64, 1), (64, 3)])
+def test_k1_scalar_instance_matches_plain(cuda, dtype, c, offset):
+    """Channels that take no whole 16-byte vector (C 4 in bf16) and views of
+    x off a 16-byte boundary take the kernels' one-element instance."""
+    g = torch.Generator(device=cuda).manual_seed(c + offset)
+    x, gamma, beta, groups = _k1_inputs(g, cuda, 3, 333, c, dtype, offset)
+    assert (x.data_ptr() % 16 != 0) == (offset > 0)
+    stats = tfn.channel_stats_plain(x)
+    with torch.no_grad():
+        got = (tfn.channel_stats(x), tfn.gn_silu(x, gamma, beta, groups, stats=stats),
+               tfn.gn_silu(x, gamma, beta, groups))
+        want = (stats, tfn.gn_silu_plain(x, gamma, beta, groups, stats=stats),
+                tfn.gn_silu_plain(x, gamma, beta, groups))
+    if dtype == torch.bfloat16:
+        for a, w in zip(got, want):
+            _bf16_all(a, w)
+    else:
+        for a, w in zip(got, want):
+            _assert_out(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(16, 1024, 64), (16, 1024, 128), (3, 1001, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_channel_stats_same_bits_in_one_operation(cuda, dtype, shape):
+    """Two calls give the same bits (no atomics), and a call is one device
+    operation (no buffer zeroed first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = _k1_inputs(g, cuda, *shape, dtype=dtype)[0]
+    first = tfn.channel_stats(x)
+    torch.cuda.synchronize()
+    # a capture that recorded no device event at all (the profiler's, seen
+    # on the card's machine) is taken again; one that did must hold one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again = tfn.channel_stats(x)
+            torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == 1, ops
+
+
+@pytest.mark.cuda
+def test_k1_forward_plans_match_the_source(cuda):
+    """kernels/fused_norm.py's stats_plan and apply_plan are the plans the
+    CUDA source launches (mc_channel_stats_plan, mc_gn_silu_plan)."""
+    import ctypes
+
+    from m_cedm_tpu_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stats_fn = _build.bind("fused_norm", "mc_channel_stats_plan", [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+    apply_fn = _build.bind("fused_norm", "mc_gn_silu_plan", [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+    for b, n, c in [(16, 1024, 64), (16, 16384, 64), (80, 1024, 128), (1, 7, 4),
+                    (3, 100_003, 320), (2, 1, 24), (16, 4096, 2056)]:
+        for vec in (1, 4, 8):
+            if c % vec:
+                continue
+            out = (ctypes.c_int * 4)()
+            assert stats_fn(n, c, vec, out) == 0
+            assert tuple(out)[:3] == tfn.stats_plan(n, c, vec)
+            assert apply_fn(b, n, c, vec, out) == 0
+            assert tuple(out) == (*tfn.apply_plan(b, n, c, vec, sms), sms)
+
+
 # (B, H, W, C, O, Cr): ragged tiles, two output blocks (O 80), the scalar
 # copies and stores (C 12, O 20 or 40), C 128 (two chunks, resident at 8 x
 # 16 rows) and C 192 (weights streamed a chunk a step), one res-128 image
