@@ -3569,20 +3569,36 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
                stats=fn.channel_stats_plain(hr.reshape(b, -1, ch)))
 
         def narrow(mode, x, w, bias, emit_stats=False):
+            """The narrow route's bf16 kernels (narrow_c_bf16_kernel at C <= 8,
+            narrow_o_bf16_kernel at O <= 8): held to the plain version, the
+            output and its statistics the same bits on a repeat, the
+            card's time beside the wrapper's."""
             want = fnc.narrow_conv_plain(x, w, bias, emit_stats)
             b_, h_, w_, c_ = x.shape
-            check("K2 narrow_conv bf16", mode,
-                  fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats), want,
+            got = fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats)
+            again = fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats)
+            if not all(torch.equal(a, a2) for a, a2 in zip(flat(got), flat(again))):
+                raise AssertionError(f"K2 narrow_conv bf16 {mode}: two calls differ")
+            check("K2 narrow_conv bf16", mode, got, want,
                   lambda: fnc.gn_silu_conv(x, None, None, w, bias, emit_stats=emit_stats),
                   lambda: fnc.narrow_conv_plain(x, w, bias, emit_stats),
                   (nbytes(x, w, bias, *flat(want)),
                    conv_flops(b_, h_, w_, c_, w.shape[-1]), 0, PEAK_BF16),
-                  lib_fn=lambda: conv_lib(x, w, bias))
+                  lib_fn=lambda: conv_lib(x, w, bias),
+                  device_fn=lambda: fnc.gn_silu_conv(x, None, None, w, bias,
+                                                     emit_stats=emit_stats))
 
         narrow("out conv, C 64 -> O 2", h, conv_w(ch, 2),
                rnd(2, scale=0.3, dtype=torch.float32))
         narrow("conv_in, C 4 -> O 64, emit_stats", rnd(b, res, res, 4), conv_w(4, ch),
                bias, emit_stats=True)
+        narrow("conv_in, C 2 -> O 64, emit_stats (adm_edm_cond_h)", rnd(b, res, res, 2),
+               conv_w(2, ch), bias, emit_stats=True)
+        narrow("out conv, C 64 -> O 1 (adm_edm_cond_h)", h, conv_w(ch, 1),
+               rnd(1, scale=0.3, dtype=torch.float32))
+        results["K2 narrow_conv bf16"]["sass"] = narrow_bf16_sass()
+        emit({"phase": "bf16_kernel", "kernel": "K2 narrow_conv bf16",
+              "sass": results["K2 narrow_conv bf16"]["sass"]})
 
         xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
         xl_stats = fn.channel_stats_plain(xl.reshape(b, -1, ch))
@@ -3631,6 +3647,21 @@ def k4_bf16_bound(nbytes_: float, flops: float, exact: int, split: int):
     recorded beside as `bound_tf32_ms` so the earlier rows stay comparable."""
     return ((nbytes_, 3 * split * flops, 0, PEAK_BF16, exact * flops),
             (nbytes_, split * flops, 2, PEAK_FLOPS, exact * flops))
+
+
+def narrow_bf16_sass() -> dict:
+    """HMMA counts of the built narrow_conv library's bf16 forward kernels;
+    raises unless each puts its products on the tensor cores."""
+    from m_cedm_tpu_torch.kernels import _build
+
+    counts = {}
+    for name, c in _build.sass_counts("narrow_conv", "bf16_kernel").items():
+        short = re.search(r"(narrow_[co]_bf16_kernel)I(\w+?)EEvN", name)
+        counts[f"{short[1]}<{short[2]}>" if short else name] = c["HMMA"]
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"bf16 narrow kernels: HMMA counts {counts}: every product "
+                             "should be an mma.sync")
+    return counts
 
 
 def k4_bf16_sass(contains: str) -> dict:
@@ -4165,12 +4196,16 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
     w_out = conv_w(ch, 2)
     gy = rnd(b, res, res, 2)
     gy32, h32, wo32 = f32(gy, h, w_out)
+    # (the dgrad on narrow_c_bf16_kernel with mirrored taps: the whole call
+    # less the wgrad alone)
     check("K2 narrow_conv_bwd bf16", "out conv, C 64 -> O 2",
           lambda: fnc.narrow_conv_bwd(gy, h, w_out),
           lambda: fnc.narrow_conv_bwd_plain(gy, h, w_out),
           (nbytes(gy, h, w_out, h, w_out) + 4 * 2, 2 * conv_flops(b, res, res, ch, 2), 0,
            PEAK_BF16), lib_fn=conv_bwd_lib(h, w_out),
-          f32_fn=lambda: fnc.narrow_conv_bwd(gy32, h32, wo32))
+          f32_fn=lambda: fnc.narrow_conv_bwd(gy32, h32, wo32),
+          pieces={"dgrad + wgrad": lambda: fnc.narrow_conv_bwd(gy, h, w_out),
+                  "wgrad alone": lambda: fnc.narrow_conv_bwd(gy, h, w_out, need_dx=False)})
 
     # K3 backward: the decoder's up-block conv0, res/2 -> res
     xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)

@@ -1,7 +1,7 @@
-"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7, K1's backward or K1's bf16 forward built from other CUDA sources beside the package's own, on one card.
+"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7, K1's backward, K1's bf16 forward or the bf16 narrow convs built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd|k1bf16]
+        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd|k1bf16|narrowbf16]
         [--variant NAME ...]
         [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
@@ -9,7 +9,8 @@
 Every source exports the C entry points of the kernel's package source with
 the same signatures: the package's own source, the files given (say, a
 parent commit's csrc file unpacked with `git archive`), and each
-`--variant`, the package's source with one named change (VARIANTS).
+`--variant`, the package's source with one named change (VARIANTS), or the
+first file given with one (FILE_VARIANTS).
 
   k4 (the default)  `mc_attention_fwd` and `mc_attention_bwd`
       (csrc/fused_attention.cu), checked at the flagship's attention shape
@@ -117,6 +118,21 @@ parent commit's csrc file unpacked with `git archive`), and each
       adds into with atomics, zeroed inside the timed call as its wrapper
       allocated them); for this package's the plan of each case
       (`mc_channel_stats_plan`, `mc_gn_silu_plan`) is printed.
+
+  narrowbf16  the bf16 narrow convs (csrc/narrow_conv.cu) called directly:
+      `mc_narrow_conv_bf16` at the flagship's conv_in (C 4 -> O 64, with
+      and without its statistics) and out conv (C 64 -> O 2), at
+      adm_edm_cond_h's (C 2 -> 64 with statistics; C 64 -> O 1) and at batch
+      80 (B 16 otherwise, res 128), and `mc_narrow_conv_bwd_bf16` (the out
+      conv's backward) with and without dx, the dgrad instance being the
+      difference; each output held to the bf16 plain version (max and mean
+      error of scale, the statistics apart) and to its own bits on a repeat;
+      the fp32 instances (`mc_narrow_conv`) and bf16 conv2d timed beside the
+      flagship's two; on the card's clock (device_ms, the median of five).
+      Variants `narrowbf16_*` change one constant of the new kernels;
+      `diag_parent_*` change the parent's CUDA-core kernels given as the
+      first file (without their weight restaging, products, x staging or
+      stores, or with one 8-byte bf16 store a pixel).
 
   mma  no source: the rate of TF32 mma.sync.m16n8k8 with fp32 accumulation
       on this card, from a kernel that issues nothing else (eight
@@ -312,6 +328,95 @@ VARIANTS = {
     # out, or their staging pass (results wrong; the time of the rest)
     "diag_k7_no_mma": ("k7", "      mma_chunk<9>(sa, sb, acc, rg, cq, lane);", "      ;"),
     "diag_k7_no_split": ("k7", "      split_x<kPhase == 0 && kUp>(rx + st * kRawX, sa, q * kCK, C, H, W, it, s_a, s_b, tid);\n      split_w<9>(rw + st * kRawW, sb, tid);", "      ;"),
+    # the bf16 narrow convs: the out conv's ring depth and blocks an SM
+    # (two stages leave room for three blocks), conv_in's blocks an SM, and
+    # streaming stores (st.global.cs) for either
+    "narrowbf16_o_stages_2_blocks_3": (
+        "narrowbf16",
+        "constexpr int kBOStages = 3;                            // ring depth\n"
+        "constexpr int kBOThreads = 128;                         // 2 x 2 warps of 8 x 16 pixels\n"
+        "constexpr int kBOBlocksPerSm = 2;",
+        "constexpr int kBOStages = 2;                            // ring depth\n"
+        "constexpr int kBOThreads = 128;                         // 2 x 2 warps of 8 x 16 pixels\n"
+        "constexpr int kBOBlocksPerSm = 3;"),
+    "narrowbf16_o_blocks_3": ("narrowbf16", "constexpr int kBOBlocksPerSm = 2;",
+                              "constexpr int kBOBlocksPerSm = 3;"),
+    "narrowbf16_o_stages_4": ("narrowbf16", "constexpr int kBOStages = 3;",
+                              "constexpr int kBOStages = 4;"),
+    "narrowbf16_c_blocks_3": ("narrowbf16", "constexpr int kBCBlocksPerSm = 4;",
+                              "constexpr int kBCBlocksPerSm = 3;"),
+    "narrowbf16_c_threads_256_blocks_2": (
+        "narrowbf16", "constexpr int kBCThreads = 128;        // 4 warps: tile rows w and w + 4\nconstexpr int kBCWarps = kBCThreads / 32;\nconstexpr int kBCBlocksPerSm = 4;",
+        "constexpr int kBCThreads = 256;        // 4 warps: tile rows w and w + 4\nconstexpr int kBCWarps = kBCThreads / 32;\nconstexpr int kBCBlocksPerSm = 2;"),
+    "narrowbf16_c_stream_stores": (
+        "narrowbf16", "            *reinterpret_cast<uint4*>(dst) =\n                make_uint4(bf16t::pack2(v[0], v[1]), bf16t::pack2(v[2], v[3]),\n                           bf16t::pack2(v[4], v[5]), bf16t::pack2(v[6], v[7]));",
+        "            __stcs(reinterpret_cast<uint4*>(dst),\n                make_uint4(bf16t::pack2(v[0], v[1]), bf16t::pack2(v[2], v[3]),\n                           bf16t::pack2(v[4], v[5]), bf16t::pack2(v[6], v[7])));"),
+    # the out conv's 16-byte copies asking L2 for whole 128- or 256-byte
+    # lines (each stage reads 32 of a pixel's 128 bytes)
+    "narrowbf16_o_l2_128": (
+        "narrowbf16",
+        "        bf16t::cp16(bf16t::smem_addr(dst + pix * 32 + 16 * (h ^ ((pix >> 2) & 1))),\n                    ok ? xb + ((size_t)y * W + x) * C + c : p.x, ok);",
+        "        asm volatile(\"cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\" :: \"r\"(bf16t::smem_addr(dst + pix * 32 + 16 * (h ^ ((pix >> 2) & 1)))), \"l\"(ok ? xb + ((size_t)y * W + x) * C + c : p.x), \"r\"(ok ? 16 : 0) : \"memory\");"),
+    "narrowbf16_o_l2_256": (
+        "narrowbf16",
+        "        bf16t::cp16(bf16t::smem_addr(dst + pix * 32 + 16 * (h ^ ((pix >> 2) & 1))),\n                    ok ? xb + ((size_t)y * W + x) * C + c : p.x, ok);",
+        "        asm volatile(\"cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\" :: \"r\"(bf16t::smem_addr(dst + pix * 32 + 16 * (h ^ ((pix >> 2) & 1)))), \"l\"(ok ? xb + ((size_t)y * W + x) * C + c : p.x), \"r\"(ok ? 16 : 0) : \"memory\");"),
+    "narrowbf16_o_stream_stores": (
+        "narrowbf16", "          *reinterpret_cast<uint4*>(ob + ((size_t)(ty0 + ry) * W + tx0) * O + 8 * j) =\n              *reinterpret_cast<const uint4*>(s_o + ry * kBOTW * O + 8 * j);",
+        "          __stcs(reinterpret_cast<uint4*>(ob + ((size_t)(ty0 + ry) * W + tx0) * O + 8 * j),\n              *reinterpret_cast<const uint4*>(s_o + ry * kBOTW * O + 8 * j));"),
+    # diagnostics, not kernels: the bf16 narrow convs without their products
+    # (results wrong; the time of the rest)
+    "diag_narrowbf16_c_no_mma": (
+        "narrowbf16", "        for (int j = 0; j < 8; ++j) mma16816(acc[j], a, bw[s][j][0], bw[s][j][1]);",
+        "        ;"),
+    "diag_narrowbf16_o_no_mma": (
+        "narrowbf16", "        if (kFold) {\n          mma16816(acc[r], a, bfr[0].x, bfr[0].y);\n        } else {\n#pragma unroll\n          for (int dy = 0; dy < 3; ++dy)\n            if (r - dy >= 0 && r - dy < 8) mma16816(acc[r - dy], a, bfr[dy].x, bfr[dy].y);\n        }",
+        "        ;"),
+    # conv_in without a lane's bias, statistics and stores, or without its
+    # tiles (the weights' prologue and, with statistics, the finish); the out
+    # conv without its tiles, or without its copies
+    "diag_narrowbf16_c_no_stores": ("narrowbf16", "        if (x < W) {\n", "        if (x < 0) {\n"),
+    "diag_narrowbf16_c_no_tiles": (
+        "narrowbf16", "  const int items = p.B * p.tiles;\n\n  // the halo'd tile",
+        "  const int items = 0;\n\n  // the halo'd tile"),
+    "diag_narrowbf16_c_no_wload": ("narrowbf16", "  if (!kFlip) {\n    if (p.wvec) {  // O % 8 == 0",
+                                   "  if (!kFlip && p.B) {\n  } else if (!kFlip) {\n    if (p.wvec) {  // O % 8 == 0"),
+    "diag_narrowbf16_c_no_finish": ("narrowbf16", "  if (p.ostats) {\n    // a cooperative launch",
+                                    "  if (!p.B) {\n    // a cooperative launch"),
+    "diag_narrowbf16_c_empty": ("narrowbf16", "  constexpr int KS = (9 * P + 15) / 16, K = 9 * P, RS = bc_row(P), OFF = 8 - P;\n",
+                                "  constexpr int KS = (9 * P + 15) / 16, K = 9 * P, RS = bc_row(P), OFF = 8 - P;\n  if (p.B) return;\n"),
+    "diag_narrowbf16_o_empty": ("narrowbf16", "  constexpr int kSteps = kFold ? 3 : 9;",
+                                "  constexpr int kSteps = kFold ? 3 : 9;\n  if (p.B) return;"),
+    "diag_narrowbf16_o_no_tiles": ("narrowbf16", "  const int nsteps = mine * nkc;",
+                                   "  const int nsteps = 0 * mine;"),
+    "diag_narrowbf16_o_no_copies": ("narrowbf16", "  auto issue = [&](int s) {\n",
+                                    "  auto issue = [&](int s) {\n    if (s >= 0) return;\n"),
+}
+# name -> (kernel, text, the replacement) as VARIANTS, but changing the first
+# file given (say, a parent commit's source) instead of the package's own
+FILE_VARIANTS = {
+    # diagnostics of the CUDA-core bf16 narrow kernels that widened their
+    # tiles to fp32 (results wrong; the time of the rest), given as the
+    # first file:
+    # narrow_c_kernel without its per-block weight restaging, its products or
+    # its stores, and with its bf16 stores as one 8-byte store a pixel;
+    # narrow_o_kernel without its products, its x staging or its weights'
+    "diag_parent_c_no_wstage": ("narrowbf16", "idx < 9 * kKC * kCO; idx += kCThreads",
+                                "idx < 0; idx += kCThreads"),
+    "diag_parent_c_no_mma": ("narrowbf16", "    for (int c4 = 0; c4 < nq; ++c4) {\n#pragma unroll\n      for (int dc = 0; dc < 3; ++dc) {\n        float4 xv[kCRows + 2];",
+                             "    for (int c4 = 0; c4 < 0; ++c4) {\n#pragma unroll\n      for (int dc = 0; dc < 3; ++dc) {\n        float4 xv[kCRows + 2];"),
+    "diag_parent_c_no_stores": ("narrowbf16", "      } else if (ob < O) {\n        store_out(",
+                                "      } else if (ob < 0) {\n        store_out("),
+    "diag_parent_c_wide_stores": (
+        "narrowbf16",
+        "  if (vec && n % 2 == 0) {\n    for (int i = 0; i < n; i += 2)",
+        "  if (vec && n == 4 && (uintptr_t)dst % 8 == 0) {\n    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);\n    *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));\n  } else if (vec && n % 2 == 0) {\n    for (int i = 0; i < n; i += 2)"),
+    "diag_parent_o_no_mma": ("narrowbf16", "    for (int c4 = 0; c4 < nq; ++c4) {\n#pragma unroll\n      for (int dc = 0; dc < 3; ++dc) {\n        float4 xv[6];",
+                             "    for (int c4 = 0; c4 < 0; ++c4) {\n#pragma unroll\n      for (int dc = 0; dc < 3; ++dc) {\n        float4 xv[6];"),
+    "diag_parent_o_no_x": ("narrowbf16", "    load_tile<kOIH, kOIW>(sx + stage * kOStageX, xb, ty0, tx0, p.H, p.W, C, c0, kOKC,\n                          kOPS, p.vec, tid, kOThreads);\n",
+                           ""),
+    "diag_parent_o_no_w": ("narrowbf16", "idx < 9 * kOKC * OP; idx += kOThreads",
+                           "idx < 0; idx += kOThreads"),
 }
 N, L, D = 16, 1024, 64
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -339,6 +444,10 @@ KERNELS = {
                                  "mc_channel_stats": [P] * 3 + [I] * 3 + [P],
                                  "mc_gn_silu_bf16": [P] * 6 + [I] * 4 + [F, P],
                                  "mc_gn_silu": [P] * 6 + [I] * 4 + [F, P]}),
+    "narrowbf16": ("narrow_conv.cu", {"mc_narrow_conv_bf16": [P] * 6 + [I] * 5 + [P],
+                                      "mc_narrow_conv": [P] * 6 + [I] * 5 + [P],
+                                      "mc_narrow_conv_bwd_bf16": [P] * 6 + [I] * 6 + [P],
+                                      "mc_narrow_conv_tiles": [I] * 3}),
     "mma": (None, {}),
 }
 K6_BH, K6_N, K6_W = (16, 64), 16384, 128
@@ -366,11 +475,17 @@ def _sources(kernel, files, variants, out_dir: Path):
     srcs = {"package": own}
     for i, f in enumerate(files):
         srcs[f"file{i}:{f}"] = Path(f)
-    text = own.read_text()
     for name in variants:
-        _, old, new = VARIANTS[name]
+        # FILE_VARIANTS change the first file given, VARIANTS the package's
+        # own source
+        on_file = name in FILE_VARIANTS
+        _, old, new = FILE_VARIANTS[name] if on_file else VARIANTS[name]
+        if on_file and not files:
+            raise ValueError(f"variant {name} changes the first file given: give one")
+        base = Path(files[0]) if on_file else own
+        text = base.read_text()
         if text.count(old) != 1:
-            raise ValueError(f"variant {name}: its text is not in {own}")
+            raise ValueError(f"variant {name}: its text is not in {base}")
         path = out_dir / f"variant_{name}.cu"
         path.write_text(text.replace(old, new))
         srcs[f"variant:{name}"] = path
@@ -404,10 +519,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("files", nargs="*")
     ap.add_argument("--kernel", default="k4", choices=sorted(KERNELS))
-    ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS))
+    ap.add_argument("--variant", action="append", default=[],
+                    choices=sorted({**VARIANTS, **FILE_VARIANTS}))
     ap.add_argument("--sass", default=None)
     args = ap.parse_args(argv)
-    if any(VARIANTS[v][0] != args.kernel for v in args.variant):
+    if any({**VARIANTS, **FILE_VARIANTS}[v][0] != args.kernel for v in args.variant):
         ap.error(f"a --variant of another kernel than {args.kernel}")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -433,7 +549,8 @@ def main(argv=None) -> int:
                 "k2bf16": _time_k2bf16,
                 "k2bwd": _time_k2bwd, "k2bwdbf16": _time_k2bwdbf16,
                 "k5": _time_k5, "k7": _time_k7,
-                "k1bwd": _time_k1bwd, "k1bf16": _time_k1bf16}[args.kernel](libs, ptxas)
+                "k1bwd": _time_k1bwd, "k1bf16": _time_k1bf16,
+                "narrowbf16": _time_narrowbf16}[args.kernel](libs, ptxas)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -1816,6 +1933,158 @@ def _time_k1bf16(libs, ptxas) -> int:
                 out = torch.empty_like(cs["x"])
                 calls[name][f"copy {case[6:]} (library, x into y)"] = (
                     lambda out=out, x=cs["x"]: out.copy_(x))
+    _report(libs, ptxas, calls, errs, timer=lambda fn_: device_ms(fn_, repeats=5))
+    return 0
+
+
+# the narrow route's calls (B, H, W, C, O, statistics): the flagship's conv_in
+# and out conv, adm_edm_cond_h's, and the flagship's at the CLI test's batch 80
+NARROW_CASES = (("conv_in C 4 -> 64, stats", 16, 4, 64, True),
+                ("conv_in C 4 -> 64, no stats", 16, 4, 64, False),
+                ("out conv C 64 -> 2", 16, 64, 2, False),
+                ("cond_h conv_in C 2 -> 64, stats", 16, 2, 64, True),
+                ("cond_h out conv C 64 -> 1", 16, 64, 1, False),
+                ("conv_in C 4 -> 64, stats, B 80", 80, 4, 64, True),
+                ("out conv C 64 -> 2, B 80", 80, 64, 2, False))
+NARROW_RES = 128
+
+
+def _time_narrowbf16(libs, ptxas) -> int:
+    """The bf16 narrow convs of every source called directly
+    (`mc_narrow_conv_bf16`) at NARROW_CASES, and the out conv's backward
+    (`mc_narrow_conv_bwd_bf16`, C 64 -> O 2) with and without its input
+    gradient (the dgrad instance is the difference); each output held to the
+    bf16 plain version (max and mean error of scale, the statistics apart)
+    and to its own bits on a repeat, then timed on the card's clock. Beside
+    them the fp32 instances (`mc_narrow_conv`) and bf16 conv2d at the
+    flagship's two shapes; each case's bytes bound at 3.35 TB/s; for a source
+    that exports `mc_narrow_conv_plan` each case's launch plan."""
+    import torch.nn.functional as tnf
+
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    res = NARROW_RES
+    for name, (lib, _) in libs.items():
+        if hasattr(lib, "mc_narrow_conv_plan"):
+            lib.mc_narrow_conv_plan.argtypes = [I] * 5 + [P]
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def bf16_err(got, want):
+        err = (got.double() - want.double()).abs()
+        scale = max(float(want.double().abs().max()), 1e-30)
+        return float(err.max()) / scale, float(err.mean()) / scale
+
+    cases, info = {}, {}
+    for case, b, c, o, stats in NARROW_CASES:
+        x = rnd(b, res, res, c, scale=0.8, shift=0.2)
+        w = rnd(3, 3, c, o, scale=(9 * c) ** -0.5)
+        bias = rnd(o, scale=0.3, dtype=torch.float32)
+        with torch.no_grad():
+            want = fnc.narrow_conv_plain(x, w, bias, stats)
+        cases[case] = dict(x=x, w=w, bias=bias, b=b, c=c, o=o, stats=stats,
+                           want=want if stats else (want, None))
+        info[case] = {"bound_ms": (x.numel() * 2 + w.numel() * 2 + 4 * o + b * res * res * o * 2
+                                   + (8 * b * o if stats else 0)) / 3.35e12 * 1e3}
+    # the out conv's backward at the flagship's shape
+    xb, wb = cases["out conv C 64 -> 2"]["x"], cases["out conv C 64 -> 2"]["w"]
+    gy = rnd(16, res, res, 2)
+    with torch.no_grad():
+        want_bwd = fnc.narrow_conv_bwd_plain(gy, xb, wb)
+    info["bwd C 64 -> 2"] = {"bound_ms": (2 * xb.numel() * 2 + gy.numel() * 2 + wb.numel() * 2
+                                          + 4 * (wb.numel() + 2)) / 3.35e12 * 1e3,
+                             "dgrad_bound_ms": (xb.numel() * 2 + gy.numel() * 2
+                                                + wb.numel() * 2) / 3.35e12 * 1e3}
+    for case, cs in cases.items():
+        for name, (lib, _) in libs.items():
+            if hasattr(lib, "mc_narrow_conv_plan"):
+                out = (ctypes.c_int * 6)()
+                rc = lib.mc_narrow_conv_plan(cs["b"], res, res, cs["c"], cs["o"], out)
+                info[case][name] = list(out) if rc == 0 else {"error": rc}
+    print(json.dumps({"narrowbf16_cases": info}), flush=True)
+
+    def checked(name, rc):
+        if rc:
+            raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+
+    def call(name, lib, cs, fp32=False):
+        x, w, bias, b, c, o = (cs[k] for k in ("x", "w", "bias", "b", "c", "o"))
+        if fp32:
+            x, w = x.float(), w.float()
+        out = torch.empty(b, res, res, o, device=dev, dtype=x.dtype)
+        ostats = part = None
+        if cs["stats"]:
+            # the bf16 narrow-C tiles: 3 in a source with mc_narrow_conv_plan,
+            # 1 (the fp32 kernel's, which served both) before it
+            which = 0 if o <= 8 else 3 if hasattr(lib, "mc_narrow_conv_plan") and not fp32 else 1
+            tiles = lib.mc_narrow_conv_tiles(res, res, which)
+            ostats = torch.empty(2, b, o, device=dev)
+            part = torch.empty(2, b, tiles, o, device=dev)
+        fn_ = lib.mc_narrow_conv if fp32 else lib.mc_narrow_conv_bf16
+        ptrs = [None if t is None else t.data_ptr() for t in (x, w, bias, out, ostats, part)]
+
+        def run():
+            checked(name, fn_(*ptrs, b, res, res, c, o, stream))
+        return run, (out, ostats)
+
+    def call_bwd(name, lib, need_dx):
+        dx = torch.empty_like(xb) if need_dx else None
+        tiles = lib.mc_narrow_conv_tiles(res, res, 2)
+        runs = min(tiles, -(-fnc._NARROW_WGRAD_BLOCKS // 16))
+        dwb = torch.empty(9 * 64 * 2 + 2, device=dev)
+        part = torch.empty(16 * runs, 9 * 64 * 2 + 2, device=dev)
+        ptrs = [None if t is None else t.data_ptr() for t in (gy, xb, wb, dx, dwb, part)]
+
+        def run():
+            checked(name, lib.mc_narrow_conv_bwd_bf16(*ptrs, 16, res, res, 64, 2, runs, stream))
+        return run, (dx, dwb)
+
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for case, cs in cases.items():
+            run, (out, ostats) = call(name, lib, cs)
+            run()
+            torch.cuda.synchronize()
+            first = [out.clone(), None if ostats is None else ostats.clone()]
+            run()
+            torch.cuda.synchronize()
+            want, wstats = cs["want"]
+            rec = {"out": bf16_err(out, want),
+                   "same bits": torch.equal(first[0], out)
+                   and (ostats is None or torch.equal(first[1], ostats))}
+            if ostats is not None:
+                rec["stats"] = max(bf16_err(ostats[i], wstats[i])[0] for i in range(2))
+            errs[name][f"err {case}"] = rec
+            calls[name][case] = run
+        for need_dx in (True, False):
+            run, (dx, dwb) = call_bwd(name, lib, need_dx)
+            run()
+            torch.cuda.synchronize()
+            first = [t.clone() for t in (dx, dwb) if t is not None]
+            run()
+            torch.cuda.synchronize()
+            key = "bwd C 64 -> 2" + ("" if need_dx else ", no dx")
+            rec = {"dw": bf16_err(dwb[:-2], want_bwd[1].reshape(-1))[0],
+                   "dbias": bf16_err(dwb[-2:], want_bwd[2])[0],
+                   "same bits": all(torch.equal(a, t) for a, t in
+                                    zip(first, [t for t in (dx, dwb) if t is not None]))}
+            if dx is not None:
+                rec["dx"] = bf16_err(dx, want_bwd[0])
+            errs[name][f"err {key}"] = rec
+            calls[name][key] = run
+        for case in ("conv_in C 4 -> 64, stats", "out conv C 64 -> 2"):
+            cs = cases[case]
+            calls[name][f"fp32 instance {case}"] = call(name, lib, cs, fp32=True)[0]
+            calls[name][f"bf16 conv2d {case} (library)"] = (
+                lambda cs=cs: tnf.conv2d(cs["x"].permute(0, 3, 1, 2),
+                                         cs["w"].permute(3, 2, 0, 1), cs["bias"].to(bf),
+                                         padding=1))
     _report(libs, ptxas, calls, errs, timer=lambda fn_: device_ms(fn_, repeats=5))
     return 0
 

@@ -44,10 +44,12 @@ kernels, `gn_silu_conv_bwd.launches` and `gn_silu_up_conv_bwd.launches` the
 backward ones; `narrow_conv.launches` and `narrow_conv_bwd.launches` those of
 the narrow route (`gn_silu_conv.launches` counts gnsc_kernel only).
 
-bf16: K2, K3 and the narrow conv have bf16 kernels (gnsc_bf16_kernel and
-the narrow kernels' bf16 instances), which the wrappers launch for bf16
-activations; x, w, the residual and the skip weight are then bf16, and bias,
-skip bias, gamma, beta and the statistics fp32. They round where the Pallas
+bf16: K2, K3 and the narrow conv have bf16 kernels (gnsc_bf16_kernel; the
+narrow convs' narrow_c_bf16_kernel and narrow_o_bf16_kernel, persistent
+blocks on bf16 mma.sync whose launch plan `narrow_bf16_plan` mirrors),
+which the wrappers launch for bf16 activations; x, w, the residual and the
+skip weight are then bf16, and bias, skip bias, gamma, beta and the
+statistics fp32. They round where the Pallas
 kernel rounds on a bf16 network: the activation (GroupNorm and SiLU in fp32)
 once to bf16 before the product, bf16 products summed in fp32, bias and
 residual added in fp32, statistics emitted from the fp32 sums, the output
@@ -97,6 +99,12 @@ Stats = Tuple[torch.Tensor, torch.Tensor]
 Out = Union[torch.Tensor, Tuple[torch.Tensor, Stats]]
 _MAX_C = 512
 NARROW = 8  # csrc/narrow_conv.cu takes C <= 8 (narrow C) or O <= 8 (narrow O)
+# the bf16 narrow kernels' plan (csrc/narrow_conv.cu's constexprs): narrow O
+# walks 16 x 32 pixel tiles with NARROW_O_BLOCKS_PER_SM persistent blocks an
+# SM; narrow C 8 x 16 tiles with NARROW_C_BLOCKS_PER_SM an SM at C <= 4 and
+# NARROW_C_BLOCKS_PER_SM_WIDE above, shared among the 64-output chunks
+NARROW_O_TILE, NARROW_C_TILE, NARROW_C_OUT = (16, 32), (8, 16), 64
+NARROW_O_BLOCKS_PER_SM, NARROW_C_BLOCKS_PER_SM, NARROW_C_BLOCKS_PER_SM_WIDE = 2, 4, 2
 _RES_NONE, _RES_IDENTITY, _RES_IDENTITY_UP, _RES_PROJ = 0, 1, 2, 3
 
 
@@ -417,6 +425,25 @@ def narrow_bwd_route(c: int, o: int, act: bool, residual: bool) -> bool:
     return narrow_route(c, o, act, residual) and o <= NARROW
 
 
+def narrow_bf16_plan(b: int, h: int, w: int, c: int, o: int,
+                     sms: int) -> Tuple[int, int, int, int]:
+    """(kernel: 0 narrow O, 1 narrow C; tiles an image; grid x, the
+    persistent blocks; grid y, the 64-output chunks) of the bf16 narrow conv
+    on `sms` SMs, as csrc/narrow_conv.cu's bf16_plan: at most the blocks an
+    SM times `sms` in all (narrow C's statistics take a cooperative launch).
+    Block x of chunk y takes items x, x + grid x, ... of the b * tiles
+    (image, tile) items, tile t at rows (t // tiles_w) th, columns (t %
+    tiles_w) tw."""
+    if o <= NARROW:
+        th, tw = NARROW_O_TILE
+        tiles = -(-h // th) * -(-w // tw)
+        return 0, tiles, min(b * tiles, NARROW_O_BLOCKS_PER_SM * sms), 1
+    th, tw = NARROW_C_TILE
+    tiles, chunks = -(-h // th) * -(-w // tw), -(-o // NARROW_C_OUT)
+    bps = NARROW_C_BLOCKS_PER_SM if c + c % 2 <= 4 else NARROW_C_BLOCKS_PER_SM_WIDE
+    return 1, tiles, min(b * tiles, max(1, bps * sms // chunks)), chunks
+
+
 def _check_narrow(x, w, bias):
     b, h, wd, c = x.shape
     o = w.shape[-1]
@@ -438,8 +465,9 @@ def _narrow_conv_kernel(x, w, bias, emit_stats):
     ostats = part = None
     if emit_stats:  # the output's channel sums, then its sums of squares
         ostats = torch.empty((2, b, o), device=x.device, dtype=torch.float32)
-        tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(
-            h, wd, 0 if o <= NARROW else 1)
+        # the narrow-O tiles, or the narrow-C kernel's of this dtype (1 fp32, 3 bf16)
+        which = 0 if o <= NARROW else 3 if x.dtype == torch.bfloat16 else 1
+        tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [I] * 3)(h, wd, which)
         part = torch.empty((2, b, tiles, o), device=x.device, dtype=torch.float32)
     name = "mc_narrow_conv" + ("_bf16" if x.dtype == torch.bfloat16 else "")
     fn = _build.bind("narrow_conv", name, [P] * 6 + [I] * 5 + [P])

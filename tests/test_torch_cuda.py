@@ -1398,6 +1398,113 @@ def test_narrow_conv_bf16_matches_plain(cuda, c, o):
     assert tfnc.narrow_conv.launches == before + 1
 
 
+# The bf16 narrow convs on the tensor cores (csrc/narrow_conv.cu:
+# narrow_c_bf16_kernel for C <= 8, narrow_o_bf16_kernel for O <= 8): the
+# route's calls (C, O), ragged, at batch 80 and at a res-128 height with a
+# ragged width
+NARROW_BF16_CASES = [(4, 64), (2, 64), (3, 70), (64, 2), (64, 1), (37, 5), (8, 8), (8, 320),
+                     (320, 8)]
+
+
+def _narrow_bf16_inputs(g, dev, b, h, w, c, o, offset=0):
+    """x and w `offset` elements into their storage (a misaligned view when
+    offset * 2 is no multiple of 16), fp32 bias."""
+    x = _bf16_rnd(g, dev, b * h * w * c + offset)[offset:].view(b, h, w, c)
+    wt = (_bf16_rnd(g, dev, 9 * c * o + offset, scale=1.0 / (3 * c ** 0.5))[offset:]
+          .view(3, 3, c, o))
+    bias = _bf16_rnd(g, dev, o, scale=0.3, dtype=torch.float32)
+    return x, wt, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(80, 19, 37), (2, 128, 129)], ids=["b80", "res128"])
+@pytest.mark.parametrize("c,o", NARROW_BF16_CASES)
+def test_narrow_bf16_kernels_match_plain_and_repeat(cuda, c, o, b, h, w):
+    """Output and statistics against the bf16 plain version; the same bits on
+    a repeat; one narrow launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(c * 1000 + o + b)
+    x, wt, bias = _narrow_bf16_inputs(g, cuda, b, h, w, c, o)
+    before = tfnc.narrow_conv.launches
+    with torch.no_grad():
+        got = tfnc.narrow_conv(x, wt, bias, emit_stats=True)
+        again = tfnc.narrow_conv(x, wt, bias, emit_stats=True)
+        _bf16_all(got, tfnc.narrow_conv_plain(x, wt, bias, emit_stats=True))
+    assert tfnc.narrow_conv.launches == before + 2
+    assert all(torch.equal(a, a2) for a, a2 in zip(_leaves(got), _leaves(again)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(4, 64), (2, 64), (64, 2), (64, 1), (8, 8)])
+def test_narrow_bf16_misaligned_views_match_plain(cuda, c, o):
+    """x and w off a 16-byte boundary take the element copies."""
+    g = torch.Generator(device=cuda).manual_seed(c + o)
+    x, wt, bias = _narrow_bf16_inputs(g, cuda, 3, 16, 40, c, o, offset=1)
+    assert x.data_ptr() % 16 and wt.data_ptr() % 16
+    with torch.no_grad():
+        _bf16_all(tfnc.narrow_conv(x, wt, bias, emit_stats=True),
+                  tfnc.narrow_conv_plain(x, wt, bias, emit_stats=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o,n_ops", [(4, 64, 1), (2, 64, 1), (64, 2, 1)])
+def test_narrow_bf16_is_one_device_operation(cuda, c, o, n_ops):
+    """conv_in with its statistics is one device operation (the blocks finish
+    the sums after a grid-wide barrier); the out conv without them one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, wt, bias = _narrow_bf16_inputs(g, cuda, 16, 128, 128, c, o)
+    emit = o > 8
+    with torch.no_grad():
+        tfnc.narrow_conv(x, wt, bias, emit_stats=emit)
+        torch.cuda.synchronize()
+        for _ in range(3):  # a capture with no device event at all is taken again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tfnc.narrow_conv(x, wt, bias, emit_stats=emit)
+                torch.cuda.synchronize()
+            ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if ops:
+                break
+    assert len(ops) == n_ops, ops
+
+
+@pytest.mark.cuda
+def test_narrow_bf16_plan_is_the_sources(cuda):
+    """kernels/fused_norm_conv.py's narrow_bf16_plan is the plan the source
+    launches (mc_narrow_conv_plan), and its tiles size the statistics scratch
+    (mc_narrow_conv_tiles)."""
+    import ctypes
+
+    from m_cedm_tpu_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = _build.bind("narrow_conv", "mc_narrow_conv_plan", [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+    tiles = _build.bind("narrow_conv", "mc_narrow_conv_tiles", [ctypes.c_int] * 3)
+    for b, h, w in [(16, 128, 128), (80, 128, 128), (1, 1, 1), (3, 37, 13), (80, 129, 129)]:
+        for c, o in NARROW_BF16_CASES:
+            out = (ctypes.c_int * 6)()
+            assert plan(b, h, w, c, o, out) == 0
+            mirror = tfnc.narrow_bf16_plan(b, h, w, c, o, sms)
+            assert tuple(out)[:4] == mirror
+            assert tiles(h, w, 0 if o <= tfnc.NARROW else 3) == mirror[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(64, 2), (8, 8)])
+def test_narrow_bf16_backward_repeats_at_batch_80(cuda, c, o):
+    """The dgrad on narrow_c_bf16_kernel (mirrored taps) and the wgrad: the
+    bf16 plain version, and the same bits on a repeat."""
+    g = torch.Generator(device=cuda).manual_seed(c + 3 * o)
+    x, wt, _ = _narrow_bf16_inputs(g, cuda, 80, 19, 37, c, o)
+    gy = _bf16_rnd(g, cuda, 80, 19, 37, o)
+    got = tfnc.narrow_conv_bwd(gy, x, wt)
+    again = tfnc.narrow_conv_bwd(gy, x, wt)
+    _bf16_grads_close(got, tfnc.narrow_conv_bwd_plain(gy, x, wt))
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("length", [1, 63, 64, 65, 200, 1024])
 def test_k4_bf16_matches_plain(cuda, length):
