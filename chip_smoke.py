@@ -192,7 +192,26 @@ Phases, each printing JSON lines:
               m_cedm_tpu_torch.eval_model with +model.hparams.model.dtype=
               bfloat16 on phase 12's resumed run: its keys those of phase
               12's eval_model, every metric finite, launches per U-Net
-              forward equal to part 3's, its seconds
+              forward equal to part 3's, its seconds; (6) the bf16 K7
+              (unet_block_bf16_kernel) through its wrapper against its bf16
+              plain version (the chained composition of the bf16 plain K2 /
+              K3) at the flagship's widths: the identity block at res 128,
+              64 and 32, the decoder's dual input with its projection, the
+              up block, the ragged case whose weights stream, all with
+              chained statistics and emitting (outputs within 1e-2 / 1e-4
+              of scale, statistics within 4e-5, the same bits on a repeat),
+              kernel, plain and bf16 two-kernel-path times on the wrapper's
+              and the card's clock, the bf16 bound, each launch plan, and
+              the SASS (every product a wgmma); (7) phase 15.3's eval with
+              mega=True: metrics within 2e-2 of the bf16 per-conv eval's
+              (test_pde_loss_u reported), h within 1e-5 of the truth, every
+              launch equal to the fp32 mega eval's of phase 10 (1,287 K7),
+              samples/s of both in turns; (8) CondEdmTask (phase 11's
+              inputs) and the ADM CondDdimTask (phase 13's) in bf16 with
+              mega=True against their bf16 plain path: metrics within 2e-2
+              (test_pde_loss reported), the sample's gap to the plain path
+              under its gap to the fp32 mega eval, launches per forward as
+              phase 10's, samples/s of both in turns
   16. bf16 training   the flagship's bf16 train step: (1) every bf16
               backward kernel (K1's at res 128 and 64; K2 in every mode of
               the train step: the identity tail with chained statistics,
@@ -245,7 +264,9 @@ RePaint Heun eval and first train step as `launches_ddim_eval` and
 of phase 14 and their N = 8,192 cases as `at_n_8192`; then the bf16
 variants, named with " bf16", their launches counted in phase 15's bf16
 eval, their times and bounds from phase 15's first part, each with its
-modes; then the bf16 backward kernels, named with " bf16", their launches
+modes; K7's bf16 instance with its launches in phase 15.7's bf16 mega eval
+(CondEdmTask's of 15.8 beside) and its times and bound from 15.6; then
+the bf16 backward kernels, named with " bf16", their launches
 counted in phase 16's three kernel-path bf16 train steps, their times and
 bounds from phase 16's first part), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
@@ -1742,21 +1763,12 @@ def two_kernel_block(x, g0, b0, w0, bias0, g1, b1, w1, bias1, groups0, groups1,
     """The U-Net's per-conv path for one block (mega=False): K2 conv0 (or K3
     for an up block) emitting its statistics, then the K2 tail; a decoder's
     concat is made first. The yardstick K7 replaces."""
-    import torch
-
+    from m_cedm_tpu_torch.kernels import fused_block as fb
     from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
 
-    xin = torch.cat([x, x2], dim=-1) if x2 is not None else x
-    if up:
-        h, hs = fnc.gn_silu_up_conv(xin, g0, b0, w0, bias0, groups0, eps,
-                                    stats=stats, emit_stats=True)
-        tail = dict(residual=xin, res_up=True)
-    else:
-        h, hs = fnc.gn_silu_conv(xin, g0, b0, w0, bias0, groups0, eps, stats=stats,
-                                 emit_stats=True)
-        tail = dict(residual=xin, skip_w=skip_w, skip_b=skip_b)
-    return fnc.gn_silu_conv(h, g1, b1, w1, bias1, groups1, eps, stats=hs,
-                            emit_stats=emit_stats, **tail)
+    return fb._composition(fnc.gn_silu_conv, fnc.gn_silu_up_conv, x, g0, b0, w0, bias0,
+                           g1, b1, w1, bias1, groups0, groups1, eps, x2, skip_w, skip_b,
+                           emit_stats, up, stats=stats, chain=True)
 
 
 def phase_mega_kernel(device, b: int, res: int, ch: int) -> dict:
@@ -3883,7 +3895,7 @@ def phase_bf16_eval(device, hparams, params, b: int, fp32_launches: dict) -> dic
           "launches": launches, "launches_per_forward": per_forward,
           "wall_s": walls, "fp32_wall_s": fwalls,
           "samples_per_s": b * n / wall, "fp32_samples_per_s": b * n / fwall})
-    return {"launches": launches, "per_forward": per_forward}
+    return {"launches": launches, "per_forward": per_forward, "metrics": metrics}
 
 
 def phase_bf16_cli(device, run2_dir: str, eval_dir: str, per_forward: dict) -> dict:
@@ -3949,10 +3961,271 @@ def phase_bf16_cli(device, run2_dir: str, eval_dir: str, per_forward: dict) -> d
     return rec
 
 
+# Phase 15.6-15.8: the megakernel path in bf16. K7's emitted statistics sum
+# conv1's fp32 output over an h that both sides round to bf16 from fp32 sums
+# taken in another order (wgmma's, cuDNN's), so h's one-ulp flips reach
+# them; the per-conv path's bf16 K2 / K3 on the same inputs are as far from
+# the same plain version (1.85e-5 of scale at the up block, the largest;
+# kernels/attention_sources.py --kernel k7bf16, one H100). TOL_MEGA doubles
+# TOL_KERNEL for the same two chained convs in fp32; so here
+TOL_MEGA_BF16_STATS = 4e-5
+MEGA_BF16 = "K7 unet_block bf16"
+
+
+def k7_bf16_sass() -> dict:
+    """HGMMA / HMMA counts of the built fused_block library's four bf16 K7
+    instances (unet_block_bf16_kernel<up, kM>); raises unless each issues
+    wgmma and no mma.sync."""
+    from m_cedm_tpu_torch.kernels import _build
+
+    counts = {}
+    for name, cnt in _build.sass_counts("fused_block", "unet_block_bf16_kernel").items():
+        short = re.search(r"(unet_block_bf16_kernel)ILb([01])ELi([12])E", name)
+        counts[f"{short[1]}<{short[2]}, {short[3]}>" if short else name] = cnt
+    if len(counts) != 4 or any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"bf16 K7: SASS counts {counts}: every product should be "
+                             "a wgmma")
+    return counts
+
+
+def phase_bf16_mega_kernel(device, b: int, res: int, ch: int) -> dict:
+    """Phase 15.6: the bf16 K7 called through its wrapper against its bf16
+    plain version at the flagship's widths (kernels/attention_sources.py's
+    k7_bf16_cases: the identity block at res 128, 64 and 32, the decoder's
+    dual input with its projection, the up block, the ragged case whose
+    conv0 weights stream; every case with chained statistics and emitting):
+    outputs within TOL_BF16 / TOL_BF16_MEAN, statistics within
+    TOL_MEGA_BF16_STATS, the same bits on a repeat; kernel (wrapper and the
+    card's clock), plain and bf16 two-kernel-path times, the bf16 bound, the
+    launch plan; the built kernels' SASS (every product a wgmma). Returns
+    the summary keyed MEGA_BF16 (the first case's times)."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import _build
+    from m_cedm_tpu_torch.kernels import fused_block as fb
+    from m_cedm_tpu_torch.kernels.attention_sources import k7_bf16_cases
+
+    modes, first = [], None
+    for mode, (args, kw) in k7_bf16_cases(device, b, res, ch, SEED + 62).items():
+        with torch.no_grad():
+            want = fb.fused_unet_block_plain(*args, **kw)
+            got = fb.fused_unet_block(*args, **kw)
+            again = fb.fused_unet_block(*args, **kw)
+            flat_got, flat_want = [got[0], *got[1]], [want[0], *want[1]]
+            if not all(torch.equal(a, c) for a, c in zip(flat_got, [again[0], *again[1]])):
+                raise AssertionError(f"bf16 K7 {mode}: a repeat gave other bits")
+            err = bf16_error(flat_got[0], flat_want[0], f"bf16 K7 {mode} output")
+            stats_err = []
+            for i in (1, 2):
+                g_, w_ = flat_got[i].double(), flat_want[i].double()
+                rel = float((g_ - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                if rel > TOL_MEGA_BF16_STATS:
+                    raise AssertionError(f"bf16 K7 {mode} statistics {i}: {rel:.3e} of "
+                                         f"scale beyond {TOL_MEGA_BF16_STATS:.0e}")
+                stats_err.append(rel)
+            two = two_kernel_block(*args, **kw)
+            two_err = [float((a.double() - w.double()).abs().max())
+                       / max(float(w.double().abs().max()), 1e-30)
+                       for a, w in zip([two[0], *two[1]], flat_want)]
+            x, x2 = args[0], kw.get("x2")
+            bb, hh, ww, c1 = x.shape
+            hh, ww = (2 * hh, 2 * ww) if kw["up"] else (hh, ww)
+            c, o = args[3].shape[2], args[3].shape[3]
+            proj = kw.get("skip_w") is not None
+            flops = (conv_flops(bb, hh, ww, c, o) + conv_flops(bb, hh, ww, o, o)
+                     + (2.0 * bb * hh * ww * c * o if proj else 0.0))
+            work = bound(nbytes(*[a for a in args if torch.is_tensor(a)], x2,
+                                kw.get("skip_w"), kw.get("skip_b"), *kw["stats"],
+                                *flat_want), flops, 0, PEAK_BF16)
+            c2 = x2.shape[-1] if x2 is not None else 0
+            res0, res1, smem, bps, _, blocks, rows = fb._bf16_plan(
+                bb, hh, ww, c1, c2, o, kw["up"], proj)
+            rec = {"phase": "bf16_mega_kernel", "kernel": MEGA_BF16, "mode": mode,
+                   "nvidia_smi": nvidia_smi_line(), **err,
+                   "stats_max_rel_err": max(stats_err), "stats_tol": TOL_MEGA_BF16_STATS,
+                   "same_bits_on_repeat": True,
+                   "two_kernel_path_max_rel_err": two_err[0],
+                   "two_kernel_path_stats_max_rel_err": max(two_err[1:]),
+                   "ms": cuda_ms(lambda: fb.fused_unet_block(*args, **kw)),
+                   "device_ms": device_ms(lambda: fb.fused_unet_block(*args, **kw), work),
+                   "plain_ms": cuda_ms(lambda: fb.fused_unet_block_plain(*args, **kw)),
+                   "two_kernel_ms": cuda_ms(lambda: two_kernel_block(*args, **kw)),
+                   "two_kernel_device_ms": device_ms(lambda: two_kernel_block(*args, **kw),
+                                                     work),
+                   **work, "library_ms": None,
+                   "library": "none: no PyTorch call computes a whole ADM block",
+                   "plan": {"tile_rows": rows, "weights_resident_phase0": res0,
+                            "weights_resident_phase1": res1,
+                            "smem_bytes": smem, "blocks_per_sm": bps, "blocks": blocks,
+                            "items": fb.grid(bb, hh, ww, o, kw["up"], torch.bfloat16,
+                                             c1=c1, c2=c2, proj=proj)[0]}}
+        emit(rec)
+        modes.append({k: rec[k] for k in (
+            "mode", "max_rel_err", "mean_rel_err", "stats_max_rel_err", "ms", "device_ms",
+            "plain_ms", "two_kernel_ms", "two_kernel_device_ms", "bound_ms", "bound_by",
+            "two_kernel_path_max_rel_err", "two_kernel_path_stats_max_rel_err", "plan")})
+        if first is None:
+            first = dict(rec)
+        for k in ("max_abs_err", "max_rel_err", "mean_rel_err", "stats_max_rel_err"):
+            first[k] = max(first[k], rec[k])
+        del want, got, again, two
+    counts = k7_bf16_sass()
+    first.update(modes=modes, sass=counts, ptxas=[
+        ln.strip() for ln in _build.build_log("fused_block").splitlines()
+        if any(k in ln for k in ("unet_block_bf16_kernel", "registers", "spill"))])
+    emit({"phase": "bf16_mega_kernel", "kernel": MEGA_BF16, "sass": counts,
+          "ptxas": first["ptxas"]})
+    torch.cuda.empty_cache()
+    return {MEGA_BF16: first}
+
+
+def phase_bf16_mega_eval(device, hparams, params, b: int, fp32_mega_launches: dict,
+                         bf16_metrics: dict) -> dict:
+    """Phase 15.7: the flagship eval of phase 15.3 (phase 4's batch and mask,
+    the same noise) in bf16 with mega=True: metrics within TOL_BF16_METRICS
+    of the bf16 per-conv eval's (test_pde_loss_u reported), h within 1e-5 of
+    the truth, every kernel's launches equal to the fp32 mega eval's (phase
+    10: 13 K7 a forward), samples/s of the bf16 mega and per-conv evals in
+    turns. Returns the launches."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    hp = bf16_hparams(hparams)
+    r = hp["model"]["resolution"]
+    batch, mask, stats = flagship_eval_data(device, hp, b)
+    task = build_task(hp, device, mega=True)
+    state = task.init_state(None, stats, params=params)
+    task.model.calls = 0
+    kernels.reset_launches()
+    metrics, hu, wall = run_eval(task, state, batch, mask, device)
+    launches, calls = kernels.launches(), task.model.calls
+    if tuple(hu.shape) != (b, r, r, 2) or not torch.isfinite(hu).all():
+        raise AssertionError(f"bf16 mega eval output {tuple(hu.shape)} not finite")
+    gt = task.transform.forward(state, batch[0], batch[3])
+    known_err = float((hu[..., 0] - gt[..., 0]).abs().max())
+    if known_err > TOL_KNOWN:
+        raise AssertionError(f"bf16 mega eval: observed channel moved by {known_err}")
+    if launches != fp32_mega_launches or launches["K7 unet_block"] != 13 * calls:
+        raise AssertionError(f"bf16 mega eval launches {launches}, the fp32 mega "
+                             f"eval's {fp32_mega_launches}")
+    rel = {}
+    for k, v in metrics.items():
+        rel[k] = abs(v - bf16_metrics[k]) / max(abs(bf16_metrics[k]), 1e-30)
+        unheld = k.startswith("test_pde_loss") and not k.endswith("_gt")
+        if not math.isfinite(v) or (not unheld and rel[k] > TOL_BF16_METRICS):
+            raise AssertionError(f"bf16 mega {k}: {v} vs bf16 per-conv {bf16_metrics[k]}")
+    ptask = build_task(hp, device)
+    pstate = ptask.init_state(None, stats, params=params)
+    walls, pwalls = [wall], []
+    for _ in range(MEGA_RUNS):  # in turns: per-conv, mega, per-conv, mega
+        pwalls.append(run_eval(ptask, pstate, batch, mask, device)[2])
+        walls.append(run_eval(task, state, batch, mask, device)[2])
+    n = b * hp["sampler"]["n_samples"]
+    wall, pwall = float(np.median(walls[1:])), float(np.median(pwalls))
+    emit({"phase": "bf16_mega_eval", "mask": "u", "batch": b,
+          "nvidia_smi": nvidia_smi_line(), "unet_forwards": calls, "metrics": metrics,
+          "per_conv_metrics": bf16_metrics, "metrics_rel_diff": rel,
+          "metrics_tol": TOL_BF16_METRICS, "known_channel_max_err": known_err,
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_per_forward": {k: launches[k] / calls for k in MEGA_LAUNCHES},
+          "wall_s": walls, "per_conv_wall_s": pwalls,
+          "samples_per_s": n / wall, "per_conv_samples_per_s": n / pwall})
+    return launches
+
+
+def phase_bf16_mega_cond(device, b: int) -> dict:
+    """Phase 15.8: the conditional ADM tasks in bf16 with mega=True at full
+    width and depth against their bf16 plain path (the same weights, batch
+    and noise): CondEdmTask (adm_edm_cond_h, phase 11's inputs) and
+    CondDdimTask on the ADM U-Net (adm_cond_h, phase 13's inputs), one eval
+    each; metrics within TOL_BF16_METRICS (test_pde_loss reported), the
+    sample's mean gap to the plain path's under its gap to the fp32 mega
+    eval's, the launches per forward of the fp32 mega evals (MEGA_LAUNCHES,
+    as phases 11 and 13 assert them), samples/s of both paths in turns.
+    Returns CondEdmTask's launches."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+    from m_cedm_tpu_torch.tasks import build_task
+
+    cases = (("adm_edm_cond_h", COND_EDM_HPARAMS, COND_EDM_TARGET, SEED + 11, SEED + 12,
+              SEED + 13),
+             ("adm_cond_h", ADM_COND_HPARAMS, COND_DDIM_TARGET, SEED + 72, SEED + 62,
+              SEED + 73))
+    out = {}
+    for name, hp32, target, data_seed, param_seed, gen_seed in cases:
+        hp = bf16_hparams(hp32)
+        batch, stats = baseline_data(device, hp, b, data_seed)
+        paths = {"mega": (hp, kernels.DEVICE_OPS, True),
+                 "plain": (hp, kernels.PLAIN_OPS, False),
+                 "fp32_mega": (hp32, kernels.DEVICE_OPS, True)}
+        tasks = {k: build_task(h, device, target=target, ops=ops, mega=m)
+                 for k, (h, ops, m) in paths.items()}
+        params = seeded_params(tasks["mega"].model, param_seed)
+        states = {k: t.init_state(None, stats, params=params) for k, t in tasks.items()}
+
+        def run(k):
+            task = tasks[k]
+            if target == COND_DDIM_TARGET:
+                task.set_test_sampler_params(hp["sampler"])
+            gen = torch.Generator(device=device).manual_seed(gen_seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, pred = task.eval_step(states[k], batch, gen, split="test")
+            torch.cuda.synchronize()
+            return ({kk: float(v) for kk, v in metrics.items()}, pred,
+                    time.perf_counter() - t0)
+
+        tasks["mega"].model.calls = 0
+        kernels.reset_launches()
+        metrics, pred, wall = run("mega")
+        launches, calls = kernels.launches(), tasks["mega"].model.calls
+        r = hp["model"]["resolution"]
+        if tuple(pred.shape) != (b, r, r, 1) or not torch.isfinite(pred).all():
+            raise AssertionError(f"{name} bf16 mega sample {tuple(pred.shape)} not finite")
+        check_mega_launches(launches, calls, f"{name} bf16 mega eval ({calls} forwards)")
+        fp32_metrics, fp32_pred, _ = run("fp32_mega")
+        walls, pwalls = [wall], []
+        for _ in range(MEGA_RUNS):  # in turns: plain, mega, plain, mega
+            pmetrics, ppred, pwall = run("plain")
+            pwalls.append(pwall)
+            walls.append(run("mega")[2])
+        rel = {}
+        for k, v in metrics.items():
+            rel[k] = abs(v - pmetrics[k]) / max(abs(pmetrics[k]), 1e-30)
+            held = not (k.startswith("test_pde_loss") and not k.endswith("_gt"))
+            # a correlation near zero (random weights) is held absolute
+            err = abs(v - pmetrics[k]) if "corr" in k else rel[k]
+            if not math.isfinite(v) or (held and err > TOL_BF16_METRICS):
+                raise AssertionError(f"{name} bf16 mega {k}: {v} vs bf16 plain {pmetrics[k]}")
+        gaps = {"mega_vs_plain": float((pred - ppred).abs().mean()),
+                "bf16_vs_fp32_mega": float((pred - fp32_pred).abs().mean())}
+        if not gaps["mega_vs_plain"] < gaps["bf16_vs_fp32_mega"]:
+            raise AssertionError(f"{name} bf16 mega sample gaps {gaps}")
+        n = b * hp["sampler"].get("n_samples", 1)
+        wall, pwall = float(np.median(walls[1:])), float(np.median(pwalls))
+        emit({"phase": "bf16_mega_cond", "config": name, "batch": b,
+              "unet_forwards": calls, "metrics": metrics, "plain_metrics": pmetrics,
+              "fp32_mega_metrics": fp32_metrics, "metrics_rel_diff": rel,
+              "metrics_tol": TOL_BF16_METRICS,
+              "unheld": [k for k in metrics if k.startswith("test_pde_loss")
+                         and not k.endswith("_gt")],
+              "sample_mean_abs_gaps": gaps,
+              "launches": {k: v for k, v in launches.items() if v},
+              "wall_s": walls, "plain_wall_s": pwalls,
+              "samples_per_s": n / wall, "plain_samples_per_s": n / pwall})
+        out[name] = launches
+    return out["adm_edm_cond_h"]
+
+
 def phase_bf16(device, hparams, params, b: int, fp32_launches: dict, run2_dir: str,
-               eval_dir: str):
-    """Phase 15: bf16 serving of the flagship on the card (parts 1-5; the
-    reduced-precision-reduction flag is on from part 2 to the end)."""
+               eval_dir: str, fp32_mega_launches: dict):
+    """Phase 15: bf16 serving of the flagship on the card (parts 1-8; the
+    reduced-precision-reduction flag is on from part 2 to the end). Returns
+    the per-kernel summaries, the bf16 eval's launches and the bf16 mega
+    evals' (the flagship's, CondEdmTask's)."""
     import torch
 
     m = hparams["model"]
@@ -3964,9 +4237,13 @@ def phase_bf16(device, hparams, params, b: int, fp32_launches: dict, run2_dir: s
         ev = phase_bf16_eval(device, hparams, params, b, fp32_launches)
         phase_bf16_matmul_flag(device)
         phase_bf16_cli(device, run2_dir, eval_dir, ev["per_forward"])
+        results.update(phase_bf16_mega_kernel(device, b, m["resolution"], m["ch"]))
+        mega = phase_bf16_mega_eval(device, hparams, params, b, fp32_mega_launches,
+                                    ev["metrics"])
+        cond = phase_bf16_mega_cond(device, b)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
-    return results, ev["launches"]
+    return results, ev["launches"], {"eval": mega, "cond_edm": cond}
 
 
 # Phase 16: bf16 training. The fp32 outputs of a bf16 backward kernel (dW,
@@ -4549,8 +4826,8 @@ def main() -> int:
     at_n_8192 = phase_linear_attention(device, BATCH, TIMEPRED_HISTORY * enc["res"],
                                        enc["in_emb_dim"])
     phase_two_stage(device, fno, timepred_state.params, timepred_state.constants)
-    bf16_results, bf16_launches = phase_bf16(device, hparams, params, BATCH, eval_launches,
-                                             cli_run2, cli_eval)
+    bf16_results, bf16_launches, bf16_mega = phase_bf16(
+        device, hparams, params, BATCH, eval_launches, cli_run2, cli_eval, mega_launches)
     bwd16_results, bwd16_launches = phase_bf16_training(device, hparams, params, BATCH,
                                                         train_launches)
     summary = []
@@ -4606,6 +4883,17 @@ def main() -> int:
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                         "modes": rec["modes"],
                         **{k: rec[k] for k in K4_BF16_KEYS if k in rec}})
+    rec = bf16_results[MEGA_BF16]
+    source, replaces = KERNEL_INFO["K7 unet_block"]
+    summary.append({"name": MEGA_BF16, "route": "cuda", "source": source,
+                    "replaces": replaces, "dtype": "bfloat16",
+                    "launches": bf16_mega["eval"]["K7 unet_block"],
+                    "launches_cond_edm_eval": bf16_mega["cond_edm"]["K7 unet_block"],
+                    **{k: rec[k] for k in (
+                        "max_abs_err", "max_rel_err", "mean_rel_err", "tol", "tol_mean",
+                        "stats_max_rel_err", "stats_tol", "ms", "device_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms", "two_kernel_ms",
+                        "two_kernel_device_ms", "modes", "sass")}})
     for name, fp32_name in BF16_BWD_KERNELS.items():
         rec = bwd16_results[name]
         source, replaces = KERNEL_INFO.get(fp32_name) or BF16_ONLY_INFO[fp32_name]

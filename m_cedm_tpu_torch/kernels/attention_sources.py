@@ -1,7 +1,8 @@
-"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7, K1's backward, K1's bf16 forward or the bf16 narrow convs built from other CUDA sources beside the package's own, on one card.
+"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7 (fp32 or bf16), K1's backward, K1's bf16 forward or the bf16 narrow convs built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k1bwd|k1bf16|narrowbf16]
+        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k7bf16|k1bwd|k1bf16|
+                  narrowbf16]
         [--variant NAME ...]
         [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
@@ -87,6 +88,19 @@ first file given with one (FILE_VARIANTS).
       given; beside it, once, the two-kernel path (K2 conv0 emitting its
       statistics, then the K2 tail; K3 then K2 for the up block) through the
       package's wrappers on the same inputs, and each case's items and grid.
+  k7bf16  `mc_unet_block_bf16` (csrc/fused_block.cu), the bf16 K7, at the
+      cases of chip_smoke.py's phase 15.6 (B = 16, ch 64: the identity
+      block at res 128, 64 and 32 with chained and emitted statistics, the
+      decoder's 64 + 64 -> 64 block with its 1x1 projection emitting
+      statistics, the up block from res 64 to 128, and the ragged 128 + 128
+      -> 128 case, whose conv0 weights stream), each output held to the bf16
+      plain version (max and mean error of scale, the statistics apart) and
+      to its own bits on a repeat, each case's plan (weights resident by
+      phase, shared memory, blocks) from `mc_unet_block_bf16_plan`; beside
+      it, once, the bf16 two-kernel path (K2 conv0 emitting its statistics,
+      then the K2 tail; K3 then K2 for the up block) through the package's
+      wrappers on the same inputs; on the card's clock (device_ms, the
+      median of five).
 
   k1bwd  `mc_gn_silu_bwd` (csrc/fused_norm.cu), K1's backward, at the
       flagship train step's shapes (B = 16, C = 64, 16 groups, N = 128^2
@@ -324,6 +338,15 @@ VARIANTS = {
                               "constexpr int kBatch = 16;"),
     # K7's partial sums added into the fp32 accumulator after each tap
     "k7_temp_steps_1": ("k7", "constexpr int kTempSteps = 9;", "constexpr int kTempSteps = 1;"),
+    # the bf16 K7 with 8 x 16 tiles everywhere
+    "k7bf16_tiles_8": ("k7bf16", "  const bool big = tiles16", "  const bool big = false && tiles16"),
+    # diagnostics, not kernels: the bf16 K7 without its products, its
+    # activation pass, its epilogue's stores or its A tiles' copies (results
+    # wrong; the time of the rest)
+    "diag_k7bf16_no_mma": ("k7bf16", "    if (ch.taps == 1)\n      mma_chunk_h<1, false, kM>(ab, wb, acc, warp, lane);\n    else if (kPhase == 0 && kUp)\n      mma_chunk_h<9, true, kM>(ab, wb, acc, warp, lane);\n    else\n      mma_chunk_h<9, false, kM>(ab, wb, acc, warp, lane);", "    ;"),
+    "diag_k7bf16_no_stores": ("k7bf16", "        if (p.ovec) {\n          *reinterpret_cast<uint4*>(dst) = v;\n        } else {", "        if (true) {\n        } else {"),
+    "diag_k7bf16_no_copies": ("k7bf16", "    if (ch.taps == 1)\n      load_a_proj<kUp, kM>(p, ch.s, b, ty0, tx0, A, tid);\n    else if", "    if (true) {\n    } else if (ch.taps == 1)\n      load_a_proj<kUp, kM>(p, ch.s, b, ty0, tx0, A, tid);\n    else if"),
+    "diag_k7bf16_no_act": ("k7bf16", "    if (ch.taps == 9) {\n      if (kPhase == 0 && kUp)", "    if (false) {\n      if (kPhase == 0 && kUp)"),
     # diagnostics, not kernels: K7 with the 3x3 products of both phases left
     # out, or their staging pass (results wrong; the time of the rest)
     "diag_k7_no_mma": ("k7", "      mma_chunk<9>(sa, sb, acc, rg, cq, lane);", "      ;"),
@@ -435,6 +458,8 @@ KERNELS = {
                 "mc_gn_silu_up_conv_bf16": [P] * 10 + [I] * 6 + [F, P]}),
     "k5": ("linear_attention.cu", {"mc_kv_dots": [P] * 4 + [I] * 6 + [P]}),
     "k7": ("fused_block.cu", {"mc_unet_block": [P] * 22 + [I] * 8 + [F, I, P]}),
+    "k7bf16": ("fused_block.cu", {"mc_unet_block_bf16": [P] * 22 + [I] * 8 + [F, I, P],
+                                  "mc_unet_block_bf16_plan": [I] * 8 + [P]}),
     # two interfaces (see _time_k2bwd, _time_k1bwd): argument types are set
     # per library
     "k2bwd": ("fused_norm_conv_bwd.cu", {}),
@@ -548,7 +573,7 @@ def main(argv=None) -> int:
         return {"k4bf16": _time_k4bf16, "k6": _time_k6, "k2": _time_k2,
                 "k2bf16": _time_k2bf16,
                 "k2bwd": _time_k2bwd, "k2bwdbf16": _time_k2bwdbf16,
-                "k5": _time_k5, "k7": _time_k7,
+                "k5": _time_k5, "k7": _time_k7, "k7bf16": _time_k7bf16,
                 "k1bwd": _time_k1bwd, "k1bf16": _time_k1bf16,
                 "narrowbf16": _time_narrowbf16}[args.kernel](libs, ptxas)
 
@@ -1702,6 +1727,168 @@ def _time_k7(libs, ptxas) -> int:
             errs[name][f"err {case}"] = max(_rel(a, w) for a, w in zip(got, c["want"],
                                                                      strict=True))
     _report(libs, ptxas, calls, errs)
+    return 0
+
+
+def k7_bf16_cases(device, b: int, res: int, ch: int, seed: int) -> dict:
+    """The bf16 K7's cases at the flagship's widths, each (args, kw) of
+    `fused_unet_block` with chained fp32 statistics of its bf16 input: the
+    identity block at res, res / 2 and res / 4 emitting statistics, the
+    decoder's ch + ch -> ch block with its 1x1 projection emitting
+    statistics, the up block from res / 2 to res, and the ragged 128 + 128 ->
+    128 case (its conv0 weights stream). Shared with chip_smoke.py."""
+    import math
+
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=device) * scale + shift).to(dtype)
+
+    def block(bb, h, w, c1, c2, o, up=False, proj=False):
+        c, f32 = c1 + c2, torch.float32
+        args = [rnd(bb, h, w, c1, scale=0.8, shift=0.2),
+                rnd(bb, c, scale=0.3, shift=1.0, dtype=f32), rnd(bb, c, scale=0.3, dtype=f32),
+                rnd(3, 3, c, o, scale=1.0 / math.sqrt(9 * c)), rnd(o, scale=0.3, dtype=f32),
+                rnd(bb, o, scale=0.3, shift=1.0, dtype=f32), rnd(bb, o, scale=0.3, dtype=f32),
+                rnd(3, 3, o, o, scale=1.0 / math.sqrt(9 * o)), rnd(o, scale=0.3, dtype=f32),
+                adm_groups(c), adm_groups(o), 1e-5]
+        kw = dict(emit_stats=True, up=up)
+        if c2:
+            kw["x2"] = rnd(bb, h, w, c2, scale=0.8, shift=0.2)
+        if proj:
+            kw["skip_w"] = rnd(c, o, scale=1.0 / math.sqrt(c))
+            kw["skip_b"] = rnd(o, scale=0.3, dtype=f32)
+        xin = torch.cat([args[0]] + ([kw["x2"]] if c2 else []), -1).double()
+        kw["stats"] = (xin.sum(dim=(1, 2)).float(), (xin * xin).sum(dim=(1, 2)).float())
+        return args, kw
+
+    lo = res // 2
+    cases = {f"identity, res {r}, chained stats, emit": block(b, r, r, ch, 0, ch)
+             for r in (res, res // 2, res // 4)}
+    cases[f"dual + 1x1 projection ({ch} + {ch} -> {ch}), res {res}, chained stats, "
+          "emit"] = block(b, res, res, ch, ch, ch, proj=True)
+    cases[f"up, identity ({lo}x{lo} -> {res}x{res}), chained stats, emit"] = block(
+        b, lo, lo, ch, 0, ch, up=True)
+    cases["ragged: (1, 7, 19), 128 + 128 -> 128, projection, chained stats, emit"] = block(
+        1, 7, 19, 128, 128, 128, proj=True)
+    return cases
+
+
+def _time_k7bf16(libs, ptxas) -> int:
+    """mc_unet_block_bf16 of every source at phase 15.6's cases, checked
+    against the bf16 plain version and for the same bits on a repeat, then
+    timed on the card's clock; the bf16 two-kernel path beside."""
+    import math
+
+    from m_cedm_tpu_torch.kernels import fused_block as fb
+    from m_cedm_tpu_torch.kernels import fused_norm_conv as fnc
+    from m_cedm_tpu_torch.kernels._timing import device_ms
+
+    def two_kernel_block(*a, x2=None, skip_w=None, skip_b=None, stats=None,
+                         emit_stats=False, up=False):
+        """The per-conv path of one block: K2 conv0 (K3 for an up block)
+        emitting its statistics, then the K2 tail, through the wrappers."""
+        return fb._composition(fnc.gn_silu_conv, fnc.gn_silu_up_conv, *a, x2, skip_w,
+                               skip_b, emit_stats, up, stats=stats, chain=True)
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for name, (args, kw) in k7_bf16_cases(dev, K2_B, K2_RES, K2_CH, seed=0).items():
+        x, x2 = args[0], kw.get("x2")
+        c1, c2, o = x.shape[-1], x2.shape[-1] if x2 is not None else 0, args[3].shape[-1]
+        bb, h, w = x.shape[:3]
+        h, w = (2 * h, 2 * w) if kw["up"] else (h, w)
+        emit = kw["emit_stats"]
+        with torch.no_grad():
+            want = _leaves(fb.fused_unet_block_plain(*args, **kw))
+        tiles = math.ceil(h / fb._TH) * math.ceil(w / fb._TW)
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, device=dev, dtype=dtype)
+
+        t = dict(zip(("x", "g0", "b0", "w0", "bias0", "g1", "b1", "w1", "bias1"), args[:9]),
+                 x2=x2, skip_w=kw.get("skip_w"), skip_b=kw.get("skip_b"),
+                 sums0=kw["stats"][0], sumsq0=kw["stats"][1],
+                 ws=empty(bb, h, w, o, dtype=torch.bfloat16), part_s=empty(bb, tiles, o),
+                 part_ss=empty(bb, tiles, o), sums1=empty(bb, o), sumsq1=empty(bb, o),
+                 out=empty(bb, h, w, o, dtype=torch.bfloat16),
+                 osums=empty(bb, o) if emit else None, osumsq=empty(bb, o) if emit else None)
+        cases[name] = dict(t=t, dims=(bb, h, w, c1, c2, o, args[9], args[10]), up=kw["up"],
+                           plan_dims=(bb, h, w, c1, c2, o, int(kw["up"]),
+                                      int(kw.get("skip_w") is not None)),
+                           want=want, args=args, kw=kw,
+                           two=lambda a=args, k=kw: two_kernel_block(*a, **k))
+
+    def call(lib, c):
+        t = c["t"]
+        p = [None if t[k] is None else t[k].data_ptr() for k in (
+            "x", "x2", "g0", "b0", "sums0", "sumsq0", "w0", "bias0", "g1", "b1", "w1",
+            "bias1", "skip_w", "skip_b", "ws", "part_s", "part_ss", "sums1", "sumsq1",
+            "out", "osums", "osumsq")]
+
+        def fn():
+            rc = lib.mc_unet_block_bf16(*p, *c["dims"], 1e-5, int(c["up"]), stream)
+            if rc:
+                raise RuntimeError(f"launch failed with cudaError {rc}")
+        return fn
+
+    def plan(lib, c):
+        out = (ctypes.c_int * 7)()
+        rc = lib.mc_unet_block_bf16_plan(*c["plan_dims"], out)
+        return dict(zip(("resident0", "resident1", "smem", "blocks_per_sm", "sms", "blocks",
+                         "tile_rows"), list(out))) if rc == 0 else {"error": rc}
+
+    def bf16_err(got, want):
+        err = (got.double() - want.double()).abs()
+        scale = max(float(want.double().abs().max()), 1e-30)
+        return float(err.max()) / scale, float(err.mean()) / scale
+
+    def timer(fn):
+        return device_ms(fn, 10, 5)
+
+    def errors(got, want):
+        """max and mean of the output, max of each statistic, of scale"""
+        rec = dict(zip(("max", "mean"), bf16_err(got[0], want[0])))
+        if len(got) == 3:
+            rec.update(osums_max=bf16_err(got[1], want[1])[0],
+                       osumsq_max=bf16_err(got[2], want[2])[0])
+        return rec
+
+    two = {}
+    for case, c in cases.items():
+        with torch.no_grad():
+            two[f"err {case}"] = errors(_leaves(c["two"]()), c["want"])
+        two[f"ms {case}"] = timer(c["two"])
+        # context: the bf16 function's own distance from the unrounded block
+        # (float64, the same inputs)
+        args64 = [a.double() if torch.is_tensor(a) else a for a in c["args"]]
+        kw64 = {k: v.double() if torch.is_tensor(v) else v for k, v in c["kw"].items()
+                if k != "stats"}
+        with torch.no_grad():
+            two[f"bf16 plain vs float64 {case}"] = errors(
+                c["want"], _leaves(fb.fused_unet_block_plain(*args64, **kw64)))
+    print(json.dumps({"two_kernel_path_bf16": two}), flush=True)
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name] = {case: call(lib, c) for case, c in cases.items()}
+        errs[name] = {}
+        for case, c in cases.items():
+            t = c["t"]
+            outs = ("out", "osums", "osumsq") if t["osums"] is not None else ("out",)
+            calls[name][case]()
+            torch.cuda.synchronize()
+            first = [t[k].clone() for k in outs]
+            calls[name][case]()
+            torch.cuda.synchronize()
+            errs[name][f"err {case}"] = {
+                **errors(first, c["want"]), "plan": plan(lib, c),
+                "same_bits_on_repeat": all(torch.equal(a, t[k]) for a, k in
+                                           zip(first, outs))}
+    _report(libs, ptxas, calls, errs, timer)
     return 0
 
 

@@ -36,8 +36,11 @@ gamma/beta are fp32, the fused kernels take bf16 activations and weights
 with fp32 biases and statistics (their bf16 instances, forward and
 backward), the attention site's norm, qkv and proj run in bf16 with fp32
 accumulation around K4's bf16 kernels, and the output is the out conv's
-bf16. With a bf16 input the megakernel path raises (K7 has no bf16 instance
-yet, ROADMAP.md).
+bf16. The megakernel path takes a bf16 input too: each non-down block is
+one launch of K7's bf16 instance (bf16 activations and conv / skip
+weights, fp32 folded gamma / beta, biases and statistics; a decoder
+block's halves' statistics from K1's bf16 statistics pass where they come
+without).
 
 The cond encoder, dx and self-conditioning inputs are not used by the
 flagship config and raise NotImplementedError (listed in ROADMAP.md).
@@ -275,9 +278,6 @@ class AdmUNet(nn.Module):
         if self.training and cfg.dropout > 0:
             raise NotImplementedError("training with dropout > 0 is not ported "
                                       "yet (see ROADMAP.md)")
-        if self.mega and x.dtype == torch.bfloat16:
-            raise NotImplementedError("the megakernel path (K7, mega=True) in bf16 "
-                                      "is not ported yet (see ROADMAP.md)")
         self.calls += 1
         emb = fourier_positional_embedding(noise_labels, cfg.ch)
         emb = F.silu(self.map_layer0(emb))

@@ -32,8 +32,8 @@ CondEdmTask, and DdimTask and CondDdimTask on it). A train step differentiates
 the fp32 master params through the compute cast in `net_apply`, so every
 gradient passes the bf16 rounding of the transposed cast, as JAX's does; the
 master params, the optimizer state and the EMA stay fp32. The megakernel
-path (mega=True) and the DDPM U-Net in bf16 raise NotImplementedError naming
-ROADMAP.md.
+path (mega=True) serves in bf16 too, on K7's bf16 instance; the DDPM U-Net
+in bf16 raises NotImplementedError naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -119,7 +119,7 @@ class DiffusionTaskBase:
         self.compute_dtype = (torch.bfloat16 if m.get("dtype", "float32")
                               in ("bfloat16", "bf16") else None)
         self._adjust_cond_channels(hparams)
-        # the DDPM U-Net and the megakernel path refuse bf16 in their forward
+        # the DDPM U-Net refuses bf16 in its forward
         self.model, self.model_cfg = build_backbone(hparams, ops, mega=mega)
         self.model.to(self.device).eval()
         self.transform = DataTransform(hparams["data"])

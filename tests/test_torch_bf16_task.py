@@ -29,9 +29,10 @@ interpret mode, and JAX's evals).
             JAX's own 0.1 (tests/test_precision.py);
   cond      CondEdmTask.eval_step (adm_edm_cond_h) in bf16 against JAX's,
             held the same way;
-  refusals  mega=True, the DDPM U-Net, the OFormer and the FNO in bf16
-            raise NotImplementedError naming ROADMAP.md (bf16 training of the
-            ADM tasks is held in tests/test_torch_bf16_train.py).
+  refusals  the DDPM U-Net, the OFormer and the FNO in bf16 raise
+            NotImplementedError naming ROADMAP.md (bf16 training of the ADM
+            tasks is held in tests/test_torch_bf16_train.py; the megakernel
+            path in bf16, mega=True, in tests/test_torch_mega_bf16.py).
 """
 import copy
 import os
@@ -303,24 +304,6 @@ def test_cond_edm_eval_step_matches_jax():
 
 
 # --- refusals -----------------------------------------------------------------
-
-def test_bf16_mega_raises():
-    # the task builds; its first bf16 forward raises in the model
-    task = build_task(hparams(), "cpu", mega=True)
-    state = task.init_state(torch.Generator().manual_seed(0), None)
-    x, t, cond = map(torch.from_numpy, forward_inputs())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        with torch.no_grad():
-            task.net_apply(task._sample_params(state), x, t, cond)
-    # the model itself refuses a bf16 input on its megakernel path
-    from m_cedm_tpu_torch.models.adm_unet import AdmUNet, AdmUNetConfig
-
-    net = AdmUNet(AdmUNetConfig(in_channels=2, out_ch=2, ch=16, ch_mult=(1,),
-                                attn_resolutions=(), resolution=8), mega=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        with torch.no_grad():
-            net(torch.zeros(1, 8, 8, 2, dtype=torch.bfloat16), torch.zeros(1))
-
 
 @pytest.mark.parametrize("model", ["ddpm", "oformer", "fno"])
 def test_other_families_refuse_bf16(model):

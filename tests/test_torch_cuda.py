@@ -1202,6 +1202,62 @@ def _bf16_rnd(g, dev, *shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
 
 
+# The bf16 K7 at K7_CASES' ragged shapes: its output as every bf16 kernel's;
+# its emitted statistics within 4e-5 of scale (two chained convs: h's bf16
+# rounding flips where the two sides' fp32 sums differ in order, and the
+# flips reach the second conv's sums, as on the per-conv path)
+
+
+def _k7_bf16_inputs(case, dev, seed=40):
+    args, groups, kw = _k7_inputs(case, dev, seed)
+    args = [a.bfloat16() if i in (0, 3, 7) else a for i, a in enumerate(args)]
+    kw = {k: (v.bfloat16() if k in ("x2", "skip_w") else v) for k, v in kw.items()}
+    if "stats" in kw:
+        xin = torch.cat([args[0]] + ([kw["x2"]] if "x2" in kw else []), -1).float()
+        xin = xin.reshape(xin.shape[0], -1, xin.shape[-1])
+        kw["stats"] = (xin.sum(1), (xin * xin).sum(1))
+    return args, groups, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_bf16_matches_plain(cuda, case):
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    args, groups, kw = _k7_bf16_inputs(case, cuda)
+    want = tfb.fused_unet_block_plain(*args, *groups, 1e-5, **kw)
+    kernels.reset_launches()
+    got = tfb.fused_unet_block(*args, *groups, 1e-5, **kw)
+    launched = kernels.launches()
+    assert launched["K7 unet_block"] == 1
+    assert launched["K1 channel_stats"] == (0 if "stats" in kw else
+                                            (2 if "x2" in kw else 1))
+    got, want = _leaves(got), _leaves(want)
+    assert got[0].dtype == torch.bfloat16 and len(got) == len(want)
+    _bf16_close(got[0], want[0])
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        err = float((a.double() - w.double()).abs().max())
+        assert err <= 4e-5 * float(w.double().abs().max())
+    again = _leaves(tfb.fused_unet_block(*args, *groups, 1e-5, **kw))
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_k7_bf16_refuses_mixed_dtypes(cuda):
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    args, groups, kw = _k7_bf16_inputs("dual-proj", cuda)
+    with pytest.raises(ValueError, match="must be"):
+        tfb.fused_unet_block(*args[:3], args[3].float(), *args[4:], *groups, **kw)
+    with pytest.raises(ValueError, match="must be"):
+        tfb.fused_unet_block(*args, *groups, **dict(kw, skip_w=kw["skip_w"].float()))
+    with pytest.raises(ValueError, match="must be"):
+        tfb.fused_unet_block(*args[:4], args[4].bfloat16(), *args[5:], *groups, **kw)
+
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [4, 32, 64, 128])
 @pytest.mark.parametrize("chained", [True, False])
