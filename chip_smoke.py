@@ -251,6 +251,31 @@ Phases, each printing JSON lines:
               resumed run: phase 12's key set, every metric finite, the
               checkpoint's params, Adam state and EMA fp32, the launches per
               train step equal to part 2's, seconds
+  17. oformer bf16   the OFormer with trainer.precision bf16: (1) K5's and
+              K6's bf16 instances (bf16 k, v into fp32; bf16 q with the
+              factor rounded to bf16, the output rounded once) through
+              their wrappers at BH = 16 and 64, N = 16,384 and 8,192, and
+              a ragged case (BH 3, N 1,037, D = E = 40), against their bf16
+              plain versions (K5 2e-5 of scale, K6 1e-2 / 1e-4) and
+              float64 (K5 2e-5, K6 one rounding: 1e-2), the same
+              bits on a repeat, each Function's backward against float64
+              autograd with the VJP's roundings (bf16 gradients 1e-2 of
+              scale, ddots 2e-5), kernel, plain and bf16 torch.bmm times,
+              the bf16 bound; (2) OformerTask in bf16 at B = 16, full width
+              and depth, kernel path against the bf16 plain path: an eval
+              (metrics and prediction within 2e-2; launches 6 bf16 K5 and
+              6 bf16 K6, no fp32 one, asserted), three train steps (12 / 24
+              a step asserted; a kernel step from each plain state within
+              2e-2 in loss and gradient norm; params within 2 lr a step;
+              the state fp32), eval and step walls of bf16 and fp32 in
+              turns, one profiled bf16 step; (3) the same for
+              OformerTimePredTask (8,192 + 8,192 tokens); (4)
+              config_oformer_t.yaml with trainer.precision=bf16 through
+              m_cedm_tpu_torch.run (fit, a resume to epoch 2) and
+              eval_model with +model.hparams.dtype=bfloat16 on phase 12's
+              seeded fields: the JAX package's keys, every metric finite,
+              the checkpoint fp32, each step's and eval's launches those
+              of part 2, seconds
 
 Then the per-kernel summary line {"kernels": [...]} (flagship forward
 launches counted in the kernel-path eval of phase 4, backward launches in the
@@ -268,7 +293,9 @@ modes; K7's bf16 instance with its launches in phase 15.7's bf16 mega eval
 (CondEdmTask's of 15.8 beside) and its times and bound from 15.6; then
 the bf16 backward kernels, named with " bf16", their launches
 counted in phase 16's three kernel-path bf16 train steps, their times and
-bounds from phase 16's first part), the nvidia-smi line, and the last line
+bounds from phase 16's first part; K5's and K6's bf16 instances last, their
+launches counted in phase 17.2's eval, a step's and 17.3's beside, their
+times and bounds from 17.1), the nvidia-smi line, and the last line
 names the device. `bound_ms` is the least time the card could take for a kernel's work
 at the timed shape: the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32
@@ -3356,10 +3383,12 @@ TOL_BF16_METRICS = 2e-2
 # fp32 sum's own error
 BF16_ROUNDING = 1.01 * 2.0 ** -8
 BF16_RUNS = 2  # timed evals per path in phase 15, taken in turns
-# the bf16 variants, by the summary line's name, and the wrapper counting them
+# the bf16 variants, by the summary line's name, and the fp32 kernel's name
+# (its source and the TPU kernel it replaces; the wrapper counting both
+# instances, but for K5's and K6's, which count apart: LINEAR_BF16)
 BF16_KERNELS = {f"{name} bf16": name for name in (
     "K1 channel_stats", "K1 gn_silu", "K2 gn_silu_conv", "K2 narrow_conv",
-    "K3 gn_silu_up_conv", "K4 attention")}
+    "K3 gn_silu_up_conv", "K4 attention", "K5 kv_dots", "K6 apply_dots")}
 
 
 def bf16_error(got, want, name: str, stats: bool = False) -> dict:
@@ -3416,7 +3445,8 @@ def phase_bf16_kernels(device, b: int, res: int, ch: int) -> dict:
     """Phase 15.1: every bf16 kernel against its bf16 plain version at the
     flagship's serving shapes, with times, bounds and the bf16 library call
     where one computes the same function; returns per-kernel summaries keyed
-    by BF16_KERNELS' names (the first case of each is its summary case)."""
+    by BF16_KERNELS' names (the first case of each is its summary case), but
+    for K5's and K6's, which phase 17.1 measures."""
     import torch
     import torch.nn.functional as F
 
@@ -4784,6 +4814,430 @@ def phase_bf16_training(device, hparams, params, b: int, fp32_launches: dict):
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the OFormer in bf16. K5's and K6's bf16 instances take bf16 k, v
+# and q, K5 into fp32, K6 with its factor rounded to bf16 and its output
+# rounded once; the OFormer's dense layers, norms and RoPE run in bf16 as the
+# JAX package's flax modules with dtype=bfloat16 do (models/oformer.py).
+# ---------------------------------------------------------------------------
+
+# the bf16 instances, by the summary line's name, and their fp32 wrapper
+LINEAR_BF16 = {"K5 kv_dots bf16": "K5 kv_dots", "K6 apply_dots bf16": "K6 apply_dots"}
+# a ragged case: N not a multiple of a stage or a tile, widths 40 (16-byte
+# copies, columns zero-padded to 48)
+LINEAR_BF16_RAGGED = (3, 1000 + 37, 40)
+# The bf16 OFormer, kernel path against the bf16 plain path: the two paths
+# differ where K6's rounding flips a last bit (and the plain path's autograd
+# rounds its backward elsewhere: it rounds the fp32 ddots to bf16 and keeps
+# kv_dots' cotangent fp32), through six linear attentions a forward. The
+# eval's metrics within 2e-2 relative (a correlation of scale 1), the
+# prediction within 2e-2 of scale, each train step alone (from the plain
+# path's state) within 2e-2 in loss and gradient norm, the params after three
+# steps within 2 lr a step
+TOL_OFORMER_BF16 = 2e-2
+# K5/K6 bf16 outputs against float64 with the roundings the VJP makes: one
+# rounding to bf16 (half an ulp) and the fp32 sum's own error
+TOL_BF16_VS_FLOAT64 = 1e-2
+# The metric keys the JAX package's run.main writes for config_oformer_t.yaml
+# with one epoch (trainer.precision=bf16 or not), written down from one JAX
+# run on tests/test_torch_cli.py's fixtures; that test holds the JAX run and
+# the port's bf16 CLI on the CPU to this set
+OFORMER_METRIC_KEYS = frozenset(
+    {"epoch", "epoch_time_s", "time", "train_loss"}
+    | {f"{split}_{k}" for split in ("val", "test")
+       for k in ("corr", "loss", "mae_u", "mae_u_scaled", "mae_u_un", "pde_loss",
+                 "pde_loss_gt")})
+OFORMER_CLI_CONFIG = "config_oformer_t.yaml"
+
+
+def scaled_vs(got, want, tol: float, name: str) -> float:
+    """max |got - want| over max |want|; raises beyond tol."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if err > tol:
+        raise AssertionError(f"{name}: {err:.3e} of scale, beyond {tol:.0e}")
+    return err
+
+
+def phase_bf16_linear_attention(device, b: int, n: int, width: int) -> dict:
+    """Phase 17.1: K5's and K6's bf16 instances through their wrappers at
+    the OFormer's shapes (BH = B and 4 B; N = n and n / 2, the time
+    prediction's) and one ragged case: each against its bf16 plain version
+    (K5's fp32 output within TOL_KERNEL of scale; K6's bf16 output within
+    TOL_BF16 / TOL_BF16_MEAN) and against float64 (K5 within TOL_KERNEL,
+    K6 with its factor rounded, within TOL_BF16_VS_FLOAT64), the same bits
+    on a repeat, each Function's
+    backward against float64 autograd of the plain forward (the cotangent,
+    or the factor, rounded to bf16 as the VJP rounds it); kernel, plain,
+    bf16 torch.bmm (context: a bf16 output) times by CUDA events, the
+    kernel's also on the card's clock (device_ms), and the bound: bf16
+    bytes at 3.35 TB/s against bf16 products at 989 TFLOP/s. Returns the
+    summaries keyed by LINEAR_BF16's names (BH = B at n), the other cases
+    beside."""
+    import torch
+
+    from m_cedm_tpu_torch.kernels import linear_attention as la
+
+    g = torch.Generator(device=device).manual_seed(SEED + 60)
+    smi = nvidia_smi_line()
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    cases = [(bh, nn, width, f"BH {bh}, N {nn}") for nn in (n, n // 2) for bh in (b, 4 * b)]
+    bh_r, n_r, w_r = LINEAR_BF16_RAGGED
+    cases.append((bh_r, n_r, w_r, "ragged"))
+    results = {}
+    for bh, nn, w, label in cases:
+        q, k, v = (rnd(bh, nn, w) for _ in range(3))
+        with torch.no_grad():
+            dots = la.kv_dots_plain(k, v) / nn
+            dots_bf = dots.to(bf)
+            specs = (
+                ("K5 kv_dots bf16", la.kv_dots, la.kv_dots_plain, (k, v),
+                 lambda: torch.bmm(k.transpose(1, 2), v)),
+                ("K6 apply_dots bf16", la.apply_dots, la.apply_dots_plain, (q, dots),
+                 lambda: torch.bmm(q, dots_bf)),
+            )
+            for name, fn, plain, args, library in specs:
+                want = plain(*args)
+                got = fn(*args)
+                err = (compare(got, want, TOL_KERNEL, f"{name} {label}")
+                       if got.dtype == torch.float32 else bf16_error(got, want, f"{name} {label}"))
+                if not torch.equal(fn(*args), got):
+                    raise AssertionError(f"{name} {label}: another result on a repeat")
+                exact = (torch.bmm(k.double().transpose(1, 2), v.double())
+                         if name.startswith("K5") else torch.bmm(q.double(), dots_bf.double()))
+                err["vs_float64_max_rel_err"] = scaled_vs(
+                    got, exact, TOL_KERNEL if got.dtype == torch.float32 else TOL_BF16_VS_FLOAT64,
+                    f"{name} {label} vs float64")
+                del exact
+                flops = 2.0 * bh * nn * w * w
+                rec = {"phase": "bf16_linear", "nvidia_smi": smi, "kernel": name,
+                       "case": label, "bh": bh, "n": nn, "width": w, **err,
+                       "repeat_bit_for_bit": True, "ms": cuda_ms(lambda: fn(*args)),
+                       "plain_ms": cuda_ms(lambda: plain(*args)),
+                       "library": "torch.bmm (bf16 operands and output)",
+                       "library_ms": cuda_ms(library),
+                       **bound(nbytes(*args, want), 0.0, bf16_flops=flops)}
+                rec["device_ms"] = device_ms(lambda: fn(*args), rec)
+                del got, want
+                rec.update(linear_bf16_backward(name, fn, args, g))
+                emit(rec)
+                if label == cases[0][3]:
+                    results[name] = {**rec, "modes": {}}
+                else:
+                    results[name]["modes"][label] = {k_: rec[k_] for k_ in (
+                        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                        "max_rel_err", "vs_float64_max_rel_err", "backward_max_rel_err",
+                        "backward_ms") if k_ in rec}
+                    for key in ("max_abs_err", "max_rel_err"):
+                        results[name][key] = max(results[name][key], rec[key])
+        del q, k, v, dots, dots_bf
+    torch.cuda.empty_cache()
+    return results
+
+
+def linear_bf16_backward(name, fn, args, g) -> dict:
+    """The Function's backward on bf16 leaves against float64 autograd of
+    the einsum, with the rounding the VJP makes: kv_dots' fp32 cotangent
+    rounded to bf16 (K6's factor), apply_dots' fp32 factor rounded to bf16;
+    bf16 gradients within TOL_BF16_VS_FLOAT64, fp32 ones (apply_dots' ddots)
+    within TOL_KERNEL. Also its time through autograd."""
+    import torch
+
+    with torch.enable_grad():
+        return _linear_bf16_backward(name, fn, args, g)
+
+
+def _linear_bf16_backward(name, fn, args, g) -> dict:
+    import torch
+
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*leaves)
+    if name.startswith("K5"):
+        cot = torch.randn(out.shape, generator=g, device=out.device)
+        eq, a64, c64 = "bnd,bne->bde", [a.double() for a in args], cot.to(torch.bfloat16)
+    else:
+        cot = torch.randn(out.shape, generator=g, device=out.device).to(torch.bfloat16)
+        eq, c64 = "bnd,bde->bne", cot
+        a64 = [args[0].double(), args[1].to(torch.bfloat16).double()]
+    a64 = [a.requires_grad_() for a in a64]
+    want = torch.autograd.grad(torch.einsum(eq, *a64), a64, c64.double())
+    got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    errs = []
+    for i, (a, w, leaf) in enumerate(zip(got, want, leaves, strict=True)):
+        if a.dtype != leaf.dtype:
+            raise AssertionError(f"{name} gradient {i}: {a.dtype}, its input {leaf.dtype}")
+        tol = TOL_BF16_VS_FLOAT64 if a.dtype == torch.bfloat16 else TOL_KERNEL
+        errs.append(scaled_vs(a, w, tol, f"{name} gradient {i} vs float64"))
+    ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True),
+                 runs=5, per_run=5)
+    return {"backward_max_rel_err": max(errs), "backward_vs": "float64 autograd",
+            "backward_ms": ms}
+
+
+def check_bf16_launches(launches: dict, k5: int, k6: int, what: str) -> None:
+    got = {k: launches[k] for k in (*LINEAR_BF16, *LINEAR_BF16.values())}
+    want = {"K5 kv_dots bf16": k5, "K6 apply_dots bf16": k6, "K5 kv_dots": 0,
+            "K6 apply_dots": 0}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def hold_metrics(got: dict, want: dict, tol: float, what: str) -> dict:
+    """Relative difference of each metric (a correlation's of scale 1)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    out = {}
+    for k, v in want.items():
+        scale = max(1.0, abs(v)) if k.endswith("corr") else abs(v)
+        if not math.isfinite(got[k]) or abs(got[k] - v) > tol * scale:
+            raise AssertionError(f"{what} {k}: kernel path {got[k]} vs plain path {v}")
+        out[k] = abs(got[k] - v) / scale
+    return out
+
+
+def phase_oformer_bf16(device, b: int, hparams=OFORMER_HPARAMS, target=OFORMER_TARGET,
+                       phase: str = "oformer_bf16", seed: int = SEED + 70) -> dict:
+    """Phases 17.2 (OformerTask) and 17.3 (OformerTimePredTask): the bf16
+    task at full width and depth, kernel path against the bf16 plain path
+    (PLAIN_OPS): one eval (launches asserted: 6 bf16 K5 and 6 bf16 K6, no
+    fp32 one), then the bf16 and the fp32 kernel-path evals timed in turns;
+    three train steps on both paths (12 / 24 bf16 launches a step
+    asserted), a kernel-path step from each of the plain path's states
+    held to TOL_OFORMER_BF16, the params after three steps within 2 lr a
+    step, the master params and AdamW state fp32; the bf16 and fp32 steps
+    timed in turns; one profiled bf16 step. Returns the eval's and a step's
+    launches."""
+    import torch
+
+    from m_cedm_tpu_torch import kernels
+
+    stats, batch, params, constants = oformer_setup(device, b, seed, hparams, target)
+    # the bf16 task on both paths, and the fp32 task's kernel path (timed beside)
+    ktask, ptask = oformer_tasks(device, {**hparams, "dtype": "bfloat16"}, target)
+    k32 = oformer_tasks(device, hparams, target)[0]
+    kstate, pstate, state32 = (t.init_state(None, stats, params=params, constants=constants)
+                               for t in (ktask, ptask, k32))
+
+    def run(task, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, grid = task.eval_step(state, batch, split="val")
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in metrics.items()}, grid, time.perf_counter() - t0
+
+    kernels.reset_launches()
+    metrics, grid, _ = run(ktask, kstate)
+    eval_launches = kernels.launches()
+    check_bf16_launches(eval_launches, OFORMER_SITES, OFORMER_SITES, f"one {phase} eval")
+    want = (b, int(batch[-1][0]), hparams["encoder"]["res"],
+            hparams["decoder"]["out_channels"])
+    if tuple(grid.shape) != want or grid.dtype != torch.float32:
+        raise AssertionError(f"bf16 OFormer prediction {tuple(grid.shape)} {grid.dtype}")
+    pmetrics, pgrid, _ = run(ptask, pstate)
+    metric_err = hold_metrics(metrics, pmetrics, TOL_OFORMER_BF16, f"{phase} eval")
+    pred_err = scaled_vs(grid, pgrid, TOL_OFORMER_BF16, f"{phase} prediction")
+    m32, grid32, _ = run(k32, state32)
+    walls, walls32 = [], []
+    for _ in range(EVAL_RUNS):  # in turns: bf16, fp32, ...
+        walls.append(run(ktask, kstate)[2])
+        walls32.append(run(k32, state32)[2])
+
+    kernels.reset_launches()
+    kstates, kmetrics = [kstate], []
+    for i in range(TRAIN_STEPS):
+        st, m, _ = train_steps(ktask, kstates[-1], batch, device, i, 1)
+        kstates.append(st)
+        kmetrics += m
+    step_launches = kernels.launches()
+    check_bf16_launches(step_launches, 2 * OFORMER_SITES * TRAIN_STEPS,
+                        4 * OFORMER_SITES * TRAIN_STEPS, f"{TRAIN_STEPS} {phase} train steps")
+    pstates, pmetrics_t = [pstate], []
+    for i in range(TRAIN_STEPS):
+        st, m, _ = train_steps(ptask, pstates[-1], batch, device, i, 1)
+        pstates.append(st)
+        pmetrics_t += m
+    alone = [train_steps(ktask, pstates[i], batch, device, i, 1)[1][0]
+             for i in range(TRAIN_STEPS)]
+    step_err = []
+    for i, (km, pm) in enumerate(zip(alone, pmetrics_t, strict=True)):
+        step_err.append({})
+        for key in ("train_loss", "grad_norm"):
+            rel = abs(km[key] - pm[key]) / abs(pm[key])
+            if not math.isfinite(km[key]) or rel > TOL_OFORMER_BF16:
+                raise AssertionError(f"{phase} step {i} {key}: kernel {km[key]} vs plain "
+                                     f"{pm[key]}")
+            step_err[-1][key] = rel
+    lr = hparams["lr"]
+    kfinal, pfinal = kstates[-1], pstates[-1]
+    diff = max(float((kfinal.params[k] - pfinal.params[k]).abs().max()) for k in kfinal.params)
+    if diff > 2 * lr * TRAIN_STEPS:
+        raise AssertionError(f"{phase} params after {TRAIN_STEPS} steps differ by {diff}")
+    dtypes = {t.dtype for t in kfinal.params.values()} | {
+        t.dtype for m_ in ("mu", "nu") for t in kfinal.opt_state[m_].values()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"{phase}: the bf16 state holds {dtypes}")
+    kw, k32w = [], []
+    s32 = state32
+    for _ in range(2):  # in turns: bf16, fp32, bf16, fp32 (each 1 warm-up + 4 timed)
+        kw += train_steps(ktask, kfinal, batch, device, TRAIN_STEPS, 5)[2][1:]
+        s32, _, w32 = train_steps(k32, s32, batch, device, TRAIN_STEPS, 5)
+        k32w += w32[1:]
+    ms, ms32 = float(np.median(kw)) * 1e3, float(np.median(k32w)) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    train_steps(ktask, kfinal, batch, device, 50, 1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(ktask, kfinal, batch, device, ms / 1e3)
+    emit({"phase": phase, "nvidia_smi": nvidia_smi_line(), "batch": b,
+          "tokens": int(batch[0].shape[2]), "prop_tokens": int(batch[1].shape[2]),
+          "metrics": metrics, "plain_metrics": pmetrics, "fp32_metrics": m32,
+          "metrics_rel_err": metric_err, "prediction_rel_err": pred_err,
+          "prediction_vs_fp32_rel_err": scaled_vs(grid, grid32, 1.0, ""),
+          "tol": TOL_OFORMER_BF16,
+          "eval_launches": {k: eval_launches[k] for k in LINEAR_BF16},
+          "eval_wall_s": walls, "fp32_eval_wall_s": walls32,
+          "ms_per_eval": float(np.median(walls)) * 1e3,
+          "fp32_ms_per_eval": float(np.median(walls32)) * 1e3,
+          "train_loss": [m["train_loss"] for m in kmetrics],
+          "plain_train_loss": [m["train_loss"] for m in pmetrics_t],
+          "grad_norm": [m["grad_norm"] for m in kmetrics],
+          "plain_grad_norm": [m["grad_norm"] for m in pmetrics_t],
+          "per_step_rel_err": step_err, "params_max_abs_diff": diff,
+          "tol_params": 2 * lr * TRAIN_STEPS,
+          "launches_per_step": {k: step_launches[k] / TRAIN_STEPS for k in LINEAR_BF16},
+          "ms_per_step": ms, "fp32_ms_per_step": ms32,
+          "step_ms": [w * 1e3 for w in kw], "fp32_step_ms": [w * 1e3 for w in k32w],
+          "peak_memory_gib": peak / 2 ** 30, "profile": prof})
+    return {"eval": {k: eval_launches[k] for k in LINEAR_BF16},
+            "step": {k: step_launches[k] // TRAIN_STEPS for k in LINEAR_BF16}}
+
+
+def phase_oformer_bf16_cli(device, per_step: dict, per_eval: dict) -> dict:
+    """Phase 17.4: config_oformer_t.yaml with trainer.precision=bf16 through
+    m_cedm_tpu_torch.run at full width and depth on phase 12's seeded fields
+    (64 train and 16 test trajectories at res 128, in-memory stores where
+    h5py is missing; system=swe_per): one epoch of 4 steps at batch 16 with
+    validation and the test, a resume to epoch 2, then
+    m_cedm_tpu_torch.eval_model on the resumed run with
+    +model.hparams.dtype=bfloat16. Every metric finite, the keys the JAX
+    package's (OFORMER_METRIC_KEYS), the resumed run trains epoch 1 only,
+    the checkpoint's params and AdamW state fp32, each train step's and
+    eval's launches those of 17.2 (bf16 K5 / K6 only); seconds, ms per
+    step."""
+    import importlib.util
+    import os
+    import shutil
+
+    import torch
+
+    from m_cedm_tpu_torch import eval_model, run
+    from m_cedm_tpu_torch.data import datamodule as dm_module
+    from m_cedm_tpu_torch.data.h5_io import write_store
+    from m_cedm_tpu_torch.tasks.oformer import OformerTask
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("h5py", "matplotlib", "wandb")}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "oformer_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    sub = os.path.join(root, "1D_swp_128_per")
+    os.makedirs(sub)
+    stores = cli_stores(OFORMER_HPARAMS["encoder"]["res"])
+    paths = {split: os.path.join(sub, f"1D_swp_128_per_{split}.h5") for split in stores}
+    saved_read, saved_wandb = dm_module.read_store, sys.modules.get("wandb")
+    if have["h5py"]:
+        for split, st in stores.items():
+            write_store(paths[split], st.inputs, st.targets, st.x, st.t)
+    else:
+        dm_module.read_store = {paths[split]: st for split, st in stores.items()}.__getitem__
+    sys.modules["wandb"] = None
+    job = ["--config-name", OFORMER_CLI_CONFIG, "system=swe_per", f"dataroot={root}",
+           "trainer.precision=bf16", "callbacks=callbacks_save_model"]
+    run_dir, run2_dir, eval_dir = (os.path.join(root, d) for d in ("run", "run2", "eval"))
+    secs = {}
+    try:
+        with CliProbe(OformerTask) as probe:
+            for name, fn, extra in (
+                    ("fit", run.main, ["trainer.max_epochs=1", f"hydra.run.dir={run_dir}"]),
+                    ("resume", run.main, [f"ckpt_path={run_dir}", "trainer.max_epochs=2",
+                                          f"hydra.run.dir={run2_dir}"]),
+                    ("eval_model", eval_model.main, [f"ckpt_path={run2_dir}",
+                                                     "+model.hparams.dtype=bfloat16",
+                                                     f"hydra.run.dir={eval_dir}"])):
+                t0 = time.perf_counter()
+                fn(job + extra)
+                secs[name] = time.perf_counter() - t0
+    finally:
+        dm_module.read_store = saved_read
+        if saved_wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+    recs = {d: read_metrics(p) for d, p in (("run", run_dir), ("run2", run2_dir),
+                                              ("eval", eval_dir))}
+    for d in ("run", "run2"):
+        keys = set().union(*map(set, recs[d]))
+        if keys != OFORMER_METRIC_KEYS:
+            raise AssertionError(f"bf16 OFormer {d} metric keys "
+                                 f"{sorted(keys ^ OFORMER_METRIC_KEYS)} differ")
+    trained = sorted(r["epoch"] for r in recs["run2"] if "train_loss" in r)
+    if trained != [1]:
+        raise AssertionError(f"the bf16 OFormer resume trained epochs {trained}")
+    run2_test = [r for r in recs["run2"] if "test_mae_u" in r][-1]
+    (eval_test,) = recs["eval"]
+    if ({k for k in run2_test if k.startswith("test_")}
+            != {k for k in eval_test if k.startswith("test_")}):
+        raise AssertionError(f"bf16 OFormer eval_model keys {sorted(eval_test)}")
+    ckpt_root = os.path.join(run2_dir, "checkpoints")
+    last = max(os.listdir(ckpt_root), key=int)
+    saved = torch.load(os.path.join(ckpt_root, last, "state.pt"), map_location="cpu",
+                       weights_only=False)
+    dtypes = {t.dtype for t in saved["params"].values()}
+    dtypes |= {t.dtype for m_ in ("mu", "nu") for t in saved["opt_state"][m_].values()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"the bf16 OFormer checkpoint holds {dtypes}")
+    zero = {"K5 kv_dots": 0, "K6 apply_dots": 0}
+    for what, recs_, want in (("train step", probe.steps, {**per_step, **zero}),
+                              ("eval", probe.evals, {**per_eval, **zero})):
+        for i, rec in enumerate(recs_):
+            got = {k: rec["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"bf16 OFormer CLI {what} {i}: launches {got}, "
+                                     f"expected {want}")
+    if len(probe.steps) != 8:
+        raise AssertionError(f"{len(probe.steps)} bf16 OFormer CLI train steps, "
+                             f"expected 4 + 4")
+    step_ms = [r["s"] * 1e3 for r in probe.steps]
+    emit({"phase": "oformer_bf16_cli", "config": OFORMER_CLI_CONFIG,
+          "nvidia_smi": nvidia_smi_line(), "override": "trainer.precision=bf16",
+          "seconds": secs, "data": "h5" if have["h5py"] else "in_memory",
+          "train_step_ms": step_ms, "checkpoint_dtypes": sorted(map(str, dtypes)),
+          "test_metrics": {k: run2_test[k] for k in sorted(run2_test) if k.startswith("test_")},
+          "eval_model_metrics": eval_test, "launches_per_step": per_step,
+          "launches_per_eval": per_eval})
+    shutil.rmtree(root)
+    return {"seconds": secs}
+
+
+def phase_oformer_bf16_all(device, b: int) -> tuple:
+    """Phase 17: the OFormer in bf16 on the card (parts 1-4). Returns the
+    bf16 K5 / K6 summaries and their launches in 17.2's eval and step and
+    17.3's."""
+    enc = OFORMER_HPARAMS["encoder"]
+    results = phase_bf16_linear_attention(device, b, enc["res"] ** 2, enc["in_emb_dim"])
+    recon = phase_oformer_bf16(device, b)
+    timepred = phase_oformer_bf16(device, b, TIMEPRED_HPARAMS, TIMEPRED_TARGET,
+                                  "timepred_bf16", SEED + 71)
+    phase_oformer_bf16_cli(device, recon["step"], recon["eval"])
+    return results, recon, timepred
+
+
 def main() -> int:
     import torch
 
@@ -4830,6 +5284,9 @@ def main() -> int:
         device, hparams, params, BATCH, eval_launches, cli_run2, cli_eval, mega_launches)
     bwd16_results, bwd16_launches = phase_bf16_training(device, hparams, params, BATCH,
                                                         train_launches)
+    linear16, oformer16, timepred16 = phase_oformer_bf16_all(device, BATCH)
+    bf16_results.update(linear16)
+    bf16_launches = {**bf16_launches, **oformer16["eval"]}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = results[name]
@@ -4872,17 +5329,25 @@ def main() -> int:
     for name, fp32_name in BF16_KERNELS.items():
         rec = bf16_results[name]
         source, replaces = KERNEL_INFO[fp32_name]
-        summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "dtype": "bfloat16",
-                        "launches": bf16_launches[fp32_name],
-                        "max_abs_err": rec["max_abs_err"],
-                        "max_rel_err": rec["max_rel_err"],
-                        "mean_rel_err": rec["mean_rel_err"], "tol": rec["tol"],
-                        "tol_mean": rec["tol_mean"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "modes": rec["modes"],
-                        **{k: rec[k] for k in K4_BF16_KEYS if k in rec}})
+        # K5's and K6's bf16 instances count apart from their fp32 ones
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "dtype": "bfloat16",
+               "launches": bf16_launches[name if name in LINEAR_BF16 else fp32_name],
+               "max_abs_err": rec["max_abs_err"],
+               "max_rel_err": rec["max_rel_err"],
+               "mean_rel_err": rec.get("mean_rel_err"), "tol": rec["tol"],
+               "tol_mean": rec.get("tol_mean"), "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+               "modes": rec["modes"],
+               **{k: rec[k] for k in K4_BF16_KEYS if k in rec}}
+        if name in LINEAR_BF16:
+            row.update(launches_per_train_step=oformer16["step"][name],
+                       launches_timepred_eval=timepred16["eval"][name],
+                       launches_timepred_step=timepred16["step"][name],
+                       backward_max_rel_err=rec["backward_max_rel_err"],
+                       backward_ms=rec["backward_ms"], device_ms=rec["device_ms"])
+        summary.append(row)
     rec = bf16_results[MEGA_BF16]
     source, replaces = KERNEL_INFO["K7 unet_block"]
     summary.append({"name": MEGA_BF16, "route": "cuda", "source": source,

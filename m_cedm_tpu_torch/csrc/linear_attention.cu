@@ -1,6 +1,6 @@
 // K5 kv_dots and K6 apply_dots: the two products of the OFormer's Galerkin
-// linear attention, out = q (k^T v) / n, on (BH, N, D) operands, fp32, with
-// any N and any D, E up to 128.
+// linear attention, out = q (k^T v) / n, on (BH, N, D) operands, fp32 or
+// bf16 (below), with any N and any D, E up to 128.
 //
 //   K5 kv_dots    (BH, N, D) x (BH, N, E) -> (BH, D, E) = sum_n k_n^T v_n
 //                 replaces m_cedm_tpu/pallas/linear_attention.py::_kv_kernel
@@ -78,6 +78,34 @@
 // are zero-filled and not stored. Shared memory: 2 x 128 x 136 + 2 x 64 x 132 floats = 202 KB, one
 // block per SM; a head-batch gets the SM count over BH blocks (8 at BH = 16,
 // 2 at BH = 64), at most one per tile.
+//
+// The bf16 instances (the OFormer with trainer.precision bf16; the Pallas
+// kernels on bf16 operands): every product one bf16 mma.sync.m16n8k16 with
+// fp32 accumulation. A bf16 x bf16 product is exact in fp32, so no operand
+// is split.
+// K5 bf16 (kv_dots_partial_bf16_kernel + kv_dots_reduce_kernel): bf16 k and
+// v into fp32 partials and an fp32 result, with the fp32 kernel's split of N,
+// warp tiles and fixed-order reduce (the same bits on a repeat). A = k^T
+// and B = v both come from [n][row] stages by ldmatrix .trans; rows of 136
+// bf16 (272 bytes, 4 words mod 32) keep each ldmatrix phase on 32 banks. A
+// stage holds 64 tokens of k and of v (4 k16-steps, summed on the tensor
+// cores into a zeroed partial, then one fp32 add: the chain kKvTempSteps
+// keeps short for the fp32 kernel); 16-byte copies of 8 bf16 when the width
+// is a multiple of 8 and the base 16-byte aligned, else element copies; a
+// three-stage cp.async ring (104 KB), one block of 16 warps an SM. Bound:
+// bytes, 134 MB at BH 16, N 16,384: 0.040 ms at 3.35 TB/s against 0.0087
+// ms for its 8.6 GFLOP at 989 TFLOP/s; 0.160 ms at BH 64.
+// K6 bf16 (apply_dots_bf16_kernel<F>): bf16 q, the (D, E) factor read as F
+// (fp32, or bf16) and rounded to bf16 to nearest even as it is loaded, once
+// per persistent block, held as bf16 rows of 136; q through a three-stage
+// cp.async ring of 64-row tiles, A fragments by ldmatrix, B by ldmatrix
+// .trans; each k16-step into a zeroed partial, then an fp32 add; the output
+// rounded once to bf16 into the warp's own 32 x 32 block of a shared stage,
+// then stored 16 bytes a lane (element by element where E is not a multiple
+// of 8). The warps, tiles and persistent grid are the fp32 kernel's;
+// shared memory 2 x (128 + 4 x 64) x 136 = 104 KB. Bound: bytes, q read
+// and the output written, 134 MB at BH 16: 0.040 ms (0.160 at BH 64).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,6 +129,15 @@ constexpr int kRowGroups = kRowsQ / (16 * kMTiles);  // warps along a tile's row
 constexpr int kApplyThreads = 32 * kRowGroups * 4;   // times four column quarters of 32
 constexpr int kQStage = kRowsQ * kQS;   // floats of one q stage
 constexpr int kTempSteps = 1;           // k-steps summed on the tensor cores per fp32 add
+
+// the bf16 instances (K5 and K6 on bf16 operands)
+constexpr int kBS = kW + 8;             // bf16 row stride of every stage: 272 bytes, 4 words mod 32
+constexpr int kKvBf16Stages = 3;        // K5's cp.async ring
+constexpr int kKvBf16Stage = 2 * kKvRows * kBS;  // bf16 elements of one stage: k, then v
+constexpr int kKvBf16TempSteps = 4;     // k16-steps on the tensor cores per fp32 add (a stage)
+constexpr int kApplyBf16Stages = 3;     // K6's cp.async ring
+constexpr int kQBf16Stage = kRowsQ * kBS;  // bf16 elements of one q stage
+constexpr int kApplyBf16TempSteps = 1;  // k16-steps on the tensor cores per fp32 add
 
 // ---------------------------------------------------------------------------
 // 3xTF32 on mma.sync and cp.async (as in csrc/fused_attention.cu)
@@ -141,7 +178,7 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
@@ -492,6 +529,328 @@ apply_dots_kernel(const float* __restrict__ q, const float* __restrict__ dots,
   cp_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 instances: bf16 operands on mma.sync.m16n8k16, fp32 accumulators
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices; lane l gives the row address of matrix l / 8,
+// row l % 8. Without .trans lane 4g + t receives row g, columns 2t, 2t + 1
+// of each; with .trans, column g of rows 2t, 2t + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c += a b: A 16 x 16 (a0 rows g, columns 2t..; a1 rows g + 8; a2, a3 the
+// same at columns + 8), B 16 x 8 (b0 rows 2t, 2t + 1 of column g; b1 rows
+// + 8), C as in the TF32 product
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ bf16 to_bf16(float x) { return __float2bfloat16_rn(x); }
+__device__ __forceinline__ bf16 to_bf16(bf16 x) { return x; }
+
+// rows r0 .. r0 + rows - 1 of an (N, width) bf16 matrix into shared rows of
+// kBS elements, columns up to cols (width rounded up to 16); zero past n1
+// and past width (no bytes read). vec: 16-byte copies (width % 8 == 0 and a
+// 16-byte aligned base), else element by element, synchronously.
+template <int kThreads>
+__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src, int r0, int rows,
+                                               int n1, int width, int cols, bool vec) {
+  if (vec) {
+    const int c8 = cols / 8;
+    for (int idx = threadIdx.x; idx < rows * c8; idx += kThreads) {
+      const int r = idx / c8, c = 8 * (idx % c8);
+      const bool valid = r0 + r < n1 && c < width;
+      cp_async16(dst + r * kBS + c, valid ? src + (size_t)(r0 + r) * width + c : src, valid);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
+      const int r = idx / cols, c = idx % cols;
+      const bool valid = r0 + r < n1 && c < width;
+      dst[r * kBS + c] = valid ? src[(size_t)(r0 + r) * width + c] : to_bf16(0.f);
+    }
+  }
+}
+
+// K5 bf16: one block sums k_n^T v_n over its split's rows of head-batch
+// blockIdx.y into part[bh, s] (or out, with one split), as
+// kv_dots_partial_kernel does, each product one bf16 mma.
+__global__ void __launch_bounds__(kKvThreads, 1)
+kv_dots_partial_bf16_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
+                            float* __restrict__ part, int N, int D, int E,
+                            int rows_per_split, int vec_k, int vec_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int bh = blockIdx.y, s = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wd = warp & 3, we = warp >> 2;  // rows 32 wd .., columns 32 we ..
+  const bf16* kb = k + (size_t)bh * N * D;
+  const bf16* vb = v + (size_t)bh * N * E;
+  const int n0 = s * rows_per_split, n1 = min(N, n0 + rows_per_split);
+  const int dq = (D + 15) & ~15, eq = (E + 15) & ~15;
+  // the warp's m16 tiles that start below D, and its pairs of n8 tiles below
+  // E (warp-uniform)
+  const int mts = min(2, max(0, (D - 32 * wd + 15) / 16));
+  const int nps = min(2, max(0, (E - 32 * we + 15) / 16));
+  const int stages = n1 > n0 ? (n1 - n0 + kKvRows - 1) / kKvRows : 0;
+  // this lane's ldmatrix row: token (lane & 7) + 8 (lane >> 4) of a k-step
+  // and column 8 ((lane >> 3) & 1) for A = k^T (matrices: d 0-7 / 8-15,
+  // then tokens 8-15); token (lane & 7) + 8 ((lane >> 3) & 1) and column
+  // 8 (lane >> 4) for B = v (matrices: tokens 0-7 / 8-15, then e + 8)
+  const int a_off = ((lane & 7) + 8 * (lane >> 4)) * kBS + 32 * wd + 8 * ((lane >> 3) & 1);
+  const int b_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kBS + 32 * we + 8 * (lane >> 4);
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  auto load = [&](int i) {
+    bf16* st = smem + (i % kKvBf16Stages) * kKvBf16Stage;
+    const int c0 = n0 + i * kKvRows;
+    load_rows_bf16<kKvThreads>(st, kb, c0, kKvRows, n1, D, dq, vec_k);
+    load_rows_bf16<kKvThreads>(st + kKvRows * kBS, vb, c0, kKvRows, n1, E, eq, vec_v);
+  };
+#pragma unroll
+  for (int i = 0; i < kKvBf16Stages - 1; ++i) {
+    if (i < stages) load(i);
+    cp_commit();
+  }
+  for (int it = 0; it < stages; ++it) {
+    if (it + kKvBf16Stages - 1 < stages) load(it + kKvBf16Stages - 1);
+    cp_commit();
+    cp_wait<kKvBf16Stages - 1>();
+    __syncthreads();
+    if (mts > 0 && nps > 0) {  // warp-uniform
+      const bf16* sk = smem + (it % kKvBf16Stages) * kKvBf16Stage;
+      const bf16* sv = sk + kKvRows * kBS;
+      const int ksteps = (min(kKvRows, n1 - n0 - it * kKvRows) + 15) / 16;
+      for (int k0 = 0; k0 < ksteps; k0 += kKvBf16TempSteps) {
+        // kKvBf16TempSteps k-steps into a zeroed partial, then one fp32 add
+        float pt[2][4][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pt[m][j][e] = 0.f;
+#pragma unroll
+        for (int ss = 0; ss < kKvBf16TempSteps; ++ss) {
+          if (k0 + ss >= ksteps) break;
+          const int r = 16 * (k0 + ss) * kBS;  // the k-step's first token
+          uint32_t a[2][4], b[2][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            if (m < mts) ldsm_x4_trans(a[m], sk + r + a_off + 16 * m);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            if (p < nps) ldsm_x4_trans(b[p], sv + r + b_off + 16 * p);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (m < mts && j / 2 < nps)
+                mma_bf16(pt[m][j], a[m], b[j / 2][2 * (j & 1)], b[j / 2][2 * (j & 1) + 1]);
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][j][e] += pt[m][j][e];
+      }
+    }
+    __syncthreads();  // the stage is read: a later copy may overwrite it
+  }
+  cp_wait<0>();
+
+  // C fragment: (d = g, e = 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+  float* out = part + ((size_t)bh * gridDim.x + s) * D * E;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = 32 * wd + 16 * m + 8 * h + g;
+      if (m >= mts || d >= D) continue;
+      float* row = out + (size_t)d * E;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * we + 8 * j + 2 * t;
+        if (j / 2 >= nps || c >= E) continue;
+        const float v0 = acc[m][j][2 * h], v1 = acc[m][j][2 * h + 1];
+        if (E % 2 == 0) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+        } else {
+          row[c] = v0;
+          if (c + 1 < E) row[c + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// K6 bf16: persistent blocks walking the 64-row tiles of one head-batch, as
+// apply_dots_kernel does; the factor (fp32 or bf16, F) rounded to bf16 as
+// it is loaded, once a block, and each product one bf16 mma. The output is
+// rounded once to bf16, staged in shared memory by the warp that owns it
+// and stored 16 bytes a lane (vec_o), else element by element.
+template <typename F>
+__global__ void __launch_bounds__(kApplyThreads, 1)
+apply_dots_bf16_kernel(const bf16* __restrict__ q, const F* __restrict__ dots,
+                       bf16* __restrict__ o, int N, int D, int E, int vec_q, int vec_o) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dp = (D + 15) & ~15, ep = (E + 15) & ~15;
+  bf16* fac = reinterpret_cast<bf16*>(smem_raw);      // (dp, kBS): the factor
+  bf16* sq = fac + dp * kBS;                          // [stage][kRowsQ][kBS]
+  bf16* so = sq + kApplyBf16Stages * kQBf16Stage;     // [kRowsQ][kBS]: output
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp % kRowGroups, cq = warp / kRowGroups;  // row group, column quarter
+  const int ntiles = (N + kRowsQ - 1) / kRowsQ;
+  const int mine = ntiles > (int)blockIdx.x
+                       ? (ntiles - (int)blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const bf16* qb = q + (size_t)bh * N * D;
+  bf16* ob = o + (size_t)bh * N * E;
+  // pairs of n8 tiles of this warp's quarter that hold columns below E
+  const int nps = min(2, max(0, (ep - 32 * cq) / 16));
+  // this lane's ldmatrix rows: A = q (matrices: rows 0-7 / 8-15, then
+  // columns + 8), B = the factor (rows d 0-7 / 8-15, then columns e + 8)
+  const int a_off = (32 * rg + (lane & 7) + 8 * ((lane >> 3) & 1)) * kBS + 8 * (lane >> 4);
+  const int b_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kBS + 32 * cq + 8 * (lane >> 4);
+
+  auto load = [&](int i) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    load_rows_bf16<kApplyThreads>(sq + (i % kApplyBf16Stages) * kQBf16Stage, qb,
+                                  tile * kRowsQ, kRowsQ, N, D, dp, vec_q);
+  };
+#pragma unroll
+  for (int i = 0; i < kApplyBf16Stages - 1; ++i) {
+    if (i < mine) load(i);
+    cp_commit();
+  }
+
+  // the factor, rounded to bf16 once per block; zero past D and E
+  const F* db = dots + (size_t)bh * D * E;
+  for (int idx = threadIdx.x; idx < dp * ep; idx += kApplyThreads) {
+    const int d = idx / ep, e = idx % ep;
+    fac[d * kBS + e] = d < D && e < E ? to_bf16(db[d * E + e]) : to_bf16(0.f);
+  }
+
+  for (int it = 0; it < mine; ++it) {
+    if (it + kApplyBf16Stages - 1 < mine) load(it + kApplyBf16Stages - 1);
+    cp_commit();
+    cp_wait<kApplyBf16Stages - 1>();
+    __syncthreads();
+    const int tile = blockIdx.x + it * gridDim.x;
+    if (nps > 0) {  // warp-uniform
+      const bf16* qs = sq + (it % kApplyBf16Stages) * kQBf16Stage;
+      float acc[kMTiles][4][4];
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+      for (int k0 = 0; k0 < dp; k0 += 16 * kApplyBf16TempSteps) {
+        // kApplyBf16TempSteps k-steps into a zeroed partial, then one fp32
+        // add into acc
+        float part[kMTiles][4][4];
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[m][j][e] = 0.f;
+#pragma unroll
+        for (int ss = 0; ss < kApplyBf16TempSteps; ++ss) {
+          const int kk = k0 + 16 * ss;
+          if (kk >= dp) break;
+          uint32_t a[kMTiles][4], b[2][4];
+#pragma unroll
+          for (int m = 0; m < kMTiles; ++m) ldsm_x4(a[m], qs + a_off + 16 * m * kBS + kk);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            if (p < nps) ldsm_x4_trans(b[p], fac + kk * kBS + b_off + 16 * p);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < kMTiles; ++m)
+              if (j / 2 < nps)
+                mma_bf16(part[m][j], a[m], b[j / 2][2 * (j & 1)], b[j / 2][2 * (j & 1) + 1]);
+        }
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+      }
+      // C fragment (g, 2t), (g, 2t + 1), (g + 8, ...), rounded once to bf16
+      // into the warp's own 32 x 32 block of the output stage
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j / 2 < nps) {
+              const int r = 16 * kMTiles * rg + 16 * m + 8 * h + g;
+              *reinterpret_cast<__nv_bfloat162*>(so + r * kBS + 32 * cq + 8 * j + 2 * t) =
+                  __floats2bfloat162_rn(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+            }
+      __syncwarp();
+      const int row0 = tile * kRowsQ + 16 * kMTiles * rg;
+      if (vec_o) {
+        // 32 rows x 4 chunks of 8 columns: a 16-byte store per chunk
+#pragma unroll
+        for (int i = lane; i < 16 * kMTiles * 4; i += 32) {
+          const int r = i / 4, c = 32 * cq + 8 * (i % 4);
+          if (row0 + r < N && c < E)
+            *reinterpret_cast<int4*>(ob + (size_t)(row0 + r) * E + c) =
+                *reinterpret_cast<const int4*>(so + (16 * kMTiles * rg + r) * kBS + c);
+        }
+      } else {
+        for (int i = lane; i < 16 * kMTiles * 32; i += 32) {
+          const int r = i / 32, c = 32 * cq + i % 32;
+          if (row0 + r < N && c < E)
+            ob[(size_t)(row0 + r) * E + c] = so[(16 * kMTiles * rg + r) * kBS + c];
+        }
+      }
+    }
+    __syncthreads();  // the stages are read: later copies may overwrite them
+  }
+  cp_wait<0>();
+}
+
+size_t kv_bf16_smem() { return (size_t)kKvBf16Stages * kKvBf16Stage * sizeof(bf16); }
+
+size_t apply_bf16_smem(int d) {
+  const int dp = (d + 15) & ~15;
+  return (size_t)(dp * kBS + (kApplyBf16Stages + 1) * kQBf16Stage) * sizeof(bf16);
+}
+
 size_t apply_smem(int d) {
   const int dp = (d + 7) & ~7;
   return (size_t)(2 * dp * kFS + 2 * kQStage) * sizeof(float);
@@ -524,6 +883,69 @@ int mc_kv_dots(const float* k, const float* v, float* out, float* part, int bh,
   const int de = d * e;
   kv_dots_reduce_kernel<<<dim3((de + 255) / 256, bh), 256, 0, st>>>(part, out,
                                                                     splits, de);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 K5: bf16 k (bh, n, d) and v (bh, n, e), fp32 out and part, as
+// mc_kv_dots
+int mc_kv_dots_bf16(const void* k, const void* v, float* out, float* part, int bh,
+                    int n, int d, int e, int splits, int rows_per_split, void* stream) {
+  if (!widths_ok(d, e) || splits < 1 || (splits > 1 && !part) ||
+      (long long)rows_per_split * splits < n)
+    return (int)cudaErrorInvalidValue;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kv_dots_partial_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kv_bf16_smem());
+  if (attr != cudaSuccess) return (int)attr;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int vec_k = d % 8 == 0 && (uintptr_t)k % 16 == 0;
+  const int vec_v = e % 8 == 0 && (uintptr_t)v % 16 == 0;
+  kv_dots_partial_bf16_kernel<<<dim3(splits, bh), kKvThreads, kv_bf16_smem(), st>>>(
+      (const bf16*)k, (const bf16*)v, splits == 1 ? out : part, n, d, e, rows_per_split,
+      vec_k, vec_v);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int de = d * e;
+  kv_dots_reduce_kernel<<<dim3((de + 255) / 256, bh), 256, 0, st>>>(part, out,
+                                                                    splits, de);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 K6: bf16 q (bh, n, d), the factor (bh, d, e) fp32 (dots_bf16 0)
+// or bf16 (1), bf16 out (bh, n, e)
+int mc_apply_dots_bf16(const void* q, const void* dots, int dots_bf16, void* out, int bh,
+                       int n, int d, int e, void* stream) {
+  if (!widths_ok(d, e) || bh < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  static cudaError_t err = [] {
+    int dev = 0;
+    cudaError_t e2 = cudaGetDevice(&dev);
+    if (e2 == cudaSuccess)
+      e2 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e2 == cudaSuccess)
+      e2 = cudaFuncSetAttribute(apply_dots_bf16_kernel<float>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)apply_bf16_smem(kW));
+    if (e2 == cudaSuccess)
+      e2 = cudaFuncSetAttribute(apply_dots_bf16_kernel<bf16>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)apply_bf16_smem(kW));
+    return e2;
+  }();
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (n + kRowsQ - 1) / kRowsQ;
+  const int per_bh = ntiles < sms / bh ? ntiles : (sms / bh > 0 ? sms / bh : 1);
+  const int vec_q = d % 8 == 0 && (uintptr_t)q % 16 == 0;
+  const int vec_o = e % 8 == 0 && (uintptr_t)out % 16 == 0;
+  const dim3 grid(per_bh, bh);
+  const size_t smem = apply_bf16_smem(d);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dots_bf16)
+    apply_dots_bf16_kernel<bf16><<<grid, kApplyThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)dots, (bf16*)out, n, d, e, vec_q, vec_o);
+  else
+    apply_dots_bf16_kernel<float><<<grid, kApplyThreads, smem, st>>>(
+        (const bf16*)q, (const float*)dots, (bf16*)out, n, d, e, vec_q, vec_o);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,10 @@ the latest checkpoint of a run and run the test loop.
         ckpt_path=logs/runs/adm_edm_mcedm... dataroot=data
 
 Returns test_mae_u_scaled. Runs on a CUDA device unless `--device cpu` is
-given, as `m_cedm_tpu_torch.run` does.
+given, as `m_cedm_tpu_torch.run` does. As in the JAX package, it does not
+read `trainer.precision`: to serve in bf16 give the model's dtype,
+`+model.hparams.dtype=bfloat16` (the OFormer) or
+`+model.hparams.model.dtype=bfloat16` (the ADM tasks).
 """
 from __future__ import annotations
 

@@ -73,12 +73,19 @@ WRAPPERS: Dict[str, Callable] = {
     "K6 apply_dots": apply_dots,
     "K7 unet_block": fused_unet_block,
 }
+# K5's and K6's bf16 instances: the same wrappers, counted apart from fp32
+BF16_COUNTED: Dict[str, Callable] = {"K5 kv_dots bf16": kv_dots,
+                                     "K6 apply_dots bf16": apply_dots}
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in BF16_COUNTED.values():
+        fn.launches_bf16 = 0
 
 
 def launches() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Launches since the last reset, by the name chip_smoke.py reports."""
+    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
+            **{name: fn.launches_bf16 for name, fn in BF16_COUNTED.items()}}

@@ -9,53 +9,72 @@ how their design handles that.
   kv_dots(k, v)        (BH, N, D) x (BH, N, E) -> fp32 (BH, D, E) = sum_n k_n^T v_n
   apply_dots(q, dots)  (BH, N, D) x (BH, D, E) -> (BH, N, E) = q @ dots
 
-The kernels take any N and any D, E up to 128, fp32, contiguous. Each wrapper
-is a torch.autograd.Function whose backward is made of the two primitives, as
-the JAX custom VJPs are:
+The kernels take any N and any D, E up to 128, contiguous, in two instances:
+
+  fp32   k, v, q and the factor fp32; out fp32 (3xTF32 products)
+  bf16   kv_dots: bf16 k, v into an fp32 out; apply_dots: bf16 q, an fp32 or
+         bf16 factor rounded to bf16 as it is loaded, out rounded once to
+         bf16 from fp32 sums (bf16 products, as `_apply_kernel` runs on
+         bf16 operands)
+
+Any other mix of dtypes raises. Each wrapper is a torch.autograd.Function
+whose backward is made of the two primitives, with the dtypes of the JAX
+custom VJPs:
 
   kv_dots:     dk = apply_dots(v, g^T),     dv = apply_dots(k, g)
   apply_dots:  dq = apply_dots(g, dots^T),  ddots = kv_dots(q, g)
 
-so a train step launches no other kernel for its attention. On CPU tensors
-forward and backward run the plain versions (the einsums of the JAX package's
-`_kv_reference` and `_apply_reference`). `kv_dots.launches` and
-`apply_dots.launches` count every launch of each kernel, forward or backward.
+(in bf16: g fp32 and dk, dv bf16 for kv_dots; g bf16, dq bf16 and ddots
+fp32 for apply_dots), so a train step launches no other kernel for its
+attention. On CPU tensors forward and backward run the plain versions (the
+einsums of the JAX package's `_kv_reference` and `_apply_reference`).
+`kv_dots.launches` and `apply_dots.launches` count every launch of the fp32
+kernels, forward or backward; `kv_dots.launches_bf16` and
+`apply_dots.launches_bf16` those of the bf16 instances.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from m_cedm_tpu_torch.kernels import _build
-from m_cedm_tpu_torch.kernels._launch import (I, P, check, fp32_reference_math,
-                                              on_cpu, ptr, raise_on_error,
-                                              stream)
+from m_cedm_tpu_torch.kernels._launch import (ACT_DTYPES, I, P, act_dtype, check,
+                                              fp32_reference_math, on_cpu, ptr,
+                                              raise_on_error, stream)
 
 MAX_WIDTH = 128
 _CHUNK = 64  # rows per shared-memory stage of the kv_dots kernel
 
 
 def kv_dots_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """sum_n k[:, n]^T v[:, n] in fp32 (_kv_reference)."""
+    """sum_n k[:, n]^T v[:, n] in fp32 (_kv_reference): bf16 operands are
+    upcast exactly, so their products and sums are fp32's."""
     if k.is_cuda:
         fp32_reference_math()
     return torch.einsum("bnd,bne->bde", k.float(), v.float())
 
 
 def apply_dots_plain(q: torch.Tensor, dots: torch.Tensor) -> torch.Tensor:
-    """q @ dots, the factor cast to q's type first (_apply_reference)."""
+    """q @ dots, the factor cast to q's type first (_apply_reference): the
+    product of the fp32 upcasts, rounded once to q's type (bf16), as
+    `_apply_kernel` accumulates in fp32: no bf16 matmul whose rounding
+    would follow cuBLAS's reduced-precision-reduction switch."""
     if q.is_cuda:
         fp32_reference_math()
-    return torch.einsum("bnd,bde->bne", q, dots.to(q.dtype))
+    return torch.bmm(q.float(), dots.to(q.dtype).float()).to(q.dtype)
 
 
-def _check(a, a_name, b, b_name, b_shape):
-    """a is (BH, N, D); b must have b_shape; both fp32, contiguous, aligned."""
+def _check(a, a_name, b, b_name, b_shape, b_dtypes=None):
+    """a is (BH, N, D), fp32 or bf16; b must have b_shape and a's dtype, or
+    one of `b_dtypes`; both contiguous and 16-byte aligned."""
     if a.dim() != 3:
         raise ValueError(f"{a_name} must be (BH, N, D), got shape {tuple(a.shape)}")
-    check(a, a_name, a.shape, a.device)
-    check(b, b_name, b_shape, a.device)
+    dtype = act_dtype(a)
+    check(a, a_name, a.shape, a.device, dtype)
+    b_dtype = b.dtype if b_dtypes and b.dtype in b_dtypes else dtype
+    check(b, b_name, b_shape, a.device, b_dtype)
     widths = (a.shape[2], b_shape[-1])
     if not all(1 <= w <= MAX_WIDTH for w in widths):
         raise ValueError(f"linear-attention kernels take widths up to {MAX_WIDTH}, "
@@ -64,33 +83,54 @@ def _check(a, a_name, b, b_name, b_shape):
         raise ValueError("linear-attention kernels need 16-byte aligned operands")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _splits(bh: int, n: int, device) -> int:
     """Blocks per head-batch for kv_dots: about one per SM in all (a block
     takes an SM's shared memory), and at least 128 rows each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(sms // bh, math.ceil(n / 128)))
+    return max(1, min(_sm_count(device.index) // bh, math.ceil(n / 128)))
 
 
 def _kv_dots_kernel(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K5's fp32 or bf16 instance, by k's dtype; v of the same, out fp32."""
     bh, n, d = k.shape
     e = v.shape[2]
     _check(k, "k", v, "v", (bh, n, e))
-    out = k.new_empty(bh, d, e)
+    out = k.new_empty(bh, d, e, dtype=torch.float32)
     splits = _splits(bh, n, k.device)
     rows = math.ceil(math.ceil(n / splits) / _CHUNK) * _CHUNK
-    part = k.new_empty(bh, splits, d, e) if splits > 1 else None
-    fn = _build.bind("linear_attention", "mc_kv_dots", [P] * 4 + [I] * 6 + [P])
+    part = out.new_empty(bh, splits, d, e) if splits > 1 else None
+    bf16 = k.dtype == torch.bfloat16
+    name = "mc_kv_dots_bf16" if bf16 else "mc_kv_dots"
+    fn = _build.bind("linear_attention", name, [P] * 4 + [I] * 6 + [P])
     raise_on_error(fn(ptr(k), ptr(v), ptr(out), ptr(part), bh, n, d, e, splits,
-                      rows, stream()), "mc_kv_dots")
-    kv_dots.launches += 1
+                      rows, stream()), name)
+    if bf16:
+        kv_dots.launches_bf16 += 1
+    else:
+        kv_dots.launches += 1
     return out
 
 
 def _apply_dots_kernel(q: torch.Tensor, dots: torch.Tensor) -> torch.Tensor:
+    """K6's fp32 instance (q, dots, out fp32) or its bf16 one (q bf16, dots
+    fp32 or bf16, out bf16), by q's dtype."""
     bh, n, d = q.shape
     e = dots.shape[2]
-    _check(q, "q", dots, "dots", (bh, d, e))
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, "q", dots, "dots", (bh, d, e), ACT_DTYPES if bf16 else None)
     out = q.new_empty(bh, n, e)
+    if bf16:
+        fn = _build.bind("linear_attention", "mc_apply_dots_bf16",
+                         [P, P, I, P] + [I] * 4 + [P])
+        rc = fn(ptr(q), ptr(dots), int(dots.dtype == torch.bfloat16), ptr(out), bh, n,
+                d, e, stream())
+        raise_on_error(rc, "mc_apply_dots_bf16")
+        apply_dots.launches_bf16 += 1
+        return out
     fn = _build.bind("linear_attention", "mc_apply_dots", [P] * 3 + [I] * 4 + [P])
     raise_on_error(fn(ptr(q), ptr(dots), ptr(out), bh, n, d, e, stream()),
                    "mc_apply_dots")
@@ -133,7 +173,7 @@ class _ApplyDots(torch.autograd.Function):
         need_q, need_dots = ctx.needs_input_grad
         g = g.contiguous()
         dq = _apply(g, dots.transpose(1, 2).contiguous()) if need_q else None
-        ddots = _kv(q, g) if need_dots else None
+        ddots = _kv(q, g).to(dots.dtype) if need_dots else None
         return dq, ddots
 
 
@@ -149,3 +189,5 @@ def apply_dots(q: torch.Tensor, dots: torch.Tensor) -> torch.Tensor:
 
 kv_dots.launches = 0
 apply_dots.launches = 0
+kv_dots.launches_bf16 = 0
+apply_dots.launches_bf16 = 0

@@ -30,7 +30,10 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rotary_pos_emb_1d(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
-    return t * torch.cos(freqs) + rotate_half(t) * torch.sin(freqs)
+    """The phases stay fp32; their cos and sin are cast to t's dtype before
+    they meet it, so a bf16 t stays bf16 (an fp32 t is unchanged)."""
+    return (t * torch.cos(freqs).to(t.dtype)
+            + rotate_half(t) * torch.sin(freqs).to(t.dtype))
 
 
 def apply_rotary_pos_emb_multi(t: torch.Tensor, freqs: List[torch.Tensor]) -> torch.Tensor:

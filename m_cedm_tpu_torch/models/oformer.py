@@ -13,10 +13,28 @@ batch. The decoder's rollout takes the concatenated form [z | x_node | pos]
 of its first dense layers, which the JAX package folds into loop-invariant
 row blocks (MCEDM_OFORMER_INVFOLD); the two are value-equal.
 
+bf16 (the JAX modules with `dtype=bfloat16`, which the task's
+`trainer.precision: bf16` selects): the compute dtype is the input's. Dense
+layers (layers.Linear, QkvDense's chunks) take x, the weight and the bias in
+bf16, the product as the fp32 sum of the upcasts rounded once, then add the
+bias in bf16 (flax's promote_dtype). The task hands the model its params
+rounded to bf16 (`compute_params`) but for LayerNorm's scale and bias and
+the embeddings, which stay fp32: LayerNorm computes its statistics and the
+normalization in fp32 and rounds once at the end; an embedding is looked up
+in fp32 and then cast. The token instance norm takes fp32 statistics and
+normalizes in bf16; the Fourier features are computed in fp32 and cast;
+RoPE multiplies by bf16 cos and sin; the decoder's dropout divides in bf16,
+and its output is cast back to fp32 for the loss and the metrics.
+`linear_attn` keeps 1/denom on the fp32 factor, which K6 rounds to bf16:
+the JAX package's Pallas route (MCEDM_OFORMER_ATTN3=1). Its default route
+rounds k^T v to bf16 first and divides in bf16; the two are equal wherever
+denom is a power of two, since round(x) / 2^k = round(x / 2^k), as
+oformer_t's 16,384 and 8,192 tokens are.
+
 Not reached by `oformer_t`, so not ported (ROADMAP.md): the Fourier
 attention type, attention without RoPE, the padding-mask path, `not_assoc`,
-`cat_pos`, LayerNorm inside the attention (`use_ln`), dropout other than
-the decoder's, and bf16 compute.
+`cat_pos`, LayerNorm inside the attention (`use_ln`) and dropout other than
+the decoder's.
 """
 from __future__ import annotations
 
@@ -31,7 +49,7 @@ import torch.nn.functional as F
 from m_cedm_tpu_torch.kernels import Ops
 from m_cedm_tpu_torch.models.encoding import (apply_rotary_pos_emb_multi,
                                               rotary_freqs)
-from m_cedm_tpu_torch.models.layers import Linear, gelu
+from m_cedm_tpu_torch.models.layers import Linear, gelu, matmul
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -95,7 +113,7 @@ class QkvDense(Dense):
 
     def chunks(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         c = self.weight.shape[0] // self.n_chunks
-        return tuple(F.linear(x, self.weight[i * c:(i + 1) * c])
+        return tuple(matmul(x, self.weight[i * c:(i + 1) * c].t())
                      for i in range(self.n_chunks))
 
 
@@ -118,7 +136,8 @@ class Embed(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax nn.LayerNorm: eps 1e-6 and the fast variance E[x^2] - E[x]^2,
-    then (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    then (x - mean) * (rsqrt(var + eps) * scale) + bias, all in fp32 with
+    fp32 scale and bias, rounded once to x's dtype."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -132,23 +151,33 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(dtype)
 
 
 def instance_norm_tokens(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Non-affine normalization of each token over its head-width axis: what
-    the reference's InstanceNorm1d on (b*h, n, d) actually computes."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mean) / torch.sqrt(var + eps)
+    the reference's InstanceNorm1d on (b*h, n, d) actually computes. A bf16
+    x takes fp32 statistics, then (x - mean) * rsqrt(var + eps) with both
+    factors rounded to bf16, in bf16 (the JAX package's bf16 branch)."""
+    if x.dtype == torch.float32:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        return (x - mean) / torch.sqrt(var + eps)
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
+    scale = (1.0 / torch.sqrt(var + eps)).to(x.dtype)
+    return (x - mean.to(x.dtype)) * scale
 
 
 def linear_attn(q, k, v, denom, ops: Ops) -> torch.Tensor:
     """q (k^T v) / denom for (b, h, n, d) operands: heads folded into the
-    batch, the two products through K5 and K6, 1/denom on the small (d, e)
-    factor."""
+    batch, the two products through K5 and K6, 1/denom on the small fp32
+    (d, e) factor (K6 rounds it to a bf16 q's dtype)."""
     b, h, nq, d = q.shape
     fold = lambda t: t.reshape(b * h, t.shape[2], t.shape[3]).contiguous()
     dots = ops.kv_dots(fold(k), fold(v)) / denom
@@ -341,7 +370,7 @@ class IrregSTEncoder(nn.Module):
         x = x.transpose(1, 2).reshape(b, n, t // tw, tw * c)
         x = x[:, :, 0] if t // tw == 1 else x.reshape(b, n * (t // tw), tw * c)
         x = self.emb1(gelu(self.emb0(x)))
-        x_node = self.node_embedding(node_type[..., 0])
+        x_node = self.node_embedding(node_type[..., 0]).to(x.dtype)
         x = self.combine_embedding(torch.cat([x, x_node], dim=-1))
         x = self.ln(self.s_transformer(x, input_pos) + x)
         return self.out1(torch.relu(self.out0(x)))
@@ -411,23 +440,27 @@ class IrregSTDecoder(nn.Module):
     def forward(self, z, propagate_pos, prop_node_type, forward_steps: int, input_pos,
                 dropout_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """dropout_keep: the (B, N, z width) 0/1 mask of the decoder's one
-        dropout site (rate cfg.dropout, train only); None = deterministic."""
-        x_node = self.node_type_embedding(prop_node_type[..., 0])
-        x = self.coord_proj1(gelu(self.coord_proj0(self.fourier_features(propagate_pos))))
+        dropout site (rate cfg.dropout, train only); None = deterministic.
+        Computes in z's dtype; the prediction is fp32."""
+        dt = z.dtype
+        x_node = self.node_type_embedding(prop_node_type[..., 0]).to(dt)
+        x = self.fourier_features(propagate_pos).to(dt)
+        x = self.coord_proj1(gelu(self.coord_proj0(x)))
         x = self.combine_layer(torch.cat([x, x_node], dim=-1))
         if dropout_keep is not None:
-            z = torch.where(dropout_keep.bool(), z / (1.0 - self.cfg.dropout), 0.0)
+            keep = torch.tensor(1.0 - self.cfg.dropout, dtype=dt)  # divided in z's dtype
+            z = torch.where(dropout_keep.bool(), z / keep, 0.0)
         z = self.decoding_transformer(x, z, propagate_pos, input_pos)
         z = self.mix_layer(z, propagate_pos) + z
         z = self.expand_layer(z)
-        history = []
+        history, ppos = [], propagate_pos.to(dt)
         for _ in range(forward_steps):
-            h = self.prop_mlp0(torch.cat([self.prop_norm(z), x_node, propagate_pos], dim=-1))
+            h = self.prop_mlp0(torch.cat([self.prop_norm(z), x_node, ppos], dim=-1))
             for i in range(1, 4):
                 h = getattr(self, f"prop_mlp{i}")(gelu(h))
             z = h + z
             h = self.to_out0(torch.cat([self.out_norm(z), x_node], dim=-1))
-            history.append(self.to_out2(torch.relu(self.to_out1(torch.relu(h)))))
+            history.append(self.to_out2(torch.relu(self.to_out1(torch.relu(h)))).float())
         return torch.stack(history, dim=1)
 
 

@@ -168,9 +168,9 @@ def main(argv=None) -> float:
         ckpt_monitor=ckpt_monitor, ckpt_mode=ckpt_mode)
 
     # trainer precision 'bf16' selects bf16 compute, as the JAX run.py maps
-    # it: the ADM tasks train and serve in bf16 (fp32 master params, Adam
-    # state and EMA); the OFormer and the FNO raise when the task is built,
-    # the DDPM U-Net at its first bf16 forward (ROADMAP.md)
+    # it: the ADM tasks and the OFormer's train and serve in bf16 (fp32
+    # master params, optimizer state and EMA); the FNO raises when the task
+    # is built, the DDPM U-Net at its first bf16 forward (ROADMAP.md)
     if str(trainer_kw.get("precision", "32")) in ("bf16", "bfloat16"):
         if "model" in cfg.model.hparams:
             cfg.model.hparams.model["dtype"] = "bfloat16"

@@ -24,6 +24,12 @@ the global-norm clip, and AdamW with weight decay on every trainable
 parameter, at a constant lr or, given a schedule length, on optax's
 cosine one-cycle schedule. The state is functional: `train_step` returns a
 new TaskState.
+
+bf16 (`dtype: bfloat16` in the hparams, which run.py sets for
+`trainer.precision=bf16`): the model computes in bf16 (models/oformer.py)
+on params rounded inside the autograd graph (`compute_params`), so each
+gradient is rounded to bf16 once on its way back; params, AdamW state,
+normalizers, the Fourier matrix, the loss and the metrics stay fp32.
 """
 from __future__ import annotations
 
@@ -35,16 +41,36 @@ import torch
 from torch.func import functional_call
 
 from m_cedm_tpu_torch.kernels import DEVICE_OPS, Ops
-from m_cedm_tpu_torch.models.oformer import (OformerDecoderConfig,
+from m_cedm_tpu_torch.models.oformer import (Embed, LayerNorm,
+                                             OformerDecoderConfig,
                                              OformerEncoderConfig,
                                              OformerModel)
 from m_cedm_tpu_torch.ops import losses
 from m_cedm_tpu_torch.ops.normalizer import Normalizer
 from m_cedm_tpu_torch.ops.schedules import cosine_onecycle
 from m_cedm_tpu_torch.physics.pde_loss import get_pde_loss_function
-from m_cedm_tpu_torch.tasks.base import (Optimizer, TaskState, mae,
+from m_cedm_tpu_torch.tasks.base import (Optimizer, Params, TaskState,
+                                         cast_floating, mae,
                                          normalizers_from_stats, optimizer_step,
                                          to_device)
+
+
+def fp32_param_names(model: torch.nn.Module) -> frozenset:
+    """The params a bf16 forward of `model` reads in fp32: LayerNorm's scale
+    and bias and the embeddings, as flax keeps them in a bf16 model."""
+    return frozenset(f"{name}.{p}" for name, m in model.named_modules()
+                     if isinstance(m, (LayerNorm, Embed))
+                     for p, _ in m.named_parameters(recurse=False))
+
+
+def compute_params(params: Params, keep: frozenset, dtype: torch.dtype) -> Params:
+    """The params as a `dtype` forward reads them: each floating tensor
+    rounded to `dtype` (`cast_floating`) but those named in `keep`
+    (`fp32_param_names`). On requires_grad masters the casts are part of the
+    autograd graph, so each gradient is rounded to `dtype` once on its way
+    back to fp32, as the transpose of JAX's cast rounds it."""
+    cast = cast_floating({k: v for k, v in params.items() if k not in keep}, dtype)
+    return {k: cast.get(k, v) for k, v in params.items()}
 
 
 class OformerTask:
@@ -55,13 +81,15 @@ class OformerTask:
                  steps_per_epoch: Optional[int] = None,
                  max_epochs: Optional[int] = None):
         hparams = copy.deepcopy(hparams)
-        if hparams.get("dtype", "float32") in ("bfloat16", "bf16"):
-            raise NotImplementedError("bf16 compute is not ported yet (see ROADMAP.md)")
         self.hparams = hparams
+        # bf16 compute on fp32 masters, as the JAX task reads hparams['dtype']
+        self.compute_dtype = (torch.bfloat16 if hparams.get("dtype", "float32")
+                              in ("bfloat16", "bf16") else None)
         self.device = torch.device(device)
         self.enc_cfg = OformerEncoderConfig.from_hparams(hparams["encoder"])
         self.dec_cfg = OformerDecoderConfig.from_hparams(hparams["decoder"])
         self.model = OformerModel(self.enc_cfg, self.dec_cfg, ops).to(self.device)
+        self.fp32_params = fp32_param_names(self.model) if self.compute_dtype else None
         self.time_history = hparams.get("time_history", 128)
         self.lr = hparams["lr"]
         self.weight_decay = hparams.get("weight_decay", 1e-4)
@@ -140,7 +168,12 @@ class OformerTask:
 
     def apply(self, state: TaskState, params, x, nt_inp, nt_prop, in_pos, pr_pos,
               forward_steps: int, dropout_keep=None) -> torch.Tensor:
-        """The model with `params` and the state's constants swapped in."""
+        """The model with `params` and the state's constants swapped in; with
+        a compute dtype, params and x cast to it (the positions stay fp32).
+        The prediction is fp32."""
+        if self.compute_dtype is not None:
+            params = compute_params(params, self.fp32_params, self.compute_dtype)
+            x = x.to(self.compute_dtype)
         return functional_call(self.model, {**params, **state.constants},
                                (x, nt_inp, nt_prop, in_pos, pr_pos, forward_steps),
                                {"dropout_keep": dropout_keep})

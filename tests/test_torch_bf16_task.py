@@ -29,10 +29,11 @@ interpret mode, and JAX's evals).
             JAX's own 0.1 (tests/test_precision.py);
   cond      CondEdmTask.eval_step (adm_edm_cond_h) in bf16 against JAX's,
             held the same way;
-  refusals  the DDPM U-Net, the OFormer and the FNO in bf16 raise
+  refusals  the DDPM U-Net and the FNO in bf16 raise
             NotImplementedError naming ROADMAP.md (bf16 training of the ADM
             tasks is held in tests/test_torch_bf16_train.py; the megakernel
-            path in bf16, mega=True, in tests/test_torch_mega_bf16.py).
+            path in bf16, mega=True, in tests/test_torch_mega_bf16.py; the
+            OFormer in bf16 in tests/test_torch_oformer_bf16.py).
 """
 import copy
 import os
@@ -305,14 +306,11 @@ def test_cond_edm_eval_step_matches_jax():
 
 # --- refusals -----------------------------------------------------------------
 
-@pytest.mark.parametrize("model", ["ddpm", "oformer", "fno"])
+@pytest.mark.parametrize("model", ["ddpm", "fno"])
 def test_other_families_refuse_bf16(model):
     if model == "ddpm":
         hp = yaml.safe_load(open(os.path.join(REPO, "configs/model/ddim_res32.yaml")))
         hp["hparams"]["model"]["dtype"] = "bfloat16"
-    elif model == "oformer":
-        hp = yaml.safe_load(open(os.path.join(REPO, "configs/model/oformer_t.yaml")))
-        hp["hparams"]["dtype"] = "bfloat16"
     else:
         hp = yaml.safe_load(open(os.path.join(REPO, "configs/model/fnostatereconstr2d.yaml")))
         hp["hparams"]["dtype"] = "bfloat16"

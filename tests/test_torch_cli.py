@@ -461,6 +461,51 @@ def test_oformer_config_trains_and_tests(dataroot, tmp_path):
             "test_pde_loss_gt"} <= keys
 
 
+def test_oformer_trains_in_bf16_resumes_and_tests(dataroot, tmp_path, monkeypatch):
+    """config_oformer_t.yaml with trainer.precision=bf16 through run.main:
+    one epoch (fit, validation, test) with the metric keys the JAX
+    package's run.main writes with the same override on the same fixture
+    (chip_smoke.py's OFORMER_METRIC_KEYS, which phase 17.4 holds on the
+    card), all finite; the checkpoint holds fp32 params and AdamW state; a
+    resume to epoch 2 trains epoch 1 only; eval_model serves the resumed
+    checkpoint in bf16 (+model.hparams.dtype=bfloat16)."""
+    import sys
+
+    sys.path.insert(0, REPO)
+    try:
+        import run as jrun
+    finally:
+        sys.path.remove(REPO)
+    common = ["--config-name=config_oformer_t.yaml", f"dataroot={dataroot}",
+              "callbacks=callbacks_save_model", "trainer.precision=bf16"] + OFORMER_TINY
+    monkeypatch.chdir(tmp_path)
+    jrun.main(common + [f"hydra.run.dir={tmp_path / 'jax'}"])
+    jax_keys = set().union(*map(set, records(str(tmp_path / "jax"))))
+    assert jax_keys == chip_smoke().OFORMER_METRIC_KEYS
+    common = ["--device", "cpu"] + common
+    run.main(common + [f"hydra.run.dir={tmp_path / 'run'}"])
+    recs = records(str(tmp_path / "run"))
+    assert set().union(*map(set, recs)) == jax_keys
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    ckpt = CheckpointManager(str(tmp_path / "run" / "checkpoints"))
+    saved = torch.load(os.path.join(ckpt.ckpt_dir, str(ckpt.latest_step()), "state.pt"),
+                       weights_only=False)
+    floats = [t for part in ("params", "opt_state") for t in _tensors(saved[part])
+              if t.is_floating_point()]
+    assert floats and all(t.dtype == torch.float32 for t in floats)
+    run.main(common + [f"ckpt_path={tmp_path / 'run'}", "trainer.max_epochs=2",
+                       f"hydra.run.dir={tmp_path / 'resume'}"])
+    resumed = records(str(tmp_path / "resume"))
+    assert sorted(r["epoch"] for r in resumed if "train_loss" in r) == [1]
+    assert all(np.isfinite(v) for r in resumed for v in r.values())
+    eval_model.main(common + [f"ckpt_path={tmp_path / 'resume'}", "+model.hparams.dtype=bfloat16",
+                              f"hydra.run.dir={tmp_path / 'eval'}"])
+    (got,) = records(str(tmp_path / "eval"))
+    want = [r for r in resumed if "test_mae_u" in r][-1]
+    assert set(got) - {"time"} == {k for k in want if k.startswith("test_")} | {"epoch"}
+    assert all(np.isfinite(v) for v in got.values())
+
+
 def test_run_refuses_the_cpu_unless_asked(dataroot, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -185,7 +185,7 @@ def test_wrappers_count_kernel_launches(cuda):
     kernels.reset_launches()
     _block(tfnc.gn_silu_conv, inp, "identity", 4)  # channel_stats, then K2
     _block(tfnc.gn_silu_conv_plain, inp, "identity", 4)
-    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want = dict.fromkeys(kernels.launches(), 0)
     want.update({"K1 channel_stats": 1, "K2 gn_silu_conv": 1})
     assert kernels.launches() == want
 
@@ -301,9 +301,11 @@ def test_train_step_on_the_card(cuda):
                                        torch.Generator(cuda).manual_seed(1))
         out[name] = (metrics, new, kernels.launches())
     (mk, sk, lk), (mp, sp, lp) = out["kernel"], out["plain"]
-    # the OFormer's kernels, K7, which runs only on the sampling path, and the
-    # bf16 backward's dx pass (an fp32 step forms dx in PyTorch)
-    idle = ("K5 kv_dots", "K6 apply_dots", "K7 unet_block", "K2 gn_dx")
+    # the OFormer's kernels (both instances), K7, which runs only on the
+    # sampling path, and the bf16 backward's dx pass (an fp32 step forms dx
+    # in PyTorch)
+    idle = ("K5 kv_dots", "K6 apply_dots", "K5 kv_dots bf16", "K6 apply_dots bf16",
+            "K7 unet_block", "K2 gn_dx")
     assert all(n > 0 for k, n in lk.items() if k not in idle), lk
     assert not any(lk[k] for k in idle), lk
     assert not any(lp.values()), lp
@@ -1869,3 +1871,99 @@ def test_bf16_train_step_on_the_card(cuda):
         assert s_k.params[k_].dtype == s_k.ema_params[k_].dtype == torch.float32
         assert s_k.opt_state["mu"][k_].dtype == torch.float32
         assert float((s_k.params[k_] - s_p.params[k_]).abs().max()) <= 2 * 2e-4
+
+
+# --- K5 / K6 bf16 (the OFormer in bf16) -------------------------------------
+# K5's bf16 instance: bf16 products are exact in fp32, so its fp32 output
+# holds to its plain version (the fp32 sum of the upcasts) and to float64 as
+# the fp32 kernel does. K6's: the factor rounded to bf16, fp32 sums, the
+# output rounded once, as every bf16 kernel's output (_bf16_close). Ragged N,
+# widths not multiples of 8 (element copies), 40 (16-byte copies, columns
+# zero-padded to 48), one and several kv splits.
+
+LA_BF16_SHAPES = [(3, 1000, 12, 20), (2, 2500, 128, 128), (5, 77, 128, 64),
+                  (1, 33, 7, 128), (4, 16389, 40, 40), (70, 300, 128, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LA_BF16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k5_k6_bf16_match_plain(cuda, shape):
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    bh, n, d, e = shape
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    k, q = (_bf16_rnd(g, cuda, bh, n, d) for _ in range(2))
+    v = _bf16_rnd(g, cuda, bh, n, e)
+    kernels.reset_launches()
+    dots = tla.kv_dots(k, v)
+    assert dots.dtype == torch.float32
+    assert _rel(dots, tla.kv_dots_plain(k, v)) <= TOL_KERNEL
+    assert _rel(dots, k.double().transpose(1, 2) @ v.double()) <= TOL_KERNEL
+    for factor in (dots / n, (dots / n).bfloat16()):
+        out = tla.apply_dots(q, factor)
+        assert out.dtype == torch.bfloat16
+        _bf16_close(out, tla.apply_dots_plain(q, factor))
+    got = kernels.launches()
+    assert (got["K5 kv_dots bf16"], got["K6 apply_dots bf16"]) == (1, 2)
+    assert (got["K5 kv_dots"], got["K6 apply_dots"]) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LA_BF16_SHAPES[1:5:3], ids=lambda s: "x".join(map(str, s)))
+def test_k5_k6_bf16_backward(cuda, shape):
+    """The Functions' backward in bf16, with the JAX VJPs' dtypes: kv_dots'
+    fp32 cotangent rounded to bf16 as K6's factor, dk, dv bf16; apply_dots'
+    dq bf16 and ddots fp32. Each against its plain formula and against
+    float64 autograd of the plain forward with the cotangent or factor
+    rounded as the VJP rounds it (bf16 outputs: one rounding, 1e-2 of
+    scale; ddots 1e-4)."""
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    bh, n, d, e = shape
+    g = torch.Generator(device=cuda).manual_seed(7 * n)
+    q, k = (_leaf(_bf16_rnd(g, cuda, bh, n, d)) for _ in range(2))
+    v = _leaf(_bf16_rnd(g, cuda, bh, n, e))
+    dots = _leaf(torch.randn(bh, d, e, generator=g, device=cuda) / 8)
+    kernels.reset_launches()
+    cot = torch.randn(bh, d, e, generator=g, device=cuda)
+    dk, dv = torch.autograd.grad(tla.kv_dots(k, v), (k, v), cot)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    _bf16_close(dk, tla.apply_dots_plain(v.detach(), cot.transpose(1, 2).contiguous()))
+    _bf16_close(dv, tla.apply_dots_plain(k.detach(), cot))
+    c64 = cot.bfloat16().double()
+    k64, v64 = (_leaf(t.detach().double()) for t in (k, v))
+    want = torch.autograd.grad(torch.einsum("bnd,bne->bde", k64, v64), (k64, v64), c64)
+    for a, w in zip((dk, dv), want):
+        assert _rel(a, w) <= 1e-2
+    cot = _bf16_rnd(g, cuda, bh, n, e)
+    dq, ddots = torch.autograd.grad(tla.apply_dots(q, dots), (q, dots), cot)
+    assert dq.dtype == torch.bfloat16 and ddots.dtype == torch.float32
+    _bf16_close(dq, tla.apply_dots_plain(cot, dots.detach().transpose(1, 2).contiguous()))
+    assert _rel(ddots, tla.kv_dots_plain(q.detach(), cot)) <= TOL_KERNEL
+    q64, d64 = _leaf(q.detach().double()), _leaf(dots.detach().bfloat16().double())
+    want = torch.autograd.grad(torch.einsum("bnd,bde->bne", q64, d64), (q64, d64),
+                               cot.double())
+    assert _rel(dq, want[0]) <= 1e-2
+    assert _rel(ddots, want[1]) <= 1e-4
+    got = kernels.launches()
+    # kv_dots' backward two K6 calls, apply_dots' one K6 and one K5
+    assert (got["K5 kv_dots bf16"], got["K6 apply_dots bf16"]) == (2, 4)
+    assert (got["K5 kv_dots"], got["K6 apply_dots"]) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_k5_k6_bf16_refuse_other_mixes(cuda):
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    q = torch.randn(2, 64, 32, device=cuda).bfloat16()
+    dots = torch.randn(2, 32, 32, device=cuda)
+    with pytest.raises(ValueError, match="must be"):
+        tla.kv_dots(q, q.float())
+    with pytest.raises(ValueError, match="must be"):
+        tla.kv_dots(q.float(), q)
+    with pytest.raises(ValueError, match="must be"):
+        tla.apply_dots(q.float(), dots.bfloat16())
+    with pytest.raises(ValueError, match="must be"):
+        tla.apply_dots(q, dots.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tla.apply_dots(q.half(), dots)

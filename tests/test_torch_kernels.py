@@ -302,6 +302,11 @@ def _wrapper_calls(inp):
         # the linear-attention pair (forward only: each backward is the pair)
         "K5 kv_dots": (lambda: tla.kv_dots(x3, x3), lambda: tla.kv_dots_plain(x3, x3)),
         "K6 apply_dots": (lambda: tla.apply_dots(q, dots), lambda: tla.apply_dots_plain(q, dots)),
+        # their bf16 instances (bf16 k, v, q; an fp32 factor)
+        "K5 kv_dots bf16": (lambda: tla.kv_dots(x3.bfloat16(), x3.bfloat16()),
+                            lambda: tla.kv_dots_plain(x3.bfloat16(), x3.bfloat16())),
+        "K6 apply_dots bf16": (lambda: tla.apply_dots(q.bfloat16(), dots),
+                               lambda: tla.apply_dots_plain(q.bfloat16(), dots)),
         # the whole block (its backward is a recompute through K2/K3)
         "K7 unet_block": (lambda: tfb.fused_unet_block(*k7, **k7_kw),
                           lambda: tfb.fused_unet_block_plain(*k7, **k7_kw)),
@@ -313,7 +318,7 @@ def _grads(fn, inputs, cot):
     inputs = tuple(t.detach().requires_grad_() for t in inputs)
     return tuple(torch.autograd.grad(fn(*inputs), inputs, cot))
 
-@pytest.mark.parametrize("name", sorted(kernels.WRAPPERS))
+@pytest.mark.parametrize("name", sorted(kernels.launches()))
 def test_wrapper_runs_plain_on_cpu_without_counting(name):
     """A CPU tensor takes the plain version; only kernel launches count."""
     kernels.reset_launches()

@@ -309,9 +309,9 @@ def test_registry_and_unported_options():
     assert task.enc_cfg.in_emb_dim == 128 and task.enc_cfg.depth == 4
     assert task.tx.name == "AdamW" and task.tx.weight_decay == 1e-4
     hp = hparams()
-    hp["dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_task(hp, "cpu", target=OFORMER_TARGET)
+    hp["dtype"] = "bfloat16"  # served and trained in bf16 (test_torch_oformer_bf16.py)
+    assert build_task(hp, "cpu", target=OFORMER_TARGET).compute_dtype == torch.bfloat16
+    assert task.compute_dtype is None
     hp = hparams()
     hp["encoder"]["emb_dropout"] = 0.1
     task = build_task(hp, "cpu", target=OFORMER_TARGET)
