@@ -3,6 +3,7 @@ card: this checkout against another one (say the parent commit unpacked with
 `git archive` into the ignored local/parent), in turns.
 
     python3 busy_turns.py OTHER_TREE
+    python3 busy_turns.py OTHER_TREE --oformer
 
 Each turn is a fresh process started in its tree's root, so it imports that
 tree's package and builds that tree's kernels; the turns run in the order
@@ -15,6 +16,13 @@ then `profile_step` STEPS times). Prints the card's nvidia-smi name and
 power limit, then one JSON line a turn: each profiled forward's device busy
 and device operations, each profiled step's device busy. Needs a CUDA
 device; imports nothing of JAX.
+
+With --oformer a turn times the bf16 OFormer instead, as phases 17.2 and
+17.3 of chip_smoke.py set it up (OformerTask and OformerTimePredTask at B =
+16, full width and depth, their seeded params, the kernel path): after a
+warm-up, EVALS evals and STEPS train steps (after WARMUP), each a wall on
+the host's clock ending in a synchronise, and one profiled step's device
+busy.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import subprocess
 import sys
 
 FORWARDS, WARMUP, STEPS = 5, 3, 3
+EVALS = 5
 
 # one turn, run from a tree's root with only what chip_smoke.py had before
 # this script existed
@@ -70,9 +79,45 @@ step = [cs.profile_step(ktask, state, batch, dev, min(walls))["device_busy_ms"]
 print(json.dumps({"forward_ms": ms, "forward_busy_ms_ops": fwd, "step_busy_ms": step}))
 """
 
+# one turn of the bf16 OFormer (--oformer), with chip_smoke.py's phase 17
+# set-up as both trees have it
+TURN_OFORMER = r"""
+import json, sys, time
+import torch
+import chip_smoke as cs
+from m_cedm_tpu_torch.kernels import _build
+from m_cedm_tpu_torch.kernels._launch import fp32_reference_math
+
+evals, warmup, steps = map(int, sys.argv[1:4])
+_build.build_all()
+fp32_reference_math()
+dev = torch.device("cuda", 0)
+out = {}
+for name, hp, target, seed in (("oformer", cs.OFORMER_HPARAMS, cs.OFORMER_TARGET, cs.SEED + 70),
+                               ("timepred", cs.TIMEPRED_HPARAMS, cs.TIMEPRED_TARGET,
+                                cs.SEED + 71)):
+    stats, batch, params, constants = cs.oformer_setup(dev, cs.BATCH, seed, hp, target)
+    task = cs.oformer_tasks(dev, {**hp, "dtype": "bfloat16"}, target)[0]
+    state = task.init_state(None, stats, params=params, constants=constants)
+    walls = []
+    for i in range(evals + 1):  # the first a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.eval_step(state, batch, split="val")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    state, _, sw = cs.train_steps(task, state, batch, dev, 0, warmup + steps)
+    busy = cs.profile_step(task, state, batch, dev, min(sw))["device_busy_ms"]
+    out[name] = {"eval_ms": [w * 1e3 for w in walls[1:]],
+                 "step_ms": [w * 1e3 for w in sw[warmup:]], "step_busy_ms": busy}
+print(json.dumps(out))
+"""
+
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    oformer = "--oformer" in argv
+    argv = [a for a in argv if a != "--oformer"]
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -88,7 +133,8 @@ def main(argv=None) -> int:
     trees = {"other": os.path.abspath(argv[0]), "this": here}
     for turn, name in enumerate(("other", "this", "this", "other")):
         env = dict(os.environ, PYTHONPATH=trees[name])
-        out = subprocess.run([sys.executable, "-c", TURN, str(FORWARDS), str(WARMUP),
+        code, first = (TURN_OFORMER, EVALS) if oformer else (TURN, FORWARDS)
+        out = subprocess.run([sys.executable, "-c", code, str(first), str(WARMUP),
                               str(STEPS)], cwd=trees[name], env=env, capture_output=True,
                              text=True)
         if out.returncode != 0:

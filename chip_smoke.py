@@ -254,14 +254,22 @@ Phases, each printing JSON lines:
   17. oformer bf16   the OFormer with trainer.precision bf16: (1) K5's and
               K6's bf16 instances (bf16 k, v into fp32; bf16 q with the
               factor rounded to bf16, the output rounded once) through
-              their wrappers at BH = 16 and 64, N = 16,384 and 8,192, and
-              a ragged case (BH 3, N 1,037, D = E = 40), against their bf16
+              their wrappers at BH = 16 and 64, N = 16,384 and 8,192, a
+              ragged case (BH 3, N 1,037, D = E = 40), BH 20 (clusters
+              that do not tile the SMs) and width 36 (the mma.sync
+              route), K6 with an fp32 and a bf16 factor, against their bf16
               plain versions (K5 2e-5 of scale, K6 1e-2 / 1e-4) and
               float64 (K5 2e-5, K6 one rounding: 1e-2), the same
               bits on a repeat, each Function's backward against float64
               autograd with the VJP's roundings (bf16 gradients 1e-2 of
-              scale, ddots 2e-5), kernel, plain and bf16 torch.bmm times,
-              the bf16 bound; (2) OformerTask in bf16 at B = 16, full width
+              scale, ddots 2e-5), each case's route and K5 cluster, kernel,
+              plain and library times (K5: torch.bmm with out_dtype
+              float32, the same function, bf16-out bmm beside; K6: bf16
+              torch.bmm), the bf16 bound; the clusters the card holds at
+              once, one device kernel a K5 call (profiler) and the TMA
+              kernels' SASS (HGMMA and UTMALDG in both, UTMASTG in K6)
+              asserted, taken before phase 1 (late profiles lose device
+              events); (2) OformerTask in bf16 at B = 16, full width
               and depth, kernel path against the bf16 plain path: an eval
               (metrics and prediction within 2e-2; launches 6 bf16 K5 and
               6 bf16 K6, no fp32 one, asserted), three train steps (12 / 24
@@ -4823,9 +4831,13 @@ def phase_bf16_training(device, hparams, params, b: int, fp32_launches: dict):
 
 # the bf16 instances, by the summary line's name, and their fp32 wrapper
 LINEAR_BF16 = {"K5 kv_dots bf16": "K5 kv_dots", "K6 apply_dots bf16": "K6 apply_dots"}
-# a ragged case: N not a multiple of a stage or a tile, widths 40 (16-byte
-# copies, columns zero-padded to 48)
+# a ragged case: N not a multiple of a stage or a tile, widths 40 (TMA
+# boxes of 64 columns, zero-filled past 40)
 LINEAR_BF16_RAGGED = (3, 1000 + 37, 40)
+# a BH whose clusters do not tile the 132 SMs (BH 20: four blocks a
+# head-batch, 80 blocks), and a width that is not a multiple of 8 (rows TMA
+# cannot describe: the bf16 mma.sync kernels, the workspace split)
+LINEAR_BF16_MORE = ((20, 4096, 128, "BH 20, N 4096"), (3, 1000 + 37, 36, "width 36"))
 # The bf16 OFormer, kernel path against the bf16 plain path: the two paths
 # differ where K6's rounding flips a last bit (and the plain path's autograd
 # rounds its backward elsewhere: it rounds the fp32 ddots to bf16 and keeps
@@ -4863,21 +4875,27 @@ def scaled_vs(got, want, tol: float, name: str) -> float:
     return err
 
 
-def phase_bf16_linear_attention(device, b: int, n: int, width: int) -> dict:
+def phase_bf16_linear_attention(device, b: int, n: int, width: int, checks=None) -> dict:
     """Phase 17.1: K5's and K6's bf16 instances through their wrappers at
     the OFormer's shapes (BH = B and 4 B; N = n and n / 2, the time
-    prediction's) and one ragged case: each against its bf16 plain version
-    (K5's fp32 output within TOL_KERNEL of scale; K6's bf16 output within
-    TOL_BF16 / TOL_BF16_MEAN) and against float64 (K5 within TOL_KERNEL,
-    K6 with its factor rounded, within TOL_BF16_VS_FLOAT64), the same bits
-    on a repeat, each Function's
-    backward against float64 autograd of the plain forward (the cotangent,
-    or the factor, rounded to bf16 as the VJP rounds it); kernel, plain,
-    bf16 torch.bmm (context: a bf16 output) times by CUDA events, the
-    kernel's also on the card's clock (device_ms), and the bound: bf16
-    bytes at 3.35 TB/s against bf16 products at 989 TFLOP/s. Returns the
-    summaries keyed by LINEAR_BF16's names (BH = B at n), the other cases
-    beside."""
+    prediction's), the ragged case and LINEAR_BF16_MORE's: each against its
+    bf16 plain version (K5's fp32 output within TOL_KERNEL of scale; K6's
+    bf16 output within TOL_BF16 / TOL_BF16_MEAN, with an fp32 factor and,
+    as a mode of its own, a bf16 one) and against float64 (K5 within
+    TOL_KERNEL, K6 with its factor rounded, within TOL_BF16_VS_FLOAT64), the
+    same bits on a repeat, each Function's backward against float64
+    autograd of the plain forward (the cotangent, or the factor, rounded to
+    bf16 as the VJP rounds it); the route (TMA where D and E are multiples
+    of 8) and K5's cluster; kernel, plain and library times by CUDA events,
+    the kernel's also on the card's clock (device_ms), and the bound: bf16
+    bytes at 3.35 TB/s against bf16 products at 989 TFLOP/s. The library:
+    for K5 the same function, torch.bmm(k^T, v, out_dtype=float32) (bf16
+    torch.bmm with a bf16 output beside, as context); for K6 bf16
+    torch.bmm with the factor in bf16. Then (linear_bf16_checks) the
+    clusters the card holds at once, one device kernel a K5 call in the
+    profiler, and the SASS of the TMA kernels, where `checks` does not
+    already hold them. Returns the summaries keyed by LINEAR_BF16's names
+    (BH = B at n), the other cases as modes."""
     import torch
 
     from m_cedm_tpu_torch.kernels import linear_attention as la
@@ -4885,62 +4903,133 @@ def phase_bf16_linear_attention(device, b: int, n: int, width: int) -> dict:
     g = torch.Generator(device=device).manual_seed(SEED + 60)
     smi = nvidia_smi_line()
     bf = torch.bfloat16
+    active = la._active_clusters(device.index or 0)
 
     def rnd(*shape, dtype=bf):
         return torch.randn(shape, generator=g, device=device).to(dtype)
 
+    def k5_library(k, v):
+        """The same function in one call, where the card's torch has the
+        CUDA-only out_dtype overload of bmm, else None."""
+        try:
+            torch.bmm(k[:1, :64].transpose(1, 2), v[:1, :64], out_dtype=torch.float32)
+        except (TypeError, RuntimeError):
+            return None
+        return lambda: torch.bmm(k.transpose(1, 2), v, out_dtype=torch.float32)
+
     cases = [(bh, nn, width, f"BH {bh}, N {nn}") for nn in (n, n // 2) for bh in (b, 4 * b)]
     bh_r, n_r, w_r = LINEAR_BF16_RAGGED
     cases.append((bh_r, n_r, w_r, "ragged"))
+    cases.extend(LINEAR_BF16_MORE)
     results = {}
     for bh, nn, w, label in cases:
         q, k, v = (rnd(bh, nn, w) for _ in range(3))
+        route = {"route": "tma" if la.tma_route(w, w) else "mma.sync",
+                 "cluster": (la.kv_cluster(bh, nn, active) if la.tma_route(w, w)
+                             else la._splits(bh, nn, device))}
         with torch.no_grad():
             dots = la.kv_dots_plain(k, v) / nn
             dots_bf = dots.to(bf)
+            same_fn = k5_library(k, v)
             specs = (
-                ("K5 kv_dots bf16", la.kv_dots, la.kv_dots_plain, (k, v),
-                 lambda: torch.bmm(k.transpose(1, 2), v)),
-                ("K6 apply_dots bf16", la.apply_dots, la.apply_dots_plain, (q, dots),
-                 lambda: torch.bmm(q, dots_bf)),
+                ("K5 kv_dots bf16", label, la.kv_dots, la.kv_dots_plain, (k, v),
+                 same_fn, "torch.bmm(k^T, v, out_dtype=float32)" if same_fn else None),
+                ("K6 apply_dots bf16", label, la.apply_dots, la.apply_dots_plain, (q, dots),
+                 lambda: torch.bmm(q, dots_bf), "bf16 torch.bmm, the factor in bf16"),
+                ("K6 apply_dots bf16", f"{label}, bf16 factor", la.apply_dots,
+                 la.apply_dots_plain, (q, dots_bf), lambda: torch.bmm(q, dots_bf),
+                 "bf16 torch.bmm"),
             )
-            for name, fn, plain, args, library in specs:
+            for name, case, fn, plain, args, library, library_name in specs:
                 want = plain(*args)
                 got = fn(*args)
-                err = (compare(got, want, TOL_KERNEL, f"{name} {label}")
-                       if got.dtype == torch.float32 else bf16_error(got, want, f"{name} {label}"))
+                err = (compare(got, want, TOL_KERNEL, f"{name} {case}")
+                       if got.dtype == torch.float32 else bf16_error(got, want, f"{name} {case}"))
                 if not torch.equal(fn(*args), got):
-                    raise AssertionError(f"{name} {label}: another result on a repeat")
+                    raise AssertionError(f"{name} {case}: another result on a repeat")
                 exact = (torch.bmm(k.double().transpose(1, 2), v.double())
                          if name.startswith("K5") else torch.bmm(q.double(), dots_bf.double()))
                 err["vs_float64_max_rel_err"] = scaled_vs(
                     got, exact, TOL_KERNEL if got.dtype == torch.float32 else TOL_BF16_VS_FLOAT64,
-                    f"{name} {label} vs float64")
+                    f"{name} {case} vs float64")
                 del exact
                 flops = 2.0 * bh * nn * w * w
                 rec = {"phase": "bf16_linear", "nvidia_smi": smi, "kernel": name,
-                       "case": label, "bh": bh, "n": nn, "width": w, **err,
+                       "case": case, "bh": bh, "n": nn, "width": w, **route, **err,
                        "repeat_bit_for_bit": True, "ms": cuda_ms(lambda: fn(*args)),
                        "plain_ms": cuda_ms(lambda: plain(*args)),
-                       "library": "torch.bmm (bf16 operands and output)",
-                       "library_ms": cuda_ms(library),
+                       "library": library_name,
+                       "library_ms": cuda_ms(library) if library else None,
                        **bound(nbytes(*args, want), 0.0, bf16_flops=flops)}
+                if name.startswith("K5"):
+                    rec["library_bf16_out"] = "bf16 torch.bmm(k^T, v), a bf16 output (context)"
+                    rec["library_bf16_out_ms"] = cuda_ms(lambda: torch.bmm(k.transpose(1, 2), v))
                 rec["device_ms"] = device_ms(lambda: fn(*args), rec)
+                rec["library_device_ms"] = (device_ms(library, rec) if library
+                                            else None)
                 del got, want
                 rec.update(linear_bf16_backward(name, fn, args, g))
                 emit(rec)
-                if label == cases[0][3]:
+                if case == cases[0][3]:
                     results[name] = {**rec, "modes": {}}
                 else:
-                    results[name]["modes"][label] = {k_: rec[k_] for k_ in (
-                        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    results[name]["modes"][case] = {k_: rec[k_] for k_ in (
+                        "route", "cluster", "ms", "device_ms", "plain_ms", "library_ms",
+                        "library_device_ms", "library_bf16_out_ms", "bound_ms", "bound_by",
                         "max_rel_err", "vs_float64_max_rel_err", "backward_max_rel_err",
                         "backward_ms") if k_ in rec}
                     for key in ("max_abs_err", "max_rel_err"):
                         results[name][key] = max(results[name][key], rec[key])
         del q, k, v, dots, dots_bf
     torch.cuda.empty_cache()
+    checks = checks or linear_bf16_checks(device, b, n, width)
+    for name in results:
+        results[name]["tma_checks"] = checks
     return results
+
+
+def linear_bf16_checks(device, b: int, n: int, width: int) -> dict:
+    """The clusters of 1 .. 8 blocks of the bf16 K5 on TMA that the card
+    holds at once (cudaOccupancyMaxActiveClusters) and the cluster the
+    wrapper takes at BH b and 4 b; exactly one device kernel a K5 call on
+    the TMA route in torch.profiler (no workspace pass); and each TMA
+    kernel's SASS: K5 and K6 on wgmma (HGMMA, no HMMA) fed by TMA loads
+    (UTMALDG), K6 storing by TMA (UTMASTG). main() runs it before any other
+    profile: late in the script, after the other phases' profiles, this
+    profile of three calls read no device event at all (PERF.md section
+    7)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from m_cedm_tpu_torch.kernels import _build
+    from m_cedm_tpu_torch.kernels import linear_attention as la
+
+    active = la._active_clusters(device.index or 0)
+    k = torch.randn(b, n, width, device=device).bfloat16()
+    la.kv_dots(k, k)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            la.kv_dots(k, k)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    if len(kernels) != calls or not all("kv_dots_tma_kernel" in nm for nm in kernels):
+        raise AssertionError(f"K5 bf16: {calls} calls ran the device kernels {kernels}")
+    del k
+    sass = {}
+    for name, c in _build.sass_counts("linear_attention", "tma_kernel").items():
+        short = re.search(r"\d((?:kv|apply)_dots_tma_kernel)(?:I(\w+?)EEv)?", name)
+        sass[short[1] + (f"<{short[2]}>" if short[2] else "") if short else name] = c
+    if len(sass) != 3 or any(c["HGMMA"] == 0 or c["HMMA"] or c["UTMALDG"] == 0
+                             or ("apply" in nm and c["UTMASTG"] == 0)
+                             for nm, c in sass.items()):
+        raise AssertionError(f"bf16 K5 / K6 on TMA: SASS counts {sass}")
+    out = {"active_clusters_1_to_8": list(active),
+           "cluster_at_bh": {bh: la.kv_cluster(bh, n, active) for bh in (b, 4 * b)},
+           "k5_device_kernels_per_call": len(kernels) // calls, "sass": sass}
+    emit({"phase": "bf16_linear_checks", **out})
+    return out
 
 
 def linear_bf16_backward(name, fn, args, g) -> dict:
@@ -5225,12 +5314,14 @@ def phase_oformer_bf16_cli(device, per_step: dict, per_eval: dict) -> dict:
     return {"seconds": secs}
 
 
-def phase_oformer_bf16_all(device, b: int) -> tuple:
-    """Phase 17: the OFormer in bf16 on the card (parts 1-4). Returns the
-    bf16 K5 / K6 summaries and their launches in 17.2's eval and step and
+def phase_oformer_bf16_all(device, b: int, linear_checks=None) -> tuple:
+    """Phase 17: the OFormer in bf16 on the card (parts 1-4), with
+    linear_bf16_checks' result where main() took it first. Returns the bf16
+    K5 / K6 summaries and their launches in 17.2's eval and step and
     17.3's."""
     enc = OFORMER_HPARAMS["encoder"]
-    results = phase_bf16_linear_attention(device, b, enc["res"] ** 2, enc["in_emb_dim"])
+    results = phase_bf16_linear_attention(device, b, enc["res"] ** 2, enc["in_emb_dim"],
+                                          linear_checks)
     recon = phase_oformer_bf16(device, b)
     timepred = phase_oformer_bf16(device, b, TIMEPRED_HPARAMS, TIMEPRED_TARGET,
                                   "timepred_bf16", SEED + 71)
@@ -5251,12 +5342,13 @@ def main() -> int:
     hparams = FLAGSHIP_HPARAMS
     m = hparams["model"]
     phase_device()
+    enc = OFORMER_HPARAMS["encoder"]
+    linear_checks = linear_bf16_checks(device, BATCH, enc["res"] ** 2, enc["in_emb_dim"])
     results = phase_kernels(device, BATCH, m["resolution"], m["ch"])
     results.update(phase_backward(device, BATCH, m["resolution"], m["ch"]))
     params = phase_forward(device, hparams, BATCH)
     eval_launches, eval_metrics = phase_eval(device, hparams, params, BATCH)
     train_launches = phase_train(device, hparams, params, BATCH)
-    enc = OFORMER_HPARAMS["encoder"]
     results.update(phase_linear_attention(device, BATCH, enc["res"] ** 2, enc["in_emb_dim"]))
     eval_launches.update(
         {k: v for k, v in phase_oformer_eval(device, BATCH).items() if k in OFORMER_KERNELS})
@@ -5284,7 +5376,7 @@ def main() -> int:
         device, hparams, params, BATCH, eval_launches, cli_run2, cli_eval, mega_launches)
     bwd16_results, bwd16_launches = phase_bf16_training(device, hparams, params, BATCH,
                                                         train_launches)
-    linear16, oformer16, timepred16 = phase_oformer_bf16_all(device, BATCH)
+    linear16, oformer16, timepred16 = phase_oformer_bf16_all(device, BATCH, linear_checks)
     bf16_results.update(linear16)
     bf16_launches = {**bf16_launches, **oformer16["eval"]}
     summary = []
@@ -5346,7 +5438,12 @@ def main() -> int:
                        launches_timepred_eval=timepred16["eval"][name],
                        launches_timepred_step=timepred16["step"][name],
                        backward_max_rel_err=rec["backward_max_rel_err"],
-                       backward_ms=rec["backward_ms"], device_ms=rec["device_ms"])
+                       backward_ms=rec["backward_ms"], device_ms=rec["device_ms"],
+                       library=rec["library"], library_device_ms=rec["library_device_ms"],
+                       route=rec["route"], cluster=rec["cluster"],
+                       tma_checks=rec["tma_checks"])
+            if "library_bf16_out_ms" in rec:
+                row["library_bf16_out_ms"] = rec["library_bf16_out_ms"]
         summary.append(row)
     rec = bf16_results[MEGA_BF16]
     source, replaces = KERNEL_INFO["K7 unet_block"]

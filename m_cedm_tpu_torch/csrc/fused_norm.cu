@@ -111,6 +111,8 @@
 
 #include <cstdint>
 
+#include "tma_ring.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -512,31 +514,12 @@ struct BwdArgs {
   int slabs, rows, smem_rows, stages, lag, row, vec, esz;  // esz: bytes an element
 };
 
-// mbarriers: a phase completes when `count` arrivals are in; a waiter names
-// the parity of the phase it waits for
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// one arrival once every cp.async this thread issued so far has landed
-__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" :: "r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n .reg .pred P1;\n LAB_WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      " @P1 bra DONE;\n bra LAB_WAIT;\n DONE:\n}"
-      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
+// mbarriers (csrc/tma_ring.cuh): a phase completes when `count` arrivals are
+// in; a waiter names the parity of the phase it waits for
+using tma::mbar_arrive;
+using tma::mbar_arrive_copies;
+using tma::mbar_init;
+using tma::mbar_wait;
 
 // pass A's warps alone
 __device__ __forceinline__ void pass_sync() {

@@ -80,9 +80,56 @@
 // 2 at BH = 64), at most one per tile.
 //
 // The bf16 instances (the OFormer with trainer.precision bf16; the Pallas
-// kernels on bf16 operands): every product one bf16 mma.sync.m16n8k16 with
-// fp32 accumulation. A bf16 x bf16 product is exact in fp32, so no operand
-// is split.
+// kernels on bf16 operands). A bf16 x bf16 product is exact in fp32, so no
+// operand is split. Both are bound by bytes: at BH 16, N 16,384, D = E =
+// 128 a call moves 134 MB (K5: k and v read; K6: q read, the output
+// written), 0.040 ms at 3.35 TB/s, against 0.0087 ms for its 8.6 GFLOP at
+// 989 TFLOP/s (64 FLOP a byte, the card's balance 295); 0.160 ms at BH 64.
+// Two routes, chosen by shape alone (kernels/linear_attention.py::
+// tma_route): D and E multiples of 8, whose rows TMA describes, take the
+// TMA kernels; other widths the mma.sync kernels at the end of this note.
+//
+// On TMA (kv_dots_tma_kernel, apply_dots_tma_kernel<F>; csrc/tma_ring.cuh).
+// A block is two consumer warpgroups and one producer warp. One thread of
+// the producer keeps a ring of TMA tiles full (128-byte swizzled boxes of 64
+// columns, 3-D tensor maps (width, N, BH) so that rows past a head-batch's
+// N are zero-filled on loads and clipped on stores), each stage under a
+// full barrier (the bytes it expects) and an empty one (one arrival a
+// consumer warp); the consumers only multiply, on wgmma m64n64k16 with both
+// operands in shared memory (bf16t::wg_mma_ss), fp32 accumulators in
+// registers. Every product runs at every width: panels past D or E are
+// zeroed once (the factor's past D and E as it is stored), so no wgmma
+// waits on a branch.
+// K6: persistent blocks, one an SM, each walking a contiguous run of the
+// (head-batch, 128-row tile) space; warpgroup w multiplies rows 64 w .. of
+// each tile (A = q, K-major) by the factor (B, MN-major: rows d of 64
+// columns e, as a TMA box of the factor would lie). The factor, fp32 or
+// bf16 (F), is rounded to bf16 to nearest even and written into that layout
+// once per head-batch a block holds: the first before the ring's first
+// copies are issued (issued behind them, its loads waited on the whole
+// ring's fill: 0.058 against 0.053 ms at BH 16), the next loaded into
+// registers as soon as the last is stored. The output is rounded once to
+// bf16 into a staging tile of the warpgroup's (128-byte swizzle, kOutBufs
+// tiles) and stored by TMA, one bulk group a tile, so stores overlap the
+// next tile's products. Ring kApTmaStages = 4 tiles of 128 rows (128 KB).
+// K5: one thread-block cluster a head-batch (one launch, no workspace).
+// Rank r sums tokens r * rows .. (whole 64-token stages; a rank may be
+// empty): per stage, four k16-steps summed on the tensor cores into a
+// partial (the first with scale-d 0: A = k^T and B = v, both MN-major),
+// then one fp32 add into its accumulator. Then each rank writes its (D, E)
+// partial into its ring, and after a cluster barrier rank s reads rows D s
+// / ranks .. of every rank's partial over distributed shared memory, sums
+// them in rank order (the same bits on every call) and stores them. The
+// cluster size (kernels/linear_attention.py::kv_cluster) is the largest
+// power of two up to kKvTmaCluster whose BH clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters: on an H100 132 of 1 block, 66 of
+// 2, 30 of 4, 15 of 8, so 4 at BH 16 and 2 at BH 64; 8 at BH 16 needed two
+// waves, 0.067 against 0.051 ms), with kKvTmaMinRows tokens a block. Ring
+// kKvTmaStages = 4 stages of 64 tokens of k and v (128 KB; six were
+// slower).
+//
+// On mma.sync (widths not multiples of 8): every product one bf16
+// mma.sync.m16n8k16 with fp32 accumulation.
 // K5 bf16 (kv_dots_partial_bf16_kernel + kv_dots_reduce_kernel): bf16 k and
 // v into fp32 partials and an fp32 result, with the fp32 kernel's split of N,
 // warp tiles and fixed-order reduce (the same bits on a repeat). A = k^T
@@ -90,24 +137,42 @@
 // bf16 (272 bytes, 4 words mod 32) keep each ldmatrix phase on 32 banks. A
 // stage holds 64 tokens of k and of v (4 k16-steps, summed on the tensor
 // cores into a zeroed partial, then one fp32 add: the chain kKvTempSteps
-// keeps short for the fp32 kernel); 16-byte copies of 8 bf16 when the width
-// is a multiple of 8 and the base 16-byte aligned, else element copies; a
-// three-stage cp.async ring (104 KB), one block of 16 warps an SM. Bound:
-// bytes, 134 MB at BH 16, N 16,384: 0.040 ms at 3.35 TB/s against 0.0087
-// ms for its 8.6 GFLOP at 989 TFLOP/s; 0.160 ms at BH 64.
+// keeps short for the fp32 kernel); element copies where the width is not a
+// multiple of 8 (16-byte copies where it is); a three-stage cp.async ring
+// (104 KB), one block of 16 warps an SM.
 // K6 bf16 (apply_dots_bf16_kernel<F>): bf16 q, the (D, E) factor read as F
 // (fp32, or bf16) and rounded to bf16 to nearest even as it is loaded, once
 // per persistent block, held as bf16 rows of 136; q through a three-stage
 // cp.async ring of 64-row tiles, A fragments by ldmatrix, B by ldmatrix
 // .trans; each k16-step into a zeroed partial, then an fp32 add; the output
 // rounded once to bf16 into the warp's own 32 x 32 block of a shared stage,
-// then stored 16 bytes a lane (element by element where E is not a multiple
-// of 8). The warps, tiles and persistent grid are the fp32 kernel's;
-// shared memory 2 x (128 + 4 x 64) x 136 = 104 KB. Bound: bytes, q read
-// and the output written, 134 MB at BH 16: 0.040 ms (0.160 at BH 64).
+// then stored element by element (16 bytes a lane where E is a multiple of
+// 8). The warps, tiles and persistent grid are the fp32 kernel's; shared
+// memory 2 x (128 + 4 x 64) x 136 = 104 KB.
+//
+// Measured (kernels/attention_sources.py --kernel k5bf16 / k6bf16, called
+// directly on the card's clock, one H100 80GB HBM3 at 700 W, D = E = 128;
+// PERF.md section 6), BH 16 / 64 at N 16,384, then at N 8,192:
+//   K6 TMA, fp32 factor  0.0567 / 0.2019, 0.0287 / 0.1061 ms
+//      (mma.sync 0.0932 / 0.3122, 0.0536 / 0.1665; bf16 torch.bmm 0.0532 /
+//      0.1935, 0.0292 / 0.1005; bound 0.0401 / 0.1603, 0.0200 / 0.0801)
+//   K5 TMA, clusters 4 / 2  0.0516 / 0.1790, 0.0301 / 0.0955 ms
+//      (mma.sync + reduce 0.0817 / 0.2986, 0.0453 / 0.1540; torch.bmm with
+//      out_dtype float32 0.0591 / 0.1740, 0.0277 / 0.0913; bound 0.0404 /
+//      0.1615, 0.0203 / 0.0814)
+// K6 runs 1.04-1.06 times bf16 torch.bmm: without its products 0.0550,
+// without its stores 0.0292 (the reads alone, 2.3 TB/s). K5's streaming
+// matches the library's (0.0485 / 0.1729 without the cluster reduce's
+// loads, sums and stores); that reduce, after the last stage, costs 3 / 6 us.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_conv_tiles.cuh"
+#include "tma_ring.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -138,6 +203,29 @@ constexpr int kKvBf16TempSteps = 4;     // k16-steps on the tensor cores per fp3
 constexpr int kApplyBf16Stages = 3;     // K6's cp.async ring
 constexpr int kQBf16Stage = kRowsQ * kBS;  // bf16 elements of one q stage
 constexpr int kApplyBf16TempSteps = 1;  // k16-steps on the tensor cores per fp32 add
+
+// the bf16 instances on TMA and wgmma (widths multiples of 8)
+constexpr int kPanel = 64;               // bf16 columns of a 128-byte swizzled row: a TMA box, a wgmma panel
+constexpr int kPanelRow = 2 * kPanel;    // its bytes
+constexpr int kPanels = kW / kPanel;     // panels of the widest D or E
+constexpr int kConsumers = 2;            // consumer warpgroups a block
+constexpr int kTmaThreads = 128 * kConsumers + 32;  // and one producer warp
+constexpr int kKvTmaRows = 64;           // K5: tokens a stage, four k16-steps summed on the tensor cores per fp32 add
+constexpr int kKvTmaStages = 4;          // K5's ring
+constexpr int kKvTmaCluster = 8;         // K5: blocks a head-batch at most, the portable cluster size
+constexpr int kKvTmaMinRows = 256;       // K5: tokens a block at least, where a head-batch has them
+constexpr int kKvPartS = kW + 8;         // K5: fp32 row stride of a block's (D, E) partial
+constexpr int kApTmaRows = 128;          // K6: q rows a tile, 64 for each consumer warpgroup
+constexpr int kApTmaStages = 4;          // K6's ring
+constexpr int kOutBufs = 2;              // K6: a warpgroup's staged output tiles, stores in flight
+constexpr int kKvPanelBytes = kKvTmaRows * kPanelRow;            // 8 KB: 64 tokens x 64 columns
+constexpr int kKvStageBytes = 2 * kPanels * kKvPanelBytes;       // k's panels, then v's: 32 KB
+constexpr int kApPanelBytes = kApTmaRows * kPanelRow;            // 16 KB: 128 rows x 64 columns
+constexpr int kApStageBytes = kPanels * kApPanelBytes;           // 32 KB
+constexpr int kFacPanelBytes = kW * kPanelRow;                   // 16 KB: 128 rows d x 64 columns e
+constexpr int kOutPanelBytes = 64 * kPanelRow;                   // 8 KB: a warpgroup's 64 rows x 64 columns
+constexpr int kOutBufBytes = kPanels * kOutPanelBytes;           // 16 KB
+static_assert(kW * kKvPartS * 4 <= kKvTmaStages * kKvStageBytes, "K5's partial fits its ring");
 
 // ---------------------------------------------------------------------------
 // 3xTF32 on mma.sync and cp.async (as in csrc/fused_attention.cu)
@@ -844,6 +932,351 @@ apply_dots_bf16_kernel(const bf16* __restrict__ q, const F* __restrict__ dots,
   cp_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 instances on TMA and wgmma (the route where D and E are multiples of
+// 8): a producer warp keeps a ring of TMA tiles full under full / empty
+// mbarriers (csrc/tma_ring.cuh); two consumer warpgroups only multiply, on
+// wgmma m64n64k16 with both operands in shared memory (128-byte swizzle)
+// ---------------------------------------------------------------------------
+
+// eight consecutive values of the factor as they are loaded, and as bf16
+struct Fp32x8 {
+  float4 a, b;
+};
+
+__device__ __forceinline__ uint4 load8(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ Fp32x8 load8(const float* p) {
+  return {__ldg(reinterpret_cast<const float4*>(p)), __ldg(reinterpret_cast<const float4*>(p) + 1)};
+}
+
+__device__ __forceinline__ uint4 bf16x8(uint4 v) { return v; }
+
+// rounded to bf16 to nearest even
+__device__ __forceinline__ uint4 bf16x8(const Fp32x8& v) {
+  return make_uint4(bf16t::pack2(v.a.x, v.a.y), bf16t::pack2(v.a.z, v.a.w),
+                    bf16t::pack2(v.b.x, v.b.y), bf16t::pack2(v.b.z, v.b.w));
+}
+
+// One head-batch's (D, E) factor, rounded to bf16, into wgmma's MN-major B
+// layout, by the consumers' threads (tid < 128 kConsumers) in two steps:
+// `issue` loads a thread's chunks into registers (a chunk past D or E loads
+// the factor's first chunk), `store` rounds them and writes panel e / 64,
+// row d (128 bytes), 16-byte chunk (e % 64) / 8 at chunk ^ (d & 7), zero
+// past D and E to the full kW x kW. A block issues a head-batch's loads
+// before it needs them (the first before its ring's first copies, the next
+// as soon as the last is stored), so the factor's latency is paid once, not
+// once a chunk nor once a head-batch.
+template <typename F>
+struct FactorLoads {
+  static constexpr int kRow = 8 * kPanels;                     // 16-byte chunks a row
+  static constexpr int kPer = kW * kRow / (128 * kConsumers);  // chunks a thread
+  decltype(load8(static_cast<const F*>(nullptr))) v[kPer];
+
+  __device__ __forceinline__ void issue(const F* db, int D, int E, int tid) {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int c = tid + r * 128 * kConsumers, d = c / kRow, e0 = 8 * (c % kRow);
+      v[r] = load8(db + (d < D && e0 < E ? (size_t)d * E + e0 : 0));
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* fac, int D, int E, int tid) const {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int c = tid + r * 128 * kConsumers, d = c / kRow, j = c % kRow;
+      *reinterpret_cast<uint4*>(fac + (j / 8) * kFacPanelBytes + d * kPanelRow +
+                                (((j % 8) ^ (d & 7)) << 4)) =
+          d < D && 8 * j < E ? bf16x8(v[r]) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+};
+
+// Zero the `bytes` at p (a multiple of 16) by threads tid < threads: ring
+// panels that no TMA load fills (D or E at most 64), read by the products
+// all the same
+__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes, int tid, int threads) {
+  for (int i = 16 * tid; i < bytes; i += 16 * threads)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// K5 bf16 on TMA: one thread-block cluster a head-batch (blockIdx.y), one
+// block a rank, each summing k_n^T v_n over its `rows` tokens (rank *
+// rows ..) into a (D, E) partial in its shared memory; then rank s reads
+// rows d = D s / ranks .. of every rank's partial over distributed shared
+// memory, sums them in rank order and stores them.
+// Consumer warpgroup w owns rows d 64 w .. 64 w + 63 and every column e,
+// zero past D and E: every product runs at every width.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+kv_dots_tma_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, float* __restrict__ out, int N,
+                   int D, int E, int rows) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = bf16t::align1024(smem_raw);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + kKvTmaStages * kKvStageBytes);
+  unsigned long long* empty = full + kKvTmaStages;
+  float* part = reinterpret_cast<float*>(ring);  // after the sums: the block's (D, E) partial
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ranks = (int)cluster.num_blocks();
+  const int bh = blockIdx.y;
+  const int n0 = rank * rows, n1 = min(N, n0 + rows);
+  const int stages = n1 > n0 ? (n1 - n0 + kKvTmaRows - 1) / kKvTmaRows : 0;
+  const int dpanels = (D + kPanel - 1) / kPanel, epanels = (E + kPanel - 1) / kPanel;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kKvTmaStages; ++s) {
+      tma::mbar_init(full + s, 1);
+      tma::mbar_init(empty + s, 4 * kConsumers);
+    }
+    tma::fence_barrier_init();
+  }
+  if (warp < 4 * kConsumers) {
+    for (int s = 0; s < kKvTmaStages; ++s) {
+      unsigned char* st = ring + s * kKvStageBytes;
+      if (dpanels < kPanels)
+        zero_smem(st + kKvPanelBytes, kKvPanelBytes, threadIdx.x, 128 * kConsumers);
+      if (epanels < kPanels)
+        zero_smem(st + (2 * kPanels - 1) * kKvPanelBytes, kKvPanelBytes, threadIdx.x,
+                  128 * kConsumers);
+    }
+    bf16t::fence_async_smem();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {
+    // the producer: stage i holds tokens n0 + 64 i .. of k (panels of D) and
+    // v (panels of E); TMA zero-fills the tokens past N and the columns past
+    // D and E
+    if (lane == 0) {
+      for (int i = 0; i < stages; ++i) {
+        const int s = i % kKvTmaStages;
+        if (i >= kKvTmaStages) tma::mbar_wait(empty + s, (i / kKvTmaStages - 1) & 1);
+        unsigned char* st = ring + s * kKvStageBytes;
+        const int c1 = n0 + i * kKvTmaRows;
+        tma::mbar_expect_tx(full + s, (dpanels + epanels) * kKvPanelBytes);
+        for (int p = 0; p < dpanels; ++p)
+          tma::load_3d(st + p * kKvPanelBytes, &kmap, full + s, kPanel * p, c1, bh);
+        for (int p = 0; p < epanels; ++p)
+          tma::load_3d(st + (kPanels + p) * kKvPanelBytes, &vmap, full + s, kPanel * p, c1, bh);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wg = warp / 4;
+    float acc[kPanels][32];
+#pragma unroll
+    for (int pe = 0; pe < kPanels; ++pe)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc[pe][r] = 0.f;
+    for (int i = 0; i < stages; ++i) {
+      const int s = i % kKvTmaStages;
+      tma::mbar_wait(full + s, (i / kKvTmaStages) & 1);
+      // A = k^T (MN-major: panel wg of k, d contiguous), B = v (MN-major);
+      // the stage's k16-steps summed on the tensor cores into tmp (the first
+      // with scale-d 0), then one fp32 add
+      const uint32_t st = tma::smem_u32(ring + s * kKvStageBytes);
+      float tmp[kPanels][32];
+      bf16t::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKvTmaRows / 16; ++ks) {
+        const uint64_t da = bf16t::wg_desc(st + wg * kKvPanelBytes + ks * 16 * kPanelRow);
+#pragma unroll
+        for (int pe = 0; pe < kPanels; ++pe)
+          bf16t::wg_mma_ss<1, 1>(
+              tmp[pe], da,
+              bf16t::wg_desc(st + (kPanels + pe) * kKvPanelBytes + ks * 16 * kPanelRow),
+              ks > 0);
+      }
+      bf16t::wg_commit();
+      bf16t::wg_wait<0>();
+      if (lane == 0) tma::mbar_arrive(empty + s);
+#pragma unroll
+      for (int pe = 0; pe < kPanels; ++pe)
+#pragma unroll
+        for (int r = 0; r < 32; ++r) acc[pe][r] += tmp[pe][r];
+    }
+    // both warpgroups have read their last stage: the ring may hold the
+    // partial. D fragment: d[4 j + e] at row g + 8 (e >> 1) of the warp's
+    // 16, column 8 j + 2 t + (e & 1) of the panel
+    tma::bar_sync(1, 128 * kConsumers);
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int pe = 0; pe < kPanels; ++pe)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = kPanel * wg + 16 * (warp % 4) + g + 8 * h;
+          *reinterpret_cast<float2*>(part + d * kKvPartS + kPanel * pe + 8 * j + 2 * t) =
+              make_float2(acc[pe][4 * j + 2 * h], acc[pe][4 * j + 2 * h + 1]);
+        }
+  }
+  cluster.sync();  // every rank's partial is in its shared memory
+  // this rank's rows of the result, four columns a step: every rank's
+  // partial read over distributed shared memory (the loads of a step issued
+  // together) and summed in rank order
+  uint32_t src[kKvTmaCluster];
+#pragma unroll
+  for (int r = 0; r < kKvTmaCluster; ++r)
+    src[r] = r < ranks ? tma::map_rank(tma::smem_u32(part), r) : 0u;
+  const int d0 = (int)((long long)D * rank / ranks), d1 = (int)((long long)D * (rank + 1) / ranks);
+  const int q4 = (d1 - d0) * E / 4;
+  for (int i = threadIdx.x; i < q4; i += kTmaThreads) {
+    const int d = d0 + 4 * i / E, e = 4 * i % E;
+    const uint32_t off = (uint32_t)(d * kKvPartS + e) * sizeof(float);
+    float4 x[kKvTmaCluster];
+#pragma unroll
+    for (int r = 0; r < kKvTmaCluster; ++r)
+      if (r < ranks) x[r] = tma::ld_cluster_f4(src[r] + off);
+    float4 sum = x[0];
+#pragma unroll
+    for (int r = 1; r < kKvTmaCluster; ++r)
+      if (r < ranks) {
+        sum.x += x[r].x;
+        sum.y += x[r].y;
+        sum.z += x[r].z;
+        sum.w += x[r].w;
+      }
+    *reinterpret_cast<float4*>(out + ((size_t)bh * D + d) * E + e) = sum;
+  }
+  cluster.sync();  // every rank has read the others' partials: a block may exit
+}
+
+// K6 bf16 on TMA: persistent blocks, each walking a contiguous run of the
+// (head-batch, 128-row tile) space; the factor (F: fp32 or bf16) rounded to
+// bf16 into shared memory once per head-batch a block holds. Consumer
+// warpgroup w multiplies rows 64 w .. 64 w + 63 of each tile (zero past D
+// and E: every product runs at every width) and stores them by TMA from a
+// staging tile of its own.
+template <typename F>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+apply_dots_tma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap omap, const F* __restrict__ dots,
+                      int BH, int N, int D, int E) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* fac = bf16t::align1024(smem_raw);       // kPanels factor panels
+  unsigned char* ring = fac + kPanels * kFacPanelBytes;  // kApTmaStages q tiles
+  unsigned char* outs = ring + kApTmaStages * kApStageBytes;  // [warpgroup][buffer]
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(outs + kConsumers * kOutBufs * kOutBufBytes);
+  unsigned long long* empty = full + kApTmaStages;
+  const int tiles = (N + kApTmaRows - 1) / kApTmaRows;
+  const long long total = (long long)BH * tiles;
+  const int first = (int)(total * blockIdx.x / gridDim.x);
+  const int mine = (int)(total * (blockIdx.x + 1) / gridDim.x) - first;
+  const int dpanels = (D + kPanel - 1) / kPanel, epanels = (E + kPanel - 1) / kPanel;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the first head-batch's factor, in shared memory before the ring's first
+  // copies are issued: they would delay its loads behind theirs
+  FactorLoads<F> fl;
+  if (warp < 4 * kConsumers && mine > 0) {
+    fl.issue(dots + (size_t)(first / tiles) * D * E, D, E, threadIdx.x);
+    fl.store(fac, D, E, threadIdx.x);
+    if ((long long)(first / tiles + 1) * tiles < first + mine)  // the block's next head-batch
+      fl.issue(dots + (size_t)(first / tiles + 1) * D * E, D, E, threadIdx.x);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kApTmaStages; ++s) {
+      tma::mbar_init(full + s, 1);
+      tma::mbar_init(empty + s, 4 * kConsumers);
+    }
+    tma::fence_barrier_init();
+  }
+  if (warp < 4 * kConsumers) {
+    if (dpanels < kPanels)
+      for (int s = 0; s < kApTmaStages; ++s)
+        zero_smem(ring + s * kApStageBytes + kApPanelBytes, kApPanelBytes, threadIdx.x,
+                  128 * kConsumers);
+    bf16t::fence_async_smem();  // the factor and the zeros, to wgmma
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {
+    // the producer: q rows of tile u (panels of D); TMA zero-fills the rows
+    // past N and the columns past D
+    if (lane == 0) {
+      for (int i = 0; i < mine; ++i) {
+        const int s = i % kApTmaStages;
+        if (i >= kApTmaStages) tma::mbar_wait(empty + s, (i / kApTmaStages - 1) & 1);
+        const int u = first + i, bh = u / tiles, row0 = (u % tiles) * kApTmaRows;
+        unsigned char* st = ring + s * kApStageBytes;
+        tma::mbar_expect_tx(full + s, dpanels * kApPanelBytes);
+        for (int p = 0; p < dpanels; ++p)
+          tma::load_3d(st + p * kApPanelBytes, &qmap, full + s, kPanel * p, row0, bh);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, wg = warp / 4, wi = warp % 4, g = lane / 4, t = lane % 4;
+  const bool leader = tid % 128 == 0;  // issues the warpgroup's stores
+  const uint32_t f0 = tma::smem_u32(fac);
+  int cur = first / tiles;
+  for (int i = 0; i < mine; ++i) {
+    const int u = first + i, bh = u / tiles, row0 = (u % tiles) * kApTmaRows;
+    if (bh != cur) {
+      // both warpgroups' products on the last factor are done
+      tma::bar_sync(1, 128 * kConsumers);
+      fl.store(fac, D, E, tid);
+      bf16t::fence_async_smem();
+      tma::bar_sync(1, 128 * kConsumers);
+      cur = bh;
+      if ((long long)(cur + 1) * tiles < first + mine)  // the block's next head-batch
+        fl.issue(dots + (size_t)(cur + 1) * D * E, D, E, tid);
+    }
+    const int s = i % kApTmaStages;
+    tma::mbar_wait(full + s, (i / kApTmaStages) & 1);
+    // A = q (K-major: the warpgroup's 64 rows of each D panel), B = the factor
+    // (MN-major)
+    const uint32_t a0 = tma::smem_u32(ring + s * kApStageBytes) + wg * (kApPanelBytes / 2);
+    float acc[kPanels][32];  // the first k16-step with scale-d 0
+    bf16t::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kW / 16; ++ks) {
+      const uint64_t da = bf16t::wg_desc_k(a0 + (ks / 4) * kApPanelBytes + (ks % 4) * 32);
+#pragma unroll
+      for (int pe = 0; pe < kPanels; ++pe)
+        bf16t::wg_mma_ss<0, 1>(acc[pe], da,
+                               bf16t::wg_desc(f0 + pe * kFacPanelBytes + ks * 16 * kPanelRow),
+                               ks > 0);
+    }
+    bf16t::wg_commit();
+    bf16t::wg_wait<0>();
+    if (lane == 0) tma::mbar_arrive(empty + s);
+
+    // the output rounded once to bf16 into a staging tile (128-byte swizzle)
+    // that the store of the tile kOutBufs back has finished reading
+    unsigned char* so = outs + (wg * kOutBufs + i % kOutBufs) * kOutBufBytes;
+    if (leader) tma::store_wait_read<kOutBufs - 1>();
+    tma::bar_sync(2 + wg, 128);
+#pragma unroll
+    for (int pe = 0; pe < kPanels; ++pe)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wi + g + 8 * h;
+          *reinterpret_cast<uint32_t*>(so + pe * kOutPanelBytes + r * kPanelRow +
+                                       ((j ^ (r & 7)) << 4) + 4 * t) =
+              bf16t::pack2(acc[pe][4 * j + 2 * h], acc[pe][4 * j + 2 * h + 1]);
+        }
+    bf16t::fence_async_smem();
+    tma::bar_sync(2 + wg, 128);
+    if (leader) {
+      // rows past N and columns past E are clipped; a group a tile, empty
+      // where the warpgroup's rows all lie past N
+      if (row0 + 64 * wg < N)
+        for (int pe = 0; pe < epanels; ++pe)
+          tma::store_3d(&omap, so + pe * kOutPanelBytes, kPanel * pe, row0 + 64 * wg, bh);
+      tma::store_commit();
+    }
+  }
+  if (leader) tma::store_wait<0>();
+}
+
 size_t kv_bf16_smem() { return (size_t)kKvBf16Stages * kKvBf16Stage * sizeof(bf16); }
 
 size_t apply_bf16_smem(int d) {
@@ -857,6 +1290,48 @@ size_t apply_smem(int d) {
 }
 
 bool widths_ok(int d, int e) { return d >= 1 && d <= kW && e >= 1 && e <= kW; }
+
+size_t kv_tma_smem() {
+  return 1024 + (size_t)kKvTmaStages * kKvStageBytes + 2 * kKvTmaStages * sizeof(unsigned long long);
+}
+
+size_t apply_tma_smem() {
+  return 1024 + (size_t)kPanels * kFacPanelBytes + (size_t)kApTmaStages * kApStageBytes +
+         (size_t)kConsumers * kOutBufs * kOutBufBytes +
+         2 * kApTmaStages * sizeof(unsigned long long);
+}
+
+// the TMA route: whole 16-byte units a row and 16-byte aligned bases
+bool tma_ok(int d, int e, const void* a, const void* b) {
+  return widths_ok(d, e) && d % 8 == 0 && e % 8 == 0 && (uintptr_t)a % 16 == 0 &&
+         (uintptr_t)b % 16 == 0;
+}
+
+// K5's tokens a cluster rank: whole stages, ranks * rows >= n
+int kv_tma_rows(int n, int ranks) {
+  return ((n + ranks - 1) / ranks + kKvTmaRows - 1) / kKvTmaRows * kKvTmaRows;
+}
+
+cudaLaunchConfig_t kv_tma_config(int ranks, int bh, cudaLaunchAttribute* attr, void* stream) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, bh);
+  cfg.blockDim = dim3(kTmaThreads);
+  cfg.dynamicSmemBytes = kv_tma_smem();
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t kv_tma_attr() {
+  static cudaError_t e = cudaFuncSetAttribute(
+      kv_dots_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_tma_smem());
+  return e;
+}
 
 }  // namespace
 
@@ -946,6 +1421,79 @@ int mc_apply_dots_bf16(const void* q, const void* dots, int dots_bf16, void* out
   else
     apply_dots_bf16_kernel<float><<<grid, kApplyThreads, smem, st>>>(
         (const bf16*)q, (const float*)dots, (bf16*)out, n, d, e, vec_q, vec_o);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 K5 on TMA: bf16 k (bh, n, d) and v (bh, n, e), d and e multiples
+// of 8, 16-byte aligned; fp32 out (bh, d, e); one cluster of `ranks` blocks
+// (1 to 8) a head-batch, one launch
+int mc_kv_dots_bf16_tma(const void* k, const void* v, float* out, int bh, int n, int d, int e,
+                        int ranks, void* stream) {
+  if (!tma_ok(d, e, k, v) || (uintptr_t)out % 16 || bh < 1 || n < 1 || ranks < 1 ||
+      ranks > kKvTmaCluster)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = kv_tma_attr();
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap kmap, vmap;
+  int rc = tma::encode_bf16_3d(&kmap, k, bh, n, d, kPanel, kKvTmaRows);
+  if (rc == 0) rc = tma::encode_bf16_3d(&vmap, v, bh, n, e, kPanel, kKvTmaRows);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute la[1];
+  const cudaLaunchConfig_t cfg = kv_tma_config(ranks, bh, la, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kv_dots_tma_kernel, kmap, vmap, out, n, d, e,
+                                             kv_tma_rows(n, ranks));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// clusters of `ranks` blocks of the bf16 K5 on TMA that the card holds at
+// once (cudaOccupancyMaxActiveClusters) into *active
+int mc_kv_dots_bf16_tma_clusters(int ranks, int* active) {
+  if (ranks < 1 || ranks > kKvTmaCluster) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = kv_tma_attr();
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute la[1];
+  const cudaLaunchConfig_t cfg = kv_tma_config(ranks, 1, la, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(active, kv_dots_tma_kernel, &cfg);
+}
+
+// the bf16 K6 on TMA: bf16 q (bh, n, d), the factor (bh, d, e) fp32
+// (dots_bf16 0) or bf16 (1), bf16 out (bh, n, e); d and e multiples of 8,
+// every base 16-byte aligned; one block an SM, at most one a tile
+int mc_apply_dots_bf16_tma(const void* q, const void* dots, int dots_bf16, void* out, int bh,
+                           int n, int d, int e, void* stream) {
+  if (!tma_ok(d, e, q, out) || (uintptr_t)dots % 16 || bh < 1 || n < 1)
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  static cudaError_t err = [] {
+    int dev = 0;
+    cudaError_t e2 = cudaGetDevice(&dev);
+    if (e2 == cudaSuccess)
+      e2 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e2 == cudaSuccess)
+      e2 = cudaFuncSetAttribute(apply_dots_tma_kernel<float>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)apply_tma_smem());
+    if (e2 == cudaSuccess)
+      e2 = cudaFuncSetAttribute(apply_dots_tma_kernel<bf16>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)apply_tma_smem());
+    return e2;
+  }();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap qmap, omap;
+  int rc = tma::encode_bf16_3d(&qmap, q, bh, n, d, kPanel, kApTmaRows);
+  if (rc == 0) rc = tma::encode_bf16_3d(&omap, out, bh, n, e, kPanel, 64);
+  if (rc != 0) return rc;
+  const long long total = (long long)bh * ((n + kApTmaRows - 1) / kApTmaRows);
+  const int grid = (int)(total < sms ? total : sms);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dots_bf16)
+    apply_dots_tma_kernel<bf16><<<grid, kTmaThreads, apply_tma_smem(), st>>>(
+        qmap, omap, (const bf16*)dots, bh, n, d, e);
+  else
+    apply_dots_tma_kernel<float><<<grid, kTmaThreads, apply_tma_smem(), st>>>(
+        qmap, omap, (const float*)dots, bh, n, d, e);
   return (int)cudaGetLastError();
 }
 

@@ -28,6 +28,8 @@ SOURCES = ("fused_norm", "fused_norm_conv", "fused_norm_conv_bwd", "narrow_conv"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
 
@@ -111,8 +113,9 @@ def load(name: str) -> ctypes.CDLL:
 
 def sass_counts(lib, contains: str) -> Dict[str, Dict[str, int]]:
     """Per kernel of a built library (a source's name, or the path of a
-    .so) whose mangled name holds `contains`: its HGMMA (wgmma) and HMMA
-    (mma.sync) instructions in cuobjdump's SASS."""
+    .so) whose mangled name holds `contains`: its HGMMA (wgmma), HMMA
+    (mma.sync), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
+    cuobjdump's SASS."""
     so = _lib_path(lib) if isinstance(lib, str) else lib
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
@@ -122,11 +125,11 @@ def sass_counts(lib, contains: str) -> Dict[str, Dict[str, int]]:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             if contains in name:
-                counts[name] = {"HGMMA": 0, "HMMA": 0}
+                counts[name] = {op: 0 for op in SASS_OPS}
             else:
                 name = None
         elif name is not None:
-            for op in ("HGMMA", "HMMA"):
+            for op in SASS_OPS:
                 if f" {op}." in line:
                     counts[name][op] += 1
     return counts

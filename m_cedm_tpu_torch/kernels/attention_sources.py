@@ -1,8 +1,8 @@
-"""Time K4 (fp32 or bf16), K6, K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5, K7 (fp32 or bf16), K1's backward, K1's bf16 forward or the bf16 narrow convs built from other CUDA sources beside the package's own, on one card.
+"""Time K4 (fp32 or bf16), K6 (fp32 or bf16), K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5 (fp32 or bf16), K7 (fp32 or bf16), K1's backward, K1's bf16 forward or the bf16 narrow convs built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
-        [--kernel k4|k4bf16|k6|k2|k2bf16|k2bwd|k2bwdbf16|k5|k7|k7bf16|k1bwd|k1bf16|
-                  narrowbf16]
+        [--kernel k4|k4bf16|k6|k6bf16|k2|k2bf16|k2bwd|k2bwdbf16|k5|k5bf16|k7|
+                  k7bf16|k1bwd|k1bf16|narrowbf16]
         [--variant NAME ...]
         [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
@@ -30,6 +30,19 @@ first file given with one (FILE_VARIANTS).
       library's SASS is counted per kernel (HGMMA: wgmma; HMMA: mma.sync).
   k6  `mc_apply_dots` (csrc/linear_attention.cu), at the OFormer's two
       shapes (BH = 16 and 64, N = 16,384, D = E = 128).
+  k6bf16  the bf16 K6 (csrc/linear_attention.cu) at BH 16 and 64, N 16,384
+      and 8,192 (the time prediction), D = E = 128, with an fp32 and a bf16
+      factor: a source that exports `mc_apply_dots_bf16_tma` (this
+      package's) on that route (TMA ring, producer warp, wgmma, TMA
+      stores), one without it (the parent's, unpacked with `git archive`)
+      through `mc_apply_dots_bf16`; each output held to the bf16 plain
+      version (max and mean error of scale) and to its own bits on a
+      repeat; bf16 `torch.bmm` timed beside (with the package's source);
+      each source's SASS counts of its apply_dots kernels (HGMMA, HMMA,
+      UTMALDG, UTMASTG) and each case's bytes bound; on the card's clock
+      (device_ms, the median of five). Variants `k6bf16_*` change the ring
+      or the staged outputs, diagnostics `diag_k6bf16_*` leave out the
+      products, the stores or the factor's loads.
   k2  `mc_gn_silu_conv` and `mc_gn_silu_up_conv` (csrc/fused_norm_conv.cu),
       at the flagship's shapes (B = 16, ch 64): every K2 mode of
       chip_smoke.py's phase 2 (the identity tail at res 128 with chained
@@ -79,6 +92,20 @@ first file given with one (FILE_VARIANTS).
       16,384, D = E = 128), with the wrapper's split rule (about one block
       per SM) and with two blocks per SM (the rule of the CUDA-core kernel
       it replaced).
+  k5bf16  the bf16 K5 (csrc/linear_attention.cu) at K6bf16's shapes: a
+      source that exports `mc_kv_dots_bf16_tma` (this package's) at every
+      cluster size 1 to 8, the wrapper's rule (`kv_cluster`, from the
+      clusters the card holds at once, which
+      `mc_kv_dots_bf16_tma_clusters` reports and the run prints) marked;
+      one without it (the parent's) through `mc_kv_dots_bf16` at its split
+      rule with its workspace and second launch; each output held to the
+      plain version (fp32, of scale) and to its own bits on a repeat; bf16
+      `torch.bmm` of k^T and v (bf16 out, context) and the same with
+      `out_dtype=torch.float32` (the same function, where the card's torch
+      has it) timed beside; SASS counts and bounds as k6bf16. Variant
+      `k5bf16_stages_6`, diagnostics
+      `diag_k5bf16_no_mma`, `diag_k5bf16_no_sums`, `diag_k5bf16_no_out_stores`,
+      `diag_k5bf16_empty`.
   k7  `mc_unet_block` (csrc/fused_block.cu), the whole ADM block, at every
       mode of chip_smoke.py's phase 9 at the flagship's shapes (B = 16, ch
       64: the identity block at res 128 with chained and emitted
@@ -301,6 +328,37 @@ VARIANTS = {
     # K5's partial sums added after each k-step instead of after a 64-row stage
     "k5_temp_steps_1": ("k5", "constexpr int kKvTempSteps = 8;",
                         "constexpr int kKvTempSteps = 1;"),
+    # the bf16 K5 on TMA with a ring of six stages, not four
+    "k5bf16_stages_6": ("k5bf16", "constexpr int kKvTmaStages = 4;",
+                        "constexpr int kKvTmaStages = 6;"),
+    # diagnostics, not kernels: the bf16 K5 on TMA without its products
+    "diag_k5bf16_no_mma": ("k5bf16", "bf16t::wg_mma_ss<1, 1>(",
+                           "if (false) bf16t::wg_mma_ss<1, 1>("),
+    # the bf16 K6 on TMA with a ring of three stages, or one staged output
+    # tile a warpgroup (each tile's stores read before the next is staged)
+    "k6bf16_out_bufs_1": ("k6bf16", "constexpr int kOutBufs = 2;",
+                          "constexpr int kOutBufs = 1;"),
+    # diagnostics, not kernels: the bf16 K6 on TMA without its products, its
+    # stores or its factor's loads
+    "diag_k6bf16_no_mma": ("k6bf16", "bf16t::wg_mma_ss<0, 1>(acc[pe], da,",
+                           "if (false) bf16t::wg_mma_ss<0, 1>(acc[pe], da,"),
+    "diag_k6bf16_no_stores": ("k6bf16", "tma::store_3d(&omap,",
+                              "if (false) tma::store_3d(&omap,"),
+    "diag_k6bf16_no_factor": ("k6bf16", "      fl.store(fac, D, E, tid);",
+                              "      if (false) fl.store(fac, D, E, tid);"),
+    "k6bf16_stages_3": ("k6bf16", "constexpr int kApTmaStages = 4;",
+                        "constexpr int kApTmaStages = 3;"),
+    # diagnostics, not kernels: the bf16 K5 on TMA without the loads, sums
+    # and stores of its cluster reduce, or with no
+    # stage (launch, prologue and reduce alone)
+    "diag_k5bf16_no_sums": ("k5bf16", "  const int q4 = (d1 - d0) * E / 4;",
+                            "  const int q4 = 0;"),
+    "diag_k5bf16_no_out_stores": (
+        "k5bf16", "    *reinterpret_cast<float4*>(out + ((size_t)bh * D + d) * E + e) = sum;",
+        "    if (sum.x == -1.5e-38f) out[0] = sum.y;"),
+    "diag_k5bf16_empty": ("k5bf16",
+                          "  const int stages = n1 > n0 ? (n1 - n0 + kKvTmaRows - 1) / kKvTmaRows : 0;",
+                          "  const int stages = 0;"),
     # K1's backward with one stage kept free for the copies ahead, not two
     # (pass B trailing by two samples where the ring holds three, at res 128)
     "k1bwd_min_lead_1": ("k1bwd", "constexpr int kBwdMinLead = 2;",
@@ -451,6 +509,9 @@ KERNELS = {
     "k4bf16": ("fused_attention.cu", {"mc_attention_fwd_bf16": [P] * 6 + [I, I, I, F, P],
                                       "mc_attention_bwd_bf16": [P] * 10 + [I, I, I, F, P]}),
     "k6": ("linear_attention.cu", {"mc_apply_dots": [P] * 3 + [I] * 4 + [P]}),
+    # the TMA entry points are optional: set per library
+    "k6bf16": ("linear_attention.cu", {"mc_apply_dots_bf16": [P, P, I, P] + [I] * 4 + [P]}),
+    "k5bf16": ("linear_attention.cu", {"mc_kv_dots_bf16": [P] * 4 + [I] * 6 + [P]}),
     "k2": ("fused_norm_conv.cu", {"mc_gn_silu_conv": [P] * 13 + [I] * 7 + [F, I, I, P],
                                   "mc_gn_silu_up_conv": [P] * 10 + [I] * 6 + [F, P]}),
     "k2bf16": ("fused_norm_conv.cu",
@@ -570,10 +631,11 @@ def main(argv=None) -> int:
                 subprocess.run(["cuobjdump", "-sass", str(so)], stdout=f,
                                stderr=subprocess.STDOUT, check=False)
     if args.kernel != "k4":
-        return {"k4bf16": _time_k4bf16, "k6": _time_k6, "k2": _time_k2,
-                "k2bf16": _time_k2bf16,
+        return {"k4bf16": _time_k4bf16, "k6": _time_k6, "k6bf16": _time_k6bf16,
+                "k2": _time_k2, "k2bf16": _time_k2bf16,
                 "k2bwd": _time_k2bwd, "k2bwdbf16": _time_k2bwdbf16,
-                "k5": _time_k5, "k7": _time_k7, "k7bf16": _time_k7bf16,
+                "k5": _time_k5, "k5bf16": _time_k5bf16, "k7": _time_k7,
+                "k7bf16": _time_k7bf16,
                 "k1bwd": _time_k1bwd, "k1bf16": _time_k1bf16,
                 "narrowbf16": _time_narrowbf16}[args.kernel](libs, ptxas)
 
@@ -1616,6 +1678,164 @@ def _time_k5(libs, ptxas) -> int:
             torch.cuda.synchronize()
             errs[name][f"err {case}"] = _rel(c[2], c[7])
     _report(libs, ptxas, calls, errs)
+    return 0
+
+
+# the bf16 K5 / K6 cases (BH, N) at D = E = 128: the OFormer's two batches
+# of heads at its N, and at the time prediction's
+LINEAR_BF16_CASES = ((16, 16384), (64, 16384), (16, 8192), (64, 8192))
+
+
+def _bf16_err(got, want):
+    err = (got.double() - want.double()).abs()
+    scale = max(float(want.double().abs().max()), 1e-30)
+    return float(err.max()) / scale, float(err.mean()) / scale
+
+
+def _linear_bf16_info(libs, kind: str) -> None:
+    """Each source's SASS counts of its `kind` kernels and each case's bytes
+    bound (bf16 operands read once, the output written once)."""
+    for name, (_, so) in libs.items():
+        print(json.dumps({"source": name, "sass": _build.sass_counts(so, kind)}), flush=True)
+    out_bytes = {"kv_dots": lambda bh, n: 4 * bh * K6_W * K6_W,
+                 "apply_dots": lambda bh, n: 2 * bh * n * K6_W}[kind]
+    print(json.dumps({f"{kind} bf16 bound_ms": {
+        f"BH {bh}, N {n}": (2 * bh * n * K6_W * (2 if kind == "kv_dots" else 1)
+                            + out_bytes(bh, n)) / 3.35e12 * 1e3
+        for bh, n in LINEAR_BF16_CASES}}), flush=True)
+
+
+def _checked(name):
+    def check(rc):
+        if rc:
+            raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+    return check
+
+
+def _time_k5bf16(libs, ptxas) -> int:
+    """The bf16 K5 of every source at LINEAR_BF16_CASES: this package's on
+    its TMA route at every cluster size (the wrapper's rule marked), the
+    parent's through its own interface; each output against the plain
+    version and for the same bits on a repeat; bf16 torch.bmm and its
+    out_dtype=float32 form beside; on the card's clock."""
+    import math
+
+    from m_cedm_tpu_torch.kernels import linear_attention as la
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d = e = K6_W
+    _linear_bf16_info(libs, "kv_dots")
+    active = {}
+    for name, (lib, _) in libs.items():
+        if hasattr(lib, "mc_kv_dots_bf16_tma"):
+            lib.mc_kv_dots_bf16_tma.argtypes = [P] * 3 + [I] * 5 + [P]
+            lib.mc_kv_dots_bf16_tma_clusters.argtypes = [I, P]
+            got = ctypes.c_int(0)
+            active[name] = []
+            for c in range(1, la.KV_CLUSTER_MAX + 1):
+                _checked(name)(lib.mc_kv_dots_bf16_tma_clusters(c, ctypes.addressof(got)))
+                active[name].append(got.value)
+    print(json.dumps({"k5bf16 active clusters of 1 to 8 blocks": active}), flush=True)
+    cases = {}
+    for bh, n in LINEAR_BF16_CASES:
+        k, v = (torch.randn(bh, n, w, generator=gen, device=dev).to(torch.bfloat16)
+                for w in (d, e))
+        cases[(bh, n)] = (k, v, la.kv_dots_plain(k, v), torch.empty(bh, d, e, device=dev))
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        check = _checked(name)
+        for (bh, n), (k, v, want, out) in cases.items():
+            case = f"BH {bh}, N {n}"
+            runs = {}
+            if name in active:
+                rule = la.kv_cluster(bh, n, active[name])
+                for c in range(1, la.KV_CLUSTER_MAX + 1):
+                    runs[f"{case}, cluster {c}{' (rule)' if c == rule else ''}"] = (
+                        lambda k=k, v=v, out=out, bh=bh, n=n, c=c, lib=lib, check=check: check(
+                            lib.mc_kv_dots_bf16_tma(k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                                    bh, n, d, e, c, stream)))
+            else:
+                splits = max(1, min(sms // bh, math.ceil(n / 128)))
+                rows = math.ceil(math.ceil(n / splits) / la._CHUNK) * la._CHUNK
+                part = torch.empty(bh, splits, d, e, device=dev)
+                runs[f"{case}, splits {splits}"] = (
+                    lambda k=k, v=v, out=out, part=part, bh=bh, n=n, s=splits, r=rows, lib=lib,
+                    check=check: check(
+                        lib.mc_kv_dots_bf16(k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                            part.data_ptr(), bh, n, d, e, s, r, stream)))
+            for key, run in runs.items():
+                run()
+                torch.cuda.synchronize()
+                first = out.clone()
+                run()
+                torch.cuda.synchronize()
+                errs[name][f"err {key}"] = _rel(out, want.double())
+                errs[name][f"same bits {key}"] = bool(torch.equal(first, out))
+                calls[name][key] = run
+            if name == "package":
+                calls[name][f"library bf16 torch.bmm (bf16 out) {case}"] = (
+                    lambda k=k, v=v: torch.bmm(k.transpose(1, 2), v))
+                try:
+                    torch.bmm(k.transpose(1, 2), v, out_dtype=torch.float32)
+                    calls[name][f"library torch.bmm out_dtype float32 {case}"] = (
+                        lambda k=k, v=v: torch.bmm(k.transpose(1, 2), v,
+                                                   out_dtype=torch.float32))
+                except (TypeError, RuntimeError) as err:
+                    print(json.dumps({"torch.bmm out_dtype float32": repr(err)}), flush=True)
+    _report(libs, ptxas, calls, errs, timer=lambda fn_: device_ms(fn_, repeats=5))
+    return 0
+
+
+def _time_k6bf16(libs, ptxas) -> int:
+    """The bf16 K6 of every source at LINEAR_BF16_CASES with an fp32 and a
+    bf16 factor: this package's on its TMA route, the parent's through
+    mc_apply_dots_bf16 (the same arguments); each output against the bf16
+    plain version and for the same bits on a repeat; bf16 torch.bmm beside;
+    on the card's clock."""
+    from m_cedm_tpu_torch.kernels import linear_attention as la
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    d = e = K6_W
+    _linear_bf16_info(libs, "apply_dots")
+    for lib, _ in libs.values():
+        if hasattr(lib, "mc_apply_dots_bf16_tma"):
+            lib.mc_apply_dots_bf16_tma.argtypes = [P, P, I, P] + [I] * 4 + [P]
+    cases = {}
+    for bh, n in LINEAR_BF16_CASES:
+        q = torch.randn(bh, n, d, generator=gen, device=dev).to(torch.bfloat16)
+        f32 = torch.randn(bh, d, e, generator=gen, device=dev) / d ** 0.5
+        for label, f in (("fp32 factor", f32), ("bf16 factor", f32.bfloat16())):
+            cases[(bh, n, label)] = (q, f, la.apply_dots_plain(q, f),
+                                     torch.empty(bh, n, e, device=dev, dtype=torch.bfloat16))
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        check = _checked(name)
+        fn = getattr(lib, "mc_apply_dots_bf16_tma", lib.mc_apply_dots_bf16)
+        for (bh, n, label), (q, f, want, out) in cases.items():
+            key = f"BH {bh}, N {n}, {label}"
+
+            def run(q=q, f=f, out=out, bh=bh, n=n, fn=fn, check=check):
+                check(fn(q.data_ptr(), f.data_ptr(), int(f.dtype == torch.bfloat16),
+                         out.data_ptr(), bh, n, d, e, stream))
+            run()
+            torch.cuda.synchronize()
+            first = out.clone()
+            run()
+            torch.cuda.synchronize()
+            errs[name][f"err {key}"] = _bf16_err(out, want)
+            errs[name][f"same bits {key}"] = bool(torch.equal(first, out))
+            calls[name][key] = run
+            if name == "package" and label == "bf16 factor":
+                calls[name][f"library bf16 torch.bmm BH {bh}, N {n}"] = (
+                    lambda q=q, f=f: torch.bmm(q, f))
+    _report(libs, ptxas, calls, errs, timer=lambda fn_: device_ms(fn_, repeats=5))
     return 0
 
 

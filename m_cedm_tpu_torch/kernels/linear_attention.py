@@ -9,13 +9,25 @@ how their design handles that.
   kv_dots(k, v)        (BH, N, D) x (BH, N, E) -> fp32 (BH, D, E) = sum_n k_n^T v_n
   apply_dots(q, dots)  (BH, N, D) x (BH, D, E) -> (BH, N, E) = q @ dots
 
-The kernels take any N and any D, E up to 128, contiguous, in two instances:
+The kernels take any N and any D, E up to 128, contiguous, 16-byte aligned,
+in two instances:
 
   fp32   k, v, q and the factor fp32; out fp32 (3xTF32 products)
   bf16   kv_dots: bf16 k, v into an fp32 out; apply_dots: bf16 q, an fp32 or
          bf16 factor rounded to bf16 as it is loaded, out rounded once to
          bf16 from fp32 sums (bf16 products, as `_apply_kernel` runs on
          bf16 operands)
+
+The bf16 instance takes one of two routes, by shape alone (`tma_route`):
+where D and E are multiples of 8 (rows of whole 16-byte units, which TMA
+describes), the kernels on TMA and wgmma: `mc_kv_dots_bf16_tma`, one
+thread-block cluster of `kv_cluster` blocks a head-batch (from the shape and
+the clusters the card holds at once) whose partials are summed in rank
+order over distributed shared memory, one launch and no workspace, and
+`mc_apply_dots_bf16_tma`, persistent blocks over all SMs. Other widths take
+the bf16 mma.sync kernels: `mc_kv_dots_bf16`, which splits N by `_splits`
+into a workspace and a second launch, and `mc_apply_dots_bf16`. Either
+counts as one launch a call.
 
 Any other mix of dtypes raises. Each wrapper is a torch.autograd.Function
 whose backward is made of the two primitives, with the dtypes of the JAX
@@ -34,6 +46,7 @@ kernels, forward or backward; `kv_dots.launches_bf16` and
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -46,6 +59,12 @@ from m_cedm_tpu_torch.kernels._launch import (ACT_DTYPES, I, P, act_dtype, check
 
 MAX_WIDTH = 128
 _CHUNK = 64  # rows per shared-memory stage of the kv_dots kernel
+# the bf16 kv_dots on TMA (csrc/linear_attention.cu's kKvTmaCluster,
+# kKvTmaMinRows, kKvTmaRows): blocks a head-batch at most (the portable
+# cluster size), tokens a block at least, tokens a stage
+KV_CLUSTER_MAX = 8
+KV_MIN_ROWS = 256
+KV_STAGE_ROWS = 64
 
 
 def kv_dots_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -89,9 +108,49 @@ def _sm_count(index: int) -> int:
 
 
 def _splits(bh: int, n: int, device) -> int:
-    """Blocks per head-batch for kv_dots: about one per SM in all (a block
-    takes an SM's shared memory), and at least 128 rows each."""
+    """Blocks per head-batch for the fp32 kv_dots and the bf16 one on
+    mma.sync: about one per SM in all (a block takes an SM's shared
+    memory), and at least 128 rows each."""
     return max(1, min(_sm_count(device.index) // bh, math.ceil(n / 128)))
+
+
+def tma_route(d: int, e: int) -> bool:
+    """The bf16 kernels' route, by shape alone: TMA describes rows of whole
+    16-byte units, widths that are multiples of 8 (`_check` holds every
+    base 16-byte aligned). Other widths take the bf16 mma.sync kernels."""
+    return d % 8 == 0 and e % 8 == 0
+
+
+def kv_cluster(bh: int, n: int, active) -> int:
+    """Blocks a head-batch of the bf16 kv_dots on TMA, one cluster: the
+    largest power of two up to KV_CLUSTER_MAX whose bh clusters the card
+    holds at once (`active[c - 1]` clusters of c blocks, as
+    cudaOccupancyMaxActiveClusters reports them: one block an SM, so the
+    grid runs in one wave) with KV_MIN_ROWS tokens a block, or 1. On an
+    H100 (15 clusters of 8, 30 of 4, 66 of 2): 4 at BH 16, 2 at BH 64."""
+    c = KV_CLUSTER_MAX
+    while c > 1 and (bh > active[c - 1] or c * KV_MIN_ROWS > n):
+        c //= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(index: int) -> tuple:
+    """Clusters of 1 .. KV_CLUSTER_MAX blocks of the bf16 kv_dots on TMA
+    that card `index` holds at once."""
+    fn = _build.bind("linear_attention", "mc_kv_dots_bf16_tma_clusters", [I, P])
+    got, out = ctypes.c_int(0), []
+    with torch.cuda.device(index):
+        for c in range(1, KV_CLUSTER_MAX + 1):
+            raise_on_error(fn(c, ctypes.addressof(got)), "mc_kv_dots_bf16_tma_clusters")
+            out.append(got.value)
+    return tuple(out)
+
+
+def kv_cluster_rows(n: int, ranks: int) -> int:
+    """Tokens a cluster rank takes (the kernel's kv_tma_rows): whole stages,
+    ranks * rows >= n; rank r sums tokens r * rows .. min(n, (r + 1) rows)."""
+    return math.ceil(math.ceil(n / ranks) / KV_STAGE_ROWS) * KV_STAGE_ROWS
 
 
 def _kv_dots_kernel(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -100,6 +159,13 @@ def _kv_dots_kernel(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     e = v.shape[2]
     _check(k, "k", v, "v", (bh, n, e))
     out = k.new_empty(bh, d, e, dtype=torch.float32)
+    if k.dtype == torch.bfloat16 and tma_route(d, e):
+        fn = _build.bind("linear_attention", "mc_kv_dots_bf16_tma", [P] * 3 + [I] * 5 + [P])
+        raise_on_error(fn(ptr(k), ptr(v), ptr(out), bh, n, d, e,
+                          kv_cluster(bh, n, _active_clusters(k.device.index)), stream()),
+                       "mc_kv_dots_bf16_tma")
+        kv_dots.launches_bf16 += 1
+        return out
     splits = _splits(bh, n, k.device)
     rows = math.ceil(math.ceil(n / splits) / _CHUNK) * _CHUNK
     part = out.new_empty(bh, splits, d, e) if splits > 1 else None
@@ -124,11 +190,11 @@ def _apply_dots_kernel(q: torch.Tensor, dots: torch.Tensor) -> torch.Tensor:
     _check(q, "q", dots, "dots", (bh, d, e), ACT_DTYPES if bf16 else None)
     out = q.new_empty(bh, n, e)
     if bf16:
-        fn = _build.bind("linear_attention", "mc_apply_dots_bf16",
-                         [P, P, I, P] + [I] * 4 + [P])
+        name = "mc_apply_dots_bf16_tma" if tma_route(d, e) else "mc_apply_dots_bf16"
+        fn = _build.bind("linear_attention", name, [P, P, I, P] + [I] * 4 + [P])
         rc = fn(ptr(q), ptr(dots), int(dots.dtype == torch.bfloat16), ptr(out), bh, n,
                 d, e, stream())
-        raise_on_error(rc, "mc_apply_dots_bf16")
+        raise_on_error(rc, name)
         apply_dots.launches_bf16 += 1
         return out
     fn = _build.bind("linear_attention", "mc_apply_dots", [P] * 3 + [I] * 4 + [P])

@@ -1877,12 +1877,15 @@ def test_bf16_train_step_on_the_card(cuda):
 # K5's bf16 instance: bf16 products are exact in fp32, so its fp32 output
 # holds to its plain version (the fp32 sum of the upcasts) and to float64 as
 # the fp32 kernel does. K6's: the factor rounded to bf16, fp32 sums, the
-# output rounded once, as every bf16 kernel's output (_bf16_close). Ragged N,
-# widths not multiples of 8 (element copies), 40 (16-byte copies, columns
-# zero-padded to 48), one and several kv splits.
+# output rounded once, as every bf16 kernel's output (_bf16_close). Ragged N;
+# widths not multiples of 8 (the mma.sync kernels, element copies); on the
+# TMA route widths 40 and 8 (boxes zero-filled past them), clusters of one
+# to eight ranks (an empty last rank at N 2,049 in eight), BH 20 (clusters
+# of four that do not tile the SMs), the ragged case of chip_smoke.py.
 
 LA_BF16_SHAPES = [(3, 1000, 12, 20), (2, 2500, 128, 128), (5, 77, 128, 64),
-                  (1, 33, 7, 128), (4, 16389, 40, 40), (70, 300, 128, 8)]
+                  (1, 33, 7, 128), (4, 16389, 40, 40), (70, 300, 128, 8),
+                  (20, 4096, 128, 128), (3, 1037, 40, 40), (4, 2049, 64, 128)]
 
 
 @pytest.mark.cuda
@@ -1903,9 +1906,11 @@ def test_k5_k6_bf16_match_plain(cuda, shape):
         out = tla.apply_dots(q, factor)
         assert out.dtype == torch.bfloat16
         _bf16_close(out, tla.apply_dots_plain(q, factor))
+        assert torch.equal(tla.apply_dots(q, factor), out)
     got = kernels.launches()
-    assert (got["K5 kv_dots bf16"], got["K6 apply_dots bf16"]) == (1, 2)
+    assert (got["K5 kv_dots bf16"], got["K6 apply_dots bf16"]) == (1, 4)
     assert (got["K5 kv_dots"], got["K6 apply_dots"]) == (0, 0)
+    assert torch.equal(tla.kv_dots(k, v), dots)  # fixed order: the same bits
 
 
 @pytest.mark.cuda
@@ -1949,6 +1954,55 @@ def test_k5_k6_bf16_backward(cuda, shape):
     # kv_dots' backward two K6 calls, apply_dots' one K6 and one K5
     assert (got["K5 kv_dots bf16"], got["K6 apply_dots bf16"]) == (2, 4)
     assert (got["K5 kv_dots"], got["K6 apply_dots"]) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 4096, 128, 128), (3, 1037, 40, 40), (3, 1000, 12, 20),
+                                   (2, 300, 36, 128)], ids=lambda s: "x".join(map(str, s)))
+def test_k5_k6_bf16_route_by_shape(cuda, shape):
+    """Widths that are multiples of 8 take the TMA kernels, K5 as exactly
+    one device kernel a call (no workspace pass); other widths the bf16
+    mma.sync kernels (K5's partials and their reduce)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    bh, n, d, e = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k, q = (_bf16_rnd(g, cuda, bh, n, d) for _ in range(2))
+    v = _bf16_rnd(g, cuda, bh, n, e)
+    dots = tla.kv_dots(k, v)
+    tla.apply_dots(q, dots)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tla.kv_dots(k, v)
+        torch.cuda.synchronize()
+    k5 = [ev.name for ev in prof.events() if ev.device_type.name == "CUDA"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tla.apply_dots(q, dots)
+        torch.cuda.synchronize()
+    k6 = [ev.name for ev in prof.events() if ev.device_type.name == "CUDA"]
+    if tla.tma_route(d, e):
+        assert len(k5) == 1 and "kv_dots_tma_kernel" in k5[0], k5
+        assert len(k6) == 1 and "apply_dots_tma_kernel" in k6[0], k6
+    else:
+        assert all("tma" not in nm for nm in k5 + k6), (k5, k6)
+        assert any("kv_dots_partial_bf16_kernel" in nm for nm in k5), k5
+        assert len(k6) == 1 and "apply_dots_bf16_kernel" in k6[0], k6
+
+
+@pytest.mark.cuda
+def test_k5_bf16_clusters_fit_one_wave(cuda):
+    """The wrapper's cluster at the OFormer's BH: every cluster co-resident
+    by cudaOccupancyMaxActiveClusters, and 2, 4, 8 blocks a head-batch
+    where that holds."""
+    from m_cedm_tpu_torch.kernels import linear_attention as tla
+
+    active = tla._active_clusters(cuda.index or 0)
+    assert len(active) == tla.KV_CLUSTER_MAX and active[0] >= 1
+    for bh in (1, 3, 16, 20, 64):
+        c = tla.kv_cluster(bh, 16384, active)
+        assert c in (1, 2, 4, 8) and (c == 1 or bh <= active[c - 1])
 
 
 @pytest.mark.cuda
