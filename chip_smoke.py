@@ -193,16 +193,21 @@ Phases, each printing JSON lines:
               bfloat16 on phase 12's resumed run: its keys those of phase
               12's eval_model, every metric finite, launches per U-Net
               forward equal to part 3's, its seconds; (6) the bf16 K7
-              (unet_block_bf16_kernel) through its wrapper against its bf16
-              plain version (the chained composition of the bf16 plain K2 /
-              K3) at the flagship's widths: the identity block at res 128,
-              64 and 32, the decoder's dual input with its projection, the
-              up block, the ragged case whose weights stream, all with
-              chained statistics and emitting (outputs within 1e-2 / 1e-4
-              of scale, statistics within 4e-5, the same bits on a repeat),
-              kernel, plain and bf16 two-kernel-path times on the wrapper's
-              and the card's clock, the bf16 bound, each launch plan, and
-              the SASS (every product a wgmma); (7) phase 15.3's eval with
+              (unet_block_bf16_tma_kernel, and unet_block_bf16_kernel where
+              TMA cannot describe the shapes) through its wrapper against
+              its bf16 plain version (the chained composition of the bf16
+              plain K2 / K3) at the flagship's widths: every launch kind of
+              its forward (the identity block at res 128, 64 and 32, the
+              decoder's dual input with its projection at the same three,
+              the up blocks to res 128 and 64), the ragged case whose
+              weights stream and the width-36 case of the kept route, all
+              with chained statistics and emitting (outputs within 1e-2 /
+              1e-4 of scale, statistics within 4e-5, the same bits on a
+              repeat), kernel, plain and bf16 two-kernel-path times on the
+              wrapper's and the card's clock, the bf16 bound, each case's
+              route and launch plan, a forward's launch-weighted sums, and
+              the SASS (every product a wgmma, the TMA route's copies and
+              stores TMA's); (7) phase 15.3's eval with
               mega=True: metrics within 2e-2 of the bf16 per-conv eval's
               (test_pde_loss_u reported), h within 1e-5 of the truth, every
               launch equal to the fp32 mega eval's of phase 10 (1,287 K7),
@@ -4011,18 +4016,26 @@ MEGA_BF16 = "K7 unet_block bf16"
 
 
 def k7_bf16_sass() -> dict:
-    """HGMMA / HMMA counts of the built fused_block library's four bf16 K7
-    instances (unet_block_bf16_kernel<up, kM>); raises unless each issues
-    wgmma and no mma.sync."""
+    """HGMMA / HMMA / UTMALDG / UTMASTG counts of the built fused_block
+    library's bf16 K7 instances: the TMA route's four
+    (unet_block_bf16_tma_kernel<up, kM, warpgroups>) and the kept route's
+    four (unet_block_bf16_kernel<up, kM>); raises unless each issues wgmma
+    and no mma.sync, and each TMA instance TMA loads and stores."""
     from m_cedm_tpu_torch.kernels import _build
 
     counts = {}
-    for name, cnt in _build.sass_counts("fused_block", "unet_block_bf16_kernel").items():
-        short = re.search(r"(unet_block_bf16_kernel)ILb([01])ELi([12])E", name)
-        counts[f"{short[1]}<{short[2]}, {short[3]}>" if short else name] = cnt
-    if len(counts) != 4 or any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
-        raise AssertionError(f"bf16 K7: SASS counts {counts}: every product should be "
-                             "a wgmma")
+    for name, cnt in _build.sass_counts("fused_block", "unet_block_bf16").items():
+        tma = re.search(r"(unet_block_bf16_tma_kernel)ILb([01])ELi([12])ELi([24])E", name)
+        kept = re.search(r"(unet_block_bf16_kernel)ILb([01])ELi([12])E", name)
+        short = (f"{tma[1]}<{tma[2]}, {tma[3]}, {tma[4]}>" if tma else
+                 f"{kept[1]}<{kept[2]}, {kept[3]}>" if kept else name)
+        counts[short] = cnt
+        if (cnt["HGMMA"] == 0 or cnt["HMMA"]
+                or (tma and (cnt["UTMALDG"] == 0 or cnt["UTMASTG"] == 0))):
+            raise AssertionError(f"bf16 K7 {short}: SASS counts {cnt}: every product "
+                                 "should be a wgmma, the TMA route's copies TMA's")
+    if len(counts) != 8:
+        raise AssertionError(f"bf16 K7: {len(counts)} instances in the SASS, not 8: {counts}")
     return counts
 
 
@@ -4041,7 +4054,8 @@ def phase_bf16_mega_kernel(device, b: int, res: int, ch: int) -> dict:
 
     from m_cedm_tpu_torch.kernels import _build
     from m_cedm_tpu_torch.kernels import fused_block as fb
-    from m_cedm_tpu_torch.kernels.attention_sources import k7_bf16_cases
+    from m_cedm_tpu_torch.kernels.attention_sources import (k7_bf16_cases,
+                                                            k7_bf16_per_forward)
 
     modes, first = [], None
     for mode, (args, kw) in k7_bf16_cases(device, b, res, ch, SEED + 62).items():
@@ -4076,7 +4090,7 @@ def phase_bf16_mega_kernel(device, b: int, res: int, ch: int) -> dict:
                                 kw.get("skip_w"), kw.get("skip_b"), *kw["stats"],
                                 *flat_want), flops, 0, PEAK_BF16)
             c2 = x2.shape[-1] if x2 is not None else 0
-            res0, res1, smem, bps, _, blocks, rows = fb._bf16_plan(
+            res0, res1, smem, bps, _, blocks, rows, tma, stages, wgs = fb._bf16_plan(
                 bb, hh, ww, c1, c2, o, kw["up"], proj)
             rec = {"phase": "bf16_mega_kernel", "kernel": MEGA_BF16, "mode": mode,
                    "nvidia_smi": nvidia_smi_line(), **err,
@@ -4092,8 +4106,11 @@ def phase_bf16_mega_kernel(device, b: int, res: int, ch: int) -> dict:
                                                      work),
                    **work, "library_ms": None,
                    "library": "none: no PyTorch call computes a whole ADM block",
+                   "route": ("unet_block_bf16_tma_kernel (TMA)" if tma else
+                             "unet_block_bf16_kernel (cp.async, kept)"),
                    "plan": {"tile_rows": rows, "weights_resident_phase0": res0,
-                            "weights_resident_phase1": res1,
+                            "weights_resident_phase1": res1, "ring_stages": stages,
+                            "consumer_warpgroups": wgs,
                             "smem_bytes": smem, "blocks_per_sm": bps, "blocks": blocks,
                             "items": fb.grid(bb, hh, ww, o, kw["up"], torch.bfloat16,
                                              c1=c1, c2=c2, proj=proj)[0]}}
@@ -4101,18 +4118,31 @@ def phase_bf16_mega_kernel(device, b: int, res: int, ch: int) -> dict:
         modes.append({k: rec[k] for k in (
             "mode", "max_rel_err", "mean_rel_err", "stats_max_rel_err", "ms", "device_ms",
             "plain_ms", "two_kernel_ms", "two_kernel_device_ms", "bound_ms", "bound_by",
-            "two_kernel_path_max_rel_err", "two_kernel_path_stats_max_rel_err", "plan")})
+            "two_kernel_path_max_rel_err", "two_kernel_path_stats_max_rel_err", "route",
+            "plan")})
         if first is None:
             first = dict(rec)
         for k in ("max_abs_err", "max_rel_err", "mean_rel_err", "stats_max_rel_err"):
             first[k] = max(first[k], rec[k])
         del want, got, again, two
     counts = k7_bf16_sass()
+    # a forward's K7 time: each launch kind's device time times its launches
+    per = k7_bf16_per_forward(res, ch)
+    by_mode = {m["mode"]: m for m in modes}
+    first.update(per_forward={k: {"launches": n, "device_ms": by_mode[k]["device_ms"],
+                                  "two_kernel_device_ms": by_mode[k]["two_kernel_device_ms"],
+                                  "bound_ms": by_mode[k]["bound_ms"]} for k, n in per.items()},
+                 device_ms_per_forward=sum(n * by_mode[k]["device_ms"] for k, n in per.items()),
+                 two_kernel_device_ms_per_forward=sum(
+                     n * by_mode[k]["two_kernel_device_ms"] for k, n in per.items()),
+                 bound_ms_per_forward=sum(n * by_mode[k]["bound_ms"] for k, n in per.items()))
     first.update(modes=modes, sass=counts, ptxas=[
         ln.strip() for ln in _build.build_log("fused_block").splitlines()
-        if any(k in ln for k in ("unet_block_bf16_kernel", "registers", "spill"))])
+        if any(k in ln for k in ("unet_block_bf16", "registers", "spill"))])
     emit({"phase": "bf16_mega_kernel", "kernel": MEGA_BF16, "sass": counts,
-          "ptxas": first["ptxas"]})
+          "ptxas": first["ptxas"], "device_ms_per_forward": first["device_ms_per_forward"],
+          "two_kernel_device_ms_per_forward": first["two_kernel_device_ms_per_forward"],
+          "bound_ms_per_forward": first["bound_ms_per_forward"]})
     torch.cuda.empty_cache()
     return {MEGA_BF16: first}
 
@@ -5455,7 +5485,9 @@ def main() -> int:
                         "max_abs_err", "max_rel_err", "mean_rel_err", "tol", "tol_mean",
                         "stats_max_rel_err", "stats_tol", "ms", "device_ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms", "two_kernel_ms",
-                        "two_kernel_device_ms", "modes", "sass")}})
+                        "two_kernel_device_ms", "device_ms_per_forward",
+                        "two_kernel_device_ms_per_forward", "bound_ms_per_forward", "modes",
+                        "sass")}})
     for name, fp32_name in BF16_BWD_KERNELS.items():
         rec = bwd16_results[name]
         source, replaces = KERNEL_INFO.get(fp32_name) or BF16_ONLY_INFO[fp32_name]

@@ -90,6 +90,8 @@
 #include <stdint.h>
 
 #include "bf16_conv_tiles.cuh"
+#include "k7_plan.h"
+#include "tma_ring.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -719,7 +721,9 @@ bool aligned(const void* ptr, int bytes) {
 
 
 // ---------------------------------------------------------------------------
-// bf16: unet_block_bf16_kernel<kUp>
+// bf16: unet_block_bf16_kernel<kUp, kM>, the route for the shapes
+// TMA cannot describe (C1, C2 or O not a multiple of 8, an unaligned base,
+// an identity skip with two inputs); the TMA route below takes the rest
 // ---------------------------------------------------------------------------
 //
 // The Pallas kernel on a bf16 network (fused_block.py _mega_kernel): norm0
@@ -773,18 +777,25 @@ bool aligned(const void* ptr, int bytes) {
 using bf16t::bf16;
 
 constexpr int kCH = bf16t::kRowCh;                          // channels a chunk: one A row
-constexpr int kConvWBytes = 9 * kCH * bf16t::kWRowBytes;    // a conv chunk's weights, 73,728
-constexpr int kProjWBytes = kCH * bf16t::kWRowBytes;        // a projection chunk's, 8,192
-constexpr int kVecBytes = (2 * kCH + 2 * kMaxC) * 4;        // bias, skip bias, scale, shift
+// the widths, weight chunks, shared memory cap and tile rule that both bf16
+// routes share: k7_plan.h, the TMA route's plan, a host compiler builds alone
+using k7plan::kBigTileWaves;
+using k7plan::kConvWBytes;    // a conv chunk's weights, 73,728
+using k7plan::kProjWBytes;    // a projection chunk's, 8,192
+using k7plan::kSmemCapH;
+using k7plan::kVecBytes;      // bias, skip bias, scale, shift
+using k7plan::pos_h;
+using k7plan::rows_h;
+static_assert(k7plan::kChunk == kCH && k7plan::kPixRow == bf16t::kWRowBytes &&
+                  k7plan::kTileW == kTW && k7plan::kHaloW == kIW &&
+                  k7plan::kMaxChannels == kMaxC,
+              "k7_plan.h's widths are this source's");
 constexpr int kRedBytes = 2 * kWarps * kCH * 4;             // the statistics' reduction
 constexpr int kStagingBytes = kWarps * kTW * bf16t::kARowBytes;  // a warp's output row
-constexpr int kSmemCapH = 232448;  // dynamic shared memory a block may take on the H100
-constexpr int kBigTileWaves = 1;   // 16 x 16 tiles when they give this many a block
 
-// A tile of kM * 8 rows x 16 pixels: warp w owns tile rows w + 8 m, m < kM.
-// Rows of its halo'd A stage and of the up-block's low-res one, and bytes.
-__host__ __device__ constexpr int rows_h(int km) { return 8 * km; }
-__host__ __device__ constexpr int pos_h(int km) { return (rows_h(km) + 2) * kIW; }
+// A tile of kM * 8 rows x 16 pixels (rows_h): warp w owns tile rows w + 8 m,
+// m < kM. Positions of its halo'd A stage (pos_h) and of the up-block's
+// low-res one, and bytes.
 __host__ __device__ constexpr int lowpos_h(int km) { return (rows_h(km) / 2 + 2) * kLW; }
 __host__ __device__ constexpr int stage_h(int km) { return pos_h(km) * bf16t::kARowBytes; }
 
@@ -1322,6 +1333,688 @@ int plan_h(bool up, int batch, int h, int wd, int c1, int c2, int o, bool proj, 
   return pl.blocks < nch ? (int)cudaErrorCooperativeLaunchTooLarge : 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on TMA: unet_block_bf16_tma_kernel<kUp, kM, kWG> (the route where
+// C1, C2 and O are multiples of 8, every base 16-byte aligned, and an
+// identity skip has one input)
+// ---------------------------------------------------------------------------
+//
+// The same function as unet_block_bf16_kernel above (its header), the same
+// schedule (one cooperative launch; phase 0, a grid barrier, the per-tile
+// partials summed in a fixed order, phase 1, and the optional emit; no
+// atomics, the same bits on every call) and the same work items (8 kM x 16
+// pixels of one sample and 64 outputs, a block walking a contiguous run of
+// tiles of one output block). What changes is who does what, and when.
+// unet_block_bf16_kernel runs everything in series in one block of 8
+// warps: a step's copies are waited for, activated in place, a block
+// barrier taken, and only then the products run, so that without its
+// products it still takes 0.211 of its 0.266 ms at the res-128 identity
+// block.
+//
+// Roles. Warpgroup 0 (128 threads) activates; kWG consumer warpgroups
+// multiply and store, and their leaders (thread 0 of each) issue the TMA
+// copies. A ring of `stages` A stages (as many as fit, 2 to kTmaStagesMax)
+// under three mbarriers each: `full` (the TMA copy's bytes), `act` (warpgroup
+// 0's warps have activated it) and `empty` (every consumer warp is done with
+// it). No block-wide barrier remains in the step loop: a step is handed on by
+// barriers alone, so warpgroup 0 activates step s + 1 while the consumers
+// multiply step s. A leader issues step s + stages's copy into step s's stage
+// once it is empty, the two leaders in turns (a copy's issue takes its
+// thread 0.3-0.5 us; on warpgroup 0's thread 0 it held the activation
+// behind it, and in one leader alone that warpgroup fell behind the other).
+// Copies. The A stages arrive by cp.async.bulk.tensor from 4-D tensor maps
+// over NHWC ((C, W, H, B), innermost first): the halo'd box (64, 18, 8 kM +
+// 2, 1) at signed start coordinates (tx0 - 1, ty0 - 1), so TMA's zero fill
+// past the bounds gives the raw halo (with kUp phase 0 reads x's low-res box
+// (64, 10, 4 kM + 2, 1) under the tile); x and x2 have maps of their own, so
+// the concat is never made, and ws has its own in phase 1. A projection
+// chunk is the centre tap of the same halo'd box (its copy is 1.27 / 1.41
+// times the pixels it needs; no map of its own). Rows are 128 bytes (a
+// pixel's 64 channels) under the 128-byte swizzle: 16-byte chunk j of
+// position p sits at j ^ (p & 7). The weights come by TMA too, 64 x 64 x 1
+// boxes of (O, C, taps) maps, into wgmma's B layout as they are (the same
+// swizzle), once a phase where they fit, else a chunk a step with its A
+// stage (the 128 + 128 -> 128 case).
+// Activation. Thread tid takes channel chunk c = tid & 7 at positions tid /
+// 8, + 16, ...: the physical chunk is c ^ (p & 7), the scale and shift
+// those of the un-swizzled channel (in registers for the step); GroupNorm
+// (+ FiLM) and SiLU in fp32, rounded once; positions outside the image are
+// written zero (TMA's zeros would activate to silu(shift)).
+// Products. wgmma m64n64k16, A from registers by ldmatrix (a lane's row
+// address applies the XOR), B by descriptor from the resident weights.
+// Warpgroup w owns tile rows w * 8 kM / kWG .. (kA = 2 kM / kWG accumulators
+// of four rows, a row a warp), so a warpgroup's rows are one TMA box.
+// Epilogue. The identity's residual (x at the tile's own pixels, channels
+// o0 .., with kUp the low-res pixels under them) is copied by TMA into the
+// warpgroup's staging rows (kUp: a low-res buffer of its own) by the
+// warpgroup's leader while the tile's last products run, once the last
+// tile's store has read them; the fp32 sums plus bias, skip bias or
+// residual are summed into the statistics (registers over the run of one
+// sample's tiles, shuffles, the consumer warps in order, one slot a tile:
+// unet_block_bf16_kernel's order), rounded once into the staging rows (the
+// same swizzle) and stored by one cp.async.bulk.tensor of (64, 16, rows,
+// 1), which clips the ragged edge: ws in phase 0, out in phase 1. Phase
+// 0's stores are waited for complete (not only read) and fenced for the
+// async proxy before the grid barrier, past which phase 1's TMA reads ws.
+// Host. The plan is k7_plan.h's (plain C++, built alone by the CPU tests).
+// Each call encodes its tensor maps (up to nine) by cuTensorMapEncodeTiled,
+// as the K5 / K6 wrappers do.
+//
+// Shared memory of the flagship's 13 launches a forward (B 16, ch 64; of
+// 232,448 bytes): the identity block at res 128 and 64, 16 x 16 tiles, 2
+// stages of 41,984, 73,728 of resident weights, 32,768 of staging: 198,400;
+// at res 32 (three launches), 8 x 16 (16 x 16 tiles would not fill a wave),
+// 4 stages of 23,552: 192,256; the decoder's 64 + 64 -> 64 block with its
+// projection at res 128, 64 and 32 (six), 8 x 16 (phase 0's 147,456 bytes
+// of weights leave room for 2 stages of 23,552 only): 218,880; the up blocks
+// to res 128 and 64, 16 x 16 with a low-res residual buffer of 8,192:
+// 206,592. The 128 + 128 -> 128 case streams both phases' weights, 2 stages
+// of 97,280: 218,880.
+//
+// Measured (kernels/attention_sources.py --kernel k7bf16, one H100 80GB
+// HBM3 at 700 W; PERF.md section 6): see PERF.md for every launch kind. A
+// block-0 clock64 trace of the identity block (8 x 16 tiles) reads a stage's
+// activation at 2.6-3.0 us and a consumer step at 3.5-4.5 us (products
+// 1.8-2.0, the epilogue and the copies' issue the rest), against 1.26 us of
+// products at the tensor cores' peak. Tried and dropped, each by its
+// variant: four consumer warpgroups of one accumulator at 16 x 16 tiles
+// (k7bf16_wg_4: at 640 threads 96 registers a thread, 384-604 bytes of
+// spills, 0.224 against 0.196 ms at the res-128 identity block);
+// setmaxnreg moving warpgroup 0's registers to the consumers (ptxas still
+// allocated the launch bounds' 168 and spilled more, 1.23-1.57 against
+// 1.17-1.34 ms a forward in three calls); 8 x 16 tiles at
+// the identity and up blocks (k7bf16_tiles_8: 0.158-0.166 against
+// 0.146-0.153); one or four positions an activation pass (k7bf16_act_items_1
+// / _4: within 1 %); the producer on warpgroup 0's thread 0, issuing
+// between its activation passes (1.61 ms a forward: the polls slowed its
+// warp's activation to 5.4 us a stage); the leaders claiming each copy by an
+// atomic after one arrival a warpgroup (1.20 ms). The activation's SiLU
+// takes the flush-to-zero MUFU forms (k7bf16_act_no_ftz: the same values,
+// 1 % slower).
+
+// The plan (tile, warpgroups, stages, residency, the shared memory's
+// layout) is k7_plan.h's, with its ring sizes and the byte sizes below.
+using k7plan::kBarBytes;      // the mbarriers
+using k7plan::kPixRow;        // one position's 64 channels: a TMA row, 128 bytes
+using k7plan::kTmaStagesMax;  // ring stages at most
+using k7plan::kWideWG;        // consumer warpgroups at 16 x 16 tiles
+using k7plan::PlanT;
+using k7plan::resbuf_t;       // the up block's low-res residual under the tile
+using k7plan::stage_t;        // a ring stage's A part
+using k7plan::stg_t;          // the output staging of all warpgroups
+constexpr int kActThreads = 128;  // warpgroup 0: the activation
+// tma::mbar_wait with a suspend-time hint, so that a waiting warp sleeps on
+// the barrier instead of taking issue slots from the warps that work, and a
+// trap (a launch failure, which the wrapper raises) once a wait has lasted
+// kWaitCycles, where a lost arrival would hang the card
+constexpr unsigned kSuspendNs = 10000000;
+constexpr long long kWaitCycles = 1ll << 34;
+__device__ __forceinline__ void wait_t(unsigned long long* bar, unsigned parity) {
+  long long t0 = -1;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred P1;\n mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2, %3;\n"
+        " selp.b32 %0, 1, 0, P1;\n}"
+        : "=r"(done) : "r"(tma::smem_u32(bar)), "r"(parity), "r"(kSuspendNs) : "memory");
+    if (done) return;
+    const long long t = clock64();
+    if (t0 < 0) t0 = t;
+    else if (t - t0 > kWaitCycles) __trap();
+  }
+}
+
+struct alignas(64) MapsT {
+  CUtensorMap xa, x2a, wsa;  // A stages: (64, 18, 8 kM + 2, 1) boxes (x's (64, 10, 4 kM + 2, 1) with kUp)
+  CUtensorMap wss, outs;     // stores: (64, 16, rows a warpgroup, 1)
+  CUtensorMap xr;            // the identity's residual: (64, 16, rows a warpgroup, 1) (kUp: (64, 8, half that, 1))
+  CUtensorMap w0, w1, sk;    // weights (O, C, taps): (64, 64, 1) boxes
+};
+
+struct ArgsT {
+  const float *g0, *b0, *sums0, *sumsq0, *bias0, *g1, *b1, *bias1, *skip_b;
+  float *part_s, *part_ss, *sums1, *sumsq1, *osums, *osumsq;
+  int B, H, W, C1, C2, O, groups0, groups1;
+  float eps;
+  int proj, res0, res1, stages, n_ob;
+  int stage_bytes, ring_off, stg_off, rb_off, vec_off, red_off, bar_off;  // bytes in the plane
+};
+
+// 64 channels of a chunk: the A stage's map and whether it is x's low-res
+// tile (kUp), the weights' map, channels c0 .. of a source of cs channels,
+// which are the conv's input channels cb ..
+struct ChunkT {
+  const CUtensorMap *a, *w;
+  int c0, cb, cs, taps;
+  bool lo;
+};
+
+// chunk q of phase kPhase (chunk_of's order)
+template <bool kUp, int kPhase>
+__device__ __forceinline__ ChunkT chunk_t(const MapsT& mp, const ArgsT& p, int q) {
+  const int nch = (p.O + kCH - 1) / kCH, n1 = (p.C1 + kCH - 1) / kCH;
+  if (kPhase == 1 && q < nch) return ChunkT{&mp.wsa, &mp.w1, q * kCH, q * kCH, p.O, 9, false};
+  const int j = kPhase == 0 ? q : q - nch;
+  const bool two = j >= n1;
+  const int c0 = (two ? j - n1 : j) * kCH;
+  return ChunkT{two ? &mp.x2a : &mp.xa, kPhase == 0 ? &mp.w0 : &mp.sk, c0,
+                two ? p.C1 + c0 : c0, two ? p.C2 : p.C1, kPhase == 0 ? 9 : 1, kUp};
+}
+
+// bf16t::silu_fast on the flush-to-zero forms of MUFU.EX2 and MUFU.RCP: the
+// same values wherever neither exp(-y) nor 1 + exp(-y) is subnormal, without
+// the subnormal fix-ups around each
+__device__ __forceinline__ float silu_ftz(float y) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(y * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  return y * r;
+}
+
+// GroupNorm (+ FiLM) and SiLU in fp32 on a conv chunk's A stage, in place,
+// rounded once to bf16: thread tid (of warpgroup 0) takes channels c0 + 8c
+// .. + 7, c = tid & 7, at positions tid / 8, + 16, ..., kActItems positions
+// a pass (their loads first, no branch on the data: a pass's values are in
+// flight together); the 128-byte swizzle keeps them in 16-byte chunk c ^
+// (pos & 7) of the position's row, and the scale and shift are the
+// un-swizzled channel's. Positions outside the image are written zero
+// (SAME padding of the ACTIVATED tensor: TMA's zero fill would activate to
+// silu(shift)); chunks past the source's channels stay TMA's zeros, and a
+// chunk's channels past them take scale and shift 0.
+constexpr int kActItems = 2;  // positions a thread activates a pass
+template <bool kLo, int kM>
+__device__ __forceinline__ void activate_t(unsigned char* A, const ChunkT& ch, int sh, int sw,
+                                           int y0, int x0, const float* s_sc,
+                                           const float* s_sh, int tid) {
+  constexpr int kCols = kLo ? kLW : kIW;
+  constexpr int kPos = kLo ? lowpos_h(kM) : pos_h(kM);
+  constexpr int kStride = kActThreads / 8;  // positions apart
+  const int c = tid & 7, cl = ch.c0 + 8 * c;
+  if (cl >= ch.cs) return;
+  float sc[8], sf[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool ok = cl + i < ch.cs;
+    sc[i] = ok ? s_sc[ch.cb + 8 * c + i] : 0.f;
+    sf[i] = ok ? s_sh[ch.cb + 8 * c + i] : 0.f;
+  }
+  for (int p0 = tid >> 3; p0 < kPos; p0 += kActItems * kStride) {
+    uint4* ptr[kActItems];
+    uint4 raw[kActItems];
+    bool in[kActItems], has[kActItems];
+#pragma unroll
+    for (int k = 0; k < kActItems; ++k) {
+      const int pos = p0 + k * kStride;
+      has[k] = pos < kPos;
+      const int pp = has[k] ? pos : p0;  // a pass's tail reads a position it has
+      const int y = y0 + pp / kCols, x = x0 + pp % kCols;
+      in[k] = y >= 0 && y < sh && x >= 0 && x < sw;
+      ptr[k] = reinterpret_cast<uint4*>(A + pp * kPixRow + ((c ^ (pp & 7)) << 4));
+      raw[k] = *ptr[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kActItems; ++k) {
+      const uint32_t v[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = __uint_as_float(v[i] << 16), hi = __uint_as_float(v[i] & 0xffff0000u);
+        o[i] = bf16t::pack2(silu_ftz(lo * sc[2 * i] + sf[2 * i]),
+                            silu_ftz(hi * sc[2 * i + 1] + sf[2 * i + 1]));
+      }
+      if (has[k])
+        *ptr[k] = in[k] ? make_uint4(o[0], o[1], o[2], o[3]) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// One chunk's products of a warpgroup's kA x 64 pixels (rows r0 + 4 m + wi
+// of the tile, one a warp) x 64 outputs, wgmma m64n64k16 into kA
+// accumulators, A by ldmatrix from the swizzled stage (a lane's row address
+// applies the XOR), B by descriptor: kTaps 9 (a conv) or 1 (the projection:
+// the centre tap of the same halo'd tile, its one tap's weights). `hook`
+// runs once tap hook_tap's products are issued.
+template <int kTaps, bool kLo, int kA, int kWG, typename Hook>
+__device__ __forceinline__ void mma_chunk_t(uint32_t A, uint32_t W, float (&acc)[kA][32],
+                                            int r0, int wi, int lane, int hook_tap,
+                                            Hook&& hook) {
+  constexpr int kCols = kLo ? kLW : kIW;
+  constexpr int kBuf = kA == 1 && kWG == 2 ? 2 : 1;
+  const int ri = lane & 7, mi = lane >> 3;
+  const int px = ri + 8 * (mi & 1);  // the lane's A row: pixel of the tile row
+  const int half = mi >> 1;          // and its 8-channel half of a k16 step
+  auto load_tap = [&](int tap, uint32_t (&a)[kA][4][4]) {
+    const int dy = kTaps == 1 ? 1 : tap / 3, dx = kTaps == 1 ? 1 : tap % 3;
+#pragma unroll
+    for (int m = 0; m < kA; ++m) {
+      const int rr = r0 + 4 * m + wi;
+      const int pos = kLo ? (((rr + dy - 1) >> 1) + 1) * kCols + ((px + dx - 1) >> 1) + 1
+                          : (rr + dy) * kCols + px + dx;
+      const uint32_t row = A + pos * kPixRow;
+      const int sw = pos & 7;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) bf16t::ldsm_x4(row + (((2 * kk + half) ^ sw) << 4), a[m][kk]);
+    }
+  };
+  uint32_t a[kBuf][kA][4][4];
+  load_tap(0, a[0]);
+#pragma unroll
+  for (int tap = 0; tap < kTaps; ++tap) {
+    const uint64_t desc = bf16t::wg_desc(W + tap * kCH * kPixRow);
+    bf16t::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int m = 0; m < kA; ++m)
+        bf16t::wg_mma(acc[m], a[tap % kBuf][m][kk], desc + kk * (16 * kPixRow >> 4));
+    bf16t::wg_commit();
+    if (tap == hook_tap) {
+      hook();
+      __syncwarp();
+    }
+    if (tap + 1 < kTaps) {
+      if (kBuf == 2) {
+        bf16t::wg_wait<1>();
+      } else {
+        bf16t::wg_wait<0>();
+      }
+      load_tap(tap + 1, a[(tap + 1) % kBuf]);
+    }
+  }
+  bf16t::wg_wait<0>();
+}
+
+// The mbarriers: full / act / empty a stage, the resident weights, and a
+// warpgroup's staging free / residual landed
+struct BarsT {
+  unsigned long long *full, *act, *empty, *wfull, *sfree, *rfull;
+  __device__ explicit BarsT(unsigned char* p) {
+    full = reinterpret_cast<unsigned long long*>(p);
+    act = full + kTmaStagesMax;
+    empty = act + kTmaStagesMax;
+    wfull = empty + kTmaStagesMax;
+    sfree = wfull + 1;
+    rfull = sfree + 4;
+  }
+};
+
+// Warpgroup 0 in phase kPhase: the activation of each step's conv chunk
+// (the fold of a new sample's norm first), each step handed on by `act`
+// once its TMA copy is in (`full`). g0: the steps of the launch before this
+// phase's (the ring's position).
+template <bool kUp, int kPhase, int kM>
+__device__ __forceinline__ void act_t(const MapsT& mp, const ArgsT& p, unsigned char* sm,
+                                      int t_begin, int t_end, int g0) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const BarsT bar(sm + p.bar_off);
+  unsigned char* ring = sm + p.ring_off;
+  float* s_sc = reinterpret_cast<float*>(sm + p.vec_off) + 2 * kCH;
+  float* s_sh = s_sc + kMaxC;
+  const int H = p.H, W = p.W, O = p.O, C = p.C1 + p.C2, S = p.stages;
+  const int hin = kUp ? H / 2 : H, win = kUp ? W / 2 : W;
+  const int tiles_w = (W + kTW - 1) / kTW, n_tiles = ((H + rows_h(kM) - 1) / rows_h(kM)) * tiles_w;
+  const int nch = (O + kCH - 1) / kCH, ncx = (p.C1 + kCH - 1) / kCH + (p.C2 + kCH - 1) / kCH;
+  const int nq = kPhase == 0 ? ncx : nch + (p.proj ? ncx : 0);
+  const int steps = (t_end - t_begin) * nq;
+  int scale_b = -1;  // the sample whose folded scale and shift s_sc / s_sh hold
+  for (int i = 0; i < steps; ++i) {
+    const int g = g0 + i, slot = g % S;
+    const int t = t_begin + i / nq, b = t / n_tiles, rem = t - b * n_tiles;
+    const int ty0 = (rem / tiles_w) * rows_h(kM), tx0 = (rem % tiles_w) * kTW;
+    const ChunkT ch = chunk_t<kUp, kPhase>(mp, p, i % nq);
+    if (ch.taps == 9 && b != scale_b) {
+      tma::bar_sync(1, kActThreads);  // every thread is done with the last scale
+      // channels tid and tid + 128 (fold strides by 256)
+      for (int half = 0; half < 2; ++half) {
+        if (kPhase == 0)
+          fold(p.sums0, p.sumsq0, p.g0, p.b0, C, p.groups0, (float)hin * (float)win, p.eps, b,
+               s_sc, s_sh, tid + 128 * half);
+        else
+          fold(p.sums1, p.sumsq1, p.g1, p.b1, O, p.groups1, (float)H * (float)W, p.eps, b,
+               s_sc, s_sh, tid + 128 * half);
+      }
+      tma::bar_sync(1, kActThreads);
+      scale_b = b;
+    }
+    wait_t(bar.full + slot, (g / S) & 1);
+    unsigned char* A = ring + slot * p.stage_bytes;
+    if (ch.taps == 9) {
+      if (ch.lo)
+        activate_t<true, kM>(A, ch, hin, win, ty0 / 2 - 1, tx0 / 2 - 1, s_sc, s_sh, tid);
+      else
+        activate_t<false, kM>(A, ch, H, W, ty0 - 1, tx0 - 1, s_sc, s_sh, tid);
+    }
+    bf16t::fence_async_smem();  // before the stage's next TMA copy
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(bar.act + slot);
+  }
+}
+
+// The consumers in phase kPhase: warpgroup w (of kWG) owns tile rows w kRW ..
+// (kA accumulators of four rows, a row a warp). Each step: wait for the
+// stage's activation, the products, the stage handed back (`empty`); each
+// tile's last step: the epilogue (bias, skip bias or the identity's
+// residual, which the leader copied by TMA into the warpgroup's staging
+// rows ahead of it; the statistics in registers; the values rounded once
+// into the staging rows and stored by TMA by the leader). The leaders are
+// also the producer: warpgroup 0's copies the phase's resident weights (on
+// `wfull`) and its first `stages` steps when the phase starts; then step s +
+// stages goes into step s's stage once every consumer warp has handed it
+// back, copied by the leader of warpgroup s % kWG (in turns: a copy's issue
+// costs its thread 0.3-0.5 us, PERF.md). g0 / k0: the launch's steps /
+// tiles before this phase's; wpar: the parity of the resident weights'
+// barrier.
+template <bool kUp, int kPhase, int kM, int kWG>
+__device__ __forceinline__ void mma_t(const MapsT& mp, const ArgsT& p, unsigned char* sm,
+                                      int t_begin, int t_end, int o0, int g0, int k0,
+                                      int wpar) {
+  constexpr int kRW = rows_h(kM) / kWG, kA = kRW / 4, kCW = 4 * kWG;
+  const int ctid = threadIdx.x - kActThreads, cw = ctid >> 5, w = cw >> 2, wi = cw & 3;
+  const int lane = ctid & 31, g = lane >> 2, t4 = lane & 3;
+  const bool leader = (ctid & 127) == 0;
+  const BarsT bar(sm + p.bar_off);
+  unsigned char* ring = sm + p.ring_off;
+  const float* s_bias = reinterpret_cast<const float*>(sm + p.vec_off);
+  const float* s_skb = s_bias + kCH;
+  float* red = reinterpret_cast<float*>(sm + p.red_off);  // [2][kCW][64]
+  unsigned char* S_w = sm + p.stg_off + w * kRW * kTW * kPixRow;
+  unsigned char* R_w = kUp ? sm + p.rb_off + w * (kRW / 2) * (kTW / 2) * kPixRow : S_w;
+  const CUtensorMap* dst_map = kPhase == 0 ? &mp.wss : &mp.outs;
+  const int H = p.H, W = p.W, O = p.O, S = p.stages;
+  const int tiles_w = (W + kTW - 1) / kTW, n_tiles = ((H + rows_h(kM) - 1) / rows_h(kM)) * tiles_w;
+  const int nch = (O + kCH - 1) / kCH, ncx = (p.C1 + kCH - 1) / kCH + (p.C2 + kCH - 1) / kCH;
+  const int nq = kPhase == 0 ? ncx : nch + (p.proj ? ncx : 0);
+  const bool resident = kPhase == 0 ? p.res0 : p.res1;
+  const bool res = kPhase == 1 && !p.proj;  // the identity's residual
+  const bool stats = kPhase == 0 || p.osums != nullptr;
+  const int steps = (t_end - t_begin) * nq;
+  auto weights = [&](const ChunkT& ch, unsigned char* dst, unsigned long long* b) {
+    for (int tap = 0; tap < ch.taps; ++tap)
+      tma::load_3d(dst + tap * kCH * kPixRow, ch.w, b, o0, ch.cb, tap);
+  };
+  auto issue = [&](int i) {  // step i's copies into its stage, once it is empty
+    const int g = g0 + i, slot = g % S;
+    if (g >= S) wait_t(bar.empty + slot, (g / S - 1) & 1);
+    const int t = t_begin + i / nq, b = t / n_tiles, rem = t - b * n_tiles;
+    const int ty0 = (rem / tiles_w) * rows_h(kM), tx0 = (rem % tiles_w) * kTW;
+    const ChunkT ch = chunk_t<kUp, kPhase>(mp, p, i % nq);
+    unsigned char* st = ring + slot * p.stage_bytes;
+    const int wbytes = resident ? 0 : ch.taps * kCH * kPixRow;
+    tma::mbar_expect_tx(bar.full + slot, (ch.lo ? lowpos_h(kM) : pos_h(kM)) * kPixRow + wbytes);
+    if (ch.lo)
+      tma::load_4d(st, ch.a, bar.full + slot, ch.c0, tx0 / 2 - 1, ty0 / 2 - 1, b);
+    else
+      tma::load_4d(st, ch.a, bar.full + slot, ch.c0, tx0 - 1, ty0 - 1, b);
+    if (!resident) weights(ch, st + stage_t(kM), bar.full + slot);
+  };
+  // ws from phase 0's TMA stores, read by TMA past the grid barrier
+  if (leader && kPhase == 1) tma::fence_proxy_async_global();
+  if (ctid == 0) {
+    if (resident && steps > 0) {
+      int bytes = 0;
+      for (int q = 0; q < nq; ++q) bytes += chunk_t<kUp, kPhase>(mp, p, q).taps * kCH * kPixRow;
+      tma::mbar_expect_tx(bar.wfull, bytes);
+      for (int q = 0, off = 0; q < nq; ++q) {
+        const ChunkT ch = chunk_t<kUp, kPhase>(mp, p, q);
+        weights(ch, sm + off, bar.wfull);
+        off += ch.taps * kCH * kPixRow;
+      }
+    }
+    for (int i = 0; i < S && i < steps; ++i) issue(i);
+  }
+  __syncwarp();
+  float acc[kA][32];
+  float ps[8][2], pss[8][2];
+#pragma unroll
+  for (int m = 0; m < kA; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) ps[j][0] = ps[j][1] = pss[j][0] = pss[j][1] = 0.f;
+  if (resident && steps > 0) wait_t(bar.wfull, wpar);
+
+  for (int s = 0; s < steps; ++s) {
+    const int gs = g0 + s, slot = gs % S, q = s % nq, tile = t_begin + s / nq;
+    const int b = tile / n_tiles, rem = tile - b * n_tiles;
+    const int ty0 = (rem / tiles_w) * rows_h(kM), tx0 = (rem % tiles_w) * kTW;
+    const int y0 = ty0 + w * kRW;  // the warpgroup's first row
+    const bool last = q == nq - 1;
+    wait_t(bar.full + slot, (gs / S) & 1);
+    wait_t(bar.act + slot, (gs / S) & 1);
+    __syncwarp();
+    unsigned char* A = ring + slot * p.stage_bytes;
+    unsigned char* Wt;
+    if (!resident)
+      Wt = A + stage_t(kM);
+    else
+      Wt = sm + (kPhase == 0 || q < nch ? q * kConvWBytes
+                                        : nch * kConvWBytes + (q - nch) * kProjWBytes);
+    // the leader, while this tile's last products run (at their middle
+    // tap where a residual follows, else at their last): the last tile's
+    // store has read the staging rows, which take this tile's residual
+    const int hook_tap = !last || (kPhase == 1 && q >= nch) ? 0 : res ? 4 : 8;
+    auto hook = [&] {
+      if (!leader || !last) return;
+      tma::store_wait_read<0>();
+      tma::mbar_arrive(bar.sfree + w);
+      if (res && y0 >= H) {
+        tma::mbar_arrive(bar.rfull + w);  // rows neither stored nor summed
+      } else if (res) {
+        tma::mbar_expect_tx(bar.rfull + w, (kUp ? kRW / 2 * (kTW / 2) : kRW * kTW) * kPixRow);
+        if (kUp)
+          tma::load_4d(R_w, &mp.xr, bar.rfull + w, o0, tx0 / 2, y0 / 2, b);
+        else
+          tma::load_4d(R_w, &mp.xr, bar.rfull + w, o0, tx0, y0, b);
+      }
+    };
+    const uint32_t ab = bf16t::smem_addr(A), wb = bf16t::smem_addr(Wt);
+    if (kPhase == 1 && q >= nch)
+      mma_chunk_t<1, kUp, kA, kWG>(ab, wb, acc, w * kRW, wi, lane, hook_tap, hook);
+    else if (kPhase == 0 && kUp)
+      mma_chunk_t<9, true, kA, kWG>(ab, wb, acc, w * kRW, wi, lane, hook_tap, hook);
+    else
+      mma_chunk_t<9, false, kA, kWG>(ab, wb, acc, w * kRW, wi, lane, hook_tap, hook);
+    bf16t::fence_async_smem();
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(bar.empty + slot);
+    // step s + stages's copy into this stage, by the leaders in turn
+    if (leader && w == s % kWG && s + S < steps) issue(s + S);
+    __syncwarp();
+    if (!last) continue;
+
+    // epilogue: pixels g, g + 8 of rows y0 + 4 m + wi, outputs 8 j + 2 t4
+    // (+ 1); staging row sp = (4 m + wi) * 16 + px of the warpgroup's box,
+    // 16-byte chunk j at j ^ (sp & 7) (TMA's 128-byte swizzle)
+    const int k = k0 + s / nq;  // the launch's tiles before this one
+    wait_t(bar.sfree + w, k & 1);
+    if (res) wait_t(bar.rfull + w, (s / nq) & 1);
+#pragma unroll
+    for (int m = 0; m < kA; ++m) {
+      const int lr = 4 * m + wi, y = y0 + lr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ol = 8 * j + 2 * t4, o = o0 + ol;
+        const float add0 = s_bias[ol] + s_skb[ol], add1 = s_bias[ol + 1] + s_skb[ol + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = g + 8 * h, x = tx0 + px, sp = lr * kTW + px;
+          float v0 = acc[m][4 * j + 2 * h] + add0, v1 = acc[m][4 * j + 2 * h + 1] + add1;
+          acc[m][4 * j + 2 * h] = acc[m][4 * j + 2 * h + 1] = 0.f;
+          if (res) {
+            const int rp = kUp ? (lr >> 1) * (kTW / 2) + (px >> 1) : sp;
+            const float2 r = bf16t::unpack2(*reinterpret_cast<const uint32_t*>(
+                R_w + rp * kPixRow + ((j ^ (rp & 7)) << 4) + 4 * t4));
+            v0 += r.x;
+            v1 += r.y;
+          }
+          *reinterpret_cast<uint32_t*>(S_w + sp * kPixRow + ((j ^ (sp & 7)) << 4) + 4 * t4) =
+              bf16t::pack2(v0, v1);
+          if (y >= H || x >= W || o >= O) continue;
+          ps[j][0] += v0;
+          pss[j][0] += v0 * v0;
+          ps[j][1] += v1;
+          pss[j][1] += v1 * v1;
+        }
+      }
+    }
+    bf16t::fence_async_smem();
+    tma::bar_sync(3 + w, 128);  // the warpgroup's rows are staged
+    if (leader) {
+      if (y0 < H) tma::store_4d(dst_map, S_w, o0, tx0, y0, b);
+      tma::store_commit();
+    }
+    if (!stats) continue;
+    // the statistics as unet_block_bf16_kernel sums them: registers over the
+    // block's run of tiles of sample b, then over g by shuffles, the
+    // consumer warps in order, into the slot of the run's last tile of b
+    const size_t slot_o = (size_t)tile * O + o0 + ctid;
+    if (tile + 1 < t_end && (tile + 1) / n_tiles == b) {
+      if (ctid < kCH && o0 + ctid < O) p.part_s[slot_o] = p.part_ss[slot_o] = 0.f;
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int sh = 4; sh < 32; sh <<= 1) {
+          ps[j][e] += __shfl_xor_sync(0xffffffffu, ps[j][e], sh);
+          pss[j][e] += __shfl_xor_sync(0xffffffffu, pss[j][e], sh);
+        }
+        if (g == 0) {
+          red[cw * kCH + 8 * j + 2 * t4 + e] = ps[j][e];
+          red[(kCW + cw) * kCH + 8 * j + 2 * t4 + e] = pss[j][e];
+        }
+        ps[j][e] = pss[j][e] = 0.f;
+      }
+    tma::bar_sync(2, 128 * kWG);
+    if (ctid < kCH && o0 + ctid < O) {
+      float sum = 0.f, ssq = 0.f;
+      for (int c = 0; c < kCW; ++c) {
+        sum += red[c * kCH + ctid];
+        ssq += red[(kCW + c) * kCH + ctid];
+      }
+      p.part_s[slot_o] = sum;
+      p.part_ss[slot_o] = ssq;
+    }
+    tma::bar_sync(2, 128 * kWG);  // red is read: the next run may write it
+  }
+  if (leader) {
+    // every store complete (phase 0's ws is read by TMA past the grid barrier)
+    tma::store_wait<0>();
+    tma::fence_proxy_async_global();
+  }
+}
+
+// One phase: the bias of the output block, then the roles.
+template <bool kUp, int kPhase, int kM, int kWG>
+__device__ __forceinline__ void phase_t(const MapsT& mp, const ArgsT& p, unsigned char* sm,
+                                        int t_begin, int t_end, int o0, int g0, int k0,
+                                        int wpar) {
+  const int tid = threadIdx.x;
+  if (tid >= kActThreads && tid < kActThreads + kCH) {
+    float* s_bias = reinterpret_cast<float*>(sm + p.vec_off);
+    const int o = o0 + tid - kActThreads;
+    const float* bias = kPhase == 0 ? p.bias0 : p.bias1;
+    s_bias[tid - kActThreads] = bias && o < p.O ? bias[o] : 0.f;
+    s_bias[kCH + tid - kActThreads] =
+        kPhase == 1 && p.proj && p.skip_b && o < p.O ? p.skip_b[o] : 0.f;
+  }
+  __syncthreads();
+  if (tid < kActThreads)
+    act_t<kUp, kPhase, kM>(mp, p, sm, t_begin, t_end, g0);
+  else
+    mma_t<kUp, kPhase, kM, kWG>(mp, p, sm, t_begin, t_end, o0, g0, k0, wpar);
+}
+
+// One block an SM: warpgroup 0 (the producer thread and the activation) and
+// kWG consumer warpgroups. Block i walks output block i % n_ob over a
+// contiguous run of the pixel tiles (8 kM rows x 16 columns), the same run
+// in both phases, as unet_block_bf16_kernel does.
+template <bool kUp, int kM, int kWG>
+__global__ void __launch_bounds__(128 * (kWG + 1), 1)
+    unet_block_bf16_tma_kernel(const __grid_constant__ MapsT mp, const ArgsT p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(128) unsigned char smem_t[];
+  unsigned char* sm = bf16t::align1024(smem_t);
+  const int n_tiles = ((p.H + rows_h(kM) - 1) / rows_h(kM)) * ((p.W + kTW - 1) / kTW);
+  const int ntiles = p.B * n_tiles, nb = gridDim.x / p.n_ob;
+  const int rank = blockIdx.x / p.n_ob, o0 = (blockIdx.x % p.n_ob) * kCH;
+  const int t_begin = (int)((long long)rank * ntiles / nb);
+  const int t_end = (int)((long long)(rank + 1) * ntiles / nb);
+  if (threadIdx.x == 0) {
+    const BarsT bar(sm + p.bar_off);
+    for (int s = 0; s < kTmaStagesMax; ++s) {
+      tma::mbar_init(bar.full + s, 1);
+      tma::mbar_init(bar.act + s, kActThreads / 32);
+      tma::mbar_init(bar.empty + s, 4 * kWG);
+    }
+    tma::mbar_init(bar.wfull, 1);
+    for (int w = 0; w < 4; ++w) {
+      tma::mbar_init(bar.sfree + w, 1);
+      tma::mbar_init(bar.rfull + w, 1);
+    }
+    tma::fence_barrier_init();
+  }
+  const int ncx = (p.C1 + kCH - 1) / kCH + (p.C2 + kCH - 1) / kCH;
+  phase_t<kUp, 0, kM, kWG>(mp, p, sm, t_begin, t_end, o0, 0, 0, 0);
+  grid.sync();
+  if (threadIdx.x < kThreads) reduce_partials(p.part_s, p.part_ss, p.B, n_tiles, p.O, p.sums1, p.sumsq1);
+  grid.sync();
+  phase_t<kUp, 1, kM, kWG>(mp, p, sm, t_begin, t_end, o0, (t_end - t_begin) * ncx,
+                           t_end - t_begin, p.res0 ? 1 : 0);
+  if (p.osums) {
+    grid.sync();
+    if (threadIdx.x < kThreads)
+      reduce_partials(p.part_s, p.part_ss, p.B, n_tiles, p.O, p.osums, p.osumsq);
+  }
+}
+
+template <bool kUp, int kM, int kWG>
+int blocks_per_sm_t(int smem) {
+  static int cache[kSmemCapH / 1024 + 2] = {};
+  static cudaError_t attr =
+      cudaFuncSetAttribute(unet_block_bf16_tma_kernel<kUp, kM, kWG>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCapH);
+  const int kb = (smem + 1023) / 1024;
+  int& n = cache[kb];
+  if (!n && (attr != cudaSuccess ||
+             cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, unet_block_bf16_tma_kernel<kUp, kM, kWG>, 128 * (kWG + 1),
+                 kb * 1024 < kSmemCapH ? kb * 1024 : kSmemCapH) != cudaSuccess))
+    n = 0;
+  return n;
+}
+
+// The TMA route's plan (k7_plan.h) on this card, at the blocks an SM the
+// occupancy query gives the chosen kernel.
+int plan_t(bool up, int batch, int h, int wd, int c1, int c2, int o, bool proj, PlanT& pl) {
+  int dev = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (!k7plan::choose_t(up, batch, h, wd, c1, c2, o, proj, bf16t::sm_count(), pl))
+    return (int)cudaErrorInvalidConfiguration;
+  pl.bps = pl.km == 2 ? (up ? blocks_per_sm_t<true, 2, kWideWG>(pl.smem)
+                            : blocks_per_sm_t<false, 2, kWideWG>(pl.smem))
+                      : (up ? blocks_per_sm_t<true, 1, 2>(pl.smem)
+                            : blocks_per_sm_t<false, 1, 2>(pl.smem));
+  if (pl.bps < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return k7plan::grid_t(batch, h, wd, pl) ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
+}
+
+// an NHWC tensor's map, boxes of 64 channels x bw x bh pixels
+int map4(CUtensorMap* m, const void* base, int n, int h, int w, int c, int bw, int bh) {
+  return tma::encode_bf16_4d(m, base, n, h, w, c, kCH, bw, bh);
+}
+
+// a (taps, C, O) weight's map, boxes of 64 outputs x 64 channels x 1 tap
+int map_w(CUtensorMap* m, const void* base, int taps, int c, int o) {
+  return tma::encode_bf16_3d(m, base, taps, c, o, kCH, kCH);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1388,8 +2081,46 @@ int mc_unet_block_bf16(const bf16* x, const bf16* x2, const float* g0, const flo
       (c2 > 0 && !x2))
     return (int)cudaErrorInvalidValue;
   if (batch < 1 || h < 1 || wd < 1) return (int)cudaSuccess;
+  const bool proj = skip_w != nullptr;
+  if (k7plan::tma_shape(c1, c2, o, proj) && aligned(x, 16) && (c2 == 0 || aligned(x2, 16)) &&
+      aligned(w0, 16) && aligned(w1, 16) && (!proj || aligned(skip_w, 16)) && aligned(ws, 16) &&
+      aligned(out, 16)) {
+    PlanT pl;
+    int rc = plan_t(up, batch, h, wd, c1, c2, o, proj, pl);
+    if (rc) return rc;
+    const int rows = rows_h(pl.km), rw = rows / pl.wg;
+    const int hin = up ? h / 2 : h, win = up ? wd / 2 : wd;
+    MapsT mp = {};
+    rc = up ? map4(&mp.xa, x, batch, hin, win, c1, kLW, rows / 2 + 2)
+            : map4(&mp.xa, x, batch, h, wd, c1, kIW, rows + 2);
+    if (!rc && c2) rc = map4(&mp.x2a, x2, batch, h, wd, c2, kIW, rows + 2);
+    if (!rc) rc = map4(&mp.wsa, ws, batch, h, wd, o, kIW, rows + 2);
+    if (!rc) rc = map4(&mp.wss, ws, batch, h, wd, o, kTW, rw);
+    if (!rc) rc = map4(&mp.outs, out, batch, h, wd, o, kTW, rw);
+    if (!rc && !proj)
+      rc = up ? map4(&mp.xr, x, batch, hin, win, c1, kTW / 2, rw / 2)
+              : map4(&mp.xr, x, batch, h, wd, c1, kTW, rw);
+    if (!rc) rc = map_w(&mp.w0, w0, 9, c, o);
+    if (!rc) rc = map_w(&mp.w1, w1, 9, o, o);
+    if (!rc && proj) rc = map_w(&mp.sk, skip_w, 1, c, o);
+    if (rc) return rc;
+    ArgsT p{g0, b0, sums0, sumsq0, bias0, g1, b1, bias1, skip_b, part_s, part_ss, sums1, sumsq1,
+            osums, osumsq, batch, h, wd, c1, c2, o, groups0, groups1, eps, (int)proj, pl.res0,
+            pl.res1, pl.stages, pl.n_ob, pl.stage_bytes, pl.ring_off, pl.stg_off, pl.rb_off,
+            pl.vec_off, pl.red_off, pl.bar_off};
+    void* args[] = {&mp, &p};
+    const void* fn = pl.km == 2 ? (up ? (const void*)unet_block_bf16_tma_kernel<true, 2, kWideWG>
+                                      : (const void*)unet_block_bf16_tma_kernel<false, 2, kWideWG>)
+                                : (up ? (const void*)unet_block_bf16_tma_kernel<true, 1, 2>
+                                      : (const void*)unet_block_bf16_tma_kernel<false, 1, 2>);
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        fn, dim3(pl.blocks), dim3(128 * (pl.wg + 1)), args, pl.smem, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  // the kept route (unet_block_bf16_kernel): shapes TMA cannot describe
   PlanH pl;
-  const int rc = plan_h(up, batch, h, wd, c1, c2, o, skip_w != nullptr, pl);
+  const int rc = plan_h(up, batch, h, wd, c1, c2, o, proj, pl);
   if (rc) return rc;
   ArgsH p{x, x2, g0, b0, sums0, sumsq0, w0, bias0, g1, b1, w1, bias1, skip_w, skip_b, ws,
           part_s, part_ss, sums1, sumsq1, out, osums, osumsq,
@@ -1409,16 +2140,28 @@ int mc_unet_block_bf16(const bf16* x, const bf16* x2, const float* g0, const flo
   return (int)cudaGetLastError();
 }
 
-// The bf16 instance's plan for an output (batch, h, wd, o): out = {phase 0's
-// weights resident, phase 1's, dynamic shared memory bytes, co-resident
-// blocks an SM, SMs, blocks, tile rows}. Returns a cudaError_t.
+// The bf16 instance's plan for an output (batch, h, wd, o) with 16-byte
+// aligned bases: out = {phase 0's weights resident, phase 1's, dynamic
+// shared memory bytes, co-resident blocks an SM, SMs, blocks, tile rows,
+// route (1 TMA, 0 the kept unet_block_bf16_kernel), ring stages, consumer
+// warpgroups}. Returns a cudaError_t.
 int mc_unet_block_bf16_plan(int batch, int h, int wd, int c1, int c2, int o, int up, int proj,
                             int* out) {
+  if (k7plan::tma_shape(c1, c2, o, proj != 0)) {
+    PlanT pl;
+    const int rc = plan_t(up, batch, h, wd, c1, c2, o, proj != 0, pl);
+    if (rc) return rc;
+    const int vals[10] = {pl.res0, pl.res1, pl.smem,       pl.bps,    pl.sms,
+                          pl.blocks, rows_h(pl.km), 1, pl.stages, pl.wg};
+    for (int i = 0; i < 10; ++i) out[i] = vals[i];
+    return 0;
+  }
   PlanH pl;
   const int rc = plan_h(up, batch, h, wd, c1, c2, o, proj != 0, pl);
   if (rc) return rc;
-  const int vals[7] = {pl.res0, pl.res1, pl.smem, pl.bps, pl.sms, pl.blocks, rows_h(pl.km)};
-  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  const int vals[10] = {pl.res0, pl.res1, pl.smem, pl.bps, pl.sms, pl.blocks, rows_h(pl.km),
+                        0, 2, 2};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
   return 0;
 }
 

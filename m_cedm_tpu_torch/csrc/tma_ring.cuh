@@ -1,7 +1,7 @@
 // A ring of tiles in shared memory filled by Hopper's Tensor Memory
-// Accelerator (TMA): mbarriers, TMA loads and stores of 3-D tensor maps, and
-// the host-side encoding of those maps. Built for sm_90a; everything here is
-// in namespace tma.
+// Accelerator (TMA): mbarriers, TMA loads and stores of 3-D and 4-D tensor
+// maps, and the host-side encoding of those maps. Built for sm_90a;
+// everything here is in namespace tma.
 //
 // The pattern (csrc/linear_attention.cu's bf16 K5 and K6): one producer
 // thread waits on a stage's `empty` barrier, arms its `full` barrier with the
@@ -90,6 +90,37 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box of a 4-D tensor map at (c0, c1, c2, c3), innermost first, as
+// load_3d; coordinates may be negative, and the box's bytes past the bounds
+// are zeros
+__device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
+                                        unsigned long long* bar, int c0, int c1, int c2,
+                                        int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
+
+// shared memory at src into the box of a 4-D tensor map at (c0, c1, c2, c3);
+// the box's part past the bounds is not written
+__device__ __forceinline__ void store_4d(const CUtensorMap* map, const void* src, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];"
+      :: "l"(map), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// this thread's device-memory accesses ordered against its async-proxy (TMA)
+// ones: after TMA stores have completed, before a grid barrier past which
+// other blocks' TMA loads read the same memory (and after that barrier,
+// before those loads)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
 // shared memory at src into the box of a 3-D tensor map at (c0, c1, c2);
 // tracked by this thread's bulk groups
 __device__ __forceinline__ void store_3d(const CUtensorMap* map, const void* src, int c0,
@@ -168,6 +199,26 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* base, int batch, int row
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 NHWC tensor (n, h, w, c) at base as a 4-D map (c, w, h, n), boxes
+// of box_c x box_w x box_h x 1 (box_c * 2 = 128 bytes: one swizzled row a
+// pixel), 128-byte swizzle, zero fill. c % 8 == 0 and a 16-byte aligned
+// base. Returns a cudaError_t code.
+inline int encode_bf16_4d(CUtensorMap* map, const void* base, int n, int h, int w, int c,
+                          int box_c, int box_w, int box_h) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)c * 2 * w,
+                                 (cuuint64_t)c * 2 * w * h};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

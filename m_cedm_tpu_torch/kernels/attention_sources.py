@@ -202,6 +202,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -210,7 +211,13 @@ import torch
 from m_cedm_tpu_torch.kernels import _build
 from m_cedm_tpu_torch.kernels._timing import device_ms
 
-# name -> (kernel, text in its package source, the replacement)
+# the bf16 K7's plan with 8 x 16 tiles everywhere (csrc/k7_plan.h's text and
+# its replacement)
+K7_TILES_8 = ("const bool big = tiles16 * nch >= (long long)kBigTileWaves * sms &&",
+              "const bool big = false &&")
+
+# name -> (kernel, text in its package source, the replacement[, the csrc
+# header that holds the text instead])
 VARIANTS = {
     # the split rounded with cvt.rna (ties away), which ptxas expands on sm_90
     "cvt_rna": ("k4", 'asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;',
@@ -396,15 +403,31 @@ VARIANTS = {
                               "constexpr int kBatch = 16;"),
     # K7's partial sums added into the fp32 accumulator after each tap
     "k7_temp_steps_1": ("k7", "constexpr int kTempSteps = 9;", "constexpr int kTempSteps = 1;"),
-    # the bf16 K7 with 8 x 16 tiles everywhere
-    "k7bf16_tiles_8": ("k7bf16", "  const bool big = tiles16", "  const bool big = false && tiles16"),
-    # diagnostics, not kernels: the bf16 K7 without its products, its
-    # activation pass, its epilogue's stores or its A tiles' copies (results
-    # wrong; the time of the rest)
-    "diag_k7bf16_no_mma": ("k7bf16", "    if (ch.taps == 1)\n      mma_chunk_h<1, false, kM>(ab, wb, acc, warp, lane);\n    else if (kPhase == 0 && kUp)\n      mma_chunk_h<9, true, kM>(ab, wb, acc, warp, lane);\n    else\n      mma_chunk_h<9, false, kM>(ab, wb, acc, warp, lane);", "    ;"),
-    "diag_k7bf16_no_stores": ("k7bf16", "        if (p.ovec) {\n          *reinterpret_cast<uint4*>(dst) = v;\n        } else {", "        if (true) {\n        } else {"),
-    "diag_k7bf16_no_copies": ("k7bf16", "    if (ch.taps == 1)\n      load_a_proj<kUp, kM>(p, ch.s, b, ty0, tx0, A, tid);\n    else if", "    if (true) {\n    } else if (ch.taps == 1)\n      load_a_proj<kUp, kM>(p, ch.s, b, ty0, tx0, A, tid);\n    else if"),
-    "diag_k7bf16_no_act": ("k7bf16", "    if (ch.taps == 9) {\n      if (kPhase == 0 && kUp)", "    if (false) {\n      if (kPhase == 0 && kUp)"),
+    # the bf16 K7's TMA route, its plan in csrc/k7_plan.h: 8 x 16 tiles
+    # everywhere; four consumer warpgroups of one accumulator at 16 x 16
+    # tiles (against two of two)
+    "k7bf16_tiles_8": ("k7bf16", *K7_TILES_8, "k7_plan.h"),
+    "k7bf16_wg_4": ("k7bf16", "constexpr int kWideWG = 2;", "constexpr int kWideWG = 4;",
+                    "k7_plan.h"),
+    # the activation's SiLU on bf16t::silu_fast (MUFU with subnormal fix-ups)
+    "k7bf16_act_no_ftz": ("k7bf16", "        o[i] = bf16t::pack2(silu_ftz(lo * sc[2 * i] + sf[2 * i]),\n"
+                          "                            silu_ftz(hi * sc[2 * i + 1] + sf[2 * i + 1]));",
+                          "        o[i] = bf16t::pack2(bf16t::silu_fast(lo * sc[2 * i] + sf[2 * i]),\n"
+                          "                            bf16t::silu_fast(hi * sc[2 * i + 1] + sf[2 * i + 1]));"),
+    # the activation four positions a pass (against two), or one
+    "k7bf16_act_items_4": ("k7bf16", "constexpr int kActItems = 2;", "constexpr int kActItems = 4;"),
+    "k7bf16_act_items_1": ("k7bf16", "constexpr int kActItems = 2;", "constexpr int kActItems = 1;"),
+    # diagnostics, not kernels: the TMA route without its products, its
+    # activation, its TMA stores or its A stages' TMA copies (results wrong;
+    # the time of the rest)
+    "diag_k7bf16_no_mma": ("k7bf16", "    if (kPhase == 1 && q >= nch)\n      mma_chunk_t<1, kUp",
+                           "    if (true) {\n      hook();\n      __syncwarp();\n    } else if (kPhase == 1 && q >= nch)\n      mma_chunk_t<1, kUp"),
+    "diag_k7bf16_no_act": ("k7bf16", "    if (ch.taps == 9) {\n      if (ch.lo)\n        activate_t",
+                           "    if (false) {\n      if (ch.lo)\n        activate_t"),
+    "diag_k7bf16_no_stores": ("k7bf16", "      if (y0 < H) tma::store_4d(dst_map, S_w, o0, tx0, y0, b);",
+                              "      ;"),
+    "diag_k7bf16_no_loads": ("k7bf16", "(ch.lo ? lowpos_h(kM) : pos_h(kM)) * kPixRow + wbytes);\n    if (ch.lo)",
+                             "wbytes);\n    if (true) {\n    } else if (ch.lo)"),
     # diagnostics, not kernels: K7 with the 3x3 products of both phases left
     # out, or their staging pass (results wrong; the time of the rest)
     "diag_k7_no_mma": ("k7", "      mma_chunk<9>(sa, sb, acc, rg, cq, lane);", "      ;"),
@@ -563,17 +586,25 @@ def _sources(kernel, files, variants, out_dir: Path):
         srcs[f"file{i}:{f}"] = Path(f)
     for name in variants:
         # FILE_VARIANTS change the first file given, VARIANTS the package's
-        # own source
+        # own source or one of its headers
         on_file = name in FILE_VARIANTS
-        _, old, new = FILE_VARIANTS[name] if on_file else VARIANTS[name]
+        _, old, new, *header = FILE_VARIANTS[name] if on_file else VARIANTS[name]
         if on_file and not files:
             raise ValueError(f"variant {name} changes the first file given: give one")
-        base = Path(files[0]) if on_file else own
+        base = Path(files[0]) if on_file else _build.CSRC / header[0] if header else own
         text = base.read_text()
         if text.count(old) != 1:
             raise ValueError(f"variant {name}: its text is not in {base}")
-        path = out_dir / f"variant_{name}.cu"
-        path.write_text(text.replace(old, new))
+        if header:
+            # the changed header beside a copy of the source, which nvcc's
+            # quoted include finds before the package's
+            (out_dir / name).mkdir(exist_ok=True)
+            (out_dir / name / header[0]).write_text(text.replace(old, new))
+            path = out_dir / name / own.name
+            path.write_text(own.read_text())
+        else:
+            path = out_dir / f"variant_{name}.cu"
+            path.write_text(text.replace(old, new))
         srcs[f"variant:{name}"] = path
     return srcs
 
@@ -593,7 +624,8 @@ def _build_libs(kernel, srcs, out_dir: Path):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln or "Function properties" in ln]
+                       if any(k in ln for k in ("registers", "spill", "Function properties",
+                                                "warning"))]
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in KERNELS[kernel][1].items():
             getattr(lib, fn).argtypes = argtypes
@@ -1952,11 +1984,14 @@ def _time_k7(libs, ptxas) -> int:
 
 def k7_bf16_cases(device, b: int, res: int, ch: int, seed: int) -> dict:
     """The bf16 K7's cases at the flagship's widths, each (args, kw) of
-    `fused_unet_block` with chained fp32 statistics of its bf16 input: the
-    identity block at res, res / 2 and res / 4 emitting statistics, the
-    decoder's ch + ch -> ch block with its 1x1 projection emitting
-    statistics, the up block from res / 2 to res, and the ragged 128 + 128 ->
-    128 case (its conv0 weights stream). Shared with chip_smoke.py."""
+    `fused_unet_block` with chained fp32 statistics of its bf16 input: every
+    launch kind of the flagship's forward (the identity block at res, res /
+    2 and res / 4, the decoder's ch + ch -> ch block with its 1x1
+    projection at the same three, the up blocks from res / 2 to res and
+    from res / 4 to res / 2; all emitting statistics; K7_BF16_PER_FORWARD
+    counts them), then the ragged 128 + 128 -> 128 case (its weights
+    stream) and the identity block at width 36, which takes the kept
+    cp.async route (36 is not a multiple of 8). Shared with chip_smoke.py."""
     import math
 
     from m_cedm_tpu_torch.models.layers import adm_groups
@@ -1985,16 +2020,36 @@ def k7_bf16_cases(device, b: int, res: int, ch: int, seed: int) -> dict:
         kw["stats"] = (xin.sum(dim=(1, 2)).float(), (xin * xin).sum(dim=(1, 2)).float())
         return args, kw
 
-    lo = res // 2
     cases = {f"identity, res {r}, chained stats, emit": block(b, r, r, ch, 0, ch)
              for r in (res, res // 2, res // 4)}
-    cases[f"dual + 1x1 projection ({ch} + {ch} -> {ch}), res {res}, chained stats, "
-          "emit"] = block(b, res, res, ch, ch, ch, proj=True)
-    cases[f"up, identity ({lo}x{lo} -> {res}x{res}), chained stats, emit"] = block(
-        b, lo, lo, ch, 0, ch, up=True)
+    for r in (res, res // 2, res // 4):
+        cases[f"dual + 1x1 projection ({ch} + {ch} -> {ch}), res {r}, chained stats, "
+              "emit"] = block(b, r, r, ch, ch, ch, proj=True)
+    for r in (res, res // 2):
+        lo = r // 2
+        cases[f"up, identity ({lo}x{lo} -> {r}x{r}), chained stats, emit"] = block(
+            b, lo, lo, ch, 0, ch, up=True)
     cases["ragged: (1, 7, 19), 128 + 128 -> 128, projection, chained stats, emit"] = block(
         1, 7, 19, 128, 128, 128, proj=True)
+    cases[f"width 36 (the kept route), identity, res {res // 4}, chained stats, emit"] = block(
+        b, res // 4, res // 4, 36, 0, 36)
     return cases
+
+
+def k7_bf16_per_forward(res: int, ch: int) -> dict:
+    """K7 launches of one flagship U-Net forward (ch_mult (1, 1, 1), one res
+    block a level, mega=True) by k7_bf16_cases' name: the encoder's and the
+    middle's identity blocks (one at res and res / 2, three at res / 4),
+    the decoder's two dual blocks a level, its two up blocks."""
+    lo = res // 4
+    per = {f"identity, res {res}, chained stats, emit": 1,
+           f"identity, res {res // 2}, chained stats, emit": 1,
+           f"identity, res {lo}, chained stats, emit": 3}
+    for r in (res, res // 2, lo):
+        per[f"dual + 1x1 projection ({ch} + {ch} -> {ch}), res {r}, chained stats, emit"] = 2
+    for r in (res, res // 2):
+        per[f"up, identity ({r // 2}x{r // 2} -> {r}x{r}), chained stats, emit"] = 1
+    return per
 
 
 def _time_k7bf16(libs, ptxas) -> int:
@@ -2057,10 +2112,25 @@ def _time_k7bf16(libs, ptxas) -> int:
         return fn
 
     def plan(lib, c):
-        out = (ctypes.c_int * 7)()
+        """the source's plan (a source before the TMA route gives its first
+        seven fields)"""
+        out = (ctypes.c_int * 10)()
         rc = lib.mc_unet_block_bf16_plan(*c["plan_dims"], out)
         return dict(zip(("resident0", "resident1", "smem", "blocks_per_sm", "sms", "blocks",
-                         "tile_rows"), list(out))) if rc == 0 else {"error": rc}
+                         "tile_rows", "route_tma", "stages", "consumer_warpgroups"),
+                        list(out))) if rc == 0 else {"error": rc}
+
+    def host_us(fn, n=50):
+        """the C entry's host time a call (the launch enqueued, not waited)"""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return sorted(times)[n // 2] * 1e6
 
     def bf16_err(got, want):
         err = (got.double() - want.double()).abs()
@@ -2106,9 +2176,21 @@ def _time_k7bf16(libs, ptxas) -> int:
             torch.cuda.synchronize()
             errs[name][f"err {case}"] = {
                 **errors(first, c["want"]), "plan": plan(lib, c),
+                "host_us": host_us(calls[name][case]),
                 "same_bits_on_repeat": all(torch.equal(a, t[k]) for a, k in
                                            zip(first, outs))}
-    _report(libs, ptxas, calls, errs, timer)
+    # two rounds of opposite order, each source's cases timed, and a
+    # forward's K7 time (each launch kind's time times its launches)
+    per = k7_bf16_per_forward(K2_RES, K2_CH)
+    print(json.dumps({"per_forward": per, "two_kernel_ms_per_forward": sum(
+        n * two[f"ms {case}"] for case, n in per.items())}), flush=True)
+    names = list(libs)
+    for rnd, order in enumerate((names, names[::-1])):
+        for name in order:
+            ms = {f"ms {case}": timer(fn) for case, fn in calls[name].items()}
+            print(json.dumps({"source": name, "round": rnd, **ms, "ms_per_forward": sum(
+                n * ms[f"ms {case}"] for case, n in per.items()), **errs[name],
+                "ptxas": ptxas[name]}), flush=True)
     return 0
 
 

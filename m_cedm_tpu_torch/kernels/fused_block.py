@@ -29,19 +29,25 @@ their gradients; the TPU kernel has no backward kernel either. Emitted
 statistics are not differentiable and chained ones take a zero cotangent.
 `fused_unet_block.launches` counts the K7 launches of both instances.
 
-bf16 (unet_block_bf16_kernel, launched for bf16 activations): x, x2, w0, w1,
-skip_w, the workspace and the output are bf16; g0, b0, g1, b1, the biases
-and the statistics fp32. It rounds where the Pallas `_mega_kernel` rounds
-on a bf16 network: norm0 with the chained `stats` it is given, the
-activation in fp32 rounded once to bf16, conv0's bf16 products summed in
-fp32 from the fp32 bias0, h stored rounded to bf16 and norm1's statistics
-taken from the fp32 sums before that rounding, the activation of the
-rounded h rounded once, the projection's bf16 products (or the upcast
-identity) added in fp32, the output rounded once and the emitted
-statistics those of the fp32 sums. Its plain version is therefore the
-chained composition of the bf16 plain K2 / K3 (the block's `stats` into
-conv0, conv0's emitted statistics into conv1), not the fp32 one, which
-recomputes the statistics and is exact only in fp32.
+bf16 (launched for bf16 activations): x, x2, w0, w1, skip_w, the workspace
+and the output are bf16; g0, b0, g1, b1, the biases and the statistics
+fp32. It rounds where the Pallas `_mega_kernel` rounds on a bf16 network:
+norm0 with the chained `stats` it is given, the activation in fp32 rounded
+once to bf16, conv0's bf16 products summed in fp32 from the fp32 bias0, h
+stored rounded to bf16 and norm1's statistics taken from the fp32 sums
+before that rounding, the activation of the rounded h rounded once, the
+projection's bf16 products (or the upcast identity) added in fp32, the
+output rounded once and the emitted statistics those of the fp32 sums. Its
+plain version is therefore the chained composition of the bf16 plain K2 /
+K3 (the block's `stats` into conv0, conv0's emitted statistics into
+conv1), not the fp32 one, which recomputes the statistics and is exact only
+in fp32. Two kernels compute it, the route chosen by shape in C
+(csrc/k7_plan.h's tma_shape): unet_block_bf16_tma_kernel (TMA copies and
+stores, a warpgroup that activates each stage while others multiply the one
+before) where C1, C2 and O are multiples of 8, every base 16-byte aligned
+and an identity skip has one input; else unet_block_bf16_kernel
+(cp.async). The TMA route's launch plan is csrc/k7_plan.h's, plain C++
+that a host compiler builds alone.
 """
 from __future__ import annotations
 
@@ -131,12 +137,13 @@ def fused_unet_block_plain(x, g0, b0, w0, bias0, g1, b1, w1, bias1,
 
 def _bf16_plan(batch: int, h: int, w: int, c1: int, c2: int, o: int, up: bool,
                proj: bool) -> Tuple[int, ...]:
-    """unet_block_bf16_kernel's launch plan for an output (batch, h, w, o):
-    (phase 0's weights resident, phase 1's, dynamic shared memory bytes,
-    co-resident blocks an SM, SMs, blocks, tile rows), from the CUDA
-    source."""
+    """The bf16 K7's launch plan for an output (batch, h, w, o), from the
+    CUDA source: (phase 0's weights resident, phase 1's, dynamic shared
+    memory bytes, co-resident blocks an SM, SMs, blocks, tile rows, route (1
+    TMA, 0 the kept unet_block_bf16_kernel), ring stages, consumer
+    warpgroups)."""
     fn = _build.bind("fused_block", "mc_unet_block_bf16_plan", [I] * 8 + [P])
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 10)()
     raise_on_error(fn(batch, h, w, c1, c2, o, int(up), int(proj), out),
                    "mc_unet_block_bf16_plan")
     return tuple(out)

@@ -1247,6 +1247,30 @@ def test_k7_bf16_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_bf16_route_is_the_shapes(cuda, case):
+    """The C plan's route is the TMA kernel exactly where C1, C2 and O are
+    multiples of 8 and an identity skip has one input, and its tile plan is
+    csrc/k7_plan.h's at the card's SMs and blocks an SM."""
+    import ctypes
+
+    from m_cedm_tpu_torch.kernels import _build
+    from m_cedm_tpu_torch.kernels import fused_block as tfb
+
+    b, h, w, c1, c2, o, up, proj = K7_CASES[case][:8]
+    h, w = (2 * h, 2 * w) if up else (h, w)
+    plan = tfb._bf16_plan(b, h, w, c1, c2, o, up, proj)
+    assert plan[7] == int(all(n % 8 == 0 for n in (c1, c2, o)) and (proj or c2 == 0))
+    if plan[7]:
+        host = _build.bind("fused_block", "mc_unet_block_bf16_tma_plan",
+                           [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        want = (ctypes.c_int * 16)()
+        assert host(b, h, w, c1, c2, o, int(up), int(proj), plan[4], plan[3],
+                    ctypes.cast(want, ctypes.c_void_p)) == 0
+        assert list(plan[:9]) == [*want[:6], want[6], 1, want[7]] and plan[9] == want[8]
+
+
+@pytest.mark.cuda
 def test_k7_bf16_refuses_mixed_dtypes(cuda):
     from m_cedm_tpu_torch.kernels import fused_block as tfb
 

@@ -505,9 +505,13 @@ def test_3xtf32_conv_dgrad_keeps_fp32_accuracy(case, record_property):
 def test_measurement_variants_apply_to_their_sources(name):
     """Each named variant of kernels/attention_sources.py (the rivals and
     diagnostics the records cite) replaces exactly one passage of its
-    kernel's package source; the tool refuses it on the card otherwise."""
-    kernel, old, _ = VARIANTS[name]
-    assert (CSRC / KERNELS[kernel][0]).read_text().count(old) == 1
+    kernel's package source, or of the csrc header it names; the tool
+    refuses it on the card otherwise."""
+    kernel, old, _, *header = VARIANTS[name]
+    path = CSRC / (header[0] if header else KERNELS[kernel][0])
+    assert path.read_text().count(old) == 1
+    if header:  # a header the kernel's source includes
+        assert f'#include "{header[0]}"' in (CSRC / KERNELS[kernel][0]).read_text()
 
 
 # ---------------------------------------------------------------------------
