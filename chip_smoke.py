@@ -239,7 +239,15 @@ Phases, each printing JSON lines:
               each K2 / K3 case's device time split into wgrad, dgrad and
               the dx pass (at the identity tail also the dx pass as the
               earlier PyTorch passes on the same da); the dx kernel (gn_dx)
-              alone on K2's bf16 da and K3's fp32 low-res da; (2)
+              alone on K2's bf16 da and K3's fp32 low-res da; K1's bf16
+              backward also at K1_BWD_BF16_RAGGED, each case with its plan
+              and its bits on a repeat; conv_in's wgrad alone at C 4 and 2
+              and WGRAD_BF16_RAGGED, with its plan and its bits on a
+              repeat, beside bf16 convolution_backward of dW and dbias
+              alone (the same function), and the out conv's wgrad beside
+              the same; one device operation a K1 call (profiler) and the
+              SASS of K1's (no floating-point atomic) and the wgrad's (HGMMA,
+              no FFMA) asserted before phase 1 (k1_bwd_bf16_checks); (2)
               McedmTask.train_step with model.dtype bfloat16 at B = 16, full
               width and depth, from phase 5's state: kernel path against
               the bf16 plain path over 3 steps (loss and gradient norm
@@ -4325,6 +4333,14 @@ TOL_BF16_BWD_F32 = 1e-3
 TOL_BF16_TRAIN = 1e-2
 # the kernel path's gradient gap to the fp32 step against the plain path's
 BF16_GAP_RATIO = 1.5
+# K1's bf16 backward and conv_in's bf16 wgrad at ragged shapes beside the
+# train step's (phase 16.1): K1 (B, N, C, groups, eps) at a sample over 64
+# clusters, 80 samples of one block, C 2048 and 8; the wgrad (B, H, W, C,
+# O) with g by TMA (O 24, 64) and by cp.async pairs (O 20), C 8, 3 and 4
+K1_BWD_BF16_RAGGED = ((1, 100003, 128, 32, 1e-6), (80, 333, 128, 32, 1e-6),
+                      (2, 4099, 2048, 32, 1e-6), (1, 333, 8, 8, 1e-5))
+WGRAD_BF16_RAGGED = ((3, 13, 37, 8, 24), (2, 29, 21, 3, 64), (16, 127, 129, 4, 64),
+                     (2, 19, 40, 2, 20))
 BF16_BWD_KERNELS = {f"{name} bf16": name for name in (
     "K1 gn_silu_bwd", "K2 gn_silu_conv_bwd", "K2 narrow_conv_bwd",
     "K3 gn_silu_up_conv_bwd", "K4 attention_bwd", "K2 gn_dx")}
@@ -4394,16 +4410,24 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
     def f32(*ts):
         return [None if t is None else t.float() for t in ts]
 
-    def check(kernel, mode, k_fn, p_fn, work, lib_fn=None, f32_fn=None, pieces=None):
+    def check(kernel, mode, k_fn, p_fn, work, lib_fn=None, f32_fn=None, pieces=None,
+              extra=None, repeat=False):
         """f32_fn: the fp32 kernels on the same inputs upcast, whose device
         time is recorded beside the bf16 kernels' (`fp32_device_ms`);
         pieces: the call's kernels apart ({name: call}), each one's device
-        time recorded (`split_device_ms`)."""
-        err = bf16_grads_error(k_fn(), p_fn(), f"{kernel} {mode}")
+        time recorded (`split_device_ms`); extra: fields recorded as they
+        are (a plan); repeat: two calls must give the same bits."""
+        got = k_fn()
+        err = bf16_grads_error(got, p_fn(), f"{kernel} {mode}")
+        if repeat:
+            again = k_fn()
+            if not all(a is b_ or torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{kernel} {mode}: two calls gave different bits")
         lim = bound(*work)
         rec = {"phase": "bf16_backward", "kernel": kernel, "mode": mode, **err,
                "ms": cuda_ms(k_fn), "device_ms": device_ms(k_fn, lim),
-               "plain_ms": cuda_ms(p_fn), **lim, "library_ms": None}
+               "plain_ms": cuda_ms(p_fn), **lim, "library_ms": None, **(extra or {}),
+               **({"same_bits_on_repeat": True} if repeat else {})}
         if pieces:
             unbounded = {"bound_ms": 0.0, "bytes": 0}
             rec["split_device_ms"] = {k: device_ms(f, unbounded) for k, f in pieces.items()}
@@ -4421,7 +4445,7 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
         results[kernel]["modes"].append(
             {k: rec[k] for k in ("mode", "ms", "device_ms", "fp32_device_ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms", "max_rel_err",
-                                 "split_device_ms")
+                                 "split_device_ms", "plan", "same_bits_on_repeat")
              if k in rec})
         return rec
 
@@ -4434,25 +4458,67 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
         cot = torch.randn(out.shape, generator=g, device=device).to(bf)
         return lambda: torch.autograd.grad(out, (xs, ws), cot, retain_graph=True)
 
-    # K1 backward: the down blocks' norm0 at res and res/2, the out head's
+    # K1 backward: the down blocks' norm0 at res and res/2, the out head's;
+    # then ragged cases (K1_BWD_BF16_RAGGED), each with its plan (the
+    # clusters a sample, the rows kept in shared memory between the passes)
     gr = adm_groups(ch)
-    for r in (res, res // 2):
-        x = rnd(b, r * r, ch, scale=0.8, shift=0.2)
-        gy = rnd(b, r * r, ch)
-        gamma, beta = fold(ch)
+    for bb, n, c, groups, eps in [(b, r * r, ch, gr, 1e-5) for r in (res, res // 2)] + list(
+            K1_BWD_BF16_RAGGED):
+        x = rnd(bb, n, c, scale=0.8, shift=0.2)
+        gy = rnd(bb, n, c)
+        gamma = rnd(bb, c, scale=0.3, shift=1.0, dtype=torch.float32)
+        beta = rnd(bb, c, scale=0.3, dtype=torch.float32)
         stats = fn.channel_stats_plain(x)
-        x32, gy32 = f32(x, gy)
-        check("K1 gn_silu_bwd bf16", f"chained stats, res {r}",
-              lambda x=x, gy=gy, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd(
-                  gy, x, gm, bt, st, gr),
-              lambda x=x, gy=gy, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd_bf16_plain(
-                  gy, x, gm, bt, gr, stats=st),
+        main_path = (bb, c, groups) == (b, ch, gr) and n in (res * res, res * res // 4)
+        mode = (f"chained stats, res {math.isqrt(n)}" if main_path else
+                f"ragged: B {bb}, N {n}, C {c}, {groups} groups, eps {eps:g}")
+        x32, gy32 = f32(x, gy) if main_path else (None, None)
+        check("K1 gn_silu_bwd bf16", mode,
+              lambda x=x, gy=gy, gm=gamma, bt=beta, st=stats, gg=groups, e=eps: fn.gn_silu_bwd(
+                  gy, x, gm, bt, st, gg, e),
+              lambda x=x, gy=gy, gm=gamma, bt=beta, st=stats, gg=groups, e=eps:
+                  fn.gn_silu_bwd_bf16_plain(gy, x, gm, bt, gg, e, stats=st),
               (nbytes(x, gy, x, gamma, beta, *stats, gamma, beta), 20.0 * x.numel()),
-              f32_fn=lambda x=x32, gy=gy32, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd(
-                  gy, x, gm, bt, st, gr))
+              f32_fn=(lambda x=x32, gy=gy32, gm=gamma, bt=beta, st=stats: fn.gn_silu_bwd(
+                  gy, x, gm, bt, st, gr)) if main_path else None,
+              extra={"plan": fn.bwd_bf16_plan(bb, n, c, groups, device)}, repeat=True)
+        del x, gy, x32, gy32
 
     def conv_w(ci, co):
         return rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
+
+    def wgrad_library(xin, gy):
+        """bf16 aten.convolution_backward of the weight and bias gradients
+        alone (no input gradient) on the NHWC operands' NCHW views"""
+        o, c = gy.shape[-1], xin.shape[-1]
+        wz = torch.zeros((o, c, 3, 3), device=device, dtype=bf)
+        xn, gn = xin.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        return lambda: torch.ops.aten.convolution_backward(
+            gn, xn, wz, [o], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, True])
+
+    def narrow_wgrad_case(xin, gy, name):
+        """conv_in's bf16 wgrad (linear, with dbias) called directly"""
+        bb, hh, ww, c = xin.shape
+        o = gy.shape[-1]
+
+        def kern():
+            return fnc._wgrad(xin, gy, None, None, None, 0, 1e-5, 9, False, True)
+
+        got, again = kern(), kern()
+        if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+            raise AssertionError(f"conv_in wgrad bf16 {name}: two calls gave different bits")
+        err = bf16_grads_error(got, (fnc.conv3x3_wgrad_plain(xin.float(), gy.float()),
+                                     gy.float().sum(dim=(0, 1, 2))), f"conv_in wgrad bf16 {name}")
+        lim = bound(nbytes(xin, gy) + 4 * (9 * c * o + o), 2.0 * 9 * c * o * bb * hh * ww, 0,
+                    PEAK_BF16)
+        lib = wgrad_library(xin, gy)
+        rec = {"device_ms": device_ms(kern, lim), "library_device_ms": device_ms(lib, lim),
+               "bound_ms": lim["bound_ms"], "bound_by": lim["bound_by"],
+               "max_rel_err": err["max_rel_err"], "same_bits_on_repeat": True,
+               "plan": dict(zip(("tile_rows", "resident", "blocks", "smem", "rows"),
+                                fnc._bf16_bwd_plan(1, False, bb, hh, ww, c, o, 9, device)))}
+        emit({"phase": "bf16_backward", "kernel": "conv_in wgrad bf16", "case": name, **rec})
+        return rec
 
     def bwd_pieces(gy, x, gamma, beta, w, stats, groups, need_da, kw, up=False,
                    torch_dx=False):
@@ -4534,6 +4600,17 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
     k2("128-channel input (decoder conv0)", xc, gc, bc, conv_w(2 * ch, ch))
     k2("act=False (conv_in, no input gradient)", rnd(b, res, res, 4), None, None,
        conv_w(4, ch), need_da=False)
+    # conv_in's wgrad alone (wgrad_narrow_bf16_kernel and its reduce), called
+    # directly at the flagship's (C 4) and adm_edm_cond_h's (C 2) shapes and
+    # ragged ones: against its plain version, bits on a repeat, its plan,
+    # beside bf16 convolution_backward of the weight and bias gradients alone
+    # on the same inputs (the same function; output_mask [False, True, True])
+    wgrad_cases = {}
+    for bb, hh, ww, c, o in ((b, res, res, 4, ch), (b, res, res, 2, ch)) + WGRAD_BF16_RAGGED:
+        xin, gy = rnd(bb, hh, ww, c), rnd(bb, hh, ww, o)
+        name = f"B {bb}, {hh}x{ww}, C {c} -> O {o}"
+        wgrad_cases[name] = narrow_wgrad_case(xin, gy, name)
+    results["K2 gn_silu_conv_bwd bf16"]["conv_in_wgrad"] = wgrad_cases
     k2("act=False (down-block conv0 at res/2)", rnd(b, res // 2, res // 2, ch, scale=0.8),
        None, None, w)
 
@@ -4551,6 +4628,9 @@ def phase_bf16_backward(device, b: int, res: int, ch: int) -> dict:
           f32_fn=lambda: fnc.narrow_conv_bwd(gy32, h32, wo32),
           pieces={"dgrad + wgrad": lambda: fnc.narrow_conv_bwd(gy, h, w_out),
                   "wgrad alone": lambda: fnc.narrow_conv_bwd(gy, h, w_out, need_dx=False)})
+    # the out conv's wgrad beside the same function's library call
+    results["K2 narrow_conv_bwd bf16"]["wgrad_library_device_ms"] = device_ms(
+        wgrad_library(h, gy), {"bound_ms": 0.0, "bytes": 0})
 
     # K3 backward: the decoder's up-block conv0, res/2 -> res
     xl = rnd(b, res // 2, res // 2, ch, scale=0.8, shift=0.2)
@@ -5018,6 +5098,56 @@ def phase_bf16_linear_attention(device, b: int, n: int, width: int, checks=None)
     return results
 
 
+def k1_bwd_bf16_checks(device, b: int, res: int, ch: int) -> dict:
+    """K1's bf16 backward (gn_silu_bwd_cluster_kernel) at the train step's
+    res-128 shape: exactly one device operation a call in torch.profiler (no
+    buffer zeroed before it), and its plan; then the SASS of it and of
+    conv_in's bf16 wgrad (wgrad_narrow_bf16_kernel<C>): K1 with no atomic
+    or reduction on a floating type, every wgrad instance with its products
+    on wgmma (HGMMA), no mma.sync and no fp32 FMA. main() runs it beside
+    linear_bf16_checks, before the other phases' profiles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from m_cedm_tpu_torch.kernels import _build
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+    from m_cedm_tpu_torch.models.layers import adm_groups
+
+    g = torch.Generator(device=device).manual_seed(SEED + 71)
+    n, groups = res * res, adm_groups(ch)
+    x = torch.randn((b, n, ch), generator=g, device=device).bfloat16()
+    gy = torch.randn((b, n, ch), generator=g, device=device).bfloat16()
+    gamma = torch.randn((b, ch), generator=g, device=device) * 0.3 + 1.0
+    beta = torch.randn((b, ch), generator=g, device=device) * 0.3
+    stats = fn.channel_stats_plain(x)
+    fn.gn_silu_bwd(gy, x, gamma, beta, stats, groups)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn.gn_silu_bwd(gy, x, gamma, beta, stats, groups)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    if len(ops) != calls or not all("gn_silu_bwd_cluster_kernel" in nm for nm in ops):
+        raise AssertionError(f"K1 bf16 backward: {calls} calls ran the device operations {ops}")
+    del x, gy
+    sass = {}
+    for name, c in _build.sass_counts("fused_norm", "gn_silu_bwd_cluster_kernel").items():
+        sass["gn_silu_bwd_cluster_kernel"] = c
+    for name, c in _build.sass_counts("fused_norm_conv_bwd", "wgrad_narrow_bf16_kernel").items():
+        short = re.search(r"wgrad_narrow_bf16_kernelILi(\d)E", name)
+        sass[f"wgrad_narrow_bf16_kernel<{short[1]}>" if short else name] = c
+    k1 = sass.get("gn_silu_bwd_cluster_kernel")
+    wgrads = {k: c for k, c in sass.items() if k.startswith("wgrad_narrow_bf16")}
+    if not k1 or k1["FATOM"] or len(wgrads) != 8 or any(
+            c["HGMMA"] == 0 or c["HMMA"] or c["FFMA"] for c in wgrads.values()):
+        raise AssertionError(f"K1 bf16 backward / conv_in bf16 wgrad: SASS counts {sass}")
+    out = {"k1_bwd_device_ops_per_call": len(ops) // calls,
+           "plan": fn.bwd_bf16_plan(b, n, ch, groups, device), "sass": sass}
+    emit({"phase": "bf16_k1_bwd_checks", **out})
+    return out
+
+
 def linear_bf16_checks(device, b: int, n: int, width: int) -> dict:
     """The clusters of 1 .. 8 blocks of the bf16 K5 on TMA that the card
     holds at once (cudaOccupancyMaxActiveClusters) and the cluster the
@@ -5374,6 +5504,7 @@ def main() -> int:
     phase_device()
     enc = OFORMER_HPARAMS["encoder"]
     linear_checks = linear_bf16_checks(device, BATCH, enc["res"] ** 2, enc["in_emb_dim"])
+    k1_bwd_checks = k1_bwd_bf16_checks(device, BATCH, m["resolution"], m["ch"])
     results = phase_kernels(device, BATCH, m["resolution"], m["ch"])
     results.update(phase_backward(device, BATCH, m["resolution"], m["ch"]))
     params = phase_forward(device, hparams, BATCH)
@@ -5501,6 +5632,10 @@ def main() -> int:
                "library_ms": rec["library_ms"], "modes": rec["modes"]}
         if "o32_max_rel_err" in rec:
             row["o32_max_rel_err"] = rec["o32_max_rel_err"]
+        row.update({k: rec[k] for k in ("conv_in_wgrad", "wgrad_library_device_ms")
+                    if k in rec})
+        if name == "K1 gn_silu_bwd bf16":
+            row["checks"] = k1_bwd_checks
         row.update({k: rec[k] for k in K4_BF16_KEYS if k in rec})
         summary.append(row)
     emit({"kernels": summary})

@@ -97,20 +97,92 @@
 // two calls give the same bits. The caller zeroes the counters and the
 // tagged words.
 //
-// bf16 backward: the same kernel on bf16 x and g (gn_silu_bwd_kernel<V,
-// __nv_bfloat16>), the bf16 instance of _grad_stats_kernel and
-// _grad_apply_kernel, which upcast x and g, compute in fp32 and round dx once
-// at the store. The ring stages x and g as they are (16-byte cp.async, eight
-// values; the instance takes C % 8 == 0), so a stage holds twice the rows;
-// every value is widened to fp32 as it is read, dgamma, dbeta and the
-// partials stay fp32, and dx is stored as bf16. Bound: bytes, 3 x 33.6 MB at
-// the flagship's shape, 0.030 ms at 3.35 TB/s.
+// bf16 backward: gn_silu_bwd_cluster_kernel, one launch on thread-block
+// clusters, written for Hopper (the fp32 kernel above is not instantiated
+// for bf16). The bf16 instance of _grad_stats_kernel and _grad_apply_kernel
+// (and the paired twins): x and g widened to fp32 as they are read; xhat, y
+// and dy = g silu'(y) in fp32 (e^-y and the reciprocal one MUFU operation
+// each, flushing subnormals); dgamma and dbeta fp32 sums per (B, C); m1 and
+// m2 from them per group; dx rounded once to bf16 at the store. No value is
+// summed by an atomic and two calls give the same bits. Bound: bytes, x and
+// g read once and dx written once, 3 x 33.6 MB at the flagship's res 128,
+// 0.030 ms at 3.35 TB/s (0.0075 at res 64).
+//
+// The earlier design, the fp32 kernel's bf16 instance, handed every sample
+// through the whole grid in turn (one slab a block, a sync warp a block
+// walking the samples through device-memory partials and arrival counters),
+// about 3 us a sample of latency, plus a zeroed buffer a call. Here a
+// sample's reduction is local and every sample's runs at once:
+//   - the plan (csrc/k1_bwd_plan.h) gives each sample `blocks` blocks, a
+//     power of two that fills the SMs at one block an SM (8 at B 16), cut
+//     into clusters: the largest cluster whose launch takes the batch in the
+//     fewest waves, asked of the card (cudaOccupancyMaxActiveClusters: 132
+//     of 1, 66 of 2, 30 of 4, 15 of 8 on an H100). At B 16 that is 4
+//     clusters of 2 a sample, 128 blocks in one wave. Where B needs more
+//     than one wave the sample groups are persistent, group i taking samples
+//     i, i + inflight, ... in order.
+//   - a block takes a contiguous run of its sample's rows, in chunks of
+//     32 KB of x and g, through one ring of `slots` chunk slots in shared
+//     memory filled by one producer thread with bulk copies
+//     (cp.async.bulk under full / empty mbarriers, csrc/tma_ring.cuh). The
+//     last `slots` chunks of pass A stay in their slots for pass B, the
+//     others are read again: pass A's copies of those at normal L2
+//     priority, every other copy and store evict-first, and pass B reads
+//     them again last-read first (an evict-last hint on the first read
+//     left lines in L2 that slowed the train step's other kernels). At res 64 every row stays (4 of 4 chunks); at res 128
+//     6 of 16. Shared memory of a block (k1_bwd_plan.h's layout) at res 128:
+//     the slots 6 x 32 KB = 196,608 bytes, the partial sets 8 warps x 2 C
+//     floats = 4,096, the block's partial and the sample's sums 512 each,
+//     the groups' mean, rstd, m1, m2 256, the sample's sums, sums of
+//     squares, gamma and beta 1,024, the barriers 128: 203,136 of the
+//     232,448 a block may take; at res 64 (4 slots) 137,600.
+//   - 8 compute warps in two groups that take alternate chunks, 8 channels
+//     of a row a thread (16 warps above 1024 channels, so that a group's
+//     threads hold a row of up to 2048: the kernel's two instances); pass A sums dy xhat and dy per channel, each thread
+//     over its rows in order, a butterfly over a warp's row slots, the warps
+//     in order into the block's partial.
+//   - the hand-off: each rank's partial in its own shared memory; a
+//     release-arrive on every rank's `ready` mbarrier, an acquire-wait on its
+//     own, then every rank sums the ranks' partials over distributed shared
+//     memory in rank order (the same bits on every rank), and arrives on
+//     every rank's `done` barrier, which a rank waits on before its partial
+//     is written again or it leaves. Where a sample spans clusters, rank 0 of
+//     each writes its cluster's sums as 64-bit words tagged with the call's
+//     epoch into device memory (`xchg`, kept by the caller and zeroed once
+//     when allocated, an epoch no earlier call used), and every block sums
+//     the sample's clusters in cluster order once each word carries the
+//     epoch: one device-memory exchange a call, every sample at once, and
+//     nothing zeroed: one device operation a call. The launch carries the
+//     cooperative attribute beside the cluster dimension (the card takes
+//     both), so the clusters that wait on each other are co-resident.
+//   - pass B: dx from the same slots, written over x in the slot and stored
+//     by one bulk copy a chunk; a slot is released once that copy has read
+//     it.
+// Measured on one H100 80GB HBM3 at 700 W (kernels/attention_sources.py
+// --kernel k1bwdbf16, card clock, two rounds, the earlier design's source
+// in the call; PERF.md section 6): res 128 / 64 at B 16 0.0569 /
+// 0.0197-0.0199 ms against 0.0797-0.0811 / 0.0514-0.0518. The alternatives
+// in the same call: every block a cluster of its own, the hand-off through
+// device memory alone, 0.6022 / 0.2263 (not understood); two clusters of 4
+// a sample in two waves 0.1222 / 0.0498-0.0503; one cluster of 8 a sample
+// at two blocks an SM (16 KB chunks) 0.0806-0.0811 / 0.0318; 16 compute
+// warps at C 64 0.0578-0.0579 / 0.0203-0.0204, 12 0.0569-0.0575 /
+// 0.0197-0.0198; one group of 8 warps 0.0560-0.0561 / 0.0200-0.0201;
+// chunks of 16 KB 0.0569-0.0571 / 0.0198-0.0199; pass A's copies of the
+// rows read again evict-last 0.0577-0.0578 at res 128, evict-first
+// 0.0604-0.0627. Diagnostics: with no copies 0.0429-0.0431, no stores
+// 0.0438-0.0439, no pass-B arithmetic 0.0516-0.0519, no pass-A arithmetic
+// 0.0557-0.0559: pass A waits on its bytes, pass B on its arithmetic (two
+// MUFU operations an element) and its stores. Block by block
+// (kernels/k1bwdbf16_trace.py, res 128): pass A ends at a median 24.8 us
+// (the latest block 27.4), the hand-off at 30.2, pass B at 48.9.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "k1_bwd_plan.h"
 #include "tma_ring.cuh"
 
 namespace cg = cooperative_groups;
@@ -553,40 +625,12 @@ __device__ __forceinline__ void load_v(const float* p, float* a) {
   }
 }
 
-// V consecutive bf16 values widened (V = 4: one 8-byte access)
-template <int V>
-__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* a) {
-  if constexpr (V == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
-  } else {
-    a[0] = __bfloat162float(*p);
-  }
-}
-
 template <int V>
 __device__ __forceinline__ void store_v_streaming(float* p, const float* a) {
   if constexpr (V == 4)
     __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
   else
     __stcs(p, a[0]);
-}
-
-// V values rounded once to bf16 (V = 4: one 8-byte store)
-template <int V>
-__device__ __forceinline__ void store_v_streaming(__nv_bfloat16* p, const float* a) {
-  if constexpr (V == 4) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    __stcs(reinterpret_cast<uint2*>(p), u);
-  } else {
-    *p = __float2bfloat16_rn(a[0]);
-  }
 }
 
 // count floats from device to shared memory by the lanes of one warp
@@ -597,13 +641,6 @@ __device__ __forceinline__ void warp_copy_async(float* dst, const float* src, in
   } else {
     for (int i = lane; i < count; i += 32) cp_async4(dst + i, src + i);
   }
-}
-
-// count bf16 values by the lanes of one warp (the bf16 instance takes only
-// 16-byte copies: count a multiple of 8, 16-byte aligned)
-__device__ __forceinline__ void warp_copy_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int count, int, int lane) {
-  for (int i = 8 * lane; i < count; i += 256) cp_async16(dst + i, src + i);
 }
 
 // dy = g * silu'(y) for y = xhat * gamma + beta
@@ -1122,6 +1159,424 @@ int bwd_launch(const BwdArgs& p, long smem, int slabs, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 backward: one launch on thread-block clusters (the header's note)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+struct ClusterArgs {
+  const bf16 *x, *g;
+  const float *gamma, *beta, *sums, *sumsq;
+  float *dgamma, *dbeta;
+  bf16* dx;
+  unsigned long long* xchg;  // (B, clusters, 2C) tagged words where clusters > 1
+  unsigned epoch;            // this call's tag
+  int batch, n, c, groups;
+  float eps;
+  k1bwd::Plan pl;
+};
+
+// the kC compute threads alone (named barrier 1)
+template <int kC>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kC) : "memory");
+}
+
+// 16 bytes of shared memory at a shared address (16-byte aligned)
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 u;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w) : "r"(addr));
+  return u;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint4& u) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "r"(u.x), "r"(u.y), "r"(u.z), "r"(u.w) : "memory");
+}
+
+// dy = g silu'(y) with the exponential and the reciprocal as one MUFU
+// operation each (ex2 and rcp, flushing subnormals: e^-y under 2^-126
+// leaves the sigmoid 1 either way)
+__device__ __forceinline__ float dy_of(float gv, float y) {
+  float e, sig;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(y * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(sig) : "f"(1.f + e));
+  return gv * sig * (1.f + y * (1.f - sig));
+}
+
+__device__ __forceinline__ void widen8(const uint4& u, float* a) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    a[2 * i] = f.x;
+    a[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 round8(const float* a) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The roles (see the header): warps 0 .. kC / 32 - 1 compute, the next warp
+// (one thread) issues the copies. A block is rank `rank` of cluster `kc` of its sample
+// group; group `grp` takes samples grp, grp + inflight, ... Its rows come in
+// chunks through a ring of M slots: fill f into slot f % M, its full
+// barrier's (f / M)-th phase; a sample's fills are pass A's chunks 0 ..
+// chunks - 1, then the chunks read again, 0 .. again - 1.
+template <int kC>
+__global__ void __launch_bounds__(kC + 32, k1bwd::kBlocksPerSm)
+gn_silu_bwd_cluster_kernel(const ClusterArgs p) {
+  constexpr int kV = k1bwd::kVec;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const k1bwd::Plan& pl = p.pl;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + pl.slots;
+  unsigned long long* ready = empty + pl.slots;  // the cluster's partials are in
+  unsigned long long* done = ready + 1;          // the cluster has read this block's
+  unsigned char* data = smem + pl.data_off;
+  float* red = reinterpret_cast<float*>(smem + pl.red_off);
+  float* part = reinterpret_cast<float*>(smem + pl.part_off);
+  float* tot = reinterpret_cast<float*>(smem + pl.tot_off);
+  float* gstat = reinterpret_cast<float*>(smem + pl.gstat_off);
+  float* mm = reinterpret_cast<float*>(smem + pl.mm_off);
+  float* vec = reinterpret_cast<float*>(smem + pl.vec_off);  // sums, sumsq, gamma, beta
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / pl.cluster;
+  const int grp = cid / pl.clusters, kc = cid % pl.clusters;
+  const int j = kc * pl.cluster + rank;  // the block's part of its sample
+  const int c = p.c, n = p.n, cr = pl.chunk_rows;
+  const int row0 = k1bwd::part_begin(j, pl.blocks, n);
+  const int rows = k1bwd::part_begin(j + 1, pl.blocks, n) - row0;
+  const int chunks = (rows + cr - 1) / cr, M = pl.slots;
+  // the last `kept` chunks of pass A stay in their slots for pass B; the
+  // first `again` are read again
+  const int kept = chunks < M ? chunks : M, again = chunks - kept;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pl.slots; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kC / 32 / k1bwd::kGroups);  // a group's warps
+    }
+    mbar_init(ready, pl.cluster);
+    mbar_init(done, pl.cluster);
+    tma::fence_barrier_init();
+  }
+  cluster.sync();  // every rank's barriers are set before any rank arrives on them
+  const int half = pl.slot_bytes / 2;  // a slot: x's rows, then g's
+
+  if (warp == kC / 32) {
+    if (lane == 0) {
+      const uint64_t keep = tma::policy_evict_normal(), once = tma::policy_evict_first();
+      int f0 = 0;  // the ring's fills before this sample's
+      for (int b = grp; b < p.batch; b += pl.inflight) {
+        const size_t base = ((size_t)b * n + row0) * c;
+        // chunk q into the slot of fill f, once fill f - slots is released
+        auto load = [&](int f, int q, uint64_t pol) {
+          const int s = f % M;
+          if (f >= M) mbar_wait(empty + s, (f / M - 1) & 1);
+          const int nr = min(cr, rows - q * cr);
+          const unsigned bytes = (unsigned)(nr * c * 2);
+          tma::mbar_expect_tx(full + s, 2 * bytes);
+          unsigned char* dst = data + (size_t)s * pl.slot_bytes;
+          tma::bulk_load(dst, p.x + base + (size_t)q * cr * c, bytes, full + s, pol);
+          tma::bulk_load(dst + half, p.g + base + (size_t)q * cr * c, bytes, full + s, pol);
+        };
+        // pass A's copies of the chunks read again at normal L2 priority, the
+        // others evicted first
+        for (int q = 0; q < chunks; ++q) load(f0 + q, q, q < again ? keep : once);
+        for (int j = 0; j < again; ++j) load(f0 + chunks + j, again - 1 - j, once);
+        f0 += chunks + again;
+      }
+    }
+    return;
+  }
+
+  // group gi takes chunks (pass B: visits) gi, gi + kGroups, ...; its thread
+  // gt V channels (ch) of every rs-th row from its slot on
+  constexpr int kG = k1bwd::kGroups, kGT = kC / kG;
+  const int tid = threadIdx.x, lanes = pl.lanes, rs = pl.row_slots;
+  const int gi = tid / kGT, gt = tid % kGT, gw = gt / 32;
+  const int slot = gt / lanes, ch = (gt % lanes) * kV;
+  const bool active = slot < rs;
+  const bool shuffle = lanes <= 32 && 32 % lanes == 0;
+  const int groups = p.groups, per = c / groups;
+  const float cnt = (float)n * (float)per, inv_cnt = 1.f / cnt;
+  const int w2 = 2 * c;
+  const uint32_t data_addr = tma::smem_u32(data);
+  const uint64_t once = tma::policy_evict_first();
+  int f0 = 0;
+  for (int b = grp, it = 0; b < p.batch; b += pl.inflight, ++it) {
+    // the sample's sums, sumsq, gamma and beta into shared memory (their
+    // loads issued together), then each group's mean and rstd in channel
+    // order
+    for (int i = tid; i < c; i += kC) {
+      const size_t o = (size_t)b * c + i;
+      const float s1 = __ldg(p.sums + o), s2 = __ldg(p.sumsq + o);
+      const float s3 = __ldg(p.gamma + o), s4 = __ldg(p.beta + o);
+      vec[i] = s1;
+      vec[c + i] = s2;
+      vec[2 * c + i] = s3;
+      vec[3 * c + i] = s4;
+    }
+    consumer_sync<kC>();
+    for (int k = tid; k < groups; k += kC) {
+      float s = 0.f, ss = 0.f;
+      for (int i = 0; i < per; ++i) {
+        s += vec[k * per + i];
+        ss += vec[c + k * per + i];
+      }
+      const float mean = s * inv_cnt;
+      gstat[k] = mean;
+      gstat[groups + k] = rsqrtf(fmaxf(ss * inv_cnt - mean * mean, 0.f) + p.eps);
+    }
+    consumer_sync<kC>();
+    // xhat = x rstd - mean rstd
+    float nmr[kV], rstd[kV], ga[kV], be[kV], sg[kV], sbv[kV];
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      const int k = (ch + v) / per;
+      rstd[v] = gstat[groups + k];
+      nmr[v] = -gstat[k] * rstd[v];
+      ga[v] = vec[2 * c + ch + v];
+      be[v] = vec[3 * c + ch + v];
+      sg[v] = sbv[v] = 0.f;
+    }
+
+    // pass A: each thread over its rows in order, chunk by chunk (fill f0 + q)
+    for (int q = gi; q < chunks; q += kG) {
+      const int s = (f0 + q) % M;
+      mbar_wait(full + s, ((f0 + q) / M) & 1);
+      const uint32_t sx = data_addr + s * pl.slot_bytes, sgr = sx + half;
+      const int nr = min(cr, rows - q * cr);
+      if (active) {
+        for (int r = slot; r < nr; r += rs) {
+          float xv[kV], gv[kV];
+          widen8(lds128(sx + 2 * (r * c + ch)), xv);
+          widen8(lds128(sgr + 2 * (r * c + ch)), gv);
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            const float xhat = fmaf(xv[v], rstd[v], nmr[v]);
+            const float dy = dy_of(gv[v], xhat * ga[v] + be[v]);
+            sg[v] += dy * xhat;
+            sbv[v] += dy;
+          }
+        }
+      }
+      if (q < again) {  // a kept chunk's slot is released in pass B
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+    }
+
+    // the block's partials: a butterfly over a warp's row slots where it
+    // holds whole slots, then the sets (warps, or slots) in order
+    int set = gi * rs + slot;
+    if (shuffle) {
+      for (int m = lanes; m < 32; m *= 2) {
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          sg[v] += __shfl_xor_sync(0xffffffffu, sg[v], m);
+          sbv[v] += __shfl_xor_sync(0xffffffffu, sbv[v], m);
+        }
+      }
+      set = warp;
+    }
+    if (active && (!shuffle || lane < lanes)) {
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        red[set * w2 + ch + v] = sg[v];
+        red[set * w2 + c + ch + v] = sbv[v];
+      }
+    }
+    consumer_sync<kC>();
+    for (int i = tid; i < w2; i += kC) {
+      float t = 0.f;
+      for (int k = 0; k < pl.sets; ++k) t += red[k * w2 + i];
+      part[i] = t;
+    }
+    consumer_sync<kC>();
+    // the hand-off: each rank's partial to every rank, summed in rank order
+    if (tid == 0) {
+      tma::fence_acq_rel_cluster();
+      for (int q = 0; q < pl.cluster; ++q) tma::mbar_arrive_rank(ready, q);
+    }
+    tma::mbar_wait_cluster(ready, it & 1);
+    const uint32_t part_addr = tma::smem_u32(part);
+    for (int i = 4 * tid; i < w2; i += 4 * kC) {
+      float4 t = tma::ld_cluster_f4(tma::map_rank(part_addr + 4 * i, 0));
+      for (int q = 1; q < pl.cluster; ++q) {
+        const float4 u = tma::ld_cluster_f4(tma::map_rank(part_addr + 4 * i, q));
+        t.x += u.x;
+        t.y += u.y;
+        t.z += u.z;
+        t.w += u.w;
+      }
+      *reinterpret_cast<float4*>(tot + i) = t;
+    }
+    consumer_sync<kC>();
+    if (tid == 0) {  // this block has read every rank's partial
+      tma::fence_acq_rel_cluster();
+      for (int q = 0; q < pl.cluster; ++q) tma::mbar_arrive_rank(done, q);
+    }
+    if (pl.clusters > 1) {
+      // a sample over several clusters: rank 0 of each leaves its cluster's
+      // sums as words tagged with the call's epoch; every block sums the
+      // sample's clusters in cluster order
+      unsigned long long* w = p.xchg + (size_t)b * pl.clusters * w2;
+      const unsigned long long tag = (unsigned long long)p.epoch << 32;
+      if (rank == 0)
+        for (int i = tid; i < w2; i += kC)
+          store_relaxed(w + (size_t)kc * w2 + i, tag | __float_as_uint(tot[i]));
+      for (int i = tid; i < w2; i += kC) {
+        float t = 0.f;
+        for (int k = 0; k < pl.clusters; ++k) {
+          unsigned long long u = load_relaxed(w + (size_t)k * w2 + i);
+          while ((unsigned)(u >> 32) != p.epoch) {
+            __nanosleep(32);
+            u = load_relaxed(w + (size_t)k * w2 + i);
+          }
+          t += __uint_as_float((unsigned)u);
+        }
+        tot[i] = t;
+      }
+      consumer_sync<kC>();
+    }
+    // dgamma and dbeta by one block a sample; m1 and m2 of each group
+    if (j == 0)
+      for (int i = tid; i < w2; i += kC)
+        (i < c ? p.dgamma : p.dbeta)[(size_t)b * c + (i < c ? i : i - c)] = tot[i];
+    for (int k = tid; k < groups; k += kC) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int i = 0; i < per; ++i) {
+        const float gk = vec[2 * c + k * per + i];
+        s1 += gk * tot[c + k * per + i];
+        s2 += gk * tot[k * per + i];
+      }
+      mm[k] = s1 / cnt;
+      mm[groups + k] = s2 / cnt;
+    }
+    consumer_sync<kC>();
+    // dx = rstd (dy gamma - m1 - xhat m2) = dy (rstd gamma) + xhat (-rstd m2) - rstd m1
+    float p1[kV], p2[kV], p3[kV];
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      p1[v] = rstd[v] * ga[v];
+      p2[v] = -rstd[v] * mm[groups + (ch + v) / per];
+      p3[v] = -rstd[v] * mm[(ch + v) / per];
+    }
+
+    // pass B: dx, rounded once, written over x in the slot and stored from
+    // there by one bulk copy a chunk; the kept chunks first (their slots
+    // then take the chunks read again: fills f0 + chunks ..), then the
+    // chunks read again, the last read first (the likeliest still in L2). A
+    // slot is released once the copy out of it has read it, a chunk later.
+    bf16* dxb = p.dx + ((size_t)b * n + row0) * c;
+    int prev = -1;
+    for (int i = gi; i < chunks; i += kG) {
+      const int q = i < kept ? again + i : chunks - 1 - i;
+      const int f = i < kept ? f0 + q : f0 + chunks + (i - kept), s = f % M;
+      if (i >= kept) mbar_wait(full + s, (f / M) & 1);
+      const uint32_t sx = data_addr + s * pl.slot_bytes, sgr = sx + half;
+      const int nr = min(cr, rows - q * cr);
+      if (active) {
+        for (int r = slot; r < nr; r += rs) {
+          float xv[kV], gv[kV], d[kV];
+          widen8(lds128(sx + 2 * (r * c + ch)), xv);
+          widen8(lds128(sgr + 2 * (r * c + ch)), gv);
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            const float xhat = fmaf(xv[v], rstd[v], nmr[v]);
+            const float dy = dy_of(gv[v], xhat * ga[v] + be[v]);
+            d[v] = fmaf(dy, p1[v], fmaf(xhat, p2[v], p3[v]));
+          }
+          sts128(sx + 2 * (r * c + ch), round8(d));
+        }
+      }
+      // the group's rows of the chunk are in: one thread stores them, and
+      // releases the previous chunk's slot (for the group's warps) once its
+      // store has read it
+      tma::fence_proxy_async_shared();
+      tma::bar_sync(2 + gi, kGT);
+      if (gt == 0) {
+        tma::bulk_store(dxb + (size_t)q * cr * c, data + (size_t)s * pl.slot_bytes,
+                        2 * nr * c, once);
+        tma::store_commit();
+        if (prev >= 0) {
+          tma::store_wait_read<1>();
+          tma::mbar_arrive_n(empty + prev, kGT / 32);
+        }
+        prev = s;
+      }
+    }
+    if (gt == 0 && prev >= 0) {
+      tma::store_wait_read<0>();
+      tma::mbar_arrive_n(empty + prev, kGT / 32);
+    }
+    f0 += chunks + again;
+    // every rank has read this block's partial: it may be written again, or
+    // the block leave
+    tma::mbar_wait_cluster(done, it & 1);
+  }
+}
+
+// Clusters of 1, 2, 4 and 8 blocks of the bf16 backward's instance of kC
+// compute threads the current card holds at once at the plan's shared memory
+// budget (the last answer kept a device), after raising the kernel's dynamic
+// shared memory cap
+template <int kC>
+int bwd_bf16_active(int* active) {
+  static int last_dev = -1, last[4] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev != last_dev) {
+    e = cudaFuncSetAttribute(gn_silu_bwd_cluster_kernel<kC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, k1bwd::kSmemBudget);
+    for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 1u << i;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(1u << i);
+      cfg.blockDim = dim3(kC + 32);
+      cfg.dynamicSmemBytes = k1bwd::kSmemBudget;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      e = cudaOccupancyMaxActiveClusters(&last[i], gn_silu_bwd_cluster_kernel<kC>, &cfg);
+    }
+    if (e != cudaSuccess) return (int)e;
+    last_dev = dev;
+  }
+  for (int i = 0; i < 4; ++i) active[i] = last[i];
+  return 0;
+}
+
+// The plan of a bf16 call on the current card, and the clusters its
+// instance's launch may hold at once
+int bwd_bf16_plan(int b, int n, int c, int groups, k1bwd::Plan* pl, int* active) {
+  int sms = 0, coop = 0;
+  int rc = device_info(&sms, &coop);
+  if (rc == 0)
+    rc = k1bwd::consumers_for(c) == k1bwd::kNarrowConsumers
+             ? bwd_bf16_active<k1bwd::kNarrowConsumers>(active)
+             : bwd_bf16_active<k1bwd::kWideConsumers>(active);
+  if (rc) return rc;
+  return k1bwd::plan(b, n, c, groups, sms, active, pl) ? 0 : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1214,18 +1669,64 @@ int mc_gn_silu_bwd(const float* x, const float* g, const float* gamma,
   return rc ? rc : bwd_launch<float>(p, smem, slabs, stream);
 }
 
-// The bf16 instance: x, g, dx bf16 (C % 8 == 0, 16-byte aligned); the rest as
-// mc_gn_silu_bwd's.
-int mc_gn_silu_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* gamma,
-                        const float* beta, const float* sums, const float* sumsq,
-                        float* dgamma, float* dbeta, __nv_bfloat16* dx, float* scratch,
-                        unsigned* sync, int b, int n, int c, int groups, float eps,
-                        int slabs, int rows, void* stream) {
-  BwdArgs p;
-  long smem = 0;
-  const int rc = bwd_args(x, g, gamma, beta, sums, sumsq, dgamma, dbeta, dx, scratch, sync,
-                          b, n, c, groups, eps, slabs, rows, 2, &p, &smem);
-  return rc ? rc : bwd_launch<__nv_bfloat16>(p, smem, slabs, stream);
+// The bf16 backward (gn_silu_bwd_cluster_kernel): x, g, dx bf16 (C % 8 ==
+// 0, C <= 2048, 16-byte aligned), gamma, beta, sums, sumsq, dgamma, dbeta
+// fp32 (B, C). xchg: the plan's exchange words (mc_gn_silu_bwd_bf16_plan),
+// kept by the caller from call to call, zeroed once when allocated, and
+// `epoch` a tag no earlier call on them used (null and 0 where the plan
+// has none). One launch; returns a cudaError_t code.
+int mc_gn_silu_bwd_bf16(const bf16* x, const bf16* g, const float* gamma, const float* beta,
+                        const float* sums, const float* sumsq, float* dgamma, float* dbeta,
+                        bf16* dx, unsigned long long* xchg, unsigned epoch, int b, int n, int c,
+                        int groups, float eps, void* stream) {
+  ClusterArgs p{x, g, gamma, beta, sums, sumsq, dgamma, dbeta, dx, xchg, epoch,
+                b, n, c, groups, eps, {}};
+  int active[4];
+  int rc = bwd_bf16_plan(b, n, c, groups, &p.pl, active);
+  if (rc) return rc;
+  if (!aligned16(x) || !aligned16(g) || !aligned16(dx)) return (int)cudaErrorInvalidValue;
+  if (p.pl.clusters > 1 && (!xchg || epoch == 0)) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // a sample over several clusters waits on the others: all co-resident
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.pl.grid);
+  cfg.blockDim = dim3(p.pl.consumers + 32);
+  cfg.dynamicSmemBytes = p.pl.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.pl.clusters > 1 ? 2 : 1;
+  const cudaError_t e =
+      p.pl.consumers == k1bwd::kNarrowConsumers
+          ? cudaLaunchKernelEx(&cfg, gn_silu_bwd_cluster_kernel<k1bwd::kNarrowConsumers>, p)
+          : cudaLaunchKernelEx(&cfg, gn_silu_bwd_cluster_kernel<k1bwd::kWideConsumers>, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward's plan on the current card: out = {cluster, clusters,
+// blocks, inflight, grid, waves, rows, chunk_rows, chunks, slots, lanes,
+// row_slots, sets, slot_bytes, smem, xchg_words, consumers} (the fields of
+// k1bwd::Plan), then the clusters of 1, 2, 4, 8 blocks the card holds at
+// once and its SMs
+int mc_gn_silu_bwd_bf16_plan(int b, int n, int c, int groups, long long* out) {
+  k1bwd::Plan pl;
+  int active[4];
+  const int rc = bwd_bf16_plan(b, n, c, groups, &pl, active);
+  if (rc) return rc;
+  int sms = 0, coop = 0;
+  device_info(&sms, &coop);
+  const long long v[22] = {pl.cluster, pl.clusters, pl.blocks, pl.inflight, pl.grid,
+                           pl.waves, pl.rows, pl.chunk_rows, pl.chunks, pl.slots, pl.lanes,
+                           pl.row_slots, pl.sets, pl.slot_bytes, pl.smem, pl.xchg_words,
+                           pl.consumers, active[0], active[1], active[2], active[3], sms};
+  for (int i = 0; i < 22; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -103,8 +103,9 @@
 // a warp loads 4 KB of fragments per 24 products, as the forward) and 0.17
 // the split pass, and dgrad's products about 0.33.
 //
-// At C <= 8 (conv_in, C = 4; 3 x 3, not K3) wgrad_narrow_kernel runs
-// instead, in fp32 on the CUDA cores: its 1.2 GFLOP at the flagship shape
+// At C <= 8 (conv_in, C = 4; 3 x 3, not K3) the fp32 wgrad_narrow_kernel
+// runs instead (bf16: wgrad_narrow_bf16_kernel, below), on the CUDA cores:
+// its 1.2 GFLOP at the flagship shape
 // take 0.018 ms there against 0.021 ms for the 67 MB of g it must read, so
 // bytes bound it, and a tensor-core block would compute 32 channel rows
 // for 4 at the same per-tile cost of staging, barriers and copies (0.19 ms
@@ -166,6 +167,41 @@
 //   gn_dx_kernel  the dx pass in one elementwise kernel, 16 bytes of x and dx
 //     a thread-item; K2's bf16 da, K3's fp32 low-res da. It replaces no
 //     Pallas kernel: XLA fuses _dx_from_da into one pass on the TPU.
+//   wgrad_narrow_bf16_kernel<C>  the wgrad at C <= 8 (conv_in; 3 x 3, not
+//     K3, linear: the bf16 route refuses act), the same function as the
+//     Pallas kernel's linear mode: dW[tap, c, o] = sum over (b, pixel) of
+//     x_pad[b, pixel + tap, c] g[b, pixel, o] and dbias[o] = sum g, fp32
+//     sums of exact bf16 products. The earlier design, the fp32 kernel's
+//     bf16 instance, ran 2,304 fp32 FMAs a pixel on the CUDA cores, issue-
+//     bound (0.092 ms bf16 against 0.090 fp32 at the flagship's conv_in).
+//     As a GEMM it is tiny, D (9 C + 1 rows, O) = im2col(x)^T g over K =
+//     B H W pixels (1.2 GFLOP, 0.002 ms on wgmma), so the 33.5 MB of g
+//     bound it (0.0106 ms). Persistent blocks, one an SM along the pixels
+//     for each 64-output panel, each a contiguous run of 8 x 16 pixel tiles;
+//     a ring of kNbStages stages, three roles under full / empty mbarriers
+//     (csrc/tma_ring.cuh): a producer warp brings the stage's g tile by TMA
+//     (a 4-D box of 64 outputs x 16 x 8 pixels, 128-byte swizzle, zero past
+//     the image and past O; 4-byte cp.async pairs, or element copies where O
+//     is odd, into the same layout where O % 8 != 0 or g is unaligned); an
+//     im2col warpgroup builds A, one 128-byte row of 64 values a pixel
+//     (rows m = tap C + c, the ones row
+//     9 C for dbias, zero past it; 16-byte chunk j at j ^ (pixel & 7), the
+//     swizzle wgmma reads MN-major; two panels at C = 8), from the tile's
+//     10 x 18 halo of x that it copies a stage ahead by cp.async (2 C bytes
+//     a position); one warpgroup multiplies: wgmma m64n64k16 with both
+//     operands in shared memory, A and B MN-major (bf16t::wg_mma_ss<1, 1>),
+//     the stage's eight k16 steps into a partial, then one fp32 add into its
+//     accumulator. No block-wide barrier a stage. A block's (9 C + 1) x 64
+//     partial goes to the (rows, 9 C O + O) scratch, which colsum_kernel adds
+//     in a fixed order: dW and dbias repeat bit for bit. Measured on one H100
+//     80GB HBM3 at 700 W (attention_sources --kernel wgradnarrowbf16, card
+//     clock, the earlier source in the call), with its reduce, C 4 / C 2 ->
+//     64 at B 16, res 128: 0.0225-0.0226 / 0.0215-0.0217 ms against
+//     0.0912-0.0914 / 0.0862-0.0864 (bf16 convolution_backward of dW and
+//     dbias alone 0.1375 / 0.1349); a ring of 2 or 6 stages 0.0222 / 0.0226
+//     (0.0217 / 0.0212 at C 2). With no products 0.0228, no g copies
+//     0.0229, no im2col 0.0192, no reduce 0.0195: the im2col warpgroup and
+//     the reduce (3 us) hold it, not bytes or products.
 // Measured on one H100 (attention_sources --kernel k2bwdbf16; PERF.md
 // section 6, NVIDIA H100 80GB HBM3 at 700 W): the res-128 identity tail
 // 0.216-0.221 ms in all against 0.835-0.853 for the earlier design (wgrad
@@ -179,6 +215,7 @@
 #include <type_traits>
 
 #include "bf16_conv_tiles.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -1249,34 +1286,31 @@ int mc_conv_dgrad(const float* g, const float* w, const float* x,
 // not up) the narrow-C kernel runs, else the tensor-core one.
 }  // extern "C"
 
-// the wgrad launch for either element type (mc_conv_wgrad's arguments); bf16
-// only on the narrow-C kernel (the tensor-core one is conv_wgrad_bf16's)
-template <typename T>
-int conv_wgrad(const T* x, const T* g, const float* gamma, const float* beta,
-               const float* sums, const float* sumsq, float* dwb, float* part, int batch,
-               int h, int wd, int c, int o, int groups, float eps, int act, int taps, int up,
-               int bias, int runs, void* stream) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
+// the fp32 wgrad launch (mc_conv_wgrad's arguments; the bf16 kernels are
+// conv_wgrad_bf16's)
+static int conv_wgrad(const float* x, const float* g, const float* gamma, const float* beta,
+                      const float* sums, const float* sumsq, float* dwb, float* part, int batch,
+                      int h, int wd, int c, int o, int groups, float eps, int act, int taps, int up,
+                      int bias, int runs, void* stream) {
   const bool narrow_c = wgrad_narrow(c, taps, up);
   if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 || (taps != 9 && taps != 1) ||
       runs < 1 || runs > mc_conv_bwd_tiles(h, wd, narrow_c ? 2 : 1) ||
       (up && (h % 2 || wd % 2)) ||
-      (up && taps != 9) || (act && (groups < 1 || c % groups)) || !dwb || !part ||
-      (kBf16 && (!narrow_c || act)))
+      (up && taps != 9) || (act && (groups < 1 || c % groups)) || !dwb || !part)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
   const size_t k = (size_t)taps * c * o + (bias ? o : 0);
-  // 16-byte copies: four fp32 or eight bf16 values
-  const int vec = 16 / (int)sizeof(T);
+  // 16-byte copies: four values
+  const int vec = 4;
   WgradArgs p{x, g, gamma, beta, sums, sumsq, part, h, wd, c, o, groups, eps,
               act, taps, runs, bias, c % vec == 0 && aligned(x, 16),
               o % vec == 0 && aligned(g, 16), o % 2 == 0 && aligned(part, 8) && k % 2 == 0};
   cudaStream_t s = (cudaStream_t)stream;
   if (narrow_c) {
     dim3 grid(batch * runs * ((o + kNO - 1) / kNO));
-    if (c <= 4) wgrad_narrow_kernel<4, T><<<grid, kNThreads, 0, s>>>(p);
-    else wgrad_narrow_kernel<8, T><<<grid, kNThreads, 0, s>>>(p);
+    if (c <= 4) wgrad_narrow_kernel<4, float><<<grid, kNThreads, 0, s>>>(p);
+    else wgrad_narrow_kernel<8, float><<<grid, kNThreads, 0, s>>>(p);
   } else {
     dim3 grid(batch * runs * ((c + kWC - 1) / kWC) * ((o + kWO - 1) / kWO));
     if (up) wgrad_kernel<true><<<grid, kWThreads, kWSmemBytes, s>>>(p);
@@ -2272,19 +2306,368 @@ int conv_dgrad_bf16(const bf16* g, const bf16* w, const bf16* x, const float* ga
   return dgrad_reduce(part, dstats, batch, c, pl.grid_x, pl.tiles_y * pl.tiles_x, s);
 }
 
-// mc_conv_wgrad_bf16's launch: the narrow-C kernel at c <= 8 (3 x 3, not
-// up; linear only; rows = batch x its runs an image), else the tensor-core
-// kernel (rows = its plan's blocks along the pixels), then the fixed-order
-// reduce of the (rows, taps c o [+ o]) scratch.
+
+// ---------------------------------------------------------------------------
+// bf16 wgrad at C <= 8 (conv_in) on wgmma: wgrad_narrow_bf16_kernel (the
+// header's note)
+// ---------------------------------------------------------------------------
+
+constexpr int kNbTH = 8, kNbTW = 16;            // a pixel tile: 8 rows x 16 columns
+constexpr int kNbPix = kNbTH * kNbTW;           // 128 pixels: a stage's K
+constexpr int kNbHaloW = kNbTW + 2;
+constexpr int kNbHalo = (kNbTH + 2) * kNbHaloW;  // 180 positions of x
+constexpr int kNbPanel = kNbPix * 128;          // 128 rows of 64 bf16: an A or g panel
+constexpr int kNbStages = 4;                    // the ring's stages, where they fit
+constexpr int kNbThreads = 128 + 128 + 32;      // products, im2col, producer
+
+// panels of 64 rows of A: 9 C rows, and the ones row where there is a bias
+__host__ __device__ constexpr int nb_panels(int c) { return (9 * c + 1 + 63) / 64; }
+__host__ __device__ constexpr int nb_stage_bytes(int c) { return (nb_panels(c) + 1) * kNbPanel; }
+// the stages from a 1024-byte boundary, the two x buffers, the barriers; +
+// 1024 for the alignment
+__host__ __device__ constexpr int nb_xbuf_bytes(int c) { return (kNbHalo * 2 * c + 15) / 16 * 16; }
+__host__ __device__ constexpr int nb_stages(int c) {
+  return (kHCap - 1024 - 2 * nb_xbuf_bytes(c) - 16 * kNbStages) / nb_stage_bytes(c) < kNbStages
+             ? (kHCap - 1024 - 2 * nb_xbuf_bytes(c) - 16 * kNbStages) / nb_stage_bytes(c)
+             : kNbStages;
+}
+__host__ __device__ constexpr int nb_smem(int c) {
+  return 1024 + nb_stages(c) * nb_stage_bytes(c) + 2 * nb_xbuf_bytes(c) + 16 * nb_stages(c);
+}
+
+struct NarrowWb {
+  const bf16* x;  // (B, H, W, C)
+  const bf16* g;  // (B, H, W, O)
+  float* part;    // (rows, 9 C O [+ O]): a block's partial dW [, dbias]
+  int B, H, W, O, bias, tiles_x, tiles, tma, xvec, gpair, pair;
+};
+
+// x's C values at one position (0 outside the image) into xbuf: one cp.async
+// of 2 C bytes where xvec (C 2, 4 or 8 on aligned x), else plain loads
+template <int C>
+__device__ __forceinline__ void nb_load_pos(bf16* dst, const bf16* src, bool in, bool xvec) {
+  if constexpr (C == 2 || C == 4 || C == 8) {
+    if (xvec) {
+      const uint32_t d = bf16t::smem_addr(dst);
+      const int n = in ? 2 * C : 0;
+      if constexpr (C == 8)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" :: "r"(d), "l"(src), "r"(n)
+                     : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                     :: "r"(d), "l"(src), "n"(2 * C), "r"(n) : "memory");
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) dst[c] = in ? src[c] : __float2bfloat16(0.f);
+}
+
+// The roles (see the header): warps 0-3 multiply, warps 4-7 build the
+// im2col tile, warp 8 brings g. Block (run, o-panel) takes tiles part_begin
+// (run) .. of the (image, tile row, tile column) order.
+template <int C>
+__global__ void __launch_bounds__(kNbThreads, 1)
+wgrad_narrow_bf16_kernel(const __grid_constant__ CUtensorMap gmap, const NarrowWb p) {
+  constexpr int kMP = nb_panels(C), kStage = nb_stage_bytes(C), kS = nb_stages(C);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = bf16t::align1024(smem_raw);
+  bf16* xbuf = reinterpret_cast<bf16*>(ring + kS * kStage);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + kS * kStage + 2 * nb_xbuf_bytes(C));
+  unsigned long long* empty = full + kS;
+  const int run = blockIdx.x, o0 = 64 * blockIdx.y, O = p.O;
+  const int t0 = (int)((long long)run * p.tiles / gridDim.x);
+  const int nt = (int)((long long)(run + 1) * p.tiles / gridDim.x) - t0;
+  const int per_img = p.tiles / p.B;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      tma::mbar_init(full + s, 1 + 4);  // the producer and the im2col warps
+      tma::mbar_init(empty + s, 4);     // the product warps
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+  // tile i of the block: its image and first pixel
+  auto tile_at = [&](int i, int& b, int& y0, int& x0) {
+    const int t = t0 + i, r = t % per_img;
+    b = t / per_img;
+    y0 = (r / p.tiles_x) * kNbTH;
+    x0 = (r % p.tiles_x) * kNbTW;
+  };
+
+  if (warp == 8) {  // g: a 128-pixel x 64-output box a stage
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % kS;
+      if (i >= kS) tma::mbar_wait(empty + s, (i / kS - 1) & 1);
+      unsigned char* gs = ring + s * kStage + kMP * kNbPanel;
+      int b, y0, x0;
+      tile_at(i, b, y0, x0);
+      if (p.tma) {
+        if (lane == 0) {
+          tma::mbar_expect_tx(full + s, kNbPanel);
+          tma::load_4d(gs, &gmap, full + s, o0, x0, y0, b);
+        }
+      } else {  // rows TMA cannot describe: 4-byte cp.async pairs (O even), else
+                // element loads; zero past the image and past O
+        for (int idx = lane; idx < kNbPix * 8; idx += 32) {
+          const int r = idx / 8, jj = idx % 8, py = y0 + r / kNbTW, px = x0 + r % kNbTW;
+          const int o = o0 + 8 * jj;
+          const bool in = py < p.H && px < p.W;
+          const bf16* src = p.g + (((size_t)b * p.H + py) * p.W + px) * O + o;
+          unsigned char* dst = gs + r * 128 + ((jj ^ (r & 7)) << 4);
+          if (p.gpair) {
+#pragma unroll
+            for (int e = 0; e < 8; e += 2) {
+              const bool v = in && o + e < O;
+              asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                           :: "r"(bf16t::smem_addr(dst + 2 * e)), "l"(v ? src + e : p.g),
+                              "r"(v ? 4 : 0) : "memory");
+            }
+          } else {
+            __align__(16) bf16 v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              v[e] = in && o + e < O ? src[e] : __float2bfloat16(0.f);
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+          }
+        }
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        bf16t::fence_async_smem();
+        __syncwarp();
+        if (lane == 0) tma::mbar_arrive(full + s);
+      }
+    }
+  } else if (warp >= 4) {  // the im2col tile of each stage
+    const int it = threadIdx.x - 128;
+    auto issue_x = [&](int i) {
+      int b, y0, x0;
+      tile_at(i, b, y0, x0);
+      bf16* xb = xbuf + (i & 1) * (nb_xbuf_bytes(C) / 2);
+      for (int pos = it; pos < kNbHalo; pos += 128) {
+        const int py = y0 - 1 + pos / kNbHaloW, px = x0 - 1 + pos % kNbHaloW;
+        const bool in = py >= 0 && py < p.H && px >= 0 && px < p.W;
+        nb_load_pos<C>(xb + pos * C,
+                       in ? p.x + (((size_t)b * p.H + py) * p.W + px) * C : p.x, in, p.xvec);
+      }
+    };
+    if (nt > 0) issue_x(0);
+    bf16t::commit();
+    const int r = it, ty = r / kNbTW, tx = r % kNbTW;
+    for (int i = 0; i < nt; ++i) {
+      tma::bar_sync(2, 128);  // the buffer the next copies go to is read
+      if (i + 1 < nt) issue_x(i + 1);
+      bf16t::commit();
+      bf16t::wait<1>();
+      tma::bar_sync(2, 128);  // tile i's x has landed, every thread's copies
+      const int s = i % kS;
+      if (i >= kS) tma::mbar_wait(empty + s, (i / kS - 1) & 1);
+      int b, y0, x0;
+      tile_at(i, b, y0, x0);
+      const bool valid = y0 + ty < p.H && x0 + tx < p.W;
+      const bf16* xb = xbuf + (i & 1) * (nb_xbuf_bytes(C) / 2);
+      unsigned char* as = ring + s * kStage;
+      const int p0 = ty * kNbHaloW + tx;  // the tile pixel's first halo position
+      if constexpr (C % 2 == 0) {
+        // rows m = tap C + c in 32-bit pairs (c even): word c / 2 of the tap's
+        // position, C / 2 words a position (one 4-, 8- or 16-byte load)
+        uint32_t v[9][C / 2];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const uint32_t* src = reinterpret_cast<const uint32_t*>(
+              xb + (p0 + (tap / 3) * kNbHaloW + tap % 3) * C);
+          if constexpr (C == 2) {
+            v[tap][0] = src[0];
+          } else if constexpr (C == 4) {
+            const uint2 u = *reinterpret_cast<const uint2*>(src);
+            v[tap][0] = u.x;
+            v[tap][1] = u.y;
+          } else if constexpr (C == 8) {
+            const uint4 u = *reinterpret_cast<const uint4*>(src);
+            v[tap][0] = u.x;
+            v[tap][1] = u.y;
+            v[tap][2] = u.z;
+            v[tap][3] = u.w;
+          } else {
+#pragma unroll
+            for (int k = 0; k < C / 2; ++k) v[tap][k] = src[k];
+          }
+        }
+#pragma unroll
+        for (int mp = 0; mp < kMP; ++mp)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            uint32_t w[4];
+#pragma unroll
+            for (int e2 = 0; e2 < 4; ++e2) {
+              const int m = 64 * mp + 8 * jj + 2 * e2;
+              const uint32_t val = m < 9 * C ? v[m / C][(m % C) / 2]
+                                             : (m == 9 * C && p.bias ? 0x3F80u : 0u);
+              w[e2] = valid ? val : 0u;
+            }
+            *reinterpret_cast<uint4*>(as + mp * kNbPanel + r * 128 + ((jj ^ (r & 7)) << 4)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+          }
+      } else {
+        const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
+        unsigned short v[9][C];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[tap][c] = xs[(p0 + (tap / 3) * kNbHaloW + tap % 3) * C + c];
+#pragma unroll
+        for (int mp = 0; mp < kMP; ++mp)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            uint32_t w[4];
+#pragma unroll
+            for (int e2 = 0; e2 < 4; ++e2) {
+              uint32_t h2[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int m = 64 * mp + 8 * jj + 2 * e2 + e;
+                h2[e] = m < 9 * C ? v[m / C][m % C] : (m == 9 * C && p.bias ? 0x3F80u : 0u);
+              }
+              w[e2] = valid ? h2[0] | (h2[1] << 16) : 0u;
+            }
+            *reinterpret_cast<uint4*>(as + mp * kNbPanel + r * 128 + ((jj ^ (r & 7)) << 4)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+          }
+      }
+      bf16t::fence_async_smem();
+      __syncwarp();
+      if (lane == 0) tma::mbar_arrive(full + s);
+    }
+  } else {  // the products: D (9 C [+ 1] x 64) += A (im2col^T) x B (g), K = pixels
+    float acc[kMP][32];
+#pragma unroll
+    for (int mp = 0; mp < kMP; ++mp)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[mp][e] = 0.f;
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % kS;
+      tma::mbar_wait(full + s, (i / kS) & 1);
+      const uint32_t st = tma::smem_u32(ring + s * kStage);
+      // the stage's eight k16-steps summed on the tensor cores into tmp (the
+      // first with scale-d 0), then one fp32 add; A and B both MN-major
+      float tmp[kMP][32];
+      bf16t::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < kNbPix / 16; ++ks)
+#pragma unroll
+        for (int mp = 0; mp < kMP; ++mp)
+          bf16t::wg_mma_ss<1, 1>(tmp[mp], bf16t::wg_desc(st + mp * kNbPanel + ks * 2048),
+                                 bf16t::wg_desc(st + kMP * kNbPanel + ks * 2048), ks > 0);
+      bf16t::wg_commit();
+      bf16t::wg_wait<0>();
+      __syncwarp();
+      if (lane == 0) tma::mbar_arrive(empty + s);
+#pragma unroll
+      for (int mp = 0; mp < kMP; ++mp)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[mp][e] += tmp[mp][e];
+    }
+    // D fragment: acc[4 j + e] at row 16 warp + g + 8 (e >> 1), column 8 j +
+    // 2 t + (e & 1); row m < 9 C is dW[m / C, m % C], row 9 C dbias
+    const int gq = lane / 4, tq = lane % 4;
+    const size_t K = (size_t)9 * C * O + (p.bias ? O : 0);
+    float* out = p.part + (size_t)run * K;
+#pragma unroll
+    for (int mp = 0; mp < kMP; ++mp)
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 64 * mp + 16 * warp + gq + 8 * h, o = o0 + 8 * jn + 2 * tq;
+          if (m > 9 * C || (m == 9 * C && !p.bias) || o >= O) continue;
+          float* dst = out + (size_t)m * O + o;
+          const float a = acc[mp][4 * jn + 2 * h], b2 = acc[mp][4 * jn + 2 * h + 1];
+          if (p.pair) {
+            *reinterpret_cast<float2*>(dst) = make_float2(a, b2);
+          } else {
+            dst[0] = a;
+            if (o + 1 < O) dst[1] = b2;
+          }
+        }
+  }
+}
+
+// The launch of the narrow bf16 wgrad: `rows` persistent blocks along the
+// pixels (about one an SM over the 64-output panels), each a contiguous run
+// of the tiles; the shared memory of C
+struct PlanNb {
+  int rows, n_op, tiles_x, tiles, smem;
+};
+
+void plan_narrow_bf16(int batch, int h, int wd, int c, int o, PlanNb& pl) {
+  const int sms = bf16t::sm_count();
+  pl.n_op = (o + 63) / 64;
+  pl.tiles_x = (wd + kNbTW - 1) / kNbTW;
+  pl.tiles = batch * ((h + kNbTH - 1) / kNbTH) * pl.tiles_x;
+  const int per = sms / pl.n_op > 0 ? sms / pl.n_op : 1;
+  pl.rows = pl.tiles < per ? pl.tiles : per;
+  pl.smem = nb_smem(c);
+}
+
+template <int C>
+cudaError_t launch_narrow_bf16(const CUtensorMap& map, const NarrowWb& p, const PlanNb& pl,
+                               cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_narrow_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, nb_smem(C));
+  if (attr != cudaSuccess) return attr;
+  wgrad_narrow_bf16_kernel<C><<<dim3(pl.rows, pl.n_op), kNbThreads, pl.smem, s>>>(map, p);
+  return cudaGetLastError();
+}
+
+// mc_conv_wgrad_bf16's narrow route (C <= 8, 3 x 3, linear): the kernel, then
+// the fixed-order reduce of its (rows, 9 C O [+ O]) partials into dwb
+int narrow_wgrad_bf16(const bf16* x, const bf16* g, float* dwb, float* part, int batch, int h,
+                      int wd, int c, int o, int bias, int rows, cudaStream_t s) {
+  if (batch < 1 || h < 1 || wd < 1 || c < 1 || c > kNC || o < 1 || !dwb || !part)
+    return (int)cudaErrorInvalidValue;
+  PlanNb pl;
+  plan_narrow_bf16(batch, h, wd, c, o, pl);
+  if (rows != pl.rows) return (int)cudaErrorInvalidValue;
+  const size_t k = (size_t)9 * c * o + (bias ? o : 0);
+  const int tma = o % 8 == 0 && aligned(g, 16);
+  NarrowWb p{x, g, part, batch, h, wd, o, bias, pl.tiles_x, pl.tiles, tma,
+             (c == 2 || c == 4 || c == 8) && aligned(x, 16), o % 2 == 0 && aligned(g, 4),
+             o % 2 == 0 && aligned(part, 8)};
+  CUtensorMap map = {};
+  if (tma) {
+    const int rc = tma::encode_bf16_4d(&map, g, batch, h, wd, o, 64, kNbTW, kNbTH);
+    if (rc) return rc;
+  }
+  cudaError_t err;
+  switch (c) {
+    case 1: err = launch_narrow_bf16<1>(map, p, pl, s); break;
+    case 2: err = launch_narrow_bf16<2>(map, p, pl, s); break;
+    case 3: err = launch_narrow_bf16<3>(map, p, pl, s); break;
+    case 4: err = launch_narrow_bf16<4>(map, p, pl, s); break;
+    case 5: err = launch_narrow_bf16<5>(map, p, pl, s); break;
+    case 6: err = launch_narrow_bf16<6>(map, p, pl, s); break;
+    case 7: err = launch_narrow_bf16<7>(map, p, pl, s); break;
+    default: err = launch_narrow_bf16<8>(map, p, pl, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  colsum_kernel<<<dim3((unsigned)((k + 31) / 32), 1), 32 * kSumGroups, 0, s>>>(part, dwb, rows,
+                                                                             (int)k);
+  return (int)cudaGetLastError();
+}
+
+// mc_conv_wgrad_bf16's launch: wgrad_narrow_bf16_kernel at c <= 8 (3 x 3,
+// not up; linear only), else wgrad_bf16_kernel; rows = the plan's blocks
+// along the pixels; then the fixed-order reduce of the (rows, taps c o [+ o])
+// scratch.
 int conv_wgrad_bf16(const bf16* x, const bf16* g, const float* gamma, const float* beta,
                     const float* sums, const float* sumsq, float* dwb, float* part, int batch,
                     int h, int wd, int c, int o, int groups, float eps, int act, int taps,
                     int up, int bias, int rows, void* stream) {
   if (wgrad_narrow(c, taps, up))
-    return batch < 1 || rows % batch
-               ? (int)cudaErrorInvalidValue
-               : conv_wgrad(x, g, gamma, beta, sums, sumsq, dwb, part, batch, h, wd, c, o,
-                            groups, eps, act, taps, up, bias, rows / batch, stream);
+    return act ? (int)cudaErrorInvalidValue
+               : narrow_wgrad_bf16(x, g, dwb, part, batch, h, wd, c, o, bias, rows,
+                                   (cudaStream_t)stream);
   if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1 ||
       (taps != 9 && taps != 1) || (up && (h % 2 || wd % 2 || taps != 9)) ||
       (act && (groups < 1 || c % groups || !gamma || !beta || !sums || !sumsq)) ||
@@ -2348,7 +2731,7 @@ int mc_conv_wgrad(const float* x, const float* g, const float* gamma,
 
 // The bf16 wgrad: x and g bf16; the vectors, dwb and part fp32; part the
 // (rows, taps c o [+ o]) scratch of mc_conv_bwd_bf16_plan(1, ...). At c <= 8
-// (the narrow-C kernel) it takes the linear mode only (act = 0).
+// (wgrad_narrow_bf16_kernel) it takes the linear mode only (act = 0).
 int mc_conv_wgrad_bf16(const bf16* x, const bf16* g, const float* gamma, const float* beta,
                        const float* sums, const float* sumsq, float* dwb, float* part,
                        int batch, int h, int wd, int c, int o, int groups, float eps, int act,
@@ -2382,7 +2765,8 @@ int mc_conv_dgrad_bf16_reduce(const float* part, float* dstats, int batch, int c
 // The plan of a bf16 backward call (which 0: dgrad, mode 1, or 2 with up;
 // 1: wgrad with taps 9 or 1): out = {tile rows, weights resident, blocks,
 // dynamic shared memory bytes, scratch rows}. The narrow-C wgrad (c <= 8)
-// gives {0, 0, blocks, 0, batch x its runs an image}. Returns a cudaError_t.
+// gives {0, 0, blocks, its shared memory, its blocks along the pixels}.
+// Returns a cudaError_t.
 int mc_conv_bwd_bf16_plan(int which, int up, int batch, int h, int wd, int c, int o, int taps,
                           int* out) {
   if (batch < 1 || h < 1 || wd < 1 || c < 1 || o < 1) return (int)cudaErrorInvalidValue;
@@ -2394,8 +2778,9 @@ int mc_conv_bwd_bf16_plan(int which, int up, int batch, int h, int wd, int c, in
     const int v[5] = {pl.th, pl.resident, pl.grid_x * pl.nb, pl.smem, pl.grid_x};
     for (int i = 0; i < 5; ++i) vals[i] = v[i];
   } else if (wgrad_narrow(c, taps, up)) {
-    const int runs = mc_conv_wgrad_runs(batch, h, wd, c, o, taps, up, 2 * bf16t::sm_count());
-    const int v[5] = {0, 0, batch * runs * ((o + kNO - 1) / kNO), 0, batch * runs};
+    PlanNb pl;
+    plan_narrow_bf16(batch, h, wd, c, o, pl);
+    const int v[5] = {0, 0, pl.rows * pl.n_op, pl.smem, pl.rows};
     for (int i = 0; i < 5; ++i) vals[i] = v[i];
   } else {
     PlanW pl;

@@ -10,8 +10,12 @@
 // (wgmma reads it through the async proxy) and arrive on `empty`. A phase of
 // a barrier completes when its arrivals (and bytes) are in; a waiter names
 // the parity of the phase it waits for, so the k-th use of a stage in a ring
-// of S waits for parity (k / S) & 1. csrc/fused_norm.cu's backward takes the
-// barriers with cp.async copies (mbar_arrive_copies).
+// of S waits for parity (k / S) & 1. csrc/fused_norm.cu's fp32 backward
+// takes the barriers with cp.async copies (mbar_arrive_copies); its bf16
+// backward fills its ring with bulk copies of contiguous rows (bulk_load,
+// with L2 policies), stores by bulk copies (bulk_store) and hands its
+// partials between a cluster's blocks on remote barriers (mbar_arrive_rank,
+// mbar_wait_cluster).
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, taken from
 // libcuda at run time (cudaGetDriverEntryPoint), so a library built by nvcc
@@ -48,6 +52,12 @@ __device__ __forceinline__ void fence_barrier_init() {
 __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
   asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}"
                :: "r"(smem_u32(bar)) : "memory");
+}
+
+// `n` arrivals at once
+__device__ __forceinline__ void mbar_arrive_n(unsigned long long* bar, unsigned n) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0], %1;\n}"
+               :: "r"(smem_u32(bar)), "r"(n) : "memory");
 }
 
 // one arrival that also expects `bytes` of TMA transactions in this phase
@@ -145,6 +155,53 @@ __device__ __forceinline__ void store_wait() {
   asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
 }
 
+// ---- bulk copies of contiguous bytes (no tensor map) ----
+
+// L2 policies for a copy's lines: kept as long as the cache can, at normal
+// priority, or evicted first (data read once)
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_evict_normal() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// `bytes` (a multiple of 16) of device memory at src (16-byte aligned) into
+// shared memory at dst (16-byte aligned) under L2 policy `policy`; the bytes
+// complete on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of shared memory at src (16-byte aligned) into
+// device memory at dst (16-byte aligned) under L2 policy `policy`; tracked
+// by this thread's bulk groups (store_commit, store_wait_read)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes,
+                                           uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;"
+               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes), "l"(policy) : "memory");
+}
+
+// this thread's shared-memory writes made visible to the async proxy (a
+// bulk store's or wgmma's reads of them)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---- copies between the blocks of a cluster ----
 
 // the shared::cluster address of this block's shared address `addr` in the
@@ -164,6 +221,30 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
   return v;
+}
+
+// this thread's memory accesses so far ordered, at cluster scope, before its
+// later ones (before a release-arrive that other blocks' reads depend on)
+__device__ __forceinline__ void fence_acq_rel_cluster() {
+  asm volatile("fence.acq_rel.cluster;" ::: "memory");
+}
+
+// one arrival, with release at cluster scope, on the barrier at this block's
+// shared address `bar` in the block of cluster rank `rank` (the same offset
+// in every block)
+__device__ __forceinline__ void mbar_arrive_rank(unsigned long long* bar, int rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               :: "r"(map_rank(smem_u32(bar), rank)) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what other blocks of the cluster
+// wrote before their arrivals is then visible
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred P1;\n LAB_WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      " @P1 bra DONE;\n bra LAB_WAIT;\n DONE:\n}"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
 // ---- host: tensor maps ----

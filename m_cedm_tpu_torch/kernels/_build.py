@@ -29,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG")
+# beside them: fp32 FMAs, and atomics or reductions on a floating type
+_FFMA = re.compile(r"\sFFMA[.\s]")
+_FATOM = re.compile(r"\s(?:RED|ATOM|ATOMG|ATOMS)\.\S*\b(?:F16|BF16|F16x2|F32|F64)\b")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
@@ -115,7 +118,8 @@ def sass_counts(lib, contains: str) -> Dict[str, Dict[str, int]]:
     """Per kernel of a built library (a source's name, or the path of a
     .so) whose mangled name holds `contains`: its HGMMA (wgmma), HMMA
     (mma.sync), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
-    cuobjdump's SASS."""
+    cuobjdump's SASS, its fp32 FMAs (FFMA) and its atomics and reductions
+    on a floating type (FATOM)."""
     so = _lib_path(lib) if isinstance(lib, str) else lib
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
@@ -125,13 +129,15 @@ def sass_counts(lib, contains: str) -> Dict[str, Dict[str, int]]:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             if contains in name:
-                counts[name] = {op: 0 for op in SASS_OPS}
+                counts[name] = {op: 0 for op in SASS_OPS + ("FFMA", "FATOM")}
             else:
                 name = None
         elif name is not None:
             for op in SASS_OPS:
                 if f" {op}." in line:
                     counts[name][op] += 1
+            counts[name]["FFMA"] += bool(_FFMA.search(line))
+            counts[name]["FATOM"] += bool(_FATOM.search(line))
     return counts
 
 

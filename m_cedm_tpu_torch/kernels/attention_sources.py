@@ -1,8 +1,8 @@
-"""Time K4 (fp32 or bf16), K6 (fp32 or bf16), K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5 (fp32 or bf16), K7 (fp32 or bf16), K1's backward, K1's bf16 forward or the bf16 narrow convs built from other CUDA sources beside the package's own, on one card.
+"""Time K4 (fp32 or bf16), K6 (fp32 or bf16), K2/K3 (fp32 or bf16), their backward (fp32 or bf16), K5 (fp32 or bf16), K7 (fp32 or bf16), K1's backward (fp32 or bf16), K1's bf16 forward, the bf16 narrow convs or conv_in's bf16 wgrad built from other CUDA sources beside the package's own, on one card.
 
     python -m m_cedm_tpu_torch.kernels.attention_sources [OTHER.cu ...]
         [--kernel k4|k4bf16|k6|k6bf16|k2|k2bf16|k2bwd|k2bwdbf16|k5|k5bf16|k7|
-                  k7bf16|k1bwd|k1bf16|narrowbf16]
+                  k7bf16|k1bwd|k1bwdbf16|k1bf16|narrowbf16|wgradnarrowbf16]
         [--variant NAME ...]
         [--sass DIR]
     python -m m_cedm_tpu_torch.kernels.attention_sources --kernel mma
@@ -139,6 +139,38 @@ first file given with one (FILE_VARIANTS).
       interface (zeroed dgamma / dbeta it adds into with atomics).
       csrc/variants/k1_bwd_l2_chunks.cu, given as a file, is the two-pass
       alternative launched per chunk of samples that fits in L2.
+
+  k1bwdbf16  K1's bf16 backward `mc_gn_silu_bwd_bf16` (csrc/fused_norm.cu,
+      gn_silu_bwd_cluster_kernel, its plan csrc/k1_bwd_plan.h) called
+      directly at the train step's shapes (B 16, C 64, 16 groups, N 128^2
+      and 64^2) and the CLI's batch 32 at res 128: dx held to the bf16 plain
+      version (max and mean of scale), dgamma and dbeta to it and to float64,
+      every output to its own bits on a repeat, each case's plan and bound,
+      the call as the wrapper makes it (outputs allocated inside the timed
+      call) on the card's clock (device_ms, the median of five) and by the
+      host's (`host_us`). A source without `mc_gn_silu_bwd_bf16_plan`, such
+      as the parent's, is called through its own interface (the per-slab
+      scratch and zeroed counters of kernels/fused_norm.py::bwd_plan's
+      slabs). Variants `k1bwdbf16_*` change one constant of the plan or
+      the copies' L2 policy; the diagnostics `diag_k1bwdbf16_*` leave out
+      the exchange between a sample's clusters, the wait for the cluster's
+      partials, the copies, the SiLU gradient, a pass's arithmetic or the
+      stores. `python3 -m m_cedm_tpu_torch.kernels.k1bwdbf16_trace` times
+      its phases block by block.
+
+  wgradnarrowbf16  conv_in's bf16 wgrad (`mc_conv_wgrad_bf16` at C <= 8,
+      linear, with dbias; csrc/fused_norm_conv_bwd.cu) called directly at
+      the flagship's C 4 -> 64 and adm_edm_cond_h's C 2 -> 64 (B 16, res
+      128) and at ragged shapes, with the scratch rows of each source's own
+      plan (`mc_conv_bwd_bf16_plan`, the same interface in the parent's
+      source): dW and dbias held to float64 and to their bits on a repeat,
+      timed with their reduce on the card's clock and by the host's
+      (`host_us`), bf16 `torch.ops.aten.convolution_backward` of the weight
+      and bias gradients alone (output_mask [False, True, True]) on the same
+      inputs beside, each library's SASS counts (HGMMA, FFMA). Variants
+      `wgradnarrowbf16_*` change the ring's depth; the diagnostics
+      `diag_wgradnarrowbf16_*` leave out the products, the g copies, the
+      im2col tile or the reduce.
 
   k1bf16  K1's forward passes (csrc/fused_norm.cu) called directly:
       `mc_channel_stats_bf16` at the main path's 32x32 sites, (16, 1024, 64)
@@ -401,6 +433,93 @@ VARIANTS = {
                             "      for (int v = 0; v < V; ++v) y[v] = y[v] * a[v] + sh[v];"),
     "k1bwd_finish_batch_16": ("k1bwd", "constexpr int kBatch = U == 4 ? 8 : 16;",
                               "constexpr int kBatch = 16;"),
+    # K1's bf16 backward (its plan in csrc/k1_bwd_plan.h): the layouts a
+    # sample's blocks take: every block a cluster of its own (the hand-off
+    # through device memory alone); clusters of 4, two a sample in two waves;
+    # one cluster of 8 a sample at two blocks an SM (half the shared memory,
+    # 16 KB chunks, so that the ring keeps two slots a group);
+    # 16 or 12 compute warps where 8 hold a row (C <= 1024), not 8;
+    # chunks of 16 KB, not 32; pass A's copies of
+    # the rows read again evict-last or evict-first, not at normal priority
+    "k1bwdbf16_cluster_1": ("k1bwdbf16", "constexpr int kMaxCluster = 8;",
+                            "constexpr int kMaxCluster = 1;", "k1_bwd_plan.h"),
+    "k1bwdbf16_cluster_4_two_waves": (
+        "k1bwdbf16",
+        "constexpr int kMaxCluster = 8;             // the portable cluster size\n"
+        "constexpr int kOneWave = 1;",
+        "constexpr int kMaxCluster = 4;\nconstexpr int kOneWave = 0;", "k1_bwd_plan.h"),
+    "k1bwdbf16_two_per_sm": (
+        "k1bwdbf16",
+        "constexpr int kChunkBytes = 32768;         // x and g of a chunk of rows (at least one row)\n"
+        "constexpr int kBlocksPerSm = 1;",
+        "constexpr int kChunkBytes = 16384;\nconstexpr int kBlocksPerSm = 2;", "k1_bwd_plan.h"),
+    "k1bwdbf16_consumers_512": ("k1bwdbf16", "constexpr int kNarrowConsumers = 256;",
+                                "constexpr int kNarrowConsumers = 512;", "k1_bwd_plan.h"),
+    "k1bwdbf16_chunk_16k": ("k1bwdbf16", "constexpr int kChunkBytes = 32768;",
+                            "constexpr int kChunkBytes = 16384;", "k1_bwd_plan.h"),
+    "k1bwdbf16_groups_1": ("k1bwdbf16", "constexpr int kGroups = 2;",
+                           "constexpr int kGroups = 1;", "k1_bwd_plan.h"),
+    "k1bwdbf16_consumers_384": ("k1bwdbf16", "constexpr int kNarrowConsumers = 256;",
+                                "constexpr int kNarrowConsumers = 384;", "k1_bwd_plan.h"),
+    "k1bwdbf16_keep_last": (
+        "k1bwdbf16",
+        "const uint64_t keep = tma::policy_evict_normal(), once = tma::policy_evict_first();",
+        "const uint64_t keep = tma::policy_evict_last(), once = tma::policy_evict_first();"),
+    "k1bwdbf16_no_keep": (
+        "k1bwdbf16",
+        "const uint64_t keep = tma::policy_evict_normal(), once = tma::policy_evict_first();",
+        "const uint64_t keep = tma::policy_evict_first(), once = keep;"),
+    # diagnostics, not kernels (results wrong): no hand-off between the
+    # clusters of a sample; no wait for the cluster's partials; no copies
+    # (the barriers complete on arrival alone); no SiLU gradient in either
+    # pass; no dx stores
+    "diag_k1bwdbf16_no_xchg": ("k1bwdbf16", "    if (pl.clusters > 1) {\n      // a sample",
+                               "    if (pl.clusters < 0) {\n      // a sample"),
+    "diag_k1bwdbf16_no_cluster_wait": ("k1bwdbf16", "    tma::mbar_wait_cluster(ready, it & 1);\n",
+                                       ""),
+    "diag_k1bwdbf16_no_copies": (
+        "k1bwdbf16",
+        "          tma::mbar_expect_tx(full + s, 2 * bytes);\n",
+        "          tma::mbar_arrive(full + s);\n          if (bytes) return;\n"),
+    "diag_k1bwdbf16_no_silu": (
+        "k1bwdbf16",
+        "  asm(\"rcp.approx.ftz.f32 %0, %1;\" : \"=f\"(sig) : \"f\"(1.f + e));\n"
+        "  return gv * sig * (1.f + y * (1.f - sig));",
+        "  sig = e;\n  return gv * y + 0.f * sig;"),
+    "diag_k1bwdbf16_no_pass_a_math": (
+        "k1bwdbf16",
+        "      if (active) {\n        for (int r = slot; r < nr; r += rs) {\n          float xv[kV], gv[kV];\n",
+        "      if (!active) {\n        for (int r = slot; r < nr; r += rs) {\n          float xv[kV], gv[kV];\n"),
+    "diag_k1bwdbf16_no_pass_b_math": (
+        "k1bwdbf16",
+        "      if (active) {\n        for (int r = slot; r < nr; r += rs) {\n          float xv[kV], gv[kV], d[kV];\n",
+        "      if (!active) {\n        for (int r = slot; r < nr; r += rs) {\n          float xv[kV], gv[kV], d[kV];\n"),
+    "diag_k1bwdbf16_no_stores": (
+        "k1bwdbf16", "        tma::bulk_store(dxb + (size_t)q * cr * c, data + (size_t)s * pl.slot_bytes,\n"
+        "                        2 * nr * c, once);",
+        "        if (nr < 0) tma::bulk_store(dxb, data, 2 * nr * c, once);"),
+    # conv_in's bf16 wgrad: 2 or 6 ring stages, not 4; diagnostics (results
+    # wrong): no products, no g copies (the barriers complete on arrival
+    # alone), no im2col tile built, no fixed-order reduce after the kernel
+    "wgradnarrowbf16_stages_2": ("wgradnarrowbf16", "constexpr int kNbStages = 4;",
+                                 "constexpr int kNbStages = 2;"),
+    "wgradnarrowbf16_stages_6": ("wgradnarrowbf16", "constexpr int kNbStages = 4;",
+                                 "constexpr int kNbStages = 6;"),
+    "diag_wgradnarrowbf16_no_mma": ("wgradnarrowbf16",
+                                    "      for (int ks = 0; ks < kNbPix / 16; ++ks)",
+                                    "      for (int ks = 0; ks < 0; ++ks)"),
+    "diag_wgradnarrowbf16_no_copies": (
+        "wgradnarrowbf16",
+        "          tma::mbar_expect_tx(full + s, kNbPanel);\n          tma::load_4d(gs, &gmap, full + s, o0, x0, y0, b);",
+        "          tma::mbar_arrive(full + s);"),
+    "diag_wgradnarrowbf16_no_im2col": (
+        "wgradnarrowbf16",
+        "        for (int mp = 0; mp < kMP; ++mp)\n#pragma unroll\n          for (int jj = 0; jj < 8; ++jj) {\n            uint32_t w[4];\n#pragma unroll\n            for (int e2 = 0; e2 < 4; ++e2) {\n              const int m",
+        "        for (int mp = 0; mp < 0; ++mp)\n#pragma unroll\n          for (int jj = 0; jj < 8; ++jj) {\n            uint32_t w[4];\n#pragma unroll\n            for (int e2 = 0; e2 < 4; ++e2) {\n              const int m"),
+    "diag_wgradnarrowbf16_no_reduce": (
+        "wgradnarrowbf16",
+        "  if (err != cudaSuccess) return (int)err;\n  colsum_kernel<<<dim3((unsigned)((k + 31) / 32), 1), 32 * kSumGroups, 0, s>>>(part, dwb, rows,\n                                                                             (int)k);\n  return (int)cudaGetLastError();\n}\n\n// mc_conv_wgrad_bf16",
+        "  if (err != cudaSuccess) return (int)err;\n  return (int)cudaGetLastError();\n}\n\n// mc_conv_wgrad_bf16"),
     # K7's partial sums added into the fp32 accumulator after each tap
     "k7_temp_steps_1": ("k7", "constexpr int kTempSteps = 9;", "constexpr int kTempSteps = 1;"),
     # the bf16 K7's TMA route, its plan in csrc/k7_plan.h: 8 x 16 tiles
@@ -549,6 +668,10 @@ KERNELS = {
     "k2bwd": ("fused_norm_conv_bwd.cu", {}),
     "k2bwdbf16": ("fused_norm_conv_bwd.cu", {}),
     "k1bwd": ("fused_norm.cu", {}),
+    "k1bwdbf16": ("fused_norm.cu", {}),
+    "wgradnarrowbf16": ("fused_norm_conv_bwd.cu", {
+        "mc_conv_wgrad_bf16": [P] * 8 + [I] * 6 + [F] + [I] * 5 + [P],
+        "mc_conv_bwd_bf16_plan": [I] * 8 + [P]}),
     "k1bf16": ("fused_norm.cu", {"mc_channel_stats_bf16": [P] * 3 + [I] * 3 + [P],
                                  "mc_channel_stats": [P] * 3 + [I] * 3 + [P],
                                  "mc_gn_silu_bf16": [P] * 6 + [I] * 4 + [F, P],
@@ -595,16 +718,17 @@ def _sources(kernel, files, variants, out_dir: Path):
         text = base.read_text()
         if text.count(old) != 1:
             raise ValueError(f"variant {name}: its text is not in {base}")
+        text = text.replace(old, new)
         if header:
             # the changed header beside a copy of the source, which nvcc's
             # quoted include finds before the package's
             (out_dir / name).mkdir(exist_ok=True)
-            (out_dir / name / header[0]).write_text(text.replace(old, new))
+            (out_dir / name / header[0]).write_text(text)
             path = out_dir / name / own.name
             path.write_text(own.read_text())
         else:
             path = out_dir / f"variant_{name}.cu"
-            path.write_text(text.replace(old, new))
+            path.write_text(text)
         srcs[f"variant:{name}"] = path
     return srcs
 
@@ -669,6 +793,7 @@ def main(argv=None) -> int:
                 "k5": _time_k5, "k5bf16": _time_k5bf16, "k7": _time_k7,
                 "k7bf16": _time_k7bf16,
                 "k1bwd": _time_k1bwd, "k1bf16": _time_k1bf16,
+                "k1bwdbf16": _time_k1bwdbf16, "wgradnarrowbf16": _time_wgradnarrowbf16,
                 "narrowbf16": _time_narrowbf16}[args.kernel](libs, ptxas)
 
     dev = torch.device("cuda")
@@ -2294,6 +2419,248 @@ def _time_k1bwd(libs, ptxas) -> int:
                                                   for a, a2 in zip(first, outs))
             calls[name][case] = fn_
     _report(libs, ptxas, calls, errs)
+    return 0
+
+
+# K1's bf16 backward at the train step's shapes (B, N, C, groups): res 128 and
+# 64, then the CLI's batch 32 at res 128 as context
+K1_BWD_BF16_SHAPES = ((16, 16384, 64, 16), (16, 4096, 64, 16), (32, 16384, 64, 16))
+
+
+def _host_us(fn, n: int = 50) -> float:
+    """The host time of one fn() (its launches enqueued, not waited), the
+    median of n calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[n // 2] * 1e6
+
+
+def _bf16_max_mean(got, want):
+    err = (got.double() - want.double()).abs()
+    scale = max(float(want.double().abs().max()), 1e-30)
+    return float(err.max()) / scale, float(err.mean()) / scale
+
+
+def _time_k1bwdbf16(libs, ptxas) -> int:
+    """K1's bf16 backward of every source, called directly at
+    K1_BWD_BF16_SHAPES: dx held to the bf16 plain version (max and mean of
+    scale), dgamma and dbeta to it and to float64 (max of scale), every
+    output to its own bits on a repeat; the call as its wrapper makes it
+    (the outputs allocated inside the timed call, and for the parent's
+    interface its scratch and its zeroed counters) on the card's clock and
+    by the host's (`host_us`); each case's plan and bound. A source with
+    `mc_gn_silu_bwd_bf16_plan` takes this package's interface (tagged
+    exchange words kept from call to call, an epoch a call); one without,
+    such as the parent's, its own (per-slab scratch and zeroed counters, the
+    slab plan of kernels/fused_norm.py::bwd_plan)."""
+    from m_cedm_tpu_torch.kernels import fused_norm as fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    eps = 1e-5
+    new_if = {name: hasattr(lib, "mc_gn_silu_bwd_bf16_plan") for name, (lib, _) in libs.items()}
+    for name, (lib, _) in libs.items():
+        if new_if[name]:
+            lib.mc_gn_silu_bwd_bf16.argtypes = [P] * 10 + [ctypes.c_uint] + [I] * 4 + [F, P]
+            lib.mc_gn_silu_bwd_bf16_plan.argtypes = [I] * 4 + [P]
+        else:
+            lib.mc_gn_silu_bwd_bf16.argtypes = [P] * 11 + [I] * 4 + [F, I, I, P]
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    cases = {}
+    for b, n, c, groups in K1_BWD_BF16_SHAPES:
+        x, g = rnd(b, n, c, scale=0.8, shift=0.2), rnd(b, n, c)
+        gamma = rnd(b, c, scale=0.3, shift=1.0, dtype=torch.float32)
+        beta = rnd(b, c, scale=0.3, dtype=torch.float32)
+        sums, sumsq = fn.channel_stats_plain(x)
+        want = fn.gn_silu_bwd_bf16_plain(g, x, gamma, beta, groups, eps, stats=(sums, sumsq))
+        # float64 on the same inputs and statistics: dgamma, dbeta
+        mean, rstd = fn.group_mean_rstd_from_sums(sums.double(), sumsq.double(), n, groups, eps)
+        xhat = (x.double() - mean[:, None]) * rstd[:, None]
+        dy = g.double() * fn.silu_grad(xhat * gamma.double()[:, None] + beta.double()[:, None])
+        cases[f"B {b}, N {n}, C {c}"] = dict(
+            args=(x, g, gamma, beta, sums, sumsq), dims=(b, n, c, groups), want=want,
+            want64=((dy * xhat).sum(dim=1), dy.sum(dim=1)),
+            bound_ms=3 * x.numel() * 2 / 3.35e12 * 1e3)
+
+    def plan(lib, dims):
+        out = (ctypes.c_longlong * len(fn.BWD_BF16_PLAN_KEYS))()
+        rc = lib.mc_gn_silu_bwd_bf16_plan(*dims, out)
+        return dict(zip(fn.BWD_BF16_PLAN_KEYS, out)) if rc == 0 else {"error": rc}
+
+    def call(name, lib, cs):
+        x, g, gamma, beta, sums, sumsq = cs["args"]
+        b, n, c, groups = cs["dims"]
+        outs = {}
+        if new_if[name]:
+            words = plan(lib, cs["dims"])["xchg_words"]
+            xchg = torch.zeros(max(words, 1), device=dev, dtype=torch.int64)
+            epoch = [0]
+
+            def run():
+                dgb = torch.empty((2, b, c), device=dev, dtype=torch.float32)
+                dx = torch.empty_like(x)
+                epoch[0] += 1
+                outs["t"] = (dx, dgb[0], dgb[1])
+                return lib.mc_gn_silu_bwd_bf16(
+                    x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    sums.data_ptr(), sumsq.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
+                    dx.data_ptr(), xchg.data_ptr() if words else None,
+                    epoch[0] if words else 0, b, n, c, groups, eps, stream)
+        else:
+            slabs, rows = fn.bwd_plan(n, c, sms)
+
+            def run():
+                scratch = torch.empty(b * slabs * -(-2 * c // 4) * 4, device=dev)
+                sync = torch.zeros(-(-b // 2) * 2 + 4 * b * groups, device=dev,
+                                   dtype=torch.int32)
+                dgam = torch.empty((b, c), device=dev)
+                dbet = torch.empty_like(dgam)
+                dx = torch.empty_like(x)
+                outs["t"] = (dx, dgam, dbet)
+                return lib.mc_gn_silu_bwd_bf16(
+                    x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    sums.data_ptr(), sumsq.data_ptr(), dgam.data_ptr(), dbet.data_ptr(),
+                    dx.data_ptr(), scratch.data_ptr(), sync.data_ptr(), b, n, c, groups, eps,
+                    slabs, rows, stream)
+
+        def checked():
+            rc = run()
+            if rc:
+                raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+        return checked, outs
+
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for case, cs in cases.items():
+            fn_, outs = call(name, lib, cs)
+            fn_()
+            torch.cuda.synchronize()
+            first = [t.clone() for t in outs["t"]]
+            fn_()
+            torch.cuda.synchronize()
+            dx_max, dx_mean = _bf16_max_mean(outs["t"][0], cs["want"][0])
+            errs[name][f"err {case}"] = {
+                "dx_max": dx_max, "dx_mean": dx_mean,
+                "dgamma_dbeta_vs_plain": max(_bf16_max_mean(a, w)[0] for a, w in
+                                             zip(outs["t"][1:], cs["want"][1:])),
+                "dgamma_dbeta_vs_float64": max(_bf16_max_mean(a, w)[0] for a, w in
+                                               zip(outs["t"][1:], cs["want64"])),
+                "same_bits_on_repeat": all(torch.equal(a, a2)
+                                           for a, a2 in zip(first, outs["t"])),
+                "host_us": _host_us(fn_), "bound_ms": cs["bound_ms"],
+                **({"plan": plan(lib, cs["dims"])} if new_if[name] else {})}
+            calls[name][case] = fn_
+    _report(libs, ptxas, calls, errs, timer=lambda f: device_ms(f, 10, 5))
+    for name, (_, so) in libs.items():
+        print(json.dumps({"source": name, "sass": _build.sass_counts(so, "gn_silu_bwd")}),
+              flush=True)
+    return 0
+
+
+# conv_in's bf16 wgrad (B, H, W, C, O): the flagship's (C 4 -> 64) and
+# adm_edm_cond_h's (C 2 -> 64) at res 128, then ragged ones
+WGRAD_NARROW_SHAPES = ((16, 128, 128, 4, 64), (16, 128, 128, 2, 64), (3, 13, 37, 8, 24),
+                       (2, 29, 21, 3, 64))
+
+
+def _time_wgradnarrowbf16(libs, ptxas) -> int:
+    """conv_in's bf16 wgrad (`mc_conv_wgrad_bf16` at C <= 8, linear, with
+    dbias) of every source, called directly at WGRAD_NARROW_SHAPES with the
+    scratch rows of its own plan (`mc_conv_bwd_bf16_plan`): dW and dbias
+    held to float64 (max of scale) and to their bits on a repeat; the call
+    with its fixed-order reduce, on the card's clock and by the host's
+    (`host_us`, the scratch and output allocated inside the call as the
+    wrapper does); beside it bf16 `torch.ops.aten.convolution_backward` with
+    output_mask [False, True, True] (the weight and bias gradients alone)
+    on the same inputs; each case's plan and bound; each library's SASS."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    cases = {}
+    for b, h, w, c, o in WGRAD_NARROW_SHAPES:
+        x = torch.randn((b, h, w, c), generator=gen, device=dev).to(bf)
+        g = torch.randn((b, h, w, o), generator=gen, device=dev).to(bf)
+        x64 = x.double().permute(0, 3, 1, 2)
+        g64 = g.double().permute(0, 3, 1, 2)
+        dw64 = torch.nn.grad.conv2d_weight(x64, (o, c, 3, 3), g64, padding=1)
+        want = (dw64.permute(2, 3, 1, 0).reshape(-1), g64.sum(dim=(0, 2, 3)))
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        wn = torch.zeros((o, c, 3, 3), device=dev, dtype=bf)
+
+        def lib_call(xn=xn, gn=gn, wn=wn):
+            return torch.ops.aten.convolution_backward(
+                gn, xn, wn, [o], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [False, True, True])
+        k = 9 * c * o + o
+        cases[f"B {b}, {h}x{w}, C {c} -> O {o}"] = dict(
+            x=x, g=g, dims=(b, h, w, c, o), want=want, k=k, library=lib_call,
+            bound_ms=(x.numel() + g.numel()) * 2 / 3.35e12 * 1e3)
+
+    def plan(lib, dims):
+        b, h, w, c, o = dims
+        out = (ctypes.c_int * 5)()
+        rc = lib.mc_conv_bwd_bf16_plan(1, 0, b, h, w, c, o, 9, out)
+        if rc:
+            raise RuntimeError(f"mc_conv_bwd_bf16_plan failed with cudaError {rc}")
+        return dict(zip(("tile_rows", "resident", "blocks", "smem", "rows"), out))
+
+    def call(name, lib, cs):
+        b, h, w, c, o = cs["dims"]
+        rows = plan(lib, cs["dims"])["rows"]
+        outs = {}
+
+        def run():
+            dwb = torch.empty(cs["k"], device=dev)
+            part = torch.empty((rows, cs["k"]), device=dev)
+            outs["t"] = dwb
+            rc = lib.mc_conv_wgrad_bf16(cs["x"].data_ptr(), cs["g"].data_ptr(), None, None,
+                                        None, None, dwb.data_ptr(), part.data_ptr(), b, h, w,
+                                        c, o, 1, 1e-5, 0, 9, 0, 1, rows, stream)
+            if rc:
+                raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+        return run, outs
+
+    lib_ms = {}
+    for case, cs in cases.items():
+        lib_ms[f"library ms {case}"] = device_ms(cs["library"], 10, 5)
+    print(json.dumps({"library": "torch.ops.aten.convolution_backward, output_mask "
+                      "[False, True, True], bf16", **lib_ms}), flush=True)
+    calls, errs = {}, {}
+    for name, (lib, _) in libs.items():
+        calls[name], errs[name] = {}, {}
+        for case, cs in cases.items():
+            fn_, outs = call(name, lib, cs)
+            fn_()
+            torch.cuda.synchronize()
+            first = outs["t"].clone()
+            fn_()
+            torch.cuda.synchronize()
+            nw = cs["k"] - cs["dims"][4]
+            got = outs["t"]
+            errs[name][f"err {case}"] = {
+                "dw": _bf16_max_mean(got[:nw], cs["want"][0])[0],
+                "dbias": _bf16_max_mean(got[nw:], cs["want"][1])[0],
+                "same_bits_on_repeat": bool(torch.equal(first, got)),
+                "host_us": _host_us(fn_), "bound_ms": cs["bound_ms"],
+                "plan": plan(lib, cs["dims"])}
+            calls[name][case] = fn_
+    _report(libs, ptxas, calls, errs, timer=lambda f: device_ms(f, 10, 5))
+    for name, (_, so) in libs.items():
+        print(json.dumps({"source": name, "sass": _build.sass_counts(so, "wgrad_narrow")}),
+              flush=True)
     return 0
 
 

@@ -29,14 +29,17 @@ for a bf16 activation (gamma, beta and the statistics stay fp32): the sums
 are fp32 sums of the upcast input, the apply runs in fp32 (SiLU by fast
 exp and divide) and rounds once at its store, where the Pallas kernels
 round. `gn_silu_plain` on a bf16 input is the plain version of that function
-(`gn_silu_bf16_plain`). The backward kernel has a bf16 instance too (x and g
-bf16, the statistics the forward used): it computes in fp32 as
-_grad_stats_kernel / _grad_apply_kernel do on bf16 input, emits dgamma and
-dbeta in fp32 and rounds dx once to bf16; `gn_silu_bwd_bf16_plain` is its
-plain version.
+(`gn_silu_bf16_plain`). The backward has a bf16 kernel written for Hopper
+(csrc/fused_norm.cu::gn_silu_bwd_cluster_kernel, its plan in
+csrc/k1_bwd_plan.h; x and g bf16, the statistics the forward used): one
+launch on thread-block clusters, each sample reduced by its own blocks,
+computing in fp32 as _grad_stats_kernel / _grad_apply_kernel do on bf16
+input, emitting dgamma and dbeta in fp32 and rounding dx once to bf16;
+`gn_silu_bwd_bf16_plain` is its plain version.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -276,7 +279,7 @@ def _gn_silu_kernel(x, gamma, beta, sums, sumsq, num_groups, eps):
     return out
 
 
-# K1's backward: one cooperative launch of two blocks an SM (one above
+# K1's fp32 backward: one cooperative launch of two blocks an SM (one above
 # BWD_WIDE_CHANNELS channels, whose blocks take twice the shared memory),
 # each sample's rows cut into one slab per block (csrc/fused_norm.cu)
 BWD_WIDE_CHANNELS = 1024
@@ -310,7 +313,7 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
     """K1's backward kernel on the card: (dx, dgamma, dbeta), with `stats`
     the (sums, sumsq) the forward used. x and g are read once and dx written
     once; dgamma and dbeta are summed in a fixed order (bit for bit on a
-    repeat). bf16 x and g take the bf16 instance (dx bf16)."""
+    repeat). bf16 x and g take the bf16 kernel (dx bf16; `_gn_silu_bwd_bf16`)."""
     b, n, c = x.shape
     dev = x.device
     dt = act_dtype(x)
@@ -321,9 +324,8 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
     if c % num_groups or c > BWD_MAX_CHANNELS:
         raise ValueError(f"K1's backward takes up to {BWD_MAX_CHANNELS} channels "
                          f"in whole groups; got {c} in {num_groups}")
-    if dt == torch.bfloat16 and (c % 8 or any(t.data_ptr() % 16 for t in (x, g))):
-        raise ValueError("K1's bf16 backward takes a multiple of 8 channels and "
-                         "16-byte aligned x and g")
+    if dt == torch.bfloat16:
+        return _gn_silu_bwd_bf16(g, x, gamma, beta, stats, num_groups, eps)
     slabs, rows = _plan(n, c, dev)
     # per-slab partials; the arrival counters, then each group's m1 and m2 as
     # tagged words
@@ -332,14 +334,74 @@ def gn_silu_bwd(g, x, gamma, beta, stats: Stats, num_groups: int,
     dgamma = torch.empty((b, c), device=dev, dtype=torch.float32)
     dbeta = torch.empty_like(dgamma)
     dx = torch.empty_like(x)
-    name = "mc_gn_silu_bwd" + ("_bf16" if dt == torch.bfloat16 else "")
-    fn = _build.bind("fused_norm", name, [P] * 11 + [I] * 4 + [F, I, I, P])
+    fn = _build.bind("fused_norm", "mc_gn_silu_bwd", [P] * 11 + [I] * 4 + [F, I, I, P])
     raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(stats[0]),
                       ptr(stats[1]), ptr(dgamma), ptr(dbeta), ptr(dx), ptr(scratch),
                       ptr(sync), b, n, c, num_groups, eps, slabs, rows, stream()),
-                   name)
+                   "mc_gn_silu_bwd")
     gn_silu_bwd.launches += 1
     return dx, dgamma, dbeta
+
+
+# the bf16 backward's plan fields (csrc/k1_bwd_plan.h, mc_gn_silu_bwd_bf16_plan),
+# then the clusters of 1, 2, 4, 8 blocks the card holds at once and its SMs
+BWD_BF16_PLAN_KEYS = ("cluster", "clusters", "blocks", "inflight", "grid", "waves", "rows",
+                      "chunk_rows", "chunks", "slots", "lanes", "row_slots", "sets",
+                      "slot_bytes", "smem", "xchg_words", "consumers", "active_1", "active_2",
+                      "active_4", "active_8", "sms")
+_BF16_PLANS = {}
+
+
+def bwd_bf16_plan(b: int, n: int, c: int, num_groups: int, device) -> dict:
+    """The bf16 backward's launch plan on the card of `device` (the C
+    entry's, csrc/k1_bwd_plan.h), kept per shape."""
+    key = (b, n, c, num_groups, torch.device(device).index)
+    if key not in _BF16_PLANS:
+        out = (ctypes.c_longlong * len(BWD_BF16_PLAN_KEYS))()
+        name = "mc_gn_silu_bwd_bf16_plan"
+        raise_on_error(_build.bind("fused_norm", name, [I] * 4 + [P])(b, n, c, num_groups, out),
+                       name)
+        _BF16_PLANS[key] = dict(zip(BWD_BF16_PLAN_KEYS, out))
+    return _BF16_PLANS[key]
+
+
+# Where a sample spans several clusters, each cluster's sums go through
+# device memory as 64-bit words tagged with the call's epoch: one zeroed
+# buffer a device, kept from call to call (grown where a plan needs more),
+# and an epoch no earlier call on it used, so no call zeroes anything.
+# Calls on one device share it in stream order.
+_XCHG = {}
+_EPOCH_LIMIT = 2 ** 32 - 1
+
+
+def _exchange(words: int, device):
+    """(buffer, epoch) for a call whose plan needs `words` tagged words."""
+    slot = _XCHG.get(device.index)
+    if slot is None or slot[0].numel() < words or slot[1] + 1 >= _EPOCH_LIMIT:
+        slot = _XCHG[device.index] = [torch.zeros(words, device=device, dtype=torch.int64), 0]
+    slot[1] += 1
+    return slot[0], slot[1]
+
+
+def _gn_silu_bwd_bf16(g, x, gamma, beta, stats, num_groups, eps):
+    """The bf16 kernel: one launch, dgamma and dbeta as views of one (2, B,
+    C) output."""
+    b, n, c = x.shape
+    dev = x.device
+    if c % 8 or any(t.data_ptr() % 16 for t in (x, g)):
+        raise ValueError("K1's bf16 backward takes a multiple of 8 channels and "
+                         "16-byte aligned x and g")
+    words = bwd_bf16_plan(b, n, c, num_groups, dev)["xchg_words"]
+    xchg, epoch = _exchange(words, dev) if words else (None, 0)
+    dgb = torch.empty((2, b, c), device=dev, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    fn = _build.bind("fused_norm", "mc_gn_silu_bwd_bf16", [P] * 10 + [ctypes.c_uint]
+                     + [I] * 4 + [F, P])
+    raise_on_error(fn(ptr(x), ptr(g), ptr(gamma), ptr(beta), ptr(stats[0]), ptr(stats[1]),
+                      ptr(dgb[0]), ptr(dgb[1]), ptr(dx), ptr(xchg), epoch, b, n, c,
+                      num_groups, eps, stream()), "mc_gn_silu_bwd_bf16")
+    gn_silu_bwd.launches += 1
+    return dx, dgb[0], dgb[1]
 
 
 gn_silu_bwd.launches = 0

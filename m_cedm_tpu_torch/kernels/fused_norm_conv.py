@@ -60,7 +60,8 @@ statistics, as the kernels do.
 The backward has bf16 kernels too (x, g, w, the residual and the skip
 weight bf16; dW, dbias, dgamma, dbeta fp32), written for Hopper
 (csrc/fused_norm_conv_bwd.cu: wgrad_bf16_kernel, dgrad_bf16_kernel and the
-dx pass gn_dx_kernel, `gn_dx`, with its own launch counter), rounding where
+dx pass gn_dx_kernel, `gn_dx`, with its own launch counter; conv_in's wgrad
+at C <= 8 wgrad_narrow_bf16_kernel, on wgmma), rounding where
 the Pallas backward rounds on a bf16 network. K2 (_bwd_phase_a): the
 activation recomputed in fp32 and rounded to bf16 before the product; dW,
 dbias and the conv input's cotangent ds sums of bf16 products in fp32; da =
@@ -623,8 +624,9 @@ def _bf16_bwd_plan(which: int, up: bool, b: int, h: int, wd: int, c: int, o: int
                   taps: int, device) -> Tuple[int, int, int, int, int]:
     """The bf16 backward kernels' launch plan (mc_conv_bwd_bf16_plan; which 0
     dgrad, 1 wgrad; h, wd the cotangent's): (tile rows, weights resident,
-    blocks, dynamic shared memory bytes, rows of the partials' scratch).
-    `device` keys the cache: the plan fills the card's SMs."""
+    blocks, dynamic shared memory bytes, rows of the partials' scratch); the
+    narrow wgrad (C <= 8) gives (0, 0, blocks, shared memory, blocks along
+    the pixels). `device` keys the cache: the plan fills the card's SMs."""
     out = (ctypes.c_int * 5)()
     name = "mc_conv_bwd_bf16_plan"
     raise_on_error(_build.bind("fused_norm_conv_bwd", name, [I] * 8 + [P])(
@@ -637,8 +639,9 @@ def _wgrad(x, g, gamma, beta, stats, num_groups, eps, taps, up, with_bias):
     or (C, O) for one tap, and dbias (O,) or None). x (B, Hin, Win, C), g
     (B, H, W, O) at the output size. Per-run partials go to a scratch that
     the reduce adds in a fixed order, so the result repeats bit for bit.
-    bf16 x and g take the bf16 kernel (dw, dbias fp32), whose scratch has a
-    row a persistent block (_bf16_bwd_plan)."""
+    bf16 x and g take the bf16 kernels (dw, dbias fp32; at C <= 8 the narrow
+    one on wgmma), whose scratch has a row a persistent block along the
+    pixels (_bf16_bwd_plan)."""
     b, h, wd, o = g.shape
     c = x.shape[-1]
     bf = x.dtype == torch.bfloat16

@@ -204,7 +204,8 @@ def test_streamed_weights_fit_at_the_largest_input():
 
 
 def test_library_name_changes_with_the_header(tmp_path, monkeypatch):
-    for name in ("fused_norm_conv.cu", "bf16_conv_tiles.cuh", "fused_norm.cu", "tma_ring.cuh"):
+    for name in ("fused_norm_conv.cu", "bf16_conv_tiles.cuh", "fused_norm.cu", "tma_ring.cuh",
+                 "k1_bwd_plan.h"):
         (tmp_path / name).write_bytes((CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build._lib_path("fused_norm_conv")
@@ -212,6 +213,6 @@ def test_library_name_changes_with_the_header(tmp_path, monkeypatch):
     header = tmp_path / "bf16_conv_tiles.cuh"
     header.write_text(header.read_text() + "\n// an edit\n")
     assert _build._lib_path("fused_norm_conv") != before
-    assert _build._lib_path("fused_norm") == other     # it includes tma_ring.cuh alone
+    assert _build._lib_path("fused_norm") == other     # it includes tma_ring.cuh, k1_bwd_plan.h
     assert [p.name for p in _build._sources_of(tmp_path / "fused_norm_conv.cu")] == [
         "fused_norm_conv.cu", "bf16_conv_tiles.cuh"]

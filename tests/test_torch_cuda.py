@@ -2045,3 +2045,96 @@ def test_k5_k6_bf16_refuse_other_mixes(cuda):
         tla.apply_dots(q, dots.half())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tla.apply_dots(q.half(), dots)
+
+
+# --- K1's bf16 backward on clusters (gn_silu_bwd_cluster_kernel) and conv_in's
+# bf16 wgrad on wgmma (wgrad_narrow_bf16_kernel): ragged rows, every channel
+# width the kernels take, batches that fill one wave or not, bits on a repeat
+
+K1_BWD_BF16_CASES = [(b, n, c) for b in (1, 80) for n in (333, 100003) for c in (8, 128, 2048)
+                     if not (b == 80 and n == 100003 and c == 2048)]
+
+
+def _k1_bwd_bf16_inputs(g, dev, b, n, c):
+    x = _bf16_rnd(g, dev, b, n, c, scale=0.8, shift=0.2)
+    gy = _bf16_rnd(g, dev, b, n, c)
+    gamma = _bf16_rnd(g, dev, b, c, scale=0.3, shift=1.0, dtype=torch.float32)
+    beta = _bf16_rnd(g, dev, b, c, scale=0.3, dtype=torch.float32)
+    return gy, x, gamma, beta, tfn.channel_stats_plain(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", K1_BWD_BF16_CASES, ids=lambda v: str(v))
+def test_k1_bf16_backward_cluster_kernel(cuda, b, n, c):
+    """Against the bf16 plain version, bit for bit on a repeat, one launch
+    counted a call; groups 32 where C takes them (eps 1e-6, the DDPM U-Net's
+    norms), else one channel a group."""
+    g = torch.Generator(device=cuda).manual_seed(b + n + c)
+    gy, x, gamma, beta, stats = _k1_bwd_bf16_inputs(g, cuda, b, n, c)
+    groups, eps = (32, 1e-6) if c % 32 == 0 else (c, 1e-5)
+    before = tfn.gn_silu_bwd.launches
+    got = tfn.gn_silu_bwd(gy, x, gamma, beta, stats, groups, eps)
+    again = tfn.gn_silu_bwd(gy, x, gamma, beta, stats, groups, eps)
+    assert tfn.gn_silu_bwd.launches == before + 2
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    _bf16_grads_close(got, tfn.gn_silu_bwd_bf16_plain(gy, x, gamma, beta, groups, eps,
+                                                      stats=stats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,groups", [(32, 16384, 64, 16), (80, 16384, 8, 8)])
+def test_k1_bf16_backward_repeats_over_many_calls(cuda, b, n, c, groups):
+    """Shapes whose ring of chunk slots turns over many times (a sample's
+    rows read again through it): 200 calls queued back to back, each
+    checked against the first call's bits every 20."""
+    g = torch.Generator(device=cuda).manual_seed(b + c)
+    gy, x, gamma, beta, stats = _k1_bwd_bf16_inputs(g, cuda, b, n, c)
+    first = [t.clone() for t in tfn.gn_silu_bwd(gy, x, gamma, beta, stats, groups)]
+    for i in range(200):
+        got = tfn.gn_silu_bwd(gy, x, gamma, beta, stats, groups)
+        if i % 20 == 19:
+            assert all(torch.equal(a, f) for a, f in zip(got, first)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(16, 16384), (16, 4096), (32, 16384)])
+def test_k1_bf16_backward_is_one_device_operation(cuda, b, n):
+    """The train step's shapes: one launch and nothing else on the device
+    (no buffer zeroed), and a plan that fills the card in one wave."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    gy, x, gamma, beta, stats = _k1_bwd_bf16_inputs(g, cuda, b, n, 64)
+    plan = tfn.bwd_bf16_plan(b, n, 64, 16, cuda)
+    assert plan["waves"] == 1 and plan["grid"] <= plan["sms"]
+    assert plan["grid"] // plan["cluster"] <= plan[f"active_{plan['cluster']}"]
+    tfn.gn_silu_bwd(gy, x, gamma, beta, stats, 16)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a capture with no device event at all is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tfn.gn_silu_bwd(gy, x, gamma, beta, stats, 16)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == 1 and "gn_silu_bwd_cluster_kernel" in ops[0], ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 4, 8, 3])
+@pytest.mark.parametrize("o", [24, 64, 20, 21])
+def test_narrow_wgrad_bf16_on_wgmma(cuda, c, o):
+    """conv_in's bf16 wgrad (no input gradient) at ragged H and W: dW and
+    dbias against the plain version, bit for bit on a repeat; O 24 and 64
+    take g by TMA, O 20 by 4-byte cp.async pairs, O 21 by element copies."""
+    g = torch.Generator(device=cuda).manual_seed(10 * c + o)
+    x = _bf16_rnd(g, cuda, 3, 13, 37, c)
+    gy = _bf16_rnd(g, cuda, 3, 13, 37, o)
+    got = tfnc._wgrad(x, gy, None, None, None, 0, 1e-5, 9, False, True)
+    again = tfnc._wgrad(x, gy, None, None, None, 0, 1e-5, 9, False, True)
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    want = (tfnc.conv3x3_wgrad_plain(x.float(), gy.float()), gy.float().sum(dim=(0, 1, 2)))
+    _bf16_grads_close(got, want)
+    plan = tfnc._bf16_bwd_plan(1, False, 3, 13, 37, c, o, 9, cuda)
+    assert plan[0] == 0 and plan[3] > 0  # the narrow route, with its shared memory
